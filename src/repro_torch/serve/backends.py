@@ -1,0 +1,180 @@
+"""Device-side cache backends for the serve engine.
+
+Port of repro.serve.backends (dense and paged; no speculative headroom).
+Both backends expose
+
+    init_caches() -> caches
+    decode(params, caches, tables, tokens, positions) -> (next, logits)
+    write_prefill(caches, contribs, slot_ids, lengths, host_tables)
+
+and update the caches in place. `DenseBackend` keeps per-slot ring caches
+([n_slots, L, K, hd]); `PagedBackend` scatters each ring over
+block-table-indexed pools. On the plain attention path the two are
+bit-identical by construction: the paged writer places exactly the
+entries the dense ring holds, and the paged attention regathers them into
+the ring layout before the same masked SDPA.
+
+Prefill insertion is a GATHER, not a scatter over token positions: ring
+entry i of a slot with prompt length `len` holds the latest position
+p_i ≡ i (mod L) with p_i <= len-1. The (row, entry, position) triples of
+the valid entries are computed once per admission wave on the host
+(numpy), so every layer's insertion is one indexed copy with no
+device-to-host sync.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.lm import attention as attn
+from repro_torch.models.lm import transformer as tf
+
+Tensor = torch.Tensor
+
+
+def _ring_entries(lengths: np.ndarray, ring_len: int
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Valid ring entries after a prefill of `lengths` [Bp] tokens:
+    (row, entry i, prompt position p_i) arrays. Entry i holds
+    p_i = last - ((last - i) mod ring_len), the newest position congruent
+    to i — what token-by-token decode writes would have left behind."""
+    last = (lengths.astype(np.int64) - 1)[:, None]
+    i = np.arange(ring_len)[None, :]
+    p = last - np.mod(last - i, ring_len)
+    row, entry = np.nonzero((p >= 0) & (p <= last))
+    return row, entry, p[row, entry]
+
+
+class _Backend:
+    def __init__(self, cfg: ArchConfig, n_slots: int, max_len: int,
+                 device: torch.device):
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.device = device
+        self.kinds = tf.layout(cfg)
+
+    def decode(self, params, caches, tables, tokens: Tensor,
+               positions: Tensor) -> Tuple[Tensor, Tensor]:
+        logits = self._logits(params, caches, tables, tokens, positions)
+        return torch.argmax(logits, dim=-1).to(torch.int32), logits
+
+    def _logits(self, params, caches, tables, tokens, positions) -> Tensor:
+        raise NotImplementedError
+
+    def write_prefill(self, caches, contribs: List[Tuple[Tensor, Tensor]],
+                      slot_ids: np.ndarray, lengths: np.ndarray,
+                      host_tables: Optional[Dict[str, np.ndarray]]) -> None:
+        """Insert prefill K/V (contribs[i] = (k, v) [Bp, S, K, hd]) for rows
+        with slot_ids < n_slots (the rest are padding) into the caches."""
+        rows = np.flatnonzero(slot_ids < self.n_slots)
+        index = {}
+        for kind in sorted(set(self.kinds)):
+            r, e, p = _ring_entries(lengths[rows], self._ring_len(kind))
+            dest = self._dest(kind, slot_ids[rows][r], e, host_tables)
+            keep = dest[0] >= 0            # paged: unallocated blocks drop
+            to_dev = lambda a: torch.as_tensor(  # noqa: E731
+                a[keep], dtype=torch.int64, device=self.device)
+            index[kind] = (to_dev(rows[r]), to_dev(p), to_dev(dest[0]),
+                           to_dev(dest[1]))
+        for kind, cache, (k_new, v_new) in zip(self.kinds, caches, contribs):
+            src_row, src_pos, d0, d1 = index[kind]
+            cache.k[d0, d1] = k_new[src_row, src_pos].to(cache.k.dtype)
+            cache.v[d0, d1] = v_new[src_row, src_pos].to(cache.v.dtype)
+
+    def _ring_len(self, kind: str) -> int:
+        raise NotImplementedError
+
+    def _dest(self, kind, slots, entries, host_tables):
+        raise NotImplementedError
+
+
+class DenseBackend(_Backend):
+    """Per-slot ring caches: the bit-exact reference the paged backend is
+    tested against."""
+
+    def init_caches(self):
+        return tf.init_caches(self.cfg, self.n_slots, self.max_len,
+                              device=self.device)
+
+    def _ring_len(self, kind):
+        return attn.cache_len(self.cfg, kind, self.max_len)
+
+    def _dest(self, kind, slots, entries, host_tables):
+        return slots, entries
+
+    def _logits(self, params, caches, tables, tokens, positions):
+        return tf.decode_step(params, tokens, positions, caches, self.cfg)
+
+
+class PagedBackend(_Backend):
+    """Block-table-indexed KV pools."""
+
+    def __init__(self, cfg: ArchConfig, n_slots: int, max_len: int,
+                 block_size: int, device: torch.device,
+                 n_blocks: Optional[Dict[str, int]] = None):
+        super().__init__(cfg, n_slots, max_len, device)
+        self.block_size = block_size
+        self.ring_len = {k: attn.cache_len(cfg, k, max_len)
+                         for k in sorted(set(self.kinds))}
+        for k, l in self.ring_len.items():
+            if l % block_size != 0:
+                raise ValueError(
+                    f"block_size={block_size} must divide the {k!r} ring "
+                    f"length {l} (max_len={max_len}, "
+                    f"local_window={cfg.local_window})")
+        self.blocks_per_slot = {k: l // block_size
+                                for k, l in self.ring_len.items()}
+        self.n_blocks = dict(n_blocks) if n_blocks else {
+            k: n_slots * nb for k, nb in self.blocks_per_slot.items()}
+        for k, nb in self.blocks_per_slot.items():
+            if self.n_blocks.get(k, 0) < nb:
+                raise ValueError(
+                    f"n_blocks[{k!r}]={self.n_blocks.get(k)} cannot cover "
+                    f"even one slot ({nb} blocks/slot) — no request could "
+                    f"ever be admitted")
+
+    def init_caches(self):
+        return tf.init_paged_caches(self.cfg, self.block_size, self.n_blocks,
+                                    device=self.device)
+
+    def covered_blocks(self, max_pos: int) -> Dict[str, int]:
+        """Per-kind count of table blocks that can hold any entry a slot at
+        position <= max_pos could have written: ring slots only reach
+        min(max_pos + 1, ring_len), so blocks past that prefix are dead and
+        the engine slices them off the device tables. Bucketed to powers
+        of two to bound the number of table shapes."""
+        need = max(1, max_pos + 1)
+        out = {}
+        for kind, nb in self.blocks_per_slot.items():
+            k = -(-min(need, self.ring_len[kind]) // self.block_size)
+            b = 1
+            while b < k:
+                b *= 2
+            out[kind] = min(b, nb)
+        return out
+
+    def _ring_len(self, kind):
+        return self.ring_len[kind]
+
+    def _dest(self, kind, slots, entries, host_tables):
+        bs = self.block_size
+        return host_tables[kind][slots, entries // bs], entries % bs
+
+    def _logits(self, params, caches, tables, tokens, positions):
+        return tf.decode_step_paged(params, tokens, positions, caches, tables,
+                                    self.cfg, ring_lens=self.ring_len)
+
+
+def make_backend(name: str, cfg: ArchConfig, n_slots: int, max_len: int,
+                 block_size: int, device: torch.device,
+                 n_blocks: Optional[Dict[str, int]] = None) -> _Backend:
+    if name == "dense":
+        return DenseBackend(cfg, n_slots, max_len, device)
+    if name == "paged":
+        return PagedBackend(cfg, n_slots, max_len, block_size, device,
+                            n_blocks)
+    raise ValueError(f"unknown cache backend {name!r}")

@@ -1,0 +1,240 @@
+"""The port's paged-attention decode against the JAX package.
+
+The plain version of the CUDA flash-decoding kernel
+(kernels/paged_attention.py `paged_attention_torch`, the gather
+formulation) must match the JAX package's gather oracle
+(`paged_attention_xla`) and its Pallas kernel in interpret mode within
+2e-5 (`tests/test_paged_attention.py` TOL), across -1 blocks, NaN garbage,
+an idle slot, softcap, GQA/MQA/MHA layouts, covered-prefix tables and
+multi-token appends. The CUDA kernel itself is held against the plain
+version on a card, in tests/test_torch_kernels_cuda.py.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import smoke_config as jsmoke
+from repro.kernels import ops as jops
+from repro.kernels import paged_attention as jpa
+from repro.models.lm import attention as jattn
+from repro_torch.configs import smoke_config as tsmoke
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import paged_attention as tpa
+from repro_torch.models.lm import attention as tattn
+from repro_torch.models.lm import transformer as ttf
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _geometry(rng, *, b=3, q_len=1, h=2, kh=1, hd=16, bs=8, nb=4,
+              positions=(5, 9, 0), holes=True):
+    """Random pools + a fragmented block table (slot rings scattered over
+    the pool, trailing -1s where `holes`) — numpy arrays."""
+    n_blocks = b * nb + 2
+    q = rng.randn(b, q_len, h, hd).astype(np.float32)
+    kp = rng.randn(n_blocks, bs, kh, hd).astype(np.float32)
+    vp = rng.randn(n_blocks, bs, kh, hd).astype(np.float32)
+    perm = rng.permutation(n_blocks)
+    tbl = np.full((b, nb), -1, np.int32)
+    take = 0
+    for i in range(b):
+        n_live = nb if not holes else 1 + (i % nb)
+        tbl[i, :n_live] = perm[take: take + n_live]
+        take += n_live
+    return q, kp, vp, tbl, np.asarray(positions[:b], np.int32)
+
+
+def _jax(args, impl, **kw):
+    return np.asarray(jops.paged_attention(*map(jnp.asarray, args),
+                                           impl=impl, **kw))
+
+
+def _port(args, **kw):
+    return tops.paged_attention(*map(torch.from_numpy, args), impl="auto",
+                                **kw).numpy()
+
+
+class TestPlainMatchesJax:
+    @pytest.mark.parametrize("kind", ["global", "local"])
+    def test_basic(self, kind):
+        args = _geometry(np.random.RandomState(0))
+        got = _port(args, kind=kind, window=16)
+        np.testing.assert_allclose(got, _jax(args, "xla", kind=kind,
+                                             window=16), **TOL)
+        np.testing.assert_allclose(got, _jax(args, "interpret", kind=kind,
+                                             window=16), **TOL)
+
+    @pytest.mark.parametrize("h,kh", [(2, 1), (4, 2), (4, 4)])
+    @pytest.mark.parametrize("kind", ["global", "local"])
+    def test_head_layouts_mqa_gqa_mha(self, h, kh, kind):
+        args = _geometry(np.random.RandomState(h * 10 + kh), h=h, kh=kh,
+                         positions=(3, 17, 30))
+        np.testing.assert_allclose(
+            _port(args, kind=kind, window=16),
+            _jax(args, "xla", kind=kind, window=16), **TOL)
+
+    def test_softcap(self):
+        args = _geometry(np.random.RandomState(3))
+        got = _port(args, kind="global", window=32, softcap=5.0)
+        np.testing.assert_allclose(
+            got, _jax(args, "interpret", kind="global", window=32,
+                      softcap=5.0), **TOL)
+
+    @pytest.mark.parametrize("kind", ["global", "local"])
+    def test_multi_token_append(self, kind):
+        args = _geometry(np.random.RandomState(13), q_len=3,
+                         positions=(4, 9, 0), holes=False)
+        np.testing.assert_allclose(
+            _port(args, kind=kind, window=16),
+            _jax(args, "xla", kind=kind, window=16), **TOL)
+
+    def test_nan_garbage_never_reaches_output(self):
+        """NaN in every block masked at these positions: the port's plain
+        version stays NaN-free and equals the JAX kernel on the dirty pools
+        and the JAX oracle on clean ones."""
+        q, kp, vp, tbl, pos = _geometry(np.random.RandomState(8),
+                                        positions=(2, 3, 1), holes=False)
+        dead = tbl[:, 1:].reshape(-1)
+        kd, vd = kp.copy(), vp.copy()
+        kd[dead] = np.nan
+        vd[dead] = np.nan
+        dirty = (q, kd, vd, tbl, pos)
+        got = _port(dirty, kind="global", window=8)
+        assert not np.isnan(got).any()
+        np.testing.assert_allclose(
+            got, _jax((q, kp, vp, tbl, pos), "xla", kind="global", window=8),
+            **TOL)
+        np.testing.assert_allclose(
+            got, _jax(dirty, "interpret", kind="global", window=8), **TOL)
+
+    def test_idle_slot_outputs_zero(self):
+        """An all -1 slot yields exactly 0, as in the JAX kernel; its NaN-
+        or garbage-filled pool cannot leak into the live slot."""
+        q, kp, vp, _, pos = _geometry(np.random.RandomState(9), b=2,
+                                      positions=(4, 0))
+        tbl = np.array([[0, 1, 2, 3], [-1, -1, -1, -1]], np.int32)
+        kp[4:] = np.nan
+        vp[4:] = np.nan
+        got = _port((q, kp, vp, tbl, pos), kind="global", window=32)
+        want = _jax((q, kp, vp, tbl, pos), "interpret", kind="global",
+                    window=32)
+        assert np.array_equal(got[1], np.zeros_like(got[1]))
+        np.testing.assert_allclose(got, want, **TOL)
+
+    @pytest.mark.parametrize("kind", ["global", "local"])
+    def test_covered_prefix_slice_equals_full_bitwise(self, kind):
+        q, kp, vp, tbl, pos = _geometry(np.random.RandomState(11),
+                                        positions=(5, 9, 12), holes=False)
+        ring = tbl.shape[1] * kp.shape[1]
+        full = _port((q, kp, vp, tbl, pos), kind=kind, window=16,
+                     ring_len=ring)
+        sliced = _port((q, kp, vp, tbl[:, :2].copy(), pos), kind=kind,
+                       window=16, ring_len=ring)
+        assert np.array_equal(full, sliced)
+        np.testing.assert_allclose(
+            sliced, _jax((q, kp, vp, tbl[:, :2], pos), "xla", kind=kind,
+                         window=16, ring_len=ring), **TOL)
+
+    @pytest.mark.parametrize("kind", ["global", "local"])
+    @pytest.mark.parametrize("q_len", [1, 3])
+    def test_ring_mask_matches(self, kind, q_len):
+        idx = np.arange(48, dtype=np.int32)
+        for p in [0, 1, 5, 11, 12, 31, 40, 77]:
+            want = jpa._ring_mask(jnp.int32(p), jnp.asarray(idx), kind=kind,
+                                  ring_len=48, window=12, q_len=q_len)
+            got = tpa._ring_mask(torch.tensor([p]), torch.from_numpy(idx),
+                                 kind=kind, ring_len=48, window=12,
+                                 q_len=q_len)[0]
+            assert np.array_equal(got.numpy(), np.asarray(want)), (kind, p)
+
+
+@pytest.mark.parametrize("kind", ["global", "local"])
+def test_decode_layer_matches_jax(kind):
+    """attention_decode_paged at the smoke gemma3-1b geometry with JAX-
+    initialised CADC weights: same output, same pools after the write."""
+    jcfg = jsmoke("gemma3_1b", linear_impl="cadc")
+    tcfg = tsmoke("gemma3_1b", linear_impl="cadc")
+    p = jattn.attn_init(jax.random.PRNGKey(0), jcfg)
+    tp = ttf.tree_map(lambda a: torch.from_numpy(np.array(a)), p)
+    rng = np.random.RandomState(1)
+    b, bs, nb = 2, 8, 4
+    shape = (b * nb, bs, jcfg.n_kv_heads, jcfg.head_dim)
+    kp = rng.randn(*shape).astype(np.float32)
+    vp = rng.randn(*shape).astype(np.float32)
+    tbl = rng.permutation(b * nb).reshape(b, nb).astype(np.int32)
+    tbl[1, 3] = -1  # this slot's write at position 20 lands in block 2
+    pos = np.array([6, 20], np.int32)
+    x = rng.randn(b, 1, jcfg.d_model).astype(np.float32)
+    layer = jax.jit(lambda p, x, pos, k, v, t: jattn.attention_decode_paged(
+        p, x, jcfg, kind=kind, position=pos, cache=jattn.PagedKV(k, v),
+        block_table=t))
+    want, pool = layer(p, jnp.asarray(x), jnp.asarray(pos), jnp.asarray(kp),
+                       jnp.asarray(vp), jnp.asarray(tbl))
+    sink = np.zeros((1,) + shape[1:], np.float32)  # the port's write sink
+    cache = tattn.PagedKV(torch.from_numpy(np.concatenate([kp, sink])),
+                          torch.from_numpy(np.concatenate([vp, sink])))
+    got = tattn.attention_decode_paged(
+        tp, torch.from_numpy(x), tcfg, kind=kind,
+        position=torch.from_numpy(pos), cache=cache,
+        block_table=torch.from_numpy(tbl))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(cache.k[:-1].numpy(), np.asarray(pool.k),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(cache.v[:-1].numpy(), np.asarray(pool.v),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_write_to_unallocated_block_goes_to_the_sink():
+    """A slot whose table maps no block at its position: its K/V write
+    changes no addressable block (JAX drops it), only the sink."""
+    tcfg = tsmoke("gemma3_1b")
+    p = ttf._layer_init(torch.Generator().manual_seed(0), tcfg,
+                        torch.device("cpu"))["attn"]
+    pool = tattn.init_paged_pool(tcfg, 4, 8, torch.float32,
+                                 torch.device("cpu"))
+    before = pool.k.clone()
+    tbl = torch.tensor([[0, 1], [-1, -1]], dtype=torch.int32)
+    x = torch.randn(2, 1, tcfg.d_model)
+    tattn.attention_decode_paged(p, x, tcfg, kind="global",
+                                 position=torch.tensor([3, 5]), cache=pool,
+                                 block_table=tbl)
+    assert pool.k.shape[0] == 5
+    assert not torch.equal(pool.k[0], before[0])       # slot 0 wrote
+    assert torch.equal(pool.k[1:4], before[1:4])       # slot 1 dropped
+    assert not torch.equal(pool.k[4], before[4])       # ... into the sink
+
+
+def test_dispatch_on_cpu():
+    args = [torch.from_numpy(a) for a in _geometry(np.random.RandomState(2))]
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.paged_attention(*args, kind="global", window=8, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        tpa.paged_attention_cuda(*args, kind="global", window=8)
+    assert tpa.paged_attention_cuda.launches == 0
+
+
+@pytest.mark.parametrize("b,nb,sms", [(8, 10, 132), (3, 4, 132),
+                                      (40, 32, 132), (300, 8, 132),
+                                      (1, 1, 132), (8, 2048, 132)])
+def test_split_groups_cover_the_ring(b, nb, sms):
+    """The CUDA kernel's cut of a slot's nb chunks into n_split groups of
+    cps: every chunk in exactly one group, no empty group, at most one
+    group per chunk, and enough blocks to fill the card when the ring
+    allows it."""
+    cps, n_split = tpa._splits(b, 1, nb, sms)
+    groups = [range(s * cps, min(nb, (s + 1) * cps)) for s in range(n_split)]
+    assert sorted(c for g in groups for c in g) == list(range(nb))
+    assert all(len(g) > 0 for g in groups)
+    assert n_split <= nb
+    assert b * n_split >= min(b * nb, 2 * sms)
