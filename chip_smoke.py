@@ -31,8 +31,31 @@ Phases; any failure exits non-zero and prints no result line:
      bytes and operations; plus the host-inclusive time per eager call, and
      the device busy time per decode step from torch.profiler.
 
-Prints the serving metrics, the card's name and power limit, one JSON line
-of kernel records and, last, {"ok": true, "device": {...}}.
+Slice 2, CNN training (fp32, TF32 off):
+  7. K1g / K2 against their plain versions at every FC shape of LeNet-5
+     and ResNet-18's fc, M = 64 and 128, xbar 64 / 128 / 256, relu /
+     identity / sublinear, all four save_gate modes; dw bitwise equal
+     across two runs; recompute bitwise equal to the forward's saved gate;
+  8. K3 (forward, gate) and the conv backward (K2 over im2col patches +
+     _col2im) against their plain versions at every conv shape of both
+     models at the paths' batches (stride 1 and 2, SAME and VALID, 1x1
+     projections, Cin 1 and 3, segments spanning taps), xbar 64/128/256;
+  9. the LeNet-5 path: repro_torch.launch.train_cnn_cadc (vConv and CADC,
+     20 steps each, batch 64) with exact launch counts of K1, K1g, K2, K3;
+ 10. training parity at full width, both models: kernel path against
+     plain path from the same params and batches — step-0 loss, every
+     gradient, 3 sgd steps' losses; the plain path launches nothing;
+ 11. the slice's main path: ResNet-18 at width 64 (11.2 M params) trained
+     through train.loop.train on the CIFAR-10 proxy, batch 128, CADC relu
+     at crossbar 64 then vConv, 5 steps each, exact launch counts; then
+     its train step ms p50, images/s, peak memory, and torch.profiler's
+     device time per kernel per step and the card's idle share;
+ 12. K1g, K2 and K3 device times per ResNet-18 train step (and at
+     LeNet-5's shapes) beside their plain versions, the vConv PyTorch call
+     at the same shapes and the bound.
+
+Prints the serving and training metrics, the card's name and power limit,
+one JSON line of kernel records and, last, {"ok": true, "device": {...}}.
 `--report PATH` also writes the full record (per-shape times, ptxas
 register counts, profiler breakdown) to PATH as JSON.
 """
@@ -663,6 +686,784 @@ def time_k6(cfg, dev, launches, report):
             "bound_by": b_by, "library_ms": tot["lib"]}
 
 
+# ---------------------------------------------------------------------------
+# slice 2: CNN training through K1g, K2 and K3
+# ---------------------------------------------------------------------------
+
+XBARS = (64, 128, 256)
+# Tolerances of slice 2 (kernel vs plain version on the same card, fp32,
+# TF32 off): outputs and gradients within TRAIN_RTOL of their tensor's
+# scale (the JAX package's TOL; only the fp32 summation order differs);
+# gate bits equal wherever |psum| > GATE_NEAR x the output's scale (nearer
+# 0 the sign of a psum can differ with the summation order, so those
+# mismatches are counted and printed, not failed); fp32 gates of curved
+# fns within TRAIN_RTOL where |psum| > 1e-2 (f'(p) amplifies the psum's
+# rounding by |f''(p)|, p^-1.5 / 4 for sublinear). Training parity: step-0
+# loss within LOSS0_RTOL, 3 sgd steps' losses within TRAIN_RTOL, relative.
+TRAIN_RTOL = 1e-4
+GATE_NEAR = 1e-5
+LOSS0_RTOL = 1e-5
+LENET_BATCH, RESNET_BATCH, RESNET_WIDTH = 64, 128, 64
+LENET_STEPS, RESNET_STEPS = 20, 5
+# The data of the paths: the MNIST proxy of examples/train_cnn_cadc.py and
+# the CIFAR-10 proxy of benchmarks/common.py.
+MNIST = dict(n_classes=10, hw=28, channels=1, noise=0.8)
+CIFAR = dict(n_classes=10, hw=32, channels=3, noise=0.9, seed=1)
+
+
+def counters():
+    from repro_torch.kernels import cadc_conv as cc
+    from repro_torch.kernels import cadc_matmul as cm
+
+    return {"cadc_matmul": cm.cadc_matmul_cuda,
+            "cadc_matmul_gate": cm.cadc_matmul_gate_cuda,
+            "cadc_segmented_bwd": cm.cadc_segmented_bwd_cuda,
+            "cadc_conv2d": cc.cadc_conv2d_cuda}
+
+
+def zero_counts() -> None:
+    for f in counters().values():
+        f.launches = 0
+
+
+def read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {k: f.launches for k, f in counters().items()}
+
+
+def keep_counts(fn):
+    """Run fn() without touching the launch counts (comparison launches)."""
+    saved = {k: f.launches for k, f in counters().items()}
+    out = fn()
+    for k, f in counters().items():
+        f.launches = saved[k]
+    return out
+
+
+def rel_err(got, want) -> tuple:
+    """(max abs err / scale, scale) with scale = max(1, max |want|)."""
+    scale = max(1.0, float(want.float().abs().max()))
+    return float((got.float() - want.float()).abs().max()) / scale, scale
+
+
+# max abs err of each slice-2 kernel over its checks (the kernels line)
+MAX_ABS = {"k1g": 0.0, "k2": 0.0, "k3": 0.0}
+
+
+def track(key: str, got, want) -> float:
+    """Record the max abs err of a kernel check; return err / scale."""
+    err, scale = rel_err(got, want)
+    MAX_ABS[key] = max(MAX_ABS[key], err * scale)
+    return err
+
+
+def fc_shapes():
+    """(name, D, N) of LeNet-5's FC layers and ResNet-18's fc."""
+    return [("lenet.f1", 400, 120), ("lenet.f2", 120, 84),
+            ("lenet.f3", 84, 10), ("resnet.fc", 8 * RESNET_WIDTH, 10)]
+
+
+def conv_layers(model: str):
+    """(name, B, H, Cin, K, Cout, stride, padding) of every conv of the
+    model, in forward order, at the path's batch and width."""
+    if model == "lenet5":
+        b = LENET_BATCH
+        return [("c1", b, 32, 1, 5, 6, 1, "VALID"),
+                ("c2", b, 14, 6, 5, 16, 1, "VALID")]
+    b, w = RESNET_BATCH, RESNET_WIDTH
+    out = [("stem", b, 32, 3, 3, w, 1, "SAME")]
+    h, cin = 32, w
+    for si, cout in enumerate((w, 2 * w, 4 * w, 8 * w)):
+        for bi in range(2):
+            s = 2 if (si > 0 and bi == 0) else 1
+            out.append((f"s{si}b{bi}.conv1", b, h, cin, 3, cout, s, "SAME"))
+            ho = -(-h // s)
+            out.append((f"s{si}b{bi}.conv2", b, ho, cout, 3, cout, 1,
+                        "SAME"))
+            if s != 1 or cin != cout:
+                out.append((f"s{si}b{bi}.proj", b, h, cin, 1, cout, s,
+                            "SAME"))
+            h, cin = ho, cout
+    return out
+
+
+def conv_out_hw(h, k, stride, padding) -> int:
+    from repro_torch.core.conv import _norm_padding
+
+    (lo, hi), _ = _norm_padding(padding, (k, k), (1, 1))
+    return (h + lo + hi - k) // stride + 1
+
+
+def check_k1g_k2(dev, report):
+    """K1g (and K1 where a mode saves nothing) and K2 against their plain
+    versions at every FC shape of the path, M = 64 and 128, xbar 64 / 128 /
+    256, relu / identity / sublinear, all four save_gate modes."""
+    from repro_torch.core import dendritic
+    from repro_torch.core.cadc import pad_to_segments
+    from repro_torch.kernels import cadc_matmul as cm
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
+    n_checks = near_mismatch = 0
+    for name, d, n in fc_shapes():
+        for m in (64, 128):
+            for xbar in XBARS:
+                x = pad_to_segments(torch.randn(m, d, generator=gen,
+                                                device=dev), -1, xbar)
+                w = pad_to_segments(torch.randn(d, n, generator=gen,
+                                                device=dev) / math.sqrt(d),
+                                    0, xbar)
+                g = torch.randn(m, n, generator=gen, device=dev)
+                psums = torch.stack([x[:, i:i + xbar] @ w[i:i + xbar]
+                                     for i in range(0, x.shape[1], xbar)])
+                for fn in ("relu", "identity", "sublinear"):
+                    for save_gate in cm.SAVE_GATE_MODES:
+                        if (save_gate == "packed"
+                                and dendritic.gate_dtype(fn) is not None
+                                and not dendritic.gate_packing(fn)):
+                            continue  # packing needs an indicator gate
+                        tag = (f"{name} M={m} xbar={xbar} {fn} "
+                               f"save_gate={save_gate}")
+                        near_mismatch += _check_matmul_case(
+                            cm, x, w, g, psums, xbar, fn, save_gate, tag,
+                            worst)
+                        n_checks += 1
+    report["k1g_k2_checks"] = {"n": n_checks, "max_err_over_scale": worst,
+                               "near_zero_gate_mismatches": near_mismatch}
+    print(f"K1g/K2: {n_checks} checks ok (FC shapes {fc_shapes()}, M 64 / "
+          f"128, xbar {XBARS}, relu / identity / sublinear, save_gate "
+          f"{cm.SAVE_GATE_MODES}); max err / scale {worst}; gate bit "
+          f"mismatches at |psum| <= {GATE_NEAR} x scale: {near_mismatch}",
+          flush=True)
+
+
+def _check_gate(cm, gate, want_gate, psums, scale, n, tag) -> int:
+    """Fail on a gate difference away from psum 0; return the count of
+    differences near it."""
+    far = psums.abs() > GATE_NEAR * scale
+    if gate.dtype == torch.int32:
+        got, want = cm._unpack_mask(gate, n).bool(), \
+            cm._unpack_mask(want_gate, n).bool()
+    elif gate.dtype == torch.bool:
+        got, want = gate, want_gate
+    else:
+        ok = psums.abs() > 1e-2
+        err, _ = rel_err(gate[ok], want_gate[ok])
+        if not err <= TRAIN_RTOL:
+            fail(f"{tag}: fp32 gate err / scale {err} > {TRAIN_RTOL}")
+        return 0
+    if not torch.equal(got[far], want[far]):
+        fail(f"{tag}: gate bits differ where |psum| > {GATE_NEAR} x scale")
+    return int((got != want).sum())
+
+
+def _check_matmul_case(cm, x, w, g, psums, xbar, fn, save_gate, tag,
+                       worst) -> int:
+    mode = cm.gate_mode(save_gate, fn)
+    kw = dict(crossbar_size=xbar, fn=fn)
+    near = 0
+    if mode in ("packed", "bytes"):
+        y, gate = cm.cadc_matmul_gate_cuda(x, w, mode=mode, **kw)
+        want_y, want_gate = cm.cadc_matmul_gate_torch(x, w, mode=mode, **kw)
+        nbytes = cm.gate_residual_nbytes(x.shape[0], x.shape[1], w.shape[1],
+                                         save_gate=save_gate, **kw)
+        if gate.nbytes != nbytes:
+            fail(f"{tag}: gate holds {gate.nbytes} bytes, "
+                 f"gate_residual_nbytes says {nbytes}")
+        near = _check_gate(cm, gate, want_gate, psums,
+                           max(1.0, float(want_y.abs().max())), w.shape[1],
+                           tag)
+    else:
+        y, gate = cm.cadc_matmul_cuda(x, w, **kw), None
+        want_y = cm.cadc_matmul_torch(x, w, **kw)
+    err = (track("k1g", y, want_y) if gate is not None
+           else rel_err(y, want_y)[0])
+    worst["fwd"] = max(worst["fwd"], err)
+    if not err <= TRAIN_RTOL:
+        fail(f"{tag}: forward err / scale {err} > {TRAIN_RTOL}")
+    dx, dw = cm.cadc_segmented_bwd_cuda(g, x, w, gate, mode=mode, **kw)
+    _, dw2 = cm.cadc_segmented_bwd_cuda(g, x, w, gate, mode=mode,
+                                        need_dx=False, **kw)
+    if not torch.equal(dw, dw2):
+        fail(f"{tag}: dw differs between two runs")
+    if mode == "recompute":
+        # the recomputed gate is the forward's: same psums, same order
+        _, fwd_gate = cm.cadc_matmul_gate_cuda(x, w, mode="bytes", **kw)
+        sdx, sdw = cm.cadc_segmented_bwd_cuda(g, x, w, fwd_gate,
+                                              mode="bytes", **kw)
+        if not (torch.equal(dx, sdx) and torch.equal(dw, sdw)):
+            fail(f"{tag}: recompute differs from the forward's saved gate")
+        want_dx, want_dw = cm.cadc_segmented_bwd_torch(
+            g, x, w, fwd_gate, mode="bytes", **kw)
+    else:
+        want_dx, want_dw = cm.cadc_segmented_bwd_torch(g, x, w, gate,
+                                                       mode=mode, **kw)
+    for key, got, want in (("dx", dx, want_dx), ("dw", dw, want_dw)):
+        err = track("k2", got, want)
+        worst[key] = max(worst[key], err)
+        if not err <= TRAIN_RTOL:
+            fail(f"{tag}: {key} err / scale {err} > {TRAIN_RTOL}")
+    return near
+
+
+def check_k3(dev, report):
+    """K3's forward (with and without its gate) and the conv backward (K2
+    over im2col patches, then _col2im) against their plain versions at
+    every conv shape of both models at the paths' batches, xbar 64 / 128 /
+    256 with relu's packed gate; at xbar 64 also vConv (identity), the
+    byte gate and recompute."""
+    from repro_torch.core.conv import im2col
+    from repro_torch.kernels import cadc_conv as cc
+    from repro_torch.kernels import cadc_matmul as cm
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    shapes = sorted({c[1:] for mdl in ("lenet5", "resnet18")
+                     for c in conv_layers(mdl)})
+    worst = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
+    n_checks = near_mismatch = spanning = 0
+    for b, h, cin, k, cout, stride, padding in shapes:
+        x = torch.randn(b, h, h, cin, generator=gen, device=dev)
+        w = torch.randn(k, k, cin, cout, generator=gen,
+                        device=dev) / math.sqrt(k * k * cin)
+        oh = conv_out_hw(h, k, stride, padding)
+        g = torch.randn(b, oh, oh, cout, generator=gen, device=dev)
+        patches = im2col(x, (k, k), stride=(stride, stride),
+                         padding=padding).reshape(-1, k * k * cin)
+        w2d = w.reshape(-1, cout)
+        for xbar in XBARS:
+            segs = cc._segment_taps(k, k, cin, xbar)
+            spanning += sum(len(t) > 1 for t in segs)
+            psums = torch.stack([patches[:, i:i + xbar] @ w2d[i:i + xbar]
+                                 for i in range(0, patches.shape[1], xbar)])
+            cases = [("relu", "auto")]
+            if xbar == XBARS[0]:
+                cases += [("identity", "auto"), ("relu", "bytes"),
+                          ("relu", "recompute")]
+            for fn, save_gate in cases:
+                tag = (f"K3 B={b} H={h} Cin={cin} K={k} Cout={cout} "
+                       f"s={stride} {padding} xbar={xbar} {fn} {save_gate}")
+                near_mismatch += _check_conv_case(
+                    cc, cm, x, w, g, patches, psums, xbar, fn, save_gate,
+                    (stride, stride), padding, tag, worst)
+                n_checks += 1
+    report["k3_checks"] = {"n": n_checks, "shapes": shapes,
+                           "max_err_over_scale": worst,
+                           "segments_spanning_taps": spanning,
+                           "near_zero_gate_mismatches": near_mismatch}
+    print(f"K3: {n_checks} checks ok over {len(shapes)} conv shapes of "
+          f"LeNet-5 (B={LENET_BATCH}) and ResNet-18 (B={RESNET_BATCH}, "
+          f"width {RESNET_WIDTH}), xbar {XBARS}; {spanning} segments span "
+          f"several taps; max err / scale {worst}; gate bit mismatches at "
+          f"|psum| <= {GATE_NEAR} x scale: {near_mismatch}", flush=True)
+
+
+def _check_conv_case(cc, cm, x, w, g, patches, psums, xbar, fn, save_gate,
+                     stride, padding, tag, worst) -> int:
+    mode = cm.gate_mode(save_gate, fn)
+    kw = dict(crossbar_size=xbar, fn=fn, stride=stride, padding=padding)
+    k1, k2, cin, cout = w.shape
+    fmode = mode if mode in ("packed", "bytes") else "none"
+    y, gate = cc.cadc_conv2d_cuda(x, w, mode=fmode, **kw)
+    want_y, want_gate = cc.cadc_conv2d_torch(x, w, mode=fmode, **kw)
+    err = track("k3", y, want_y)
+    scale = max(1.0, float(want_y.abs().max()))
+    worst["fwd"] = max(worst["fwd"], err)
+    if not err <= TRAIN_RTOL:
+        fail(f"{tag}: forward err / scale {err} > {TRAIN_RTOL}")
+    near = 0
+    if gate is not None:
+        m = patches.shape[0]
+        nbytes = cm.gate_residual_nbytes(m, k1 * k2 * cin, cout,
+                                         crossbar_size=xbar, fn=fn,
+                                         save_gate=save_gate)
+        if gate.nbytes != nbytes:
+            fail(f"{tag}: gate holds {gate.nbytes} bytes, "
+                 f"gate_residual_nbytes says {nbytes}")
+        near = _check_gate(cm, gate.reshape(gate.shape[0], m, -1),
+                           want_gate.reshape(gate.shape[0], m, -1), psums,
+                           scale, cout, tag)
+        if fmode == "packed":   # the eval forward: K3 without its gate
+            y0, _ = cc.cadc_conv2d_cuda(x, w, mode="none", **kw)
+            if not torch.equal(y0, y):
+                fail(f"{tag}: the gate changed K3's output")
+    g2 = g.reshape(-1, cout)
+    w2d = w.reshape(-1, cout)
+    gate2 = None if gate is None else gate.reshape(gate.shape[0],
+                                                   g2.shape[0], -1)
+    bkw = dict(crossbar_size=xbar, fn=fn)
+    dpat, dw = cm.cadc_segmented_bwd_cuda(g2, patches, w2d, gate2, mode=mode,
+                                          **bkw)
+    if mode == "recompute":
+        _, fgate = cc.cadc_conv2d_cuda(x, w, mode="bytes", **kw)
+        fgate = fgate.reshape(fgate.shape[0], g2.shape[0], -1)
+        sdp, sdw = cm.cadc_segmented_bwd_cuda(g2, patches, w2d, fgate,
+                                              mode="bytes", **bkw)
+        if not (torch.equal(dpat, sdp) and torch.equal(dw, sdw)):
+            fail(f"{tag}: recompute differs from K3's saved gate")
+        want_dp, want_dw = cm.cadc_segmented_bwd_torch(
+            g2, patches, w2d, fgate, mode="bytes", **bkw)
+    else:
+        want_dp, want_dw = cm.cadc_segmented_bwd_torch(
+            g2, patches, w2d, gate2, mode=mode, **bkw)
+    oh = g.shape[1]
+    dx = cc._col2im(dpat.reshape(x.shape[0], oh, oh, -1), tuple(x.shape),
+                    (k1, k2), stride, padding)
+    want_dx = cc._col2im(want_dp.reshape(x.shape[0], oh, oh, -1),
+                         tuple(x.shape), (k1, k2), stride, padding)
+    for key, got, want in (("dx", dx, want_dx), ("dw", dw, want_dw)):
+        err = track("k2", got, want)
+        worst[key] = max(worst[key], err)
+        if not err <= TRAIN_RTOL:
+            fail(f"{tag}: {key} err / scale {err} > {TRAIN_RTOL}")
+    return near
+
+
+def per_step_launches(model: str, impl: str) -> tuple:
+    """(per train step, per eval batch) launches of each kernel, from the
+    layer list: every conv runs K3 (with its gate when training CADC
+    relu), every FC K1g when training CADC relu (K1 for vConv, whose
+    identity gate is nothing to save) and K1 when evaluating; every
+    weight-bearing layer runs K2 once in the backward."""
+    n_conv = len(conv_layers(model))
+    n_fc = 3 if model == "lenet5" else 1
+    train = {"cadc_conv2d": n_conv, "cadc_segmented_bwd": n_conv + n_fc,
+             "cadc_matmul_gate": n_fc if impl == "cadc" else 0,
+             "cadc_matmul": 0 if impl == "cadc" else n_fc}
+    evals = {"cadc_conv2d": n_conv, "cadc_segmented_bwd": 0,
+             "cadc_matmul_gate": 0, "cadc_matmul": n_fc}
+    return train, evals
+
+
+def expect(train, evals, steps, batches) -> dict:
+    return {k: steps * train[k] + batches * evals[k] for k in train}
+
+
+def lenet_path(dev, report):
+    """The twin of examples/train_cnn_cadc.py on the card: LeNet-5 trained
+    as vConv and as CADC; exact launch counts."""
+    from repro_torch.launch import train_cnn_cadc
+
+    zero_counts()
+    t0 = time.perf_counter()
+    out = train_cnn_cadc.main(["--steps", str(LENET_STEPS), "--batch",
+                               str(LENET_BATCH), "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    want = {k: 0 for k in got}
+    for impl in ("vconv", "cadc"):
+        tr, ev = per_step_launches("lenet5", impl)
+        for k, v in expect(tr, ev, LENET_STEPS, 8).items():
+            want[k] += v
+    # the sparsity pass: conv1 spans one crossbar, so it needs no psums and
+    # takes K3; every other layer runs the core math (no kernel)
+    want["cadc_conv2d"] += 1
+    if got != want:
+        fail(f"LeNet-5 path launched {got}, want {want}")
+    for label in ("vconv", "cadc"):
+        hist = out["results"][label]["history"]
+        if not all(math.isfinite(h["loss"]) for h in hist):
+            fail(f"LeNet-5 {label}: a non-finite loss")
+    if not 0.0 <= out["summary"]["eliminated_frac"] <= 1.0:
+        fail("LeNet-5: psum sparsity outside [0, 1]")
+    report["lenet5_path"] = {
+        "steps": LENET_STEPS, "batch": LENET_BATCH, "wall_s": wall,
+        "launches": got,
+        "eval_acc": {k: out["results"][k]["eval"]["acc"]
+                     for k in ("vconv", "cadc")},
+        "psum_sparsity": out["summary"]["eliminated_frac"],
+        "reductions": out["reductions"]}
+    print(f"LeNet-5 path (vConv + CADC, {LENET_STEPS} steps each, batch "
+          f"{LENET_BATCH}): {wall:.1f} s, launches {json.dumps(got)} as the "
+          f"layer list says", flush=True)
+
+
+def _model(model):
+    from repro_torch.data import synthetic
+    from repro_torch.models.cnn import lenet5, resnet18
+
+    if model == "lenet5":
+        return (lenet5, {}, synthetic.ClassificationSpec(**MNIST),
+                LENET_BATCH)
+    return (resnet18, {"num_classes": 10, "width": RESNET_WIDTH},
+            synthetic.ClassificationSpec(**CIFAR), RESNET_BATCH)
+
+
+def training_parity(dev, report):
+    """Kernel path (kernel 'auto': K1g / K2 / K3) against plain path
+    (kernel 'torch') from the same params and batches, CADC relu xbar 64,
+    fp32, TF32 off, both models at full width."""
+    from repro_torch.data import synthetic
+    from repro_torch.models.common import Ctx, LayerMode
+    from repro_torch.train import loop, optimizer
+
+    out = {}
+    for model in ("lenet5", "resnet18"):
+        mod, init_kw, spec, batch = _model(model)
+        data = synthetic.make_classification_dataset(spec, device=dev)
+        batches = [data(i, batch) for i in range(3)]
+        params, state = mod.init(torch.Generator(device=dev).manual_seed(0),
+                                 device=dev, **init_kw)
+        runs = {}
+        for kernel in ("auto", "torch"):
+            mode = LayerMode(impl="cadc", crossbar_size=64, kernel=kernel)
+            zero_counts()
+            flat = [p.detach().requires_grad_() for p in
+                    loop._flatten(params)]
+            logits, _ = mod.apply(loop._unflatten(params, flat), state,
+                                  batches[0]["image"], Ctx(mode),
+                                  train=True)
+            loss0 = loop.cross_entropy(logits, batches[0]["label"])
+            grads = torch.autograd.grad(loss0, flat)
+            step = loop.make_train_step(mod.apply, mode, optimizer.sgd(0.05))
+            p, s = params, state
+            o = optimizer.sgd(0.05).init(p)
+            losses = []
+            for i, b in enumerate(batches):
+                p, s, o, m = step(p, s, o, b, i)
+                losses.append(float(m["loss"]))
+            runs[kernel] = (float(loss0.detach()), grads, losses,
+                            read_counts())
+        (l0k, gk, lk, nk), (l0p, gp, lp, np_) = runs["auto"], runs["torch"]
+        # the kernel path: one forward + backward, then 3 train steps
+        want = expect(per_step_launches(model, "cadc")[0],
+                      per_step_launches(model, "cadc")[1], 4, 0)
+        if any(np_.values()) or nk != want:
+            fail(f"{model}: launches kernel path {nk} (want {want}), plain "
+                 f"path {np_} (want none)")
+        if not abs(l0k - l0p) <= LOSS0_RTOL * abs(l0p):
+            fail(f"{model}: step-0 loss {l0k} vs plain {l0p}")
+        worst_g = 0.0
+        for a, b in zip(gk, gp):
+            err, _ = rel_err(a, b)
+            worst_g = max(worst_g, err)
+        if not worst_g <= TRAIN_RTOL:
+            fail(f"{model}: gradient err / scale {worst_g} > {TRAIN_RTOL}")
+        worst_l = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+        if not worst_l <= TRAIN_RTOL:
+            fail(f"{model}: sgd losses {lk} vs plain {lp}")
+        out[model] = {"loss0": [l0k, l0p], "grad_err_over_scale": worst_g,
+                      "sgd_losses": [lk, lp], "loss_rel_err": worst_l,
+                      "launches_kernel_path": nk}
+        print(f"training parity {model} (full width, fp32, TF32 off): "
+              f"step-0 loss {l0k:.6f} vs {l0p:.6f}; grads max err / scale "
+              f"{worst_g:.2e}; 3 sgd losses rel err {worst_l:.2e}; plain "
+              f"path launches 0", flush=True)
+        del params, state, batches, runs
+        torch.cuda.empty_cache()
+    report["training_parity"] = out
+
+
+def resnet_main_path(dev, report):
+    """The slice's main path: ResNet-18 at its published width trained
+    through train.loop.train, as benchmarks/common.py does, CADC relu at
+    crossbar 64 and then vConv, RESNET_STEPS steps each, batch 128, on the
+    CIFAR-10 proxy; exact launch counts. Returns the CADC run's counts."""
+    from repro_torch.data import synthetic
+    from repro_torch.models.cnn import resnet18
+    from repro_torch.models.common import LayerMode
+    from repro_torch.train import loop, optimizer
+
+    data = synthetic.make_classification_dataset(
+        synthetic.ClassificationSpec(**CIFAR), device=dev)
+    cfg = loop.TrainConfig(steps=RESNET_STEPS, batch_size=RESNET_BATCH,
+                           eval_every=1, eval_batches=1)
+    counts, result = {}, {}
+    for impl in ("cadc", "vconv"):
+        mode = LayerMode(impl=impl, crossbar_size=64, fn="relu")
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = loop.train(init_fn=resnet18.init, apply_fn=resnet18.apply,
+                         batch_fn=data, mode=mode,
+                         optimizer=optimizer.adamw(1e-3), cfg=cfg,
+                         init_kwargs={"num_classes": 10,
+                                      "width": RESNET_WIDTH}, device=dev)
+        got = read_counts()
+        wall = time.perf_counter() - t0
+        want = expect(*per_step_launches("resnet18", impl), RESNET_STEPS, 1)
+        if got != want:
+            fail(f"ResNet-18 {impl}: launched {got}, want {want}")
+        losses = [h["loss"] for h in out["history"]]
+        if not (all(math.isfinite(v) for v in losses)
+                and math.isfinite(out["eval"]["loss"])):
+            fail(f"ResNet-18 {impl}: non-finite losses {losses}")
+        counts[impl] = got
+        result[impl] = {"losses": losses, "eval": out["eval"],
+                        "wall_s": wall, "launches": got}
+        print(f"ResNet-18 width {RESNET_WIDTH} {impl}: {RESNET_STEPS} train "
+              f"steps at batch {RESNET_BATCH} + 1 eval batch in {wall:.1f} s,"
+              f" losses {[round(v, 4) for v in losses]}, launches "
+              f"{json.dumps(got)} as the layer list says", flush=True)
+    report["resnet18_path"] = result
+    return counts["cadc"]
+
+
+def time_resnet_step(dev, report):
+    """Train step ms p50 (CUDA events around each step), images/s and peak
+    memory of ResNet-18 CADC at full width, then torch.profiler over a few
+    steps: device time per kernel per step and the card's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import synthetic
+    from repro_torch.models.cnn import resnet18
+    from repro_torch.models.common import LayerMode
+    from repro_torch.train import loop, optimizer
+
+    data = synthetic.make_classification_dataset(
+        synthetic.ClassificationSpec(**CIFAR), device=dev)
+    mode = LayerMode(impl="cadc", crossbar_size=64, fn="relu")
+    opt = optimizer.adamw(1e-3)
+    step = loop.make_train_step(resnet18.apply, mode, opt)
+    p, s = resnet18.init(torch.Generator(device=dev).manual_seed(0),
+                         device=dev, num_classes=10, width=RESNET_WIDTH)
+    o = opt.init(p)
+    batches = [data(i, RESNET_BATCH) for i in range(4)]
+    for i in range(2):  # warm-up
+        p, s, o, _ = step(p, s, o, batches[i], i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        p, s, o, m = step(p, s, o, batches[i % 4], 2 + i)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(times))
+    n_prof = 3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for i in range(n_prof):
+            p, s, o, m = step(p, s, o, batches[i % 4], 20 + i)
+        end.record()
+        torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(end) / n_prof
+    rows = []
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        rows.append((us / 1e3 / n_prof, e.key, e.count / n_prof))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    if busy <= 0:
+        fail("profiler: no device time seen over the ResNet-18 steps")
+
+    def group(key: str) -> str:
+        for pat, name in (("ConvGather", "K3 cadc_conv2d"),
+                          ("RowMajor", "K1/K1g cadc_matmul"),
+                          ("segment_sum", "K1/K1g segment sum"),
+                          ("bwd_dx_kernel", "K2 dx"),
+                          ("bwd_dw_kernel", "K2 dw"),
+                          ("split_sum", "K2 dw split sum")):
+            if pat in key:
+                return name
+        return "other (PyTorch)"
+
+    groups = {}
+    for ms, key, calls in rows:
+        gname = group(key)
+        g = groups.setdefault(gname, {"ms": 0.0, "calls": 0.0})
+        g["ms"] += ms
+        g["calls"] += calls
+    report["resnet18_step"] = {
+        "batch": RESNET_BATCH, "width": RESNET_WIDTH,
+        "step_ms_p50": p50, "step_ms_all": times,
+        "images_per_s": RESNET_BATCH / (p50 / 1e3),
+        "peak_memory_bytes": peak,
+        "profiled_wall_ms_per_step": wall_ms,
+        "device_busy_ms_per_step": busy,
+        "idle_share": max(0.0, 1.0 - busy / wall_ms),
+        "device_ms_per_step_by_kernel": groups,
+        "device_top_per_step": [{"name": k[:110], "ms": ms, "calls": c}
+                                for ms, k, c in rows[:16]]}
+    print(f"ResNet-18 CADC train step (width {RESNET_WIDTH}, batch "
+          f"{RESNET_BATCH}): p50 {p50:.2f} ms, "
+          f"{RESNET_BATCH / (p50 / 1e3):.0f} images/s, peak memory "
+          f"{peak / 2**30:.2f} GiB; profiler: device busy {busy:.2f} of "
+          f"{wall_ms:.2f} ms per step (idle share "
+          f"{max(0.0, 1.0 - busy / wall_ms):.3f})", flush=True)
+    for gname, g in sorted(groups.items(), key=lambda kv: -kv[1]["ms"]):
+        print(f"  {gname}: {g['ms']:.3f} ms/step over {g['calls']:.0f} "
+              f"launches", flush=True)
+
+
+def _conv_ops_bytes(b, h, cin, k, cout, stride, padding, xbar):
+    """(flops, bytes of K3 with its packed gate, bytes of K2) of one conv:
+    each input read once and each output written once."""
+    oh = conv_out_hw(h, k, stride, padding)
+    m, d = b * oh * oh, k * k * cin
+    s = -(-d // xbar)
+    gate = s * m * -(-cout // 32) * 4
+    flops = 2 * m * d * cout
+    k3 = 4 * (b * h * h * cin + d * cout + m * cout) + gate
+    k2 = 4 * (m * cout + m * d + d * cout + m * d + d * cout) + gate
+    return flops, k3, k2
+
+
+def time_train_kernels(dev, launches, report):
+    """Device times of K1g, K2 and K3 for one ResNet-18 CADC train step
+    (every conv and the fc at their shapes, batch 128, width 64, xbar 64,
+    relu's packed gate), beside their plain versions and a PyTorch call of
+    the vConv function at the same shapes (F.conv2d / torch.matmul, TF32
+    off); plus LeNet-5's shapes at batch 64. CUDA-graph replay over operand
+    copies that hold 3x the L2, as time_k1."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.conv import im2col
+    from repro_torch.kernels import cadc_conv as cc
+    from repro_torch.kernels import cadc_matmul as cm
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    xbar, fn = 64, "relu"
+    per_shape = {}
+    tot = {k: {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0,
+               "ops": 0.0} for k in ("k3", "k2", "k1g")}
+
+    def timed(name, count, make, kernel, plain, lib, k_bytes, ops, key):
+        first = make()
+        ops_set = [first] + rotation(make, sum(
+            t.numel() * t.element_size() for t in first))[1:]
+        reps = max(20, len(ops_set))
+        pick = itertools.cycle(ops_set).__next__
+        k = keep_counts(lambda: device_ms(lambda: kernel(*pick()), reps))
+        pl = keep_counts(lambda: device_ms(lambda: plain(*pick()), reps))
+        lb = device_ms(lambda: lib(*pick()), reps)
+        b_ms, b_by = bound_ms(k_bytes, ops, torch.float32)
+        per_shape.setdefault(key, {})[name] = {
+            "count_per_step": count, "ms": k, "plain_ms": pl,
+            "library_ms": lb, "bound_ms": b_ms, "bound_by": b_by}
+        if name.startswith("resnet"):
+            t = tot[key]
+            t["ms"] += count * k
+            t["plain"] += count * pl
+            t["lib"] += count * lb
+            t["bytes"] += count * k_bytes
+            t["ops"] += count * ops
+        del ops_set
+
+    convs = {}
+    for model in ("resnet18", "lenet5"):
+        for c in conv_layers(model):
+            key = (model,) + c[1:]
+            convs[key] = convs.get(key, 0) + 1
+    for (model, b, h, cin, k, cout, stride, padding), count in convs.items():
+        name = f"{model}.B{b}.H{h}.C{cin}.K{k}.O{cout}.s{stride}"
+        st = (stride, stride)
+        w = torch.randn(k, k, cin, cout, generator=gen, device=dev) / 8
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        flops, k3_bytes, k2_bytes = _conv_ops_bytes(b, h, cin, k, cout,
+                                                    stride, padding, xbar)
+        cpad = 0 if padding == "VALID" else k // 2  # SAME, odd k
+
+        def make_x():
+            return (torch.randn(b, h, h, cin, generator=gen, device=dev),)
+
+        kw = dict(crossbar_size=xbar, fn=fn, stride=st, padding=padding)
+        timed(name, count, make_x,
+              lambda x: cc.cadc_conv2d_cuda(x, w, mode="packed", **kw),
+              lambda x: cc.cadc_conv2d_torch(x, w, mode="packed", **kw),
+              lambda x: F.conv2d(x.permute(0, 3, 1, 2), w_oihw, stride=st,
+                                 padding=cpad),
+              k3_bytes, flops, "k3")
+        # K2: the conv backward over im2col patches, with K3's gate
+        x0 = torch.randn(b, h, h, cin, generator=gen, device=dev)
+        _, gate = cc.cadc_conv2d_cuda(x0, w, mode="packed", **kw)
+        oh = conv_out_hw(h, k, stride, padding)
+        m, d = b * oh * oh, k * k * cin
+        gate = gate.reshape(gate.shape[0], m, -1)
+        w2d = w.reshape(d, cout)
+
+        def make_bwd():
+            xx = torch.randn(b, h, h, cin, generator=gen, device=dev)
+            return (torch.randn(m, cout, generator=gen, device=dev),
+                    im2col(xx, (k, k), stride=st,
+                           padding=padding).reshape(m, d))
+
+        bkw = dict(crossbar_size=xbar, fn=fn, mode="packed")
+        timed(name, count, make_bwd,
+              lambda g, pt: cm.cadc_segmented_bwd_cuda(g, pt, w2d, gate,
+                                                       **bkw),
+              lambda g, pt: cm.cadc_segmented_bwd_torch(g, pt, w2d, gate,
+                                                        **bkw),
+              lambda g, pt: (torch.matmul(g, w2d.T), torch.matmul(pt.T, g)),
+              k2_bytes, 2 * flops, "k2")
+        del x0, gate
+    # FC layers: K1g forward (relu's packed gate) and K2 backward
+    fcs = [("resnet18.fc", RESNET_BATCH, 8 * RESNET_WIDTH, 10),
+           ("lenet5.f1", LENET_BATCH, 400, 120),
+           ("lenet5.f2", LENET_BATCH, 120, 84),
+           ("lenet5.f3", LENET_BATCH, 84, 10)]
+    for name, m, d, n in fcs:
+        dp = -(-d // xbar) * xbar
+        w = torch.randn(dp, n, generator=gen, device=dev) / math.sqrt(d)
+        s = dp // xbar
+        gate_b = s * m * -(-n // 32) * 4
+        flops = 2 * m * dp * n
+
+        def make_x(m=m, dp=dp):
+            return (torch.randn(m, dp, generator=gen, device=dev),)
+
+        timed(name, 1, make_x,
+              lambda x: cm.cadc_matmul_gate_cuda(x, w, crossbar_size=xbar,
+                                                 fn=fn, mode="packed"),
+              lambda x: cm.cadc_matmul_gate_torch(x, w, crossbar_size=xbar,
+                                                  fn=fn, mode="packed"),
+              lambda x: torch.matmul(x, w),
+              4 * (m * dp + dp * n + m * n) + gate_b, flops, "k1g")
+        _, gate = cm.cadc_matmul_gate_cuda(torch.randn(m, dp, device=dev), w,
+                                           crossbar_size=xbar, fn=fn,
+                                           mode="packed")
+
+        def make_bwd(m=m, dp=dp, n=n):
+            return (torch.randn(m, n, generator=gen, device=dev),
+                    torch.randn(m, dp, generator=gen, device=dev))
+
+        timed(name, 1, make_bwd,
+              lambda g, x: cm.cadc_segmented_bwd_cuda(
+                  g, x, w, gate, crossbar_size=xbar, fn=fn, mode="packed"),
+              lambda g, x: cm.cadc_segmented_bwd_torch(
+                  g, x, w, gate, crossbar_size=xbar, fn=fn, mode="packed"),
+              lambda g, x: (torch.matmul(g, w.T), torch.matmul(x.T, g)),
+              4 * (m * n + 2 * m * dp + 2 * dp * n) + gate_b, 2 * flops,
+              "k2")
+    report["train_kernel_timing"] = {
+        "unit": f"one ResNet-18 CADC train step: width {RESNET_WIDTH}, "
+                f"batch {RESNET_BATCH}, xbar {xbar}, relu, packed gate",
+        "l2_bytes": l2_bytes(), "per_shape_one_call": per_shape,
+        "library": "vConv yardsticks: F.conv2d (NCHW view of the NHWC "
+                   "tensor, TF32 off) for K3; torch.matmul for K1g; the "
+                   "dx and dw torch.matmul pair for K2"}
+    rows = []
+    for key, name, src, rep in (
+            ("k1g", "cadc_matmul_gate", "src/repro_torch/csrc/cadc_matmul.cu",
+             "src/repro/kernels/cadc_matmul.py:199"),
+            ("k2", "cadc_segmented_bwd", "src/repro_torch/csrc/cadc_bwd.cu",
+             "src/repro/kernels/cadc_matmul.py:492"),
+            ("k3", "cadc_conv2d", "src/repro_torch/csrc/cadc_conv.cu",
+             "src/repro/kernels/cadc_conv.py:226")):
+        t = tot[key]
+        b_ms, b_by = bound_ms(t["bytes"], t["ops"], torch.float32)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": launches[name],
+                     "max_abs_err": MAX_ABS[key],
+                     "ms": t["ms"], "plain_ms": t["plain"],
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": t["lib"]})
+        print(f"{name}: {t['ms']:.3f} ms per ResNet-18 train step (plain "
+              f"{t['plain']:.3f}, vConv library {t['lib']:.3f}, bound "
+              f"{b_ms:.3f} by {b_by})", flush=True)
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--report", default=None,
@@ -689,6 +1490,8 @@ def main() -> None:
                                                  kernel_impl="auto")
     check_k1(cfg, dev, report)
     check_k6(cfg, dev, report)
+    check_k1g_k2(dev, report)
+    check_k3(dev, report)
 
     params = tf.init(cfg, seed=0, device=dev)        # fp32, random weights
     launches = serve_main_path(cfg, params, dev, report)
@@ -696,8 +1499,15 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
 
+    lenet_path(dev, report)
+    training_parity(dev, report)
+    train_launches = resnet_main_path(dev, report)
+    time_resnet_step(dev, report)
+    torch.cuda.empty_cache()
+
     kernels = [time_k1(cfg, dev, launches, report),
-               time_k6(cfg, dev, launches, report)]
+               time_k6(cfg, dev, launches, report),
+               *time_train_kernels(dev, train_launches, report)]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
 

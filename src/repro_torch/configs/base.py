@@ -89,12 +89,13 @@ class ArchConfig:
     crossbar_size: int = 256
     dendritic_fn: str = "relu"
     # Kernel backend for CADC linears ('auto' | 'cuda' | 'torch'):
-    # 'torch' keeps the plain segmented einsum (the counterpart of the JAX
-    # package's 'xla'; honors bf16_wire and feeds the psum telemetry tap);
-    # 'cuda' runs the hand-written CADC-matmul kernel (kernels/
-    # cadc_matmul.py) and raises on CPU tensors; 'auto' picks the kernel
-    # for CUDA tensors and the plain version for CPU tensors.
-    kernel_impl: str = "torch"
+    # 'auto' (the default) runs the hand-written CADC-matmul kernel
+    # (kernels/cadc_matmul.py) on CUDA tensors and the plain segmented
+    # einsum on CPU tensors; 'cuda' runs the kernel and raises on CPU
+    # tensors; 'torch' keeps the plain segmented einsum on any device (the
+    # counterpart of the JAX package's 'xla', its default there: it honors
+    # bf16_wire and feeds the psum telemetry tap).
+    kernel_impl: str = "auto"
     # Gradient-residual format of the fused kernels. Carried for config
     # parity with the JAX package; the port's slice is forward-only.
     kernel_save_gate: str = "auto"

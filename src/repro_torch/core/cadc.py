@@ -11,7 +11,7 @@ kernel and its plain version (kernels/cadc_matmul.py) are held against it.
 """
 from __future__ import annotations
 
-from typing import Callable, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -45,10 +45,21 @@ def pad_to_segments(x: Tensor, axis: int, crossbar_size: int) -> Tensor:
     return F.pad(x, widths)
 
 
+class CadcOut(NamedTuple):
+    y: Tensor                 # accumulated output, x.dtype
+    psums: Optional[Tensor]   # per-segment psums AFTER f(), fp32
+
+
 def cadc_matmul(x: Tensor, w: Tensor, *, crossbar_size: int,
-                fn: FnOrName = "relu") -> Tensor:
+                fn: FnOrName = "relu", return_psums: bool = False,
+                psum_transform: Optional[Callable[[Tensor], Tensor]] = None,
+                ) -> Union[Tensor, CadcOut]:
     """y = sum_s f( x_s @ w_s ). x [..., D], w [D, N] -> [..., N] in
-    x.dtype; psums in fp32."""
+    x.dtype; psums in fp32.
+
+    return_psums also returns the [..., S, N] post-f psums (for sparsity
+    statistics and the cost model); psum_transform is applied to the RAW
+    psums before f() (the hook of the ADC model)."""
     f = _resolve_fn(fn)
     d, n = w.shape
     if x.shape[-1] != d:
@@ -58,10 +69,19 @@ def cadc_matmul(x: Tensor, w: Tensor, *, crossbar_size: int,
         *x.shape[:-1], s, crossbar_size)
     ws = pad_to_segments(w, 0, crossbar_size).reshape(s, crossbar_size, n)
     psums = torch.einsum("...sk,skn->...sn", xs.float(), ws.float())
-    return f(psums).sum(dim=-2).to(x.dtype)
+    if psum_transform is not None:
+        psums = psum_transform(psums)
+    fps = f(psums)
+    y = fps.sum(dim=-2).to(x.dtype)
+    return CadcOut(y=y, psums=fps) if return_psums else y
 
 
-def vconv_matmul(x: Tensor, w: Tensor, *, crossbar_size: int) -> Tensor:
+def vconv_matmul(x: Tensor, w: Tensor, *, crossbar_size: int,
+                 return_psums: bool = False,
+                 psum_transform: Optional[Callable[[Tensor], Tensor]] = None,
+                 ) -> Union[Tensor, CadcOut]:
     """Vanilla crossbar-partitioned matmul: identical partitioning, no
     dendritic nonlinearity."""
-    return cadc_matmul(x, w, crossbar_size=crossbar_size, fn="identity")
+    return cadc_matmul(x, w, crossbar_size=crossbar_size, fn="identity",
+                       return_psums=return_psums,
+                       psum_transform=psum_transform)

@@ -3,8 +3,8 @@
 Each source under repro_torch/csrc/ is compiled by its own nvcc process
 (all started together) into a shared library with a plain C interface —
 no PyTorch headers, so a build takes seconds. Libraries are keyed by a
-hash of source and flags, so an edited source is rebuilt and an unchanged
-one is reused. Output goes to build/repro_torch/ at the checkout's root
+hash of source, shared headers (csrc/*.cuh) and flags, so an edited source
+is rebuilt and an unchanged one is reused. Output goes to build/repro_torch/ at the checkout's root
 (listed in .gitignore), beside each library the compiler's log, which
 holds ptxas' register and spill report.
 
@@ -24,7 +24,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # src/repro_torch/kernels/_build.py -> <checkout>/build/repro_torch
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("cadc_matmul.cu", "paged_attention.cu")
+SOURCES = ("cadc_matmul.cu", "cadc_conv.cu", "cadc_bwd.cu",
+           "paged_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,8 +47,10 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> Path:
     src = CSRC / source
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

@@ -5,8 +5,8 @@
 
 The port of repro.launch.serve, minus speculative decoding and plus
 --device (default cuda; the run raises when CUDA is absent) and
---kernel-impl (the CADC-linear backend: 'auto' runs the CUDA kernel on a
-CUDA device; the config default 'torch' is the plain segmented linear).
+--kernel-impl (the CADC-linear backend; the config default 'auto' runs the
+CUDA kernel on a CUDA device and the plain segmented linear on the CPU).
 Requests arrive as a Poisson-style synthetic stream, so the engine
 exercises admission queueing, eviction and slot/block reuse.
 """
@@ -52,8 +52,9 @@ def main(argv=None):
                     "the gather formulation on the CPU)")
     ap.add_argument("--kernel-impl", default=None,
                     choices=["auto", "cuda", "torch"],
-                    help="CADC-linear backend (default cfg.kernel_impl: the "
-                    "plain segmented linear)")
+                    help="CADC-linear backend (default cfg.kernel_impl, "
+                    "'auto': the CUDA kernel on a CUDA device, the plain "
+                    "segmented linear on the CPU)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain "
                     "PyTorch paths)")

@@ -113,7 +113,7 @@ def linear_apply(p: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
     if w.ndim == 3:  # segmented CADC weight [S, xbar, d_out]
         s, xbar, d_out = w.shape
         xp = cadc_lib.pad_to_segments(x, -1, xbar).to(dt)
-        if cfg.kernel_impl != "torch":
+        if kops.resolve(cfg.kernel_impl, x) == "cuda":
             return kops.cadc_matmul(
                 xp, w.reshape(s * xbar, d_out).to(dt), crossbar_size=xbar,
                 fn=cfg.dendritic_fn, impl=cfg.kernel_impl)

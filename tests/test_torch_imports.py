@@ -102,6 +102,6 @@ def test_registry_names_only_ported_archs():
     cfg = get_config("gemma3-1b")
     assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) == (
         26, 1152, 6912, 262144)
-    assert cfg.kernel_impl == "torch" and cfg.paged_attn_impl == "auto"
+    assert cfg.kernel_impl == "auto" and cfg.paged_attn_impl == "auto"
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("mixtral_8x22b")

@@ -118,6 +118,24 @@ class TestModelParity:
                                   torch.from_numpy(pos), tcaches, tcfg)
             np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
+    def test_default_kernel_impl_resolves_to_plain_on_cpu(self):
+        """kernel_impl defaults to 'auto', which on CPU tensors is the plain
+        segmented linear: bitwise the 'torch' path, and no kernel launch."""
+        from repro_torch.kernels import cadc_matmul as tcm
+        from repro_torch.kernels import ops as tops
+
+        _, _, tcfg, tree = _setup()
+        assert tcfg.kernel_impl == "auto"
+        assert tops.resolve(tcfg.kernel_impl, torch.zeros(1)) == "torch"
+        params = _tparams(tree, tcfg)
+        tokens = {"tokens": torch.arange(1, 13).reshape(2, 6)}
+        before = tcm.cadc_matmul_cuda.launches
+        auto, _ = ttf.forward_prefill(params, tokens, tcfg)
+        plain, _ = ttf.forward_prefill(
+            params, tokens, tcfg.with_overrides(kernel_impl="torch"))
+        assert torch.equal(auto, plain)
+        assert tcm.cadc_matmul_cuda.launches == before
+
     def test_kernel_impl_auto_on_cpu_is_the_plain_path(self):
         _, _, tcfg, tree = _setup()
         params = _tparams(tree, tcfg)
