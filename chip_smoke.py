@@ -54,6 +54,33 @@ Slice 2, CNN training (fp32, TF32 off):
      LeNet-5's shapes) beside their plain versions, the vConv PyTorch call
      at the same shapes and the bound.
 
+Slice 3, the paper's 4/2/4b operating point (int8 q8 kernels, TF32 off):
+ 13. K4 / K4g (q8 CADC matmul) against their plain versions, bitwise
+     (tanh within 1e-6 of scale), gate bits included, at every q8 FC shape
+     of VGG-16, ResNet-18 and the SNN at the eval batch, xbar 64 / 128 /
+     256, every fn; the straight-through backward (dx, dw, dscale) through
+     ops.cadc_matmul_q8 in every save_gate mode within 1e-4 of scale;
+ 14. K5 (q8 fused conv) and its packed gate against the plain version,
+     bitwise, at every conv shape of the three models at the paths'
+     batches, the same sweep;
+ 15. the slice's main path: VGG-16 at its published width (15.3 M params,
+     CIFAR-100 proxy, batch 128) trained with QAT through
+     train.loop.train (K3 / K1g / K2), its final evaluation in the q8 mode
+     (K5 x 13, K4 x 3 per batch, no K1 / K3), exact launch counts; q8
+     logits bitwise equal between kernel and plain paths; the Fig. 9 ADC
+     evaluation (4 bits, noise-free and noisy) with no kernel launch (the
+     ADC needs materialized psums: every layer takes the core path), kernel
+     mode equal to torch mode bitwise under one seed;
+ 16. ResNet-18 width 64 q8 eval on the params phase 11 trained (K5 x 20,
+     K4 x 1 per batch), the same checks;
+ 17. the SNN (width 32, 32x32 events, T 8, batch 32, CADC sublinear):
+     fp32 training through K3 / K1g / K2 and q8 inference through K5 / K4,
+     exact launch counts, bitwise q8 logits;
+ 18. VGG-16's q8 eval ms p50, images/s, peak memory, device time by kernel
+     and idle share, and its QAT step; K4 and K5 device ms per q8 eval
+     batch of each path beside their plain versions, the vConv library
+     call (F.conv2d on fp32 codes; torch._int_mm) and the int8 bound.
+
 Prints the serving and training metrics, the card's name and power limit,
 one JSON line of kernel records and, last, {"ok": true, "device": {...}}.
 `--report PATH` also writes the full record (per-shape times, ptxas
@@ -77,7 +104,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, and operations/s by type.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 
 # Tolerances (kernel vs plain version on the same card):
 #   K1: fp32 psums on both sides, products of bf16 inputs exact in fp32;
@@ -163,6 +190,42 @@ def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def profile_device(run, n: int, group, what: str):
+    """torch.profiler over run(0) .. run(n - 1), CUDA events around them:
+    (wall ms per call under the profiler, device-busy ms per call, rows
+    [(ms per call, kernel name, launches per call)] largest first, and the
+    rows summed by group(name) into {group: {"ms", "calls"}})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for i in range(n):
+            run(i)
+        end.record()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        rows.append((us / 1e3 / n, e.key, e.count / n))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    if busy <= 0:
+        fail(f"profiler: no device time seen over {what}")
+    groups = {}
+    for ms, key, calls in rows:
+        g = groups.setdefault(group(key), {"ms": 0.0, "calls": 0.0})
+        g["ms"] += ms
+        g["calls"] += calls
+    return start.elapsed_time(end) / n, busy, rows, groups
 
 
 # ---------------------------------------------------------------------------
@@ -718,7 +781,10 @@ def counters():
     return {"cadc_matmul": cm.cadc_matmul_cuda,
             "cadc_matmul_gate": cm.cadc_matmul_gate_cuda,
             "cadc_segmented_bwd": cm.cadc_segmented_bwd_cuda,
-            "cadc_conv2d": cc.cadc_conv2d_cuda}
+            "cadc_conv2d": cc.cadc_conv2d_cuda,
+            "cadc_matmul_q8": cm.cadc_matmul_q8_cuda,
+            "cadc_matmul_q8_gate": cm.cadc_matmul_q8_gate_cuda,
+            "cadc_conv2d_q8": cc.cadc_conv2d_q8_cuda}
 
 
 def zero_counts() -> None:
@@ -770,6 +836,19 @@ def conv_layers(model: str):
         b = LENET_BATCH
         return [("c1", b, 32, 1, 5, 6, 1, "VALID"),
                 ("c2", b, 14, 6, 5, 16, 1, "VALID")]
+    if model == "vgg16":
+        out, h, cin = [], 32, 3
+        for si, (c, n) in enumerate(VGG_CFG):
+            for bi in range(n):
+                out.append((f"c{si}_{bi}", VGG_BATCH, h, cin, 3, c, 1,
+                            "SAME"))
+                cin = c
+            h //= 2
+        return out
+    if model == "snn":
+        w = SNN_WIDTH
+        return [("conv1", SNN_BATCH, SNN_HW, 2, 3, w, 1, "SAME"),
+                ("conv2", SNN_BATCH, SNN_HW // 2, w, 3, 2 * w, 1, "SAME")]
     b, w = RESNET_BATCH, RESNET_WIDTH
     out = [("stem", b, 32, 3, 3, w, 1, "SAME")]
     h, cin = 32, w
@@ -1025,7 +1104,7 @@ def per_step_launches(model: str, impl: str) -> tuple:
     identity gate is nothing to save) and K1 when evaluating; every
     weight-bearing layer runs K2 once in the backward."""
     n_conv = len(conv_layers(model))
-    n_fc = 3 if model == "lenet5" else 1
+    n_fc = 3 if model in ("lenet5", "vgg16") else 1
     train = {"cadc_conv2d": n_conv, "cadc_segmented_bwd": n_conv + n_fc,
              "cadc_matmul_gate": n_fc if impl == "cadc" else 0,
              "cadc_matmul": 0 if impl == "cadc" else n_fc}
@@ -1035,7 +1114,12 @@ def per_step_launches(model: str, impl: str) -> tuple:
 
 
 def expect(train, evals, steps, batches) -> dict:
-    return {k: steps * train[k] + batches * evals[k] for k in train}
+    """Launches of every counted kernel over `steps` train steps and
+    `batches` eval batches (kernels in neither dict: 0)."""
+    out = {k: 0 for k in counters()}
+    for k in set(train) | set(evals):
+        out[k] = steps * train.get(k, 0) + batches * evals.get(k, 0)
+    return out
 
 
 def lenet_path(dev, report):
@@ -1167,7 +1251,7 @@ def resnet_main_path(dev, report):
         synthetic.ClassificationSpec(**CIFAR), device=dev)
     cfg = loop.TrainConfig(steps=RESNET_STEPS, batch_size=RESNET_BATCH,
                            eval_every=1, eval_batches=1)
-    counts, result = {}, {}
+    counts, result, trained = {}, {}, {}
     for impl in ("cadc", "vconv"):
         mode = LayerMode(impl=impl, crossbar_size=64, fn="relu")
         torch.cuda.synchronize()
@@ -1188,6 +1272,7 @@ def resnet_main_path(dev, report):
                 and math.isfinite(out["eval"]["loss"])):
             fail(f"ResNet-18 {impl}: non-finite losses {losses}")
         counts[impl] = got
+        trained[impl] = (out["params"], out["state"])
         result[impl] = {"losses": losses, "eval": out["eval"],
                         "wall_s": wall, "launches": got}
         print(f"ResNet-18 width {RESNET_WIDTH} {impl}: {RESNET_STEPS} train "
@@ -1195,15 +1280,13 @@ def resnet_main_path(dev, report):
               f" losses {[round(v, 4) for v in losses]}, launches "
               f"{json.dumps(got)} as the layer list says", flush=True)
     report["resnet18_path"] = result
-    return counts["cadc"]
+    return counts["cadc"], trained["cadc"]
 
 
 def time_resnet_step(dev, report):
     """Train step ms p50 (CUDA events around each step), images/s and peak
     memory of ResNet-18 CADC at full width, then torch.profiler over a few
     steps: device time per kernel per step and the card's idle share."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.data import synthetic
     from repro_torch.models.cnn import resnet18
     from repro_torch.models.common import LayerMode
@@ -1233,29 +1316,6 @@ def time_resnet_step(dev, report):
         times.append(start.elapsed_time(end))
     peak = torch.cuda.max_memory_allocated()
     p50 = float(np.median(times))
-    n_prof = 3
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for i in range(n_prof):
-            p, s, o, m = step(p, s, o, batches[i % 4], 20 + i)
-        end.record()
-        torch.cuda.synchronize()
-    wall_ms = start.elapsed_time(end) / n_prof
-    rows = []
-    for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        rows.append((us / 1e3 / n_prof, e.key, e.count / n_prof))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    if busy <= 0:
-        fail("profiler: no device time seen over the ResNet-18 steps")
 
     def group(key: str) -> str:
         for pat, name in (("ConvGather", "K3 cadc_conv2d"),
@@ -1268,12 +1328,13 @@ def time_resnet_step(dev, report):
                 return name
         return "other (PyTorch)"
 
-    groups = {}
-    for ms, key, calls in rows:
-        gname = group(key)
-        g = groups.setdefault(gname, {"ms": 0.0, "calls": 0.0})
-        g["ms"] += ms
-        g["calls"] += calls
+    state = [p, s, o]
+
+    def run(i):
+        state[0], state[1], state[2], _ = step(*state, batches[i % 4], 20 + i)
+
+    wall_ms, busy, rows, groups = profile_device(run, 3, group,
+                                                 "the ResNet-18 steps")
     report["resnet18_step"] = {
         "batch": RESNET_BATCH, "width": RESNET_WIDTH,
         "step_ms_p50": p50, "step_ms_all": times,
@@ -1464,6 +1525,554 @@ def time_train_kernels(dev, launches, report):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# slice 3: the paper's 4/2/4b operating point through K4 and K5
+# ---------------------------------------------------------------------------
+
+# VGG-16 at its published width on the CIFAR-100 proxy of
+# benchmarks/common.py:76 at CIFAR-100's class count; the SNN at snn.init's
+# defaults on DVS-Gesture-like events. Only the depth of training is cut.
+VGG_CFG = [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]
+VGG_BATCH, VGG_STEPS = 128, 3
+CIFAR100 = dict(n_classes=100, hw=32, channels=3, noise=0.9, seed=2)
+SNN_BATCH, SNN_T, SNN_HW, SNN_WIDTH, SNN_STEPS = 32, 8, 32, 32, 3
+Q8_EVAL_BATCHES = 2
+Q8_FNS = ("relu", "identity", "sublinear", "supralinear", "tanh")
+# The q8 kernels equal their plain versions bitwise (exact int32 psums,
+# every later rounding the same), gate bits included; tanh within
+# TANH_RTOL of scale (CUDA's tanhf is not torch's). Their straight-through
+# backward (K2 on the codes) within TRAIN_RTOL of scale, as K2's checks.
+TANH_RTOL = 1e-6
+Q8_MAX_ABS = {"k4": 0.0, "k5": 0.0}
+
+
+def q8_fc_shapes():
+    """(name, M = the path's eval batch, D, N) of every q8 FC."""
+    return [("vgg16.f1", VGG_BATCH, 512, 512),
+            ("vgg16.f2", VGG_BATCH, 512, 512),
+            ("vgg16.f3", VGG_BATCH, 512, 100),
+            ("resnet18.fc", RESNET_BATCH, 8 * RESNET_WIDTH, 10),
+            ("snn.fc", SNN_BATCH, (SNN_HW // 4) ** 2 * 2 * SNN_WIDTH, 11)]
+
+
+def _q8_same(key, got, want, fn, tag):
+    err = float((got - want).abs().max())
+    Q8_MAX_ABS[key] = max(Q8_MAX_ABS[key], err)
+    if fn == "tanh":
+        if not err <= TANH_RTOL * max(1.0, float(want.abs().max())):
+            fail(f"{tag}: err {err}")
+    elif not torch.equal(got, want):
+        fail(f"{tag}: not bitwise equal (max abs err {err})")
+
+
+def _codes(gen, dev, shape, lo, hi):
+    return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                         dtype=torch.int8)
+
+
+def check_k4(dev, report):
+    """K4 / K4g against their plain versions at every q8 FC shape of the
+    three models, xbar 64 / 128 / 256, every fn: outputs and gate bits
+    bitwise (tanh: TANH_RTOL); the straight-through backward through
+    ops.cadc_matmul_q8 on float codes in every save_gate mode."""
+    from repro_torch.kernels import cadc_matmul as cm
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n_fwd = n_bwd = 0
+    worst_bwd = 0.0
+    for name, m, d, n in q8_fc_shapes():
+        for xbar in XBARS:
+            dp = -(-d // xbar) * xbar   # whole crossbars, as ops pads
+            x = _codes(gen, dev, (m, dp), -7, 8)
+            w = _codes(gen, dev, (dp, n), -1, 2)
+            scale = torch.rand((), generator=gen, device=dev) * 0.02 + 1e-3
+            g = torch.randn(m, n, generator=gen, device=dev)
+            for fn in Q8_FNS:
+                tag = f"K4 {name} M={m} xbar={xbar} {fn}"
+                kw = dict(crossbar_size=xbar, fn=fn)
+                y = cm.cadc_matmul_q8_cuda(x, w, scale, **kw)
+                _q8_same("k4", y, cm.cadc_matmul_q8_torch(x, w, scale, **kw),
+                         fn, tag)
+                n_fwd += 1
+                for mode in (("packed", "bytes") if fn == "relu" else
+                             () if fn == "identity" else ("bytes",)):
+                    yg, gate = cm.cadc_matmul_q8_gate_cuda(x, w, scale,
+                                                           mode=mode, **kw)
+                    _, wgate = cm.cadc_matmul_q8_gate_torch(
+                        x, w, scale, mode=mode, **kw)
+                    if not torch.equal(yg, y):
+                        fail(f"{tag} {mode}: the gate changed K4's output")
+                    _q8_same("k4", gate.float(), wgate.float(), fn,
+                             f"{tag} {mode} gate")
+                    n_fwd += 1
+                if fn == "tanh":
+                    continue
+                for save_gate in cm.SAVE_GATE_MODES:
+                    if save_gate == "packed" and fn != "relu":
+                        continue
+                    grads = {}
+                    for impl in ("cuda", "torch"):
+                        xf = x.float().requires_grad_()
+                        wf = w.float().requires_grad_()
+                        sf = scale.clone().requires_grad_()
+                        yy = ops.cadc_matmul_q8(xf, wf, sf, impl=impl,
+                                                save_gate=save_gate, **kw)
+                        grads[impl] = torch.autograd.grad((yy * g).sum(),
+                                                          (xf, wf, sf))
+                    for a, b in zip(grads["cuda"], grads["torch"]):
+                        err, _ = rel_err(a, b)
+                        worst_bwd = max(worst_bwd, err)
+                        if not err <= TRAIN_RTOL:
+                            fail(f"{tag} save_gate={save_gate}: STE grad "
+                                 f"err / scale {err}")
+                    n_bwd += 1
+    report["k4_checks"] = {"forward": n_fwd, "ste_backward": n_bwd,
+                           "max_abs_err": Q8_MAX_ABS["k4"],
+                           "ste_max_err_over_scale": worst_bwd}
+    print(f"K4 cadc_matmul_q8: {n_fwd} forward / gate checks bitwise (tanh "
+          f"within {TANH_RTOL} of scale; max abs err {Q8_MAX_ABS['k4']:.1e}) "
+          f"at FC shapes {q8_fc_shapes()}, xbar {XBARS}, fns {Q8_FNS}; "
+          f"{n_bwd} STE backward checks (dx, dw, dscale) max err / scale "
+          f"{worst_bwd:.1e}", flush=True)
+
+
+def check_k5(dev, report):
+    """K5 (and its gate) against the plain version at every conv shape of
+    VGG-16, ResNet-18 and the SNN at the paths' batches, xbar 64 / 128 /
+    256, every fn, bitwise (tanh: TANH_RTOL); packed relu gate bits."""
+    from repro_torch.kernels import cadc_conv as cc
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    shapes = sorted({c[1:] for mdl in ("vgg16", "resnet18", "snn")
+                     for c in conv_layers(mdl)})
+    n_checks = 0
+    for b, h, cin, k, cout, stride, padding in shapes:
+        x = _codes(gen, dev, (b, h, h, cin), -7, 8)
+        w = _codes(gen, dev, (k, k, cin, cout), -1, 2)
+        scale = torch.rand((), generator=gen, device=dev) * 0.02 + 1e-3
+        for xbar in XBARS:
+            kw = dict(crossbar_size=xbar, stride=(stride, stride),
+                      padding=padding)
+            for fn in Q8_FNS:
+                tag = (f"K5 B={b} H={h} Cin={cin} K={k} Cout={cout} "
+                       f"s={stride} xbar={xbar} {fn}")
+                y, _ = cc.cadc_conv2d_q8_cuda(x, w, scale, fn=fn, **kw)
+                want, _ = cc.cadc_conv2d_q8_torch(x, w, scale, fn=fn, **kw)
+                _q8_same("k5", y, want, fn, tag)
+                n_checks += 1
+                if fn == "relu":
+                    yg, gate = cc.cadc_conv2d_q8_cuda(x, w, scale, fn=fn,
+                                                      mode="packed", **kw)
+                    _, wgate = cc.cadc_conv2d_q8_torch(x, w, scale, fn=fn,
+                                                       mode="packed", **kw)
+                    if not (torch.equal(yg, y) and torch.equal(gate, wgate)):
+                        fail(f"{tag}: packed gate differs")
+                    n_checks += 1
+        del x, w
+    report["k5_checks"] = {"n": n_checks, "shapes": shapes,
+                           "max_abs_err": Q8_MAX_ABS["k5"]}
+    print(f"K5 cadc_conv2d_q8: {n_checks} checks bitwise (tanh within "
+          f"{TANH_RTOL} of scale; max abs err {Q8_MAX_ABS['k5']:.1e}) over "
+          f"{len(shapes)} conv shapes of VGG-16 (B={VGG_BATCH}), ResNet-18 "
+          f"(B={RESNET_BATCH}) and the SNN (B={SNN_BATCH}), xbar {XBARS}, "
+          f"fns {Q8_FNS}, packed relu gates", flush=True)
+
+
+def q8_modes(fn="relu"):
+    """(QAT mode, q8 eval mode, ADC eval mode) at the paper's 4/2/4b."""
+    import dataclasses
+
+    from repro_torch.core.adc import AdcConfig
+    from repro_torch.core.quant import PAPER_424
+    from repro_torch.models.common import LayerMode
+
+    qat = LayerMode(impl="cadc", crossbar_size=64, fn=fn, quant=PAPER_424)
+    q8 = dataclasses.replace(qat, q8_fused=True)
+    return qat, q8, dataclasses.replace(q8, adc=AdcConfig(bits=4))
+
+
+def q8_launches(model: str) -> dict:
+    """Launches of one q8 eval batch: K5 per conv, K4 per FC (x T for the
+    SNN's time steps), nothing else."""
+    t = SNN_T if model == "snn" else 1
+    n_fc = 3 if model == "vgg16" else 1
+    return {"cadc_conv2d_q8": t * len(conv_layers(model)),
+            "cadc_matmul_q8": t * n_fc}
+
+
+def q8_logits_parity(mod, params, state, x, q8, tag, rng=None):
+    """Kernel path against plain path on one batch: bitwise logits; the
+    plain path launches nothing. Returns the kernel path's launches."""
+    import dataclasses
+
+    from repro_torch.models.common import Ctx
+
+    with torch.no_grad():
+        zero_counts()
+        got, _ = mod.apply(params, state, x, Ctx(q8, rng))
+        n_kernel = read_counts()
+        want, _ = mod.apply(params, state, x,
+                            Ctx(dataclasses.replace(q8, kernel="torch"), rng))
+        n_plain = read_counts()
+    if n_plain != n_kernel:
+        fail(f"{tag}: the plain path launched {n_plain} vs {n_kernel}")
+    if not torch.equal(got, want):
+        fail(f"{tag}: kernel-path logits differ from the plain path's (max "
+             f"abs err {float((got - want).abs().max())})")
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{tag}: non-finite logits")
+    return n_kernel, got
+
+
+def vgg_main_path(dev, report):
+    """The slice's main path: VGG-16 at its published width, QAT through
+    train.loop.train (K3 / K1g / K2), the final evaluation in the q8 mode
+    (K5 / K4, no K1 / K3), then q8 eval and the Fig. 9 ADC evaluation
+    through loop.evaluate. Exact launch counts throughout."""
+    from repro_torch.data import synthetic
+    from repro_torch.models.cnn import vgg16
+    from repro_torch.train import loop, optimizer
+
+    qat, q8, adc = q8_modes()
+    data = synthetic.make_classification_dataset(
+        synthetic.ClassificationSpec(**CIFAR100), device=dev)
+    cfg = loop.TrainConfig(steps=VGG_STEPS, batch_size=VGG_BATCH,
+                           eval_every=1, eval_batches=Q8_EVAL_BATCHES)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = loop.train(init_fn=vgg16.init, apply_fn=vgg16.apply, batch_fn=data,
+                     mode=qat, eval_mode=q8, optimizer=optimizer.adamw(1e-3),
+                     cfg=cfg, init_kwargs={"num_classes": 100}, device=dev)
+    got = read_counts()
+    wall = time.perf_counter() - t0
+    want = expect(per_step_launches("vgg16", "cadc")[0], q8_launches("vgg16"),
+                  VGG_STEPS, Q8_EVAL_BATCHES)
+    if got != want:
+        fail(f"VGG-16 QAT + q8 eval launched {got}, want {want}")
+    losses = [h["loss"] for h in out["history"]]
+    if not all(math.isfinite(v) for v in losses + [out["eval"]["loss"]]):
+        fail(f"VGG-16: non-finite losses {losses}, eval {out['eval']}")
+    params, state = out["params"], out["state"]
+    n = sum(t.numel() for t in loop._flatten(params))
+    print(f"VGG-16 (width_div 1, {n / 1e6:.2f} M params, 100 classes) QAT "
+          f"4/2/4b CADC relu xbar 64: {VGG_STEPS} train steps at batch "
+          f"{VGG_BATCH} + {Q8_EVAL_BATCHES} q8 eval batches in {wall:.1f} s, "
+          f"losses {[round(v, 4) for v in losses]}, q8 eval {out['eval']}, "
+          f"launches {json.dumps(got)} as the layer list says", flush=True)
+
+    # q8 inference alone: K5 x 13 and K4 x 3 per batch, nothing else
+    zero_counts()
+    ev_q8 = loop.evaluate(vgg16.apply, params, state, data, q8,
+                          n_batches=Q8_EVAL_BATCHES, batch_size=VGG_BATCH)
+    got_q8 = read_counts()
+    if got_q8 != expect({}, q8_launches("vgg16"), 0, Q8_EVAL_BATCHES):
+        fail(f"VGG-16 q8 eval launched {got_q8}")
+    x = data(10_000_000, VGG_BATCH)["image"]
+    _, logits = q8_logits_parity(vgg16, params, state, x, q8, "VGG-16 q8")
+
+    # Fig. 9: the ADC needs materialized psums, so every layer takes the
+    # core path (models/common.py `_use_fused` / the q8 guard): 0 launches
+    zero_counts()
+    ev_adc = loop.evaluate(vgg16.apply, params, state, data, adc,
+                           n_batches=Q8_EVAL_BATCHES, batch_size=VGG_BATCH)
+    ev_noisy = loop.evaluate(vgg16.apply, params, state, data, adc,
+                             n_batches=Q8_EVAL_BATCHES, batch_size=VGG_BATCH,
+                             rng=1234)
+    got_adc = read_counts()
+    if any(got_adc.values()):
+        fail(f"VGG-16 ADC eval launched {got_adc}; the ADC pass takes the "
+             f"core path")
+    n_adc, noisy = q8_logits_parity(vgg16, params, state, x, adc,
+                                    "VGG-16 ADC (noisy)", rng=1234)
+    _, clean = q8_logits_parity(vgg16, params, state, x, adc,
+                                "VGG-16 ADC (noise-free)")
+    if any(n_adc.values()) or torch.equal(noisy, clean):
+        fail("VGG-16 ADC: launched a kernel, or the noise changed nothing")
+    report["vgg16_path"] = {
+        "params": n, "steps": VGG_STEPS, "batch": VGG_BATCH, "wall_s": wall,
+        "qat_losses": losses, "launches_qat_and_q8_eval": got,
+        "q8_eval": ev_q8, "launches_q8_eval": got_q8,
+        "adc_eval_noise_free": ev_adc, "adc_eval_noisy": ev_noisy,
+        "launches_adc_eval": got_adc,
+        "q8_vs_adc_logits_max_abs_diff": float((logits - clean).abs().max())}
+    print(f"VGG-16 q8 eval: {ev_q8}, launches {json.dumps(got_q8)}; q8 "
+          f"logits bitwise equal between kernel and plain paths; Fig. 9 ADC "
+          f"(4 bits) noise-free {ev_adc}, noisy {ev_noisy}: 0 launches (core "
+          f"path), kernel mode == torch mode bitwise under one seed",
+          flush=True)
+    return got, (params, state)
+
+
+def resnet_q8_path(dev, trained, report):
+    """ResNet-18 width 64 q8 inference on the params the slice-2 path
+    trained: K5 x 20, K4 x 1 per batch; bitwise kernel vs plain logits."""
+    from repro_torch.data import synthetic
+    from repro_torch.models.cnn import resnet18
+    from repro_torch.train import loop
+
+    _, q8, _ = q8_modes()
+    params, state = trained
+    data = synthetic.make_classification_dataset(
+        synthetic.ClassificationSpec(**CIFAR), device=dev)
+    zero_counts()
+    ev = loop.evaluate(resnet18.apply, params, state, data, q8,
+                       n_batches=Q8_EVAL_BATCHES, batch_size=RESNET_BATCH)
+    got = read_counts()
+    if got != expect({}, q8_launches("resnet18"), 0, Q8_EVAL_BATCHES):
+        fail(f"ResNet-18 q8 eval launched {got}")
+    q8_logits_parity(resnet18, params, state,
+                     data(10_000_000, RESNET_BATCH)["image"], q8,
+                     "ResNet-18 q8")
+    report["resnet18_q8"] = {"eval": ev, "launches": got}
+    print(f"ResNet-18 width {RESNET_WIDTH} q8 eval ({Q8_EVAL_BATCHES} batches "
+          f"of {RESNET_BATCH}): {ev}, launches {json.dumps(got)}; logits "
+          f"bitwise equal between kernel and plain paths", flush=True)
+
+
+def snn_path(dev, report):
+    """The SNN at snn.init's defaults on DVS-Gesture-like events (T = 8,
+    batch 32), CADC sublinear xbar 64: fp32 training through K3 / K1g / K2
+    (every time step), then q8 inference through K5 / K4."""
+    import dataclasses
+
+    from repro_torch.data import synthetic
+    from repro_torch.models.cnn import snn
+    from repro_torch.models.common import LayerMode
+    from repro_torch.train import loop, optimizer
+
+    _, q8, _ = q8_modes("sublinear")
+    mode = dataclasses.replace(q8, quant=LayerMode().quant, q8_fused=False)
+    events = synthetic.make_event_dataset(n_classes=11, hw=SNN_HW,
+                                          t_steps=SNN_T, seed=3, device=dev)
+
+    def data(step, bs):
+        b = events(step, bs)
+        return {"image": b["events"], "label": b["label"]}
+
+    cfg = loop.TrainConfig(steps=SNN_STEPS, batch_size=SNN_BATCH,
+                           eval_every=1, eval_batches=Q8_EVAL_BATCHES)
+    zero_counts()
+    t0 = time.perf_counter()
+    out = loop.train(init_fn=snn.init, apply_fn=snn.apply, batch_fn=data,
+                     mode=mode, eval_mode=q8, optimizer=optimizer.adamw(1e-3),
+                     cfg=cfg, device=dev)
+    got = read_counts()
+    wall = time.perf_counter() - t0
+    train = {k: SNN_T * v for k, v in
+             per_step_launches("snn", "cadc")[0].items()}
+    want = expect(train, q8_launches("snn"), SNN_STEPS, Q8_EVAL_BATCHES)
+    if got != want:
+        fail(f"SNN launched {got}, want {want}")
+    losses = [h["loss"] for h in out["history"]]
+    if not all(math.isfinite(v) for v in losses + [out["eval"]["loss"]]):
+        fail(f"SNN: non-finite losses {losses}")
+    q8_logits_parity(snn, out["params"], out["state"],
+                     data(10_000_000, SNN_BATCH)["image"], q8, "SNN q8")
+    report["snn_path"] = {"steps": SNN_STEPS, "batch": SNN_BATCH,
+                          "t_steps": SNN_T, "wall_s": wall,
+                          "losses": losses, "q8_eval": out["eval"],
+                          "launches": got}
+    print(f"SNN (width {SNN_WIDTH}, hw {SNN_HW}, T {SNN_T}) CADC sublinear: "
+          f"{SNN_STEPS} fp32 train steps at batch {SNN_BATCH} + "
+          f"{Q8_EVAL_BATCHES} q8 eval batches in {wall:.1f} s, losses "
+          f"{[round(v, 4) for v in losses]}, launches {json.dumps(got)} as "
+          f"the layer list says; q8 logits bitwise equal between kernel and "
+          f"plain paths", flush=True)
+
+
+def time_vgg(dev, trained, report):
+    """VGG-16 at full width: the q8 eval batch (ms p50, images/s, peak
+    memory, profiler device time by kernel and idle share) and the QAT
+    train step (ms p50, images/s, peak memory)."""
+    from repro_torch.data import synthetic
+    from repro_torch.models.cnn import vgg16
+    from repro_torch.train import loop, optimizer
+
+    qat, q8, _ = q8_modes()
+    params, state = trained
+    data = synthetic.make_classification_dataset(
+        synthetic.ClassificationSpec(**CIFAR100), device=dev)
+    batches = [data(i, VGG_BATCH) for i in range(4)]
+
+    def timed(fn, n):
+        times = []
+        for i in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(i)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times)), times
+
+    eval_step = loop.make_eval_step(vgg16.apply, q8)
+    for i in range(2):
+        eval_step(params, state, batches[i])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev_p50, ev_all = timed(lambda i: eval_step(params, state,
+                                               batches[i % 4]), 10)
+    ev_peak = torch.cuda.max_memory_allocated()
+    def group(key: str) -> str:
+        return ("K5 cadc_conv2d_q8" if "ConvGather<signed char" in key
+                else "K4 cadc_matmul_q8" if "RowMajor<signed char" in key
+                else "K4 segment sum" if "segment_sum" in key
+                else "other (PyTorch)")
+
+    wall_ms, busy, _, groups = profile_device(
+        lambda i: eval_step(params, state, batches[i % 4]), 3, group,
+        "the VGG-16 q8 eval")
+
+    opt = optimizer.adamw(1e-3)
+    step = loop.make_train_step(vgg16.apply, qat, opt)
+    p, s, o = params, state, opt.init(params)
+    for i in range(2):
+        p, s, o, _ = step(p, s, o, batches[i], i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    holder = [p, s, o]
+
+    def one(i):
+        holder[0], holder[1], holder[2], _ = step(*holder, batches[i % 4],
+                                                  2 + i)
+
+    tr_p50, tr_all = timed(one, 6)
+    tr_peak = torch.cuda.max_memory_allocated()
+    report["vgg16_timing"] = {
+        "batch": VGG_BATCH,
+        "q8_eval_ms_p50": ev_p50, "q8_eval_ms_all": ev_all,
+        "q8_eval_images_per_s": VGG_BATCH / (ev_p50 / 1e3),
+        "q8_eval_peak_memory_bytes": ev_peak,
+        "q8_eval_profiled_wall_ms": wall_ms,
+        "q8_eval_device_busy_ms": busy,
+        "q8_eval_idle_share": max(0.0, 1.0 - busy / wall_ms),
+        "q8_eval_device_ms_by_kernel": groups,
+        "qat_step_ms_p50": tr_p50, "qat_step_ms_all": tr_all,
+        "qat_images_per_s": VGG_BATCH / (tr_p50 / 1e3),
+        "qat_peak_memory_bytes": tr_peak}
+    print(f"VGG-16 q8 eval (batch {VGG_BATCH}): p50 {ev_p50:.2f} ms, "
+          f"{VGG_BATCH / (ev_p50 / 1e3):.0f} images/s, peak memory "
+          f"{ev_peak / 2**30:.2f} GiB; profiler: device busy {busy:.2f} of "
+          f"{wall_ms:.2f} ms per batch (idle share "
+          f"{max(0.0, 1.0 - busy / wall_ms):.3f})", flush=True)
+    for gname, g in sorted(groups.items(), key=lambda kv: -kv[1]["ms"]):
+        print(f"  {gname}: {g['ms']:.3f} ms/batch over {g['calls']:.0f} "
+              f"launches", flush=True)
+    print(f"VGG-16 QAT train step (batch {VGG_BATCH}): p50 {tr_p50:.2f} ms, "
+          f"{VGG_BATCH / (tr_p50 / 1e3):.0f} images/s, peak memory "
+          f"{tr_peak / 2**30:.2f} GiB", flush=True)
+
+
+def time_q8_kernels(dev, launches, report):
+    """Device ms of K4 and K5 per q8 eval batch of each path (every layer
+    at its shape; the kernels line takes VGG-16's, the main path), beside
+    the plain version, a library call of the vConv (identity) function —
+    F.conv2d on fp32 codes (TF32 off) for K5, torch._int_mm for K4 (N
+    padded to a multiple of 8 where its shape rules need it) — and the
+    bound: bytes at 3.35 TB/s or int8 operations at 1979 TOPS. CUDA-graph
+    replay over operand copies that hold 3x the L2, as time_k1."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cadc_conv as cc
+    from repro_torch.kernels import cadc_matmul as cm
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    scale = torch.tensor(0.0123, device=dev)
+    xbar, fn = 64, "relu"
+    per_path = {}
+
+    def timed(make, kernel, plain, lib):
+        first = make()
+        ops_set = [first] + rotation(make, sum(
+            t.numel() * t.element_size() for t in first))[1:]
+        reps = max(20, len(ops_set))
+        pick = itertools.cycle(ops_set).__next__
+        k = keep_counts(lambda: device_ms(lambda: kernel(*pick()), reps))
+        pl = keep_counts(lambda: device_ms(lambda: plain(*pick()), reps))
+        lb = None if lib is None else device_ms(lambda: lib(*pick()), reps)
+        return k, pl, lb
+
+    for model in ("vgg16", "resnet18", "snn"):
+        t = SNN_T if model == "snn" else 1
+        tot = {"k5": [0.0, 0.0, 0.0, 0.0, 0.0], "k4": [0.0] * 5}
+        shapes = {}
+        for _, b, h, cin, k, cout, st, pad in conv_layers(model):
+            key = (b, h, cin, k, cout, st, pad)
+            shapes[key] = shapes.get(key, 0) + t
+        for (b, h, cin, k, cout, st, pad), count in shapes.items():
+            w = _codes(gen, dev, (k, k, cin, cout), -1, 2)
+            w_oihw = w.float().permute(3, 2, 0, 1).contiguous()
+            oh = conv_out_hw(h, k, st, pad)
+            m, d = b * oh * oh, k * k * cin
+            kw = dict(crossbar_size=xbar, fn=fn, stride=(st, st),
+                      padding=pad)
+            cpad = 0 if pad == "VALID" else k // 2
+            ms, pl, lb = timed(
+                lambda: (_codes(gen, dev, (b, h, h, cin), -7, 8),),
+                lambda x: cc.cadc_conv2d_q8_cuda(x, w, scale, **kw),
+                lambda x: cc.cadc_conv2d_q8_torch(x, w, scale, **kw),
+                lambda x: F.conv2d(x.float().permute(0, 3, 1, 2), w_oihw,
+                                   stride=st, padding=cpad))
+            nbytes = b * h * h * cin + d * cout + 4 * m * cout + 4
+            for i, v in enumerate((ms, pl, lb, nbytes, 2 * m * d * cout)):
+                tot["k5"][i] += count * v
+        for name, m, d, n in q8_fc_shapes():
+            if not name.startswith(model):
+                continue
+            dp = -(-d // xbar) * xbar
+            w = _codes(gen, dev, (dp, n), -1, 2)
+            n8 = -(-n // 8) * 8
+            w8 = torch.zeros((dp, n8), dtype=torch.int8, device=dev)
+            w8[:, :n] = w
+            ms, pl, lb = timed(
+                lambda m=m, dp=dp: (_codes(gen, dev, (m, dp), -7, 8),),
+                lambda x: cm.cadc_matmul_q8_cuda(x, w, scale,
+                                                 crossbar_size=xbar, fn=fn),
+                lambda x: cm.cadc_matmul_q8_torch(x, w, scale,
+                                                  crossbar_size=xbar, fn=fn),
+                (lambda x: torch._int_mm(x, w8)) if m > 16 else None)
+            nbytes = m * dp + dp * n + 4 * m * n + 4
+            for i, v in enumerate((ms, pl, lb, nbytes, 2 * m * dp * n)):
+                tot["k4"][i] += t * (v if v is not None else math.nan)
+        per_path[model] = {}
+        for key, (ms, pl, lb, nbytes, ops) in tot.items():
+            b_ms, b_by = bound_ms(nbytes, ops, torch.int8)
+            per_path[model][key] = {
+                "ms": ms, "plain_ms": pl,
+                "library_ms": None if math.isnan(lb) else lb,
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                "ops": ops, "launches_per_batch": q8_launches(model)[
+                    "cadc_conv2d_q8" if key == "k5" else "cadc_matmul_q8"]}
+            print(f"{model} q8 eval batch, {key.upper()}: {ms:.3f} ms (plain "
+                  f"{pl:.3f}, library {lb:.3f}, bound {b_ms:.4f} by {b_by}) "
+                  f"over {per_path[model][key]['launches_per_batch']} "
+                  f"launches", flush=True)
+    report["q8_kernel_timing"] = {
+        "unit": "one q8 eval batch of each path (VGG-16 and ResNet-18 at "
+                "batch 128, the SNN at batch 32 x T 8), xbar 64, relu",
+        "per_path": per_path,
+        "library": "vConv yardsticks: F.conv2d on fp32 codes (NCHW view, "
+                   "TF32 off) for K5; torch._int_mm for K4 (N padded to a "
+                   "multiple of 8)"}
+    rows = []
+    for key, name, src, rep in (
+            ("k4", "cadc_matmul_q8", "src/repro_torch/csrc/cadc_matmul.cu",
+             "src/repro/kernels/cadc_matmul.py:419"),
+            ("k5", "cadc_conv2d_q8", "src/repro_torch/csrc/cadc_conv.cu",
+             "src/repro/kernels/cadc_conv.py:226")):
+        r = per_path["vgg16"][key]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": launches[name],
+                     "max_abs_err": Q8_MAX_ABS[key], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"]})
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--report", default=None,
@@ -1501,13 +2110,25 @@ def main() -> None:
 
     lenet_path(dev, report)
     training_parity(dev, report)
-    train_launches = resnet_main_path(dev, report)
+    train_launches, resnet_trained = resnet_main_path(dev, report)
     time_resnet_step(dev, report)
     torch.cuda.empty_cache()
 
     kernels = [time_k1(cfg, dev, launches, report),
                time_k6(cfg, dev, launches, report),
                *time_train_kernels(dev, train_launches, report)]
+    torch.cuda.empty_cache()
+
+    check_k4(dev, report)
+    check_k5(dev, report)
+    q8_launch_counts, vgg_trained = vgg_main_path(dev, report)
+    resnet_q8_path(dev, resnet_trained, report)
+    del resnet_trained
+    snn_path(dev, report)
+    time_vgg(dev, vgg_trained, report)
+    del vgg_trained
+    torch.cuda.empty_cache()
+    kernels += time_q8_kernels(dev, q8_launch_counts, report)
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
 

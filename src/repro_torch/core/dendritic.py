@@ -39,10 +39,20 @@ def relu(x: Tensor) -> Tensor:
     return torch.where(x > 0, x, torch.zeros_like(x))
 
 
+def _sqrt(x: Tensor) -> Tensor:
+    """The correctly rounded square root, as IEEE sqrt in XLA and CUDA.
+    torch's vectorized float32 sqrt on the CPU is not correctly rounded
+    (it misses by an ulp on ~1% of inputs), so CPU tensors take the root
+    in float64, which rounds back to the correctly rounded float32."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 def sublinear(x: Tensor) -> Tensor:
     """f(x) = sqrt(x + eps) for x > 0 else 0."""
     safe = torch.where(x > 0, x, torch.ones_like(x))
-    return torch.where(x > 0, torch.sqrt(safe + _SQRT_EPS), torch.zeros_like(x))
+    return torch.where(x > 0, _sqrt(safe + _SQRT_EPS), torch.zeros_like(x))
 
 
 def supralinear(x: Tensor, k: float = SUPRALINEAR_K) -> Tensor:
@@ -75,7 +85,7 @@ def relu_grad(x: Tensor) -> Tensor:
 
 def sublinear_grad(x: Tensor) -> Tensor:
     safe = torch.where(x > 0, x, torch.ones_like(x))
-    return torch.where(x > 0, 0.5 / torch.sqrt(safe + _SQRT_EPS),
+    return torch.where(x > 0, 0.5 / _sqrt(safe + _SQRT_EPS),
                        torch.zeros_like(x))
 
 

@@ -13,9 +13,13 @@
 // gate f'(p_s) comes from the forward (K1g / K3) as packed uint32 words
 // [S, M, ceil(N/32)], one byte or one fp32 per psum [S, M, N]; or it is
 // absent (identity: f' = 1, g is used as it is); or it is recomputed here
-// (save_gate="recompute": no residual) as f'(x_s @ w_s) in fp32, summed in
-// the same order as the forward kernels, so the recomputed gate is bitwise
-// the forward's.
+// (save_gate="recompute": no residual) as f'(scale * (x_s @ w_s)) in fp32,
+// summed in the same order as the forward kernels, so the recomputed gate is
+// bitwise the forward's. scale, one fp32 in device memory, is 1 on the
+// float path (the product is then exact: the gate is unchanged) and the q8
+// path's dequantization factor: there x and w hold integer codes, their
+// fp32 psum is the exact integer psum of K4 / K5 (below 2^24), and
+// __fmul_rn(p, scale) is bitwise the forward's dequantized psum.
 //
 // Bound on this card: at ResNet-18's stage-0 conv (M = B*OH*OW = 131072,
 // D = 576, N = 64) each of dx and dw does 2*M*D*N = 9.7 GFLOP on ~0.4 GB
@@ -69,14 +73,15 @@ struct RecomputeLayout {
   static constexpr int kFloats = kGateAt + R * (C + 1);
 };
 
-// gs[r][c] (row stride C + 1) = f'(p) with p = sum over k < xbar of
+// gs[r][c] (row stride C + 1) = f'(p * sc) with p = sum over k < xbar of
 // x[r0 + r, seg + k] * w[seg + k, c0 + c], accumulated with one fmaf per k
 // in increasing k from 0 — the forward kernels' order. Rows at or past
 // m_end and columns past N are masked to 0 inputs.
 template <int R, int C>
 __device__ __forceinline__ void recompute_gate(
     const float* __restrict__ x, const float* __restrict__ w, float* buf,
-    int r0, int m_end, int c0, int seg, int xbar, int N, int D, int fn) {
+    int r0, int m_end, int c0, int seg, int xbar, int N, int D, int fn,
+    float sc) {
   constexpr int kG = kThreads / C;  // row groups
   constexpr int kQ = R / kG;        // rows per thread
   static_assert(kG * C == kThreads && kQ * kG == R, "even split");
@@ -114,7 +119,8 @@ __device__ __forceinline__ void recompute_gate(
   }
 #pragma unroll
   for (int q = 0; q < kQ; ++q)
-    gs[(rg + q * kG) * (C + 1) + c] = cadc::dendritic_grad(fn, p[q]);
+    gs[(rg + q * kG) * (C + 1) + c] =
+        cadc::dendritic_grad(fn, __fmul_rn(p[q], sc));
   __syncthreads();
 }
 
@@ -142,8 +148,8 @@ template <int kKind>
 __global__ void __launch_bounds__(kThreads, 2)
 bwd_dx_kernel(const float* __restrict__ g, const float* __restrict__ x,
               const float* __restrict__ w, const void* __restrict__ gate,
-              float* __restrict__ dx, int M, int N, int D, int xbar,
-              int fn) {
+              const float* __restrict__ scale, float* __restrict__ dx, int M,
+              int N, int D, int xbar, int fn) {
   constexpr bool kRe = kKind == cadc::kGateRecompute;
   __shared__ float as[kBK][kT + 1];  // as[n][m] = g * gate
   __shared__ float bs[kBK][kT + 1];  // bs[n][c] = w[seg + c0 + c, n]
@@ -152,6 +158,7 @@ bwd_dx_kernel(const float* __restrict__ g, const float* __restrict__ x,
   const int s = blockIdx.y / ctiles, c0 = (blockIdx.y % ctiles) * kT;
   const int seg = s * xbar, m0 = blockIdx.x * kT;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float sc = (kRe && scale != nullptr) ? *scale : 1.f;
 
   float acc[4][4];
 #pragma unroll
@@ -161,7 +168,8 @@ bwd_dx_kernel(const float* __restrict__ g, const float* __restrict__ x,
 
   for (int n0 = 0; n0 < N; n0 += kBK) {
     if constexpr (kRe)
-      recompute_gate<kT, kBK>(x, w, rbuf, m0, M, n0, seg, xbar, N, D, fn);
+      recompute_gate<kT, kBK>(x, w, rbuf, m0, M, n0, seg, xbar, N, D, fn,
+                              sc);
 #pragma unroll
     for (int r = 0; r < kT * kBK / kThreads; ++r) {
       const int e = threadIdx.x + r * kThreads;
@@ -209,8 +217,8 @@ template <int kKind>
 __global__ void __launch_bounds__(kThreads, 2)
 bwd_dw_kernel(const float* __restrict__ g, const float* __restrict__ x,
               const float* __restrict__ w, const void* __restrict__ gate,
-              float* __restrict__ out, int M, int N, int D, int xbar, int fn,
-              int rows_per_split) {
+              const float* __restrict__ scale, float* __restrict__ out, int M,
+              int N, int D, int xbar, int fn, int rows_per_split) {
   constexpr bool kRe = kKind == cadc::kGateRecompute;
   __shared__ float as[kBK][kT + 1];  // as[m][c] = x[m, seg + c0 + c]
   __shared__ float bs[kBK][kT + 1];  // bs[m][n] = g * gate
@@ -221,6 +229,7 @@ bwd_dw_kernel(const float* __restrict__ g, const float* __restrict__ x,
   const int m_lo = blockIdx.z * rows_per_split;
   const int m_hi = min(M, m_lo + rows_per_split);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float sc = (kRe && scale != nullptr) ? *scale : 1.f;
   out += static_cast<size_t>(blockIdx.z) * D * N;
 
   float acc[4][4];
@@ -232,7 +241,7 @@ bwd_dw_kernel(const float* __restrict__ g, const float* __restrict__ x,
   for (int mk0 = m_lo; mk0 < m_hi; mk0 += kBK) {
     if constexpr (kRe)
       recompute_gate<kBK, kT>(x, w, rbuf, mk0, m_hi, n0, seg, xbar, N, D,
-                              fn);
+                              fn, sc);
 #pragma unroll
     for (int r = 0; r < kT * kBK / kThreads; ++r) {
       const int e = threadIdx.x + r * kThreads;
@@ -286,22 +295,24 @@ __global__ void split_sum_kernel(const float* __restrict__ parts,
 
 template <int kKind>
 int launch(const float* g, const float* x, const float* w, const void* gate,
-           float* dx, float* dw, float* scratch, int splits,
+           const float* scale, float* dx, float* dw, float* scratch,
+           int splits,
            int rows_per_split, int M, int N, int D, int xbar, int fn,
            cudaStream_t stream) {
   const int S = (D + xbar - 1) / xbar;
   const int ctiles = (xbar + kT - 1) / kT;
   if (dx != nullptr) {
     dim3 grid((M + kT - 1) / kT, S * ctiles);
-    bwd_dx_kernel<kKind><<<grid, kThreads, 0, stream>>>(g, x, w, gate, dx, M,
-                                                        N, D, xbar, fn);
+    bwd_dx_kernel<kKind><<<grid, kThreads, 0, stream>>>(g, x, w, gate, scale,
+                                                        dx, M, N, D, xbar,
+                                                        fn);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (dw != nullptr) {
     dim3 grid((N + kT - 1) / kT, S * ctiles, splits);
     bwd_dw_kernel<kKind><<<grid, kThreads, 0, stream>>>(
-        g, x, w, gate, splits > 1 ? scratch : dw, M, N, D, xbar, fn,
+        g, x, w, gate, scale, splits > 1 ? scratch : dw, M, N, D, xbar, fn,
         rows_per_split);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
@@ -316,24 +327,27 @@ int launch(const float* g, const float* x, const float* w, const void* gate,
 
 // g [M, N], x [M, D], w [D, N] fp32, row-major; gate as gate_kind says
 // (0 none, 1 packed uint32 [S, M, ceil(N/32)], 2 uint8 [S, M, N], 3 fp32
-// [S, M, N], 4 recompute: NULL). dx [M, D] and dw [D, N] fp32, either may
-// be NULL (not wanted). dw sums `splits` partials of `rows_per_split` rows
-// of M each; scratch is fp32 [splits, D, N] when splits > 1, else NULL.
-// Returns the CUDA error code after the launches (0 = success).
+// [S, M, N], 4 recompute: NULL). scale: NULL (1) or one fp32 in device
+// memory, the recompute's psum factor. dx [M, D] and dw [D, N] fp32, either
+// may be NULL (not wanted). dw sums `splits` partials of `rows_per_split`
+// rows of M each; scratch is fp32 [splits, D, N] when splits > 1, else
+// NULL. Returns the CUDA error code after the launches (0 = success).
 extern "C" int cadc_bwd_launch(const void* g, const void* x, const void* w,
-                               const void* gate, void* dx, void* dw,
-                               void* scratch, int splits, int rows_per_split,
-                               int M, int N, int D, int xbar, int fn,
-                               int gate_kind, void* stream) {
+                               const void* gate, const void* scale, void* dx,
+                               void* dw, void* scratch, int splits,
+                               int rows_per_split, int M, int N, int D,
+                               int xbar, int fn, int gate_kind,
+                               void* stream) {
   const float* gp = static_cast<const float*>(g);
   const float* xp = static_cast<const float*>(x);
   const float* wp = static_cast<const float*>(w);
   float* dxp = static_cast<float*>(dx);
   float* dwp = static_cast<float*>(dw);
+  const float* sp = static_cast<const float*>(scale);
   float* sc = static_cast<float*>(scratch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CADC_BWD(kind)                                                      \
-  return launch<kind>(gp, xp, wp, gate, dxp, dwp, sc, splits,               \
+  return launch<kind>(gp, xp, wp, gate, sp, dxp, dwp, sc, splits,           \
                       rows_per_split, M, N, D, xbar, fn, st)
   switch (gate_kind) {
     case cadc::kGateNone: CADC_BWD(cadc::kGateNone);

@@ -28,6 +28,24 @@
 // image has to fit in shared memory (the TPU kernel held one padded image
 // in VMEM). The gate variant writes [S, B, OH, OW, ceil(Cout/32)] uint32
 // words, or one byte / fp32 per psum, as K1g does. Dilation is 1.
+//
+// K5 replaces the q8 bodies of the same launcher, `_q8_kernel` and
+// `_q8_kernel_with_gate` (`_tap_psum` with acc_dtype int32; entry
+// `cadc_conv2d_q8_pallas`): x_q int8 NHWC codes and w int8 HWIO codes give
+// an exact int32 psum per segment, summed over the segment's taps before
+// it is dequantized once (float(p) * scale, scale read from device memory)
+// and f applied; then the sequential fp32 sum, and the gate
+// [S, B, OH, OW, ceil(Cout/32)] from the dequantized psum. It is the same
+// implicit GEMM over int8 gathers with int32 multiply-adds, every rounding
+// after the dequantization explicit (cadc_tile.cuh), so bitwise its plain
+// version. The first conv of a model has Cin = 3 (or 2): its patch rows are
+// not aligned, and the gather reads them a byte at a time. Bound on this
+// card: 1 byte per input element and 4 per fp32 output make every VGG-16
+// conv at batch 128 bound by bytes at the data-sheet rates (its first 3x3
+// 64-channel conv: 42 MB, 12.5 us at 3.35 TB/s, against 9.7 G int8
+// operations, 4.9 us at the int8 tensor-core peak). This kernel runs them
+// as int32 multiply-adds on CUDA cores; the int8 tensor cores are later
+// work.
 #include "cadc_tile.cuh"
 
 namespace {
@@ -35,11 +53,12 @@ namespace {
 using cadc::kThreads;
 
 // X(m, d) = the im2col patch element of output pixel m = (b, oh, ow) and
-// contraction row d = (i*K2 + j)*Cin + c.
+// contraction row d = (i*K2 + j)*Cin + c, widened to the psum's type.
+template <typename T, typename Acc>
 struct ConvGather {
-  const float* x;
+  const T* x;
   int H, W, Cin, K2, OH, OW, s1, s2, pt, pl;
-  __device__ __forceinline__ float operator()(int m, int d) const {
+  __device__ __forceinline__ Acc operator()(int m, int d) const {
     const int ow = m % OW;
     const int t = m / OW;
     const int oh = t % OH;
@@ -50,27 +69,47 @@ struct ConvGather {
     const int j = tap - i * K2;
     const int ih = oh * s1 + i - pt;
     const int iw = ow * s2 + j - pl;
-    if (ih < 0 || ih >= H || iw < 0 || iw >= W) return 0.f;
-    return x[((static_cast<size_t>(b) * H + ih) * W + iw) * Cin + c];
+    if (ih < 0 || ih >= H || iw < 0 || iw >= W) return Acc(0);
+    return cadc::widen<Acc>(
+        x[((static_cast<size_t>(b) * H + ih) * W + iw) * Cin + c]);
   }
 };
 
-template <bool kGate>
-int launch(const ConvGather& g, const float* w, float* y, void* gate, int M,
-           int N, int D, int xbar, int fn, int gate_kind,
-           cudaStream_t stream) {
+template <typename T, typename Acc, bool kGate>
+int launch(const ConvGather<T, Acc>& g, const T* w, const float* scale,
+           float* y, void* gate, int M, int N, int D, int xbar, int fn,
+           int gate_kind, cudaStream_t stream) {
   const int S = (D + xbar - 1) / xbar;
   dim3 grid((N + 63) / 64, (M + 63) / 64, 1);
-  cadc::fwd_tile_kernel<float, 64, 64, 4, 4, kGate, ConvGather>
+  cadc::fwd_tile_kernel<T, Acc, 64, 64, 4, 4, kGate, ConvGather<T, Acc>>
       <<<grid, kThreads, 0, stream>>>(g, w, y, gate, M, N, D, S, xbar, fn,
-                                      /*split=*/0, gate_kind);
+                                      /*split=*/0, gate_kind, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename Acc>
+int by_gate(const void* x, const void* w, const void* scale, void* y,
+            void* gate, int B, int H, int W, int Cin, int K1, int K2,
+            int Cout, int OH, int OW, int s1, int s2, int pt, int pl,
+            int xbar, int fn, int gate_kind, void* stream) {
+  const ConvGather<T, Acc> g{static_cast<const T*>(x), H, W, Cin, K2, OH, OW,
+                             s1, s2, pt, pl};
+  const int M = B * OH * OW, D = K1 * K2 * Cin;
+  const T* wp = static_cast<const T*>(w);
+  const float* sp = static_cast<const float*>(scale);
+  float* yp = static_cast<float*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (gate_kind == cadc::kGateNone)
+    return launch<T, Acc, false>(g, wp, sp, yp, nullptr, M, Cout, D, xbar, fn,
+                                 gate_kind, st);
+  return launch<T, Acc, true>(g, wp, sp, yp, gate, M, Cout, D, xbar, fn,
+                              gate_kind, st);
 }
 
 }  // namespace
 
-// x [B, H, W, Cin] and w [K1, K2, Cin, Cout] fp32, y [B, OH, OW, Cout] fp32.
-// gate: NULL (gate_kind 0) or [S, B, OH, OW, ...] as gate_kind says
+// K3. x [B, H, W, Cin] and w [K1, K2, Cin, Cout] fp32, y [B, OH, OW, Cout]
+// fp32. gate: NULL (gate_kind 0) or [S, B, OH, OW, ...] as gate_kind says
 // (1: uint32 words of ceil(Cout/32); 2: uint8 per psum; 3: fp32 per psum).
 // Returns the CUDA error code after the launch (0 = success).
 extern "C" int cadc_conv_launch(const void* x, const void* w, void* y,
@@ -78,16 +117,22 @@ extern "C" int cadc_conv_launch(const void* x, const void* w, void* y,
                                 int K1, int K2, int Cout, int OH, int OW,
                                 int s1, int s2, int pt, int pl, int xbar,
                                 int fn, int gate_kind, void* stream) {
-  const ConvGather g{static_cast<const float*>(x), H, W, Cin, K2, OH, OW,
-                     s1, s2, pt, pl};
-  const int M = B * OH * OW, D = K1 * K2 * Cin;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (gate_kind == cadc::kGateNone)
-    return launch<false>(g, static_cast<const float*>(w),
-                         static_cast<float*>(y), nullptr, M, Cout, D, xbar,
-                         fn, gate_kind, st);
-  return launch<true>(g, static_cast<const float*>(w), static_cast<float*>(y),
-                      gate, M, Cout, D, xbar, fn, gate_kind, st);
+  return by_gate<float, float>(x, w, nullptr, y, gate, B, H, W, Cin, K1, K2,
+                               Cout, OH, OW, s1, s2, pt, pl, xbar, fn,
+                               gate_kind, stream);
+}
+
+// K5 (gate_kind 0) and its gate variant: x_q and w int8 in K3's layouts,
+// scale one fp32 in device memory, y and gate as K3's.
+extern "C" int cadc_conv_q8_launch(const void* x, const void* w,
+                                   const void* scale, void* y, void* gate,
+                                   int B, int H, int W, int Cin, int K1,
+                                   int K2, int Cout, int OH, int OW, int s1,
+                                   int s2, int pt, int pl, int xbar, int fn,
+                                   int gate_kind, void* stream) {
+  return by_gate<int8_t, int>(x, w, scale, y, gate, B, H, W, Cin, K1, K2,
+                              Cout, OH, OW, s1, s2, pt, pl, xbar, fn,
+                              gate_kind, stream);
 }
 
 extern "C" const char* cadc_conv_error_string(int code) {

@@ -1,24 +1,37 @@
 // Shared device code of the CADC kernels for Hopper (sm_90a): the dendritic
 // fns and their derivatives, and the segmented forward tile kernel that K1
-// and K1g (cadc_matmul.cu) and K3 (cadc_conv.cu) instantiate.
+// and K1g (cadc_matmul.cu), K3 (cadc_conv.cu) and the q8 kernels K4
+// (cadc_matmul.cu) and K5 (cadc_conv.cu) instantiate.
 //
 // The forward tile kernel computes
 //
 //     y[M, N] = sum_s f( sum_{k < xbar, s*xbar + k < D} X(m, s*xbar + k) * w[s*xbar + k, n] )
 //
-// where X is read through a loader: the row-major x of a matmul (K1, K1g)
-// or the implicit im2col gather of a convolution (K3). Every psum is fp32,
-// f is applied per segment before the cross-segment sum, segments are added
-// in order s = 0, 1, ... into an fp32 accumulator, and each output element
-// is written once. With kGate the kernel also writes each segment's gate
+// where X is read through a loader: the row-major x of a matmul (K1, K1g,
+// K4) or the implicit im2col gather of a convolution (K3, K5). f is applied
+// per segment before the cross-segment sum, segments are added in order
+// s = 0, 1, ... into an fp32 accumulator, and each output element is
+// written once. With kGate the kernel also writes each segment's gate
 // f'(psum) from the same fp32 psum, in registers: packed 32 to a uint32
 // word along N (bit b of word w = column 32w + b, the JAX bit layout, N
 // padded to whole words), or one byte / one fp32 per psum.
+//
+// Acc is the psum's type. float (K1, K1g, K3): fp32 operands (bf16
+// widened), fp32 FMAs. int (K4, K5, the q8 kernels): int8 operands widened
+// to int32, exact int32 multiply-adds — so the order of the psum's terms
+// is free — and at the end of each segment the psum is dequantized once,
+// float(p) * scale with scale read from device memory. In the q8 kernels
+// every rounding after that is explicit (__int2float_rn, __fmul_rn,
+// __fadd_rn, __fsqrt_rn): nvcc contracts a * b + c into one fmaf by
+// default, which rounds once where PyTorch rounds twice, and the q8
+// kernels are bitwise their plain versions.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cadc {
 
@@ -44,6 +57,26 @@ __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// An operand widened to the psum's type: fp32 (bf16 converted), or int32.
+template <typename Acc, typename T>
+__device__ __forceinline__ Acc widen(T v) {
+  if constexpr (std::is_same_v<Acc, int>)
+    return static_cast<int>(v);
+  else
+    return to_f32(v);
+}
+
+__device__ __forceinline__ float mac(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ int mac(int a, int b, int c) { return a * b + c; }
+
+// The fp32 psum of an accumulator: itself, or an int32 psum dequantized.
+__device__ __forceinline__ float psum_f32(float p, float) { return p; }
+__device__ __forceinline__ float psum_f32(int p, float scale) {
+  return __fmul_rn(__int2float_rn(p), scale);
+}
+
 // fn ids: repro_torch/kernels/cadc_matmul.py FN_IDS. Same forms as
 // repro_torch/core/dendritic.py (f(p) = 0 for p <= 0 except identity).
 __device__ __forceinline__ float dendritic(int fn, float p) {
@@ -53,6 +86,18 @@ __device__ __forceinline__ float dendritic(int fn, float p) {
     case 2: return p > 0.f ? sqrtf(p + 1e-12f) : 0.f;  // sublinear
     case 3: return p > 0.f ? p * p : 0.f;              // supralinear, k = 1
     default: return p > 0.f ? tanhf(p) : 0.f;          // tanh
+  }
+}
+
+// dendritic() with every rounding explicit, as PyTorch rounds (the q8
+// kernels): no fmaf contraction of the dequantization or of the sum.
+__device__ __forceinline__ float dendritic_rn(int fn, float p) {
+  switch (fn) {
+    case 0: return p;
+    case 1: return p > 0.f ? p : 0.f;
+    case 2: return p > 0.f ? __fsqrt_rn(__fadd_rn(p, 1e-12f)) : 0.f;
+    case 3: return p > 0.f ? __fmul_rn(p, p) : 0.f;
+    default: return p > 0.f ? tanhf(p) : 0.f;
   }
 }
 
@@ -86,14 +131,17 @@ __device__ __forceinline__ float dendritic_grad(int fn, float p) {
 // S tiles in order s = 0, 1, ... — the same additions in the same order
 // as the single pass, so the result is bitwise the same.
 //
-// XLoad: `float operator()(int m, int d) const` returns X(m, d) for
-// m < M, d < D (the caller masks both).
-template <typename T, int BM, int BN, int TM, int TN, bool kGate,
-          typename XLoad>
+// XLoad: `Acc operator()(int m, int d) const` returns X(m, d) for
+// m < M, d < D (the caller masks both). scale: the q8 kernels' fp32
+// dequantization factor in device memory (read once); unused for float.
+template <typename T, typename Acc, int BM, int BN, int TM, int TN,
+          bool kGate, typename XLoad>
 __global__ void __launch_bounds__(kThreads, 2)  // <= 128 registers a thread
 fwd_tile_kernel(XLoad xl, const T* __restrict__ w, float* __restrict__ y,
                 void* __restrict__ gate, int M, int N, int D, int S,
-                int xbar, int fn, int split, int gate_kind) {
+                int xbar, int fn, int split, int gate_kind,
+                const float* __restrict__ scale) {
+  constexpr bool kQ8 = std::is_same_v<Acc, int>;
   static_assert((BM / TM) * (BN / TN) == kThreads, "one micro-tile per thread");
   constexpr int kCols = BN / TN;
   static_assert(!kGate || ((kCols == 32 || kCols == 16) && BN % kPack == 0),
@@ -102,8 +150,8 @@ fwd_tile_kernel(XLoad xl, const T* __restrict__ w, float* __restrict__ y,
   constexpr int kWL = kBK * BN / kThreads;  // w elements staged per thread
   static_assert(kXL * kThreads == BM * kBK && kWL * kThreads == kBK * BN,
                 "tiles split evenly over the threads");
-  __shared__ float xs[kBK][BM + 1];  // transposed; +1 breaks bank conflicts
-  __shared__ float ws[kBK][BN];
+  __shared__ Acc xs[kBK][BM + 1];  // transposed; +1 breaks bank conflicts
+  __shared__ Acc ws[kBK][BN];
 
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
@@ -113,8 +161,10 @@ fwd_tile_kernel(XLoad xl, const T* __restrict__ w, float* __restrict__ y,
   const int kt_per_seg = (xbar + kBK - 1) / kBK;
   const int n_tiles = (split ? 1 : S) * kt_per_seg;
   float* out = y + (split ? static_cast<size_t>(blockIdx.z) * M * N : 0);
+  float sc = 1.f;
+  if constexpr (kQ8) sc = *scale;
 
-  float xr[kXL], wr[kWL];
+  Acc xr[kXL], wr[kWL];
   auto stage = [&](int t) {
     const int k0 = (t % kt_per_seg) * kBK;
     const int seg = (s_first + t / kt_per_seg) * xbar;
@@ -122,19 +172,20 @@ fwd_tile_kernel(XLoad xl, const T* __restrict__ w, float* __restrict__ y,
     for (int r = 0; r < kXL; ++r) {
       const int e = threadIdx.x + r * kThreads;
       const int m = m0 + e / kBK, k = k0 + e % kBK;
-      xr[r] = (m < M && k < xbar && seg + k < D) ? xl(m, seg + k) : 0.f;
+      xr[r] = (m < M && k < xbar && seg + k < D) ? xl(m, seg + k) : Acc(0);
     }
 #pragma unroll
     for (int r = 0; r < kWL; ++r) {
       const int e = threadIdx.x + r * kThreads;
       const int n = n0 + e % BN, k = k0 + e / BN;
       wr[r] = (n < N && k < xbar && seg + k < D)
-                  ? to_f32(w[static_cast<size_t>(seg + k) * N + n])
-                  : 0.f;
+                  ? widen<Acc>(w[static_cast<size_t>(seg + k) * N + n])
+                  : Acc(0);
     }
   };
 
-  float acc[TM][TN], ps[TM][TN];
+  float acc[TM][TN];
+  Acc ps[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -160,11 +211,11 @@ fwd_tile_kernel(XLoad xl, const T* __restrict__ w, float* __restrict__ y,
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) ps[i][j] = 0.f;
+        for (int j = 0; j < TN; ++j) ps[i][j] = Acc(0);
     }
 #pragma unroll 8
     for (int kk = 0; kk < kBK; ++kk) {
-      float a[TM], b[TN];
+      Acc a[TM], b[TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty * TM + i];
 #pragma unroll
@@ -172,7 +223,7 @@ fwd_tile_kernel(XLoad xl, const T* __restrict__ w, float* __restrict__ y,
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) ps[i][j] = fmaf(a[i], b[j], ps[i][j]);
+        for (int j = 0; j < TN; ++j) ps[i][j] = mac(a[i], b[j], ps[i][j]);
     }
     __syncthreads();
     if (kt == kt_per_seg - 1) {  // segment done: f in registers, add in order
@@ -193,14 +244,17 @@ fwd_tile_kernel(XLoad xl, const T* __restrict__ w, float* __restrict__ y,
               uint32_t word;
               bool writer;
               if constexpr (kCols == 32) {
-                word = __ballot_sync(0xffffffffu,
-                                     dendritic_grad(fn, ps[i][q]) != 0.f);
+                word = __ballot_sync(
+                    0xffffffffu,
+                    dendritic_grad(fn, psum_f32(ps[i][q], sc)) != 0.f);
                 writer = lane == 0;
               } else {
                 const uint32_t lo = __ballot_sync(
-                    0xffffffffu, dendritic_grad(fn, ps[i][2 * q]) != 0.f);
+                    0xffffffffu,
+                    dendritic_grad(fn, psum_f32(ps[i][2 * q], sc)) != 0.f);
                 const uint32_t hi = __ballot_sync(
-                    0xffffffffu, dendritic_grad(fn, ps[i][2 * q + 1]) != 0.f);
+                    0xffffffffu,
+                    dendritic_grad(fn, psum_f32(ps[i][2 * q + 1], sc)) != 0.f);
                 // lanes 0-15 hold the even row, lanes 16-31 the odd one
                 word = lane < 16 ? ((lo & 0xffffu) | (hi << 16))
                                  : ((lo >> 16) | (hi & 0xffff0000u));
@@ -220,7 +274,7 @@ fwd_tile_kernel(XLoad xl, const T* __restrict__ w, float* __restrict__ y,
             for (int j = 0; j < TN; ++j) {
               const int n = n0 + tx + j * kCols;
               if (m >= M || n >= N) continue;
-              const float gv = dendritic_grad(fn, ps[i][j]);
+              const float gv = dendritic_grad(fn, psum_f32(ps[i][j], sc));
               const size_t at = base + static_cast<size_t>(m) * N + n;
               if (gate_kind == kGateU8)
                 static_cast<uint8_t*>(gate)[at] = gv != 0.f;
@@ -233,7 +287,13 @@ fwd_tile_kernel(XLoad xl, const T* __restrict__ w, float* __restrict__ y,
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += dendritic(fn, ps[i][j]);
+        for (int j = 0; j < TN; ++j) {
+          if constexpr (kQ8)
+            acc[i][j] = __fadd_rn(acc[i][j],
+                                  dendritic_rn(fn, psum_f32(ps[i][j], sc)));
+          else
+            acc[i][j] += dendritic(fn, ps[i][j]);
+        }
     }
   }
 

@@ -1,9 +1,10 @@
-"""Deterministic synthetic classification data (MNIST / CIFAR proxies).
+"""Deterministic synthetic data: classification images (MNIST / CIFAR
+proxies) and event streams (a DVS Gesture proxy).
 
-Port of repro.data.synthetic's classification part. No dataset is
-downloaded: the generator draws LEARNABLE class-conditional images (smooth
-low-rank class templates plus Gaussian noise) so CADC-vs-vConv accuracy and
-convergence are measurable. Every batch is a pure function of (seed, step),
+Port of repro.data.synthetic's CNN part. No dataset is downloaded: the
+generators draw LEARNABLE class-conditional inputs (smooth low-rank class
+templates plus Gaussian noise; class-dependent Bernoulli firing-rate maps)
+so CADC-vs-vConv accuracy and convergence are measurable. Every batch is a pure function of (seed, step),
 drawn from a torch.Generator seeded from both. torch's generators cannot
 give jax.random's bits, so the numbers differ from the JAX package's for
 the same spec; tests that compare the two feed JAX-made batches to both.
@@ -65,5 +66,30 @@ def make_classification_dataset(spec: ClassificationSpec, device="cuda"
         x = templates[labels]
         x = x + spec.noise * torch.randn(x.shape, generator=gen, device=dev)
         return {"image": x, "label": labels}
+
+    return batch_fn
+
+
+def make_event_dataset(n_classes: int = 11, hw: int = 32, t_steps: int = 8,
+                       seed: int = 0, rate_contrast: float = 0.35,
+                       device="cuda") -> Callable[[int, int],
+                                                  Dict[str, Tensor]]:
+    """DVS-Gesture-like synthetic event streams: class-dependent Bernoulli
+    firing-rate maps over 2 polarities. batch_fn(step, batch_size) ->
+    {'events' [B, T, H, W, 2] fp32 0/1, 'label' [B] int64} on `device`."""
+    dev = resolve(device)
+    gen = torch.Generator().manual_seed(seed)
+    base = (torch.sigmoid(torch.randn(n_classes, hw, hw, 2, generator=gen)
+                          * 1.5) * rate_contrast + 0.02).to(dev)
+
+    def batch_fn(step: int, batch_size: int) -> Dict[str, Tensor]:
+        g = torch.Generator(device=dev).manual_seed(
+            (seed + 1) * 1_000_003 + step)
+        labels = torch.randint(0, n_classes, (batch_size,), generator=g,
+                               device=dev)
+        rates = base[labels][:, None]  # [B, 1, H, W, 2]
+        u = torch.rand((batch_size, t_steps, hw, hw, 2), generator=g,
+                       device=dev)
+        return {"events": (u < rates).float(), "label": labels}
 
     return batch_fn

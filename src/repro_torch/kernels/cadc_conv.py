@@ -20,6 +20,16 @@ over all of them before f(). Dilation is 1.
   * CadcConv2dFn      — forward K3; backward as the JAX `_diff_conv_op`:
                         im2col patches again, K2 over them (dpatches and
                         dw), then `_col2im` folds dpatches back to dx.
+  * cadc_conv2d_q8_cuda — K5 (csrc/cadc_conv.cu; replaces the Pallas
+                        `_q8_kernel` / `_q8_kernel_with_gate`): int8 codes,
+                        an int32 psum per segment over its taps, one fp32
+                        scale read from device memory, f, the sequential
+                        sum; the gate as K3's.
+  * cadc_conv2d_q8_torch — its plain version: im2col of the codes, then K4's
+                        plain version (exact fp32 psums of the codes).
+  * CadcConv2dQ8Fn    — forward K5; the straight-through backward of
+                        `_diff_conv_q8_op`: K2 over the codes' patches,
+                        times scale, `_col2im`; d(scale) = <dw_unscaled, w>.
 """
 from __future__ import annotations
 
@@ -104,25 +114,46 @@ def cadc_conv2d_torch(x: Tensor, w: Tensor, *, crossbar_size: int, fn: str,
     return y.reshape(b, oh, ow, cout), gate
 
 
+def cadc_conv2d_q8_torch(x_q: Tensor, w_codes: Tensor, scale: Tensor, *,
+                         crossbar_size: int, fn: str, stride=(1, 1),
+                         padding="SAME", mode: str = "none"
+                         ) -> Tuple[Tensor, Optional[Tensor]]:
+    """K5's plain version: x_q [B, H, W, Cin], w_codes [K1, K2, Cin, Cout]
+    integer codes (int8, or floats holding them), scale one fp32 ->
+    (y [B, OH, OW, Cout] fp32, gate or None)."""
+    k1, k2, cin, cout = w_codes.shape
+    patches = im2col(x_q.float(), (k1, k2), stride=tuple(stride),
+                     padding=padding)
+    b, oh, ow, d = patches.shape
+    y, gate = _cm.cadc_matmul_q8_gate_torch(
+        core_cadc.pad_to_segments(patches.reshape(-1, d), -1, crossbar_size),
+        core_cadc.pad_to_segments(w_codes.float().reshape(d, cout), 0,
+                                  crossbar_size),
+        scale, crossbar_size=crossbar_size, fn=fn, mode=mode)
+    if gate is not None:
+        gate = gate.reshape(gate.shape[0], b, oh, ow, -1)
+    return y.reshape(b, oh, ow, cout), gate
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.library(_SOURCE)
     lib.cadc_conv_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
     lib.cadc_conv_launch.restype = ctypes.c_int
+    lib.cadc_conv_q8_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
+    lib.cadc_conv_q8_launch.restype = ctypes.c_int
     lib.cadc_conv_error_string.argtypes = [ctypes.c_int]
     lib.cadc_conv_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def cadc_conv2d_cuda(x: Tensor, w: Tensor, *, crossbar_size: int, fn: str,
-                     stride=(1, 1), padding="SAME", mode: str = "none"
-                     ) -> Tuple[Tensor, Optional[Tensor]]:
-    """K3: x [B, H, W, Cin], w [K1, K2, Cin, Cout] fp32 on one CUDA device
-    -> (y [B, OH, OW, Cout] fp32, gate of `mode` or None). Raises on
-    anything else. Counts its launches in `cadc_conv2d_cuda.launches`."""
-    _cm._check_cuda("cadc_conv2d_cuda", fn, x, w,
-                    dtypes={torch.float32: 0})
+def _conv_launch(name: str, x: Tensor, w: Tensor, crossbar_size: int,
+                 fn: str, stride, padding, mode: str,
+                 scale: Optional[Tensor]
+                 ) -> Tuple[Tensor, Optional[Tensor]]:
+    """K3 (scale None) or K5 on checked CUDA tensors."""
     if x.ndim != 4 or w.ndim != 4 or x.shape[3] != w.shape[2]:
         raise ValueError(f"want x [B, H, W, Cin] and w [K1, K2, Cin, Cout]; "
                          f"got {tuple(x.shape)}, {tuple(w.shape)}")
@@ -134,28 +165,68 @@ def cadc_conv2d_cuda(x: Tensor, w: Tensor, *, crossbar_size: int, fn: str,
     m, d = b * oh * ow, k1 * k2 * cin
     n_seg = -(-d // crossbar_size)
     if -(-m // 64) > 65535:
-        raise ValueError(f"B*OH*OW={m} exceeds the kernel's grid")
+        raise ValueError(f"{name}: B*OH*OW={m} exceeds the kernel's grid")
     x, w = x.contiguous(), w.contiguous()
     y = torch.empty((b, oh, ow, cout), dtype=torch.float32, device=x.device)
     gate = None
     if mode in ("packed", "bytes"):
         gate = _cm._empty_gate(n_seg, m, cout, mode, fn, x.device)
-    if m == 0 or cout == 0:
-        return y, (None if gate is None
-                   else gate.reshape(n_seg, b, oh, ow, -1))
-    lib = _lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.check(lib, "cadc_conv", lib.cadc_conv_launch(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(),
-        None if gate is None else gate.data_ptr(), b, h, wd, cin, k1, k2,
-        cout, oh, ow, int(stride[0]), int(stride[1]), pt, pl, crossbar_size,
-        _cm.FN_IDS[fn], _cm._gate_kind(mode if gate is not None else "none",
-                                       fn), stream))
-    cadc_conv2d_cuda.launches += 1
+    if m and cout:
+        lib = _lib()
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        geo = (b, h, wd, cin, k1, k2, cout, oh, ow, int(stride[0]),
+               int(stride[1]), pt, pl, crossbar_size, _cm.FN_IDS[fn],
+               _cm._gate_kind(mode if gate is not None else "none", fn),
+               stream)
+        gptr = None if gate is None else gate.data_ptr()
+        if scale is None:
+            code = lib.cadc_conv_launch(x.data_ptr(), w.data_ptr(),
+                                        y.data_ptr(), gptr, *geo)
+        else:
+            code = lib.cadc_conv_q8_launch(x.data_ptr(), w.data_ptr(),
+                                           scale.data_ptr(), y.data_ptr(),
+                                           gptr, *geo)
+        _build.check(lib, "cadc_conv", code)
     return y, (None if gate is None else gate.reshape(n_seg, b, oh, ow, -1))
 
 
+def cadc_conv2d_cuda(x: Tensor, w: Tensor, *, crossbar_size: int, fn: str,
+                     stride=(1, 1), padding="SAME", mode: str = "none"
+                     ) -> Tuple[Tensor, Optional[Tensor]]:
+    """K3: x [B, H, W, Cin], w [K1, K2, Cin, Cout] fp32 on one CUDA device
+    -> (y [B, OH, OW, Cout] fp32, gate of `mode` or None). Raises on
+    anything else. Counts its launches in `cadc_conv2d_cuda.launches`."""
+    _cm._check_cuda("cadc_conv2d_cuda", fn, x, w,
+                    dtypes={torch.float32: 0})
+    y, gate = _conv_launch("cadc_conv2d_cuda", x, w, crossbar_size, fn,
+                           stride, padding, mode, None)
+    if y.numel():
+        cadc_conv2d_cuda.launches += 1
+    return y, gate
+
+
 cadc_conv2d_cuda.launches = 0
+
+
+def cadc_conv2d_q8_cuda(x_q: Tensor, w_codes: Tensor, scale: Tensor, *,
+                        crossbar_size: int, fn: str, stride=(1, 1),
+                        padding="SAME", mode: str = "none"
+                        ) -> Tuple[Tensor, Optional[Tensor]]:
+    """K5: x_q [B, H, W, Cin], w_codes [K1, K2, Cin, Cout] int8 on one CUDA
+    device, scale one fp32 there -> (y [B, OH, OW, Cout] fp32, gate of
+    `mode` or None). Raises on anything else. Counts its launches in
+    `cadc_conv2d_q8_cuda.launches`."""
+    _cm._check_cuda("cadc_conv2d_q8_cuda", fn, x_q, w_codes,
+                    dtypes={torch.int8: 2})
+    scale = _cm._check_scale("cadc_conv2d_q8_cuda", scale, x_q.device)
+    y, gate = _conv_launch("cadc_conv2d_q8_cuda", x_q, w_codes,
+                           crossbar_size, fn, stride, padding, mode, scale)
+    if y.numel():
+        cadc_conv2d_q8_cuda.launches += 1
+    return y, gate
+
+
+cadc_conv2d_q8_cuda.launches = 0
 
 
 class CadcConv2dFn(torch.autograd.Function):
@@ -195,3 +266,51 @@ class CadcConv2dFn(torch.autograd.Function):
                          (k1, k2), stride, padding).to(x.dtype)
         dw = None if dw2d is None else dw2d.reshape(w.shape).to(w.dtype)
         return dx, dw, None, None, None, None, None, None
+
+
+class CadcConv2dQ8Fn(torch.autograd.Function):
+    """The q8 conv on integer codes (int8, or floats holding codes: QAT)
+    with K5 forward (saving the gate of `mode`) and the straight-through
+    backward of the JAX `_diff_conv_q8_op`: K2 over the codes' im2col
+    patches as fp32, times scale, `_col2im`; d(scale) = <dw_unscaled, w>.
+    An integer primal gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, crossbar_size: int, fn: str, stride,
+                padding, mode: str, use_cuda: bool):
+        fmode = mode if mode in ("packed", "bytes") else "none"
+        kw = dict(crossbar_size=crossbar_size, fn=fn, stride=stride,
+                  padding=padding, mode=fmode)
+        if use_cuda:
+            y, gate = cadc_conv2d_q8_cuda(_cm._as_codes(x), _cm._as_codes(w),
+                                          scale, **kw)
+        else:
+            y, gate = cadc_conv2d_q8_torch(x, w, scale, **kw)
+        ctx.save_for_backward(x, w, scale, gate)
+        ctx.cfg = (crossbar_size, fn, stride, padding, mode, use_cuda)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, scale, gate = ctx.saved_tensors
+        crossbar_size, fn, stride, padding, mode, use_cuda = ctx.cfg
+        k1, k2, cin, cout = w.shape
+        b, oh, ow, _ = g.shape
+        m, d = b * oh * ow, k1 * k2 * cin
+        s32 = scale.float().reshape(())
+        w2d = w.float().reshape(d, cout)
+        patches = im2col(x.float(), (k1, k2), stride=stride, padding=padding)
+        need_dx = ctx.needs_input_grad[0]
+        dpat, dw2d = _cm.segmented_bwd(use_cuda)(
+            g.float().reshape(m, cout), patches.reshape(m, d), w2d,
+            None if gate is None else gate.reshape(gate.shape[0], m, -1),
+            crossbar_size=crossbar_size, fn=fn, mode=mode, need_dx=need_dx,
+            need_dw=True, scale=s32 if mode == "recompute" else None)
+        dscale = (dw2d * w2d).sum().reshape(scale.shape).to(scale.dtype)
+        dx = dw = None
+        if need_dx:
+            dx = _col2im((s32 * dpat).reshape(b, oh, ow, d), tuple(x.shape),
+                         (k1, k2), stride, padding).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (s32 * dw2d).reshape(w.shape).to(w.dtype)
+        return dx, dw, dscale, None, None, None, None, None, None

@@ -30,13 +30,28 @@ bytes a mode saves.
   * cadc_matmul_gate_cuda / _torch     — K1g, the forward that also writes
                                          the gate (`_kernel_with_gate`);
   * cadc_segmented_bwd_cuda / _torch   — K2, dx and dw (`_segmented_bwd`
-                                         and its six kernel bodies).
-The sources are csrc/cadc_matmul.cu (K1, K1g) and csrc/cadc_bwd.cu (K2);
-their notes give the bounds and designs. `CadcMatmulFn` is the autograd
-Function around them; kernels/ops.py picks kernel or plain version by
-the tensors' device. The kernels take only the five built-in dendritic
-fns (FN_IDS); a fn added with dendritic.register() runs on the plain
-versions. K1 and K1g take fp32 or bf16, K2 fp32.
+                                         and its six kernel bodies);
+  * cadc_matmul_q8_cuda / _torch       — K4, the quantized forward (the
+                                         `_q8_kernel` body): int8 codes,
+                                         int32 segment psums, one fp32
+                                         scale (read from device memory);
+  * cadc_matmul_q8_gate_cuda / _torch  — K4g, K4 that also writes the gate
+                                         of the dequantized psum
+                                         (`_q8_kernel_with_gate`).
+The sources are csrc/cadc_matmul.cu (K1, K1g, K4, K4g) and
+csrc/cadc_bwd.cu (K2); their notes give the bounds and designs.
+`CadcMatmulFn` and `CadcMatmulQ8Fn` are the autograd Functions around
+them; kernels/ops.py picks kernel or plain version by the tensors'
+device. The kernels take only the five built-in dendritic fns (FN_IDS); a
+fn added with dendritic.register() runs on the plain versions. K1 and K1g
+take fp32 or bf16, K2 fp32, K4 int8.
+
+The q8 plain versions compute each segment's psum as an fp32 product of
+the codes: every partial sum is an integer below 2^24 (|code| <= 128 and
+xbar <= Q8_MAX_XBAR), so it is exact and equals the kernels' int32 psum —
+PyTorch has no int32 matrix product on CUDA. The q8 backward is K2 on the
+codes as fp32 (the straight-through estimator of `_diff_matmul_q8_op`),
+then scaled by `scale`; d(scale) = <dw_unscaled, w>.
 """
 from __future__ import annotations
 
@@ -71,6 +86,8 @@ _GATE_NONE, _GATE_PACKED, _GATE_U8, _GATE_F32, _GATE_RECOMPUTE = range(5)
 # (two per SM of an H100), with at least this many rows per split.
 _DW_TARGET_BLOCKS = 264
 _DW_MIN_ROWS = 256
+# The q8 plain versions' fp32 psums are exact while xbar * 128 * 128 <= 2^24.
+Q8_MAX_XBAR = 1024
 
 
 def _check_shapes(x: Tensor, w: Tensor, crossbar_size: int) -> int:
@@ -227,12 +244,15 @@ def cadc_matmul_gate_torch(x: Tensor, w: Tensor, *, crossbar_size: int,
 def cadc_segmented_bwd_torch(g: Tensor, x: Tensor, w: Tensor,
                              gate: Optional[Tensor], *, crossbar_size: int,
                              fn: str, mode: str, need_dx: bool = True,
-                             need_dw: bool = True
+                             need_dw: bool = True,
+                             scale: Optional[Tensor] = None
                              ) -> Tuple[Optional[Tensor], Optional[Tensor]]:
     """K2's plain version. g [M, N], x [M, D], w [D, N] (D in whole or
     partial segments of crossbar_size rows); gate as the forward saved it
     for `mode` ('packed' | 'bytes'), or None ('none' | 'recompute').
-    Returns (dx [M, D], dw [D, N]) in fp32, None where not wanted."""
+    `scale` (one fp32, default 1) multiplies the recomputed psum before
+    f' — the q8 forward's dequantization. Returns (dx [M, D], dw [D, N]) in
+    fp32, None where not wanted."""
     m, d = x.shape
     n = w.shape[1]
     g32, x32, w32 = g.float(), x.float(), w.float()
@@ -246,7 +266,8 @@ def cadc_segmented_bwd_torch(g: Tensor, x: Tensor, w: Tensor,
         elif mode == "bytes":
             gm = g32 * gate[s].float()
         elif mode == "recompute":
-            gm = g32 * gate_fn(x32[:, seg] @ w32[seg])
+            p = x32[:, seg] @ w32[seg]
+            gm = g32 * gate_fn(p if scale is None else p * scale.float())
         else:
             gm = g32
         if need_dx:
@@ -254,6 +275,45 @@ def cadc_segmented_bwd_torch(g: Tensor, x: Tensor, w: Tensor,
         if need_dw:
             dw[seg] = x32[:, seg].T @ gm
     return dx, dw
+
+
+def _check_q8_xbar(crossbar_size: int) -> None:
+    if crossbar_size > Q8_MAX_XBAR:
+        raise ValueError(f"crossbar_size={crossbar_size} > {Q8_MAX_XBAR}: "
+                         f"an int8 psum could exceed 2^24 and its fp32 "
+                         f"value would not be exact")
+
+
+def cadc_matmul_q8_torch(x_q: Tensor, w_codes: Tensor, scale: Tensor, *,
+                         crossbar_size: int, fn: str) -> Tensor:
+    """K4's plain version: x_q [M, S*xbar], w_codes [S*xbar, N] integer
+    codes (int8, or floats holding them), scale one fp32 -> fp32 [M, N]."""
+    return cadc_matmul_q8_gate_torch(x_q, w_codes, scale,
+                                     crossbar_size=crossbar_size, fn=fn,
+                                     mode="none")[0]
+
+
+def cadc_matmul_q8_gate_torch(x_q: Tensor, w_codes: Tensor, scale: Tensor,
+                              *, crossbar_size: int, fn: str, mode: str
+                              ) -> Tuple[Tensor, Optional[Tensor]]:
+    """K4g's plain version: per segment the exact psum of the codes (fp32),
+    times scale, its gate when mode is 'packed' or 'bytes', f, and the
+    sequential sum from an fp32 zero, as the kernel adds."""
+    n_seg = _check_shapes(x_q, w_codes, crossbar_size)
+    _check_q8_xbar(crossbar_size)
+    f, gate_fn, _ = _resolve_gate(fn)
+    x32, w32 = x_q.float(), w_codes.float()
+    s32 = scale.float().reshape(())
+    acc = torch.zeros(x_q.shape[0], w_codes.shape[1], dtype=torch.float32,
+                      device=x_q.device)
+    gates = []
+    for s in range(n_seg):
+        seg = slice(s * crossbar_size, (s + 1) * crossbar_size)
+        p = (x32[:, seg] @ w32[seg]) * s32
+        if mode in ("packed", "bytes"):
+            gates.append(_gate_of(p, gate_fn, mode, fn))
+        acc = acc + f(p)
+    return acc, (torch.stack(gates) if gates else None)
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +329,9 @@ def _lib() -> ctypes.CDLL:
     lib.cadc_matmul_gate_launch.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.cadc_matmul_gate_launch.restype = ctypes.c_int
+    lib.cadc_matmul_q8_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.cadc_matmul_q8_launch.restype = ctypes.c_int
     lib.cadc_matmul_error_string.argtypes = [ctypes.c_int]
     lib.cadc_matmul_error_string.restype = ctypes.c_char_p
     return lib
@@ -278,7 +341,7 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.library(_BWD_SOURCE)
     lib.cadc_bwd_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.cadc_bwd_launch.restype = ctypes.c_int
     lib.cadc_bwd_error_string.argtypes = [ctypes.c_int]
     lib.cadc_bwd_error_string.restype = ctypes.c_char_p
@@ -297,9 +360,19 @@ def _check_cuda(name: str, fn: str, *ts: Tensor, dtypes=_DTYPES) -> None:
                          f"kernels take {sorted(FN_IDS)}")
 
 
+def _check_scale(name: str, scale: Tensor, dev) -> Tensor:
+    if (scale.dtype != torch.float32 or scale.numel() != 1
+            or scale.device != dev):
+        raise ValueError(f"{name} wants scale as one fp32 on {dev}; got "
+                         f"{scale.dtype} {tuple(scale.shape)} on "
+                         f"{scale.device}")
+    return scale.contiguous()
+
+
 def _fwd_launch(x: Tensor, w: Tensor, crossbar_size: int, fn: str,
-                mode: str) -> Tuple[Tensor, Optional[Tensor]]:
-    """K1 (mode 'none') or K1g on CUDA tensors."""
+                mode: str, scale: Optional[Tensor] = None
+                ) -> Tuple[Tensor, Optional[Tensor]]:
+    """K1 (mode 'none') or K1g on CUDA tensors; K4 / K4g with `scale`."""
     n_seg = _check_shapes(x, w, crossbar_size)
     m, n = x.shape[0], w.shape[1]
     if -(-m // 64) > 65535:
@@ -317,7 +390,13 @@ def _fwd_launch(x: Tensor, w: Tensor, crossbar_size: int, fn: str,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     args = (x.data_ptr(), w.data_ptr(), y.data_ptr(),
             None if scratch is None else scratch.data_ptr())
-    if gate is None:
+    if scale is not None:
+        code = lib.cadc_matmul_q8_launch(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), *args[2:],
+            None if gate is None else gate.data_ptr(), m, n, n_seg,
+            crossbar_size, FN_IDS[fn],
+            _gate_kind(mode if gate is not None else "none", fn), stream)
+    elif gate is None:
         code = lib.cadc_matmul_launch(*args, m, n, n_seg, crossbar_size,
                                       FN_IDS[fn], _DTYPES[x.dtype], stream)
     else:
@@ -363,6 +442,46 @@ def cadc_matmul_gate_cuda(x: Tensor, w: Tensor, *, crossbar_size: int,
 cadc_matmul_gate_cuda.launches = 0
 
 
+def cadc_matmul_q8_cuda(x_q: Tensor, w_codes: Tensor, scale: Tensor, *,
+                        crossbar_size: int, fn: str) -> Tensor:
+    """K4. x_q [M, S*xbar], w_codes [S*xbar, N] int8 on one CUDA device,
+    scale one fp32 there -> fp32 [M, N]. Raises on anything else. Counts
+    its launches in `cadc_matmul_q8_cuda.launches`."""
+    _check_cuda("cadc_matmul_q8_cuda", fn, x_q, w_codes,
+                dtypes={torch.int8: 2})
+    scale = _check_scale("cadc_matmul_q8_cuda", scale, x_q.device)
+    y, _ = _fwd_launch(x_q, w_codes, crossbar_size, fn, "none", scale)
+    if y.numel():
+        cadc_matmul_q8_cuda.launches += 1
+    return y
+
+
+cadc_matmul_q8_cuda.launches = 0
+
+
+def cadc_matmul_q8_gate_cuda(x_q: Tensor, w_codes: Tensor, scale: Tensor,
+                             *, crossbar_size: int, fn: str, mode: str
+                             ) -> Tuple[Tensor, Tensor]:
+    """K4g: K4 that also writes the gate of `mode` ('packed' | 'bytes') of
+    each dequantized psum, in K1g's layouts. Counts its launches in
+    `cadc_matmul_q8_gate_cuda.launches`."""
+    _check_cuda("cadc_matmul_q8_gate_cuda", fn, x_q, w_codes,
+                dtypes={torch.int8: 2})
+    scale = _check_scale("cadc_matmul_q8_gate_cuda", scale, x_q.device)
+    if mode not in ("packed", "bytes"):
+        raise ValueError(f"K4g writes a 'packed' or 'bytes' gate, not "
+                         f"{mode!r}")
+    if dendritic.gate_dtype(fn) is None:
+        raise ValueError(f"dendritic fn {fn!r} has no gate to save")
+    y, gate = _fwd_launch(x_q, w_codes, crossbar_size, fn, mode, scale)
+    if y.numel():
+        cadc_matmul_q8_gate_cuda.launches += 1
+    return y, gate
+
+
+cadc_matmul_q8_gate_cuda.launches = 0
+
+
 def _dw_splits(m: int, n: int, d: int, crossbar_size: int) -> Tuple[int, int]:
     """(splits, rows per split) of K2's dw over M: enough blocks to fill the
     card, each split at least _DW_MIN_ROWS rows (a multiple of 32)."""
@@ -376,11 +495,13 @@ def _dw_splits(m: int, n: int, d: int, crossbar_size: int) -> Tuple[int, int]:
 def cadc_segmented_bwd_cuda(g: Tensor, x: Tensor, w: Tensor,
                             gate: Optional[Tensor], *, crossbar_size: int,
                             fn: str, mode: str, need_dx: bool = True,
-                            need_dw: bool = True
+                            need_dw: bool = True,
+                            scale: Optional[Tensor] = None
                             ) -> Tuple[Optional[Tensor], Optional[Tensor]]:
     """K2: (dx [M, D], dw [D, N]) fp32 from g [M, N], x [M, D], w [D, N]
     fp32 on one CUDA device and the gate of `mode`, as
-    cadc_segmented_bwd_torch. dw sums its M-splits in a fixed order (no
+    cadc_segmented_bwd_torch (`scale`, one fp32 on the device, multiplies
+    the recomputed psum). dw sums its M-splits in a fixed order (no
     atomics): the same bits on every run. Counts its launches in
     `cadc_segmented_bwd_cuda.launches`."""
     _check_cuda("cadc_segmented_bwd_cuda", fn, g, x, w,
@@ -405,6 +526,8 @@ def cadc_segmented_bwd_cuda(g: Tensor, x: Tensor, w: Tensor,
         gate = gate.contiguous()
     if n_seg * -(-crossbar_size // 64) > 65535:
         raise ValueError("D / crossbar_size exceeds the kernel's grid")
+    if scale is not None:
+        scale = _check_scale("cadc_segmented_bwd_cuda", scale, x.device)
     g, x, w = g.contiguous(), x.contiguous(), w.contiguous()
     dx = torch.empty((m, d), device=x.device) if need_dx else None
     dw = torch.empty((d, n), device=x.device) if need_dw else None
@@ -420,8 +543,8 @@ def cadc_segmented_bwd_cuda(g: Tensor, x: Tensor, w: Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     _build.check(lib, "cadc_bwd", lib.cadc_bwd_launch(
-        g.data_ptr(), x.data_ptr(), w.data_ptr(), ptr(gate), ptr(dx),
-        ptr(dw), ptr(scratch), splits, rows, m, n, d, crossbar_size,
+        g.data_ptr(), x.data_ptr(), w.data_ptr(), ptr(gate), ptr(scale),
+        ptr(dx), ptr(dw), ptr(scratch), splits, rows, m, n, d, crossbar_size,
         FN_IDS[fn], kind, stream))
     cadc_segmented_bwd_cuda.launches += 1
     return dx, dw
@@ -467,3 +590,49 @@ class CadcMatmulFn(torch.autograd.Function):
         return (None if dx is None else dx.to(x.dtype),
                 None if dw is None else dw.to(w.dtype), None, None, None,
                 None)
+
+
+def _as_codes(t: Tensor) -> Tensor:
+    """int8 codes of a tensor holding them (floats from fake-quant: the
+    cast truncates toward zero, as the JAX kernel's astype)."""
+    return t if t.dtype == torch.int8 else t.to(torch.int8)
+
+
+class CadcMatmulQ8Fn(torch.autograd.Function):
+    """y = sum_s f(scale * (x_s @ w_s)) on integer codes x [M, S*xbar], w
+    [S*xbar, N] (int8, or floats holding codes: QAT) with K4g (or K4) forward
+    and the straight-through backward of `_diff_matmul_q8_op`: K2 on the
+    codes as fp32, times scale; d(scale) = <dw_unscaled, w>. An integer
+    primal gets no gradient (the torch counterpart of float0)."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, crossbar_size: int, fn: str, mode: str,
+                use_cuda: bool):
+        xq, wq = (_as_codes(x), _as_codes(w)) if use_cuda else (x, w)
+        kw = dict(crossbar_size=crossbar_size, fn=fn)
+        if mode in ("packed", "bytes"):
+            run = (cadc_matmul_q8_gate_cuda if use_cuda
+                   else cadc_matmul_q8_gate_torch)
+            y, gate = run(xq, wq, scale, mode=mode, **kw)
+        else:
+            run = cadc_matmul_q8_cuda if use_cuda else cadc_matmul_q8_torch
+            y, gate = run(xq, wq, scale, **kw), None
+        ctx.save_for_backward(x, w, scale, gate)
+        ctx.cfg = (crossbar_size, fn, mode, use_cuda)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, scale, gate = ctx.saved_tensors
+        crossbar_size, fn, mode, use_cuda = ctx.cfg
+        s32 = scale.float().reshape(())
+        w32 = w.float()
+        need_dx = ctx.needs_input_grad[0]
+        dxu, dwu = segmented_bwd(use_cuda)(
+            g.float(), x.float(), w32, gate, crossbar_size=crossbar_size,
+            fn=fn, mode=mode, need_dx=need_dx, need_dw=True,
+            scale=s32 if mode == "recompute" else None)
+        dscale = (dwu * w32).sum().reshape(scale.shape).to(scale.dtype)
+        dx = (s32 * dxu).to(x.dtype) if need_dx else None
+        dw = (s32 * dwu).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return dx, dw, dscale, None, None, None, None

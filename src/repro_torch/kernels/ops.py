@@ -10,11 +10,14 @@ or raises. The CADC ops are differentiable: under autograd their forward
 saves the dendritic gate in the format `save_gate` picks ("auto" |
 "packed" | "bytes" | "recompute"; kernels/cadc_matmul.py) and their
 backward is the segmented backward kernel K2 (or its plain version); with
-no gradient wanted the forward is the gate-free K1 / K3. The one plain
-fallback the JAX package's dispatch has that the port keeps is the empty
-batch of cadc_conv2d; it keeps no feature-map budget fallback (the JAX
-rule exists because a TPU block holds a whole padded image, and K3 does
-not).
+no gradient wanted the forward is the gate-free K1 / K3. The q8 ops
+(cadc_matmul_q8 / cadc_conv2d_q8: int8 codes, int32 psums, one fp32
+scale) run K4 / K5, or K4g / K5 with a gate and the straight-through K2
+backward under autograd; their plain versions are bitwise the kernels and
+the sequential q8 oracles of kernels/ref.py. The one plain fallback the
+JAX package's dispatch has that the port keeps is the empty batch of the
+convs; it keeps no feature-map budget fallback (the JAX rule exists
+because a TPU block holds a whole padded image, and K3 / K5 do not).
 """
 from __future__ import annotations
 
@@ -106,3 +109,69 @@ def paged_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
            else _pa.paged_attention_torch)
     return run(q, k_pool, v_pool, block_table, positions, kind=kind,
                window=window, ring_len=ring_len, softcap=softcap)
+
+
+def _scale_tensor(scale, like: Tensor) -> Tensor:
+    """scale as one fp32 on `like`'s device (a tensor already there is
+    kept, with its autograd history)."""
+    return torch.as_tensor(scale, dtype=torch.float32, device=like.device)
+
+
+def cadc_matmul_q8(x_q: Tensor, w_codes: Tensor, scale, *,
+                   crossbar_size: int = 256, fn: str = "relu",
+                   impl: str = "auto", save_gate: str = "auto") -> Tensor:
+    """Quantized CADC: x_q [..., D] int8 activation codes, w_codes [D, N]
+    int8 codes ({-1, 0, 1} ternary in the models), scale one fp32
+    (input_lsb * weight_alpha) -> fp32 [..., N]. Differentiable wrt scale,
+    and wrt x_q / w_codes straight-through when they are floats holding
+    codes (QAT); integer primals get no gradient."""
+    *lead, d = x_q.shape
+    n = w_codes.shape[1]
+    if w_codes.shape[0] != d:
+        raise ValueError(f"contraction mismatch {tuple(x_q.shape)} @ "
+                         f"{tuple(w_codes.shape)}")
+    mode = _cm.gate_mode(save_gate, fn)
+    use_cuda = resolve(impl, x_q) == "cuda"
+    scale = _scale_tensor(scale, x_q)
+    x2 = _core.pad_to_segments(x_q.reshape(-1, d), -1, crossbar_size)
+    wp = _core.pad_to_segments(w_codes, 0, crossbar_size)
+    if (_wants_grad(x_q, w_codes, scale)
+            and _cm._resolve_gate(fn)[1] is not None):
+        y = _cm.CadcMatmulQ8Fn.apply(x2, wp, scale, crossbar_size, fn, mode,
+                                     use_cuda)
+    elif use_cuda:
+        y = _cm.cadc_matmul_q8_cuda(_cm._as_codes(x2), _cm._as_codes(wp),
+                                    scale, crossbar_size=crossbar_size,
+                                    fn=fn)
+    else:
+        y = _cm.cadc_matmul_q8_torch(x2, wp, scale,
+                                     crossbar_size=crossbar_size, fn=fn)
+    return y.reshape(*lead, n)
+
+
+def cadc_conv2d_q8(x_q: Tensor, w_codes: Tensor, scale, *,
+                   crossbar_size: int = 256, fn: str = "relu",
+                   stride=(1, 1), padding="SAME", impl: str = "auto",
+                   save_gate: str = "auto") -> Tensor:
+    """Quantized fused conv: x_q [B, H, W, Cin] int8 codes, w_codes [K1, K2,
+    Cin, Cout] int8 codes, scale one fp32 -> fp32 [B, OH, OW, Cout] (int8
+    taps -> int32 psums per segment -> dequant -> f -> sequential sum). An
+    empty batch takes the plain version (no launch). Gradients as
+    cadc_matmul_q8."""
+    mode = _cm.gate_mode(save_gate, fn)
+    scale = _scale_tensor(scale, x_q)
+    stride = tuple(stride)
+    kw = dict(crossbar_size=crossbar_size, fn=fn, stride=stride,
+              padding=padding)
+    if x_q.shape[0] == 0:
+        return _cc.cadc_conv2d_q8_torch(x_q, w_codes, scale, **kw)[0]
+    use_cuda = resolve(impl, x_q) == "cuda"
+    if (_wants_grad(x_q, w_codes, scale)
+            and _cm._resolve_gate(fn)[1] is not None):
+        return _cc.CadcConv2dQ8Fn.apply(x_q, w_codes, scale, crossbar_size,
+                                        fn, stride, padding, mode, use_cuda)
+    if use_cuda:
+        return _cc.cadc_conv2d_q8_cuda(_cm._as_codes(x_q),
+                                       _cm._as_codes(w_codes), scale,
+                                       **kw)[0]
+    return _cc.cadc_conv2d_q8_torch(x_q, w_codes, scale, **kw)[0]

@@ -1,15 +1,25 @@
 """Shared functional layer machinery of the CNN models.
 
-Port of repro.models.common (fp32). Params are nested dicts of tensors, as
-the JAX pytrees, in the JAX layouts: NHWC activations, HWIO conv weights,
+Port of repro.models.common. Params are nested dicts of tensors, as the
+JAX pytrees, in the JAX layouts: NHWC activations, HWIO conv weights,
 [in, out] dense weights. Every weight-bearing layer routes through
 `linear_forward` / `conv_forward`, which dispatch on LayerMode.impl:
 'vconv' (baseline partitioned matmul) or 'cadc' (per-crossbar dendritic
-f()). Psum sparsity statistics are collected through the Ctx object.
+f()). Quantization (4/2/4b etc., fake-quant STE), the int8-native q8
+kernels and the ADC noise model compose via the same mode. Psum sparsity
+statistics are collected through the Ctx object, which also carries the
+ADC noise's seed.
 
-Quantization (`quant`), the ADC model (`adc`) and the q8 kernels come with
-slice 3 of the port: a LayerMode that asks for them raises
-NotImplementedError.
+Which path a layer takes:
+  * q8 (`_use_q8`, inference only): K4 / K5 on int8 codes, when the mode
+    opts in, quantizes with ternary weights and int8-representable inputs,
+    and nothing needs materialized psums (no stats, no ADC);
+  * kernels (`_use_fused`): K1g / K1 / K3 with K2 under autograd, on the
+    fake-quantized floats when `quant` is on;
+  * core: the einsum / im2col formulation, whenever a layer needs the
+    materialized psums — the stats sink, or the ADC model, whose
+    transform acts on every psum. So with `adc` set no layer launches a
+    kernel, whatever `kernel` and `q8_fused` say, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -21,8 +31,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import adc as adc_lib
 from repro_torch.core import cadc as cadc_lib
 from repro_torch.core import conv as conv_lib
+from repro_torch.core import quant as quant_lib
+from repro_torch.core.quant import FP32, QuantConfig
 from repro_torch.kernels import ops as kops
 
 Tensor = torch.Tensor
@@ -42,27 +55,30 @@ class LayerMode:
     the JAX package's 'xla'). The JAX LayerMode defaults to 'xla' — its
     kernels need a TPU; the port defaults to 'auto', so a CUDA run trains
     through the kernels unasked. Layers that must materialize psums (stats
-    collection) take the core path whatever `kernel` says.
+    collection, the ADC model) take the core path whatever `kernel` says.
 
     `save_gate` is the gradient residual of the kernels ('auto' | 'packed'
     | 'bytes' | 'recompute'; kernels/cadc_matmul.py).
+
+    `q8_fused` routes ternary-weight quantized layers through the
+    int8-native kernels K4 / K5: int8 codes x int8 ternary codes -> int32
+    psums, bitwise the q8 oracle. It is an inference path: the layer
+    computation is detached (the torch form of the JAX stop_gradient), so
+    no gradient reaches w or x through it; training keeps the fake-quant
+    STE floats (q8_fused=False).
     """
 
     impl: str = "vconv"                 # 'vconv' | 'cadc'
     crossbar_size: int = 64             # 64 / 128 / 256 (paper sweep)
     fn: str = "relu"                    # dendritic f() for cadc
-    quant: Optional[Any] = None         # slice 3 (None = fp32)
-    adc: Optional[Any] = None           # slice 3 (None = ideal psums)
+    quant: QuantConfig = FP32
+    adc: Optional[adc_lib.AdcConfig] = None
     collect_stats: bool = False
     kernel: str = "auto"
     save_gate: str = "auto"
-    q8_fused: bool = False              # slice 3
+    q8_fused: bool = False
 
     def __post_init__(self):
-        if self.quant is not None or self.adc is not None or self.q8_fused:
-            raise NotImplementedError(
-                "quantized layers, the ADC model and the q8 kernels come "
-                "with slice 3 of the port; LayerMode takes fp32 only")
         if self.kernel not in kops.IMPLS:
             raise ValueError(f"kernel={self.kernel!r}; choose from "
                              f"{kops.IMPLS}")
@@ -72,13 +88,32 @@ class LayerMode:
 
 
 class Ctx:
-    """Per-forward context: the layer mode and the psum stats sink. (The
-    JAX Ctx also carries the ADC model's rng, which comes with slice 3.)"""
+    """Per-forward context: the layer mode, the seed of the ADC noise, and
+    the psum stats sink. `rng` is an int seed (None: no noise); every
+    layer that asks for the ADC transform gets its own generator, seeded
+    from (rng, its index) — the counterpart of jax.random.fold_in(rng, i)."""
 
-    def __init__(self, mode: LayerMode):
+    def __init__(self, mode: LayerMode, rng: Optional[int] = None):
         self.mode = mode
+        self.rng = rng
         self.stats: List[Dict[str, Tensor]] = []
         self._names: List[str] = []
+        self._i = 0
+
+    def next_generator(self, device) -> Optional[torch.Generator]:
+        if self.rng is None:
+            return None
+        self._i += 1
+        return torch.Generator(device=device).manual_seed(
+            adc_lib.fold_in(self.rng, self._i))
+
+    def psum_transform(self, device):
+        """The ADC model's psum transform of the next layer (None without
+        an ADC), its noise drawn on `device` (the psums')."""
+        if self.mode.adc is None:
+            return None
+        return adc_lib.make_psum_transform(self.mode.adc,
+                                           self.next_generator(device))
 
     def record(self, name: str, psums: Optional[Tensor], segments: int):
         if not self.mode.collect_stats or psums is None:
@@ -135,8 +170,27 @@ def params_from_numpy(tree, device) -> Any:
 
 def _use_fused(mode: LayerMode, want_ps: bool) -> bool:
     """Route through kernels/ops.py? Only when nothing needs the
-    materialized psums (the stats sink), which the kernels never write."""
-    return mode.kernel != "torch" and not want_ps
+    materialized psums (the stats sink or the ADC transform), which the
+    kernels never write. The `mode.adc is None` guard is load-bearing:
+    without it a kernel mode would silently skip the ADC model (the
+    psum transform never reaches a kernel)."""
+    return mode.kernel != "torch" and not want_ps and mode.adc is None
+
+
+def _use_q8(mode: LayerMode) -> bool:
+    """Int8-native path: opted in, quantization on, ternary weights and
+    int8-representable inputs (the paper's 4/2/4b operating point)."""
+    return (mode.q8_fused and mode.quant.enabled
+            and mode.quant.weight_bits == 2 and mode.quant.input_bits <= 8)
+
+
+@torch.no_grad()
+def _q8_operands(x: Tensor, w: Tensor, bits: int):
+    """(x codes, w codes, scale = input lsb * weight alpha), detached: the
+    q8 layer computed from them carries no gradient to x or w."""
+    x_codes, lsb = quant_lib.quantize_codes(x, bits)
+    w_codes, alpha = quant_lib.ternary_decompose(w)
+    return x_codes, w_codes, lsb * alpha
 
 
 def linear_forward(p: Params, x: Tensor, ctx: Ctx, *,
@@ -144,15 +198,29 @@ def linear_forward(p: Params, x: Tensor, ctx: Ctx, *,
     mode = ctx.mode
     segs = cadc_lib.num_segments(p["w"].shape[0], mode.crossbar_size)
     want_ps = mode.collect_stats and segs > 1
+    if _use_q8(mode) and not want_ps and mode.adc is None:
+        # int8 crossbar arithmetic (alpha * codes == ternarize(w)): one
+        # fp32 scale, int32 psums; detached (inference only), the bias
+        # added outside as in JAX.
+        x_codes, w_codes, scale = _q8_operands(x, p["w"],
+                                               mode.quant.input_bits)
+        y = kops.cadc_matmul_q8(
+            x_codes, w_codes, scale, crossbar_size=mode.crossbar_size,
+            fn=mode.dendritic_fn(), impl=mode.kernel,
+            save_gate=mode.save_gate).to(x.dtype)
+        return y + p["b"] if "b" in p else y
+    w = mode.quant.quant_weight(p["w"])
+    xq = mode.quant.quant_input(x)
     if _use_fused(mode, want_ps):
-        y = kops.cadc_matmul(x, p["w"], crossbar_size=mode.crossbar_size,
+        y = kops.cadc_matmul(xq, w, crossbar_size=mode.crossbar_size,
                              fn=mode.dendritic_fn(), impl=mode.kernel,
                              save_gate=mode.save_gate)
     else:
-        out = cadc_lib.cadc_matmul(x, p["w"],
-                                   crossbar_size=mode.crossbar_size,
-                                   fn=mode.dendritic_fn(),
-                                   return_psums=want_ps)
+        out = cadc_lib.cadc_matmul(
+            xq, w, crossbar_size=mode.crossbar_size, fn=mode.dendritic_fn(),
+            return_psums=want_ps,
+            psum_transform=(ctx.psum_transform(x.device)
+                            if segs > 1 or mode.adc else None))
         if want_ps:
             ctx.record(name, out.psums, segs)
             out = out.y
@@ -168,14 +236,26 @@ def conv_forward(p: Params, x: Tensor, ctx: Ctx, *, stride=(1, 1),
     k1, k2, cin, _ = p["w"].shape
     segs = cadc_lib.num_segments(k1 * k2 * cin, mode.crossbar_size)
     want_ps = mode.collect_stats and segs > 1
+    if _use_q8(mode) and not want_ps and mode.adc is None:
+        # inference-only int8 path, detached as in linear_forward
+        x_codes, w_codes, scale = _q8_operands(x, p["w"],
+                                               mode.quant.input_bits)
+        return kops.cadc_conv2d_q8(
+            x_codes, w_codes, scale, crossbar_size=mode.crossbar_size,
+            fn=mode.dendritic_fn(), stride=stride, padding=padding,
+            impl=mode.kernel, save_gate=mode.save_gate).to(x.dtype)
+    w = mode.quant.quant_weight(p["w"])
+    xq = mode.quant.quant_input(x)
     if _use_fused(mode, want_ps):
-        return kops.cadc_conv2d(x, p["w"], crossbar_size=mode.crossbar_size,
+        return kops.cadc_conv2d(xq, w, crossbar_size=mode.crossbar_size,
                                 fn=mode.dendritic_fn(), stride=stride,
                                 padding=padding, impl=mode.kernel,
                                 save_gate=mode.save_gate)
-    out = conv_lib.cadc_conv2d(x, p["w"], crossbar_size=mode.crossbar_size,
-                               fn=mode.dendritic_fn(), stride=stride,
-                               padding=padding, return_psums=want_ps)
+    out = conv_lib.cadc_conv2d(
+        xq, w, crossbar_size=mode.crossbar_size, fn=mode.dendritic_fn(),
+        stride=stride, padding=padding, return_psums=want_ps,
+        psum_transform=(ctx.psum_transform(x.device)
+                        if segs > 1 or mode.adc else None))
     if want_ps:
         ctx.record(name, out.psums, segs)
         out = out.y

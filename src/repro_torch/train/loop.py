@@ -5,9 +5,13 @@ and eval steps, `train` and `evaluate`. The data contract is the JAX one
 (batch = batch_fn(step, batch_size); held-out eval batches at steps
 10_000_000 + i). Gradients come from torch autograd through the layers of
 models/common.py, so with a CUDA device and kernel 'auto' every CADC layer
-trains through the CUDA kernels (K3 / K1g forward, K2 backward). Params
-are nested dicts; a step returns new ones and leaves its inputs as they
-were. Checkpointing (`ckpt_dir`) comes with a later slice of the port.
+trains through the CUDA kernels (K3 / K1g forward, K2 backward), and a
+q8 eval mode evaluates through K5 / K4. Params are nested dicts; a step
+returns new ones and leaves its inputs as they were. The ADC noise is
+seeded as in JAX: a train step under an ADC mode draws from
+fold_in(seed + 17, step), eval batch i from fold_in(rng, i) (ints here,
+torch.Generator seeds; models/common.Ctx). Checkpointing (`ckpt_dir`)
+comes with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core.adc import fold_in
 from repro_torch.device import resolve
 from repro_torch.models.common import Ctx, LayerMode
 from repro_torch.train import optimizer as opt_lib
@@ -67,12 +72,14 @@ def _unflatten(tree, leaves):
 
 def make_train_step(apply_fn: Callable, mode: LayerMode,
                     optimizer: opt_lib.Optimizer, *,
-                    input_key: str = "image"):
-    def train_step(params, model_state, opt_state, batch, step: int):
+                    input_key: str = "image", use_adc_rng: bool = False):
+    def train_step(params, model_state, opt_state, batch, step: int,
+                   rng: Optional[int] = None):
         flat = [p.detach().requires_grad_(True) for p in _flatten(params)]
         live = _unflatten(params, flat)
+        ctx = Ctx(mode, rng if use_adc_rng else None)
         logits, new_state = apply_fn(live, model_state, batch[input_key],
-                                     Ctx(mode), train=True)
+                                     ctx, train=True)
         loss = cross_entropy(logits, batch["label"])
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
         grads = _unflatten(params, [torch.zeros_like(p) if g is None else g
@@ -92,9 +99,9 @@ def make_train_step(apply_fn: Callable, mode: LayerMode,
 def make_eval_step(apply_fn: Callable, mode: LayerMode, *,
                    input_key: str = "image"):
     @torch.no_grad()
-    def eval_step(params, model_state, batch):
+    def eval_step(params, model_state, batch, rng: Optional[int] = None):
         logits, _ = apply_fn(params, model_state, batch[input_key],
-                             Ctx(mode), train=False)
+                             Ctx(mode, rng), train=False)
         return {"loss": cross_entropy(logits, batch["label"]),
                 "acc": accuracy(logits, batch["label"])}
 
@@ -109,12 +116,13 @@ def train(*, apply_fn: Callable,
           optimizer: Optional[opt_lib.Optimizer] = None,
           cfg: TrainConfig = TrainConfig(), input_key: str = "image",
           eval_mode: Optional[LayerMode] = None,
+          eval_rng: Optional[int] = None,
           init_kwargs: Optional[Dict[str, Any]] = None,
           device="cuda") -> Dict[str, Any]:
     """Returns {'params', 'state', 'history', 'eval'}. Starts from
     `initial` = (params, model_state), or from init_fn(generator,
     device=..., **init_kwargs) with a generator seeded by cfg.seed on
-    `device`."""
+    `device`. `eval_rng` seeds the ADC noise of the final evaluation."""
     if cfg.ckpt_dir:
         raise NotImplementedError("checkpointing (ckpt/) comes with a later "
                                   "slice of the port")
@@ -134,7 +142,8 @@ def train(*, apply_fn: Callable,
     opt_state = optimizer.init(params)
 
     train_step = make_train_step(apply_fn, mode, optimizer,
-                                 input_key=input_key)
+                                 input_key=input_key,
+                                 use_adc_rng=mode.adc is not None)
     ev_mode = eval_mode or mode
     eval_step = make_eval_step(apply_fn, ev_mode, input_key=input_key)
 
@@ -142,27 +151,32 @@ def train(*, apply_fn: Callable,
     for step in range(cfg.steps):
         batch = batch_fn(step, cfg.batch_size)
         params, model_state, opt_state, metrics = train_step(
-            params, model_state, opt_state, batch, step)
+            params, model_state, opt_state, batch, step,
+            fold_in(cfg.seed + 17, step))
         if step % cfg.eval_every == 0 or step == cfg.steps - 1:
             history.append({"step": step,
                             **{k: float(v) for k, v in metrics.items()}})
 
     ev = evaluate(apply_fn, params, model_state, batch_fn, ev_mode,
                   n_batches=cfg.eval_batches, batch_size=cfg.batch_size,
-                  input_key=input_key, eval_step=eval_step)
+                  input_key=input_key, rng=eval_rng, eval_step=eval_step)
     return {"params": params, "state": model_state, "history": history,
             "eval": ev}
 
 
 def evaluate(apply_fn, params, model_state, batch_fn, mode, *,
              n_batches: int = 4, batch_size: int = 64,
-             input_key: str = "image", eval_step=None) -> Dict[str, float]:
+             input_key: str = "image", rng: Optional[int] = None,
+             eval_step=None) -> Dict[str, float]:
+    """Mean acc and loss over `n_batches` held-out batches under `mode`;
+    `rng` seeds the ADC noise (None: noise-free)."""
     eval_step = eval_step or make_eval_step(apply_fn, mode,
                                             input_key=input_key)
     accs, losses = [], []
     for i in range(n_batches):
         batch = batch_fn(10_000_000 + i, batch_size)  # held-out step range
-        m = eval_step(params, model_state, batch)
+        m = eval_step(params, model_state, batch,
+                      None if rng is None else fold_in(rng, i))
         accs.append(float(m["acc"]))
         losses.append(float(m["loss"]))
     return {"acc": sum(accs) / len(accs), "loss": sum(losses) / len(losses)}

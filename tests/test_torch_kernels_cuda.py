@@ -6,9 +6,12 @@ they run on a GPU machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: the kernels and their plain versions both sum fp32 psums,
-in other orders, so outputs and gradients agree within 1e-4 of their
-scale (the JAX package's TOL); gate bits agree wherever the psum is not
+Tolerances: the fp32 kernels and their plain versions both sum fp32
+psums, in other orders, so outputs and gradients agree within 1e-4 of
+their scale (the JAX package's TOL); the q8 kernels K4 and K5 equal their
+plain versions bitwise (exact integer psums, every later rounding the
+same), gates included, but for tanh (CUDA's tanhf is not torch's: 1e-6 of
+scale); gate bits agree wherever the psum is not
 within 1e-5 of the output's scale of zero (elsewhere its sign can differ
 with the summation order), and fp32 gates of curved fns within 1e-4 of
 their scale where the psum exceeds 1e-2.
@@ -298,3 +301,131 @@ def test_serve_cli_default_runs_the_kernel(cuda_device):
                     "2", "--requests", "2", "--prompt-len", "8", "--gen",
                     "4"])
     assert cm.cadc_matmul_cuda.launches > before
+
+
+Q8_FNS = ["relu", "identity", "sublinear", "supralinear"]
+
+
+def _codes(dev, seed, shape, lo, hi):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.randint(lo, hi, shape).astype(np.int8)).to(
+        dev)
+
+
+def _q8_equal(got, want, fn):
+    if fn == "tanh":
+        assert (got - want).abs().max().item() <= 1e-6 * max(
+            1.0, want.abs().max().item())
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", Q8_FNS + ["tanh"])
+@pytest.mark.parametrize("xbar", [64, 128, 256])
+@pytest.mark.parametrize("m,d,n", [(128, 512, 100), (32, 4096, 11),
+                                   (5, 512, 512)])
+def test_q8_matmul_kernel_matches_plain(cuda_device, fn, xbar, m, d, n):
+    """K4 (and K4g's gates) bitwise against the plain version: the FC
+    shapes of VGG-16, the SNN and a small M (the split path)."""
+    x = _codes(cuda_device, m + xbar, (m, d), -7, 8)
+    w = _codes(cuda_device, n + xbar, (d, n), -1, 2)
+    scale = torch.tensor(0.0123, device=cuda_device)
+    before = cm.cadc_matmul_q8_cuda.launches
+    y = cm.cadc_matmul_q8_cuda(x, w, scale, crossbar_size=xbar, fn=fn)
+    want = cm.cadc_matmul_q8_torch(x, w, scale, crossbar_size=xbar, fn=fn)
+    torch.cuda.synchronize()
+    assert cm.cadc_matmul_q8_cuda.launches == before + 1
+    _q8_equal(y, want, fn)
+    for mode in (("packed", "bytes") if fn == "relu" else
+                 () if fn == "identity" else ("bytes",)):
+        yg, gate = cm.cadc_matmul_q8_gate_cuda(x, w, scale, crossbar_size=xbar,
+                                               fn=fn, mode=mode)
+        wy, wgate = cm.cadc_matmul_q8_gate_torch(
+            x, w, scale, crossbar_size=xbar, fn=fn, mode=mode)
+        torch.cuda.synchronize()
+        assert torch.equal(yg, y)
+        if fn == "tanh":
+            _q8_equal(gate, wgate, fn)
+        else:
+            assert torch.equal(gate, wgate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", Q8_FNS + ["tanh"])
+@pytest.mark.parametrize("b,h,cin,k,cout,stride,padding,xbar", [
+    (8, 32, 3, 3, 64, 1, "SAME", 64),      # VGG-16's first conv: Cin 3
+    (8, 4, 512, 3, 512, 1, "SAME", 256),   # its deepest
+    (4, 32, 2, 3, 32, 1, "SAME", 64),      # the SNN's conv1: Cin 2
+    (8, 16, 64, 1, 128, 2, "SAME", 64),    # ResNet-18's 1x1 projection
+    (8, 16, 64, 3, 128, 2, "SAME", 128),
+    (3, 9, 5, 3, 70, 2, "VALID", 16),      # segments spanning taps
+])
+def test_q8_conv_kernel_matches_plain(cuda_device, fn, b, h, cin, k, cout,
+                                      stride, padding, xbar):
+    x = _codes(cuda_device, h + cin, (b, h, h, cin), -7, 8)
+    w = _codes(cuda_device, cout, (k, k, cin, cout), -1, 2)
+    scale = torch.tensor(0.0071, device=cuda_device)
+    kw = dict(crossbar_size=xbar, fn=fn, stride=(stride, stride),
+              padding=padding)
+    before = cc.cadc_conv2d_q8_cuda.launches
+    y, _ = cc.cadc_conv2d_q8_cuda(x, w, scale, **kw)
+    want, _ = cc.cadc_conv2d_q8_torch(x, w, scale, **kw)
+    torch.cuda.synchronize()
+    assert cc.cadc_conv2d_q8_cuda.launches == before + 1
+    _q8_equal(y, want, fn)
+    if fn == "relu":
+        yg, gate = cc.cadc_conv2d_q8_cuda(x, w, scale, mode="packed", **kw)
+        _, wgate = cc.cadc_conv2d_q8_torch(x, w, scale, mode="packed", **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(yg, y) and torch.equal(gate, wgate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save_gate", ["auto", "bytes", "recompute"])
+def test_q8_ste_grads_through_kernels(cuda_device, save_gate):
+    """ops.cadc_matmul_q8 / cadc_conv2d_q8 under autograd on float codes:
+    K4g / K5 forward, K2 backward (recompute with the scale), against the
+    plain path's gradients, d(scale) included."""
+    dev = cuda_device
+    xc, wc = _codes(dev, 1, (2, 10, 10, 6), -7, 8), _codes(dev, 2,
+                                                          (3, 3, 6, 40), -1, 2)
+    ac, bc = _codes(dev, 3, (16, 300), -7, 8), _codes(dev, 4, (300, 50), -1, 2)
+    grads = {}
+    for impl in ("cuda", "torch"):
+        x, w, a, b = (t.float().requires_grad_() for t in (xc, wc, ac, bc))
+        s1 = torch.tensor(0.05, device=dev, requires_grad=True)
+        s2 = torch.tensor(0.03, device=dev, requires_grad=True)
+        kw = dict(crossbar_size=64, fn="relu", impl=impl,
+                  save_gate=save_gate)
+        y = ops.cadc_conv2d_q8(x, w, s1, stride=(2, 2), **kw)
+        z = ops.cadc_matmul_q8(a, b, s2, **kw)
+        (y.square().sum() + z.square().sum()).backward()
+        grads[impl] = [t.grad for t in (x, w, s1, a, b, s2)]
+    for got, want in zip(grads["cuda"], grads["torch"]):
+        _rel_close(got, want)
+
+
+@pytest.mark.cuda
+def test_q8_model_eval_runs_the_q8_kernels(cuda_device):
+    """A q8 forward of VGG-16 (width_div 8) launches K5 for each of its 13
+    convs and K4 for each of its 3 FCs, and no fp32 kernel; its logits equal
+    the plain path's bitwise."""
+    from repro_torch.core.quant import PAPER_424
+    from repro_torch.models.cnn import vgg16
+    from repro_torch.models.common import Ctx, LayerMode
+
+    p, s = vgg16.init(torch.Generator(device=cuda_device).manual_seed(0),
+                      width_div=8, device=cuda_device)
+    x = torch.randn(4, 32, 32, 3, device=cuda_device)
+    counters = (cc.cadc_conv2d_q8_cuda, cm.cadc_matmul_q8_cuda,
+                cc.cadc_conv2d_cuda, cm.cadc_matmul_cuda)
+    before = [f.launches for f in counters]
+    logits = {}
+    for kernel in ("auto", "torch"):
+        mode = LayerMode(impl="cadc", crossbar_size=64, quant=PAPER_424,
+                         q8_fused=True, kernel=kernel)
+        logits[kernel], _ = vgg16.apply(p, s, x, Ctx(mode))
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [13, 3, 0, 0]
+    assert torch.equal(logits["auto"], logits["torch"])
