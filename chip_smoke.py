@@ -7,9 +7,9 @@ Phases; any failure exits non-zero and prints no result line:
   1. build the CUDA kernels from src/repro_torch/csrc (one nvcc per source,
      all started together);
   2. K1 (CADC matmul) against its plain version on the card at every
-     gemma3-1b linear shape, M = 8 (decode), 256 and every prefill M of the
-     main path (8 slots x each prompt bucket), fp32 (TF32 off) and bf16,
-     relu and identity;
+     gemma3-1b linear shape, M = 8 (decode: the stream kernel), 256 and
+     every prefill M of the main path (8 slots x each prompt bucket), fp32
+     (TF32 off) and bf16, relu and identity;
   3. K6 (paged attention) against its plain version: the main path's ring
      geometry (ring 160 under a 512 window, each covered-prefix table
      width it slices), longer local and global rings, -1 blocks, NaN-filled
@@ -29,7 +29,8 @@ Phases; any failure exits non-zero and prints no result line:
      operands cold, as a decode step does) beside their plain versions, a
      library call where one computes the same function, and the bound from
      bytes and operations; plus the host-inclusive time per eager call, and
-     the device busy time per decode step from torch.profiler.
+     the device busy time per decode step from torch.profiler, by kernel
+     (K1 launches once per linear: its segment sum is inside the kernel).
 
 Slice 2, CNN training (fp32, TF32 off):
   7. K1g / K2 against their plain versions at every FC shape of LeNet-5
@@ -509,9 +510,22 @@ def profile_decode(engine, cfg, report) -> None:
     report["serve"]["device_top_per_step"] = [
         {"name": k[:90], "ms": us / 1e3 / n_steps, "calls": c / n_steps}
         for us, k, c in rows[:12]]
+    groups = {}
+    for us, key, calls in rows:
+        name = ("K1 stream kernel" if "stream_kernel" in key
+                else "K1 tile kernel" if "RowMajor" in key
+                else "K6 paged attention" if "paged_attention" in key
+                else "other (PyTorch)")
+        g = groups.setdefault(name, {"ms": 0.0, "calls": 0.0})
+        g["ms"] += us / 1e3 / n_steps
+        g["calls"] += calls / n_steps
+    report["serve"]["device_ms_per_step_by_kernel"] = groups
     print(f"profiler: device busy per decode step: "
           f"{report['serve']['device_busy_ms_per_step']} ms (8 slots busy, "
           f"{n_steps} steps)", flush=True)
+    for gname, g in sorted(groups.items(), key=lambda kv: -kv[1]["ms"]):
+        print(f"  {gname}: {g['ms']:.3f} ms/step over {g['calls']:.0f} "
+              f"launches", flush=True)
 
 
 def fp32_logits_check(cfg, params, dev, report):
@@ -624,7 +638,10 @@ def time_k1(cfg, dev, launches, report):
                                                    fn="relu"), reps)
         lib = device_ms(lambda: torch.matmul(x, pick()), reps)
         nbytes = m * d * 2 + d * n * 2 + m * n * 4
+        plan = cm.plan_fwd(m, n, d // xbar, xbar, vec=8)
         per_shape[name] = {"D": d, "N": n, "copies": len(ws),
+                           "plan": f"{plan.kernel} {plan.width} "
+                                   f"split={plan.split} grid={plan.grid}",
                            "ms": k, "host_ms": k_host,
                            "plain_ms": p, "matmul_ms": lib,
                            "bound_ms": bound_ms(nbytes, 2 * m * d * n, dt)[0]}
@@ -664,7 +681,8 @@ def time_k1(cfg, dev, launches, report):
             "launches": launches["cadc_matmul"],
             "max_abs_err": report["k1_max_abs_err"],
             "ms": tot["ms"] * layers, "plain_ms": tot["plain"] * layers,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": tot["lib"] * layers}
 
 
 def time_k6(cfg, dev, launches, report):
@@ -1320,7 +1338,6 @@ def time_resnet_step(dev, report):
     def group(key: str) -> str:
         for pat, name in (("ConvGather", "K3 cadc_conv2d"),
                           ("RowMajor", "K1/K1g cadc_matmul"),
-                          ("segment_sum", "K1/K1g segment sum"),
                           ("bwd_dx_kernel", "K2 dx"),
                           ("bwd_dw_kernel", "K2 dw"),
                           ("split_sum", "K2 dw split sum")):
@@ -1919,7 +1936,6 @@ def time_vgg(dev, trained, report):
     def group(key: str) -> str:
         return ("K5 cadc_conv2d_q8" if "ConvGather<signed char" in key
                 else "K4 cadc_matmul_q8" if "RowMajor<signed char" in key
-                else "K4 segment sum" if "segment_sum" in key
                 else "other (PyTorch)")
 
     wall_ms, busy, _, groups = profile_device(

@@ -81,9 +81,11 @@ int launch(const ConvGather<T, Acc>& g, const T* w, const float* scale,
            int gate_kind, cudaStream_t stream) {
   const int S = (D + xbar - 1) / xbar;
   dim3 grid((N + 63) / 64, (M + 63) / 64, 1);
-  cadc::fwd_tile_kernel<T, Acc, 64, 64, 4, 4, kGate, ConvGather<T, Acc>>
-      <<<grid, kThreads, 0, stream>>>(g, w, y, gate, M, N, D, S, xbar, fn,
-                                      /*split=*/0, gate_kind, scale);
+  cadc::fwd_tile_kernel<T, Acc, 64, 64, 4, 4, kGate, /*kSplit=*/false,
+                        ConvGather<T, Acc>>
+      <<<grid, kThreads, 0, stream>>>(g, w, y, /*scratch=*/nullptr,
+                                      /*counters=*/nullptr, gate, M, N, D, S,
+                                      xbar, fn, gate_kind, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

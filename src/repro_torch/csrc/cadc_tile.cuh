@@ -1,7 +1,9 @@
 // Shared device code of the CADC kernels for Hopper (sm_90a): the dendritic
-// fns and their derivatives, and the segmented forward tile kernel that K1
+// fns and their derivatives, the segmented forward tile kernel that K1
 // and K1g (cadc_matmul.cu), K3 (cadc_conv.cu) and the q8 kernels K4
-// (cadc_matmul.cu) and K5 (cadc_conv.cu) instantiate.
+// (cadc_matmul.cu) and K5 (cadc_conv.cu) instantiate, and the ordered
+// segment sum that ends a launch split over segments (the tile kernel's
+// split, and cadc_matmul.cu's stream kernel).
 //
 // The forward tile kernel computes
 //
@@ -10,7 +12,7 @@
 // where X is read through a loader: the row-major x of a matmul (K1, K1g,
 // K4) or the implicit im2col gather of a convolution (K3, K5). f is applied
 // per segment before the cross-segment sum, segments are added in order
-// s = 0, 1, ... into an fp32 accumulator, and each output element is
+// s = 0, 1, ... into an fp32 accumulator, and each output element of y is
 // written once. With kGate the kernel also writes each segment's gate
 // f'(psum) from the same fp32 psum, in registers: packed 32 to a uint32
 // word along N (bit b of word w = column 32w + b, the JAX bit layout, N
@@ -116,6 +118,75 @@ __device__ __forceinline__ float dendritic_grad(int fn, float p) {
   }
 }
 
+// The ordered segment sum of a split launch, run by every thread of a
+// block at its end. Each of the S blocks of an output tile (rows m0 ..
+// m0+rows-1, columns n0 .. n0+cols-1, rows*cols <= kPer * blockDim.x) has
+// written its f(psum) tile to scratch [S, M, N]; after a barrier one thread
+// adds one to the tile's arrival counter with a GPU-scope acquire-release
+// atomic, which publishes the block's writes (the same release pattern as
+// a CUTLASS semaphore). The block
+// that arrives last reads the S tiles through L2, kPer elements a thread
+// and up to 64 loads in flight, adds them in order s = 0, 1, ...
+// from an fp32 zero — the single pass's additions in its order — writes y
+// and resets the counter to 0, so the counters are zero between launches.
+// One launch per split call, and no second kernel.
+template <int kPer>
+__device__ __forceinline__ void ordered_segment_sum(
+    const float* scratch, float* __restrict__ y, int* counter, int S, int M,
+    int N, int m0, int rows, int n0, int cols) {
+  __shared__ int last;
+  __syncthreads();  // the block's tile is written (CTA scope)
+  if (threadIdx.x == 0) {
+    // acq_rel at GPU scope: releases the tile (cumulative over the
+    // barrier) and acquires the other blocks' tiles for the whole block.
+    int old;
+    asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;\n"
+                 : "=r"(old) : "l"(counter) : "memory");
+    last = old == S - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // segments whose loads are in flight together: 32 or 64 loads a thread
+  constexpr int kSeg = kPer >= 16 ? 2 : kPer >= 4 ? 64 / kPer : 16;
+  const size_t mn = static_cast<size_t>(M) * N;  // a split has M*N < 2^31
+  int at[kPer];
+  bool ok[kPer];
+  float a[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int e = threadIdx.x + i * blockDim.x;
+    const int m = m0 + e / cols, n = n0 + e % cols;
+    ok[i] = e < rows * cols && m < M && n < N;
+    at[i] = ok[i] ? m * N + n : 0;
+    a[i] = 0.f;
+  }
+  int s = 0;
+  for (; s + kSeg <= S; s += kSeg) {
+    float v[kSeg][kPer];
+#pragma unroll
+    for (int j = 0; j < kSeg; ++j)
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        v[j][i] = ok[i] ? __ldcg(scratch + (s + j) * mn + at[i]) : 0.f;
+#pragma unroll
+    for (int j = 0; j < kSeg; ++j)
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) a[i] += v[j][i];
+  }
+  for (; s < S; ++s) {
+    float v[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      v[i] = ok[i] ? __ldcg(scratch + s * mn + at[i]) : 0.f;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) a[i] += v[i];
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+    if (ok[i]) y[at[i]] = a[i];
+  if (threadIdx.x == 0) *counter = 0;
+}
+
 // Thread (ty, tx) owns rows ty*TM .. ty*TM+TM-1 and columns tx + j*(BN/TN):
 // neighbouring threads read neighbouring shared-memory words of w and
 // write neighbouring addresses of y.
@@ -125,21 +196,25 @@ __device__ __forceinline__ float dendritic_grad(int fn, float p) {
 // current tile computes, so a tile's global loads are in flight together
 // and overlap the FMAs.
 //
-// split == 0: the block owns all S segments and writes y.
-// split == 1: the block owns segment blockIdx.z alone and writes its
-// f(psum) tile to y + z*M*N (scratch); segment_sum_kernel then adds the
-// S tiles in order s = 0, 1, ... — the same additions in the same order
-// as the single pass, so the result is bitwise the same.
+// !kSplit (the single pass): the block owns all S segments and writes y.
+// kSplit: the block owns segment blockIdx.z alone,
+// writes its f(psum) tile to scratch + z*M*N, and the last of the S blocks
+// of its output tile to arrive adds the S tiles into y in order s = 0, 1,
+// ... (ordered_segment_sum) — the single pass's additions in its order, so
+// the result is bitwise the same. Every thread's psum runs over k in order
+// whatever BM and BN are, so every tile shape and split gives the same
+// bits, gate included.
 //
 // XLoad: `Acc operator()(int m, int d) const` returns X(m, d) for
 // m < M, d < D (the caller masks both). scale: the q8 kernels' fp32
 // dequantization factor in device memory (read once); unused for float.
 template <typename T, typename Acc, int BM, int BN, int TM, int TN,
-          bool kGate, typename XLoad>
+          bool kGate, bool kSplit, typename XLoad>
 __global__ void __launch_bounds__(kThreads, 2)  // <= 128 registers a thread
 fwd_tile_kernel(XLoad xl, const T* __restrict__ w, float* __restrict__ y,
+                float* __restrict__ scratch, int* __restrict__ counters,
                 void* __restrict__ gate, int M, int N, int D, int S,
-                int xbar, int fn, int split, int gate_kind,
+                int xbar, int fn, int gate_kind,
                 const float* __restrict__ scale) {
   constexpr bool kQ8 = std::is_same_v<Acc, int>;
   static_assert((BM / TM) * (BN / TN) == kThreads, "one micro-tile per thread");
@@ -157,10 +232,11 @@ fwd_tile_kernel(XLoad xl, const T* __restrict__ w, float* __restrict__ y,
   const int n0 = blockIdx.x * BN;
   const int tx = threadIdx.x % kCols;
   const int ty = threadIdx.x / kCols;
-  const int s_first = split ? blockIdx.z : 0;
+  const int s_first = kSplit ? blockIdx.z : 0;
   const int kt_per_seg = (xbar + kBK - 1) / kBK;
-  const int n_tiles = (split ? 1 : S) * kt_per_seg;
-  float* out = y + (split ? static_cast<size_t>(blockIdx.z) * M * N : 0);
+  const int n_tiles = (kSplit ? 1 : S) * kt_per_seg;
+  float* out =
+      kSplit ? scratch + static_cast<size_t>(blockIdx.z) * M * N : y;
   float sc = 1.f;
   if constexpr (kQ8) sc = *scale;
 
@@ -307,16 +383,10 @@ fwd_tile_kernel(XLoad xl, const T* __restrict__ w, float* __restrict__ y,
       if (n < N) out[static_cast<size_t>(m) * N + n] = acc[i][j];
     }
   }
-}
-
-// y[i] = scratch[0][i] + scratch[1][i] + ... in segment order.
-__global__ void segment_sum_kernel(const float* __restrict__ scratch,
-                                   float* __restrict__ y, int S, size_t mn) {
-  const size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-  if (i >= mn) return;
-  float a = 0.f;
-  for (int s = 0; s < S; ++s) a += scratch[s * mn + i];
-  y[i] = a;
+  if constexpr (kSplit)
+    ordered_segment_sum<BM * BN / kThreads>(
+        scratch, y, counters + blockIdx.y * gridDim.x + blockIdx.x, S, M, N,
+        m0, BM, n0, BN);
 }
 
 }  // namespace cadc

@@ -39,7 +39,11 @@ bytes a mode saves.
                                          of the dequantized psum
                                          (`_q8_kernel_with_gate`).
 The sources are csrc/cadc_matmul.cu (K1, K1g, K4, K4g) and
-csrc/cadc_bwd.cu (K2); their notes give the bounds and designs.
+csrc/cadc_bwd.cu (K2); their notes give the bounds and designs. Each
+forward is one launch under the plan `plan_fwd` picks from the shapes: the
+tile kernel (single pass, or split over segments and summed in order by
+the last block of each output tile, bitwise the single pass), or for K1 at
+M <= 8 the stream kernel, which streams w in 16-byte vectors.
 `CadcMatmulFn` and `CadcMatmulQ8Fn` are the autograd Functions around
 them; kernels/ops.py picks kernel or plain version by the tensors'
 device. The kernels take only the five built-in dendritic fns (FN_IDS); a
@@ -57,7 +61,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -71,11 +75,19 @@ FN_IDS = {"identity": 0, "relu": 1, "sublinear": 2, "supralinear": 3,
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = "cadc_matmul.cu"
 _BWD_SOURCE = "cadc_bwd.cu"
-# Up to this M (decode: M = serve slots) the kernel runs one block per
-# (column tile, segment) into an [S, M, N] fp32 scratch, summed in segment
-# order by a second kernel: bitwise the single pass, with S times the
-# blocks to stream the weights.
-SPLIT_MAX_M = 64
+# The forward's launch plan (`plan_fwd`) aims for one block per SM of an
+# H100 SXM.
+SMS = 132
+PLAN_KERNELS = ("tile", "stream")  # csrc/cadc_matmul.cu PlanKernel
+_TILE_N = 64                  # columns of a tile-kernel block
+_TILE_ROWS = (64, 8)          # its rows, preferred first
+_STREAM_MAX_M = 8             # the stream kernel holds 8 rows of x
+_STREAM_MAX_XBAR = 512        # its x segment in shared memory: 16 KB
+_STREAM_LANES = (8, 4)        # 16-byte vectors per strip, widest first
+# Arrival counters of the ordered segment sum, per device: one per output
+# tile of a split plan (the planner never plans more).
+N_COUNTERS = 1 << 16
+_COUNTERS: dict = {}
 
 # Gate bits per packed word (uint32 lane packing along N).
 GATE_PACK_WIDTH = 32
@@ -324,13 +336,13 @@ def cadc_matmul_q8_gate_torch(x_q: Tensor, w_codes: Tensor, scale: Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.library(_SOURCE)
     lib.cadc_matmul_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.cadc_matmul_launch.restype = ctypes.c_int
     lib.cadc_matmul_gate_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.cadc_matmul_gate_launch.restype = ctypes.c_int
     lib.cadc_matmul_q8_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.cadc_matmul_q8_launch.restype = ctypes.c_int
     lib.cadc_matmul_error_string.argtypes = [ctypes.c_int]
     lib.cadc_matmul_error_string.restype = ctypes.c_char_p
@@ -369,40 +381,141 @@ def _check_scale(name: str, scale: Tensor, dev) -> Tensor:
     return scale.contiguous()
 
 
+class Plan(NamedTuple):
+    """A forward launch: `kernel` 'tile' (`width` = block rows, 8 or 64) or
+    'stream' (`width` = 16-byte vectors per column strip, 4 or 8);
+    `split`: one block per (output tile, segment), summed in order by the
+    last block of each tile; `grid` (x, y, z) of the one launch."""
+    kernel: str
+    width: int
+    split: bool
+    grid: Tuple[int, int, int]
+
+    @property
+    def tiles(self) -> int:
+        """Output tiles: the arrival counters a split launch uses."""
+        return self.grid[0] * self.grid[1]
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def _make_plan(kernel: str, width: int, split: bool, m: int, n: int,
+               n_seg: int, vec: int) -> Plan:
+    z = n_seg if split else 1
+    if kernel == "stream":
+        return Plan(kernel, width, split, (-(-n // (width * vec)), 1, z))
+    return Plan(kernel, width, split, (-(-n // _TILE_N), -(-m // width), z))
+
+
+def plan_fwd(m: int, n: int, n_seg: int, crossbar_size: int, *,
+             vec: int = 0, _force=None) -> Plan:
+    """The launch plan of an [m, n_seg*xbar] @ [n_seg*xbar, n] forward, from
+    the shapes alone. `vec`: columns per 16-byte vector of w (4 fp32, 8
+    bf16) where the stream kernel may run (K1 without a gate), else 0.
+
+      * the stream kernel for m <= 8 (decode): the wider strip (8 vectors)
+        where it gives SMS blocks over (strip, segment), else the narrower
+        (4); split over segments when there are several;
+      * else the tile kernel: the single pass with 64-row tiles (8 for m <=
+        8) when that grid already has SMS blocks (prefill); else split
+        over segments, with 8-row tiles where 64-row ones fall short.
+
+    Every plan computes the same sums in the same order (the tile kernel
+    is bitwise under every plan). `_force` = (kernel, width, split) builds
+    that plan instead, for tests."""
+    if _force is not None:
+        kernel, width, split = _force
+        ok = (width in _TILE_ROWS if kernel == "tile" else
+              kernel == "stream" and vec and width in _STREAM_LANES
+              and m <= _STREAM_MAX_M and crossbar_size <= _STREAM_MAX_XBAR)
+        if not ok or (split and n_seg < 2) or (
+                kernel == "stream" and split != (n_seg > 1)):
+            raise ValueError(f"no such plan {_force} for M={m} N={n} "
+                             f"S={n_seg} xbar={crossbar_size} vec={vec}")
+        return _make_plan(kernel, width, split, m, n, n_seg, vec)
+    split = n_seg > 1
+    if vec and m <= _STREAM_MAX_M and crossbar_size <= _STREAM_MAX_XBAR:
+        plans = [_make_plan("stream", lanes, split, m, n, n_seg, vec)
+                 for lanes in _STREAM_LANES]
+        plan = next((p for p in plans if p.blocks >= SMS), plans[-1])
+        if not split or plan.tiles <= N_COUNTERS:
+            return plan
+    rows = 8 if m <= 8 else 64
+    single = _make_plan("tile", rows, False, m, n, n_seg, vec)
+    if single.blocks >= SMS:
+        return single
+    plan = _make_plan("tile", rows, split, m, n, n_seg, vec)
+    return (plan if plan.blocks >= SMS
+            else _make_plan("tile", 8, split, m, n, n_seg, vec))
+
+
+def _counters(device) -> Tensor:
+    """The device's arrival counters (zeroed int32 [N_COUNTERS]), made at
+    the first split launch, which must not be inside a CUDA graph capture.
+    The kernels leave them zero again. Split launches on one device use
+    them one at a time: run those on one stream (every caller in the port
+    does)."""
+    buf = _COUNTERS.get(device)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the first split CADC matmul on a device is inside a CUDA "
+                "graph capture; call it once before capturing")
+        buf = _COUNTERS[device] = torch.zeros(N_COUNTERS, dtype=torch.int32,
+                                              device=device)
+    return buf
+
+
 def _fwd_launch(x: Tensor, w: Tensor, crossbar_size: int, fn: str,
-                mode: str, scale: Optional[Tensor] = None
+                mode: str, scale: Optional[Tensor] = None,
+                plan: Optional[Plan] = None
                 ) -> Tuple[Tensor, Optional[Tensor]]:
-    """K1 (mode 'none') or K1g on CUDA tensors; K4 / K4g with `scale`."""
+    """K1 (mode 'none') or K1g on CUDA tensors; K4 / K4g with `scale`. One
+    launch under `plan` (default: plan_fwd's)."""
     n_seg = _check_shapes(x, w, crossbar_size)
     m, n = x.shape[0], w.shape[1]
-    if -(-m // 64) > 65535:
-        raise ValueError(f"M={m} exceeds the kernel's grid")
     x, w = x.contiguous(), w.contiguous()
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     gate = (_empty_gate(n_seg, m, n, mode, fn, x.device)
             if mode in ("packed", "bytes") else None)
     if m == 0 or n == 0:
         return y, gate
-    scratch = (torch.empty((n_seg, m, n), dtype=torch.float32,
-                           device=x.device)
-               if 1 < n_seg and m <= SPLIT_MAX_M else None)
+    if plan is None:
+        vec = (16 // x.element_size()
+               if gate is None and scale is None else 0)
+        plan = plan_fwd(m, n, n_seg, crossbar_size, vec=vec)
+    if max(plan.grid[1:]) > 65535:
+        raise ValueError(f"M={m}, S={n_seg} exceed the kernel's grid")
+    if plan.kernel == "stream" and (gate is not None or scale is not None):
+        raise ValueError("the stream kernel runs K1 only")
+    scratch = counters = None
+    if plan.split:
+        scratch = torch.empty((n_seg, m, n), dtype=torch.float32,
+                              device=x.device)
+        counters = _counters(x.device)
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    args = (x.data_ptr(), w.data_ptr(), y.data_ptr(),
-            None if scratch is None else scratch.data_ptr())
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    args = (y.data_ptr(), ptr(scratch), ptr(counters))
     if scale is not None:
         code = lib.cadc_matmul_q8_launch(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), *args[2:],
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), *args,
             None if gate is None else gate.data_ptr(), m, n, n_seg,
             crossbar_size, FN_IDS[fn],
-            _gate_kind(mode if gate is not None else "none", fn), stream)
+            _gate_kind(mode if gate is not None else "none", fn), plan.width,
+            stream)
     elif gate is None:
-        code = lib.cadc_matmul_launch(*args, m, n, n_seg, crossbar_size,
-                                      FN_IDS[fn], _DTYPES[x.dtype], stream)
+        code = lib.cadc_matmul_launch(
+            x.data_ptr(), w.data_ptr(), *args, m, n, n_seg, crossbar_size,
+            FN_IDS[fn], _DTYPES[x.dtype], PLAN_KERNELS.index(plan.kernel),
+            plan.width, stream)
     else:
         code = lib.cadc_matmul_gate_launch(
-            *args, gate.data_ptr(), m, n, n_seg, crossbar_size, FN_IDS[fn],
-            _DTYPES[x.dtype], _gate_kind(mode, fn), stream)
+            x.data_ptr(), w.data_ptr(), *args, gate.data_ptr(), m, n, n_seg,
+            crossbar_size, FN_IDS[fn], _DTYPES[x.dtype], _gate_kind(mode, fn),
+            plan.width, stream)
     _build.check(lib, "cadc_matmul", code)
     return y, gate
 

@@ -157,9 +157,10 @@ def _seg_psums(x, w, xbar):
                                      ("tanh", "bytes")])
 @pytest.mark.parametrize("m,n", [(8, 84), (64, 10), (200, 120)])
 def test_cadc_matmul_gate_kernel_matches_plain(cuda_device, mode, fn, m, n):
-    """K1g on both paths (M <= 64: one block per column tile and segment;
-    M = 200: the single pass), N not a multiple of a 32-bit word; only
-    indicator gates (relu) pack."""
+    """K1g under the planner's plan (at these small shapes one block per
+    8-row tile and segment, summed in order by the last block of each
+    tile), N not a multiple of a 32-bit word; only indicator gates (relu)
+    pack. test_matmul_plans_are_bitwise holds every other plan to it."""
     xbar = 64
     rng = np.random.RandomState(m + n)
     x = torch.from_numpy(rng.randn(m, 3 * xbar).astype(np.float32)).to(
@@ -429,3 +430,164 @@ def test_q8_model_eval_runs_the_q8_kernels(cuda_device):
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(counters, before)] == [13, 3, 0, 0]
     assert torch.equal(logits["auto"], logits["torch"])
+
+
+# ---------------------------------------------------------------------------
+# the forward's launch plans: the stream kernel (K1 at decode) and the
+# ordered segment sum of split plans
+# ---------------------------------------------------------------------------
+
+def _stream_inputs(dev, dtype, m, n, n_seg, xbar, seed):
+    rng = np.random.RandomState(seed)
+    d = n_seg * xbar
+    x = torch.from_numpy(rng.randn(m, d).astype(np.float32))
+    w = torch.from_numpy((rng.randn(d, n) / np.sqrt(d)).astype(np.float32))
+    return x.to(dev, dtype), w.to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("n", [10, 100, 256, 1152, 6912])
+def test_stream_kernel_matches_plain(cuda_device, dtype, m, n):
+    """K1 at M <= 8 through the public wrapper takes the stream kernel (N
+    10 and 100 are not multiples of the strip, 10 and 100 not of the
+    bf16 vector: scalar loads); S 1 (no split), 2, 5 and 27 (w_down's),
+    every fn; within 1e-4 of scale of the plain version."""
+    xbar = 256
+    for n_seg in (1, 2, 5, 27):
+        x, w = _stream_inputs(cuda_device, dtype, m, n, n_seg, xbar,
+                              m + n + n_seg)
+        plan = cm.plan_fwd(m, n, n_seg, xbar, vec=16 // x.element_size())
+        assert plan.kernel == "stream" and plan.split == (n_seg > 1)
+        for fn in FNS:
+            before = cm.cadc_matmul_cuda.launches
+            got = cm.cadc_matmul_cuda(x, w, crossbar_size=xbar, fn=fn)
+            want = cm.cadc_matmul_torch(x, w, crossbar_size=xbar, fn=fn)
+            torch.cuda.synchronize()
+            assert cm.cadc_matmul_cuda.launches == before + 1
+            _rel_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lanes", [4, 8])
+@pytest.mark.parametrize("n,xbar", [(1152, 256), (100, 64), (512, 512),
+                                    (96, 100)])
+def test_stream_kernel_every_strip(cuda_device, dtype, lanes, n, xbar):
+    """Every strip width of the stream kernel, forced through the planner's
+    private argument, on the vector path (N = 1152, 512) and the scalar one
+    (N = 100; xbar = 100 is not a multiple of the vector), xbar up to its
+    512 limit."""
+    x, w = _stream_inputs(cuda_device, dtype, 8, n, 3, xbar, lanes + n)
+    plan = cm.plan_fwd(8, n, 3, xbar, vec=16 // x.element_size(),
+                       _force=("stream", lanes, True))
+    for fn in ("relu", "identity"):
+        got, _ = cm._fwd_launch(x, w, xbar, fn, "none", plan=plan)
+        want = cm.cadc_matmul_torch(x, w, crossbar_size=xbar, fn=fn)
+        torch.cuda.synchronize()
+        _rel_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_kernel_is_deterministic(cuda_device, dtype):
+    """The same bits on every run (fixed-order reductions, no atomics in
+    the sums), at w_down's decode shape."""
+    x, w = _stream_inputs(cuda_device, dtype, 8, 1152, 27, 256, 5)
+    a = cm.cadc_matmul_cuda(x, w, crossbar_size=256, fn="relu")
+    b = cm.cadc_matmul_cuda(x, w, crossbar_size=256, fn="relu")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def _all_plans(m, n, n_seg, xbar):
+    return [cm.plan_fwd(m, n, n_seg, xbar, _force=("tile", rows, split))
+            for rows in (64, 8) for split in (False, True)
+            if n_seg > 1 or not split]
+
+
+# chip_smoke.py's fc_shapes (LeNet-5, ResNet-18's fc) and VGG-16's f1-f3
+_FC_SHAPES = [(400, 120), (120, 84), (84, 10), (512, 10), (512, 512),
+              (512, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n", _FC_SHAPES)
+@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("fn,mode", [("relu", "packed"), ("relu", "bytes"),
+                                     ("sublinear", "bytes")])
+def test_matmul_plans_are_bitwise(cuda_device, d, n, m, fn, mode):
+    """K1g's outputs and gates (packed words, bytes, fp32) under every plan
+    (64- or 8-row tiles, single pass or split with the ordered segment
+    sum) are bitwise the single pass's; so is K1's output."""
+    from repro_torch.core.cadc import pad_to_segments
+
+    xbar = 64
+    rng = np.random.RandomState(d + n + m)
+    x = pad_to_segments(torch.from_numpy(rng.randn(m, d).astype(
+        np.float32)).to(cuda_device), -1, xbar)
+    w = pad_to_segments(torch.from_numpy((rng.randn(d, n) / np.sqrt(d))
+                                         .astype(np.float32)).to(cuda_device),
+                        0, xbar)
+    plans = _all_plans(m, n, x.shape[1] // xbar, xbar)
+    y0, g0 = cm._fwd_launch(x, w, xbar, fn, mode, plan=plans[0])
+    k0, _ = cm._fwd_launch(x, w, xbar, fn, "none", plan=plans[0])
+    for plan in plans[1:]:
+        y, g = cm._fwd_launch(x, w, xbar, fn, mode, plan=plan)
+        k, _ = cm._fwd_launch(x, w, xbar, fn, "none", plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y0) and torch.equal(g, g0), plan
+        assert torch.equal(k, k0), plan
+    assert torch.equal(y0, k0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,n", [(128, 512, 512), (128, 512, 100),
+                                   (128, 512, 10), (32, 4096, 11)])
+@pytest.mark.parametrize("fn", ["relu", "sublinear"])
+def test_q8_matmul_plans_are_bitwise(cuda_device, m, d, n, fn):
+    """K4 and K4g under every plan equal the plain version bitwise (the
+    q8 FC shapes of VGG-16, ResNet-18 and the SNN)."""
+    xbar = 64
+    x = _codes(cuda_device, m + n, (m, d), -7, 8)
+    w = _codes(cuda_device, d + n, (d, n), -1, 2)
+    scale = torch.tensor(0.0123, device=cuda_device)
+    want = cm.cadc_matmul_q8_torch(x, w, scale, crossbar_size=xbar, fn=fn)
+    wy, wgate = cm.cadc_matmul_q8_gate_torch(x, w, scale, crossbar_size=xbar,
+                                             fn=fn, mode="bytes")
+    for plan in _all_plans(m, n, d // xbar, xbar):
+        y, _ = cm._fwd_launch(x, w, xbar, fn, "none", scale, plan=plan)
+        yg, gate = cm._fwd_launch(x, w, xbar, fn, "bytes", scale, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want) and torch.equal(yg, wy), plan
+        assert torch.equal(gate, wgate), plan
+
+
+@pytest.mark.cuda
+def test_arrival_counters_read_zero(cuda_device):
+    """Every split launch leaves the device's arrival counters zero: eager
+    calls of both kernels, then calls captured in a CUDA graph and
+    replayed twice (the replays equal the eager results)."""
+    x8, w8 = _stream_inputs(cuda_device, torch.bfloat16, 8, 1152, 27, 256, 1)
+    xf = torch.randn(128, 512, device=cuda_device)
+    wf = torch.randn(512, 10, device=cuda_device)
+    calls = [
+        lambda: cm.cadc_matmul_cuda(x8, w8, crossbar_size=256, fn="relu"),
+        lambda: cm.cadc_matmul_gate_cuda(xf, wf, crossbar_size=64, fn="relu",
+                                         mode="packed")[0]]
+    assert cm.plan_fwd(8, 1152, 27, 256, vec=8).split
+    assert cm.plan_fwd(128, 10, 8, 64).split
+    eager = [c() for c in calls]
+    torch.cuda.synchronize()
+    counters = cm._counters(x8.device)
+    assert int(counters.abs().sum()) == 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c() for c in calls]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(counters.abs().sum()) == 0
+        for got, want in zip(outs, eager):
+            assert torch.equal(got, want)
