@@ -38,9 +38,10 @@ Slice 2, CNN training (fp32, TF32 off):
      identity / sublinear, all four save_gate modes; dw bitwise equal
      across two runs; recompute bitwise equal to the forward's saved gate;
   8. K3 (forward, gate) and the conv backward (K2 over im2col patches +
-     _col2im) against their plain versions at every conv shape of both
-     models at the paths' batches (stride 1 and 2, SAME and VALID, 1x1
-     projections, Cin 1 and 3, segments spanning taps), xbar 64/128/256;
+     _col2im) against their plain versions at every conv shape of
+     LeNet-5, ResNet-18, VGG-16 and the SNN at the paths' batches (stride
+     1 and 2, SAME and VALID, 1x1 projections, Cin 1, 2 and 3, segments
+     spanning taps), xbar 64/128/256, every plan a shape admits;
   9. the LeNet-5 path: repro_torch.launch.train_cnn_cadc (vConv and CADC,
      20 steps each, batch 64) with exact launch counts of K1, K1g, K2, K3;
  10. training parity at full width, both models: kernel path against
@@ -233,7 +234,38 @@ def profile_device(run, n: int, group, what: str):
 # phases
 # ---------------------------------------------------------------------------
 
+# Kernels that must compile without spills (ptxas' report of each
+# instantiation): K3's tap-aligned kernel.
+NO_SPILL_KERNELS = ("tap_tile_kernel",)
+
+
+def ptxas_lines(log: str) -> list:
+    """ptxas' register and spill lines of a build log, each prefixed with
+    the kernel it is about (demangled where c++filt is installed)."""
+    import re
+    import shutil
+
+    out, name = [], "?"
+    filt = shutil.which("c++filt")
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", ln)
+        if m:
+            name = m.group(1)
+            if filt:
+                name = subprocess.run([filt, name], capture_output=True,
+                                      text=True).stdout.strip() or name
+            name = name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0] if name.endswith(")") else name
+            continue
+        if "registers" in ln or "spill" in ln:
+            out.append(f"{name}: {ln.replace('ptxas info    :', '').strip()}")
+    return out
+
+
 def build_kernels(report):
+    import re
+
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -241,11 +273,14 @@ def build_kernels(report):
     report["build_s"] = time.perf_counter() - t0
     for name, path in libs.items():
         log = path.with_suffix(".log")
-        lines = [ln.strip() for ln in log.read_text().splitlines()
-                 if "registers" in ln or "spill" in ln] if log.is_file() else []
+        lines = ptxas_lines(log.read_text()) if log.is_file() else []
         report.setdefault("ptxas", {})[name] = lines
         for ln in lines:
             print(f"ptxas {name}: {ln}", flush=True)
+            spill = re.search(r"(\d+) bytes spill stores", ln)
+            if (spill and int(spill.group(1))
+                    and any(k in ln for k in NO_SPILL_KERNELS)):
+                fail(f"ptxas: {name}: {ln}")
     print(f"build: {sorted(libs)} in {report['build_s']:.1f} s", flush=True)
 
 
@@ -832,6 +867,10 @@ def rel_err(got, want) -> tuple:
 
 # max abs err of each slice-2 kernel over its checks (the kernels line)
 MAX_ABS = {"k1g": 0.0, "k2": 0.0, "k3": 0.0}
+# K3 launches under a forced plan, by kernel, held bitwise to the planner's
+PLANS_CHECKED = {"gather": 0, "tap": 0}
+# the models whose paths run K3 (check_k3 takes every conv shape of each)
+K3_MODELS = ("lenet5", "resnet18", "vgg16", "snn")
 
 
 def track(key: str, got, want) -> float:
@@ -1004,18 +1043,18 @@ def _check_matmul_case(cm, x, w, g, psums, xbar, fn, save_gate, tag,
 
 
 def check_k3(dev, report):
-    """K3's forward (with and without its gate) and the conv backward (K2
-    over im2col patches, then _col2im) against their plain versions at
-    every conv shape of both models at the paths' batches, xbar 64 / 128 /
-    256 with relu's packed gate; at xbar 64 also vConv (identity), the
-    byte gate and recompute."""
+    """K3's forward (with and without its gate, under every plan the shape
+    admits) and the conv backward (K2 over im2col patches, then _col2im)
+    against their plain versions at every conv shape of the four models
+    whose paths run K3 (LeNet-5, ResNet-18, VGG-16, the SNN) at the paths'
+    batches, xbar 64 / 128 / 256 with relu's packed gate; at xbar 64 also
+    vConv (identity), the byte gate and recompute."""
     from repro_torch.core.conv import im2col
     from repro_torch.kernels import cadc_conv as cc
     from repro_torch.kernels import cadc_matmul as cm
 
     gen = torch.Generator(device=dev).manual_seed(12)
-    shapes = sorted({c[1:] for mdl in ("lenet5", "resnet18")
-                     for c in conv_layers(mdl)})
+    shapes = sorted({c[1:] for mdl in K3_MODELS for c in conv_layers(mdl)})
     worst = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
     n_checks = near_mismatch = spanning = 0
     for b, h, cin, k, cout, stride, padding in shapes:
@@ -1046,12 +1085,16 @@ def check_k3(dev, report):
     report["k3_checks"] = {"n": n_checks, "shapes": shapes,
                            "max_err_over_scale": worst,
                            "segments_spanning_taps": spanning,
-                           "near_zero_gate_mismatches": near_mismatch}
+                           "near_zero_gate_mismatches": near_mismatch,
+                           "forced_plans_bitwise": dict(PLANS_CHECKED)}
     print(f"K3: {n_checks} checks ok over {len(shapes)} conv shapes of "
-          f"LeNet-5 (B={LENET_BATCH}) and ResNet-18 (B={RESNET_BATCH}, "
-          f"width {RESNET_WIDTH}), xbar {XBARS}; {spanning} segments span "
+          f"LeNet-5 (B={LENET_BATCH}), ResNet-18 (B={RESNET_BATCH}, width "
+          f"{RESNET_WIDTH}), VGG-16 (B={VGG_BATCH}) and the SNN "
+          f"(B={SNN_BATCH}), xbar {XBARS}; {spanning} segments span "
           f"several taps; max err / scale {worst}; gate bit mismatches at "
-          f"|psum| <= {GATE_NEAR} x scale: {near_mismatch}", flush=True)
+          f"|psum| <= {GATE_NEAR} x scale: {near_mismatch}; forced plans "
+          f"bitwise the planner's (packed gate): {PLANS_CHECKED}",
+          flush=True)
 
 
 def _check_conv_case(cc, cm, x, w, g, patches, psums, xbar, fn, save_gate,
@@ -1083,6 +1126,14 @@ def _check_conv_case(cc, cm, x, w, g, patches, psums, xbar, fn, save_gate,
             y0, _ = cc.cadc_conv2d_cuda(x, w, mode="none", **kw)
             if not torch.equal(y0, y):
                 fail(f"{tag}: the gate changed K3's output")
+            # every plan the shape admits gives the planner's bits
+            for plan in cc.conv_plans(m, cout, cin, xbar):
+                yp, gp = keep_counts(lambda: cc._conv_launch(
+                    "cadc_conv2d_cuda", x, w, xbar, fn, stride, padding,
+                    fmode, None, plan=plan))
+                if not (torch.equal(yp, y) and torch.equal(gp, gate)):
+                    fail(f"{tag}: plan {plan} differs from the planner's")
+                PLANS_CHECKED[plan.kernel] += 1
     g2 = g.reshape(-1, cout)
     w2d = w.reshape(-1, cout)
     gate2 = None if gate is None else gate.reshape(gate.shape[0],
@@ -1336,7 +1387,8 @@ def time_resnet_step(dev, report):
     p50 = float(np.median(times))
 
     def group(key: str) -> str:
-        for pat, name in (("ConvGather", "K3 cadc_conv2d"),
+        for pat, name in (("ConvGather", "K3 cadc_conv2d (gather)"),
+                          ("tap_tile_kernel", "K3 cadc_conv2d (tap)"),
                           ("RowMajor", "K1/K1g cadc_matmul"),
                           ("bwd_dx_kernel", "K2 dx"),
                           ("bwd_dw_kernel", "K2 dw"),
@@ -1452,10 +1504,17 @@ def time_train_kernels(dev, launches, report):
               lambda x: F.conv2d(x.permute(0, 3, 1, 2), w_oihw, stride=st,
                                  padding=cpad),
               k3_bytes, flops, "k3")
+        oh = conv_out_hw(h, k, stride, padding)
+        plan = cc.plan_conv(b * oh * oh, cout, cin, xbar)
+        rec = per_shape["k3"][name]
+        rec["plan"] = f"{plan.kernel} {plan.tile[0]}x{plan.tile[1]}"
+        rec["grid"] = list(plan.grid)
+        print(f"K3 {name} x{count}: plan {rec['plan']} ({plan.blocks} "
+              f"blocks), {rec['ms']:.4f} ms, F.conv2d {rec['library_ms']:.4f}"
+              f" ms, bound {rec['bound_ms']:.4f} ms", flush=True)
         # K2: the conv backward over im2col patches, with K3's gate
         x0 = torch.randn(b, h, h, cin, generator=gen, device=dev)
         _, gate = cc.cadc_conv2d_cuda(x0, w, mode="packed", **kw)
-        oh = conv_out_hw(h, k, stride, padding)
         m, d = b * oh * oh, k * k * cin
         gate = gate.reshape(gate.shape[0], m, -1)
         w2d = w.reshape(d, cout)

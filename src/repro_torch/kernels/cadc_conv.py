@@ -10,10 +10,15 @@ over all of them before f(). Dilation is 1.
 
   * cadc_conv2d_cuda  — K3 (csrc/cadc_conv.cu; replaces the Pallas
                         `_kernel` / `_kernel_with_gate` of `_conv_pallas`):
-                        an implicit GEMM that gathers patches from x as it
+                        an implicit GEMM that reads patches from x as it
                         goes, optionally writing the gate
                         [S, B, OH, OW, ceil(Cout/32)] words or
-                        [S, B, OH, OW, Cout] bytes / fp32, as K1g.
+                        [S, B, OH, OW, Cout] bytes / fp32, as K1g. One
+                        launch under the plan `plan_conv` picks from the
+                        shapes: the tap-aligned kernel (Cin and xbar
+                        multiples of 32) with a tile that fills the card,
+                        or the gather kernel; every plan gives the same
+                        bits.
   * cadc_conv2d_torch — the plain version: im2col, then the per-segment
                         loop of K1g's plain version (f, sequential sum,
                         the gate).
@@ -35,7 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,6 +52,14 @@ from repro_torch.kernels import cadc_matmul as _cm
 
 Tensor = torch.Tensor
 _SOURCE = "cadc_conv.cu"
+# K3's launch plans (`plan_conv`; csrc/cadc_conv.cu `cadc_conv_launch`).
+PLAN_KERNELS = ("gather", "tap")
+GATHER_TILE = (64, 64)
+# The tap kernel's (BM, BN) tiles, preferred first: 8 x 8 micro-tiles on
+# 128 threads, then 8 x 4 on 128 threads; two blocks an SM.
+TAP_TILES = ((128, 64), (64, 64))
+TAP_ALIGN = 32   # rows of a k-tile: Cin and xbar multiples of it
+_GRID_X_MAX, _GRID_YZ_MAX = 2 ** 31 - 1, 65535
 
 
 def _segment_taps(k1: int, k2: int, c: int, xbar: int
@@ -135,11 +148,81 @@ def cadc_conv2d_q8_torch(x_q: Tensor, w_codes: Tensor, scale: Tensor, *,
     return y.reshape(b, oh, ow, cout), gate
 
 
+class ConvPlan(NamedTuple):
+    """A K3 launch: `kernel` 'tap' (the tap-aligned kernel) or 'gather';
+    `tile` (BM output pixels, BN output channels) of a block; `grid` (x, y,
+    z) of the one launch: pixel tiles on x for the tap kernel, channel
+    tiles on x for the gather kernel."""
+    kernel: str
+    tile: Tuple[int, int]
+    grid: Tuple[int, int, int]
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    def fits(self) -> bool:
+        """The grid is within CUDA's limits."""
+        return (self.grid[0] <= _GRID_X_MAX
+                and max(self.grid[1:]) <= _GRID_YZ_MAX)
+
+
+def tap_aligned(cin: int, crossbar_size: int) -> bool:
+    """Every 32-row k-tile of the contraction lies in one tap and one
+    segment: the tap kernel applies."""
+    return cin % TAP_ALIGN == 0 and crossbar_size % TAP_ALIGN == 0
+
+
+def _make_conv_plan(kernel: str, tile: Tuple[int, int], m: int,
+                    n: int) -> ConvPlan:
+    bm, bn = tile
+    rows, cols = -(-m // bm), -(-n // bn)
+    grid = (rows, cols, 1) if kernel == "tap" else (cols, rows, 1)
+    return ConvPlan(kernel, tile, grid)
+
+
+def plan_conv(m: int, n: int, cin: int, crossbar_size: int, *,
+              _force=None) -> ConvPlan:
+    """K3's launch plan for M = B*OH*OW output pixels, N = Cout, from the
+    shapes alone (never the gate mode):
+
+      * the tap kernel where `tap_aligned(cin, crossbar_size)`: the first
+        tile of TAP_TILES whose grid has SMS blocks, else the smallest;
+      * else the gather kernel with 64 x 64 tiles.
+
+    There is no split over segments. Every plan computes the same psums in
+    the same order, so every plan gives the same bits. `_force` = (kernel,
+    tile) builds that plan instead, for tests."""
+    aligned = tap_aligned(cin, crossbar_size)
+    if _force is not None:
+        kernel, tile = _force[0], tuple(_force[1])
+        ok = ((kernel == "tap" and aligned and tile in TAP_TILES)
+              or (kernel == "gather" and tile == GATHER_TILE))
+        if not ok:
+            raise ValueError(f"no such plan {_force} for M={m} N={n} "
+                             f"Cin={cin} xbar={crossbar_size}")
+        return _make_conv_plan(kernel, tile, m, n)
+    if not aligned:
+        return _make_conv_plan("gather", GATHER_TILE, m, n)
+    plans = [_make_conv_plan("tap", t, m, n) for t in TAP_TILES]
+    return next((p for p in plans if p.blocks >= _cm.SMS), plans[-1])
+
+
+def conv_plans(m: int, n: int, cin: int, crossbar_size: int
+               ) -> List[ConvPlan]:
+    """Every plan the shape admits: the gather kernel, and the tap kernel
+    at each of its tiles where the shape is tap-aligned."""
+    forces = [("gather", GATHER_TILE)]
+    if tap_aligned(cin, crossbar_size):
+        forces += [("tap", t) for t in TAP_TILES]
+    return [plan_conv(m, n, cin, crossbar_size, _force=f) for f in forces]
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.library(_SOURCE)
     lib.cadc_conv_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 19 + [ctypes.c_void_p])
     lib.cadc_conv_launch.restype = ctypes.c_int
     lib.cadc_conv_q8_launch.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
@@ -151,9 +234,12 @@ def _lib() -> ctypes.CDLL:
 
 def _conv_launch(name: str, x: Tensor, w: Tensor, crossbar_size: int,
                  fn: str, stride, padding, mode: str,
-                 scale: Optional[Tensor]
+                 scale: Optional[Tensor], plan: Optional[ConvPlan] = None
                  ) -> Tuple[Tensor, Optional[Tensor]]:
-    """K3 (scale None) or K5 on checked CUDA tensors."""
+    """K3 (scale None) or K5 on checked CUDA tensors. K3 runs one launch
+    under `plan` (default: plan_conv's, or the gather kernel where x or w
+    does not start on 16 bytes; a given tap plan then raises); K5 runs the
+    gather kernel."""
     if x.ndim != 4 or w.ndim != 4 or x.shape[3] != w.shape[2]:
         raise ValueError(f"want x [B, H, W, Cin] and w [K1, K2, Cin, Cout]; "
                          f"got {tuple(x.shape)}, {tuple(w.shape)}")
@@ -164,9 +250,25 @@ def _conv_launch(name: str, x: Tensor, w: Tensor, crossbar_size: int,
     pt, pl, oh, ow = _geometry(x, w, stride, padding)
     m, d = b * oh * ow, k1 * k2 * cin
     n_seg = -(-d // crossbar_size)
-    if -(-m // 64) > 65535:
-        raise ValueError(f"{name}: B*OH*OW={m} exceeds the kernel's grid")
     x, w = x.contiguous(), w.contiguous()
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    if scale is not None:
+        if plan is not None:
+            raise ValueError(f"{name} runs the gather kernel only")
+        plan = _make_conv_plan("gather", GATHER_TILE, m, cout)
+    elif plan is None:
+        plan = plan_conv(m, cout, cin, crossbar_size)
+        if plan.kernel == "tap" and not aligned:
+            plan = _make_conv_plan("gather", GATHER_TILE, m, cout)
+    elif plan != plan_conv(m, cout, cin, crossbar_size,
+                           _force=(plan.kernel, plan.tile)):
+        raise ValueError(f"{name}: plan {plan} is not one of this shape's")
+    elif plan.kernel == "tap" and not aligned:
+        raise ValueError(f"{name}: the tap kernel needs x and w on 16-byte "
+                         f"boundaries")
+    if not plan.fits():
+        raise ValueError(f"{name}: B*OH*OW={m}, Cout={cout} exceed the "
+                         f"grid of {plan}")
     y = torch.empty((b, oh, ow, cout), dtype=torch.float32, device=x.device)
     gate = None
     if mode in ("packed", "bytes"):
@@ -176,16 +278,16 @@ def _conv_launch(name: str, x: Tensor, w: Tensor, crossbar_size: int,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         geo = (b, h, wd, cin, k1, k2, cout, oh, ow, int(stride[0]),
                int(stride[1]), pt, pl, crossbar_size, _cm.FN_IDS[fn],
-               _cm._gate_kind(mode if gate is not None else "none", fn),
-               stream)
+               _cm._gate_kind(mode if gate is not None else "none", fn))
         gptr = None if gate is None else gate.data_ptr()
         if scale is None:
-            code = lib.cadc_conv_launch(x.data_ptr(), w.data_ptr(),
-                                        y.data_ptr(), gptr, *geo)
+            code = lib.cadc_conv_launch(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), gptr, *geo,
+                PLAN_KERNELS.index(plan.kernel), *plan.tile, stream)
         else:
             code = lib.cadc_conv_q8_launch(x.data_ptr(), w.data_ptr(),
                                            scale.data_ptr(), y.data_ptr(),
-                                           gptr, *geo)
+                                           gptr, *geo, stream)
         _build.check(lib, "cadc_conv", code)
     return y, (None if gate is None else gate.reshape(n_seg, b, oh, ow, -1))
 

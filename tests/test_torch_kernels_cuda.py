@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.conv import im2col
 from repro_torch.kernels import cadc_conv as cc
 from repro_torch.kernels import cadc_matmul as cm
 from repro_torch.kernels import ops
@@ -267,6 +268,126 @@ def test_cadc_conv_kernel_matches_plain(cuda_device, mode, case):
     else:
         got, want = gate.bool(), want_gate.bool()
     assert float((got != want).float().mean()) < 1e-3
+
+
+# (B, H, Cin, K, Cout, stride, padding, xbar): tap-aligned shapes
+_TAP_CASES = [
+    (2, 8, 32, 3, 64, 1, "SAME", 64),          # halo, SAME
+    (2, 9, 32, 3, 96, 1, "VALID", 96),         # VALID; Cout 96, xbar 96
+    (3, 9, 64, 3, 40, 2, "SAME", 64),          # stride 2; M = 75, Cout 40
+    (2, 16, 64, 1, 128, 2, "SAME", 128),       # the 1x1 stride-2 projection
+    (5, 7, 32, 3, 10, 1, ((1, 0), (2, 1)), 32),  # explicit pads, Cout 10
+    (2, 8, 128, 3, 256, 1, "SAME", 256),       # segments span taps
+]
+_TAP_MODES = [("relu", "none"), ("relu", "packed"), ("relu", "bytes"),
+              ("sublinear", "bytes"), ("identity", "none")]
+
+
+def _conv_inputs(dev, case, seed=0):
+    b, h, cin, k, cout, *_ = case
+    rng = np.random.RandomState(seed + h + cin + cout)
+    x = torch.from_numpy(rng.randn(b, h, h, cin).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.randn(k, k, cin, cout) / np.sqrt(k * k * cin))
+                         .astype(np.float32)).to(dev)
+    return x, w
+
+
+def _conv_plans_of(x, w, case):
+    b, h, cin, k, cout, stride, padding, xbar = case
+    *_, oh, ow = cc._geometry(x, w, (stride, stride), padding)
+    return cc.conv_plans(b * oh * ow, cout, cin, xbar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,mode", _TAP_MODES)
+@pytest.mark.parametrize("case", _TAP_CASES)
+def test_conv_plans_match_plain_and_each_other(cuda_device, case, fn, mode):
+    """K3 under every plan (the gather kernel, the tap kernel at each tile)
+    against the plain version within 1e-4 of scale, gates as
+    test_cadc_conv_kernel_matches_plain; and every plan's output and gate
+    (packed words, bytes, fp32) bitwise the gather kernel's."""
+    x, w = _conv_inputs(cuda_device, case)
+    b, h, cin, k, cout, stride, padding, xbar = case
+    st = (stride, stride)
+    want_y, want_gate = cc.cadc_conv2d_torch(
+        x, w, crossbar_size=xbar, fn=fn, stride=st, padding=padding,
+        mode=mode)
+    plans = _conv_plans_of(x, w, case)
+    assert [p.kernel for p in plans] == ["gather"] + ["tap"] * len(
+        cc.TAP_TILES)
+    y0, g0 = cc._conv_launch("k3", x, w, xbar, fn, st, padding, mode, None,
+                             plan=plans[0])
+    torch.cuda.synchronize()
+    _rel_close(y0, want_y)
+    if mode == "packed":
+        got = cm._unpack_mask(g0, cout).bool()
+        want = cm._unpack_mask(want_gate, cout).bool()
+        assert float((got != want).float().mean()) < 1e-3
+    elif mode == "bytes" and fn == "relu":
+        assert float((g0 != want_gate).float().mean()) < 1e-3
+    elif mode == "bytes":
+        patches = im2col(x, (k, k), stride=st, padding=padding)
+        psums = _seg_psums(patches.reshape(-1, k * k * cin),
+                           w.reshape(-1, cout), xbar)
+        ok = psums.reshape(g0.shape).abs() > 1e-2
+        _rel_close(g0[ok], want_gate[ok])
+    for plan in plans[1:]:
+        y, g = cc._conv_launch("k3", x, w, xbar, fn, st, padding, mode, None,
+                               plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y0), plan
+        assert (g is None and g0 is None) or torch.equal(g, g0), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _TAP_CASES)
+def test_conv_recompute_equals_the_tap_kernels_gate(cuda_device, case):
+    """K2 recomputing the gate over the im2col patches equals K2 over the
+    byte gate of the tap kernel (each tile), bitwise: the same psums in
+    the same order."""
+    x, w = _conv_inputs(cuda_device, case, seed=1)
+    b, h, cin, k, cout, stride, padding, xbar = case
+    st = (stride, stride)
+    patches = im2col(x, (k, k), stride=st, padding=padding).reshape(
+        -1, k * k * cin)
+    w2d = w.reshape(-1, cout)
+    g = torch.randn(patches.shape[0], cout, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(2))
+    kw = dict(crossbar_size=xbar, fn="relu")
+    rdx, rdw = cm.cadc_segmented_bwd_cuda(g, patches, w2d, None,
+                                          mode="recompute", **kw)
+    for plan in _conv_plans_of(x, w, case)[1:]:
+        _, gate = cc._conv_launch("k3", x, w, xbar, "relu", st, padding,
+                                  "bytes", None, plan=plan)
+        dx, dw = cm.cadc_segmented_bwd_cuda(
+            g, patches, w2d, gate.reshape(gate.shape[0], g.shape[0], -1),
+            mode="bytes", **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(dx, rdx) and torch.equal(dw, rdw), plan
+
+
+@pytest.mark.cuda
+def test_conv_off_16_bytes_takes_the_gather_kernel(cuda_device):
+    """x whose data starts 4 bytes past a 16-byte boundary (a storage
+    offset): the planner's tap plan gives way to the gather kernel, with
+    the bits of the aligned copy; a forced tap plan is refused."""
+    case = (2, 8, 32, 3, 64, 1, "SAME", 64)
+    x, w = _conv_inputs(cuda_device, case)
+    buf = torch.empty(x.numel() + 1, device=cuda_device)
+    xo = buf[1:].view(x.shape)
+    xo.copy_(x)
+    assert xo.data_ptr() % 16 != 0 and xo.is_contiguous()
+    kw = dict(crossbar_size=64, fn="relu", mode="packed")
+    before = cc.cadc_conv2d_cuda.launches
+    y, gate = cc.cadc_conv2d_cuda(xo, w, **kw)
+    want_y, want_gate = cc.cadc_conv2d_cuda(x, w, **kw)
+    torch.cuda.synchronize()
+    assert cc.cadc_conv2d_cuda.launches == before + 2
+    assert torch.equal(y, want_y) and torch.equal(gate, want_gate)
+    tap = _conv_plans_of(x, w, case)[1]
+    with pytest.raises(ValueError, match="16-byte"):
+        cc._conv_launch("k3", xo, w, 64, "relu", (1, 1), "SAME", "packed",
+                        None, plan=tap)
 
 
 @pytest.mark.cuda
