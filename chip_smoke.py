@@ -37,11 +37,14 @@ Slice 2, CNN training (fp32, TF32 off):
      and ResNet-18's fc, M = 64 and 128, xbar 64 / 128 / 256, relu /
      identity / sublinear, all four save_gate modes; dw bitwise equal
      across two runs; recompute bitwise equal to the forward's saved gate;
-  8. K3 (forward, gate) and the conv backward (K2 over im2col patches +
-     _col2im) against their plain versions at every conv shape of
-     LeNet-5, ResNet-18, VGG-16 and the SNN at the paths' batches (stride
-     1 and 2, SAME and VALID, 1x1 projections, Cin 1, 2 and 3, segments
-     spanning taps), xbar 64/128/256, every plan a shape admits;
+  8. K3 (forward, gate) and the conv backward against their plain
+     versions at every conv shape of LeNet-5, ResNet-18, VGG-16 and the
+     SNN at the paths' batches (stride 1 and 2, SAME and VALID, 1x1
+     projections, Cin 1, 2 and 3, segments spanning taps), xbar
+     64/128/256, every plan a shape admits: the patches route (K2 over
+     im2col patches + _col2im) everywhere, and where plan_conv_bwd says
+     "tap" the dgrad / wgrad kernels beside it — dx bitwise the patches
+     route under every plan, dw within TRAIN_RTOL and bitwise run to run;
   9. the LeNet-5 path: repro_torch.launch.train_cnn_cadc (vConv and CADC,
      20 steps each, batch 64) with exact launch counts of K1, K1g, K2, K3;
  10. training parity at full width, both models: kernel path against
@@ -52,9 +55,12 @@ Slice 2, CNN training (fp32, TF32 off):
      at crossbar 64 then vConv, 5 steps each, exact launch counts; then
      its train step ms p50, images/s, peak memory, and torch.profiler's
      device time per kernel per step and the card's idle share;
- 12. K1g, K2 and K3 device times per ResNet-18 train step (and at
-     LeNet-5's shapes) beside their plain versions, the vConv PyTorch call
-     at the same shapes and the bound.
+ 12. K1g, K2 (matrix form: the stem and the FC layers), the tap conv
+     backward (dgrad + wgrad: dx, dw and both, beside cuDNN's
+     convolution_backward and the old route, im2col + K2 + _col2im) and
+     K3 device times per ResNet-18 train step (and at LeNet-5's shapes)
+     beside their plain versions, the vConv PyTorch call at the same
+     shapes and the bound.
 
 Slice 3, the paper's 4/2/4b operating point (int8 q8 kernels, TF32 off):
  13. K4 / K4g (q8 CADC matmul) against their plain versions, bitwise
@@ -235,8 +241,9 @@ def profile_device(run, n: int, group, what: str):
 # ---------------------------------------------------------------------------
 
 # Kernels that must compile without spills (ptxas' report of each
-# instantiation): K3's tap-aligned kernel.
-NO_SPILL_KERNELS = ("tap_tile_kernel",)
+# instantiation): K3's tap-aligned kernel, the conv backward's dgrad and
+# wgrad kernels.
+NO_SPILL_KERNELS = ("tap_tile_kernel", "dgrad_kernel", "wgrad_kernel")
 
 
 def ptxas_lines(log: str) -> list:
@@ -834,6 +841,7 @@ def counters():
     return {"cadc_matmul": cm.cadc_matmul_cuda,
             "cadc_matmul_gate": cm.cadc_matmul_gate_cuda,
             "cadc_segmented_bwd": cm.cadc_segmented_bwd_cuda,
+            "cadc_conv2d_bwd": cc.cadc_conv2d_bwd_cuda,
             "cadc_conv2d": cc.cadc_conv2d_cuda,
             "cadc_matmul_q8": cm.cadc_matmul_q8_cuda,
             "cadc_matmul_q8_gate": cm.cadc_matmul_q8_gate_cuda,
@@ -865,10 +873,12 @@ def rel_err(got, want) -> tuple:
     return float((got.float() - want.float()).abs().max()) / scale, scale
 
 
-# max abs err of each slice-2 kernel over its checks (the kernels line)
-MAX_ABS = {"k1g": 0.0, "k2": 0.0, "k3": 0.0}
-# K3 launches under a forced plan, by kernel, held bitwise to the planner's
-PLANS_CHECKED = {"gather": 0, "tap": 0}
+# max abs err of each slice-2 kernel over its checks (the kernels line;
+# "k2c": the tap conv backward's dgrad and wgrad)
+MAX_ABS = {"k1g": 0.0, "k2": 0.0, "k3": 0.0, "k2c": 0.0}
+# K3 launches under a forced plan, by kernel, held bitwise to the planner's;
+# conv backward launches under a forced plan ("bwd_tap"), dx held bitwise
+PLANS_CHECKED = {"gather": 0, "tap": 0, "bwd_tap": 0}
 # the models whose paths run K3 (check_k3 takes every conv shape of each)
 K3_MODELS = ("lenet5", "resnet18", "vgg16", "snn")
 
@@ -1044,19 +1054,21 @@ def _check_matmul_case(cm, x, w, g, psums, xbar, fn, save_gate, tag,
 
 def check_k3(dev, report):
     """K3's forward (with and without its gate, under every plan the shape
-    admits) and the conv backward (K2 over im2col patches, then _col2im)
-    against their plain versions at every conv shape of the four models
-    whose paths run K3 (LeNet-5, ResNet-18, VGG-16, the SNN) at the paths'
-    batches, xbar 64 / 128 / 256 with relu's packed gate; at xbar 64 also
-    vConv (identity), the byte gate and recompute."""
+    admits) and the conv backward (K2 over im2col patches, then _col2im;
+    and the tap dgrad / wgrad kernels where plan_conv_bwd says "tap", under
+    every plan) against their plain versions at every conv shape of the
+    four models whose paths run K3 (LeNet-5, ResNet-18, VGG-16, the SNN) at
+    the paths' batches, xbar 64 / 128 / 256 with relu's packed gate; at
+    xbar 64 also vConv (identity), the byte gate, sublinear's fp32 gate
+    and recompute."""
     from repro_torch.core.conv import im2col
     from repro_torch.kernels import cadc_conv as cc
     from repro_torch.kernels import cadc_matmul as cm
 
     gen = torch.Generator(device=dev).manual_seed(12)
     shapes = sorted({c[1:] for mdl in K3_MODELS for c in conv_layers(mdl)})
-    worst = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
-    n_checks = near_mismatch = spanning = 0
+    worst = {"fwd": 0.0, "dx": 0.0, "dw": 0.0, "tap_dx": 0.0, "tap_dw": 0.0}
+    n_checks = near_mismatch = spanning = n_tap = 0
     for b, h, cin, k, cout, stride, padding in shapes:
         x = torch.randn(b, h, h, cin, generator=gen, device=dev)
         w = torch.randn(k, k, cin, cout, generator=gen,
@@ -1074,15 +1086,18 @@ def check_k3(dev, report):
             cases = [("relu", "auto")]
             if xbar == XBARS[0]:
                 cases += [("identity", "auto"), ("relu", "bytes"),
-                          ("relu", "recompute")]
+                          ("sublinear", "auto"), ("relu", "recompute")]
             for fn, save_gate in cases:
                 tag = (f"K3 B={b} H={h} Cin={cin} K={k} Cout={cout} "
                        f"s={stride} {padding} xbar={xbar} {fn} {save_gate}")
-                near_mismatch += _check_conv_case(
+                near, tap = _check_conv_case(
                     cc, cm, x, w, g, patches, psums, xbar, fn, save_gate,
                     (stride, stride), padding, tag, worst)
+                near_mismatch += near
+                n_tap += tap
                 n_checks += 1
     report["k3_checks"] = {"n": n_checks, "shapes": shapes,
+                           "tap_bwd_cases": n_tap,
                            "max_err_over_scale": worst,
                            "segments_spanning_taps": spanning,
                            "near_zero_gate_mismatches": near_mismatch,
@@ -1093,12 +1108,15 @@ def check_k3(dev, report):
           f"(B={SNN_BATCH}), xbar {XBARS}; {spanning} segments span "
           f"several taps; max err / scale {worst}; gate bit mismatches at "
           f"|psum| <= {GATE_NEAR} x scale: {near_mismatch}; forced plans "
-          f"bitwise the planner's (packed gate): {PLANS_CHECKED}",
-          flush=True)
+          f"bitwise the planner's (packed gate): {PLANS_CHECKED}; the tap "
+          f"conv backward in {n_tap} cases, dx bitwise the patches route "
+          f"and dw bitwise run to run under every plan", flush=True)
 
 
 def _check_conv_case(cc, cm, x, w, g, patches, psums, xbar, fn, save_gate,
-                     stride, padding, tag, worst) -> int:
+                     stride, padding, tag, worst) -> tuple:
+    """One conv case; returns (gate bit mismatches near psum 0, 1 if the
+    tap conv backward ran)."""
     mode = cm.gate_mode(save_gate, fn)
     kw = dict(crossbar_size=xbar, fn=fn, stride=stride, padding=padding)
     k1, k2, cin, cout = w.shape
@@ -1163,18 +1181,59 @@ def _check_conv_case(cc, cm, x, w, g, patches, psums, xbar, fn, save_gate,
         worst[key] = max(worst[key], err)
         if not err <= TRAIN_RTOL:
             fail(f"{tag}: {key} err / scale {err} > {TRAIN_RTOL}")
-    return near
+    if cc.plan_conv_bwd(x.shape, w.shape, stride, padding, xbar,
+                        mode).kernel != "tap":
+        return near, 0
+    # the tap dgrad / wgrad: dx bitwise the patches route above (K2's dx,
+    # _col2im), dw within TRAIN_RTOL and the same bits on every run, under
+    # the planner's plan and every forced one
+    ckw = dict(kw, mode=mode)
+    tdx, tdw = cc.cadc_conv2d_bwd_cuda(g, x, w, gate, **ckw)
+    runs = [tdw, cc.cadc_conv2d_bwd_cuda(g, x, w, gate, need_dx=False,
+                                         **ckw)[1]]
+    if not torch.equal(tdx, dx):
+        fail(f"{tag}: the tap dgrad differs from the patches route (max abs "
+             f"{float((tdx - dx).abs().max())})")
+    if not torch.equal(runs[0], runs[1]):
+        fail(f"{tag}: the tap wgrad differs between two runs")
+    for plan in cc.conv_bwd_plans(x.shape, w.shape, stride, padding, xbar,
+                                  mode):
+        pdx, pdw = keep_counts(lambda: cc.cadc_conv2d_bwd_cuda(
+            g, x, w, gate, plan=plan, **ckw))
+        if not torch.equal(pdx, tdx):
+            fail(f"{tag}: conv backward plan {plan}: dx differs from the "
+                 f"planner's")
+        runs.append(pdw)
+        PLANS_CHECKED["bwd_tap"] += 1
+    want_dw = want_dw.reshape(w.shape)
+    for key, got, want in [("tap_dx", tdx, want_dx)] + [
+            ("tap_dw", r, want_dw) for r in runs]:
+        err = track("k2c", got, want)
+        worst[key] = max(worst[key], err)
+        if not err <= TRAIN_RTOL:
+            fail(f"{tag}: tap conv backward {key} err / scale {err} > "
+                 f"{TRAIN_RTOL}")
+    return near, 1
 
 
 def per_step_launches(model: str, impl: str) -> tuple:
     """(per train step, per eval batch) launches of each kernel, from the
     layer list: every conv runs K3 (with its gate when training CADC
     relu), every FC K1g when training CADC relu (K1 for vConv, whose
-    identity gate is nothing to save) and K1 when evaluating; every
-    weight-bearing layer runs K2 once in the backward."""
-    n_conv = len(conv_layers(model))
+    identity gate is nothing to save) and K1 when evaluating; in the
+    backward every conv whose plan_conv_bwd plan is "tap" (at crossbar 64)
+    runs the tap conv backward once, and every other weight-bearing layer
+    K2."""
+    from repro_torch.kernels import cadc_conv as cc
+
+    convs = conv_layers(model)
+    n_conv = len(convs)
+    n_tap = sum(cc.plan_conv_bwd((b, h, h, cin), (k, k, cin, cout),
+                                 (s, s), pad, 64, "bytes").kernel == "tap"
+                for _, b, h, cin, k, cout, s, pad in convs)
     n_fc = 3 if model in ("lenet5", "vgg16") else 1
-    train = {"cadc_conv2d": n_conv, "cadc_segmented_bwd": n_conv + n_fc,
+    train = {"cadc_conv2d": n_conv, "cadc_conv2d_bwd": n_tap,
+             "cadc_segmented_bwd": n_conv - n_tap + n_fc,
              "cadc_matmul_gate": n_fc if impl == "cadc" else 0,
              "cadc_matmul": 0 if impl == "cadc" else n_fc}
     evals = {"cadc_conv2d": n_conv, "cadc_segmented_bwd": 0,
@@ -1390,6 +1449,8 @@ def time_resnet_step(dev, report):
         for pat, name in (("ConvGather", "K3 cadc_conv2d (gather)"),
                           ("tap_tile_kernel", "K3 cadc_conv2d (tap)"),
                           ("RowMajor", "K1/K1g cadc_matmul"),
+                          ("dgrad_kernel", "K2 conv tap dgrad (dx)"),
+                          ("wgrad_kernel", "K2 conv tap wgrad (dw)"),
                           ("bwd_dx_kernel", "K2 dx"),
                           ("bwd_dw_kernel", "K2 dw"),
                           ("split_sum", "K2 dw split sum")):
@@ -1427,8 +1488,10 @@ def time_resnet_step(dev, report):
 
 
 def _conv_ops_bytes(b, h, cin, k, cout, stride, padding, xbar):
-    """(flops, bytes of K3 with its packed gate, bytes of K2) of one conv:
-    each input read once and each output written once."""
+    """(flops, bytes of K3 with its packed gate, bytes of K2 over patches,
+    bytes of the tap conv backward) of one conv: each input read once and
+    each output written once (K2: g, patches, w, gate in; dpatches, dw out;
+    the tap backward: g, x, w, gate in; dx, dw out)."""
     oh = conv_out_hw(h, k, stride, padding)
     m, d = b * oh * oh, k * k * cin
     s = -(-d // xbar)
@@ -1436,16 +1499,20 @@ def _conv_ops_bytes(b, h, cin, k, cout, stride, padding, xbar):
     flops = 2 * m * d * cout
     k3 = 4 * (b * h * h * cin + d * cout + m * cout) + gate
     k2 = 4 * (m * cout + m * d + d * cout + m * d + d * cout) + gate
-    return flops, k3, k2
+    tap = 4 * (m * cout + 2 * b * h * h * cin + 2 * d * cout) + gate
+    return flops, k3, k2, tap
 
 
 def time_train_kernels(dev, launches, report):
-    """Device times of K1g, K2 and K3 for one ResNet-18 CADC train step
-    (every conv and the fc at their shapes, batch 128, width 64, xbar 64,
-    relu's packed gate), beside their plain versions and a PyTorch call of
-    the vConv function at the same shapes (F.conv2d / torch.matmul, TF32
-    off); plus LeNet-5's shapes at batch 64. CUDA-graph replay over operand
-    copies that hold 3x the L2, as time_k1."""
+    """Device times of K1g, K2 (over patches: the stem and the fc), the tap
+    conv backward (the other 19 convs) and K3 for one ResNet-18 CADC train
+    step (every conv and the fc at their shapes, batch 128, width 64, xbar
+    64, relu's packed gate), beside their plain versions and a PyTorch call
+    of the vConv function at the same shapes (F.conv2d / torch.matmul /
+    cuDNN's convolution_backward with both grads, TF32 off); for the tap
+    conv backward also dx alone, dw alone and the old route (im2col + K2 +
+    _col2im); plus LeNet-5's shapes at batch 64. CUDA-graph replay over
+    operand copies that hold 3x the L2, as time_k1."""
     import torch.nn.functional as F
 
     from repro_torch.core.conv import im2col
@@ -1456,9 +1523,10 @@ def time_train_kernels(dev, launches, report):
     xbar, fn = 64, "relu"
     per_shape = {}
     tot = {k: {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0,
-               "ops": 0.0} for k in ("k3", "k2", "k1g")}
+               "ops": 0.0} for k in ("k3", "k2", "k2c", "k1g")}
 
-    def timed(name, count, make, kernel, plain, lib, k_bytes, ops, key):
+    def timed(name, count, make, kernel, plain, lib, k_bytes, ops, key,
+              extra=None):
         first = make()
         ops_set = [first] + rotation(make, sum(
             t.numel() * t.element_size() for t in first))[1:]
@@ -1468,9 +1536,12 @@ def time_train_kernels(dev, launches, report):
         pl = keep_counts(lambda: device_ms(lambda: plain(*pick()), reps))
         lb = device_ms(lambda: lib(*pick()), reps)
         b_ms, b_by = bound_ms(k_bytes, ops, torch.float32)
-        per_shape.setdefault(key, {})[name] = {
+        rec = per_shape.setdefault(key, {})[name] = {
             "count_per_step": count, "ms": k, "plain_ms": pl,
             "library_ms": lb, "bound_ms": b_ms, "bound_by": b_by}
+        for label, fn in (extra or {}).items():  # more calls, same operands
+            rec[label] = keep_counts(lambda: device_ms(
+                lambda: fn(*pick()), reps))
         if name.startswith("resnet"):
             t = tot[key]
             t["ms"] += count * k
@@ -1478,6 +1549,8 @@ def time_train_kernels(dev, launches, report):
             t["lib"] += count * lb
             t["bytes"] += count * k_bytes
             t["ops"] += count * ops
+            for label in extra or {}:
+                t[label] = t.get(label, 0.0) + count * rec[label]
         del ops_set
 
     convs = {}
@@ -1490,8 +1563,8 @@ def time_train_kernels(dev, launches, report):
         st = (stride, stride)
         w = torch.randn(k, k, cin, cout, generator=gen, device=dev) / 8
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
-        flops, k3_bytes, k2_bytes = _conv_ops_bytes(b, h, cin, k, cout,
-                                                    stride, padding, xbar)
+        flops, k3_bytes, k2_bytes, tap_bytes = _conv_ops_bytes(
+            b, h, cin, k, cout, stride, padding, xbar)
         cpad = 0 if padding == "VALID" else k // 2  # SAME, odd k
 
         def make_x():
@@ -1512,10 +1585,54 @@ def time_train_kernels(dev, launches, report):
         print(f"K3 {name} x{count}: plan {rec['plan']} ({plan.blocks} "
               f"blocks), {rec['ms']:.4f} ms, F.conv2d {rec['library_ms']:.4f}"
               f" ms, bound {rec['bound_ms']:.4f} ms", flush=True)
-        # K2: the conv backward over im2col patches, with K3's gate
+        # the conv backward with K3's gate: the tap kernels where the plan
+        # says so, else K2 over im2col patches
         x0 = torch.randn(b, h, h, cin, generator=gen, device=dev)
         _, gate = cc.cadc_conv2d_cuda(x0, w, mode="packed", **kw)
         m, d = b * oh * oh, k * k * cin
+        del x0
+        bplan = cc.plan_conv_bwd((b, h, h, cin), w.shape, st, padding, xbar,
+                                 "packed")
+        if bplan.kernel == "tap":
+            ckw = dict(kw, mode="packed")
+
+            def make_tap():
+                return (torch.randn(b, oh, oh, cout, generator=gen,
+                                    device=dev),
+                        torch.randn(b, h, h, cin, generator=gen, device=dev))
+
+            def cudnn(g, x):  # NCHW views of the NHWC tensors
+                return torch.ops.aten.convolution_backward(
+                    g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w_oihw,
+                    None, list(st), [cpad, cpad], [1, 1], False, [0, 0], 1,
+                    [True, True, False])
+
+            timed(name, count, make_tap,
+                  lambda g, x: cc.cadc_conv2d_bwd_cuda(g, x, w, gate, **ckw),
+                  lambda g, x: cc.cadc_conv2d_bwd_torch(g, x, w, gate,
+                                                        **ckw),
+                  cudnn, tap_bytes, 2 * flops, "k2c",
+                  extra={"dx_ms": lambda g, x: cc.cadc_conv2d_bwd_cuda(
+                             g, x, w, gate, need_dw=False, **ckw),
+                         "dw_ms": lambda g, x: cc.cadc_conv2d_bwd_cuda(
+                             g, x, w, gate, need_dx=False, **ckw),
+                         "old_route_ms": lambda g, x: cc._bwd_patches(
+                             cm.cadc_segmented_bwd_cuda, g, x, w, gate,
+                             **ckw)})
+            rec = per_shape["k2c"][name]
+            rec["plan"] = (f"dx {bplan.dx_tile[0]}x{bplan.dx_tile[1]} "
+                           f"({bplan.dx_blocks} blocks), dw "
+                           f"{bplan.dw_tile[0]}x{bplan.dw_tile[1]} x "
+                           f"{bplan.dw_splits} splits ({bplan.dw_blocks} "
+                           f"blocks)")
+            print(f"K2 conv tap {name} x{count}: plan {rec['plan']}; dx "
+                  f"{rec['dx_ms']:.4f} ms, dw {rec['dw_ms']:.4f}, both "
+                  f"{rec['ms']:.4f}; cuDNN convolution_backward "
+                  f"{rec['library_ms']:.4f}; old route (im2col + K2 + "
+                  f"_col2im) {rec['old_route_ms']:.4f}; bound "
+                  f"{rec['bound_ms']:.4f}", flush=True)
+            del gate
+            continue
         gate = gate.reshape(gate.shape[0], m, -1)
         w2d = w.reshape(d, cout)
 
@@ -1533,7 +1650,7 @@ def time_train_kernels(dev, launches, report):
                                                         **bkw),
               lambda g, pt: (torch.matmul(g, w2d.T), torch.matmul(pt.T, g)),
               k2_bytes, 2 * flops, "k2")
-        del x0, gate
+        del gate
     # FC layers: K1g forward (relu's packed gate) and K2 backward
     fcs = [("resnet18.fc", RESNET_BATCH, 8 * RESNET_WIDTH, 10),
            ("lenet5.f1", LENET_BATCH, 400, 120),
@@ -1578,12 +1695,16 @@ def time_train_kernels(dev, launches, report):
         "l2_bytes": l2_bytes(), "per_shape_one_call": per_shape,
         "library": "vConv yardsticks: F.conv2d (NCHW view of the NHWC "
                    "tensor, TF32 off) for K3; torch.matmul for K1g; the "
-                   "dx and dw torch.matmul pair for K2"}
+                   "dx and dw torch.matmul pair for K2 over patches; "
+                   "cuDNN's convolution_backward (dx and dw, NCHW views, "
+                   "TF32 off) for the tap conv backward"}
     rows = []
     for key, name, src, rep in (
             ("k1g", "cadc_matmul_gate", "src/repro_torch/csrc/cadc_matmul.cu",
              "src/repro/kernels/cadc_matmul.py:199"),
             ("k2", "cadc_segmented_bwd", "src/repro_torch/csrc/cadc_bwd.cu",
+             "src/repro/kernels/cadc_matmul.py:492"),
+            ("k2c", "cadc_conv2d_bwd", "src/repro_torch/csrc/cadc_conv_bwd.cu",
              "src/repro/kernels/cadc_matmul.py:492"),
             ("k3", "cadc_conv2d", "src/repro_torch/csrc/cadc_conv.cu",
              "src/repro/kernels/cadc_conv.py:226")):
@@ -1598,6 +1719,13 @@ def time_train_kernels(dev, launches, report):
         print(f"{name}: {t['ms']:.3f} ms per ResNet-18 train step (plain "
               f"{t['plain']:.3f}, vConv library {t['lib']:.3f}, bound "
               f"{b_ms:.3f} by {b_by})", flush=True)
+    t = tot["k2c"]
+    report["train_kernel_timing"]["conv_bwd_tap_per_step"] = {
+        k: t[k] for k in ("ms", "dx_ms", "dw_ms", "old_route_ms", "lib")}
+    print(f"cadc_conv2d_bwd per ResNet-18 train step: dx {t['dx_ms']:.3f} + "
+          f"dw {t['dw_ms']:.3f} ms alone, {t['ms']:.3f} together; cuDNN "
+          f"convolution_backward {t['lib']:.3f}; old route (im2col + K2 + "
+          f"_col2im) {t['old_route_ms']:.3f}", flush=True)
     return rows
 
 

@@ -130,10 +130,11 @@ __device__ __forceinline__ float dendritic_grad(int fn, float p) {
 // from an fp32 zero — the single pass's additions in its order — writes y
 // and resets the counter to 0, so the counters are zero between launches.
 // One launch per split call, and no second kernel.
-template <int kPer>
-__device__ __forceinline__ void ordered_segment_sum(
-    const float* scratch, float* __restrict__ y, int* counter, int S, int M,
-    int N, int m0, int rows, int n0, int cols) {
+//
+// arrive_last is its first half, for sums of other layouts (the conv
+// backward's wgrad): whether this block is the last of S to arrive at the
+// counter, every block's writes before the call then visible to it.
+__device__ __forceinline__ bool arrive_last(int* counter, int S) {
   __shared__ int last;
   __syncthreads();  // the block's tile is written (CTA scope)
   if (threadIdx.x == 0) {
@@ -145,7 +146,14 @@ __device__ __forceinline__ void ordered_segment_sum(
     last = old == S - 1;
   }
   __syncthreads();
-  if (!last) return;
+  return last;
+}
+
+template <int kPer>
+__device__ __forceinline__ void ordered_segment_sum(
+    const float* scratch, float* __restrict__ y, int* counter, int S, int M,
+    int N, int m0, int rows, int n0, int cols) {
+  if (!arrive_last(counter, S)) return;
   // segments whose loads are in flight together: 32 or 64 loads a thread
   constexpr int kSeg = kPer >= 16 ? 2 : kPer >= 4 ? 64 / kPer : 16;
   const size_t mn = static_cast<size_t>(M) * N;  // a split has M*N < 2^31

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # src/repro_torch/kernels/_build.py -> <checkout>/build/repro_torch
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("cadc_matmul.cu", "cadc_conv.cu", "cadc_bwd.cu",
-           "paged_attention.cu")
+           "cadc_conv_bwd.cu", "paged_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

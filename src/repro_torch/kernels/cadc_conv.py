@@ -22,9 +22,23 @@ over all of them before f(). Dilation is 1.
   * cadc_conv2d_torch — the plain version: im2col, then the per-segment
                         loop of K1g's plain version (f, sequential sum,
                         the gate).
-  * CadcConv2dFn      — forward K3; backward as the JAX `_diff_conv_op`:
-                        im2col patches again, K2 over them (dpatches and
+  * cadc_conv2d_bwd_cuda — K2 for the tap-aligned conv
+                        (csrc/cadc_conv_bwd.cu; replaces the Pallas
+                        `_segmented_bwd` bodies as the JAX
+                        `_diff_conv_op` reaches them): a dgrad and a
+                        wgrad kernel that read x, g, w and K3's gate where
+                        they lie — no patches, no dpatches, no `_col2im` —
+                        under the plan `plan_conv_bwd` picks from the shapes
+                        and the gate mode. dx is bitwise the patches route;
+                        dw sums its M-splits in order inside the launch.
+  * cadc_conv2d_bwd_torch — its plain version, the patches route: im2col
+                        patches, K2's plain version over them (dpatches and
                         dw), then `_col2im` folds dpatches back to dx.
+  * CadcConv2dFn      — forward K3; backward as the JAX `_diff_conv_op`:
+                        the tap kernels where `plan_conv_bwd` says "tap",
+                        else the patches route with K2 (the stems, LeNet-5,
+                        recompute, N not a multiple of 4, operands off 16
+                        bytes).
   * cadc_conv2d_q8_cuda — K5 (csrc/cadc_conv.cu; replaces the Pallas
                         `_q8_kernel` / `_q8_kernel_with_gate`): int8 codes,
                         an int32 psum per segment over its taps, one fp32
@@ -52,6 +66,7 @@ from repro_torch.kernels import cadc_matmul as _cm
 
 Tensor = torch.Tensor
 _SOURCE = "cadc_conv.cu"
+_BWD_SOURCE = "cadc_conv_bwd.cu"
 # K3's launch plans (`plan_conv`; csrc/cadc_conv.cu `cadc_conv_launch`).
 PLAN_KERNELS = ("gather", "tap")
 GATHER_TILE = (64, 64)
@@ -100,12 +115,12 @@ def _col2im(dp: Tensor, x_shape: Tuple[int, int, int, int],
     return dx[:, pt: pt + h, pl: pl + w, :]
 
 
-def _geometry(x: Tensor, w: Tensor, stride, padding):
-    """(pt, pl, OH, OW) of the conv."""
-    k1, k2 = w.shape[0], w.shape[1]
+def _geometry(x_shape, w_shape, stride, padding):
+    """(pt, pl, OH, OW) of a conv from the shapes of x and w."""
+    k1, k2 = w_shape[0], w_shape[1]
     (pt, pb), (pl, pr) = _norm_padding(padding, (k1, k2), (1, 1))
-    oh = (x.shape[1] + pt + pb - k1) // stride[0] + 1
-    ow = (x.shape[2] + pl + pr - k2) // stride[1] + 1
+    oh = (x_shape[1] + pt + pb - k1) // stride[0] + 1
+    ow = (x_shape[2] + pl + pr - k2) // stride[1] + 1
     return pt, pl, oh, ow
 
 
@@ -218,6 +233,225 @@ def conv_plans(m: int, n: int, cin: int, crossbar_size: int
     return [plan_conv(m, n, cin, crossbar_size, _force=f) for f in forces]
 
 
+# The conv backward's plans (`plan_conv_bwd`; csrc/cadc_conv_bwd.cu). dx
+# tiles are (input pixels, input channels), dw tiles (rows of D, columns of
+# Cout), each preferred first. A tile's channels (dx) or rows (dw) must
+# divide Cin and xbar, so they lie in one segment at every tap.
+DX_TILES = ((128, 64), (64, 64), (128, 32), (64, 32))
+DW_TILES = ((64, 128), (64, 64), (32, 128), (32, 64))
+# A dx tile's time per multiply-add against 128 x 64's (8 x 8 micro-tiles),
+# from tools/profile_k2_conv.py at ResNet-18's stage-0 conv, where every
+# tile fills the card evenly (H100 80GB HBM3, 700 W; PERF.md).
+_DX_TILE_COST = {(128, 64): 1.0, (64, 64): 1.14, (128, 32): 1.24,
+                 (64, 32): 1.26}
+# dx runs two blocks an SM, dw three. dw splits M into as many ranges as
+# keep the grid within one wave of _DW_TARGET_BLOCKS, each at least
+# _DW_MIN_ROWS output pixels (a multiple of 32), at most _DW_MAX_SPLITS: the
+# last block of a tile adds them all.
+_DX_SLOTS = 2 * _cm.SMS
+_DW_TARGET_BLOCKS = 3 * _cm.SMS
+_DW_MIN_ROWS = 256
+_DW_MAX_SPLITS = 64
+
+
+class ConvBwdPlan(NamedTuple):
+    """A conv backward: `kernel` 'tap' (the dgrad and wgrad kernels) or
+    'patches' (im2col, K2, `_col2im`; `why` says what rules the tap kernels
+    out). For 'tap': the dx tile and grid (pixel tiles of the largest
+    stride class, channel tiles, classes), the dw tile and grid (Cout
+    tiles, D tiles, splits) and the output pixels of each split."""
+    kernel: str
+    why: str = ""
+    dx_tile: Tuple[int, int] = (0, 0)
+    dx_grid: Tuple[int, int, int] = (0, 0, 0)
+    dw_tile: Tuple[int, int] = (0, 0)
+    dw_grid: Tuple[int, int, int] = (0, 0, 0)
+    dw_rows: int = 0
+
+    @property
+    def dx_blocks(self) -> int:
+        return self.dx_grid[0] * self.dx_grid[1] * self.dx_grid[2]
+
+    @property
+    def dw_blocks(self) -> int:
+        return self.dw_grid[0] * self.dw_grid[1] * self.dw_grid[2]
+
+    @property
+    def dw_splits(self) -> int:
+        return self.dw_grid[2]
+
+    def fits(self) -> bool:
+        """Both grids are within CUDA's limits."""
+        return all(gr[0] <= _GRID_X_MAX and max(gr[1:]) <= _GRID_YZ_MAX
+                   for gr in (self.dx_grid, self.dw_grid))
+
+
+def _in_segment(channels: int, cin: int, crossbar_size: int) -> bool:
+    """Every aligned group of `channels` channels of a tap lies in one
+    segment."""
+    return cin % channels == 0 and crossbar_size % channels == 0
+
+
+def _bwd_tap_plan(x_shape, w_shape, stride, m, dx_tile, dw_tile,
+                  split) -> ConvBwdPlan:
+    b, h, wd, cin = x_shape
+    k1, k2, _, cout = w_shape
+    s1, s2 = stride
+    px = b * -(-h // s1) * -(-wd // s2)
+    dx_grid = (-(-px // dx_tile[0]), cin // dx_tile[1], s1 * s2)
+    rows = _split_rows(m, split)
+    dw_grid = (-(-cout // dw_tile[1]), k1 * k2 * cin // dw_tile[0],
+               -(-m // rows))
+    return ConvBwdPlan("tap", "", dx_tile, dx_grid, dw_tile, dw_grid, rows)
+
+
+def plan_conv_bwd(x_shape, w_shape, stride, padding, crossbar_size: int,
+                  mode: str, *, _force=None) -> ConvBwdPlan:
+    """The conv backward's plan from the shapes (x [B, H, W, Cin], w [K1, K2,
+    Cin, Cout]) and the resolved gate mode:
+
+      * 'patches' where the tap kernels do not apply: Cin or xbar not a
+        multiple of 32 (the stems, LeNet-5), the recompute gate, Cout not a
+        multiple of 4;
+      * else 'tap'. dx: the tile of DX_TILES whose channels divide Cin and
+        xbar with the least `_dx_makespan` (ties: the first);
+        dw: 64 rows of D where 64 divides Cin and xbar, else 32; 128 or 64
+        columns (128 only where Cout is at least 128), whichever fills its
+        waves of _DW_TARGET_BLOCKS block slots best (then more blocks,
+        then 128); M split so that at most _DW_TARGET_BLOCKS blocks run, at
+        least _DW_MIN_ROWS output pixels a split, at most _DW_MAX_SPLITS
+        splits.
+
+    dx is bitwise the same under every plan; dw sums each plan's splits in
+    order (the same bits on every run of a plan). `_force` = (dx tile, dw
+    tile, splits) builds that tap plan instead, for tests. Plans are
+    cached: the backward of every conv asks for one each step."""
+    if not isinstance(padding, str):
+        padding = tuple(tuple(int(v) for v in pad) for pad in padding)
+    if _force is not None:
+        _force = (tuple(_force[0]), tuple(_force[1]), int(_force[2]))
+    return _plan_conv_bwd(tuple(int(v) for v in x_shape),
+                          tuple(int(v) for v in w_shape),
+                          tuple(int(v) for v in stride), padding,
+                          int(crossbar_size), mode, _force)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_conv_bwd(x_shape, w_shape, stride, padding, crossbar_size, mode,
+                   _force) -> ConvBwdPlan:
+    k1, k2, cin, cout = w_shape
+    _, _, oh, ow = _geometry(x_shape, w_shape, stride, padding)
+    m = x_shape[0] * oh * ow
+    why = ("Cin or xbar not a multiple of 32"
+           if not tap_aligned(cin, crossbar_size)
+           else "the recompute gate" if mode == "recompute"
+           else "Cout not a multiple of 4" if cout % 4 else "")
+    if _force is not None:
+        dx_tile, dw_tile, split = _force
+        if (why or dx_tile not in DX_TILES or dw_tile not in DW_TILES
+                or not _in_segment(dx_tile[1], cin, crossbar_size)
+                or not _in_segment(dw_tile[0], cin, crossbar_size)
+                or not 1 <= split <= max(1, -(-m // 32))):
+            raise ValueError(f"no such plan {_force} for x {tuple(x_shape)}"
+                             f" w {tuple(w_shape)} xbar={crossbar_size} "
+                             f"mode={mode!r}" + (f" ({why})" if why else ""))
+        return _bwd_tap_plan(x_shape, w_shape, stride, m, dx_tile, dw_tile,
+                             split)
+    if why:
+        return ConvBwdPlan("patches", why)
+    rows = next(t[0] for t in DW_TILES
+                if _in_segment(t[0], cin, crossbar_size))
+    dw = [_dw_split((rows, cols), cout, k1 * k2 * cin, m)
+          for cols in sorted({t[1] for t in DW_TILES}, reverse=True)
+          if cols == 64 or cout >= cols]
+    dw_tile, split = max(dw, key=lambda ts: _dw_fill(ts, cout, k1 * k2 * cin))
+    plans = [_bwd_tap_plan(x_shape, w_shape, stride, m, t, dw_tile, split)
+             for t in DX_TILES if _in_segment(t[1], cin, crossbar_size)]
+    return min(plans, key=lambda p: _dx_makespan(x_shape, w_shape, stride,
+                                                 padding, p.dx_tile))
+
+
+def _dx_makespan(x_shape, w_shape, stride, padding, tile) -> float:
+    """dx's time under a tile, in multiply-adds of 128 x 64 tiles: the work
+    spread over _DX_SLOTS blocks at a time, or the longest block's (a stride
+    class with every live tap), whichever is more. Stride classes of a
+    stride-2 3 x 3 conv have 4, 2, 2 and 1 live taps: large tiles there leave
+    the card waiting for the 4-tap blocks."""
+    b, h, wd, cin = x_shape
+    k1, k2 = w_shape[0], w_shape[1]
+    s1, s2 = stride
+    pt, pl, _, _ = _geometry(x_shape, w_shape, stride, padding)
+    bm, bn = tile
+    total = longest = 0
+    for ph in range(s1):
+        for pw in range(s2):
+            rows = (b * len(range((ph - pt) % s1, h, s1))
+                    * len(range((pw - pl) % s2, wd, s2)))
+            taps = len(range(ph, k1, s1)) * len(range(pw, k2, s2))
+            blocks = -(-rows // bm) * (cin // bn)
+            total += blocks * bm * bn * taps
+            if blocks:
+                longest = max(longest, bm * bn * taps)
+    return _DX_TILE_COST[tile] * max(total / _DX_SLOTS, longest)
+
+
+def _split_rows(m: int, split: int) -> int:
+    """Output pixels of each of `split` ranges of M: whole 32-pixel
+    k-tiles (the last range may be shorter; there may be fewer ranges)."""
+    per_split = -(-m // split)
+    return max(32, -(-per_split // 32) * 32)
+
+
+def _dw_split(tile, cout: int, d: int, m: int) -> Tuple[Tuple[int, int], int]:
+    """(tile, splits of M) for a dw tile: as many splits as keep the grid
+    within _DW_TARGET_BLOCKS, within the row and split limits."""
+    tiles = -(-cout // tile[1]) * (d // tile[0])
+    split = max(1, min(_DW_TARGET_BLOCKS // tiles, -(-m // _DW_MIN_ROWS),
+                       _DW_MAX_SPLITS))
+    if tiles > _cm.N_COUNTERS:
+        split = 1
+    return tile, max(1, -(-m // _split_rows(m, split)))
+
+
+def _dw_fill(tile_split, cout: int, d: int) -> Tuple[float, int, int]:
+    """How well a dw tile and split fill the card: the share of the last
+    wave's block slots (_DW_TARGET_BLOCKS a wave) in use, then the blocks,
+    then the wider tile."""
+    (rows, cols), split = tile_split
+    blocks = -(-cout // cols) * (d // rows) * split
+    waves = -(-blocks // _DW_TARGET_BLOCKS)
+    return blocks / (waves * _DW_TARGET_BLOCKS), blocks, cols
+
+
+def conv_bwd_plans(x_shape, w_shape, stride, padding, crossbar_size: int,
+                   mode: str) -> List[ConvBwdPlan]:
+    """The planner's plan, then every other dx tile and dw tile the shape
+    admits (with the planner's split), then the planner's tiles with dw
+    unsplit and at twice the planner's splits (tests hold every dx to the
+    planner's bits)."""
+    plan = plan_conv_bwd(x_shape, w_shape, stride, padding, crossbar_size,
+                         mode)
+    if plan.kernel != "tap":
+        return []
+    cin = w_shape[2]
+    forces = [(t, plan.dw_tile, plan.dw_splits) for t in DX_TILES
+              if _in_segment(t[1], cin, crossbar_size)]
+    forces += [(plan.dx_tile, t, plan.dw_splits) for t in DW_TILES
+               if _in_segment(t[0], cin, crossbar_size)]
+    forces += [(plan.dx_tile, plan.dw_tile, s)
+               for s in (1, 2 * plan.dw_splits)]
+    out = [plan]
+    for f in forces:
+        try:
+            p = plan_conv_bwd(x_shape, w_shape, stride, padding,
+                              crossbar_size, mode, _force=f)
+        except ValueError:  # more splits than M has k-tiles
+            continue
+        if p not in out:
+            out.append(p)
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.library(_SOURCE)
@@ -247,7 +481,7 @@ def _conv_launch(name: str, x: Tensor, w: Tensor, crossbar_size: int,
         raise ValueError(f"dendritic fn {fn!r} has no gate to save")
     b, h, wd, cin = x.shape
     k1, k2, _, cout = w.shape
-    pt, pl, oh, ow = _geometry(x, w, stride, padding)
+    pt, pl, oh, ow = _geometry(x.shape, w.shape, stride, padding)
     m, d = b * oh * ow, k1 * k2 * cin
     n_seg = -(-d // crossbar_size)
     x, w = x.contiguous(), w.contiguous()
@@ -331,10 +565,153 @@ def cadc_conv2d_q8_cuda(x_q: Tensor, w_codes: Tensor, scale: Tensor, *,
 cadc_conv2d_q8_cuda.launches = 0
 
 
+def _bwd_patches(bwd, g: Tensor, x: Tensor, w: Tensor,
+                 gate: Optional[Tensor], *, crossbar_size: int, fn: str,
+                 stride, padding, mode: str, need_dx: bool = True,
+                 need_dw: bool = True
+                 ) -> Tuple[Optional[Tensor], Optional[Tensor]]:
+    """The conv backward over patches: P = im2col(x), `bwd` (K2 or its
+    plain version) over P, then `_col2im` of the dpatches."""
+    k1, k2, cin, cout = w.shape
+    b, oh, ow, _ = g.shape
+    m, d = b * oh * ow, k1 * k2 * cin
+    stride = tuple(stride)
+    patches = im2col(x.float(), (k1, k2), stride=stride, padding=padding)
+    dpat, dw2d = bwd(
+        g.float().reshape(m, cout), patches.reshape(m, d),
+        w.float().reshape(d, cout),
+        None if gate is None else gate.reshape(gate.shape[0], m, -1),
+        crossbar_size=crossbar_size, fn=fn, mode=mode, need_dx=need_dx,
+        need_dw=need_dw)
+    dx = None
+    if need_dx:
+        dx = _col2im(dpat.reshape(b, oh, ow, d), tuple(x.shape), (k1, k2),
+                     stride, padding)
+    return dx, None if dw2d is None else dw2d.reshape(w.shape)
+
+
+def cadc_conv2d_bwd_torch(g: Tensor, x: Tensor, w: Tensor,
+                          gate: Optional[Tensor], *, crossbar_size: int,
+                          fn: str, stride=(1, 1), padding="SAME",
+                          mode: str = "none", need_dx: bool = True,
+                          need_dw: bool = True
+                          ) -> Tuple[Optional[Tensor], Optional[Tensor]]:
+    """The conv backward's plain version (the patches route): g [B, OH, OW,
+    Cout], x [B, H, W, Cin], w [K1, K2, Cin, Cout], the gate K3 saved for
+    `mode` (a resolved gate mode) or None -> (dx [B, H, W, Cin], dw [K1, K2,
+    Cin, Cout]) fp32, None where not wanted."""
+    return _bwd_patches(_cm.cadc_segmented_bwd_torch, g, x, w, gate,
+                        crossbar_size=crossbar_size, fn=fn, stride=stride,
+                        padding=padding, mode=mode, need_dx=need_dx,
+                        need_dw=need_dw)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.library(_BWD_SOURCE)
+    lib.cadc_conv_bwd_launch.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 21 + [ctypes.c_void_p])
+    lib.cadc_conv_bwd_launch.restype = ctypes.c_int
+    lib.cadc_conv_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.cadc_conv_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _aligned16(*ts: Optional[Tensor]) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
+
+
+def cadc_conv2d_bwd_cuda(g: Tensor, x: Tensor, w: Tensor,
+                         gate: Optional[Tensor], *, crossbar_size: int,
+                         fn: str, stride=(1, 1), padding="SAME",
+                         mode: str = "none", need_dx: bool = True,
+                         need_dw: bool = True,
+                         plan: Optional[ConvBwdPlan] = None
+                         ) -> Tuple[Optional[Tensor], Optional[Tensor]]:
+    """K2 for the tap-aligned conv: (dx, dw) as cadc_conv2d_bwd_torch from
+    fp32 g, x, w on one CUDA device and K3's gate of `mode`, by the dgrad
+    and wgrad kernels under `plan` (default: plan_conv_bwd's), one launch
+    each. Raises where the plan names the patches route, on another
+    shape's plan, and on operands off 16 bytes. dx is bitwise the patches
+    route; dw sums its splits in order (the same bits on every run).
+    Counts its calls in `cadc_conv2d_bwd_cuda.launches`."""
+    name = "cadc_conv2d_bwd_cuda"
+    _cm._check_cuda(name, fn, g, x, w, dtypes={torch.float32: 0})
+    if x.ndim != 4 or w.ndim != 4 or x.shape[3] != w.shape[2]:
+        raise ValueError(f"want x [B, H, W, Cin] and w [K1, K2, Cin, Cout]; "
+                         f"got {tuple(x.shape)}, {tuple(w.shape)}")
+    stride = tuple(int(s) for s in stride)
+    b, h, wd, cin = x.shape
+    k1, k2, _, cout = w.shape
+    pt, pl, oh, ow = _geometry(x.shape, w.shape, stride, padding)
+    if tuple(g.shape) != (b, oh, ow, cout):
+        raise ValueError(f"want g {(b, oh, ow, cout)}; got {tuple(g.shape)}")
+    m, d = b * oh * ow, k1 * k2 * cin
+    if plan is None:
+        plan = plan_conv_bwd(x.shape, w.shape, stride, padding,
+                             crossbar_size, mode)
+    elif plan != plan_conv_bwd(
+            x.shape, w.shape, stride, padding, crossbar_size, mode,
+            _force=(plan.dx_tile, plan.dw_tile, plan.dw_splits)):
+        raise ValueError(f"{name}: plan {plan} is not one of this shape's")
+    if plan.kernel != "tap":
+        raise ValueError(f"{name}: the plan names the patches route "
+                         f"({plan.why})")
+    kind = _cm._gate_kind(mode, fn)
+    if kind != _cm._GATE_NONE:
+        n_seg = -(-d // crossbar_size)
+        words = kind == _cm._GATE_PACKED
+        want_dt = {_cm._GATE_PACKED: torch.int32, _cm._GATE_U8: torch.bool,
+                   _cm._GATE_F32: torch.float32}[kind]
+        shape = (n_seg, m, _cm._n_words(cout) if words else cout)
+        if (gate is None or gate.numel() != n_seg * m * shape[2]
+                or gate.dtype != want_dt or gate.device != x.device):
+            raise ValueError(f"mode {mode!r} wants a {want_dt} gate of "
+                             f"shape {shape} on {x.device}")
+        gate = gate.contiguous().reshape(shape)
+    else:
+        gate = None
+    g, x, w = g.contiguous(), x.contiguous(), w.contiguous()
+    if not _aligned16(g, x, w, gate):
+        raise ValueError(f"{name}: the tap kernels need g, x, w and the gate "
+                         f"on 16-byte boundaries")
+    if not plan.fits():
+        raise ValueError(f"{name}: {plan} exceeds CUDA's grid")
+    dx = torch.empty(x.shape, device=x.device) if need_dx else None
+    dw = torch.empty(w.shape, device=x.device) if need_dw else None
+    if not (need_dx or need_dw):
+        return dx, dw
+    if m == 0 or 0 in x.shape:
+        for t in (dx, dw):
+            if t is not None:
+                t.zero_()
+        return dx, dw
+    scratch = counters = None
+    if need_dw and plan.dw_splits > 1:
+        scratch = torch.empty((plan.dw_splits, d, cout), device=x.device)
+        counters = _cm._counters(x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = _bwd_lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check(lib, "cadc_conv_bwd", lib.cadc_conv_bwd_launch(
+        g.data_ptr(), x.data_ptr(), w.data_ptr(), ptr(gate), ptr(dx),
+        ptr(dw), ptr(scratch), ptr(counters), b, h, wd, cin, k1, k2, cout,
+        oh, ow, stride[0], stride[1], pt, pl, crossbar_size, kind,
+        *plan.dx_tile, *plan.dw_tile, plan.dw_splits, plan.dw_rows,
+        stream))
+    cadc_conv2d_bwd_cuda.launches += 1
+    return dx, dw
+
+
+cadc_conv2d_bwd_cuda.launches = 0
+
+
 class CadcConv2dFn(torch.autograd.Function):
     """The CADC conv with K3 forward (saving the gate of `mode`) and the
-    backward of the JAX `_diff_conv_op`: patches = im2col(x), K2 over them,
-    `_col2im` — or the plain versions when use_cuda is False."""
+    backward of the JAX `_diff_conv_op`: the tap kernels
+    (`cadc_conv2d_bwd_cuda`) where `plan_conv_bwd` says "tap" and the
+    operands lie on 16 bytes, else the patches route with K2 — or the plain
+    version when use_cuda is False."""
 
     @staticmethod
     def forward(ctx, x, w, crossbar_size: int, fn: str, stride, padding,
@@ -351,23 +728,24 @@ class CadcConv2dFn(torch.autograd.Function):
     def backward(ctx, g):
         x, w, gate = ctx.saved_tensors
         crossbar_size, fn, stride, padding, mode, use_cuda = ctx.cfg
-        k1, k2, cin, cout = w.shape
-        b, oh, ow, _ = g.shape
-        m, d = b * oh * ow, k1 * k2 * cin
-        patches = im2col(x.float(), (k1, k2), stride=stride, padding=padding)
-        need_dx = ctx.needs_input_grad[0]
-        dpat, dw2d = _cm.segmented_bwd(use_cuda)(
-            g.float().reshape(m, cout), patches.reshape(m, d),
-            w.float().reshape(d, cout),
-            None if gate is None else gate.reshape(gate.shape[0], m, -1),
-            crossbar_size=crossbar_size, fn=fn, mode=mode, need_dx=need_dx,
-            need_dw=ctx.needs_input_grad[1])
-        dx = None
-        if need_dx:
-            dx = _col2im(dpat.reshape(b, oh, ow, d), tuple(x.shape),
-                         (k1, k2), stride, padding).to(x.dtype)
-        dw = None if dw2d is None else dw2d.reshape(w.shape).to(w.dtype)
-        return dx, dw, None, None, None, None, None, None
+        kw = dict(crossbar_size=crossbar_size, fn=fn, stride=stride,
+                  padding=padding, mode=mode,
+                  need_dx=ctx.needs_input_grad[0],
+                  need_dw=ctx.needs_input_grad[1])
+        g = g.float().contiguous()
+        if use_cuda and not _aligned16(g):
+            g = g.clone()
+        tap = use_cuda and _aligned16(x, w, gate) and plan_conv_bwd(
+            x.shape, w.shape, stride, padding, crossbar_size,
+            mode).kernel == "tap"
+        if tap:
+            dx, dw = cadc_conv2d_bwd_cuda(g, x, w, gate, **kw)
+        else:
+            dx, dw = _bwd_patches(_cm.segmented_bwd(use_cuda), g, x, w, gate,
+                                  **kw)
+        return (None if dx is None else dx.to(x.dtype),
+                None if dw is None else dw.to(w.dtype),
+                None, None, None, None, None, None)
 
 
 class CadcConv2dQ8Fn(torch.autograd.Function):

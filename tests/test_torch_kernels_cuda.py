@@ -294,7 +294,7 @@ def _conv_inputs(dev, case, seed=0):
 
 def _conv_plans_of(x, w, case):
     b, h, cin, k, cout, stride, padding, xbar = case
-    *_, oh, ow = cc._geometry(x, w, (stride, stride), padding)
+    *_, oh, ow = cc._geometry(x.shape, w.shape, (stride, stride), padding)
     return cc.conv_plans(b * oh * ow, cout, cin, xbar)
 
 
@@ -712,3 +712,162 @@ def test_arrival_counters_read_zero(cuda_device):
         assert int(counters.abs().sum()) == 0
         for got, want in zip(outs, eager):
             assert torch.equal(got, want)
+
+
+# The tap conv backward (csrc/cadc_conv_bwd.cu): (fn, mode) of every saved
+# gate kind it takes — none, packed words, bytes, fp32
+_BWD_GATES = [("identity", "none"), ("relu", "packed"), ("relu", "bytes"),
+              ("sublinear", "bytes")]
+
+
+def _bwd_case(dev, case, fn, mode, seed=0):
+    """x, w, g and K3's gate of `mode` for a _TAP_CASES conv."""
+    x, w = _conv_inputs(dev, case, seed)
+    b, h, cin, k, cout, stride, padding, xbar = case
+    st = (stride, stride)
+    *_, oh, ow = cc._geometry(x.shape, w.shape, st, padding)
+    gen = torch.Generator(dev).manual_seed(seed + 5)
+    g = torch.randn(b, oh, ow, cout, device=dev, generator=gen)
+    _, gate = cc.cadc_conv2d_cuda(x, w, crossbar_size=xbar, fn=fn, stride=st,
+                                  padding=padding, mode=mode)
+    kw = dict(crossbar_size=xbar, fn=fn, stride=st, padding=padding,
+              mode=mode)
+    return x, w, g, gate, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,mode", _BWD_GATES)
+@pytest.mark.parametrize("case", _TAP_CASES)
+def test_conv_bwd_dx_is_bitwise_the_patches_route(cuda_device, case, fn,
+                                                  mode):
+    """The dgrad kernel's dx equals the patches route on the card (K2's dx,
+    then `_col2im`) bitwise; the wgrad kernel's dw is within 1e-4 of scale
+    of the plain version and the same bits on two runs. Where the plan
+    names the patches route (Cout 10: not a multiple of 4) the kernel
+    wrapper refuses."""
+    x, w, g, gate, kw = _bwd_case(cuda_device, case, fn, mode)
+    plan = cc.plan_conv_bwd(x.shape, w.shape, kw["stride"], kw["padding"],
+                            kw["crossbar_size"], mode)
+    if plan.kernel == "patches":
+        assert case[4] % 4 and plan.why == "Cout not a multiple of 4"
+        with pytest.raises(ValueError, match="patches route"):
+            cc.cadc_conv2d_bwd_cuda(g, x, w, gate, **kw)
+        return
+    before = cc.cadc_conv2d_bwd_cuda.launches
+    dx, dw = cc.cadc_conv2d_bwd_cuda(g, x, w, gate, **kw)
+    _, dw2 = cc.cadc_conv2d_bwd_cuda(g, x, w, gate, need_dx=False, **kw)
+    ref_dx, _ = cc._bwd_patches(cm.cadc_segmented_bwd_cuda, g, x, w, gate,
+                                **kw)
+    want_dx, want_dw = cc.cadc_conv2d_bwd_torch(g, x, w, gate, **kw)
+    torch.cuda.synchronize()
+    assert cc.cadc_conv2d_bwd_cuda.launches == before + 2
+    assert torch.equal(dx, ref_dx)
+    _rel_close(dx, want_dx)
+    _rel_close(dw, want_dw)
+    assert torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in _TAP_CASES if c[4] % 4 == 0])
+def test_conv_bwd_every_plan(cuda_device, case):
+    """Every dx tile and dw split the shape admits, forced: dx bitwise the
+    planner's, dw within 1e-4 of scale of the plain version (the splits
+    change its summation order)."""
+    x, w, g, gate, kw = _bwd_case(cuda_device, case, "relu", "packed", 1)
+    dx0, dw0 = cc.cadc_conv2d_bwd_cuda(g, x, w, gate, **kw)
+    _, want_dw = cc.cadc_conv2d_bwd_torch(g, x, w, gate, **kw)
+    plans = cc.conv_bwd_plans(x.shape, w.shape, kw["stride"], kw["padding"],
+                              kw["crossbar_size"], "packed")
+    assert len(plans) >= 3
+    for plan in plans:
+        dx, dw = cc.cadc_conv2d_bwd_cuda(g, x, w, gate, plan=plan, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(dx, dx0), plan
+        _rel_close(dw, want_dw)
+    _rel_close(dw0, want_dw)
+
+
+@pytest.mark.cuda
+def test_conv_bwd_counters_read_zero(cuda_device):
+    """A split wgrad leaves the device's arrival counters zero, eagerly and
+    replayed from a CUDA graph (the replays equal the eager results)."""
+    case = (8, 16, 64, 3, 64, 1, "SAME", 64)
+    x, w, g, gate, kw = _bwd_case(cuda_device, case, "relu", "packed", 2)
+    plan = cc.plan_conv_bwd(x.shape, w.shape, kw["stride"], kw["padding"],
+                            kw["crossbar_size"], "packed")
+    assert plan.dw_splits > 1
+    eager = cc.cadc_conv2d_bwd_cuda(g, x, w, gate, **kw)
+    torch.cuda.synchronize()
+    counters = cm._counters(x.device)
+    assert int(counters.abs().sum()) == 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = cc.cadc_conv2d_bwd_cuda(g, x, w, gate, **kw)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(counters.abs().sum()) == 0
+        assert all(torch.equal(a, b) for a, b in zip(outs, eager))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,save_gate", [
+    ("relu", "auto"), ("relu", "bytes"), ("relu", "recompute"),
+    ("identity", "auto")])
+def test_conv_bwd_autograd_matches_plain(cuda_device, fn, save_gate):
+    """ops.cadc_conv2d under autograd on the card: K3 forward and the tap
+    conv backward (recompute: the patches route with K2) against the plain
+    path's gradients, within 1e-4 of scale. Each path computes its own
+    gate, so a curved fn's (sublinear: f'(p) = 0.5 / sqrt(p)) would differ
+    with the psums' rounding near p = 0; the fp32 gate is held with one
+    gate for both in test_conv_bwd_dx_is_bitwise_the_patches_route."""
+    case = (2, 9, 64, 3, 96, 2, "SAME", 64)
+    x0, w0 = _conv_inputs(cuda_device, case, 3)
+    grads, launches = {}, {}
+    for impl in ("cuda", "torch"):
+        x, w = (t.clone().requires_grad_() for t in (x0, w0))
+        before = (cc.cadc_conv2d_bwd_cuda.launches,
+                  cm.cadc_segmented_bwd_cuda.launches)
+        y = ops.cadc_conv2d(x, w, crossbar_size=64, fn=fn, stride=(2, 2),
+                            impl=impl, save_gate=save_gate)
+        y.square().sum().backward()
+        torch.cuda.synchronize()
+        launches[impl] = (cc.cadc_conv2d_bwd_cuda.launches - before[0],
+                          cm.cadc_segmented_bwd_cuda.launches - before[1])
+        grads[impl] = (x.grad, w.grad)
+    tap = save_gate != "recompute"
+    assert launches["cuda"] == ((1, 0) if tap else (0, 1))
+    assert launches["torch"] == (0, 0)
+    for got, want in zip(grads["cuda"], grads["torch"]):
+        _rel_close(got, want)
+
+
+@pytest.mark.cuda
+def test_conv_bwd_off_16_bytes_takes_the_patches_route(cuda_device):
+    """x whose data starts 4 bytes past a 16-byte boundary: the autograd
+    backward takes the patches route (K2) with dx the bits of the aligned
+    tap run; the kernel wrapper refuses it."""
+    case = (2, 8, 32, 3, 64, 1, "SAME", 64)
+    x, w, g, gate, kw = _bwd_case(cuda_device, case, "relu", "packed", 4)
+    buf = torch.empty(x.numel() + 1, device=cuda_device)
+    xo = buf[1:].view(x.shape)
+    xo.copy_(x)
+    assert xo.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte"):
+        cc.cadc_conv2d_bwd_cuda(g, xo, w, gate, **kw)
+    want_dx, _ = cc.cadc_conv2d_bwd_cuda(g, x, w, gate, **kw)
+    grads = {}
+    for name, xx in (("aligned", x), ("off", xo)):
+        xr = xx.detach().requires_grad_()
+        before = (cc.cadc_conv2d_bwd_cuda.launches,
+                  cm.cadc_segmented_bwd_cuda.launches)
+        y = ops.cadc_conv2d(xr, w, crossbar_size=64, fn="relu",
+                            save_gate="packed", impl="cuda")
+        (y * g).sum().backward()
+        torch.cuda.synchronize()
+        grads[name] = (xr.grad, (cc.cadc_conv2d_bwd_cuda.launches - before[0],
+                                 cm.cadc_segmented_bwd_cuda.launches
+                                 - before[1]))
+    assert grads["aligned"][1] == (1, 0) and grads["off"][1] == (0, 1)
+    assert torch.equal(grads["aligned"][0], want_dx)
+    assert torch.equal(grads["off"][0], want_dx)

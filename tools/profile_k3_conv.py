@@ -93,8 +93,8 @@ def main() -> None:
         calls["F.conv2d"] = lambda: F.conv2d(
             pick()[0].permute(0, 3, 1, 2), w_oihw, stride=st, padding=cpad)
         ms = {name: cs.device_ms(fn, reps) for name, fn in calls.items()}
-        flops, k3_bytes, _ = cs._conv_ops_bytes(b, h, cin, k, cout, stride,
-                                                padding, xbar)
+        flops, k3_bytes, *_ = cs._conv_ops_bytes(b, h, cin, k, cout,
+                                                 stride, padding, xbar)
         bound, _ = cs.bound_ms(k3_bytes, flops, torch.float32)
         row = {"shape": [b, h, cin, k, cout, stride, padding],
                "per_step": count, "plan": f"{plan.kernel} {plan.tile}",
