@@ -68,9 +68,11 @@ Slice 3, the paper's 4/2/4b operating point (int8 q8 kernels, TF32 off):
      of VGG-16, ResNet-18 and the SNN at the eval batch, xbar 64 / 128 /
      256, every fn; the straight-through backward (dx, dw, dscale) through
      ops.cadc_matmul_q8 in every save_gate mode within 1e-4 of scale;
- 14. K5 (q8 fused conv) and its packed gate against the plain version,
+ 14. K5 (q8 fused conv) and its gates against the plain version,
      bitwise, at every conv shape of the three models at the paths'
-     batches, the same sweep;
+     batches, the same sweep, under every plan the shape admits (the
+     gather kernel, the int8 tensor-core tap kernel at each tile); at
+     xbar 256 also codes at -128 / 127, whose psums reach 2^22;
  15. the slice's main path: VGG-16 at its published width (15.3 M params,
      CIFAR-100 proxy, batch 128) trained with QAT through
      train.loop.train (K3 / K1g / K2), its final evaluation in the q8 mode
@@ -87,7 +89,8 @@ Slice 3, the paper's 4/2/4b operating point (int8 q8 kernels, TF32 off):
  18. VGG-16's q8 eval ms p50, images/s, peak memory, device time by kernel
      and idle share, and its QAT step; K4 and K5 device ms per q8 eval
      batch of each path beside their plain versions, the vConv library
-     call (F.conv2d on fp32 codes; torch._int_mm) and the int8 bound.
+     call (F.conv2d on fp32 codes; torch._int_mm) and the int8 bound; K5
+     per conv shape with its plan, beside the gather kernel at that shape.
 
 Prints the serving and training metrics, the card's name and power limit,
 one JSON line of kernel records and, last, {"ok": true, "device": {...}}.
@@ -242,8 +245,9 @@ def profile_device(run, n: int, group, what: str):
 
 # Kernels that must compile without spills (ptxas' report of each
 # instantiation): K3's tap-aligned kernel, the conv backward's dgrad and
-# wgrad kernels.
-NO_SPILL_KERNELS = ("tap_tile_kernel", "dgrad_kernel", "wgrad_kernel")
+# wgrad kernels, K5's int8 tap kernel.
+NO_SPILL_KERNELS = ("tap_tile_kernel", "dgrad_kernel", "wgrad_kernel",
+                    "q8_tap_kernel")
 
 
 def ptxas_lines(log: str) -> list:
@@ -1748,6 +1752,8 @@ Q8_FNS = ("relu", "identity", "sublinear", "supralinear", "tanh")
 # backward (K2 on the codes) within TRAIN_RTOL of scale, as K2's checks.
 TANH_RTOL = 1e-6
 Q8_MAX_ABS = {"k4": 0.0, "k5": 0.0}
+# K5 launches under a forced plan, each bitwise the planner's, by kernel.
+Q8_PLANS_CHECKED = {"gather": 0, "tap": 0}
 
 
 def q8_fc_shapes():
@@ -1842,9 +1848,13 @@ def check_k4(dev, report):
 
 
 def check_k5(dev, report):
-    """K5 (and its gate) against the plain version at every conv shape of
+    """K5 (and its gates) against the plain version at every conv shape of
     VGG-16, ResNet-18 and the SNN at the paths' batches, xbar 64 / 128 /
-    256, every fn, bitwise (tanh: TANH_RTOL); packed relu gate bits."""
+    256, every fn, bitwise (tanh: TANH_RTOL), under the planner's plan and
+    every plan the shape admits (the gather kernel, the int8 tap kernel at
+    each tile), each bitwise the planner's: relu's packed gate at every
+    xbar, relu's byte and sublinear's fp32 gate at xbar 64; at xbar 256
+    also codes at -128 / 127 (|psum| up to 2^22)."""
     from repro_torch.kernels import cadc_conv as cc
 
     gen = torch.Generator(device=dev).manual_seed(22)
@@ -1855,32 +1865,62 @@ def check_k5(dev, report):
         x = _codes(gen, dev, (b, h, h, cin), -7, 8)
         w = _codes(gen, dev, (k, k, cin, cout), -1, 2)
         scale = torch.rand((), generator=gen, device=dev) * 0.02 + 1e-3
+        ext = (torch.full_like(x, -128), torch.where(
+            torch.rand(w.shape, generator=gen, device=dev) < 0.5, -128,
+            127).to(torch.int8))
+        oh = conv_out_hw(h, k, stride, padding)
         for xbar in XBARS:
-            kw = dict(crossbar_size=xbar, stride=(stride, stride),
-                      padding=padding)
-            for fn in Q8_FNS:
+            plans = cc.conv_plans(b * oh * oh, cout, cin, xbar, q8=True)
+            cases = [(fn, "none", x, w) for fn in Q8_FNS]
+            cases.append(("relu", "packed", x, w))
+            if xbar == XBARS[0]:
+                cases += [("relu", "bytes", x, w),
+                          ("sublinear", "bytes", x, w)]
+            if xbar == 256:
+                cases += [("relu", "packed", *ext),
+                          ("identity", "none", *ext)]
+            for fn, mode, xc, wc in cases:
                 tag = (f"K5 B={b} H={h} Cin={cin} K={k} Cout={cout} "
-                       f"s={stride} xbar={xbar} {fn}")
-                y, _ = cc.cadc_conv2d_q8_cuda(x, w, scale, fn=fn, **kw)
-                want, _ = cc.cadc_conv2d_q8_torch(x, w, scale, fn=fn, **kw)
-                _q8_same("k5", y, want, fn, tag)
+                       f"s={stride} xbar={xbar} {fn} {mode}"
+                       + (" -128/127" if xc is ext[0] else ""))
+                _check_q8_conv_case(cc, xc, wc, scale, xbar, fn, mode,
+                                    (stride, stride), padding, plans, tag)
                 n_checks += 1
-                if fn == "relu":
-                    yg, gate = cc.cadc_conv2d_q8_cuda(x, w, scale, fn=fn,
-                                                      mode="packed", **kw)
-                    _, wgate = cc.cadc_conv2d_q8_torch(x, w, scale, fn=fn,
-                                                       mode="packed", **kw)
-                    if not (torch.equal(yg, y) and torch.equal(gate, wgate)):
-                        fail(f"{tag}: packed gate differs")
-                    n_checks += 1
-        del x, w
+        del x, w, ext
     report["k5_checks"] = {"n": n_checks, "shapes": shapes,
-                           "max_abs_err": Q8_MAX_ABS["k5"]}
+                           "max_abs_err": Q8_MAX_ABS["k5"],
+                           "forced_plans_bitwise": dict(Q8_PLANS_CHECKED)}
     print(f"K5 cadc_conv2d_q8: {n_checks} checks bitwise (tanh within "
           f"{TANH_RTOL} of scale; max abs err {Q8_MAX_ABS['k5']:.1e}) over "
           f"{len(shapes)} conv shapes of VGG-16 (B={VGG_BATCH}), ResNet-18 "
           f"(B={RESNET_BATCH}) and the SNN (B={SNN_BATCH}), xbar {XBARS}, "
-          f"fns {Q8_FNS}, packed relu gates", flush=True)
+          f"fns {Q8_FNS}, packed / byte / fp32 gates, codes at -128 / 127 "
+          f"at xbar 256; forced plans bitwise the planner's: "
+          f"{Q8_PLANS_CHECKED}", flush=True)
+
+
+def _check_q8_conv_case(cc, x, w, scale, xbar, fn, mode, stride, padding,
+                        plans, tag) -> None:
+    """K5 through its wrapper (the planner's plan) against the plain
+    version, then under each of `plans`, bitwise the planner's."""
+    kw = dict(crossbar_size=xbar, fn=fn, stride=stride, padding=padding,
+              mode=mode)
+    y, gate = cc.cadc_conv2d_q8_cuda(x, w, scale, **kw)
+    want, want_gate = cc.cadc_conv2d_q8_torch(x, w, scale, **kw)
+    _q8_same("k5", y, want, fn, tag)
+    if gate is not None:
+        if fn == "tanh":
+            _q8_same("k5", gate, want_gate, fn, f"{tag} gate")
+        elif not torch.equal(gate, want_gate):
+            fail(f"{tag}: the gate differs from the plain version's")
+    for plan in plans:
+        yp, gp = cc._conv_launch("cadc_conv2d_q8_cuda", x, w, xbar, fn,
+                                 stride, padding, mode, scale, plan=plan)
+        if not (torch.equal(yp, y)
+                and (gp is None if gate is None else torch.equal(gp, gate))):
+            fail(f"{tag}: plan {plan} differs from the planner's (max abs "
+                 f"{float((yp - y).abs().max())})")
+        Q8_PLANS_CHECKED[plan.kernel] += 1
 
 
 def q8_modes(fn="relu"):
@@ -2121,7 +2161,9 @@ def time_vgg(dev, trained, report):
                                                batches[i % 4]), 10)
     ev_peak = torch.cuda.max_memory_allocated()
     def group(key: str) -> str:
-        return ("K5 cadc_conv2d_q8" if "ConvGather<signed char" in key
+        return ("K5 cadc_conv2d_q8 (tap)" if "q8_tap_kernel" in key
+                else "K5 cadc_conv2d_q8 (gather)"
+                if "ConvGather<signed char" in key
                 else "K4 cadc_matmul_q8" if "RowMajor<signed char" in key
                 else "other (PyTorch)")
 
@@ -2164,6 +2206,10 @@ def time_vgg(dev, trained, report):
     for gname, g in sorted(groups.items(), key=lambda kv: -kv[1]["ms"]):
         print(f"  {gname}: {g['ms']:.3f} ms/batch over {g['calls']:.0f} "
               f"launches", flush=True)
+    k5 = [g for gname, g in groups.items() if gname.startswith("K5")]
+    report["vgg16_timing"]["q8_eval_k5_ms"] = sum(g["ms"] for g in k5)
+    print(f"  K5 in all: {sum(g['ms'] for g in k5):.3f} ms/batch over "
+          f"{sum(g['calls'] for g in k5):.0f} launches", flush=True)
     print(f"VGG-16 QAT train step (batch {VGG_BATCH}): p50 {tr_p50:.2f} ms, "
           f"{VGG_BATCH / (tr_p50 / 1e3):.0f} images/s, peak memory "
           f"{tr_peak / 2**30:.2f} GiB", flush=True)
@@ -2175,8 +2221,10 @@ def time_q8_kernels(dev, launches, report):
     the plain version, a library call of the vConv (identity) function —
     F.conv2d on fp32 codes (TF32 off) for K5, torch._int_mm for K4 (N
     padded to a multiple of 8 where its shape rules need it) — and the
-    bound: bytes at 3.35 TB/s or int8 operations at 1979 TOPS. CUDA-graph
-    replay over operand copies that hold 3x the L2, as time_k1."""
+    bound: bytes at 3.35 TB/s or int8 operations at 1979 TOPS; K5 also
+    per conv shape, with its plan and the gather kernel's time at that
+    shape. CUDA-graph replay over operand copies that hold 3x the L2, as
+    time_k1."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import cadc_conv as cc
@@ -2187,7 +2235,7 @@ def time_q8_kernels(dev, launches, report):
     xbar, fn = 64, "relu"
     per_path = {}
 
-    def timed(make, kernel, plain, lib):
+    def timed(make, kernel, plain, lib, other=None):
         first = make()
         ops_set = [first] + rotation(make, sum(
             t.numel() * t.element_size() for t in first))[1:]
@@ -2196,7 +2244,9 @@ def time_q8_kernels(dev, launches, report):
         k = keep_counts(lambda: device_ms(lambda: kernel(*pick()), reps))
         pl = keep_counts(lambda: device_ms(lambda: plain(*pick()), reps))
         lb = None if lib is None else device_ms(lambda: lib(*pick()), reps)
-        return k, pl, lb
+        if other is None:
+            return k, pl, lb
+        return k, pl, lb, device_ms(lambda: other(*pick()), reps)
 
     for model in ("vgg16", "resnet18", "snn"):
         t = SNN_T if model == "snn" else 1
@@ -2205,6 +2255,7 @@ def time_q8_kernels(dev, launches, report):
         for _, b, h, cin, k, cout, st, pad in conv_layers(model):
             key = (b, h, cin, k, cout, st, pad)
             shapes[key] = shapes.get(key, 0) + t
+        per_shape = {}
         for (b, h, cin, k, cout, st, pad), count in shapes.items():
             w = _codes(gen, dev, (k, k, cin, cout), -1, 2)
             w_oihw = w.float().permute(3, 2, 0, 1).contiguous()
@@ -2213,15 +2264,32 @@ def time_q8_kernels(dev, launches, report):
             kw = dict(crossbar_size=xbar, fn=fn, stride=(st, st),
                       padding=pad)
             cpad = 0 if pad == "VALID" else k // 2
-            ms, pl, lb = timed(
+            plan = cc.plan_conv_q8(m, cout, cin, xbar)
+            gather = cc.plan_conv_q8(m, cout, cin, xbar,
+                                     _force=("gather", cc.GATHER_TILE))
+            ms, pl, lb, g_ms = timed(
                 lambda: (_codes(gen, dev, (b, h, h, cin), -7, 8),),
                 lambda x: cc.cadc_conv2d_q8_cuda(x, w, scale, **kw),
                 lambda x: cc.cadc_conv2d_q8_torch(x, w, scale, **kw),
                 lambda x: F.conv2d(x.float().permute(0, 3, 1, 2), w_oihw,
-                                   stride=st, padding=cpad))
+                                   stride=st, padding=cpad),
+                lambda x: cc._conv_launch(
+                    "k5", x, w, xbar, fn, (st, st), pad, "none", scale,
+                    plan=gather))
             nbytes = b * h * h * cin + d * cout + 4 * m * cout + 4
             for i, v in enumerate((ms, pl, lb, nbytes, 2 * m * d * cout)):
                 tot["k5"][i] += count * v
+            b_ms, _ = bound_ms(nbytes, 2 * m * d * cout, torch.int8)
+            name = f"B{b}.H{h}.C{cin}.K{k}.O{cout}.s{st}"
+            per_shape[name] = {
+                "count_per_batch": count,
+                "plan": f"{plan.kernel} {plan.tile[0]}x{plan.tile[1]}",
+                "blocks": plan.blocks, "ms": ms, "gather_ms": g_ms,
+                "library_ms": lb, "bound_ms": b_ms}
+            print(f"K5 {model} {name} x{count}: plan "
+                  f"{per_shape[name]['plan']} ({plan.blocks} blocks), "
+                  f"{ms:.4f} ms, gather kernel {g_ms:.4f}, F.conv2d "
+                  f"{lb:.4f}, bound {b_ms:.4f}", flush=True)
         for name, m, d, n in q8_fc_shapes():
             if not name.startswith(model):
                 continue
@@ -2249,6 +2317,8 @@ def time_q8_kernels(dev, launches, report):
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                 "ops": ops, "launches_per_batch": q8_launches(model)[
                     "cadc_conv2d_q8" if key == "k5" else "cadc_matmul_q8"]}
+            if key == "k5":
+                per_path[model][key]["per_shape"] = per_shape
             print(f"{model} q8 eval batch, {key.upper()}: {ms:.3f} ms (plain "
                   f"{pl:.3f}, library {lb:.3f}, bound {b_ms:.4f} by {b_by}) "
                   f"over {per_path[model][key]['launches_per_batch']} "

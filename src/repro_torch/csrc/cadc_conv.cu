@@ -50,7 +50,7 @@
 //  * the gather kernel (`ConvGather` on cadc_tile.cuh's tile kernel, 64 x
 //    64 tiles), for the other shapes (the stems, LeNet-5, the SNN's
 //    conv1): it decomposes each element's (m, d) and loads 4 bytes at a
-//    time. K5 runs on it too.
+//    time. K5's plans that are not tap-aligned run on it too.
 //
 // Both compute every psum as one fmaf per d, in increasing d from the
 // segment's first row, from 0; f at the segment's end; the segments added
@@ -71,17 +71,52 @@
 // an exact int32 psum per segment, summed over the segment's taps before
 // it is dequantized once (float(p) * scale, scale read from device memory)
 // and f applied; then the sequential fp32 sum, and the gate
-// [S, B, OH, OW, ceil(Cout/32)] from the dequantized psum. It is the same
-// implicit GEMM over int8 gathers with int32 multiply-adds, every rounding
-// after the dequantization explicit (cadc_tile.cuh), so bitwise its plain
-// version. The first conv of a model has Cin = 3 (or 2): its patch rows are
-// not aligned, and the gather reads them a byte at a time. Bound on this
-// card: 1 byte per input element and 4 per fp32 output make every VGG-16
-// conv at batch 128 bound by bytes at the data-sheet rates (its first 3x3
-// 64-channel conv: 42 MB, 12.5 us at 3.35 TB/s, against 9.7 G int8
-// operations, 4.9 us at the int8 tensor-core peak). This kernel runs them
-// as int32 multiply-adds on CUDA cores; the int8 tensor cores are later
-// work.
+// [S, B, OH, OW, ceil(Cout/32)] from the dequantized psum. The products
+// are exact and an int32 sum does not depend on the order of its terms,
+// and every rounding after the dequantization is explicit (__fmul_rn,
+// dendritic_rn, __fadd_rn in segment order, as cadc_tile.cuh's q8 branch),
+// so every plan is bitwise the plain version. kernels/cadc_conv.py
+// `plan_conv_q8` picks one of two kernels:
+//
+//  * the tap-aligned int8 kernel (`q8_tap_kernel` below) where Cin and
+//    xbar are multiples of 32 (12 of VGG-16's 13 convs, 19 of ResNet-18's
+//    20, the SNN's conv2), with x, the weights and y on 16 bytes. A k-tile
+//    is 32 channels of one tap (64 where Cin and xbar are multiples of
+//    64): 32 or 64 contiguous bytes of a pixel's row, brought in by 16-byte
+//    cp.async (src-size 0 zero-fills the halo and the rows past M; stride
+//    and padding come in by indexing) into a 3-stage ring in dynamic shared
+//    memory; the tap and channel of the next k-tile step along with the
+//    loads, with no division. mma's B operand is K-major, so the wrapper
+//    passes the codes as [Cout, D] (one PyTorch copy of at most 2.4 MB a
+//    conv), brought in the same way. Rows are padded to 48 or 80 bytes,
+//    so the 8 rows of each ldmatrix land on distinct banks. Warps of
+//    64 x 32 (128 x 64 tiles without a gate, 255 registers, two blocks an
+//    SM) or 32 x 32 outputs run mma.sync m16n8k32 s8 x s8 -> s32 (the int8
+//    tensor cores) into int32 accumulators holding the segment's psum; at
+//    a segment's end (every xbar/32 k-steps) each psum is dequantized, f
+//    applied (a copy of that code per fn) and added to an fp32 sum in
+//    registers. The psums start at the bits of 1.5 * 2^23 (0x4B400000), so
+//    the fp32 value of a psum |p| <= 2^22 (xbar <= 256: |p| <= 256 * 128 *
+//    128) is one exact subtraction from those bits, which is
+//    __int2float_rn's result (the conversion issues at 16 a clock per SM,
+//    the subtraction at 128); at xbar > 256 the psums start at 0 and take
+//    __int2float_rn. The loads and their barriers bound it, then the
+//    segment epilogues (PERF.md, tools/profile_k5_variants.py). The packed
+//    gate: a lane holds two columns of each n8 tile, so a 32-column word
+//    is four n8 tiles of a quad of lanes, ORed by two shuffles and stored
+//    by one lane; bytes and fp32 gates are stored directly.
+//  * the gather kernel (`ConvGather` on cadc_tile.cuh's tile kernel, int32
+//    multiply-adds on the CUDA cores) for the rest: the first convs (Cin 3,
+//    the SNN's Cin 2), whose rows are not aligned.
+//
+// Bound on this card: 1 byte per input element and 4 per fp32 output make
+// every VGG-16 conv at batch 128 bound by bytes at the data-sheet rates (a
+// q8 eval batch: 0.054 ms of bytes against 80.2 G int8 operations, 0.04 ms
+// at the int8 tensor-core peak). Each segment's psum also needs its
+// epilogue on the CUDA cores (subtract, times scale, f, add: 0.63 G
+// (pixel, channel, segment) triples a VGG-16 batch at xbar 64, roughly
+// 0.06-0.17 ms at fp32 issue rates), a floor besides the bytes that
+// neither int8 operands nor the tensor cores remove.
 #include <stdint.h>
 
 #include <atomic>
@@ -161,7 +196,7 @@ int by_gate(const void* x, const void* w, const void* scale, void* y,
 
 // 16 bytes (or 4) from global to shared memory by cp.async; with !pred no
 // byte is read and zeros are written (src-size 0).
-__device__ __forceinline__ void copy16(float* dst, const float* src,
+__device__ __forceinline__ void copy16(void* dst, const void* src,
                                        bool pred) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
@@ -483,22 +518,33 @@ tap_tile_kernel(const TapConv p) {
   }
 }
 
-template <int BM, int BN, int TM, int TN, int kAK, int kStages, bool kGate>
-int launch_tap(const TapConv& p, cudaStream_t stream) {
-  using C = TapCfg<BM, BN, TM, TN, kAK, kStages>;
-  // The shared-memory opt-in is set once per device and instantiation.
-  static std::atomic<uint64_t> opted_in{0};  // bit d: device d
+// The dynamic shared-memory opt-in of a kernel, set once per device: `done`
+// is the caller's (one per instantiation), bit d for device d. Returns the
+// CUDA error code (0 = success).
+template <typename Kernel>
+int opt_in_smem(std::atomic<uint64_t>& done, Kernel kernel, int bytes) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!(opted_in.load() >> dev & 1)) {
-    e = cudaFuncSetAttribute(
-        tap_tile_kernel<BM, BN, TM, TN, kAK, kStages, kGate>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (!(done.load() >> dev & 1)) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
-    opted_in.fetch_or(uint64_t{1} << dev);
+    done.fetch_or(uint64_t{1} << dev);
   }
+  return 0;
+}
+
+template <int BM, int BN, int TM, int TN, int kAK, int kStages, bool kGate>
+int launch_tap(const TapConv& p, cudaStream_t stream) {
+  using C = TapCfg<BM, BN, TM, TN, kAK, kStages>;
+  static std::atomic<uint64_t> opted_in{0};
+  if (const int e = opt_in_smem(
+          opted_in, tap_tile_kernel<BM, BN, TM, TN, kAK, kStages, kGate>,
+          C::kSmem))
+    return e;
   const dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN, 1);
   tap_tile_kernel<BM, BN, TM, TN, kAK, kStages, kGate>
       <<<grid, C::kThreads, C::kSmem, stream>>>(p);
@@ -515,6 +561,370 @@ int tap_by_tile(const TapConv& p, int bm, int bn, cudaStream_t stream) {
   if (bm == 64 && bn == 64)
     return launch_tap<64, 64, 8, 4, 2, 3, kGate>(p, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// the tap-aligned int8 kernel (K5's fast plan)
+// ---------------------------------------------------------------------------
+
+// The q8 conv a tap-aligned launch computes: x int8 NHWC codes, wt the HWIO
+// codes as [N, D] int8 (a channel's D codes contiguous: mma's B operand is
+// K-major), y fp32, scale one fp32 in device memory. x, wt and y lie on 16
+// bytes; Cin and xbar are multiples of 32 x kKT.
+struct TapConvQ8 {
+  const int8_t* x;
+  const int8_t* wt;
+  const float* scale;
+  float* y;
+  void* gate;
+  int M, N, D, xbar, H, W, Cin, K2, OH, OW, s1, s2, pt, pl, fn, gate_kind;
+};
+
+// A block of BM pixels x BN channels in warps of WM x WN outputs, each warp
+// WM/16 x WN/8 mma tiles (m16 x n8); a ring of kStages k-tiles of kKT x 32
+// bytes (channels of one tap inside one segment). A row of a k-tile is
+// padded by 16 bytes: the 8 rows an ldmatrix reads then start 48 or 80
+// bytes apart, on 8 distinct 16-byte bank groups.
+template <int BM, int BN, int WM, int WN, int kKT, int kStages>
+struct Q8Cfg {
+  static constexpr int kWarpsN = BN / WN;
+  static constexpr int kThreads = 32 * (BM / WM) * kWarpsN;
+  static constexpr int kMT = WM / 16, kNT = WN / 8;  // mma tiles of a warp
+  static constexpr int kRow = 32 * kKT;      // bytes of a row in a k-tile
+  static constexpr int kStride = kRow + 16;  // padded row in shared memory
+  static constexpr int kChunks = kRow / 16;  // 16-byte copies a row
+  static constexpr int kABytes = BM * kStride;
+  static constexpr int kStageBytes = (BM + BN) * kStride;
+  static constexpr int kSmem = kStages * kStageBytes;
+  static constexpr int kXL = (BM * kChunks + kThreads - 1) / kThreads;
+  static constexpr int kWL = (BN * kChunks + kThreads - 1) / kThreads;
+  // up to 255 registers a thread for 64-row warps, 192 for 32-row ones
+  static constexpr int kMinBlocks =
+      65536 / (kThreads * (WM == 64 ? 255 : 192));
+  static_assert(BM % WM == 0 && BN % WN == 0 && WM % 16 == 0 &&
+                    WN % kPack == 0,
+                "whole mma tiles; a warp's columns are whole gate words");
+  static_assert((kKT == 1 || kKT == 2) && kStages >= 2, "k-tile, ring");
+  static_assert(kMinBlocks >= 1, "registers");
+};
+
+// Four 8 x 8 matrices of 16-bit elements (here: 8 rows of 16 bytes each)
+// from shared memory; lane l gives the row address of matrix l / 8.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4],
+                                      const unsigned char* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// d += a (m16 x k32, row) * b (k32 x n8, col), int8 in, exact int32 sums.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A psum that starts at the bits of 1.5 * 2^23 holds kMagicBits + p; for
+// |p| <= 2^22 those are the bits of the float 1.5 * 2^23 + p, exactly, so
+// one subtraction of 1.5 * 2^23 gives float(p) with no rounding.
+constexpr int kMagicBits = 0x4B400000;
+constexpr float kMagicF = 12582912.f;
+
+template <int BM, int BN, int WM, int WN, int kKT, int kStages, bool kGate>
+__global__ void __launch_bounds__(
+    (Q8Cfg<BM, BN, WM, WN, kKT, kStages>::kThreads),
+    (Q8Cfg<BM, BN, WM, WN, kKT, kStages>::kMinBlocks))
+q8_tap_kernel(const TapConvQ8 p) {
+  using C = Q8Cfg<BM, BN, WM, WN, kKT, kStages>;
+  extern __shared__ __align__(16) unsigned char smem8[];
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;  // an mma fragment's row, column pair
+  const int wm0 = (warp / C::kWarpsN) * WM, wn0 = (warp % C::kWarpsN) * WN;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int T = p.D / C::kRow, kts = p.xbar / C::kRow;
+  const int8_t* __restrict__ x = p.x;
+  const int8_t* __restrict__ wt = p.wt;
+
+  // The x copies of this thread: 16 bytes (chunk) of pixel rows
+  // (tid + r * kThreads) / kChunks; pix = the pixel index of x[b, ih0, iw0].
+  const int chunk = tid % C::kChunks;
+  int ih0[C::kXL], iw0[C::kXL], pix[C::kXL];
+#pragma unroll
+  for (int r = 0; r < C::kXL; ++r) {
+    const int m = m0 + (tid + r * C::kThreads) / C::kChunks;
+    const int ow = m % p.OW, t = m / p.OW;
+    const int oh = t % p.OH, b = t / p.OH;
+    const int ih = oh * p.s1 - p.pt;
+    iw0[r] = ow * p.s2 - p.pl;
+    pix[r] = (b * p.H + ih) * p.W + iw0[r];
+    ih0[r] = m < p.M ? ih : -(1 << 29);  // rows past M read as halo
+  }
+
+  // k-tile t (bytes kRow*t .. of D, inside one tap) into ring slot. Tiles
+  // are loaded in order t = 0, 1, ..., so the tap (i, j) and the channel
+  // c0 of this thread's chunk step along with them (no divisions).
+  int i = 0, j = 0, c0 = chunk * 16;
+  auto load = [&](int t, int slot) {
+    unsigned char* as = smem8 + slot * C::kStageBytes;
+    unsigned char* bs = as + C::kABytes;
+    const int d0 = t * C::kRow;
+    const int toff = i * p.W + j;
+#pragma unroll
+    for (int r = 0; r < C::kXL; ++r) {
+      const int e = tid + r * C::kThreads;
+      if (C::kXL * C::kThreads > BM * C::kChunks && e >= BM * C::kChunks)
+        break;
+      const bool ok = static_cast<unsigned>(ih0[r] + i) <
+                          static_cast<unsigned>(p.H) &&
+                      static_cast<unsigned>(iw0[r] + j) <
+                          static_cast<unsigned>(p.W);
+      const int8_t* src =
+          ok ? x + static_cast<long long>(pix[r] + toff) * p.Cin + c0 : x;
+      copy16(as + (e / C::kChunks) * C::kStride + chunk * 16, src, ok);
+    }
+#pragma unroll
+    for (int r = 0; r < C::kWL; ++r) {
+      const int e = tid + r * C::kThreads;
+      if (C::kWL * C::kThreads > BN * C::kChunks && e >= BN * C::kChunks)
+        break;
+      const int n = n0 + e / C::kChunks;
+      const int8_t* src =
+          n < p.N ? wt + static_cast<size_t>(n) * p.D + d0 + chunk * 16 : wt;
+      copy16(bs + (e / C::kChunks) * C::kStride + chunk * 16, src, n < p.N);
+    }
+    c0 += C::kRow;
+    if (c0 >= p.Cin) {
+      c0 -= p.Cin;
+      if (++j == p.K2) {
+        j = 0;
+        ++i;
+      }
+    }
+  };
+
+  const bool magic = p.xbar <= 256;  // |psum| <= xbar * 128 * 128 <= 2^22
+  const int ps0 = magic ? kMagicBits : 0;
+  int ps[C::kMT][C::kNT][4];      // the segment's psum (+ kMagicBits)
+  float acc[C::kMT][C::kNT][4];   // the sum of f(psum * scale)
+#pragma unroll
+  for (int mi = 0; mi < C::kMT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < C::kNT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ps[mi][ni][e] = ps0;
+        acc[mi][ni][e] = 0.f;
+      }
+  const float sc = *p.scale;
+  int s = 0, ks = 0;  // the segment, and the k-tile inside it
+
+#pragma unroll
+  for (int r = 0; r < kStages - 1; ++r) {
+    if (r < T) load(r, r);
+    copy_commit();
+  }
+  for (int t = 0; t < T; ++t) {
+    copy_wait<kStages - 2>();
+    __syncthreads();  // tile t landed; every warp is done with t - 1
+    if (t + kStages - 1 < T) load(t + kStages - 1, (t + kStages - 1) % kStages);
+    copy_commit();
+
+    const unsigned char* as = smem8 + (t % kStages) * C::kStageBytes;
+    const unsigned char* bs = as + C::kABytes;
+#pragma unroll
+    for (int kk = 0; kk < kKT; ++kk) {
+      // A: rows 0-15 x bytes 0-15 / 16-31 (a0 a1 / a2 a3); B: channels
+      // 0-7 / 8-15 of a pair of n8 tiles x bytes 0-15 / 16-31.
+      uint32_t a[C::kMT][4], b[C::kNT][2];
+#pragma unroll
+      for (int mi = 0; mi < C::kMT; ++mi)
+        ldsm4(a[mi], as + (wm0 + mi * 16 + lane % 16) * C::kStride +
+                         kk * 32 + (lane / 16) * 16);
+#pragma unroll
+      for (int np = 0; np < C::kNT / 2; ++np) {
+        uint32_t r[4];
+        ldsm4(r, bs + (wn0 + np * 16 + lane % 8 + (lane / 16) * 8) *
+                          C::kStride +
+                     kk * 32 + (lane / 8 % 2) * 16);
+        b[2 * np][0] = r[0];
+        b[2 * np][1] = r[1];
+        b[2 * np + 1][0] = r[2];
+        b[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < C::kMT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < C::kNT; ++ni)
+          mma_s8(ps[mi][ni], a[mi], b[ni][0], b[ni][1]);
+    }
+
+    if (++ks != kts && t + 1 != T) continue;
+    // segment s done: v = float(psum) * scale, exactly as
+    // __fmul_rn(__int2float_rn(p), scale); then its gate, f, the sum.
+    float v[C::kMT][C::kNT][4];
+    if (magic) {
+#pragma unroll
+      for (int mi = 0; mi < C::kMT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < C::kNT; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            v[mi][ni][e] = __fmul_rn(
+                __fsub_rn(__int_as_float(ps[mi][ni][e]), kMagicF), sc);
+    } else {
+#pragma unroll
+      for (int mi = 0; mi < C::kMT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < C::kNT; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            v[mi][ni][e] = __fmul_rn(__int2float_rn(ps[mi][ni][e]), sc);
+    }
+    // f's id is a constant in each copy of this code (seg_end<kFn>).
+    const auto seg_end = [&](auto fn_id) {
+      constexpr int kFn = decltype(fn_id)::value;
+      if constexpr (kGate) {
+        if (p.gate_kind == cadc::kGatePacked) {
+          // Lane (g, q) holds columns 2q, 2q+1 of each n8 tile of rows g
+          // and g+8: a word's 32 columns are 4 n8 tiles of the quad's lanes.
+          const int nw_all = (p.N + kPack - 1) / kPack;
+          uint32_t* words = static_cast<uint32_t*>(p.gate) +
+                            static_cast<size_t>(s) * p.M * nw_all;
+#pragma unroll
+          for (int mi = 0; mi < C::kMT; ++mi)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int m = m0 + wm0 + mi * 16 + h * 8 + g;
+#pragma unroll
+              for (int wd = 0; wd < WN / kPack; ++wd) {
+                uint32_t bits = 0;
+#pragma unroll
+                for (int u = 0; u < 4; ++u)
+#pragma unroll
+                  for (int c = 0; c < 2; ++c)
+                    if (cadc::dendritic_grad(
+                            kFn, v[mi][4 * wd + u][2 * h + c]) != 0.f)
+                      bits |= 1u << (8 * u + 2 * q + c);
+                bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
+                bits |= __shfl_xor_sync(0xffffffffu, bits, 2);
+                const int nw = (n0 + wn0) / kPack + wd;
+                if (q == 0 && m < p.M && nw < nw_all)
+                  words[static_cast<size_t>(m) * nw_all + nw] = bits;
+              }
+            }
+        } else {
+          const size_t base = static_cast<size_t>(s) * p.M * p.N;
+#pragma unroll
+          for (int mi = 0; mi < C::kMT; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < C::kNT; ++ni)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int m = m0 + wm0 + mi * 16 + (e / 2) * 8 + g;
+                const int n = n0 + wn0 + ni * 8 + 2 * q + e % 2;
+                if (m >= p.M || n >= p.N) continue;
+                const float gv = cadc::dendritic_grad(kFn, v[mi][ni][e]);
+                const size_t at = base + static_cast<size_t>(m) * p.N + n;
+                if (p.gate_kind == cadc::kGateU8)
+                  static_cast<uint8_t*>(p.gate)[at] = gv != 0.f;
+                else
+                  static_cast<float*>(p.gate)[at] = gv;
+              }
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < C::kMT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < C::kNT; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[mi][ni][e] = __fadd_rn(acc[mi][ni][e],
+                                       cadc::dendritic_rn(kFn, v[mi][ni][e]));
+    };
+    switch (p.fn) {
+      case 0: seg_end(std::integral_constant<int, 0>{}); break;
+      case 1: seg_end(std::integral_constant<int, 1>{}); break;
+      case 2: seg_end(std::integral_constant<int, 2>{}); break;
+      case 3: seg_end(std::integral_constant<int, 3>{}); break;
+      default: seg_end(std::integral_constant<int, 4>{}); break;
+    }
+    // the next segment's psums start again (after seg_end: v is dead)
+#pragma unroll
+    for (int mi = 0; mi < C::kMT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < C::kNT; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ps[mi][ni][e] = ps0;
+    ++s;
+    ks = 0;
+  }
+
+  const bool vec = p.N % 2 == 0;  // then (m, n even) is on 8 bytes
+#pragma unroll
+  for (int mi = 0; mi < C::kMT; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm0 + mi * 16 + h * 8 + g;
+      if (m >= p.M) continue;
+#pragma unroll
+      for (int ni = 0; ni < C::kNT; ++ni) {
+        const int n = n0 + wn0 + ni * 8 + 2 * q;
+        float* dst = p.y + static_cast<size_t>(m) * p.N + n;
+        const float lo = acc[mi][ni][2 * h], hi = acc[mi][ni][2 * h + 1];
+        if (vec) {
+          if (n < p.N) *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
+        } else {
+          if (n < p.N) dst[0] = lo;
+          if (n + 1 < p.N) dst[1] = hi;
+        }
+      }
+    }
+}
+
+template <int BM, int BN, int WM, int WN, int kKT, int kStages, bool kGate>
+int launch_q8_tap(const TapConvQ8& p, cudaStream_t stream) {
+  using C = Q8Cfg<BM, BN, WM, WN, kKT, kStages>;
+  static std::atomic<uint64_t> opted_in{0};
+  if (const int e = opt_in_smem(
+          opted_in, q8_tap_kernel<BM, BN, WM, WN, kKT, kStages, kGate>,
+          C::kSmem))
+    return e;
+  const dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN, 1);
+  q8_tap_kernel<BM, BN, WM, WN, kKT, kStages, kGate>
+      <<<grid, C::kThreads, C::kSmem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The int8 tap kernel's tiles (kernels/cadc_conv.py Q8_TAP_TILES), each
+// with its warp tile: 128 x 64 (4 warps of 64 x 32; with a gate 8 of
+// 32 x 32, as the gate's epilogue does not fit 255 registers beside 64 x 32
+// psums and sums), 64 x 64 (4 of 32 x 32), 64 x 32 (2 of 32 x 32); a
+// 3-stage ring. Measured on an H100 80GB HBM3 at 700 W (PERF.md): 32 x 32
+// warps on 128 x 64 without a gate, 128 x 128 tiles, a 32 x 32 tile, and 4
+// or 6 stages are slower or no faster.
+template <int kKT, bool kGate>
+int q8_tap_by_tile(const TapConvQ8& p, int bm, int bn, cudaStream_t stream) {
+  if (bm == 128 && bn == 64)
+    return launch_q8_tap<128, 64, kGate ? 32 : 64, 32, kKT, 3, kGate>(
+        p, stream);
+  if (bm == 64 && bn == 64)
+    return launch_q8_tap<64, 64, 32, 32, kKT, 3, kGate>(p, stream);
+  if (bm == 64 && bn == 32)
+    return launch_q8_tap<64, 32, 32, 32, kKT, 3, kGate>(p, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool kGate>
+int q8_tap_by_depth(const TapConvQ8& p, int bm, int bn, cudaStream_t stream) {
+  if (p.Cin % 64 == 0 && p.xbar % 64 == 0)
+    return q8_tap_by_tile<2, kGate>(p, bm, bn, stream);
+  return q8_tap_by_tile<1, kGate>(p, bm, bn, stream);
 }
 
 }  // namespace
@@ -553,17 +963,41 @@ extern "C" int cadc_conv_launch(const void* x, const void* w, void* y,
   return tap_by_tile<true>(p, bm, bn, st);
 }
 
-// K5 (gate_kind 0) and its gate variant: x_q and w int8 in K3's layouts,
-// scale one fp32 in device memory, y and gate as K3's (the gather kernel).
+// K5 (gate_kind 0) and its gate variant: x_q and w int8 in K3's layouts, wt
+// the same codes as [Cout, D] (the tap kernel's B operand; NULL for the
+// gather kernel), scale one fp32 in device memory, y and gate as K3's.
+// Plan: kernel 0 = the gather kernel (bm = bn = 64), 1 = the tap-aligned
+// int8 kernel with a bm x bn tile (Cin and xbar multiples of 32; x, wt and
+// y 16-byte aligned). Returns the CUDA error code after the launch.
 extern "C" int cadc_conv_q8_launch(const void* x, const void* w,
-                                   const void* scale, void* y, void* gate,
-                                   int B, int H, int W, int Cin, int K1,
-                                   int K2, int Cout, int OH, int OW, int s1,
-                                   int s2, int pt, int pl, int xbar, int fn,
-                                   int gate_kind, void* stream) {
-  return by_gate<int8_t, int>(x, w, scale, y, gate, B, H, W, Cin, K1, K2,
-                              Cout, OH, OW, s1, s2, pt, pl, xbar, fn,
-                              gate_kind, stream);
+                                   const void* wt, const void* scale,
+                                   void* y, void* gate, int B, int H, int W,
+                                   int Cin, int K1, int K2, int Cout, int OH,
+                                   int OW, int s1, int s2, int pt, int pl,
+                                   int xbar, int fn, int gate_kind,
+                                   int kernel, int bm, int bn, void* stream) {
+  if (kernel == 0)
+    return bm == 64 && bn == 64
+               ? by_gate<int8_t, int>(x, w, scale, y, gate, B, H, W, Cin, K1,
+                                      K2, Cout, OH, OW, s1, s2, pt, pl, xbar,
+                                      fn, gate_kind, stream)
+               : static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t align = reinterpret_cast<uintptr_t>(x) |
+                          reinterpret_cast<uintptr_t>(wt) |
+                          reinterpret_cast<uintptr_t>(y);
+  if (kernel != 1 || Cin % kBK || xbar % kBK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (align % 16) return static_cast<int>(cudaErrorMisalignedAddress);
+  const TapConvQ8 p{static_cast<const int8_t*>(x),
+                    static_cast<const int8_t*>(wt),
+                    static_cast<const float*>(scale),
+                    static_cast<float*>(y),
+                    gate, B * OH * OW, Cout, K1 * K2 * Cin, xbar, H, W, Cin,
+                    K2, OH, OW, s1, s2, pt, pl, fn, gate_kind};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (gate_kind == cadc::kGateNone)
+    return q8_tap_by_depth<false>(p, bm, bn, st);
+  return q8_tap_by_depth<true>(p, bm, bn, st);
 }
 
 extern "C" const char* cadc_conv_error_string(int code) {

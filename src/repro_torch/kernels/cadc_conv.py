@@ -43,7 +43,13 @@ over all of them before f(). Dilation is 1.
                         `_q8_kernel` / `_q8_kernel_with_gate`): int8 codes,
                         an int32 psum per segment over its taps, one fp32
                         scale read from device memory, f, the sequential
-                        sum; the gate as K3's.
+                        sum; the gate as K3's. One launch under the plan
+                        `plan_conv_q8` picks from the shapes: the
+                        tap-aligned int8 tensor-core kernel (Cin and xbar
+                        multiples of 32; it reads the codes as [Cout, D],
+                        `q8_tap_weights`) with a tile that fills the card,
+                        or the gather kernel; every plan gives the plain
+                        version's bits.
   * cadc_conv2d_q8_torch — its plain version: im2col of the codes, then K4's
                         plain version (exact fp32 psums of the codes).
   * CadcConv2dQ8Fn    — forward K5; the straight-through backward of
@@ -74,6 +80,11 @@ GATHER_TILE = (64, 64)
 # 128 threads, then 8 x 4 on 128 threads; two blocks an SM.
 TAP_TILES = ((128, 64), (64, 64))
 TAP_ALIGN = 32   # rows of a k-tile: Cin and xbar multiples of it
+# K5's tap kernel (`plan_conv_q8`; csrc/cadc_conv.cu `q8_tap_kernel`): its
+# (BM, BN) tiles, preferred first — warps of 64 x 32 outputs on 128 x 64,
+# 32 x 32 on the others. 128 x 128 is slower at VGG-16's and ResNet-18's
+# convs (tools/profile_k5_variants.py; PERF.md).
+Q8_TAP_TILES = ((128, 64), (64, 64), (64, 32))
 _GRID_X_MAX, _GRID_YZ_MAX = 2 ** 31 - 1, 65535
 
 
@@ -196,41 +207,74 @@ def _make_conv_plan(kernel: str, tile: Tuple[int, int], m: int,
     return ConvPlan(kernel, tile, grid)
 
 
+def _plan(tiles, m: int, n: int, cin: int, crossbar_size: int, force,
+          what: str) -> ConvPlan:
+    """The plan of a forward conv kernel with tap tiles `tiles` (preferred
+    first): see plan_conv."""
+    aligned = tap_aligned(cin, crossbar_size)
+    if force is not None:
+        kernel, tile = force[0], tuple(force[1])
+        ok = ((kernel == "tap" and aligned and tile in tiles)
+              or (kernel == "gather" and tile == GATHER_TILE))
+        if not ok:
+            raise ValueError(f"no such {what} plan {force} for M={m} N={n} "
+                             f"Cin={cin} xbar={crossbar_size}")
+        return _make_conv_plan(kernel, tile, m, n)
+    if not aligned:
+        return _make_conv_plan("gather", GATHER_TILE, m, n)
+    narrow = min(t[1] for t in tiles)
+    plans = [_make_conv_plan("tap", t, m, n) for t in tiles
+             if t[1] <= max(n, narrow)]
+    return next((p for p in plans if p.blocks >= _cm.SMS), plans[-1])
+
+
 def plan_conv(m: int, n: int, cin: int, crossbar_size: int, *,
               _force=None) -> ConvPlan:
     """K3's launch plan for M = B*OH*OW output pixels, N = Cout, from the
     shapes alone (never the gate mode):
 
-      * the tap kernel where `tap_aligned(cin, crossbar_size)`: the first
-        tile of TAP_TILES whose grid has SMS blocks, else the smallest;
+      * the tap kernel where `tap_aligned(cin, crossbar_size)`: of the
+        tiles of TAP_TILES no wider than N (or the narrowest), the first
+        whose grid has SMS blocks, else the last;
       * else the gather kernel with 64 x 64 tiles.
 
     There is no split over segments. Every plan computes the same psums in
     the same order, so every plan gives the same bits. `_force` = (kernel,
     tile) builds that plan instead, for tests."""
-    aligned = tap_aligned(cin, crossbar_size)
-    if _force is not None:
-        kernel, tile = _force[0], tuple(_force[1])
-        ok = ((kernel == "tap" and aligned and tile in TAP_TILES)
-              or (kernel == "gather" and tile == GATHER_TILE))
-        if not ok:
-            raise ValueError(f"no such plan {_force} for M={m} N={n} "
-                             f"Cin={cin} xbar={crossbar_size}")
-        return _make_conv_plan(kernel, tile, m, n)
-    if not aligned:
-        return _make_conv_plan("gather", GATHER_TILE, m, n)
-    plans = [_make_conv_plan("tap", t, m, n) for t in TAP_TILES]
-    return next((p for p in plans if p.blocks >= _cm.SMS), plans[-1])
+    return _plan(TAP_TILES, m, n, cin, crossbar_size, _force, "K3")
 
 
-def conv_plans(m: int, n: int, cin: int, crossbar_size: int
-               ) -> List[ConvPlan]:
-    """Every plan the shape admits: the gather kernel, and the tap kernel
-    at each of its tiles where the shape is tap-aligned."""
+def plan_conv_q8(m: int, n: int, cin: int, crossbar_size: int, *,
+                 _force=None) -> ConvPlan:
+    """K5's launch plan, as plan_conv with the int8 tap kernel's tiles
+    Q8_TAP_TILES: the tap kernel where `tap_aligned(cin, crossbar_size)`
+    (the first of its tiles no wider than N whose grid has SMS blocks, else
+    the last), else the gather kernel. No split over segments: a bitwise
+    split would keep every segment's f(psum) ([S, M, N] fp32 scratch); the
+    tile fills the card instead. Every plan gives the plain version's
+    bits. `_force` = (kernel, tile) builds that plan instead, for tests."""
+    return _plan(Q8_TAP_TILES, m, n, cin, crossbar_size, _force, "K5")
+
+
+def conv_plans(m: int, n: int, cin: int, crossbar_size: int, *,
+               q8: bool = False) -> List[ConvPlan]:
+    """Every plan the shape admits, K3's (or with q8, K5's): the gather
+    kernel, and the tap kernel at each of its tiles where the shape is
+    tap-aligned."""
+    tiles, planner = ((Q8_TAP_TILES, plan_conv_q8) if q8
+                      else (TAP_TILES, plan_conv))
     forces = [("gather", GATHER_TILE)]
     if tap_aligned(cin, crossbar_size):
-        forces += [("tap", t) for t in TAP_TILES]
-    return [plan_conv(m, n, cin, crossbar_size, _force=f) for f in forces]
+        forces += [("tap", t) for t in tiles]
+    return [planner(m, n, cin, crossbar_size, _force=f) for f in forces]
+
+
+def q8_tap_weights(w_codes: Tensor) -> Tensor:
+    """The HWIO codes w [K1, K2, Cin, Cout] as the [Cout, D] int8 matrix
+    the int8 tap kernel reads (D = K1*K2*Cin, taps outer, channels
+    fastest): mma's B operand wants each channel's D codes contiguous."""
+    k1, k2, cin, cout = w_codes.shape
+    return w_codes.reshape(k1 * k2 * cin, cout).t().contiguous()
 
 
 # The conv backward's plans (`plan_conv_bwd`; csrc/cadc_conv_bwd.cu). dx
@@ -459,7 +503,7 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 19 + [ctypes.c_void_p])
     lib.cadc_conv_launch.restype = ctypes.c_int
     lib.cadc_conv_q8_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 19 + [ctypes.c_void_p])
     lib.cadc_conv_q8_launch.restype = ctypes.c_int
     lib.cadc_conv_error_string.argtypes = [ctypes.c_int]
     lib.cadc_conv_error_string.restype = ctypes.c_char_p
@@ -470,10 +514,10 @@ def _conv_launch(name: str, x: Tensor, w: Tensor, crossbar_size: int,
                  fn: str, stride, padding, mode: str,
                  scale: Optional[Tensor], plan: Optional[ConvPlan] = None
                  ) -> Tuple[Tensor, Optional[Tensor]]:
-    """K3 (scale None) or K5 on checked CUDA tensors. K3 runs one launch
-    under `plan` (default: plan_conv's, or the gather kernel where x or w
-    does not start on 16 bytes; a given tap plan then raises); K5 runs the
-    gather kernel."""
+    """K3 (scale None) or K5 on checked CUDA tensors: one launch under
+    `plan` (default: plan_conv's or plan_conv_q8's, or the gather kernel
+    where an operand the tap kernel reads does not start on 16 bytes; a
+    given tap plan then raises)."""
     if x.ndim != 4 or w.ndim != 4 or x.shape[3] != w.shape[2]:
         raise ValueError(f"want x [B, H, W, Cin] and w [K1, K2, Cin, Cout]; "
                          f"got {tuple(x.shape)}, {tuple(w.shape)}")
@@ -485,20 +529,20 @@ def _conv_launch(name: str, x: Tensor, w: Tensor, crossbar_size: int,
     m, d = b * oh * ow, k1 * k2 * cin
     n_seg = -(-d // crossbar_size)
     x, w = x.contiguous(), w.contiguous()
-    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    if scale is not None:
-        if plan is not None:
-            raise ValueError(f"{name} runs the gather kernel only")
-        plan = _make_conv_plan("gather", GATHER_TILE, m, cout)
-    elif plan is None:
-        plan = plan_conv(m, cout, cin, crossbar_size)
+    # K5's tap kernel reads the codes from a fresh [Cout, D] copy
+    aligned = x.data_ptr() % 16 == 0 and (scale is not None
+                                          or w.data_ptr() % 16 == 0)
+    planner = plan_conv if scale is None else plan_conv_q8
+    if plan is None:
+        plan = planner(m, cout, cin, crossbar_size)
         if plan.kernel == "tap" and not aligned:
             plan = _make_conv_plan("gather", GATHER_TILE, m, cout)
-    elif plan != plan_conv(m, cout, cin, crossbar_size,
-                           _force=(plan.kernel, plan.tile)):
+    elif plan != planner(m, cout, cin, crossbar_size,
+                         _force=(plan.kernel, plan.tile)):
         raise ValueError(f"{name}: plan {plan} is not one of this shape's")
     elif plan.kernel == "tap" and not aligned:
-        raise ValueError(f"{name}: the tap kernel needs x and w on 16-byte "
+        raise ValueError(f"{name}: the tap kernel needs x"
+                         f"{' and w' if scale is None else ''} on 16-byte "
                          f"boundaries")
     if not plan.fits():
         raise ValueError(f"{name}: B*OH*OW={m}, Cout={cout} exceed the "
@@ -514,14 +558,17 @@ def _conv_launch(name: str, x: Tensor, w: Tensor, crossbar_size: int,
                int(stride[1]), pt, pl, crossbar_size, _cm.FN_IDS[fn],
                _cm._gate_kind(mode if gate is not None else "none", fn))
         gptr = None if gate is None else gate.data_ptr()
+        kernel = PLAN_KERNELS.index(plan.kernel)
         if scale is None:
             code = lib.cadc_conv_launch(
                 x.data_ptr(), w.data_ptr(), y.data_ptr(), gptr, *geo,
-                PLAN_KERNELS.index(plan.kernel), *plan.tile, stream)
+                kernel, *plan.tile, stream)
         else:
-            code = lib.cadc_conv_q8_launch(x.data_ptr(), w.data_ptr(),
-                                           scale.data_ptr(), y.data_ptr(),
-                                           gptr, *geo, stream)
+            wt = q8_tap_weights(w) if plan.kernel == "tap" else None
+            code = lib.cadc_conv_q8_launch(
+                x.data_ptr(), w.data_ptr(),
+                None if wt is None else wt.data_ptr(), scale.data_ptr(),
+                y.data_ptr(), gptr, *geo, kernel, *plan.tile, stream)
         _build.check(lib, "cadc_conv", code)
     return y, (None if gate is None else gate.reshape(n_seg, b, oh, ow, -1))
 
@@ -550,8 +597,8 @@ def cadc_conv2d_q8_cuda(x_q: Tensor, w_codes: Tensor, scale: Tensor, *,
                         ) -> Tuple[Tensor, Optional[Tensor]]:
     """K5: x_q [B, H, W, Cin], w_codes [K1, K2, Cin, Cout] int8 on one CUDA
     device, scale one fp32 there -> (y [B, OH, OW, Cout] fp32, gate of
-    `mode` or None). Raises on anything else. Counts its launches in
-    `cadc_conv2d_q8_cuda.launches`."""
+    `mode` or None), one launch under plan_conv_q8's plan. Raises on
+    anything else. Counts its launches in `cadc_conv2d_q8_cuda.launches`."""
     _cm._check_cuda("cadc_conv2d_q8_cuda", fn, x_q, w_codes,
                     dtypes={torch.int8: 2})
     scale = _cm._check_scale("cadc_conv2d_q8_cuda", scale, x_q.device)

@@ -165,10 +165,20 @@ def test_launch_refuses_another_shapes_plan():
 
 
 def test_q8_conv_takes_no_plan():
-    """K5 runs the gather kernel: a plan is refused."""
+    """K5 takes no plan but its own (`plan_conv_q8`'s for the shape): a
+    plan of another M, a tile its tap kernel does not have and a tap plan
+    for a Cin it does not take are refused before any launch."""
     x, w = _args()
-    plan = cc.plan_conv(128, 16, 32, 64)
-    with pytest.raises(ValueError, match="gather kernel only"):
-        cc._conv_launch("k5", x.to(torch.int8), w.to(torch.int8), 64,
-                        "relu", (1, 1), "SAME", "none",
-                        torch.ones(()), plan=plan)
+    xq, wq, scale = x.to(torch.int8), w.to(torch.int8), torch.ones(())
+    refused = [cc.plan_conv_q8(999, 16, 32, 64, _force=("tap", (64, 32))),
+               cc.ConvPlan("tap", (32, 32), (4, 1, 1)),
+               cc.ConvPlan("gather", (128, 64), (1, 1, 1))]
+    for plan in refused:
+        with pytest.raises(ValueError):
+            cc._conv_launch("k5", xq, wq, 64, "relu", (1, 1), "SAME", "none",
+                            scale, plan=plan)
+    x3, w3 = torch.zeros(2, 8, 8, 3, dtype=torch.int8), torch.zeros(
+        3, 3, 3, 16, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        cc._conv_launch("k5", x3, w3, 64, "relu", (1, 1), "SAME", "none",
+                        scale, plan=cc.ConvPlan("tap", (64, 32), (2, 1, 1)))

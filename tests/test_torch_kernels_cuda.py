@@ -503,6 +503,117 @@ def test_q8_conv_kernel_matches_plain(cuda_device, fn, b, h, cin, k, cout,
         assert torch.equal(yg, y) and torch.equal(gate, wgate)
 
 
+# (B, H, Cin, K, Cout, stride, padding, xbar): shapes K5's int8 tap kernel
+# takes (Cin and xbar multiples of 32)
+_Q8_TAP_CASES = [
+    (2, 8, 32, 3, 64, 1, "SAME", 64),          # Cin 32: 32-byte k-tiles
+    (3, 9, 64, 3, 40, 2, "SAME", 64),          # stride 2; M = 75, Cout 40
+    (2, 16, 64, 1, 128, 2, "SAME", 128),       # the 1x1 stride-2 projection
+    (5, 7, 32, 3, 10, 1, ((1, 0), (2, 1)), 32),  # explicit pads, Cout 10
+    (2, 9, 96, 3, 70, 1, "VALID", 96),         # Cin, xbar 96: 32-byte tiles
+    (2, 8, 128, 3, 256, 1, "SAME", 256),       # segments span taps
+    (1, 5, 64, 3, 33, 1, "SAME", 64),          # odd Cout: scalar stores
+    (4, 4, 512, 3, 512, 1, "SAME", 512),       # xbar > 256: int2float
+]
+_Q8_TAP_MODES = [("relu", "none"), ("relu", "packed"), ("relu", "bytes"),
+                 ("identity", "none"), ("sublinear", "bytes"),
+                 ("supralinear", "none"), ("tanh", "bytes")]
+
+
+def _q8_plans_bitwise(x, w, scale, case, fn, mode):
+    """K5 under every plan `conv_plans(q8=True)` gives for the case: the
+    gather plan within _q8_equal of the plain version, and every plan's
+    output and gate bitwise the gather plan's."""
+    b, h, cin, k, cout, stride, padding, xbar = case
+    st = (stride, stride)
+    want, want_gate = cc.cadc_conv2d_q8_torch(
+        x, w, scale, crossbar_size=xbar, fn=fn, stride=st, padding=padding,
+        mode=mode)
+    *_, oh, ow = cc._geometry(x.shape, w.shape, st, padding)
+    plans = cc.conv_plans(b * oh * ow, cout, cin, xbar, q8=True)
+    assert [p.kernel for p in plans] == ["gather"] + ["tap"] * len(
+        cc.Q8_TAP_TILES)
+    out = [cc._conv_launch("k5", x, w, xbar, fn, st, padding, mode, scale,
+                           plan=p) for p in plans]
+    torch.cuda.synchronize()
+    y0, g0 = out[0]
+    _q8_equal(y0, want, fn)
+    if mode != "none":
+        if fn == "tanh":
+            _q8_equal(g0, want_gate, fn)
+        else:
+            assert torch.equal(g0, want_gate)
+    for plan, (y, g) in zip(plans[1:], out[1:]):
+        assert torch.equal(y, y0), plan
+        assert (g is None and g0 is None) or torch.equal(g, g0), plan
+        if fn != "tanh":
+            assert torch.equal(y, want), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,mode", _Q8_TAP_MODES)
+@pytest.mark.parametrize("case", _Q8_TAP_CASES)
+def test_q8_conv_plans_are_bitwise(cuda_device, case, fn, mode):
+    """K5's int8 tap kernel at each tile and the gather kernel, against
+    the plain version and each other: outputs and packed, byte and fp32
+    gates bitwise (tanh: the plans bitwise each other, within 1e-6 of
+    scale of the plain version)."""
+    b, h, cin, k, cout, *_ = case
+    x = _codes(cuda_device, h + cin, (b, h, h, cin), -7, 8)
+    w = _codes(cuda_device, cout + k, (k, k, cin, cout), -1, 2)
+    scale = torch.tensor(0.0071, device=cuda_device)
+    _q8_plans_bitwise(x, w, scale, case, fn, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["max", "min", "mixed"])
+@pytest.mark.parametrize("fn,mode", [("relu", "packed"),
+                                     ("identity", "none")])
+def test_q8_conv_extreme_codes_at_xbar_256(cuda_device, fill, fn, mode):
+    """Codes at -128 / 127 at xbar 256: every full segment of an interior
+    pixel sums 256 products of 2^14 (|psum| = 2^22, "max"), of -128 * 127
+    ("min"), or a mix of both signs; every plan bitwise the plain
+    version."""
+    case = (2, 6, 256, 3, 64, 1, "SAME", 256)
+    b, h, cin, k, cout, *_ = case
+    dev = cuda_device
+    if fill == "mixed":
+        rng = np.random.RandomState(5)
+        pick = lambda shape: torch.from_numpy(  # noqa: E731
+            np.where(rng.rand(*shape) < 0.5, -128, 127).astype(np.int8)
+        ).to(dev)
+        x, w = pick((b, h, h, cin)), pick((k, k, cin, cout))
+    else:
+        x = torch.full((b, h, h, cin), -128, dtype=torch.int8, device=dev)
+        w = torch.full((k, k, cin, cout), -128 if fill == "max" else 127,
+                       dtype=torch.int8, device=dev)
+    scale = torch.tensor(3.0e-7, device=dev)
+    _q8_plans_bitwise(x, w, scale, case, fn, mode)
+
+
+@pytest.mark.cuda
+def test_q8_conv_off_16_bytes_takes_the_gather_kernel(cuda_device):
+    """x codes starting 1 byte past a 16-byte boundary: the planner's tap
+    plan gives way to the gather kernel, with the aligned copy's bits; a
+    forced tap plan is refused."""
+    x = _codes(cuda_device, 7, (2, 8, 8, 32), -7, 8)
+    w = _codes(cuda_device, 8, (3, 3, 32, 64), -1, 2)
+    scale = torch.tensor(0.0071, device=cuda_device)
+    buf = torch.empty(x.numel() + 1, dtype=torch.int8, device=cuda_device)
+    xo = buf[1:].view(x.shape)
+    xo.copy_(x)
+    assert xo.data_ptr() % 16 != 0 and xo.is_contiguous()
+    kw = dict(crossbar_size=64, fn="relu", mode="packed")
+    y, gate = cc.cadc_conv2d_q8_cuda(xo, w, scale, **kw)
+    want_y, want_gate = cc.cadc_conv2d_q8_cuda(x, w, scale, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want_y) and torch.equal(gate, want_gate)
+    tap = cc.conv_plans(2 * 64, 64, 32, 64, q8=True)[1]
+    with pytest.raises(ValueError, match="16-byte"):
+        cc._conv_launch("k5", xo, w, 64, "relu", (1, 1), "SAME", "packed",
+                        scale, plan=tap)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("save_gate", ["auto", "bytes", "recompute"])
 def test_q8_ste_grads_through_kernels(cuda_device, save_gate):
