@@ -35,14 +35,18 @@ Phases; any failure exits non-zero and prints no result line:
 Slice 2, CNN training (fp32, TF32 off):
   7. K1g / K2 against their plain versions at every FC shape of LeNet-5
      and ResNet-18's fc, M = 64 and 128, xbar 64 / 128 / 256, relu /
-     identity / sublinear, all four save_gate modes; dw bitwise equal
-     across two runs; recompute bitwise equal to the forward's saved gate;
+     identity / sublinear, all four save_gate modes; K2 under the
+     planner's plan and every forced plan (plan_bwd): dx bitwise across
+     plans, dw bitwise equal across two runs of a plan; recompute bitwise
+     equal to the forward's saved gate;
   8. K3 (forward, gate) and the conv backward against their plain
      versions at every conv shape of LeNet-5, ResNet-18, VGG-16 and the
      SNN at the paths' batches (stride 1 and 2, SAME and VALID, 1x1
      projections, Cin 1, 2 and 3, segments spanning taps), xbar
      64/128/256, every plan a shape admits: the patches route (K2 over
-     im2col patches + _col2im) everywhere, and where plan_conv_bwd says
+     im2col patches + _col2im) everywhere — under every K2 plan where Cin
+     is off 32 (the stems, LeNet-5: K2's main-path shapes) — and where
+     plan_conv_bwd says
      "tap" the dgrad / wgrad kernels beside it — dx bitwise the patches
      route under every plan, dw within TRAIN_RTOL and bitwise run to run;
   9. the LeNet-5 path: repro_torch.launch.train_cnn_cadc (vConv and CADC,
@@ -55,8 +59,10 @@ Slice 2, CNN training (fp32, TF32 off):
      at crossbar 64 then vConv, 5 steps each, exact launch counts; then
      its train step ms p50, images/s, peak memory, and torch.profiler's
      device time per kernel per step and the card's idle share;
- 12. K1g, K2 (matrix form: the stem and the FC layers), the tap conv
-     backward (dgrad + wgrad: dx, dw and both, beside cuDNN's
+ 12. K1g, K2 (matrix form: the stem and the FC layers; dx + dw beside
+     the torch.matmul pair, and as the step runs it — the stem's dw only —
+     beside torch.matmul's dw, im2col + K2 and cuDNN's weight grad), the
+     tap conv backward (dgrad + wgrad: dx, dw and both, beside cuDNN's
      convolution_backward and the old route, im2col + K2 + _col2im) and
      K3 device times per ResNet-18 train step (and at LeNet-5's shapes)
      beside their plain versions, the vConv PyTorch call at the same
@@ -245,9 +251,11 @@ def profile_device(run, n: int, group, what: str):
 
 # Kernels that must compile without spills (ptxas' report of each
 # instantiation): K3's tap-aligned kernel, the conv backward's dgrad and
-# wgrad kernels, K5's int8 tap kernel.
+# wgrad kernels, K5's int8 tap kernel, K2's dx and dw kernels (saved
+# gates and recompute).
 NO_SPILL_KERNELS = ("tap_tile_kernel", "dgrad_kernel", "wgrad_kernel",
-                    "q8_tap_kernel")
+                    "q8_tap_kernel", "bwd_dx_kernel", "bwd_dw_kernel",
+                    "bwd_dx_recompute_kernel", "bwd_dw_recompute_kernel")
 
 
 def ptxas_lines(log: str) -> list:
@@ -881,8 +889,9 @@ def rel_err(got, want) -> tuple:
 # "k2c": the tap conv backward's dgrad and wgrad)
 MAX_ABS = {"k1g": 0.0, "k2": 0.0, "k3": 0.0, "k2c": 0.0}
 # K3 launches under a forced plan, by kernel, held bitwise to the planner's;
-# conv backward launches under a forced plan ("bwd_tap"), dx held bitwise
-PLANS_CHECKED = {"gather": 0, "tap": 0, "bwd_tap": 0}
+# conv backward launches under a forced plan ("bwd_tap"), dx held bitwise;
+# K2 over matrices under a forced plan ("bwd_matrix"), dx held bitwise
+PLANS_CHECKED = {"gather": 0, "tap": 0, "bwd_tap": 0, "bwd_matrix": 0}
 # the models whose paths run K3 (check_k3 takes every conv shape of each)
 K3_MODELS = ("lenet5", "resnet18", "vgg16", "snn")
 
@@ -979,10 +988,14 @@ def check_k1g_k2(dev, report):
                             worst)
                         n_checks += 1
     report["k1g_k2_checks"] = {"n": n_checks, "max_err_over_scale": worst,
-                               "near_zero_gate_mismatches": near_mismatch}
+                               "near_zero_gate_mismatches": near_mismatch,
+                               "k2_forced_plans":
+                                   PLANS_CHECKED["bwd_matrix"]}
     print(f"K1g/K2: {n_checks} checks ok (FC shapes {fc_shapes()}, M 64 / "
           f"128, xbar {XBARS}, relu / identity / sublinear, save_gate "
-          f"{cm.SAVE_GATE_MODES}); max err / scale {worst}; gate bit "
+          f"{cm.SAVE_GATE_MODES}); K2 under "
+          f"{PLANS_CHECKED['bwd_matrix']} forced plans, dx bitwise the "
+          f"planner's; max err / scale {worst}; gate bit "
           f"mismatches at |psum| <= {GATE_NEAR} x scale: {near_mismatch}",
           flush=True)
 
@@ -1036,6 +1049,7 @@ def _check_matmul_case(cm, x, w, g, psums, xbar, fn, save_gate, tag,
                                         need_dx=False, **kw)
     if not torch.equal(dw, dw2):
         fail(f"{tag}: dw differs between two runs")
+    dws = [dw] + _k2_plans(cm, g, x, w, gate, mode, kw, dx, tag)
     if mode == "recompute":
         # the recomputed gate is the forward's: same psums, same order
         _, fwd_gate = cm.cadc_matmul_gate_cuda(x, w, mode="bytes", **kw)
@@ -1048,12 +1062,33 @@ def _check_matmul_case(cm, x, w, g, psums, xbar, fn, save_gate, tag,
     else:
         want_dx, want_dw = cm.cadc_segmented_bwd_torch(g, x, w, gate,
                                                        mode=mode, **kw)
-    for key, got, want in (("dx", dx, want_dx), ("dw", dw, want_dw)):
+    for key, got, want in [("dx", dx, want_dx)] + [("dw", d, want_dw)
+                                                   for d in dws]:
         err = track("k2", got, want)
         worst[key] = max(worst[key], err)
         if not err <= TRAIN_RTOL:
             fail(f"{tag}: {key} err / scale {err} > {TRAIN_RTOL}")
     return near
+
+
+def _k2_plans(cm, g, x, w, gate, mode, kw, dx, tag) -> list:
+    """K2 over matrices under every other plan of `bwd_plans` (not counted
+    as launches): dx bitwise the planner's, dw the same bits on two runs
+    of a plan; returns each plan's dw for the caller's tolerance check."""
+    (m, d), n = x.shape, w.shape[1]
+    out = []
+    for plan in cm.bwd_plans(m, n, d, kw["crossbar_size"], mode)[1:]:
+        pdx, pdw = keep_counts(lambda: cm.cadc_segmented_bwd_cuda(
+            g, x, w, gate, mode=mode, plan=plan, **kw))
+        _, pdw2 = keep_counts(lambda: cm.cadc_segmented_bwd_cuda(
+            g, x, w, gate, mode=mode, plan=plan, **kw))
+        if not torch.equal(pdx, dx):
+            fail(f"{tag}: K2 plan {plan}: dx differs from the planner's")
+        if not torch.equal(pdw, pdw2):
+            fail(f"{tag}: K2 plan {plan}: dw differs between two runs")
+        out.append(pdw)
+        PLANS_CHECKED["bwd_matrix"] += 1
+    return out
 
 
 def check_k3(dev, report):
@@ -1163,6 +1198,9 @@ def _check_conv_case(cc, cm, x, w, g, patches, psums, xbar, fn, save_gate,
     bkw = dict(crossbar_size=xbar, fn=fn)
     dpat, dw = cm.cadc_segmented_bwd_cuda(g2, patches, w2d, gate2, mode=mode,
                                           **bkw)
+    dws = [dw]
+    if not cc.tap_aligned(cin, xbar):  # K2 over these patches every step
+        dws += _k2_plans(cm, g2, patches, w2d, gate2, mode, bkw, dpat, tag)
     if mode == "recompute":
         _, fgate = cc.cadc_conv2d_cuda(x, w, mode="bytes", **kw)
         fgate = fgate.reshape(fgate.shape[0], g2.shape[0], -1)
@@ -1180,7 +1218,8 @@ def _check_conv_case(cc, cm, x, w, g, patches, psums, xbar, fn, save_gate,
                     (k1, k2), stride, padding)
     want_dx = cc._col2im(want_dp.reshape(x.shape[0], oh, oh, -1),
                          tuple(x.shape), (k1, k2), stride, padding)
-    for key, got, want in (("dx", dx, want_dx), ("dw", dw, want_dw)):
+    for key, got, want in [("dx", dx, want_dx)] + [("dw", d, want_dw)
+                                                   for d in dws]:
         err = track("k2", got, want)
         worst[key] = max(worst[key], err)
         if not err <= TRAIN_RTOL:
@@ -1455,9 +1494,8 @@ def time_resnet_step(dev, report):
                           ("RowMajor", "K1/K1g cadc_matmul"),
                           ("dgrad_kernel", "K2 conv tap dgrad (dx)"),
                           ("wgrad_kernel", "K2 conv tap wgrad (dw)"),
-                          ("bwd_dx_kernel", "K2 dx"),
-                          ("bwd_dw_kernel", "K2 dw"),
-                          ("split_sum", "K2 dw split sum")):
+                          ("bwd_dx", "K2 dx"),
+                          ("bwd_dw", "K2 dw")):
             if pat in key:
                 return name
         return "other (PyTorch)"
@@ -1557,12 +1595,14 @@ def time_train_kernels(dev, launches, report):
                 t[label] = t.get(label, 0.0) + count * rec[label]
         del ops_set
 
-    convs = {}
+    convs, first_convs = {}, set()
     for model in ("resnet18", "lenet5"):
+        first_convs.add((model,) + conv_layers(model)[0][1:])
         for c in conv_layers(model):
             key = (model,) + c[1:]
             convs[key] = convs.get(key, 0) + 1
-    for (model, b, h, cin, k, cout, stride, padding), count in convs.items():
+    for key, count in convs.items():
+        model, b, h, cin, k, cout, stride, padding = key
         name = f"{model}.B{b}.H{h}.C{cin}.K{k}.O{cout}.s{stride}"
         st = (stride, stride)
         w = torch.randn(k, k, cin, cout, generator=gen, device=dev) / 8
@@ -1639,21 +1679,63 @@ def time_train_kernels(dev, launches, report):
             continue
         gate = gate.reshape(gate.shape[0], m, -1)
         w2d = w.reshape(d, cout)
+        # as the step runs it: no dx where the conv's input is the image
+        need_dx = key not in first_convs
 
         def make_bwd():
             xx = torch.randn(b, h, h, cin, generator=gen, device=dev)
             return (torch.randn(m, cout, generator=gen, device=dev),
                     im2col(xx, (k, k), stride=st,
-                           padding=padding).reshape(m, d))
+                           padding=padding).reshape(m, d), xx)
+
+        def cudnn_wgrad(g, pt, x):
+            return torch.ops.aten.convolution_backward(
+                g.view(b, oh, oh, cout).permute(0, 3, 1, 2),
+                x.permute(0, 3, 1, 2), w_oihw, None, list(st), [cpad, cpad],
+                [1, 1], False, [0, 0], 1, [False, True, False])
 
         bkw = dict(crossbar_size=xbar, fn=fn, mode="packed")
+        ckw = dict(bkw, stride=st, padding=padding, need_dx=need_dx)
         timed(name, count, make_bwd,
-              lambda g, pt: cm.cadc_segmented_bwd_cuda(g, pt, w2d, gate,
-                                                       **bkw),
-              lambda g, pt: cm.cadc_segmented_bwd_torch(g, pt, w2d, gate,
-                                                        **bkw),
-              lambda g, pt: (torch.matmul(g, w2d.T), torch.matmul(pt.T, g)),
-              k2_bytes, 2 * flops, "k2")
+              lambda g, pt, x: cm.cadc_segmented_bwd_cuda(g, pt, w2d, gate,
+                                                          **bkw),
+              lambda g, pt, x: cm.cadc_segmented_bwd_torch(g, pt, w2d, gate,
+                                                           **bkw),
+              lambda g, pt, x: (torch.matmul(g, w2d.T),
+                                torch.matmul(pt.T, g)),
+              k2_bytes, 2 * flops, "k2",
+              extra={"step_ms": lambda g, pt, x: cm.cadc_segmented_bwd_cuda(
+                         g, pt, w2d, gate, need_dx=need_dx, **bkw),
+                     "matmul_dw_ms": lambda g, pt, x: torch.matmul(pt.T, g),
+                     "im2col_k2_ms": lambda g, pt, x: cc._bwd_patches(
+                         cm.cadc_segmented_bwd_cuda,
+                         g.view(b, oh, oh, cout), x, w, gate, **ckw),
+                     "cudnn_wgrad_ms": cudnn_wgrad})
+        rec = per_shape["k2"][name]
+        # the step's bytes: g, the patches and the gate in, dw (and dx) out
+        step_bytes = (4 * (m * cout + m * d + d * cout) + gate.nbytes
+                      + (4 * m * d if need_dx else 0))
+        rec["need_dx"] = need_dx
+        rec["step_bound_ms"], _ = bound_ms(
+            step_bytes, flops * (2 if need_dx else 1), torch.float32)
+        bplan = cm.plan_bwd(m, cout, d, xbar, "packed")
+        rec["plan"] = (f"dx {bplan.dx_tile[0]}x{bplan.dx_tile[1]} "
+                       f"({math.prod(bplan.dx_grid)} blocks), dw "
+                       f"{bplan.dw_tile[0]}x{bplan.dw_tile[1]} x "
+                       f"{bplan.dw_splits} splits ({bplan.dw_tiles} tiles)")
+        if name.startswith("resnet"):
+            tot["k2"]["step_bytes"] = (tot["k2"].get("step_bytes", 0.0)
+                                       + count * step_bytes)
+            tot["k2"]["step_ops"] = (tot["k2"].get("step_ops", 0.0)
+                                     + count * flops * (2 if need_dx else 1))
+        print(f"K2 matrix {name} x{count}: plan {rec['plan']}; dx + dw "
+              f"{rec['ms']:.4f} ms (torch.matmul pair "
+              f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f}); as "
+              f"the step runs it ({'dx + dw' if need_dx else 'dw only'}) "
+              f"{rec['step_ms']:.4f} (bound {rec['step_bound_ms']:.4f}), "
+              f"torch.matmul dw {rec['matmul_dw_ms']:.4f}, im2col + K2 "
+              f"{rec['im2col_k2_ms']:.4f}, cuDNN weight grad "
+              f"{rec['cudnn_wgrad_ms']:.4f}", flush=True)
         del gate
     # FC layers: K1g forward (relu's packed gate) and K2 backward
     fcs = [("resnet18.fc", RESNET_BATCH, 8 * RESNET_WIDTH, 10),
@@ -1685,14 +1767,30 @@ def time_train_kernels(dev, launches, report):
             return (torch.randn(m, n, generator=gen, device=dev),
                     torch.randn(m, dp, generator=gen, device=dev))
 
+        fc_bytes = 4 * (m * n + 2 * m * dp + 2 * dp * n) + gate_b
         timed(name, 1, make_bwd,
               lambda g, x: cm.cadc_segmented_bwd_cuda(
                   g, x, w, gate, crossbar_size=xbar, fn=fn, mode="packed"),
               lambda g, x: cm.cadc_segmented_bwd_torch(
                   g, x, w, gate, crossbar_size=xbar, fn=fn, mode="packed"),
               lambda g, x: (torch.matmul(g, w.T), torch.matmul(x.T, g)),
-              4 * (m * n + 2 * m * dp + 2 * dp * n) + gate_b, 2 * flops,
-              "k2")
+              fc_bytes, 2 * flops, "k2")
+        rec = per_shape["k2"][name]
+        rec["step_ms"] = rec["ms"]  # every FC's input needs its gradient
+        rec["step_bound_ms"] = rec["bound_ms"]
+        bplan = cm.plan_bwd(m, n, dp, xbar, "packed")
+        rec["plan"] = (f"dx {bplan.dx_tile[0]}x{bplan.dx_tile[1]}, dw "
+                       f"{bplan.dw_tile[0]}x{bplan.dw_tile[1]} x "
+                       f"{bplan.dw_splits} splits")
+        if name.startswith("resnet"):
+            t = tot["k2"]
+            t["step_ms"] = t.get("step_ms", 0.0) + rec["ms"]
+            t["step_bytes"] = t.get("step_bytes", 0.0) + fc_bytes
+            t["step_ops"] = t.get("step_ops", 0.0) + 2 * flops
+        print(f"K2 matrix {name}: plan {rec['plan']}; dx + dw "
+              f"{rec['ms']:.4f} ms (torch.matmul pair "
+              f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f})",
+              flush=True)
     report["train_kernel_timing"] = {
         "unit": f"one ResNet-18 CADC train step: width {RESNET_WIDTH}, "
                 f"batch {RESNET_BATCH}, xbar {xbar}, relu, packed gate",
@@ -1723,6 +1821,19 @@ def time_train_kernels(dev, launches, report):
         print(f"{name}: {t['ms']:.3f} ms per ResNet-18 train step (plain "
               f"{t['plain']:.3f}, vConv library {t['lib']:.3f}, bound "
               f"{b_ms:.3f} by {b_by})", flush=True)
+    t = tot["k2"]
+    t["step_bound_ms"], _ = bound_ms(t["step_bytes"], t["step_ops"],
+                                     torch.float32)
+    report["train_kernel_timing"]["k2_matrix_per_step"] = {
+        k: t[k] for k in ("ms", "lib", "step_ms", "step_bound_ms",
+                          "matmul_dw_ms", "im2col_k2_ms", "cudnn_wgrad_ms")}
+    print(f"cadc_segmented_bwd per ResNet-18 train step: dx + dw "
+          f"{t['ms']:.4f} ms (torch.matmul pair {t['lib']:.4f}); as the "
+          f"step runs it (the stem's dw only, the fc's dx + dw) "
+          f"{t['step_ms']:.4f} (bound {t['step_bound_ms']:.4f}); the stem "
+          f"beside it: torch.matmul dw {t['matmul_dw_ms']:.4f}, im2col + K2 "
+          f"{t['im2col_k2_ms']:.4f}, cuDNN weight grad "
+          f"{t['cudnn_wgrad_ms']:.4f}", flush=True)
     t = tot["k2c"]
     report["train_kernel_timing"]["conv_bwd_tap_per_step"] = {
         k: t[k] for k in ("ms", "dx_ms", "dw_ms", "old_route_ms", "lib")}

@@ -78,29 +78,14 @@
 
 namespace {
 
+using cadc::bit_f;
+using cadc::copy16;
+using cadc::copy4;
+using cadc::copy_commit;
+using cadc::copy_wait;
 using cadc::kBK;
 using cadc::kPack;
-
-// 16 bytes (or 4) from global to shared memory by cp.async; with !pred no
-// byte is read and zeros are written (src-size 0).
-__device__ __forceinline__ void copy16(void* dst, const void* src,
-                                       bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void copy4(void* dst, const void* src, bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(pred ? 4 : 0));
-}
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int kPending>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
+using cadc::opt_in;
 
 // n / d for n < 2^31 by a multiply-high and a shift (PyTorch's IntDivider).
 struct FastDiv {
@@ -144,11 +129,6 @@ struct GateStage {
   static constexpr int kChunkFloats =
       kKind == cadc::kGateF32 ? 4 : kKind == cadc::kGateU8 ? 1 : 0;
 };
-
-// 1.0f where bit b of word is set, else 0.0f, by integer ops alone.
-__device__ __forceinline__ float bit_f(uint32_t word, int b) {
-  return __uint_as_float((0u - ((word >> b) & 1u)) & 0x3f800000u);
-}
 
 // v *= f'(p) for the 4 columns of a chunk: bits 0-3 of a shifted packed
 // word, the 4 bytes of a uint32, or 4 fp32 (the product K2 forms).
@@ -643,23 +623,6 @@ wgrad_kernel(const ConvBwd p) {
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
-
-// Set a kernel's shared-memory opt-in once per device.
-template <typename Kernel>
-int opt_in(Kernel kernel, int bytes, std::atomic<uint64_t>& done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!(done.load() >> dev & 1)) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    done.fetch_or(uint64_t{1} << dev);
-  }
-  return 0;
-}
 
 template <int BM, int BN, int TN, int kKind>
 int launch_dx(const ConvBwd& p, cudaStream_t stream) {

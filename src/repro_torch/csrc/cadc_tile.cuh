@@ -33,6 +33,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace cadc {
@@ -116,6 +117,51 @@ __device__ __forceinline__ float dendritic_grad(int fn, float p) {
       return p > 0.f ? 1.f - t * t : 0.f;
     }
   }
+}
+
+// 16 bytes (or 4) from global to shared memory by cp.async; with !pred no
+// byte is read and zeros are written (src-size 0).
+__device__ __forceinline__ void copy16(void* dst, const void* src,
+                                       bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void copy4(void* dst, const void* src, bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// The memory clobber keeps the compiler from reading shared memory that
+// the awaited copies write before the wait.
+template <int kPending>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// 1.0f where bit b of word is set, else 0.0f, by integer ops alone.
+__device__ __forceinline__ float bit_f(uint32_t word, int b) {
+  return __uint_as_float((0u - ((word >> b) & 1u)) & 0x3f800000u);
+}
+
+// Set a kernel's dynamic shared-memory opt-in once per device (host).
+template <typename Kernel>
+int opt_in(Kernel kernel, int bytes, std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!(done.load() >> dev & 1)) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    done.fetch_or(uint64_t{1} << dev);
+  }
+  return 0;
 }
 
 // The ordered segment sum of a split launch, run by every thread of a

@@ -85,7 +85,6 @@ TAP_ALIGN = 32   # rows of a k-tile: Cin and xbar multiples of it
 # 32 x 32 on the others. 128 x 128 is slower at VGG-16's and ResNet-18's
 # convs (tools/profile_k5_variants.py; PERF.md).
 Q8_TAP_TILES = ((128, 64), (64, 64), (64, 32))
-_GRID_X_MAX, _GRID_YZ_MAX = 2 ** 31 - 1, 65535
 
 
 def _segment_taps(k1: int, k2: int, c: int, xbar: int
@@ -189,8 +188,8 @@ class ConvPlan(NamedTuple):
 
     def fits(self) -> bool:
         """The grid is within CUDA's limits."""
-        return (self.grid[0] <= _GRID_X_MAX
-                and max(self.grid[1:]) <= _GRID_YZ_MAX)
+        return (self.grid[0] <= _cm._GRID_X_MAX
+                and max(self.grid[1:]) <= _cm._GRID_YZ_MAX)
 
 
 def tap_aligned(cin: int, crossbar_size: int) -> bool:
@@ -326,7 +325,8 @@ class ConvBwdPlan(NamedTuple):
 
     def fits(self) -> bool:
         """Both grids are within CUDA's limits."""
-        return all(gr[0] <= _GRID_X_MAX and max(gr[1:]) <= _GRID_YZ_MAX
+        return all(gr[0] <= _cm._GRID_X_MAX
+                   and max(gr[1:]) <= _cm._GRID_YZ_MAX
                    for gr in (self.dx_grid, self.dw_grid))
 
 

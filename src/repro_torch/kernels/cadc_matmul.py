@@ -43,7 +43,10 @@ csrc/cadc_bwd.cu (K2); their notes give the bounds and designs. Each
 forward is one launch under the plan `plan_fwd` picks from the shapes: the
 tile kernel (single pass, or split over segments and summed in order by
 the last block of each output tile, bitwise the single pass), or for K1 at
-M <= 8 the stream kernel, which streams w in 16-byte vectors.
+M <= 8 the stream kernel, which streams w in 16-byte vectors. K2 is at
+most two launches (dx, dw) under the plan `plan_bwd` picks: tiles
+narrowed to the segments, dw's M-splits added in order by the last block
+of each tile.
 `CadcMatmulFn` and `CadcMatmulQ8Fn` are the autograd Functions around
 them; kernels/ops.py picks kernel or plain version by the tensors'
 device. The kernels take only the five built-in dendritic fns (FN_IDS); a
@@ -61,6 +64,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -94,10 +98,33 @@ GATE_PACK_WIDTH = 32
 SAVE_GATE_MODES = ("auto", "packed", "bytes", "recompute")
 # Resolved gate modes -> the kernels' gate kinds (csrc/cadc_tile.cuh).
 _GATE_NONE, _GATE_PACKED, _GATE_U8, _GATE_F32, _GATE_RECOMPUTE = range(5)
-# dw of K2 splits M over blocks until about this many are in flight
-# (two per SM of an H100), with at least this many rows per split.
-_DW_TARGET_BLOCKS = 264
-_DW_MIN_ROWS = 256
+# K2's launch plan (`plan_bwd`; csrc/cadc_bwd.cu). A dx tile is rows of M x
+# columns of one segment, a dw tile rows of D (columns of one segment) x
+# columns of N. The segment width of both is the narrowest of
+# BWD_SEG_COLS that covers the widest segment, min(xbar, D); a segment
+# wider than 64 takes several tiles. Under the recompute gate dx keeps the
+# 64 x 64 kernel and dw takes the saved gates' plan (the same sums).
+BWD_SEG_COLS = (32, 64)
+# dx tiles (rows, columns), the second of a width where the rows are too
+# few to fill the card
+BWD_DX_TILES = ((128, 32), (32, 32), (128, 64), (32, 64))
+BWD_DW_COLS = (16, 32, 64)
+BWD_RECOMPUTE_DX = (64, 64)
+# dw splits M into ranges of whole 32-row k-tiles, at least _BWD_MIN_ROWS
+# rows each, until about one wave runs (_BWD_SLOTS: two blocks an SM); the
+# last block of a tile adds the splits' partials in order. The planner's
+# model of dw's time, fitted to tools/profile_k2_matrix.py's times on an
+# H100 (80GB HBM3, 700 W): a block takes _KTILE_S[j] + _KTILE_S_OUT[j] x
+# (tile outputs) a 64-row k-tile of M, j = 0 with one block on its SM and
+# 1 with two (each then slower, together faster); then the tile's last
+# block adds the partials: _TAIL_S[0] + splits x (_TAIL_S[1] + _TAIL_S[2] x
+# tile outputs) — narrow tiles and fewer splits keep that short.
+_BWD_SLOTS = 2 * SMS
+_BWD_MIN_ROWS = 256
+_KTILE_S = (2.5e-7, 2e-7)
+_KTILE_S_OUT = (8.5e-10, 1.6e-9)
+_TAIL_S = (1.5e-6, 3.5e-8, 5e-11)
+_GRID_X_MAX, _GRID_YZ_MAX = 2**31 - 1, 65535  # CUDA's grid: x; y and z
 # The q8 plain versions' fp32 psums are exact while xbar * 128 * 128 <= 2^24.
 Q8_MAX_XBAR = 1024
 
@@ -353,7 +380,7 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.library(_BWD_SOURCE)
     lib.cadc_bwd_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
     lib.cadc_bwd_launch.restype = ctypes.c_int
     lib.cadc_bwd_error_string.argtypes = [ctypes.c_int]
     lib.cadc_bwd_error_string.restype = ctypes.c_char_p
@@ -595,28 +622,215 @@ def cadc_matmul_q8_gate_cuda(x_q: Tensor, w_codes: Tensor, scale: Tensor,
 cadc_matmul_q8_gate_cuda.launches = 0
 
 
-def _dw_splits(m: int, n: int, d: int, crossbar_size: int) -> Tuple[int, int]:
-    """(splits, rows per split) of K2's dw over M: enough blocks to fill the
-    card, each split at least _DW_MIN_ROWS rows (a multiple of 32)."""
-    base = -(-n // 64) * -(-d // crossbar_size) * -(-crossbar_size // 64)
-    splits = max(1, min(-(-_DW_TARGET_BLOCKS // base), -(-m // _DW_MIN_ROWS)))
-    rows = -(-m // splits)
-    rows = -(-rows // 32) * 32
-    return -(-m // rows), rows
+class BwdPlan(NamedTuple):
+    """K2's launches: `kernel` 'tile' (saved gates or none) or 'recompute'
+    (dx by the 64 x 64 recompute kernel); the dx tile (rows of M, segment
+    columns) and grid (blocks a column tile, column tiles, 1: under 'tile'
+    each block takes every grid[0]-th row tile, under 'recompute' one); the
+    dw tile (segment rows, columns of N) and grid (N tiles, D tiles, splits
+    of M) and the rows of M of each split. A grid of zeros is a launch not
+    wanted."""
+    kernel: str
+    dx_tile: Tuple[int, int]
+    dx_grid: Tuple[int, int, int]
+    dw_tile: Tuple[int, int]
+    dw_grid: Tuple[int, int, int]
+    dw_rows: int
+
+    @property
+    def dw_splits(self) -> int:
+        return self.dw_grid[2]
+
+    @property
+    def dw_tiles(self) -> int:
+        """dw's output tiles: the arrival counters a split launch uses."""
+        return self.dw_grid[0] * self.dw_grid[1]
+
+    @property
+    def launches(self) -> int:
+        return sum(1 for gr in (self.dx_grid, self.dw_grid) if gr[0])
+
+    def fits(self) -> bool:
+        """Both grids are within CUDA's limits."""
+        return all(gr[0] <= _GRID_X_MAX and max(gr[1:]) <= _GRID_YZ_MAX
+                   for gr in (self.dx_grid, self.dw_grid))
+
+
+def _seg_tiles(d: int, crossbar_size: int, cols: int) -> int:
+    """Tiles of `cols` segment columns over D: ceil(width / cols) a
+    segment, the last one possibly narrower."""
+    n_seg = -(-d // crossbar_size)
+    last = d - (n_seg - 1) * crossbar_size
+    return (n_seg - 1) * -(-crossbar_size // cols) + -(-last // cols)
+
+
+def _seg_cols(d: int, crossbar_size: int) -> int:
+    """The narrowest segment width of BWD_SEG_COLS covering the widest
+    segment, else the widest."""
+    width = min(crossbar_size, d)
+    return next((c for c in BWD_SEG_COLS if c >= width), BWD_SEG_COLS[-1])
+
+
+def _split_rows(m: int, splits: int) -> int:
+    """Rows of M of each of `splits` ranges: whole 32-row k-tiles (the last
+    range may be shorter; there may be fewer ranges)."""
+    return max(32, -(-(-(-m // splits)) // 32) * 32)
+
+
+def _wave_splits(m: int, tiles: int) -> int:
+    """Splits of M that make about one wave of _BWD_SLOTS blocks, each at
+    least _BWD_MIN_ROWS rows; 1 where the tiles outnumber the counters."""
+    if tiles > N_COUNTERS:
+        return 1
+    return max(1, min(_BWD_SLOTS // tiles, -(-m // _BWD_MIN_ROWS)))
+
+
+def _dw_seconds(m: int, tile, tiles: int, splits: int) -> float:
+    """The planner's model of dw's time under a tile and split."""
+    rows = _split_rows(m, splits)
+    splits = -(-m // rows)
+    per_sm = -(-tiles * splits // SMS)
+    two = int(per_sm > 1)
+    outs = tile[0] * tile[1]
+    main = (-(-per_sm // (1 + two)) * -(-rows // 64)
+            * (_KTILE_S[two] + _KTILE_S_OUT[two] * outs))
+    tail = (_TAIL_S[0] + splits * (_TAIL_S[1] + _TAIL_S[2] * outs)
+            if splits > 1 else 0.0)
+    return main + tail
+
+
+def _make_bwd_plan(kernel, m, n, d, crossbar_size, dx_tile, dw_tile,
+                   splits, need_dx, need_dw) -> BwdPlan:
+    col_tiles = _seg_tiles(d, crossbar_size, dx_tile[1])
+    row_tiles = -(-m // dx_tile[0])
+    if kernel == "tile":  # a wave of blocks, each striding over row tiles
+        row_tiles = min(row_tiles, -(-_BWD_SLOTS // col_tiles))
+    dx_grid = (row_tiles, col_tiles, 1) if need_dx else (0, 0, 0)
+    rows = _split_rows(m, splits)
+    dw_grid = ((-(-n // dw_tile[1]), _seg_tiles(d, crossbar_size,
+                                                 dw_tile[0]), -(-m // rows))
+               if need_dw else (0, 0, 0))
+    return BwdPlan(kernel, dx_tile, dx_grid, dw_tile, dw_grid,
+                   rows if need_dw else 0)
+
+
+def plan_bwd(m: int, n: int, d: int, crossbar_size: int, mode: str,
+             need_dx: bool = True, need_dw: bool = True, *,
+             _force=None) -> BwdPlan:
+    """K2's launch plan for g [m, n], x [m, d], w [d, n] under a resolved
+    gate mode, from the shapes alone:
+
+      * dx: the segment width of `_seg_cols` (32 for the stems' 27-, 25-
+        and 18-wide segments), the first of its BWD_DX_TILES where that
+        gives half of SMS row and column tiles, else the second; about
+        _BWD_SLOTS blocks, each taking every so many row tiles;
+        64 x 64 under the recompute gate ('recompute', a block a tile);
+      * dw: rows of D as dx's segment width, or 32; of those, the widths
+        of BWD_DW_COLS that N allows (16, and each wider one whose half N
+        exceeds) and one or half a wave of splits, the triple `_dw_seconds`
+        rates fastest (ties: the larger tile, then more splits) — whatever
+        the gate mode.
+
+    dx is bitwise the same under every plan (one fmaf chain over n from 0
+    an element, whatever the tile); dw adds each plan's splits in order,
+    the same bits on every run of the plan, and the recompute gate's dw is
+    bitwise the saved gate's under one plan. At most two launches, one
+    where only dx or dw is wanted. `_force` = (dx tile, dw tile, splits)
+    builds that plan instead, for tests, and raises on one the shape does
+    not admit. Cached: every layer's backward asks each step."""
+    if _force is not None:
+        _force = (tuple(int(v) for v in _force[0]),
+                  tuple(int(v) for v in _force[1]), int(_force[2]))
+    return _plan_bwd(int(m), int(n), int(d), int(crossbar_size), mode,
+                     bool(need_dx), bool(need_dw), _force)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_bwd(m, n, d, crossbar_size, mode, need_dx, need_dw,
+              _force) -> BwdPlan:
+    if min(m, n, d, crossbar_size) < 1:
+        raise ValueError(f"K2 plans M, N, D, xbar >= 1; got {m}, {n}, {d}, "
+                         f"{crossbar_size}")
+    if mode not in ("none", "packed", "bytes", "recompute"):
+        raise ValueError(f"mode {mode!r} is not a resolved gate mode")
+    kernel = "recompute" if mode == "recompute" else "tile"
+    if _force is not None:
+        dx_tile, dw_tile, splits = _force
+        ok = ((dx_tile == BWD_RECOMPUTE_DX if kernel == "recompute" else
+               dx_tile in BWD_DX_TILES)
+              and dw_tile[0] in BWD_SEG_COLS and dw_tile[1] in BWD_DW_COLS)
+        plan = _make_bwd_plan(kernel, m, n, d, crossbar_size, dx_tile,
+                              dw_tile, max(1, splits), need_dx, need_dw)
+        if (not ok or not 1 <= splits <= -(-m // 32) or not plan.fits()
+                or (plan.dw_splits > 1 and plan.dw_tiles > N_COUNTERS)):
+            raise ValueError(f"no such plan {_force} for M={m} N={n} D={d} "
+                             f"xbar={crossbar_size} mode={mode!r}")
+        return plan
+    cols = _seg_cols(d, crossbar_size)
+    col_tiles = _seg_tiles(d, crossbar_size, cols)
+    big, small = (t for t in BWD_DX_TILES if t[1] == cols)
+    dx_tile = big if 2 * -(-m // big[0]) * col_tiles >= SMS else small
+    cands = []
+    for rw, nw in itertools.product(sorted({BWD_SEG_COLS[0], cols}),
+                                    BWD_DW_COLS):
+        if nw > BWD_DW_COLS[0] and 2 * n <= nw:
+            continue  # half the tile past N
+        tiles = -(-n // nw) * _seg_tiles(d, crossbar_size, rw)
+        wave = _wave_splits(m, tiles)
+        for s in {wave, -(-wave // 2)}:
+            cost = _dw_seconds(m, (rw, nw), tiles, s)
+            cands.append((cost, -rw * nw, -s, (rw, nw), s))
+    _, _, _, dw_tile, splits = min(cands)
+    plan = _make_bwd_plan(
+        kernel, m, n, d, crossbar_size,
+        BWD_RECOMPUTE_DX if kernel == "recompute" else dx_tile,
+        dw_tile, splits, need_dx, need_dw)
+    if not plan.fits():
+        raise ValueError(f"K2: M={m} N={n} D={d} xbar={crossbar_size} "
+                         f"exceed CUDA's grid")
+    return plan
+
+
+def bwd_plans(m: int, n: int, d: int, crossbar_size: int, mode: str,
+              need_dx: bool = True, need_dw: bool = True) -> list:
+    """The planner's plan, then every other dx tile (none under the
+    recompute gate) and dw tile (with the planner's splits), then the
+    planner's tiles with dw unsplit and with twice the planner's splits:
+    the plans tests and tools hold to the planner's (dx bitwise)."""
+    plan = plan_bwd(m, n, d, crossbar_size, mode, need_dx, need_dw)
+    tiles = ([] if plan.kernel == "recompute" else
+             [(t, plan.dw_tile) for t in BWD_DX_TILES])
+    tiles += [(plan.dx_tile, (r, c)) for r in BWD_SEG_COLS
+              for c in BWD_DW_COLS]
+    splits = max(1, plan.dw_splits)
+    forces = [(dx, dw, splits) for dx, dw in tiles]
+    forces += [(plan.dx_tile, plan.dw_tile, s) for s in (1, 2 * splits)]
+    out = [plan]
+    for f in forces:
+        try:
+            p = plan_bwd(m, n, d, crossbar_size, mode, need_dx, need_dw,
+                         _force=f)
+        except ValueError:  # more splits than M has k-tiles
+            continue
+        if p not in out:
+            out.append(p)
+    return out
 
 
 def cadc_segmented_bwd_cuda(g: Tensor, x: Tensor, w: Tensor,
                             gate: Optional[Tensor], *, crossbar_size: int,
                             fn: str, mode: str, need_dx: bool = True,
                             need_dw: bool = True,
-                            scale: Optional[Tensor] = None
+                            scale: Optional[Tensor] = None,
+                            plan: Optional[BwdPlan] = None
                             ) -> Tuple[Optional[Tensor], Optional[Tensor]]:
     """K2: (dx [M, D], dw [D, N]) fp32 from g [M, N], x [M, D], w [D, N]
     fp32 on one CUDA device and the gate of `mode`, as
     cadc_segmented_bwd_torch (`scale`, one fp32 on the device, multiplies
-    the recomputed psum). dw sums its M-splits in a fixed order (no
-    atomics): the same bits on every run. Counts its launches in
-    `cadc_segmented_bwd_cuda.launches`."""
+    the recomputed psum), under `plan` (default: plan_bwd's): one launch
+    for dx and one for dw, which adds its M-splits in order itself (no
+    atomics on the values: the same bits on every run). Raises on another
+    shape's plan. Counts its calls in `cadc_segmented_bwd_cuda.launches`."""
     _check_cuda("cadc_segmented_bwd_cuda", fn, g, x, w,
                 dtypes={torch.float32: 0})
     m, d = x.shape
@@ -637,8 +851,8 @@ def cadc_segmented_bwd_cuda(g: Tensor, x: Tensor, w: Tensor,
             raise ValueError(f"mode {mode!r} wants a {want_dt} gate of "
                              f"shape {want} on {x.device}")
         gate = gate.contiguous()
-    if n_seg * -(-crossbar_size // 64) > 65535:
-        raise ValueError("D / crossbar_size exceeds the kernel's grid")
+    else:
+        gate = None
     if scale is not None:
         scale = _check_scale("cadc_segmented_bwd_cuda", scale, x.device)
     g, x, w = g.contiguous(), x.contiguous(), w.contiguous()
@@ -649,16 +863,28 @@ def cadc_segmented_bwd_cuda(g: Tensor, x: Tensor, w: Tensor,
             if t is not None:
                 t.zero_()
         return dx, dw
-    splits, rows = _dw_splits(m, n, d, crossbar_size)
-    scratch = (torch.empty((splits, d, n), device=x.device)
-               if need_dw and splits > 1 else None)
+    rmode = "none" if kind == _GATE_NONE else mode
+    if plan is None:
+        plan = plan_bwd(m, n, d, crossbar_size, rmode, need_dx, need_dw)
+    elif plan != plan_bwd(m, n, d, crossbar_size, rmode, need_dx, need_dw,
+                          _force=(plan.dx_tile, plan.dw_tile,
+                                  max(1, plan.dw_splits))):
+        raise ValueError(f"cadc_segmented_bwd_cuda: plan {plan} is not one "
+                         f"of this shape's")
+    scratch = counters = None
+    if need_dw and plan.dw_splits > 1:
+        scratch = torch.empty(
+            (plan.dw_splits, plan.dw_tiles, plan.dw_tile[0] * plan.dw_tile[1]),
+            device=x.device)
+        counters = _counters(x.device)
     lib = _bwd_lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     _build.check(lib, "cadc_bwd", lib.cadc_bwd_launch(
         g.data_ptr(), x.data_ptr(), w.data_ptr(), ptr(gate), ptr(scale),
-        ptr(dx), ptr(dw), ptr(scratch), splits, rows, m, n, d, crossbar_size,
-        FN_IDS[fn], kind, stream))
+        ptr(dx), ptr(dw), ptr(scratch), ptr(counters), m, n, d,
+        crossbar_size, FN_IDS[fn], kind, *plan.dx_tile, plan.dx_grid[0],
+        *plan.dw_tile, max(1, plan.dw_splits), plan.dw_rows, stream))
     cadc_segmented_bwd_cuda.launches += 1
     return dx, dw
 

@@ -230,6 +230,134 @@ def test_segmented_bwd_kernel_matches_plain(cuda_device, mode, xbar, m, d, n):
     assert torch.equal(dw, dw2)
 
 
+# K2 over matrices (csrc/cadc_bwd.cu, `plan_bwd`): (M, D, N) at the stems'
+# widths (D 27, 25, 18), LeNet-5's c2 (D 150: segments of 64, 64, 22) and N
+# 64 / 32 / 16 / 10 / 6 (N 10 and 6 on 4-byte loads), M off whole k-tiles;
+# (fn, mode) of every gate kind: none, packed words, bytes, fp32, recompute.
+_K2_SHAPES = [(4096, 27, 64), (3000, 18, 32), (2050, 25, 6),
+              (1500, 150, 16), (700, 150, 10), (130, 27, 10)]
+_K2_GATES = [("identity", "none"), ("relu", "packed"), ("relu", "bytes"),
+             ("sublinear", "bytes"), ("relu", "recompute")]
+
+
+def _k2_case(dev, m, d, n, fn, mode, xbar=64):
+    """g, x, w and the plain gate of `mode`. x and w hold small integers
+    over powers of two, so every psum is exact in any order: the kernel's
+    recomputed gate cannot differ from the plain one."""
+    from repro_torch.core import dendritic
+
+    rng = np.random.RandomState(m + d + n)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    x = t(rng.randint(-2, 3, size=(m, d)))
+    w = t(rng.randint(-2, 3, size=(d, n)) / 4)
+    g = t(rng.randn(m, n))
+    gate = None
+    if mode in ("packed", "bytes"):
+        p = torch.stack([x[:, i:i + xbar] @ w[i:i + xbar]
+                         for i in range(0, d, xbar)])
+        gate = cm._gate_of(p, dendritic.grad(fn), mode, fn)
+    return g, x, w, gate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,mode", _K2_GATES)
+@pytest.mark.parametrize("m,d,n", _K2_SHAPES)
+def test_k2_every_plan(cuda_device, m, d, n, fn, mode):
+    """Every plan of `bwd_plans` (each dx tile, each dw tile, dw unsplit
+    and twice split), forced: dx bitwise the planner's, dw within 1e-4 of
+    scale of the plain version and the same bits on two runs of a plan; the
+    recompute gate bitwise the saved byte gate under the same plan; the
+    arrival counters zero after every call."""
+    g, x, w, gate = _k2_case(cuda_device, m, d, n, fn, mode)
+    kw = dict(crossbar_size=64, fn=fn, mode=mode)
+    dx0, dw0 = cm.cadc_segmented_bwd_cuda(g, x, w, gate, **kw)
+    want_dx, want_dw = cm.cadc_segmented_bwd_torch(g, x, w, gate, **kw)
+    _rel_close(dx0, want_dx)
+    _rel_close(dw0, want_dw)
+    counters = cm._counters(x.device)
+    plans = cm.bwd_plans(m, n, d, 64, mode)
+    assert len(plans) >= 3
+    for plan in plans:
+        dx, dw = cm.cadc_segmented_bwd_cuda(g, x, w, gate, plan=plan, **kw)
+        _, dw2 = cm.cadc_segmented_bwd_cuda(g, x, w, gate, plan=plan, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(dx, dx0), plan
+        assert torch.equal(dw, dw2), plan
+        _rel_close(dw, want_dw)
+        assert int(counters.abs().sum()) == 0
+        if mode == "recompute":
+            _, _, _, saved = _k2_case(cuda_device, m, d, n, fn, "bytes")
+            sdx, sdw = cm.cadc_segmented_bwd_cuda(
+                g, x, w, saved, crossbar_size=64, fn=fn, mode="bytes",
+                plan=cm.plan_bwd(m, n, d, 64, "bytes",
+                                 _force=((128, 32), plan.dw_tile,
+                                         plan.dw_splits)))
+            assert torch.equal(sdx, dx) and torch.equal(sdw, dw), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["packed", "recompute"])
+@pytest.mark.parametrize("need_dx,need_dw", [(True, True), (True, False),
+                                             (False, True)])
+def test_k2_launches_at_most_two_kernels(cuda_device, mode, need_dx,
+                                         need_dw):
+    """One call launches one dx kernel where dx is wanted and one dw kernel
+    where dw is (split or not: its splits are added in the launch), and no
+    other kernel: torch.profiler's device events of five calls, each call
+    at most those, the most seen exactly those (the profiler now and then
+    drops a call's first kernel event; it never adds one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g, x, w, gate = _k2_case(cuda_device, 4096, 27, 64, "relu", mode)
+    kw = dict(crossbar_size=64, fn="relu", mode=mode, need_dx=need_dx,
+              need_dw=need_dw)
+    assert cm.plan_bwd(4096, 64, 27, 64, mode).dw_splits > 1
+    cm.cadc_segmented_bwd_cuda(g, x, w, gate, **kw)  # build, counters
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cm.cadc_segmented_bwd_cuda(g, x, w, gate, **kw)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if "CUDA" in str(getattr(e, "device_type", ""))]
+        counts = (sum("bwd_dx" in k for k in names),
+                  sum("bwd_dw" in k for k in names), len(names))
+        assert counts[0] <= need_dx and counts[1] <= need_dw, names
+        assert counts[2] == counts[0] + counts[1], names
+        seen.append(counts)
+    assert max(seen) == (need_dx, need_dw, need_dx + need_dw), seen
+
+
+@pytest.mark.cuda
+def test_k2_counters_read_zero_under_graph_replay(cuda_device):
+    """A split dw leaves the arrival counters zero, eagerly and replayed
+    from a CUDA graph (the replays equal the eager results)."""
+    g, x, w, gate = _k2_case(cuda_device, 4096, 27, 64, "relu", "packed")
+    kw = dict(crossbar_size=64, fn="relu", mode="packed")
+    eager = cm.cadc_segmented_bwd_cuda(g, x, w, gate, **kw)
+    torch.cuda.synchronize()
+    counters = cm._counters(x.device)
+    assert int(counters.abs().sum()) == 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = cm.cadc_segmented_bwd_cuda(g, x, w, gate, **kw)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(counters.abs().sum()) == 0
+        assert all(torch.equal(a, b) for a, b in zip(outs, eager))
+
+
+@pytest.mark.cuda
+def test_k2_refuses_another_shapes_plan(cuda_device):
+    g, x, w, gate = _k2_case(cuda_device, 4096, 27, 64, "relu", "packed")
+    other = cm.plan_bwd(2048, 64, 27, 64, "packed")
+    with pytest.raises(ValueError, match="not one of this shape's"):
+        cm.cadc_segmented_bwd_cuda(g, x, w, gate, crossbar_size=64,
+                                   fn="relu", mode="packed", plan=other)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["none", "packed", "bytes"])
 @pytest.mark.parametrize("case", [
