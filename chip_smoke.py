@@ -10,7 +10,8 @@ Phases; any failure exits non-zero and prints no result line:
      gemma3-1b linear shape, M = 8 (decode: the stream kernel), 256 and
      every prefill M of the main path (8 slots x each prompt bucket), fp32
      (TF32 off) and bf16, relu and identity;
-  3. K6 (paged attention) against its plain version: the main path's ring
+  3. K6 (paged attention) against its plain version under the planner's
+     plan and every forced plan (plan_paged): the main path's ring
      geometry (ring 160 under a 512 window, each covered-prefix table
      width it slices), longer local and global rings, -1 blocks, NaN-filled
      dead blocks, an idle slot, and enough slots that the ring is split
@@ -30,7 +31,10 @@ Phases; any failure exits non-zero and prints no result line:
      library call where one computes the same function, and the bound from
      bytes and operations; plus the host-inclusive time per eager call, and
      the device busy time per decode step from torch.profiler, by kernel
-     (K1 launches once per linear: its segment sum is inside the kernel).
+     (K1 launches once per linear: its segment sum is inside the kernel;
+     K6 once per layer: its groups merge inside the kernel). K6 also
+     beside the launch floor (a one-element add_ under the same replay)
+     and SDPA's fastest backend that takes the masked call.
 
 Slice 2, CNN training (fp32, TF32 off):
   7. K1g / K2 against their plain versions at every FC shape of LeNet-5
@@ -252,10 +256,11 @@ def profile_device(run, n: int, group, what: str):
 # Kernels that must compile without spills (ptxas' report of each
 # instantiation): K3's tap-aligned kernel, the conv backward's dgrad and
 # wgrad kernels, K5's int8 tap kernel, K2's dx and dw kernels (saved
-# gates and recompute).
+# gates and recompute), K6.
 NO_SPILL_KERNELS = ("tap_tile_kernel", "dgrad_kernel", "wgrad_kernel",
                     "q8_tap_kernel", "bwd_dx_kernel", "bwd_dw_kernel",
-                    "bwd_dx_recompute_kernel", "bwd_dw_recompute_kernel")
+                    "bwd_dx_recompute_kernel", "bwd_dw_recompute_kernel",
+                    "paged_attention_kernel")
 
 
 def ptxas_lines(log: str) -> list:
@@ -403,6 +408,7 @@ def main_path_k6_cases(cfg):
 
 
 def check_k6(cfg, dev, report):
+    from repro_torch.kernels import cadc_matmul as cm
     from repro_torch.kernels import paged_attention as pa
 
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -414,6 +420,7 @@ def check_k6(cfg, dev, report):
         ("global", 512, 160, 4, [0, 10, 33, 40, 50, 60, 63, 2]),  # warm-up
         ("local", 512, 512, 32, many),  # 40 slots: groups of 5 chunks
     ]
+    n_plans = 0
     for dtype in (torch.float32, torch.bfloat16):
         for kind, window, ring, nb, positions in cases:
             q, kp, vp, tbl, pos = k6_inputs(cfg, dev, dtype, kind=kind,
@@ -421,7 +428,6 @@ def check_k6(cfg, dev, report):
                                             positions=positions, gen=gen)
             t = torch.as_tensor(tbl, device=dev)
             kw = dict(kind=kind, window=window, ring_len=ring)
-            got = pa.paged_attention_cuda(q, kp, vp, t, pos, **kw)
             want = pa.paged_attention_torch(q, kp, vp, t, pos, **kw)
             # NaN in every block no live entry of this case can read
             dirty_k, dirty_v = kp.clone(), vp.clone()
@@ -444,21 +450,34 @@ def check_k6(cfg, dev, report):
                         off = off.to(dev)
                         dirty_k[int(tbl[i, c]), off] = float("nan")
                         dirty_v[int(tbl[i, c]), off] = float("nan")
-            dirty = pa.paged_attention_cuda(q, dirty_k, dirty_v, t, pos, **kw)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            worst = max(worst, err)
-            tag = (f"K6 {kind} window={window} ring={ring} nb={nb} "
-                   f"B={len(positions)} {dtype}")
-            if not err <= K6_TOL[dtype]:
-                fail(f"{tag}: max abs err {err} > {K6_TOL[dtype]}")
-            if not torch.equal(dirty, got) or torch.isnan(dirty).any():
-                fail(f"{tag}: NaN garbage in dead blocks changed the output")
-            if not torch.equal(got[-1], torch.zeros_like(got[-1])):
-                fail(f"{tag}: idle slot (all -1) is not exactly 0")
+            shape = (len(positions), cfg.n_kv_heads, nb,
+                     cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
+                     q.element_size(), 16)
+            # the planner's plan (None) and every forced plan
+            for plan in [None] + pa.paged_plans(*shape):
+                got = pa.paged_attention_cuda(q, kp, vp, t, pos, plan=plan,
+                                              **kw)
+                dirty = pa.paged_attention_cuda(q, dirty_k, dirty_v, t, pos,
+                                                plan=plan, **kw)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                worst = max(worst, err)
+                n_plans += 1
+                tag = (f"K6 {kind} window={window} ring={ring} nb={nb} "
+                       f"B={len(positions)} {dtype} plan {plan}")
+                if not err <= K6_TOL[dtype]:
+                    fail(f"{tag}: max abs err {err} > {K6_TOL[dtype]}")
+                if not torch.equal(dirty, got) or torch.isnan(dirty).any():
+                    fail(f"{tag}: NaN garbage in dead blocks changed the "
+                         "output")
+                if not torch.equal(got[-1], torch.zeros_like(got[-1])):
+                    fail(f"{tag}: idle slot (all -1) is not exactly 0")
+    if int(cm._counters(dev).abs().sum()):
+        fail("K6 left the arrival counters nonzero")
     report["k6_max_abs_err"] = worst
     report["k6_cases"] = [c[:4] + (len(c[4]),) for c in cases]
-    print(f"K6 paged_attention: {2 * len(cases)} cases ok (main path "
+    print(f"K6 paged_attention: {2 * len(cases)} cases x every plan "
+          f"({n_plans} runs) ok (main path "
           f"{[c[:4] for c in main_path_k6_cases(cfg)]}; NaN garbage, idle "
           f"slot, covered prefix, 40 slots), max abs err {worst:.3e}",
           flush=True)
@@ -574,6 +593,10 @@ def profile_decode(engine, cfg, report) -> None:
         g["ms"] += us / 1e3 / n_steps
         g["calls"] += calls / n_steps
     report["serve"]["device_ms_per_step_by_kernel"] = groups
+    k6_calls = groups.get("K6 paged attention", {}).get("calls", 0)
+    if k6_calls != cfg.n_layers:
+        fail(f"decode profile: {k6_calls} K6 launches a step, want one a "
+             f"layer ({cfg.n_layers})")
     print(f"profiler: device busy per decode step: "
           f"{report['serve']['device_busy_ms_per_step']} ms (8 slots busy, "
           f"{n_steps} steps)", flush=True)
@@ -739,13 +762,59 @@ def time_k1(cfg, dev, launches, report):
             "library_ms": tot["lib"] * layers}
 
 
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
+
+
+def sdpa_backends_ms(qs, gathered, mask) -> dict:
+    """Device ms of scaled_dot_product_attention(qs, k, v, attn_mask=mask)
+    under each backend alone, k / v rotating over `gathered`; a backend
+    that refuses the masked call maps to why."""
+    import warnings
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    out = {}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            out[name] = "refused: not in this PyTorch"
+            continue
+        pick = itertools.cycle(gathered).__next__
+
+        def call(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(qs, *pick(),
+                                                      attn_mask=mask)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                call()
+                out[name] = device_ms(call, max(20, len(gathered)))
+        except RuntimeError as e:
+            out[name] = f"refused: {str(e).strip().splitlines()[0][:100]}"
+    return out
+
+
+def fastest_sdpa(per_backend: dict) -> tuple:
+    """(backend, ms) of the fastest backend that took the call."""
+    took = {k: v for k, v in per_backend.items() if isinstance(v, float)}
+    if not took:
+        fail(f"no SDPA backend took the masked call: {per_backend}")
+    name = min(took, key=took.get)
+    return name, took[name]
+
+
 def time_k6(cfg, dev, launches, report):
     """One decode step's K6 work at the main path's geometry: 8 slots at
     positions 64..159 of a 160-entry ring (10 blocks of 16), bf16; 22
     local + 4 global layers. Pools (and SDPA's gathered K/V) rotate over
-    copies that hold 3x the L2 cache."""
+    copies that hold 3x the L2 cache. Beside the kernel: its plain
+    version, SDPA on K/V already gathered into the dense ring (the fastest
+    backend that takes the masked call), the bound, and the launch floor —
+    a one-element add_ under the same graph replay."""
     from repro_torch.kernels import paged_attention as pa
-    import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(4)
     dt, bs, ring = torch.bfloat16, BLOCK, MAX_LEN
@@ -754,6 +823,8 @@ def time_k6(cfg, dev, launches, report):
     kinds = list(cfg.pattern_for_layers)
     per_kind = {}
     tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0, "ops": 0.0}
+    one = torch.zeros(1, device=dev)
+    floor = device_ms(lambda: one.add_(1), 20)
     for kind in ("local", "global"):
         n_layers = kinds.count(kind)
         q, kp, vp, tbl, pos = k6_inputs(cfg, dev, dt, kind=kind,
@@ -765,6 +836,9 @@ def time_k6(cfg, dev, launches, report):
         reps = max(20, len(pools))
         pick = itertools.cycle(pools).__next__
         kw = dict(kind=kind, window=cfg.local_window, ring_len=ring)
+        plan = pa.plan_paged(8, cfg.n_kv_heads, nb,
+                             cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, 2,
+                             bs)
         saved = pa.paged_attention_cuda.launches
         kernel = lambda: pa.paged_attention_cuda(q, *pick(), tbl, pos, **kw)  # noqa: E731
         k = device_ms(kernel, reps)
@@ -777,27 +851,36 @@ def time_k6(cfg, dev, launches, report):
         valid = pa._ring_mask(pos, torch.arange(ring, device=dev), kind=kind,
                               ring_len=ring, window=cfg.local_window,
                               q_len=1)[:, 0]
+        valid &= (tbl >= 0).repeat_interleave(bs, dim=1)
         kd = kp[tbl.clamp(min=0).long()].reshape(8, ring, -1)
         vd = vp[tbl.clamp(min=0).long()].reshape(8, ring, -1)
         qs = q[:, 0].unsqueeze(2)                              # [B, H, 1, hd]
-        mask = valid[:, None, None, :]
         gathered = rotation(lambda: tuple(
             t.clone().unsqueeze(1).expand(-1, cfg.n_heads, -1, -1)
             for t in (kd, vd)), kd.numel() * 2 * 2)
-        pick_kv = itertools.cycle(gathered).__next__
-        lib = device_ms(lambda: F.scaled_dot_product_attention(
-            qs, *pick_kv(), attn_mask=mask), max(20, len(gathered)))
+        sdpa = sdpa_backends_ms(qs, gathered, valid[:, None, None, :])
+        lib_name, lib = fastest_sdpa(sdpa)
+        # the bytes the call needs: q and out, the K and V rows of the
+        # entries its token may read (the kernel zero-fills the others
+        # without a load), the table and the positions
         live_entries = int(valid.sum())
-        live_chunks = sum(bool(valid[i, c * bs:(c + 1) * bs].any())
-                          for i in range(8) for c in range(nb))
-        hd, h = cfg.head_dim, cfg.n_heads
-        nbytes = (8 * h * hd * 2 * 2 + live_chunks * bs * hd * 2 * 2
-                  + tbl.numel() * 4 + 8 * 4)
+        hd, h, k_ = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        nbytes = (8 * h * hd * 2 * 2 + live_entries * k_ * hd * 2 * 2
+                  + tbl.numel() * 4 + pos.numel() * pos.element_size())
         ops = 4 * h * live_entries * hd
         per_kind[kind] = {"layers": n_layers, "ms": k, "host_ms": k_host,
                           "plain_ms": p,
-                          "sdpa_ms": lib, "bytes": nbytes,
-                          "bound_ms": bound_ms(nbytes, ops, dt)[0]}
+                          "plan": f"cps={plan.cps} groups={plan.groups} "
+                                  f"threads={plan.threads} rows={plan.rows} "
+                                  f"blocks={plan.blocks}",
+                          "sdpa_ms": lib, "sdpa_backend": lib_name,
+                          "sdpa_by_backend": sdpa, "bytes": nbytes,
+                          "bound_ms": bound_ms(nbytes, ops, dt)[0],
+                          "launch_floor_ms": floor}
+        print(f"K6 {kind}: {k * 1e3:.2f} us a call ({plan.cps} chunks x "
+              f"{plan.groups} groups, {plan.threads} threads), eager "
+              f"{k_host * 1e3:.1f} us, SDPA {lib_name} {lib * 1e3:.2f} us, "
+              f"launch floor {floor * 1e3:.2f} us", flush=True)
         tot["ms"] += k * n_layers
         tot["plain"] += p * n_layers
         tot["lib"] += lib * n_layers
@@ -811,7 +894,9 @@ def time_k6(cfg, dev, launches, report):
                 "global), 8 slots, bf16, ring 160 (10 blocks of 16), "
                 "positions 64..159",
         "per_kind_one_call": per_kind,
-        "library": "scaled_dot_product_attention over pre-gathered K/V"}
+        "launch_floor_ms_per_step": floor * len(kinds),
+        "library": "scaled_dot_product_attention over pre-gathered K/V, "
+                   "the fastest backend that takes the masked call"}
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:168",

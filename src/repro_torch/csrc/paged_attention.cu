@@ -6,48 +6,106 @@
 // repro_torch/kernels/paged_attention.py: q [B, Q, H, hd] (rope'd), K/V pools
 // [n_blocks, bs, K, hd], block table [B, nb] int32 (-1 = unallocated; may be
 // a covered-prefix slice of the full table, ring_len then carries the true
-// ring length), base positions [B] int32 -> out [B, Q, H, hd] in q's dtype.
+// ring length), base positions [B] int32 or int64 -> out [B, Q, H, hd] in
+// q's dtype.
 //
-// Split-K flash decoding. The TPU kernel walks a slot's chunks in order on
-// one core; here that would leave B * K blocks (8 at gemma3-1b's decode) on
-// 132 SMs, each walking its ring in series. So the ring is cut into
-// n_split groups of `cps` consecutive chunks, and one block handles one
-// (kv head, slot, group): it reads its own table row (the TPU kernel got
-// it by scalar prefetch) and walks its chunks. A chunk whose entry is -1,
-// or whose ring positions are all masked for every q token (the ring mask
-// of `_ring_mask`), is skipped without a load. In a live chunk only
-// unmasked (row, entry) pairs are computed on: the kernel never multiplies
-// garbage by 0, so NaN in a dead or stale entry cannot reach the output.
-// The GQA group of q heads of this kv head (and all Q tokens) stays
-// resident as R = Q * (H / K) rows. The online softmax keeps m, l and acc
-// in fp32 shared memory across the group's chunks; its bookkeeping runs one
-// warp per row. Each block writes its partial (m, l, unnormalised acc) to
-// fp32 scratch, and a second kernel combines the groups of each (slot, kv
-// head) in chunk order. A row with no valid entry in any group ends with
-// l = 0 and writes 0.
+// What bounds it. A decode call is tiny: at gemma3-1b (8 slots, 4 q heads
+// on 1 kv head, hd 256, a 160-entry ring) it reads ~1 MB of live K/V and
+// does ~3.7 MFLOP, 0.3 us of HBM and less of arithmetic. What it costs is
+// latency: dependent loads, serial phases, barriers and launches. So the
+// design is about the critical path, not the roofline:
 //
-// Bound on this card: every live K/V entry is read once and used for 4*R*hd
-// flops, so the kernel is bound by the bytes of the live K/V over HBM
-// bandwidth. This version runs on CUDA cores; each thread keeps 8 K and 8 V
-// loads in flight while staging a chunk.
+//  * One launch. The TPU kernel walks a slot's chunks in order on one core;
+//    here the ring is cut into n_split groups of `cps` consecutive chunks
+//    (kernels/paged_attention.py `plan_paged`), and one block handles one
+//    (kv head, row tile, slot, group). The GQA group of q heads of the kv
+//    head, times the Q tokens, are R = Q * (H / K) resident rows, cut into
+//    tiles of kR rows (row r = t * g + gi). A block with the only group
+//    normalises and writes out itself. Otherwise it writes its partial
+//    (m, l, unnormalised acc) to fp32 scratch and arrives at its (slot, kv
+//    head, row tile) counter (`arrive_last`, csrc/cadc_tile.cuh); the last
+//    block to arrive merges the groups in chunk order, writes out and
+//    resets the counter, so the counters read zero between launches.
+//  * Every load in flight at once. The block reads its table slice and
+//    position together, then issues 16-byte cp.async copies of its q rows
+//    and of the first live chunk's K and V entry rows, all before the first
+//    wait; with more than one chunk in the group, chunk c + 1's copies fly
+//    while chunk c is computed (a two-stage ring). An entry no q token of
+//    the slot may read (the ring mask of `_ring_mask`) is zero-filled by a
+//    copy of source size 0: no garbage, NaN included, enters shared
+//    memory, and a -1 block or a chunk with no readable entry is skipped
+//    without a load. A (row, entry) pair masked for its row gets score
+//    -inf and probability exactly 0 against a finite V, so no masked or
+//    unread entry meets a multiply that reaches the output.
+//  * No division in the inner loops: each thread's copy slot, entry and
+//    row offsets are set once; ring positions advance by one per entry.
+//  * Scores: the kR rows of q sit in registers, a warp takes one entry (or
+//    32 / kLPE entries) with its lanes over hd in 16-byte vectors, one
+//    shuffle reduction per (entry, row). The online softmax (m, l) of a
+//    row lives in the registers of one warp; PV has each thread own
+//    columns x kR rows of acc in registers, reading V from shared memory
+//    and the probabilities as a broadcast. fp32 accumulation throughout.
+//    Rows wider than 256 (kHD = 0: any width shared memory holds, one row
+//    a tile) keep q and acc in shared memory instead, the same arithmetic
+//    in the same order.
+//    The chunk order, the online-softmax updates and the merge's
+//    arithmetic are those of the two-launch kernel this replaces.
+//  * CUDA cores, not tensor cores: a call is a few MFLOP. bf16 mma.sync
+//    (entries as M, rows padded to 8) is the lever for long rings and
+//    speculative decoding, not for this decode.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <atomic>
+
+#include "cadc_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kLoadBatch = 8;  // K/V elements a thread has in flight at once
+using cadc::arrive_last;
+using cadc::copy16;
+using cadc::copy_commit;
+using cadc::copy_wait;
+using cadc::to_f32;
 
+constexpr int kMaxThreads = 256;
+// A block's shared memory on Hopper, less 1 KB for the kernel's static
+// shared memory (arrive_last's flag): the dynamic part a launch may take.
+constexpr int kSmemMax = 232448 - 1024;
+// The widest row whose q and acc sit in registers; wider rows take the
+// kHD = 0 instantiation, one row a tile.
+constexpr int kRegHD = 256;
+
+// 16 bytes of T, widened to floats.
 template <typename T>
-__device__ __forceinline__ float to_f32(T v);
+struct Vec16;
 template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
+struct Vec16<float> {
+  static constexpr int kN = 4;
+  __device__ static void load(const float* s, float* f) {
+    const float4 v = *reinterpret_cast<const float4*>(s);
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
+    f[3] = v.w;
+  }
+};
 template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+struct Vec16<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ static void load(const __nv_bfloat16* s, float* f) {
+    const uint4 u = *reinterpret_cast<const uint4*>(s);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 t = __bfloat1622float2(h[k]);
+      f[2 * k] = t.x;
+      f[2 * k + 1] = t.y;
+    }
+  }
+};
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -58,6 +116,15 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// Sum over aligned groups of kLanes lanes (every lane gets its group's sum).
+template <int kLanes>
+__device__ __forceinline__ float lanes_sum(float v) {
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -65,308 +132,537 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+__device__ __forceinline__ int pmod(int x, int m) {
+  const int r = x % m;
+  return r < 0 ? r + m : r;
 }
 
-// Ring-entry validity for q token t (absolute position pos + t), the
-// `_ring_mask` rule: global entries hold position idx; local entries hold
-// the newest position congruent to idx mod ring_len.
-__device__ __forceinline__ bool ring_valid(int pos, int t, int idx, int q_len,
-                                           int ring_len, int window,
-                                           int local) {
-  const int qp = pos + t;
-  if (!local) return idx <= qp;
-  const int newest = pos + q_len - 1;
-  int d = (newest - idx) % ring_len;
-  if (d < 0) d += ring_len;
-  const int held = newest - d;
-  return held >= 0 && held <= qp && held > qp - window;
-}
+struct Args {
+  const void* q;
+  const void* k_pool;
+  const void* v_pool;
+  const int* table;
+  const void* positions;  // int32, or int64 where pos64
+  void* out;
+  float* part;    // [tiles, n_split, kR, hd] acc, then [tiles, n_split, kR, 2]
+  int* counters;  // [tiles]: one per (slot, kv head, row tile)
+  int Q, H, K, hd, bs, nb, ring_len, window, local, pos64;
+  int rows, row_tiles, cps, n_split;
+  float softcap, scale;
+};
 
-// Offset of q/out element (b, t, head kh*g + gi, d) for resident row r.
-__device__ __forceinline__ size_t row_offset(int b, int r, int d, int Q,
-                                             int H, int g, int kh, int hd) {
-  const int t = r / g, gi = r % g;
-  return ((static_cast<size_t>(b) * Q + t) * H + kh * g + gi) * hd + d;
-}
+// The chunk-level view of the ring mask. Ring entry idx of a local ring
+// holds position held = newest - ((newest - idx) mod ring_len), newest =
+// pos + Q - 1; a global entry holds idx. Row r (q token t) may read held in
+// [lo_r, hi_r] = [max(0, pos + t - window + 1) or 0, pos + t]; some token
+// of the slot may read it iff held is in [lo_any, newest].
+struct Ring {
+  int newest, lo_any, ring_len, bs, local;
 
-// grid (K, B, n_split). Group s writes part_m/part_l [B, K, n_split, R] and
-// part_acc [B, K, n_split, R, hd] (unnormalised).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                       const T* __restrict__ v_pool,
-                       const int* __restrict__ table,
-                       const int* __restrict__ positions,
-                       float* __restrict__ part_m, float* __restrict__ part_l,
-                       float* __restrict__ part_acc, int Q, int H, int K,
-                       int hd, int bs, int nb, int cps, int ring_len,
-                       int window, int local, float softcap, float scale) {
-  const int kh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int split = blockIdx.z;
-  const int g = H / K;
-  const int R = Q * g;  // resident rows: row r = t * g + gi -> head kh*g+gi
-
-  extern __shared__ float smem[];
-  float* qs = smem;             // [R][hd]
-  float* acc = qs + R * hd;     // [R][hd]
-  float* ks = acc + R * hd;     // [bs][hd]
-  float* vs = ks + bs * hd;     // [bs][hd]
-  float* sc = vs + bs * hd;     // [R][bs] scores, then probabilities
-  float* m = sc + R * bs;       // [R] running max
-  float* l = m + R;             // [R] running normaliser
-  float* alpha = l + R;         // [R] rescale of this chunk
-  unsigned char* vm = reinterpret_cast<unsigned char*>(alpha + R);  // [Q][bs]
-
-  const int pos = positions[b];
-  const size_t row_stride = static_cast<size_t>(K) * hd;  // one pool entry
-
-  for (int e = threadIdx.x; e < R * hd; e += kThreads) {
-    qs[e] = to_f32(q[row_offset(b, e / hd, e % hd, Q, H, g, kh, hd)]);
-    acc[e] = 0.f;
+  // (newest - c * bs) mod ring_len: entry i of chunk c sits d0 - i back
+  __device__ int d0(int c) const {
+    return local ? pmod(newest - c * bs, ring_len) : 0;
   }
-  for (int r = threadIdx.x; r < R; r += kThreads) {
+  __device__ int held(int c, int i, int d0) const {
+    if (!local) return c * bs + i;
+    int d = d0 - i;  // > -ring_len
+    if (d < 0) d += ring_len;
+    return newest - d;
+  }
+  // whether any entry of chunk c is readable by some token of the slot
+  __device__ bool any(int c) const {
+    if (!local) return c * bs <= newest;
+    const int d = d0(c);  // the chunk's entries sit d, d - 1, ... back
+    return d < bs - 1 || d - (bs - 1) <= newest - lo_any;
+  }
+};
+
+// grid (K * row_tiles, B, n_split); blockDim 128 or 256. kHD >= hd is the
+// widest row the instantiation takes (hd a multiple of 16 bytes); kHD = 0
+// takes any hd, with q and acc in shared memory.
+// (kMaxThreads, 1): ptxas may take up to 255 registers; capped at 128 it
+// spills the kR = 8 instantiations.
+template <typename T, int kR, int kHD>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+paged_attention_kernel(const Args a) {
+  constexpr bool kWide = kHD == 0;            // q and acc in shared memory
+  constexpr int kVec = Vec16<T>::kN;          // elements in 16 bytes
+  constexpr int kNV = kWide ? 32 : kHD / kVec;  // 16-byte vectors of a row
+  constexpr int kLPE = kNV < 32 ? kNV : 32;   // lanes over one entry's row
+  constexpr int kQV = kNV / kLPE;             // vectors a lane holds a row
+  constexpr int kEPW = 32 / kLPE;             // entries a warp scores at once
+  constexpr int kCols = kWide ? 1 : kHD / 128;  // columns a thread owns (>= 128 threads)
+  // groups whose partials the merge has in flight at once
+  constexpr int kSB = 64 / (kR * kCols) < 16 ? 64 / (kR * kCols) : 16;
+
+  const int nthreads = blockDim.x, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
+  const int kh = blockIdx.x / a.row_tiles, rt = blockIdx.x - kh * a.row_tiles;
+  const int b = blockIdx.y, split = blockIdx.z;
+  const int g = a.H / a.K, hd = a.hd, bs = a.bs, nv = hd / kVec;
+  const int r0 = rt * kR, nr = min(kR, a.rows - r0);
+  const int stages = a.cps > 1 ? 2 : 1;  // K/V buffers: a ring of two
+
+  extern __shared__ __align__(16) unsigned char k6_smem[];
+  T* qs = reinterpret_cast<T*>(k6_smem);                       // [kR][hd]
+  T* ks = qs + kR * hd;                                        // [stages][bs][hd]
+  T* vs = ks + stages * bs * hd;                               // [stages][bs][hd]
+  float* sc = reinterpret_cast<float*>(vs + stages * bs * hd);  // [bs][kR]
+  float* wts = sc + bs * kR;           // [n_split][kR] (n_split > 1)
+  float* alpha = wts + (a.n_split > 1 ? a.n_split * kR : 0);  // [kR]
+  float* inv = alpha + kR;             // [kR]
+  float* accs = inv + kR;              // [kR][hd] (kWide)
+  int* phys_s = reinterpret_cast<int*>(accs + (kWide ? kR * hd : 0));  // [cps]
+
+  // the group's table slice and the slot's position, loaded together
+  const int c_begin = split * a.cps, c_end = min(a.nb, c_begin + a.cps);
+  for (int i = tid; i < c_end - c_begin; i += nthreads)
+    phys_s[i] = a.table[static_cast<size_t>(b) * a.nb + c_begin + i];
+  const int pos = a.pos64
+      ? static_cast<int>(static_cast<const long long*>(a.positions)[b])
+      : static_cast<const int*>(a.positions)[b];
+  Ring ring;
+  ring.newest = pos + a.Q - 1;
+  ring.lo_any = a.local ? max(0, pos - a.window + 1) : 0;
+  ring.ring_len = a.ring_len;
+  ring.bs = bs;
+  ring.local = a.local;
+
+  // this thread's 16-byte copy slot: vector cv of rows / entries e0,
+  // e0 + estep, ...; threads past estep * nv copy nothing. A wide row of
+  // more vectors than threads: vectors cv, cv + nthreads, ... of each row.
+  const bool long_rows = kWide && nv > nthreads;
+  const int e0 = long_rows ? 0 : tid / nv;
+  const int estep = long_rows ? 1 : nthreads / nv;
+  const int cv = long_rows ? tid : tid - e0 * nv;
+  const int vstep = long_rows ? nthreads : nv;
+  const bool copier = e0 < estep;
+  auto copy_row = [&](T* dst, const T* src, bool rd) {  // this slot's vectors
+    if constexpr (kWide) {
+      for (int v = 0; cv + v < nv; v += vstep)
+        copy16(dst + v * kVec, rd ? src + v * kVec : src, rd);
+    } else {
+      copy16(dst, src, rd);
+    }
+  };
+  const T* q = static_cast<const T*>(a.q);
+  if (copier) {
+    for (int r = e0; r < kR; r += estep) {
+      const int rr = r0 + r, t = rr / g;
+      const T* src = r < nr
+          ? q + ((static_cast<size_t>(b) * a.Q + t) * a.H + kh * g + rr - t * g)
+                    * hd + cv * kVec
+          : q;
+      copy_row(qs + r * hd + cv * kVec, src, r < nr);
+    }
+  }
+
+  const T* kp = static_cast<const T*>(a.k_pool);
+  const T* vp = static_cast<const T*>(a.v_pool);
+  const size_t entry_stride = static_cast<size_t>(a.K) * hd;
+  auto stage = [&](int c, int buf) {  // issue chunk c's copies, one group
+    const size_t base =
+        static_cast<size_t>(phys_s[c - c_begin]) * bs * entry_stride +
+        static_cast<size_t>(kh) * hd + cv * kVec;
+    T* kd = ks + buf * bs * hd + cv * kVec;
+    T* vd = vs + buf * bs * hd + cv * kVec;
+    const int d0 = ring.d0(c);
+    if (copier) {
+      for (int i = e0; i < bs; i += estep) {
+        const int held = ring.held(c, i, d0);
+        const bool rd = held >= ring.lo_any && held <= ring.newest;
+        copy_row(kd + i * hd, kp + base + i * entry_stride, rd);
+        copy_row(vd + i * hd, vp + base + i * entry_stride, rd);
+      }
+    }
+    copy_commit();
+  };
+  auto live = [&](int c) {
+    return phys_s[c - c_begin] >= 0 && ring.any(c);
+  };
+
+  // per-row bounds of the readable held positions (padded rows: none)
+  int lo_r[kR], hi_r[kR];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int t = (r0 + r) / g;
+    hi_r[r] = r < nr ? pos + t : -1;
+    lo_r[r] = r < nr && a.local ? max(0, pos + t - a.window + 1) : 0;
+  }
+  float qf[kR][kQV * kVec];
+  float acc[kCols][kR], m[kR], l[kR];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[j][r] = 0.f;
   }
-  __syncthreads();
+  if constexpr (kWide)
+    for (int d = tid; d < kR * hd; d += nthreads) accs[d] = 0.f;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int c_end = min(nb, (split + 1) * cps);
-  for (int c = split * cps; c < c_end; ++c) {
-    const int phys = table[static_cast<size_t>(b) * nb + c];
-    if (phys < 0) continue;  // unallocated: uniform over the block
+  __syncthreads();  // phys_s
+  int c = c_begin;
+  while (c < c_end && !live(c)) ++c;
+  if (c < c_end) stage(c, 0);
+  else copy_commit();
 
-    int any = 0;
-    for (int e = threadIdx.x; e < Q * bs; e += kThreads) {
-      const int t = e / bs, i = e % bs;
-      const bool ok =
-          ring_valid(pos, t, c * bs + i, Q, ring_len, window, local);
-      vm[e] = ok;
-      any |= ok;
-    }
-    if (!__syncthreads_or(any)) continue;  // whole chunk masked: skip
-
-    const T* kb = k_pool + static_cast<size_t>(phys) * bs * row_stride + kh * hd;
-    const T* vb = v_pool + static_cast<size_t>(phys) * bs * row_stride + kh * hd;
-    const int n_kv = bs * hd;
-    for (int e0 = threadIdx.x; e0 < n_kv; e0 += kThreads * kLoadBatch) {
-      float kr[kLoadBatch], vr[kLoadBatch];
+  const int ls = lane % kLPE, eg = lane / kLPE;
+  int buf = 0;
+  bool first = true;
+  while (c < c_end) {
+    copy_wait<0>();
+    __syncthreads();  // chunk c (and q) landed; the last chunk's PV is done
+    if (!kWide && first) {
 #pragma unroll
-      for (int u = 0; u < kLoadBatch; ++u) {
-        const int e = e0 + u * kThreads;
-        if (e < n_kv) {
-          const size_t off = (e / hd) * row_stride + e % hd;
-          kr[u] = to_f32(kb[off]);
-          vr[u] = to_f32(vb[off]);
+      for (int r = 0; r < kR; ++r)
+#pragma unroll
+        for (int v = 0; v < kQV; ++v) {
+          const int vi = v * kLPE + ls;
+          if (vi < nv) {
+            Vec16<T>::load(qs + r * hd + vi * kVec, qf[r] + v * kVec);
+          } else {
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) qf[r][v * kVec + e] = 0.f;
+          }
+        }
+      first = false;
+    }
+    int nxt = c + 1;
+    while (nxt < c_end && !live(nxt)) ++nxt;
+    if (nxt < c_end) stage(nxt, buf ^ 1);
+
+    // scores: a group of kLPE lanes per entry, lanes over hd
+    const T* kb = ks + buf * bs * hd;
+    const int d0 = ring.d0(c);
+    for (int i0 = warp * kEPW; i0 < bs; i0 += nwarps * kEPW) {
+      const int i = i0 + eg;
+      float dot[kR];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) dot[r] = 0.f;
+      if constexpr (kWide) {
+        for (int vi = ls; i < bs && vi < nv; vi += kLPE) {
+          float kf[kVec], qv[kVec];
+          Vec16<T>::load(kb + i * hd + vi * kVec, kf);
+#pragma unroll
+          for (int r = 0; r < kR; ++r) {
+            Vec16<T>::load(qs + r * hd + vi * kVec, qv);
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) dot[r] = fmaf(qv[e], kf[e], dot[r]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < kQV; ++v) {
+          const int vi = v * kLPE + ls;
+          if (i < bs && vi < nv) {
+            float kf[kVec];
+            Vec16<T>::load(kb + i * hd + vi * kVec, kf);
+#pragma unroll
+            for (int r = 0; r < kR; ++r)
+#pragma unroll
+              for (int e = 0; e < kVec; ++e)
+                dot[r] = fmaf(qf[r][v * kVec + e], kf[e], dot[r]);
+          }
         }
       }
 #pragma unroll
-      for (int u = 0; u < kLoadBatch; ++u) {
-        const int e = e0 + u * kThreads;
-        if (e < n_kv) {
-          ks[e] = kr[u];
-          vs[e] = vr[u];
+      for (int r = 0; r < kR; ++r) dot[r] = lanes_sum<kLPE>(dot[r]);
+      if (i < bs && ls == 0) {
+        const int held = ring.held(c, i, d0);
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          float s = dot[r] * a.scale;
+          if (a.softcap > 0.f) s = a.softcap * tanhf(s / a.softcap);
+          sc[i * kR + r] = held >= lo_r[r] && held <= hi_r[r] ? s : -INFINITY;
         }
       }
     }
     __syncthreads();
 
-    // scores: one warp per (row, entry) pair, lanes over hd
-    for (int p = warp; p < R * bs; p += kWarps) {
-      const int r = p / bs, i = p % bs;
-      if (!vm[(r / g) * bs + i]) {
-        if (lane == 0) sc[p] = -INFINITY;
-        continue;
-      }
-      float part = 0.f;
-      for (int d = lane; d < hd; d += 32)
-        part = fmaf(qs[r * hd + d], ks[i * hd + d], part);
-      part = warp_sum(part);
-      if (lane == 0) {
-        float s = part * scale;
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        sc[p] = s;
-      }
-    }
-    __syncthreads();
-
-    // online-softmax bookkeeping, one warp per row, lanes over entries
-    for (int r = warp; r < R; r += kWarps) {
-      const unsigned char* rv = vm + (r / g) * bs;
-      float* sr = sc + r * bs;
+    // online softmax: row r's (m, l) live in warp r mod nwarps
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      if ((r & (nwarps - 1)) != warp) continue;
       float mx = -INFINITY;
-      for (int i = lane; i < bs; i += 32)
-        if (rv[i]) mx = fmaxf(mx, sr[i]);
+      for (int i = lane; i < bs; i += 32) mx = fmaxf(mx, sc[i * kR + r]);
       mx = warp_max(mx);
+      float al = 1.f;
       if (mx == -INFINITY) {  // no valid entry for this row in this chunk
-        for (int i = lane; i < bs; i += 32) sr[i] = 0.f;
-        if (lane == 0) alpha[r] = 1.f;
-        continue;
-      }
-      const float m_old = m[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int i = lane; i < bs; i += 32) {
-        const float pr = rv[i] ? expf(sr[i] - m_new) : 0.f;
-        sr[i] = pr;
-        sum += pr;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float a = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
-        l[r] = a * l[r] + sum;
+        for (int i = lane; i < bs; i += 32) sc[i * kR + r] = 0.f;
+      } else {
+        const float m_new = fmaxf(m[r], mx);
+        float sum = 0.f;
+        for (int i = lane; i < bs; i += 32) {
+          const float pr = expf(sc[i * kR + r] - m_new);  // masked: exp(-inf) = 0
+          sc[i * kR + r] = pr;
+          sum += pr;
+        }
+        sum = lanes_sum<32>(sum);
+        al = m[r] == -INFINITY ? 0.f : expf(m[r] - m_new);
+        l[r] = al * l[r] + sum;
         m[r] = m_new;
-        alpha[r] = a;
+      }
+      if (lane == 0) alpha[r] = al;
+    }
+    __syncthreads();
+
+    // PV: thread owns columns tid + j * nthreads, all kR rows
+    const T* vb = vs + buf * bs * hd;
+    float al[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) al[r] = alpha[r];
+    if constexpr (kWide) {
+      for (int d = tid; d < hd; d += nthreads) {
+        float aw[kR];
+#pragma unroll
+        for (int r = 0; r < kR; ++r) aw[r] = al[r] * accs[r * hd + d];
+#pragma unroll 4
+        for (int i = 0; i < bs; ++i) {
+          const float v = to_f32(vb[i * hd + d]);
+#pragma unroll
+          for (int r = 0; r < kR; ++r) aw[r] = fmaf(sc[i * kR + r], v, aw[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < kR; ++r) accs[r * hd + d] = aw[r];
       }
     }
-    __syncthreads();
-
-    for (int e = threadIdx.x; e < R * hd; e += kThreads) {
-      const int r = e / hd, d = e % hd;
-      const unsigned char* rv = vm + (r / g) * bs;
-      float a = alpha[r] * acc[e];
-      for (int i = 0; i < bs; ++i)
-        if (rv[i]) a = fmaf(sc[r * bs + i], vs[i * hd + d], a);
-      acc[e] = a;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int d = tid + j * nthreads;
+      if (!kWide && d < hd) {
+#pragma unroll
+        for (int r = 0; r < kR; ++r) acc[j][r] = al[r] * acc[j][r];
+#pragma unroll 4
+        for (int i = 0; i < bs; ++i) {
+          const float v = to_f32(vb[i * hd + d]);
+#pragma unroll
+          for (int r = 0; r < kR; ++r)
+            acc[j][r] = fmaf(sc[i * kR + r], v, acc[j][r]);
+        }
+      }
     }
+    c = nxt;
+    buf ^= 1;
+  }
+  copy_wait<0>();  // a group with no live chunk: the q copies
+
+  T* out = static_cast<T*>(a.out);
+  size_t row_off[kR];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int rr = r0 + r, t = rr / g;
+    row_off[r] = ((static_cast<size_t>(b) * a.Q + t) * a.H + kh * g + rr - t * g)
+                 * hd;
+  }
+
+  if (a.n_split == 1) {  // the only group: normalise and write
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+      if ((r & (nwarps - 1)) == warp && lane == 0)
+        inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
     __syncthreads();
+    if constexpr (kWide) {
+      for (int d = tid; d < hd; d += nthreads)
+#pragma unroll
+        for (int r = 0; r < kR; ++r)
+          if (r < nr) out[row_off[r] + d] = from_f32<T>(accs[r * hd + d] * inv[r]);
+    }
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int d = tid + j * nthreads;
+      if (!kWide && d < hd)
+#pragma unroll
+        for (int r = 0; r < kR; ++r)
+          if (r < nr) out[row_off[r] + d] = from_f32<T>(acc[j][r] * inv[r]);
+    }
+    return;
   }
 
-  const size_t base =
-      (static_cast<size_t>(b) * K + kh) * gridDim.z + split;  // [B, K, S]
-  for (int e = threadIdx.x; e < R * hd; e += kThreads)
-    part_acc[base * R * hd + e] = acc[e];
-  for (int r = threadIdx.x; r < R; r += kThreads) {
-    part_m[base * R + r] = m[r];
-    part_l[base * R + r] = l[r];
+  // partial of this group; the last block of the tile merges them
+  const int S = a.n_split;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const size_t tiles = static_cast<size_t>(gridDim.x) * gridDim.y;
+  float* part_acc = a.part + static_cast<size_t>(tile) * S * kR * hd;
+  float* part_ml = a.part + tiles * S * kR * hd +
+                   static_cast<size_t>(tile) * S * kR * 2;
+  if constexpr (kWide) {
+    for (int d = tid; d < hd; d += nthreads)
+#pragma unroll
+      for (int r = 0; r < kR; ++r)
+        part_acc[(static_cast<size_t>(split) * kR + r) * hd + d] = accs[r * hd + d];
   }
-}
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    const int d = tid + j * nthreads;
+    if (!kWide && d < hd)
+#pragma unroll
+      for (int r = 0; r < kR; ++r)
+        part_acc[(static_cast<size_t>(split) * kR + r) * hd + d] = acc[j][r];
+  }
+#pragma unroll
+  for (int r = 0; r < kR; ++r)
+    if ((r & (nwarps - 1)) == warp && lane == 0) {
+      part_ml[(split * kR + r) * 2] = m[r];
+      part_ml[(split * kR + r) * 2 + 1] = l[r];
+    }
+  if (!arrive_last(a.counters + tile, S)) return;
+  if (tid == 0) a.counters[tile] = 0;
 
-// grid (K, B): merges the n_split partials of one (slot, kv head) in group
-// order. One warp per row first turns the groups' (m, l) into weights
-// exp(m_s - M) / L in shared memory; groups with l = 0 saw no valid entry
-// and get weight 0, and their (zero) acc is never read. Then each output
-// element sums its groups' acc with independent loads. A row with no valid
-// entry at all writes 0.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_combine_kernel(const float* __restrict__ part_m,
-                               const float* __restrict__ part_l,
-                               const float* __restrict__ part_acc,
-                               T* __restrict__ out, int Q, int H, int K,
-                               int hd, int n_split) {
-  const int kh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int g = H / K;
-  const int R = Q * g;
-  const size_t base = (static_cast<size_t>(b) * K + kh) * n_split;
-  extern __shared__ float wts[];  // [R][n_split]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < R; r += kWarps) {
+  // the first kSB groups' partials fly while the weights are made
+  float pv[kSB][kCols][kR];
+  auto fetch = [&](int s0, int d0) {
+#pragma unroll
+    for (int u = 0; u < kSB; ++u)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int d = d0 + j * nthreads;
+#pragma unroll
+        for (int r = 0; r < kR; ++r)
+          pv[u][j][r] = s0 + u < S && d < hd
+              ? __ldcg(part_acc + (static_cast<size_t>(s0 + u) * kR + r) * hd + d)
+              : 0.f;
+      }
+  };
+  fetch(0, tid);
+
+  // weights exp(m_s - M) / L of each group, by row; a group with l = 0 saw
+  // no valid entry and gets weight 0 (its acc is exactly 0)
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    if ((r & (nwarps - 1)) != warp) continue;
+    const float* ml = part_ml + r * 2;  // group s at ml + s * kR * 2
+    float m_l = -INFINITY, l_l = 0.f;   // group `lane`, loaded once
     float mx = -INFINITY;
-    for (int s = lane; s < n_split; s += 32)
-      if (part_l[(base + s) * R + r] > 0.f)
-        mx = fmaxf(mx, part_m[(base + s) * R + r]);
+    for (int s = lane; s < S; s += 32) {
+      const float ms = __ldcg(ml + s * kR * 2), ls = __ldcg(ml + s * kR * 2 + 1);
+      if (s == lane) {
+        m_l = ms;
+        l_l = ls;
+      }
+      if (ls > 0.f) mx = fmaxf(mx, ms);
+    }
     mx = warp_max(mx);
     float lsum = 0.f;
-    for (int s = lane; s < n_split; s += 32) {
-      const float ls = part_l[(base + s) * R + r];
-      const float w = ls > 0.f ? expf(part_m[(base + s) * R + r] - mx) : 0.f;
-      wts[r * n_split + s] = w;
+    for (int s = lane; s < S; s += 32) {
+      const float ms = s == lane ? m_l : __ldcg(ml + s * kR * 2);
+      const float ls = s == lane ? l_l : __ldcg(ml + s * kR * 2 + 1);
+      const float w = ls > 0.f ? expf(ms - mx) : 0.f;
+      wts[s * kR + r] = w;
       lsum = fmaf(w, ls, lsum);
     }
-    lsum = warp_sum(lsum);
-    const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
-    for (int s = lane; s < n_split; s += 32) wts[r * n_split + s] *= inv;
+    lsum = lanes_sum<32>(lsum);
+    const float iv = lsum > 0.f ? 1.f / lsum : 0.f;
+    for (int s = lane; s < S; s += 32) wts[s * kR + r] *= iv;
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < R * hd; e += kThreads) {
-    const int r = e / hd;
-    const float* w = wts + r * n_split;
-    float a = 0.f;
-    for (int s = 0; s < n_split; ++s)
-      if (w[s] != 0.f) a = fmaf(w[s], part_acc[(base + s) * R * hd + e], a);
-    out[row_offset(b, r, e % hd, Q, H, g, kh, hd)] = from_f32<T>(a);
+
+  // out = sum_s w_s acc_s in group order, over columns d0 + j * nthreads
+  auto merge = [&](int d0) {
+    float o[kCols][kR];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+#pragma unroll
+      for (int r = 0; r < kR; ++r) o[j][r] = 0.f;
+    for (int s0 = 0; s0 < S; s0 += kSB) {
+      if (s0 || d0 != tid) fetch(s0, d0);
+#pragma unroll
+      for (int u = 0; u < kSB; ++u)
+        if (s0 + u < S)
+#pragma unroll
+          for (int j = 0; j < kCols; ++j)
+#pragma unroll
+            for (int r = 0; r < kR; ++r)
+              o[j][r] = fmaf(wts[(s0 + u) * kR + r], pv[u][j][r], o[j][r]);
+    }
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int d = d0 + j * nthreads;
+      if (d < hd)
+#pragma unroll
+        for (int r = 0; r < kR; ++r)
+          if (r < nr) out[row_off[r] + d] = from_f32<T>(o[j][r]);
+    }
+  };
+  if constexpr (kWide) {
+    for (int d0 = tid; d0 < hd; d0 += nthreads) merge(d0);
+  } else {
+    merge(tid);
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const int* table, const int* positions, void* out, float* part_m,
-           float* part_l, float* part_acc, int B, int Q, int H, int K, int hd,
-           int bs, int nb, int cps, int n_split, int ring_len, int window,
-           int local, float softcap, float scale, size_t smem,
-           cudaStream_t stream) {
-  auto kernel = paged_attention_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<dim3(K, B, n_split), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), table, positions, part_m, part_l,
-      part_acc, Q, H, K, hd, bs, nb, cps, ring_len, window, local, softcap,
-      scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  auto combine = paged_attention_combine_kernel<T>;
-  const size_t wsmem = static_cast<size_t>(Q) * (H / K) * n_split *
-                       sizeof(float);
-  if (wsmem > 48 * 1024) {
-    err = cudaFuncSetAttribute(combine,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(wsmem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  combine<<<dim3(K, B), kThreads, wsmem, stream>>>(
-      part_m, part_l, part_acc, static_cast<T*>(out), Q, H, K, hd, n_split);
+// Shared memory of a launch, in bytes (kernels/paged_attention.py
+// `plan_paged` computes the same and passes it).
+size_t smem_bytes(const Args& a, int kr, size_t elem) {
+  const size_t stages = a.cps > 1 ? 2 : 1;
+  return (static_cast<size_t>(kr) + 2 * stages * a.bs) *
+             a.hd * elem +
+         (static_cast<size_t>(a.bs) * kr + (a.n_split > 1 ? a.n_split * kr : 0) +
+          2 * kr + (a.hd > kRegHD ? static_cast<size_t>(kr) * a.hd : 0)) *
+             sizeof(float) +
+         static_cast<size_t>(a.cps) * sizeof(int);
+}
+
+template <typename T, int kR, int kHD>
+int launch_rows(const Args& a, int B, int threads, int smem,
+                cudaStream_t stream) {
+  static std::atomic<uint64_t> opted{0};
+  auto kernel = paged_attention_kernel<T, kR, kHD>;
+  if (smem > 48 * 1024)
+    if (const int e = cadc::opt_in(kernel, kSmemMax, opted)) return e;
+  kernel<<<dim3(a.K * a.row_tiles, B, a.n_split), threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int kHD>
+int launch_hd(const Args& a, int B, int kr, int threads, int smem,
+              cudaStream_t stream) {
+  switch (kr) {
+    case 1: return launch_rows<T, 1, kHD>(a, B, threads, smem, stream);
+    case 2: return launch_rows<T, 2, kHD>(a, B, threads, smem, stream);
+    case 4: return launch_rows<T, 4, kHD>(a, B, threads, smem, stream);
+    case 8: return launch_rows<T, 8, kHD>(a, B, threads, smem, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int launch(const Args& a, int B, int kr, int threads, int smem,
+           cudaStream_t stream) {
+  if (a.hd * sizeof(T) % 16 || a.hd <= 0 ||
+      (threads != 128 && threads != 256) ||
+      smem_bytes(a, kr, sizeof(T)) > static_cast<size_t>(smem) ||
+      smem > kSmemMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.hd <= 128) return launch_hd<T, 128>(a, B, kr, threads, smem, stream);
+  if (a.hd <= kRegHD) return launch_hd<T, kRegHD>(a, B, kr, threads, smem, stream);
+  if (kr != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rows<T, 1, 0>(a, B, threads, smem, stream);
 }
 
 }  // namespace
 
-// Shared memory the kernel needs, in bytes (the wrapper checks it against
-// the card's per-block limit before launching).
-extern "C" size_t paged_attention_smem_bytes(int Q, int H, int K, int hd,
-                                             int bs) {
-  const size_t R = static_cast<size_t>(Q) * (H / K);
-  return (2 * R * hd + 2 * static_cast<size_t>(bs) * hd + R * bs + 3 * R) *
-             sizeof(float) +
-         static_cast<size_t>(Q) * bs;
-}
-
-// dtype 0 = fp32, 1 = bf16 (q, pools and out share it); softcap <= 0 means
-// none. The ring's nb chunks are cut into n_split groups of cps chunks;
-// part_m/part_l hold B*K*n_split*R floats and part_acc B*K*n_split*R*hd
-// (R = Q*H/K). Returns the CUDA error code after the launches (0 =
-// success).
+// One launch. dtype 0 = fp32, 1 = bf16 (q, pools and out share it); pos64
+// 1 = int64 positions; softcap <= 0 means none. The plan (rows kr per tile,
+// row_tiles, cps chunks a group, n_split groups, threads, smem) is
+// `plan_paged`'s; a group of several chunks rings two K/V buffers. With
+// n_split > 1, part holds B * K * row_tiles * n_split * kr * (hd + 2)
+// floats and counters B * K * row_tiles zeroed ints (left zero). Returns
+// the CUDA error code after the launch (0 = success).
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pool, const void* v_pool, const int* table,
-    const int* positions, void* out, void* part_m, void* part_l,
-    void* part_acc, int B, int Q, int H, int K, int hd, int bs, int nb,
-    int cps, int n_split, int ring_len, int window, int local, float softcap,
-    float scale, int dtype, void* stream) {
-  const size_t smem = paged_attention_smem_bytes(Q, H, K, hd, bs);
+    const void* positions, void* out, void* part, void* counters, int B,
+    int Q, int H, int K, int hd, int bs, int nb, int ring_len, int window,
+    int local, int pos64, int kr, int row_tiles, int cps, int n_split,
+    int threads, int smem, float softcap, float scale, int dtype,
+    void* stream) {
+  Args a{q, k_pool, v_pool, table, positions, out,
+         static_cast<float*>(part), static_cast<int*>(counters),
+         Q, H, K, hd, bs, nb, ring_len, window, local, pos64,
+         Q * (H / K), row_tiles, cps, n_split, softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* pm = static_cast<float*>(part_m);
-  float* pl = static_cast<float*>(part_l);
-  float* pa = static_cast<float*>(part_acc);
-  if (dtype == 0)
-    return launch<float>(q, k_pool, v_pool, table, positions, out, pm, pl, pa,
-                         B, Q, H, K, hd, bs, nb, cps, n_split, ring_len,
-                         window, local, softcap, scale, smem, st);
-  return launch<__nv_bfloat16>(q, k_pool, v_pool, table, positions, out, pm,
-                               pl, pa, B, Q, H, K, hd, bs, nb, cps, n_split,
-                               ring_len, window, local, softcap, scale, smem,
-                               st);
+  if (dtype == 0) return launch<float>(a, B, kr, threads, smem, st);
+  return launch<__nv_bfloat16>(a, B, kr, threads, smem, st);
 }
 
 extern "C" const char* paged_attention_error_string(int code) {

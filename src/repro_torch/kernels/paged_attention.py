@@ -5,14 +5,16 @@ Port of repro.kernels.paged_attention. The serve engine's paged KV cache
 keeps every slot's logical [L, K, hd] ring scattered over
 [n_blocks, block_size, K, hd] pools named by a per-slot block table.
 
-  * paged_attention_cuda  — the kernel (csrc/paged_attention.cu): split-K
-                            flash decoding; one block per (slot, kv head,
-                            group of chunks) walks its part of the slot's
-                            table row with an online softmax, skips -1 and
-                            fully masked chunks, and never computes on a
-                            masked entry (NaN-proof); a second kernel
-                            combines the groups in chunk order; rows with
-                            no valid entry write 0. Replaces
+  * paged_attention_cuda  — the kernel (csrc/paged_attention.cu), one
+                            launch under `plan_paged`: one block per
+                            (kv head, row tile, slot, group of chunks)
+                            stages its live chunks by 16-byte cp.async
+                            (zero-filling entries no q token may read, so
+                            garbage never meets a multiply: NaN-proof),
+                            skips -1 and fully masked chunks, and the last
+                            block of each (slot, kv head, row tile) to
+                            arrive merges the groups in chunk order; rows
+                            with no valid entry write 0. Replaces
                             `_flash_kernel`.
   * paged_attention_torch — the plain version, the gather formulation of
                             `paged_attention_xla`: blocks gathered back
@@ -40,12 +42,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cadc_matmul as _cm
 
 Tensor = torch.Tensor
 
@@ -56,8 +59,28 @@ NEG_INF = -2.0 ** 30
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = "paged_attention.cu"
-# Shared memory a block may use on Hopper (227 KB).
-SMEM_LIMIT = 232_448
+# K6's dynamic shared memory at most: a block's 227 KB on Hopper less 1 KB
+# kept for its static shared memory (csrc/paged_attention.cu kSmemMax).
+PAGED_SMEM_LIMIT = 232_448 - 1024
+# K6's launch plans (`plan_paged`): rows of q a block holds (a row tile;
+# csrc/paged_attention.cu instantiates each for head_dim up to 128 — the
+# `--smoke` config's 32 — and up to 256, gemma3-1b's: 1 for MHA decode, 2
+# the smoke config's decode, 4 gemma3-1b's, 8 multi-token appends and
+# wider GQA groups), block sizes, and the widest row whose q and acc sit
+# in registers (wider rows keep them in shared memory, one row a tile).
+PAGED_ROWS = (1, 2, 4, 8)
+PAGED_THREADS = (128, 256)
+PAGED_REG_HD = 256
+# The planner's model of a launch (us), fitted by tools/profile_k6.py
+# --refit to its --set plans and fit sweeps of this kernel on an H100 80GB
+# HBM3 at 700 W (`_paged_cost`): a block's latency a_t + b_t x cps,
+# the card's throughput blocks x (e_t + f_t x cps) / SMs, by threads t;
+# their smooth maximum (power _PAGED_P); then, with several groups, the
+# last block's merge c + d x groups.
+_PAGED_LAT = {128: (3.617, 2.493), 256: (2.961, 1.955)}
+_PAGED_THR = {128: (1.441, 1.092), 256: (3.450, 1.938)}
+_PAGED_MERGE = (2.424, 0.138)
+_PAGED_P = 1.832
 
 
 def _softcap(scores: Tensor, cap: Optional[float]) -> Tensor:
@@ -140,11 +163,9 @@ def paged_attention_torch(q: Tensor, k_pool: Tensor, v_pool: Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.library(_SOURCE)
     lib.paged_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 17
         + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.paged_attention_launch.restype = ctypes.c_int
-    lib.paged_attention_smem_bytes.argtypes = [ctypes.c_int] * 5
-    lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
     lib.paged_attention_error_string.argtypes = [ctypes.c_int]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -155,28 +176,153 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _splits(b: int, k_: int, nb: int, sms: int):
-    """(chunks per group, groups): enough (slot, kv head, group) blocks to
-    fill the card's SMs twice, at most one group per chunk."""
-    want = max(1, -(-2 * sms // max(1, b * k_)))
-    cps = -(-nb // max(1, min(nb, want)))
-    return cps, max(1, -(-nb // cps))
+class PagedPlan(NamedTuple):
+    """One K6 launch: grid (K * row_tiles, B, groups) of `threads`-thread
+    blocks; a block holds `rows` resident rows of q (one row tile) and
+    walks `cps` consecutive chunks of its slot's ring in `smem` bytes of
+    shared memory. With groups > 1 the last block of each (slot, kv head,
+    row tile) merges the groups."""
+    cps: int
+    groups: int
+    threads: int
+    rows: int
+    row_tiles: int
+    smem: int
+    shape: Tuple[int, ...]   # (B, K, nb, R, hd, element bytes, bs)
+
+    @property
+    def tiles(self) -> int:
+        """(slot, kv head, row tile) tiles: the arrival counters used."""
+        return self.shape[0] * self.shape[1] * self.row_tiles
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.groups
+
+    def scratch_floats(self) -> int:
+        """fp32 scratch of the groups' partials (m, l, acc); 0 for one."""
+        if self.groups == 1:
+            return 0
+        return self.blocks * self.rows * (self.shape[4] + 2)
+
+
+def _row_tile(rows: int, hd: int) -> Tuple[int, int]:
+    """(rows a block holds, row tiles): the fewest of PAGED_ROWS >= R, else
+    the most; one past PAGED_REG_HD."""
+    if hd > PAGED_REG_HD:
+        return 1, rows
+    kr = next((r for r in PAGED_ROWS if r >= rows), PAGED_ROWS[-1])
+    return kr, -(-rows // kr)
+
+
+def _smem(kr: int, bs: int, hd: int, elem: int, cps: int,
+          groups: int) -> int:
+    """csrc/paged_attention.cu `smem_bytes`: q rows, K/V stages, scores,
+    merge weights, alpha / 1/l, acc of rows past PAGED_REG_HD, the group's
+    table slice."""
+    stages = 2 if cps > 1 else 1
+    wide = kr * hd if hd > PAGED_REG_HD else 0
+    return ((kr + 2 * stages * bs) * hd * elem
+            + (bs * kr + (groups * kr if groups > 1 else 0) + 2 * kr
+               + wide) * 4
+            + cps * 4)
+
+
+def _make_paged(shape, cps: int, threads: int) -> Optional[PagedPlan]:
+    b, k_, nb, rows, hd, elem, bs = shape
+    kr, row_tiles = _row_tile(rows, hd)
+    groups = -(-nb // cps)
+    smem = _smem(kr, bs, hd, elem, cps, groups)
+    if smem > PAGED_SMEM_LIMIT or (groups > 1
+                                   and b * k_ * row_tiles > _cm.N_COUNTERS):
+        return None
+    return PagedPlan(cps, groups, threads, kr, row_tiles, smem, shape)
+
+
+def _paged_cost(plan: PagedPlan, sms: int) -> float:
+    """The planner's model of a launch's time (us): see _PAGED_LAT."""
+    a, b = _PAGED_LAT[plan.threads]
+    e, f = _PAGED_THR[plan.threads]
+    lat = a + b * plan.cps
+    thr = plan.blocks * (e + f * plan.cps) / sms
+    t = (lat ** _PAGED_P + thr ** _PAGED_P) ** (1 / _PAGED_P)
+    if plan.groups > 1:
+        t += _PAGED_MERGE[0] + plan.groups * _PAGED_MERGE[1]
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def plan_paged(b: int, k_: int, nb: int, rows: int, hd: int, elem: int,
+               bs: int, sms: int = _cm.SMS, *, _force=None) -> PagedPlan:
+    """The launch plan of K6 over B slots, K kv heads, an nb-chunk table,
+    R = Q * H / K resident rows of head_dim hd (`elem` bytes an element:
+    4 fp32, 2 bf16), block size bs, on a card of `sms` SMs; pure Python,
+    cached per shape.
+
+    The rows are cut into tiles of PAGED_ROWS; the ring into groups of
+    `cps` chunks. Fewer, longer groups merge less; more blocks keep more
+    loads in flight: the planner takes the plan of least `_paged_cost`
+    over every chunks-a-group count and PAGED_THREADS, and falls back to
+    one group where the tiles outnumber the arrival counters. `_force` =
+    (cps, threads) builds that plan instead, for tests and the profiler;
+    it raises ValueError for a plan that does not exist."""
+    if hd <= 0 or hd * elem % 16:
+        raise ValueError(
+            f"paged_attention_cuda copies q / K / V rows 16 bytes at a time: "
+            f"head_dim {hd} x {elem} B must be a multiple of 16 bytes")
+    if min(b, k_, nb, rows, bs) < 1:
+        raise ValueError(f"no K6 plan for B={b} K={k_} nb={nb} R={rows} "
+                         f"bs={bs}")
+    shape = (b, k_, nb, rows, hd, elem, bs)
+    if _force is not None:
+        cps, threads = _force
+        plan = (_make_paged(shape, cps, threads)
+                if 1 <= cps <= nb and threads in PAGED_THREADS else None)
+        if plan is None:
+            raise ValueError(f"no such K6 plan {_force} for shape {shape}")
+        return plan
+    plans = [p for p in (_make_paged(shape, c, t) for c in _cps_options(nb)
+                         for t in PAGED_THREADS) if p is not None]
+    if not plans:
+        raise ValueError(f"K6 needs more shared memory than a block has at "
+                         f"shape {shape}")
+    return min(plans, key=lambda p: (_paged_cost(p, sms), p.cps, -p.threads))
+
+
+def _cps_options(nb: int):
+    """Chunks-a-group counts that give distinct group counts, every group
+    non-empty."""
+    return sorted({-(-nb // s) for s in range(1, nb + 1)})
+
+
+def paged_plans(b: int, k_: int, nb: int, rows: int, hd: int, elem: int,
+                bs: int):
+    """Every plan of a shape, the planner's first (for tests and
+    tools/profile_k6.py)."""
+    first = plan_paged(b, k_, nb, rows, hd, elem, bs)
+    rest = (_make_paged(first.shape, c, t) for c in _cps_options(nb)
+            for t in PAGED_THREADS)
+    return [first] + [p for p in rest if p is not None and p != first]
 
 
 def paged_attention_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                          block_table: Tensor, positions: Tensor, *,
                          kind: str, window: int,
                          ring_len: Optional[int] = None,
-                         softcap: Optional[float] = None) -> Tensor:
+                         softcap: Optional[float] = None,
+                         plan: Optional[PagedPlan] = None) -> Tensor:
     """The CUDA kernel; same contract as paged_attention_torch. Tensors on
-    one CUDA device; q and pools both fp32 or both bf16. Table entries
-    must be -1 or name a block of the pool. Counts its launches in
+    one CUDA device; q and pools both fp32 or both bf16, rows of head_dim
+    a multiple of 16 bytes, q and pools 16-byte aligned; positions int32
+    or int64. Table entries must be -1 or name a block of the pool. One
+    launch under `plan` (default: plan_paged's). Counts its launches in
     `paged_attention_cuda.launches`."""
     b, q_len, h, hd = q.shape
     n_blocks, bs, k_, hd_p = k_pool.shape
     nb = block_table.shape[1]
-    tensors = (q, k_pool, v_pool, block_table, positions)
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
+    dev = q.device
+    if not (q.is_cuda and k_pool.device == dev and v_pool.device == dev
+            and block_table.device == dev and positions.device == dev):
         raise ValueError("paged_attention_cuda needs every tensor on one "
                          "CUDA device")
     if q.dtype not in _DTYPES or k_pool.dtype != q.dtype \
@@ -195,32 +341,47 @@ def paged_attention_cuda(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     if nb * bs > ring_len:
         raise ValueError(f"table covers {nb * bs} entries > "
                          f"ring_len={ring_len}")
-    lib = _lib()
-    smem = lib.paged_attention_smem_bytes(q_len, h, k_, hd, bs)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"paged_attention_cuda needs {smem} B of shared "
-                         f"memory per block (limit {SMEM_LIMIT})")
-    q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), \
-        v_pool.contiguous()
-    tbl = block_table.to(torch.int32).contiguous()
-    pos = positions.to(torch.int32).reshape(b).contiguous()
+    elem = q.element_size()
+    if not q.is_contiguous():
+        q = q.contiguous()
+    if not k_pool.is_contiguous():
+        k_pool = k_pool.contiguous()
+    if not v_pool.is_contiguous():
+        v_pool = v_pool.contiguous()
+    if (q.data_ptr() | k_pool.data_ptr() | v_pool.data_ptr()) % 16:
+        raise ValueError("paged_attention_cuda needs q and the pools "
+                         "16-byte aligned")
+    tbl = block_table
+    if tbl.dtype != torch.int32 or not tbl.is_contiguous():
+        tbl = tbl.to(torch.int32).contiguous()
+    pos = positions
+    if pos.dtype not in (torch.int32, torch.int64) \
+            or not pos.is_contiguous():
+        pos = pos.to(torch.int64).contiguous()
     out = torch.empty_like(q)
     if b == 0 or q_len == 0:
         return out
-    cps, n_split = _splits(b, k_, nb, _sm_count(q.device.index))
-    rows = b * k_ * n_split * q_len * (h // k_)
-    part = torch.empty(rows * (hd + 2), dtype=torch.float32,
-                       device=q.device)
-    part_m, part_l, part_acc = (part[:rows], part[rows:2 * rows],
-                                part[2 * rows:])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rows = q_len * (h // k_)
+    if plan is None:
+        plan = plan_paged(b, k_, nb, rows, hd, elem, bs,
+                          _sm_count(dev.index))
+    elif plan.shape != (b, k_, nb, rows, hd, elem, bs):
+        raise ValueError(f"plan for shape {plan.shape} given at shape "
+                         f"{(b, k_, nb, rows, hd, elem, bs)}")
+    part = counters = 0
+    if plan.groups > 1:
+        scratch = torch.empty(plan.scratch_floats(), dtype=torch.float32,
+                              device=dev)
+        part, counters = scratch.data_ptr(), _cm._counters(dev).data_ptr()
+    lib = _lib()
     _build.check(lib, "paged_attention", lib.paged_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tbl.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        part_acc.data_ptr(), b, q_len, h, k_, hd, bs, nb, cps, n_split,
-        ring_len, window, int(kind == "local"),
+        pos.data_ptr(), out.data_ptr(), part, counters, b, q_len, h, k_, hd,
+        bs, nb, ring_len, window, int(kind == "local"),
+        int(pos.dtype == torch.int64), plan.rows, plan.row_tiles, plan.cps,
+        plan.groups, plan.threads, plan.smem,
         0.0 if softcap is None else float(softcap), hd ** -0.5,
-        _DTYPES[q.dtype], stream))
+        _DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream))
     paged_attention_cuda.launches += 1
     return out
 

@@ -120,10 +120,10 @@ def test_paged_attention_kernel_is_nan_proof(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [3, 40, 300])
 def test_paged_attention_kernel_chunk_groups(cuda_device, b):
-    """The ring is cut into groups of chunks so that (kv head, slot, group)
-    blocks fill the card: on a 132-SM card one chunk per group at 3 slots,
-    two at 40, and one group of all 8 chunks at 300; the second kernel
-    combines the groups in chunk order."""
+    """plan_paged cuts the ring into groups of chunks: under the planner's
+    plan and every forced one, at 3, 40 and 300 slots, the groups merged
+    in chunk order by the last block of each tile equal the plain
+    version, and an all -1 slot writes exactly 0."""
     rng = np.random.RandomState(b)
     q, kp, vp, tbl, _ = _geometry(rng, b=b, h=4, kh=1, nb=8,
                                   positions=np.zeros(b))
@@ -131,12 +131,157 @@ def test_paged_attention_kernel_chunk_groups(cuda_device, b):
     pos = rng.randint(0, 80, size=b).astype(np.int32)
     args = [torch.from_numpy(a).to(cuda_device) for a in
             (q, kp, vp, tbl, pos)]
+    plans = [None] + pa.paged_plans(b, 1, 8, 4, 64, 4, 8)
     for kind in ("global", "local"):
-        got = pa.paged_attention_cuda(*args, kind=kind, window=24)
         want = pa.paged_attention_torch(*args, kind=kind, window=24)
+        for plan in plans:
+            got = pa.paged_attention_cuda(*args, kind=kind, window=24,
+                                          plan=plan)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+            assert torch.equal(got[1], torch.zeros_like(got[1]))
+
+
+def _k6_want(q, kp, vp, tbl, pos, *, kind, window, softcap=None):
+    """The plain version, but 0 in a row that may read no entry of its
+    slot: the rule of K6 and of the JAX package's `_flash_kernel`, where
+    the gather formulation averages the V its slot reads (with Q > 1 a
+    token can see nothing while a later one of its slot sees entries)."""
+    want = pa.paged_attention_torch(q, kp, vp, tbl, pos, kind=kind,
+                                    window=window, softcap=softcap)
+    bs, nb = kp.shape[1], tbl.shape[1]
+    valid = pa._ring_mask(pos, torch.arange(nb * bs, device=q.device),
+                          kind=kind, ring_len=nb * bs, window=window,
+                          q_len=q.shape[1])
+    live = (tbl >= 0).repeat_interleave(bs, dim=1)
+    empty = ~(valid & live[:, None]).any(-1)                    # [B, Q]
+    return torch.where(empty[:, :, None, None],
+                       torch.zeros((), dtype=want.dtype, device=want.device),
+                       want)
+
+
+# K6 under every plan: (Q, H, K) with R = Q * H / K rows of 2 (one tile
+# of 2), 6 (a tile of 8, 2 padded) and 24 (3 tiles of 8); fp32 within
+# 2e-5 of the plain version, bf16 within 3e-2 (chip_smoke.py K6_TOL)
+_K6_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_len,h,kh", [(1, 4, 2), (3, 4, 2), (3, 8, 1)])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+@pytest.mark.parametrize("kind", ["global", "local"])
+def test_paged_attention_every_plan(cuda_device, dtype, q_len, h, kh,
+                                    softcap, kind):
+    q, kp, vp, tbl, pos = _geometry(np.random.RandomState(q_len * h + kh),
+                                    b=5, q_len=q_len, h=h, kh=kh, nb=6,
+                                    positions=(5, 20, 31, 47, 2))
+    tbl[3, 4:] = -1
+    args = [torch.from_numpy(a).to(cuda_device) for a in (q, kp, vp)]
+    args = [a.to(dtype) for a in args] + [
+        torch.from_numpy(a).to(cuda_device) for a in (tbl, pos)]
+    kw = dict(kind=kind, window=12, softcap=softcap)
+    want = _k6_want(*args, **kw)
+    shape = (5, kh, 6, q_len * h // kh, 64, args[0].element_size(), 8)
+    plans = pa.paged_plans(*shape)
+    assert len(plans) == 2 * 4   # cps 1, 2, 3, 6 x 128 / 256 threads
+    for plan in plans:
+        got = pa.paged_attention_cuda(*args, plan=plan, **kw)
         torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
-        assert torch.equal(got[1], torch.zeros_like(got[1]))
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= _K6_TOL[dtype], (plan, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 256),
+                                      (torch.bfloat16, 512),
+                                      (torch.float32, 576),
+                                      (torch.bfloat16, 1024),
+                                      (torch.bfloat16, 2048)])
+@pytest.mark.parametrize("kind", ["global", "local"])
+def test_paged_attention_wide_rows_every_plan(cuda_device, dtype, hd, kind):
+    """Rows of 1 KB and more: the two-stage plans take more than 48 KB of
+    shared memory (the opt-in path), the one-stage ones less; past
+    head_dim 256, q and acc sit in shared memory, one row a tile, and
+    rows of more 16-byte vectors than threads (576 fp32 and 2048 bf16 at
+    128 threads) take several vectors a thread."""
+    q, kp, vp, tbl, pos = _geometry(np.random.RandomState(hd), b=4, h=4,
+                                    kh=1, hd=hd, bs=16, nb=4,
+                                    positions=(5, 40, 63, 17))
+    args = [torch.from_numpy(a).to(cuda_device) for a in (q, kp, vp)]
+    args = [a.to(dtype) for a in args] + [
+        torch.from_numpy(a).to(cuda_device) for a in (tbl, pos)]
+    want = _k6_want(*args, kind=kind, window=32)
+    plans = pa.paged_plans(4, 1, 4, 4, hd, args[0].element_size(), 16)
+    assert max(p.smem for p in plans) > 48 * 1024
+    for plan in plans:
+        got = pa.paged_attention_cuda(*args, kind=kind, window=32,
+                                      plan=plan)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= _K6_TOL[dtype], (plan, err)
+
+
+@pytest.mark.cuda
+def test_paged_attention_counters_read_zero(cuda_device):
+    """Every plan with several groups leaves the arrival counters zero, in
+    eager calls and in a CUDA graph replayed twice (equal to eager)."""
+    q, kp, vp, tbl, pos = _geometry(np.random.RandomState(5), b=4, h=4,
+                                    kh=2, nb=6, positions=(5, 20, 31, 47))
+    args = [torch.from_numpy(a).to(cuda_device) for a in
+            (q, kp, vp, tbl, pos)]
+    plans = [p for p in pa.paged_plans(4, 2, 6, 2, 64, 4, 8)
+             if p.groups > 1]
+    assert plans
+    calls = [lambda p=p: pa.paged_attention_cuda(*args, kind="local",
+                                                 window=16, plan=p)
+             for p in plans]
+    eager = [c() for c in calls]
+    torch.cuda.synchronize()
+    counters = cm._counters(cuda_device)
+    assert int(counters.abs().sum()) == 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c() for c in calls]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(counters.abs().sum()) == 0
+        for got, want in zip(outs, eager):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_paged_attention_back_to_back_is_bitwise(cuda_device):
+    """Two calls on one stream, no sync between: the same bits (the groups
+    merge in chunk order whatever block arrives last)."""
+    q, kp, vp, tbl, pos = _geometry(np.random.RandomState(6), b=8, h=4,
+                                    kh=1, nb=6,
+                                    positions=(5, 20, 31, 47, 9, 13, 40, 0))
+    args = [torch.from_numpy(a).to(cuda_device) for a in
+            (q, kp, vp, tbl, pos)]
+    for plan in pa.paged_plans(8, 1, 6, 4, 64, 4, 8):
+        a = pa.paged_attention_cuda(*args, kind="global", window=8, plan=plan)
+        b = pa.paged_attention_cuda(*args, kind="global", window=8, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 6),
+                                      (torch.bfloat16, 36),
+                                      (torch.bfloat16, 1028)])
+def test_paged_attention_refuses_rows_off_16_bytes(cuda_device, dtype, hd):
+    """Rows are copied 16 bytes at a time: a head_dim whose rows are not a
+    multiple of 16 bytes raises, and nothing launches."""
+    q, kp, vp, tbl, pos = _geometry(np.random.RandomState(8), hd=hd)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (q, kp, vp)]
+    args = [a.to(dtype) for a in args] + [
+        torch.from_numpy(a).to(cuda_device) for a in (tbl, pos)]
+    before = pa.paged_attention_cuda.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        pa.paged_attention_cuda(*args, kind="global", window=8)
+    assert pa.paged_attention_cuda.launches == before
 
 
 def _rel_close(got, want, tol=1e-4):

@@ -224,17 +224,96 @@ def test_dispatch_on_cpu():
     assert tpa.paged_attention_cuda.launches == 0
 
 
-@pytest.mark.parametrize("b,nb,sms", [(8, 10, 132), (3, 4, 132),
-                                      (40, 32, 132), (300, 8, 132),
-                                      (1, 1, 132), (8, 2048, 132)])
-def test_split_groups_cover_the_ring(b, nb, sms):
-    """The CUDA kernel's cut of a slot's nb chunks into n_split groups of
-    cps: every chunk in exactly one group, no empty group, at most one
-    group per chunk, and enough blocks to fill the card when the ring
-    allows it."""
-    cps, n_split = tpa._splits(b, 1, nb, sms)
-    groups = [range(s * cps, min(nb, (s + 1) * cps)) for s in range(n_split)]
-    assert sorted(c for g in groups for c in g) == list(range(nb))
-    assert all(len(g) > 0 for g in groups)
-    assert n_split <= nb
-    assert b * n_split >= min(b * nb, 2 * sms)
+# K6's planner (plan_paged, pure Python): (B, K, nb, R, hd, element
+# bytes, bs) of the main path (gemma3-1b: 8 slots, 4 q heads on 1 kv head,
+# head_dim 256, bf16, block 16; covered-prefix widths 8 and 10), 3 slots,
+# 40 slots on a 512 ring (groups of several chunks), 300 slots (one
+# group), more (slot, kv head) tiles than arrival counters, fp32,
+# Q = 3 x 8 q heads (3 row tiles), and rows of 1024 (q and acc in shared
+# memory, one row a tile)
+_PLAN_SHAPES = [(8, 1, 10, 4, 256, 2, 16), (8, 1, 8, 4, 256, 2, 16),
+                (3, 1, 4, 4, 256, 2, 16), (40, 1, 32, 4, 256, 2, 16),
+                (300, 1, 8, 4, 256, 2, 16), (20000, 4, 8, 4, 64, 4, 16),
+                (8, 1, 10, 4, 256, 4, 16), (5, 1, 6, 24, 64, 4, 8),
+                (4, 1, 4, 4, 1024, 2, 16)]
+
+
+@pytest.mark.parametrize("shape", _PLAN_SHAPES)
+def test_plan_groups_cover_the_ring(shape):
+    """Under the planner's plan and every forced one the groups cover the
+    ring's chunks exactly once, in chunk order, none empty; the row tiles
+    cover the R rows; shared memory fits a block; a plan with several
+    groups uses no more counters than there are."""
+    b, k_, nb, rows, hd, elem, bs = shape
+    plans = tpa.paged_plans(*shape)
+    assert plans[0] == tpa.plan_paged(*shape)
+    for p in plans:
+        groups = [list(range(s * p.cps, min(nb, (s + 1) * p.cps)))
+                  for s in range(p.groups)]
+        assert [c for g in groups for c in g] == list(range(nb))
+        assert all(groups)
+        assert p.rows in tpa.PAGED_ROWS and p.rows * p.row_tiles >= rows
+        assert (p.row_tiles - 1) * p.rows < rows
+        assert p.smem <= tpa.PAGED_SMEM_LIMIT
+        assert p.blocks == b * k_ * p.row_tiles * p.groups
+        if p.groups > 1:
+            assert p.tiles <= tpa._cm.N_COUNTERS
+            assert p.scratch_floats() == p.blocks * p.rows * (hd + 2)
+        else:
+            assert p.scratch_floats() == 0
+
+
+def test_plan_falls_back_to_one_group_past_the_counters():
+    """20000 slots x 4 kv heads are 80000 tiles > N_COUNTERS: every plan
+    is one group of all chunks, and forcing groups raises."""
+    shape = (20000, 4, 8, 4, 64, 4, 16)
+    assert all(p.groups == 1 for p in tpa.paged_plans(*shape))
+    with pytest.raises(ValueError, match="no such K6 plan"):
+        tpa.plan_paged(*shape, _force=(1, 256))
+
+
+@pytest.mark.parametrize("force", [(0, 256), (11, 256), (1, 96), (1, 512),
+                                   (-3, 128)])
+def test_plan_force_rejects_plans_that_do_not_exist(force):
+    with pytest.raises(ValueError, match="no such K6 plan"):
+        tpa.plan_paged(8, 1, 10, 4, 256, 2, 16, _force=force)
+
+
+@pytest.mark.parametrize("hd,elem", [(6, 4), (36, 2), (1028, 2), (0, 4)])
+def test_plan_refuses_rows_off_16_bytes(hd, elem):
+    with pytest.raises(ValueError, match="16 bytes"):
+        tpa.plan_paged(8, 1, 10, 4, hd, elem, 16)
+
+
+def test_plan_row_tiles_and_cache():
+    """R rows sit in registers up to head_dim 256, 8 a tile at most; wider
+    rows take one row a tile; the plan is cached per shape."""
+    assert tpa.plan_paged(5, 1, 6, 24, 64, 4, 8).row_tiles == 3
+    assert tpa.plan_paged(5, 1, 6, 6, 64, 4, 8).rows == 8
+    assert tpa.plan_paged(5, 1, 6, 1, 64, 4, 8).rows == 1
+    p = tpa.plan_paged(5, 1, 6, 6, 512, 4, 8)
+    assert (p.rows, p.row_tiles) == (1, 6)
+    assert tpa.plan_paged(8, 1, 10, 4, 256, 2, 16) is \
+        tpa.plan_paged(8, 1, 10, 4, 256, 2, 16)
+
+
+@pytest.mark.parametrize("hd,elem", [(576, 2), (1024, 4), (3072, 2)])
+def test_plan_wide_rows_hold_acc_in_shared_memory(hd, elem):
+    """Past head_dim 256 a block holds one row, its acc in shared memory
+    (hd floats more than the register form's layout); rows as wide as
+    shared memory holds plan, wider ones raise."""
+    p = tpa.plan_paged(8, 1, 10, 4, hd, elem, 16, _force=(1, 256))
+    assert (p.rows, p.row_tiles) == (1, 4)
+    assert p.smem == ((1 + 2 * 16) * hd * elem
+                      + (16 + 10 + 2 + hd) * 4 + 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        tpa.plan_paged(8, 1, 10, 4, 8192, elem, 16)
+
+
+@pytest.mark.parametrize("nb", [8, 10])
+def test_plan_main_path_takes_one_chunk_a_group(nb):
+    """At the main path's decode (8 slots, gemma3-1b, bf16, the covered-
+    prefix widths 8 and 10) the fitted model picks one chunk a group and
+    256 threads — the fastest plan of tools/profile_k6.py's sweep."""
+    p = tpa.plan_paged(8, 1, nb, 4, 256, 2, 16)
+    assert (p.cps, p.groups, p.threads) == (1, nb, 256)
