@@ -73,11 +73,14 @@ Slice 2, CNN training (fp32, TF32 off):
      shapes and the bound.
 
 Slice 3, the paper's 4/2/4b operating point (int8 q8 kernels, TF32 off):
- 13. K4 / K4g (q8 CADC matmul) against their plain versions, bitwise
-     (tanh within 1e-6 of scale), gate bits included, at every q8 FC shape
-     of VGG-16, ResNet-18 and the SNN at the eval batch, xbar 64 / 128 /
-     256, every fn; the straight-through backward (dx, dw, dscale) through
-     ops.cadc_matmul_q8 in every save_gate mode within 1e-4 of scale;
+ 13. K4 / K4g (q8 CADC matmul, the int8 tensor-core kernel) against their
+     plain versions, bitwise (tanh within 1e-6 of scale), gate bits
+     included, at every q8 FC shape of VGG-16, ResNet-18 and the SNN at
+     the eval batch, xbar 64 / 128 / 256, every fn, under the planner's
+     plan and every forced plan (plan_fwd_q8: the single pass, segment
+     groups split over blocks), each bitwise the planner's; the
+     straight-through backward (dx, dw, dscale) through ops.cadc_matmul_q8
+     in every save_gate mode within 1e-4 of scale;
  14. K5 (q8 fused conv) and its gates against the plain version,
      bitwise, at every conv shape of the three models at the paths'
      batches, the same sweep, under every plan the shape admits (the
@@ -100,7 +103,10 @@ Slice 3, the paper's 4/2/4b operating point (int8 q8 kernels, TF32 off):
      and idle share, and its QAT step; K4 and K5 device ms per q8 eval
      batch of each path beside their plain versions, the vConv library
      call (F.conv2d on fp32 codes; torch._int_mm) and the int8 bound; K5
-     per conv shape with its plan, beside the gather kernel at that shape.
+     per conv shape with its plan, beside the gather kernel at that shape;
+     K4 per FC shape with its plan, beside the int8 tile kernel it
+     replaced (built from tools/profile_k4.py), torch._int_mm, the bound
+     and the launch floor.
 
 Prints the serving and training metrics, the card's name and power limit,
 one JSON line of kernel records and, last, {"ok": true, "device": {...}}.
@@ -256,11 +262,14 @@ def profile_device(run, n: int, group, what: str):
 # Kernels that must compile without spills (ptxas' report of each
 # instantiation): K3's tap-aligned kernel, the conv backward's dgrad and
 # wgrad kernels, K5's int8 tap kernel, K2's dx and dw kernels (saved
-# gates and recompute), K6.
+# gates and recompute), K6, K4's int8 tensor-core kernel.
 NO_SPILL_KERNELS = ("tap_tile_kernel", "dgrad_kernel", "wgrad_kernel",
                     "q8_tap_kernel", "bwd_dx_kernel", "bwd_dw_kernel",
                     "bwd_dx_recompute_kernel", "bwd_dw_recompute_kernel",
-                    "paged_attention_kernel")
+                    "paged_attention_kernel", "q8_mma_kernel")
+# K4's int8 tile kernel before its redesign (tools/profile_k4.py keeps its
+# launcher), built beside the port's sources: time_q8_kernels' yardstick.
+OLD_K4 = {}
 
 
 def ptxas_lines(log: str) -> list:
@@ -292,8 +301,13 @@ def build_kernels(report):
 
     from repro_torch.kernels import _build
 
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import profile_k4
+
     t0 = time.perf_counter()
+    old_k4 = profile_k4.start_old_build()
     libs = _build.build()
+    OLD_K4["lib"] = old_k4()
     report["build_s"] = time.perf_counter() - t0
     for name, path in libs.items():
         log = path.with_suffix(".log")
@@ -1979,13 +1993,15 @@ def _codes(gen, dev, shape, lo, hi):
 def check_k4(dev, report):
     """K4 / K4g against their plain versions at every q8 FC shape of the
     three models, xbar 64 / 128 / 256, every fn: outputs and gate bits
-    bitwise (tanh: TANH_RTOL); the straight-through backward through
-    ops.cadc_matmul_q8 on float codes in every save_gate mode."""
+    bitwise (tanh: TANH_RTOL), under the planner's plan and every forced
+    plan of `q8_plans` (each bitwise the planner's); the straight-through
+    backward through ops.cadc_matmul_q8 on float codes in every save_gate
+    mode."""
     from repro_torch.kernels import cadc_matmul as cm
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device=dev).manual_seed(21)
-    n_fwd = n_bwd = 0
+    n_fwd = n_bwd = n_plans = 0
     worst_bwd = 0.0
     for name, m, d, n in q8_fc_shapes():
         for xbar in XBARS:
@@ -2001,6 +2017,13 @@ def check_k4(dev, report):
                 _q8_same("k4", y, cm.cadc_matmul_q8_torch(x, w, scale, **kw),
                          fn, tag)
                 n_fwd += 1
+                plans = cm.q8_plans(m, n, dp // xbar, xbar)
+                for plan in plans[1:]:
+                    yp, _ = cm._fwd_launch(x, w, xbar, fn, "none", scale,
+                                           plan=plan)
+                    if not torch.equal(yp, y):
+                        fail(f"{tag} {plan}: not bitwise the planner's")
+                    n_plans += 1
                 for mode in (("packed", "bytes") if fn == "relu" else
                              () if fn == "identity" else ("bytes",)):
                     yg, gate = cm.cadc_matmul_q8_gate_cuda(x, w, scale,
@@ -2012,6 +2035,13 @@ def check_k4(dev, report):
                     _q8_same("k4", gate.float(), wgate.float(), fn,
                              f"{tag} {mode} gate")
                     n_fwd += 1
+                    for plan in plans[1:]:
+                        yp, gp = cm._fwd_launch(x, w, xbar, fn, mode, scale,
+                                                plan=plan)
+                        if not (torch.equal(yp, y) and torch.equal(gp, gate)):
+                            fail(f"{tag} {mode} {plan}: not bitwise the "
+                                 f"planner's")
+                        n_plans += 1
                 if fn == "tanh":
                     continue
                 for save_gate in cm.SAVE_GATE_MODES:
@@ -2033,12 +2063,16 @@ def check_k4(dev, report):
                             fail(f"{tag} save_gate={save_gate}: STE grad "
                                  f"err / scale {err}")
                     n_bwd += 1
-    report["k4_checks"] = {"forward": n_fwd, "ste_backward": n_bwd,
+    if int(cm._counters(dev).abs().sum()):
+        fail("K4 left the arrival counters nonzero")
+    report["k4_checks"] = {"forward": n_fwd, "forced_plans": n_plans,
+                           "ste_backward": n_bwd,
                            "max_abs_err": Q8_MAX_ABS["k4"],
                            "ste_max_err_over_scale": worst_bwd}
     print(f"K4 cadc_matmul_q8: {n_fwd} forward / gate checks bitwise (tanh "
           f"within {TANH_RTOL} of scale; max abs err {Q8_MAX_ABS['k4']:.1e}) "
           f"at FC shapes {q8_fc_shapes()}, xbar {XBARS}, fns {Q8_FNS}; "
+          f"{n_plans} forced-plan launches bitwise the planner's; "
           f"{n_bwd} STE backward checks (dx, dw, dscale) max err / scale "
           f"{worst_bwd:.1e}", flush=True)
 
@@ -2360,7 +2394,7 @@ def time_vgg(dev, trained, report):
         return ("K5 cadc_conv2d_q8 (tap)" if "q8_tap_kernel" in key
                 else "K5 cadc_conv2d_q8 (gather)"
                 if "ConvGather<signed char" in key
-                else "K4 cadc_matmul_q8" if "RowMajor<signed char" in key
+                else "K4 cadc_matmul_q8" if "q8_mma_kernel" in key
                 else "other (PyTorch)")
 
     wall_ms, busy, _, groups = profile_device(
@@ -2419,10 +2453,13 @@ def time_q8_kernels(dev, launches, report):
     padded to a multiple of 8 where its shape rules need it) — and the
     bound: bytes at 3.35 TB/s or int8 operations at 1979 TOPS; K5 also
     per conv shape, with its plan and the gather kernel's time at that
-    shape. CUDA-graph replay over operand copies that hold 3x the L2, as
-    time_k1."""
+    shape; K4 also per FC shape, with its plan, the int8 tile kernel it
+    replaced (OLD_K4) and the launch floor (a one-element add_ under the
+    same replay). CUDA-graph replay over operand copies that hold 3x the
+    L2, as time_k1."""
     import torch.nn.functional as F
 
+    import profile_k4
     from repro_torch.kernels import cadc_conv as cc
     from repro_torch.kernels import cadc_matmul as cm
 
@@ -2430,6 +2467,8 @@ def time_q8_kernels(dev, launches, report):
     scale = torch.tensor(0.0123, device=dev)
     xbar, fn = 64, "relu"
     per_path = {}
+    one = torch.zeros(1, device=dev)
+    floor = device_ms(lambda: one.add_(1), 20)
 
     def timed(make, kernel, plain, lib, other=None):
         first = make()
@@ -2486,6 +2525,7 @@ def time_q8_kernels(dev, launches, report):
                   f"{per_shape[name]['plan']} ({plan.blocks} blocks), "
                   f"{ms:.4f} ms, gather kernel {g_ms:.4f}, F.conv2d "
                   f"{lb:.4f}, bound {b_ms:.4f}", flush=True)
+        fc_shapes = {}
         for name, m, d, n in q8_fc_shapes():
             if not name.startswith(model):
                 continue
@@ -2494,16 +2534,32 @@ def time_q8_kernels(dev, launches, report):
             n8 = -(-n // 8) * 8
             w8 = torch.zeros((dp, n8), dtype=torch.int8, device=dev)
             w8[:, :n] = w
-            ms, pl, lb = timed(
+            ms, pl, lb, old = timed(
                 lambda m=m, dp=dp: (_codes(gen, dev, (m, dp), -7, 8),),
                 lambda x: cm.cadc_matmul_q8_cuda(x, w, scale,
                                                  crossbar_size=xbar, fn=fn),
                 lambda x: cm.cadc_matmul_q8_torch(x, w, scale,
                                                   crossbar_size=xbar, fn=fn),
-                (lambda x: torch._int_mm(x, w8)) if m > 16 else None)
+                (lambda x: torch._int_mm(x, w8)) if m > 16 else None,
+                lambda x: profile_k4.old_call(OLD_K4["lib"], x, w, scale,
+                                              crossbar_size=xbar, fn=fn))
             nbytes = m * dp + dp * n + 4 * m * n + 4
             for i, v in enumerate((ms, pl, lb, nbytes, 2 * m * dp * n)):
                 tot["k4"][i] += t * (v if v is not None else math.nan)
+            plan = cm.plan_fwd_q8(m, n, dp // xbar, xbar)
+            b_ms, _ = bound_ms(nbytes, 2 * m * dp * n, torch.int8)
+            fc_shapes[name] = {
+                "M": m, "D": dp, "N": n, "count_per_batch": t,
+                "plan": f"{plan.groups} group{'s' * (plan.groups > 1)}, "
+                        f"{plan.blocks} blocks",
+                "ms": ms, "old_tile_kernel_ms": old, "library_ms": lb,
+                "bound_ms": b_ms, "launch_floor_ms": floor}
+            print(f"K4 {name} M={m} D={dp} N={n} x{t}: plan "
+                  f"{fc_shapes[name]['plan']}, {ms * 1e3:.2f} us, old tile "
+                  f"kernel {old * 1e3:.2f}, torch._int_mm "
+                  f"{'-' if lb is None else f'{lb * 1e3:.2f}'}, bound "
+                  f"{b_ms * 1e3:.3f}, launch floor {floor * 1e3:.2f}",
+                  flush=True)
         per_path[model] = {}
         for key, (ms, pl, lb, nbytes, ops) in tot.items():
             b_ms, b_by = bound_ms(nbytes, ops, torch.int8)
@@ -2515,6 +2571,10 @@ def time_q8_kernels(dev, launches, report):
                     "cadc_conv2d_q8" if key == "k5" else "cadc_matmul_q8"]}
             if key == "k5":
                 per_path[model][key]["per_shape"] = per_shape
+            else:
+                per_path[model][key]["per_shape"] = fc_shapes
+                per_path[model][key]["launch_floor_ms_per_batch"] = (
+                    floor * q8_launches(model)["cadc_matmul_q8"])
             print(f"{model} q8 eval batch, {key.upper()}: {ms:.3f} ms (plain "
                   f"{pl:.3f}, library {lb:.3f}, bound {b_ms:.4f} by {b_by}) "
                   f"over {per_path[model][key]['launches_per_batch']} "

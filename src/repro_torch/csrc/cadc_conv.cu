@@ -128,7 +128,11 @@ namespace {
 
 using cadc::kBK;
 using cadc::kPack;
+using cadc::kMagicBits;
+using cadc::kMagicF;
 using cadc::kThreads;
+using cadc::ldsm4;
+using cadc::mma_s8;
 
 // ---------------------------------------------------------------------------
 // the gather kernel (K3's generic plan, and K5)
@@ -608,33 +612,6 @@ struct Q8Cfg {
   static_assert(kMinBlocks >= 1, "registers");
 };
 
-// Four 8 x 8 matrices of 16-bit elements (here: 8 rows of 16 bytes each)
-// from shared memory; lane l gives the row address of matrix l / 8.
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4],
-                                      const unsigned char* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// d += a (m16 x k32, row) * b (k32 x n8, col), int8 in, exact int32 sums.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A psum that starts at the bits of 1.5 * 2^23 holds kMagicBits + p; for
-// |p| <= 2^22 those are the bits of the float 1.5 * 2^23 + p, exactly, so
-// one subtraction of 1.5 * 2^23 gives float(p) with no rounding.
-constexpr int kMagicBits = 0x4B400000;
-constexpr float kMagicF = 12582912.f;
-
 template <int BM, int BN, int WM, int WN, int kKT, int kStages, bool kGate>
 __global__ void __launch_bounds__(
     (Q8Cfg<BM, BN, WM, WN, kKT, kStages>::kThreads),
@@ -708,7 +685,7 @@ q8_tap_kernel(const TapConvQ8 p) {
     }
   };
 
-  const bool magic = p.xbar <= 256;  // |psum| <= xbar * 128 * 128 <= 2^22
+  const bool magic = p.xbar <= cadc::kMagicMaxXbar;
   const int ps0 = magic ? kMagicBits : 0;
   int ps[C::kMT][C::kNT][4];      // the segment's psum (+ kMagicBits)
   float acc[C::kMT][C::kNT][4];   // the sum of f(psum * scale)

@@ -72,20 +72,66 @@
 // in the models) give an exact int32 psum per segment, dequantized once as
 // float(p) * scale — scale fp32, read from device memory, so no host sync
 // is needed per layer — then f, then the sequential fp32 sum; K4g adds the
-// gate epilogue, from the dequantized psum, in K1g's layouts. It is the same
-// tile kernel (and plan) over int8 loads with int32 multiply-adds on CUDA
-// cores, and every rounding after the dequantization is explicit
-// (cadc_tile.cuh): the result is bitwise the plain version's. Bound on
-// this card: at the models' FC shapes (M = the eval batch, D and N <=
-// 4096) the bytes (int8 x and w, fp32 y) and the int8 operations (2*M*D*N
-// at the int8 tensor-core peak) each take well under a microsecond: bound
-// by bytes, so by launch and tail effects in practice; int8 `mma.sync` /
-// `wgmma` is later work.
+// gate epilogue, from the dequantized psum, in K1g's layouts. Every
+// rounding after the dequantization is explicit (__fmul_rn, dendritic_rn,
+// __fadd_rn in segment order), so the result is bitwise the plain
+// version's under every plan.
+//
+// Bound on this card: at the models' FC shapes (M = the eval batch 128 or
+// 32, D <= 4096, N <= 512) the bytes (int8 x and w, fp32 y: 0.18 us at
+// VGG-16's f1) and the int8 operations (2*M*D*N at the int8 tensor-core
+// peak: 0.03 us) are far below the launch itself (~1.3 us for a one-element
+// kernel under graph replay) and one round trip to memory: K4 is bound by
+// latency.
+//
+// Design (`q8_mma_kernel`, kernels/cadc_matmul.py `plan_fwd_q8`). A block
+// owns a 16 x 32 tile of y (one m16 row of mma tiles, one packed gate
+// word of columns) and 8 warps; each warp computes the whole tile for its
+// own segments, so the segments of a tile run in parallel instead of one
+// after another: warp w takes segments w, w + 8, ... in rounds. A warp
+// stages each 64-code chunk of its segment through its own 3-stage ring
+// (16-byte cp.async of x's rows and of w's rows where they lie on 16
+// bytes; 4-byte copies where N is a multiple of 4; for N <= 32, as the
+// class counts 10 and 11 are, the chunk's rows of w are one contiguous
+// span of 64*N bytes, copied 16 bytes at a time; byte loads otherwise;
+// everything past the segment's end, M or N zero-filled). w [D, N] is
+// row-major, and mma's B operand wants each column's codes contiguous:
+// the warp transposes its chunk in shared memory (4 x 4 byte blocks by
+// __byte_perm; the span gathered column by column), reads x and w^T by
+// ldmatrix.x4 and runs mma.sync m16n8k32 s8 x s8 -> s32 into psums that
+// start at the bits of 1.5 * 2^23, so one exact fp32 subtraction gives
+// float(p) while |p| <= 2^22 (xbar <= 256; K5's trick, cadc_conv.cu), else
+// __int2float_rn. At a segment's end the warp dequantizes, writes the gate
+// (the packed word by two quad shuffles) and applies f (one copy of the
+// epilogue per fn). The planner picks, from the shapes alone, the single
+// pass — every segment in one block; after each round the warps' f(psum)
+// tiles are added in segment order in shared memory, no scratch — or a
+// split of the segments over blocks in groups, whose f(psum) tiles go to
+// an fp32 [S, M, N] scratch and are added in order by the last block of
+// the tile to arrive (cadc_tile.cuh `arrive_last`). Both are the plain
+// version's chain of additions, so every plan gives the same bits. The
+// single pass takes VGG-16's and ResNet-18's FCs (8 segments at xbar 64:
+// one round); the SNN's 64 segments split into groups. Measured on an
+// H100 80GB HBM3 at 700 W (PERF.md; tools/profile_k4.py): 3.8 us at
+// VGG-16's f1 against 20.9 for the int8 tile kernel this replaced and
+// 21.6 for torch._int_mm, of which the launch and the loads' round trip
+// take 3.6 (a copy that only loads); the transpose of a narrow span costs
+// ~0.8 us at ResNet-18's fc, the merge of a split ~2 us at the SNN's.
+#include <stdint.h>
+
+#include <atomic>
+#include <type_traits>
+
 #include "cadc_tile.cuh"
 
 namespace {
 
+using cadc::kMagicBits;
+using cadc::kMagicF;
+using cadc::kMagicMaxXbar;
 using cadc::kThreads;
+using cadc::ldsm4;
+using cadc::mma_s8;
 
 // Plan kernels (kernels/cadc_matmul.py PLAN_KERNELS).
 enum PlanKernel : int { kTile = 0, kStream = 1 };
@@ -446,6 +492,448 @@ int tile_by_gate(const void* x, const void* w, const void* scale, void* y,
                                     xbar, fn, gate_kind, rows, st);
 }
 
+// ---------------------------------------------------------------------------
+// K4 / K4g: the int8 tensor-core kernel
+// ---------------------------------------------------------------------------
+
+// How a chunk of w's rows is staged (Q8Mat::wmode): 16-byte or 4-byte
+// cp.async of each row's 32 columns (w on that many bytes, N a multiple of
+// it); the rows' whole span, N <= 32 bytes a row, packed, by 16-byte
+// cp.async (w on 16 bytes, xbar % 16 == 0: the class counts, N = 10, 11);
+// or byte loads.
+enum Q8WMode : int { kW16 = 0, kWSpan = 1, kW4 = 2, kWBytes = 3 };
+
+// A K4 launch: x [M, S*xbar] and w [S*xbar, N] int8 codes, row-major, as
+// the caller holds them; scale one fp32 in device memory; y [M, N] fp32;
+// scratch [S, M, N] fp32 and the arrival counters when the segments are
+// split over blocks (grid z > 1), else NULL. xvec: x's rows are read by
+// 16-byte cp.async (x on 16 bytes, xbar % 16 == 0), else by byte loads.
+struct Q8Mat {
+  const int8_t* x;
+  const int8_t* w;
+  const float* scale;
+  float* y;
+  float* scratch;
+  int* counters;
+  void* gate;
+  int M, N, S, xbar, fn, gate_kind, xvec, wmode;
+};
+
+constexpr int kQ8Rows = 16;     // rows of a tile (one m16 mma tile)
+constexpr int kQ8Cols = 32;     // columns of a tile: one packed gate word
+constexpr int kQ8Warps = 8;     // warps of a block, each on its segments
+constexpr int kQ8Threads = 32 * kQ8Warps;
+constexpr int kQ8Chunk = 64;    // codes of a segment a warp stages at once
+constexpr int kQ8Stages = 3;    // chunks in a warp's ring
+constexpr int kQ8XStride = kQ8Chunk + 16;  // bytes of a staged x row
+constexpr int kQ8WStride = kQ8Cols + 16;   // bytes of a staged w row (k)
+constexpr int kQ8TStride = kQ8Chunk + 16;  // bytes of a transposed w row (n)
+constexpr int kQ8SumStride = kQ8Cols + 8;  // floats of a row of f(psum)
+constexpr int kQ8XBytes = kQ8Rows * kQ8XStride;
+constexpr int kQ8StageBytes = kQ8XBytes + kQ8Chunk * kQ8WStride;
+constexpr int kQ8WarpBytes = kQ8Stages * kQ8StageBytes + kQ8Cols * kQ8TStride;
+constexpr int kQ8RingBytes = kQ8Warps * kQ8WarpBytes;
+constexpr int kQ8SumBytes = kQ8Warps * kQ8Rows * kQ8SumStride * 4;
+constexpr int kQ8Per = kQ8Rows * kQ8Cols / kQ8Threads;  // outputs a thread
+constexpr int kQ8MergeSegs = 32;  // segments whose loads the merge overlaps
+static_assert(kQ8Per * kQ8Threads == kQ8Rows * kQ8Cols, "outputs split");
+static_assert(kQ8RingBytes % 16 == 0, "f(psum) rows on 16 bytes");
+
+// 4 bytes of a row of x or w from byte `at` on, those at >= `end` zero:
+// the unaligned loader.
+__device__ __forceinline__ uint32_t bytes4(const int8_t* src, int at,
+                                           int end) {
+  uint32_t v = 0;
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    if (at + b < end)
+      v |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(src + b)))
+           << (8 * b);
+  return v;
+}
+
+// A staged chunk of w, [64 codes k][32 columns n] (rows kQ8WStride bytes
+// apart), into the [32 n][64 k] layout mma's B operand is read from (rows
+// kQ8TStride apart): lane (r, h) takes the 4 x 16 bytes of rows 4r .. 4r+3,
+// columns 16h .. 16h+15, and writes them back as 16 words of 4 k each, four
+// 4 x 4 byte transposes of two __byte_perm rounds.
+__device__ __forceinline__ void transpose_w(const unsigned char* ws,
+                                            unsigned char* wt, int lane) {
+  const int r = lane / 2, h = lane % 2;
+  uint4 v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    v[j] = *reinterpret_cast<const uint4*>(ws + (4 * r + j) * kQ8WStride +
+                                           16 * h);
+  const auto word = [](const uint4& u, int i) {
+    return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
+  };
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint32_t a = word(v[0], c), b = word(v[1], c), cc = word(v[2], c),
+                   d = word(v[3], c);
+    const uint32_t t0 = __byte_perm(a, b, 0x5140);   // a0 b0 a1 b1
+    const uint32_t t1 = __byte_perm(a, b, 0x7362);   // a2 b2 a3 b3
+    const uint32_t t2 = __byte_perm(cc, d, 0x5140);  // c0 d0 c1 d1
+    const uint32_t t3 = __byte_perm(cc, d, 0x7362);  // c2 d2 c3 d3
+    unsigned char* col = wt + (16 * h + 4 * c) * kQ8TStride + 4 * r;
+    *reinterpret_cast<uint32_t*>(col) = __byte_perm(t0, t2, 0x5410);
+    *reinterpret_cast<uint32_t*>(col + kQ8TStride) =
+        __byte_perm(t0, t2, 0x7632);
+    *reinterpret_cast<uint32_t*>(col + 2 * kQ8TStride) =
+        __byte_perm(t1, t3, 0x5410);
+    *reinterpret_cast<uint32_t*>(col + 3 * kQ8TStride) =
+        __byte_perm(t1, t3, 0x7632);
+  }
+}
+
+// The same from a packed span ([64 k][N] bytes, N <= 32): lane n gathers
+// column n's 64 codes, 4 k a word, every load before the first store (the
+// stores could alias them: interleaved, each word waited for its loads);
+// columns n >= N are zero.
+__device__ __forceinline__ void transpose_span(const unsigned char* ws,
+                                               unsigned char* wt, int lane,
+                                               int N) {
+  uint32_t v[kQ8Chunk / 4];
+#pragma unroll
+  for (int kg = 0; kg < kQ8Chunk / 4; ++kg) {
+    const unsigned char* src = ws + 4 * kg * N + lane;
+    v[kg] = lane < N ? src[0] | (src[N] << 8) | (src[2 * N] << 16) |
+                           (static_cast<uint32_t>(src[3 * N]) << 24)
+                     : 0u;
+  }
+  uint4* row = reinterpret_cast<uint4*>(wt + lane * kQ8TStride);
+#pragma unroll
+  for (int i = 0; i < kQ8Chunk / 16; ++i)
+    row[i] = make_uint4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+}
+
+// Block (m tile, n tile, group z) computes the 16 x 32 tile at (m0, n0)
+// over its segments: every segment (gridDim.z == 1, the single pass) or
+// group z's ceil(S / gridDim.z). Warp w takes the group's segments w,
+// w + 8, ... in rounds of 8; for each it walks the segment's 64-code
+// chunks through its own 3-stage ring (cp.async where aligned, zero-filled
+// past the segment's end and past M and N, the next two chunks in flight
+// while one computes), transposes w's chunk in shared memory, and runs
+// mma.sync m16n8k32 over it into int32 psums. At the segment's end the
+// warp dequantizes, writes the gate, applies f (a copy of that code per
+// fn) and stores f(psum): the single pass into its row of the block's
+// f(psum) tiles, which after a barrier every thread adds to its outputs'
+// sums in segment order (round by round, __fadd_rn, from 0); a split block
+// into scratch[s], the tile's last block to arrive then adding the S tiles
+// in order, 32 segments' loads in flight. Either way each output is the
+// plain version's chain of additions, so every plan gives its bits.
+template <bool kGate>
+__global__ void __launch_bounds__(kQ8Threads, 1)
+q8_mma_kernel(const Q8Mat p) {
+  constexpr int kNT = kQ8Cols / 8;  // n8 mma tiles
+  extern __shared__ __align__(16) unsigned char smem8[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;  // an mma fragment's row, column pair
+  const int m0 = blockIdx.x * kQ8Rows, n0 = blockIdx.y * kQ8Cols;
+  const size_t D = static_cast<size_t>(p.S) * p.xbar;
+  const int kc = (p.xbar + kQ8Chunk - 1) / kQ8Chunk;  // chunks a segment
+  const bool split = p.scratch != nullptr;
+  const int per_group = (p.S + gridDim.z - 1) / gridDim.z;
+  const int lo = blockIdx.z * per_group;
+  const int hi = min(p.S, lo + per_group);
+  const int rounds = hi > lo ? (hi - lo + kQ8Warps - 1) / kQ8Warps : 0;
+  const int mine =
+      lo + warp < hi ? (hi - lo - warp + kQ8Warps - 1) / kQ8Warps : 0;
+  unsigned char* ring = smem8 + warp * kQ8WarpBytes;
+  unsigned char* wt = ring + kQ8Stages * kQ8StageBytes;
+  float* sums = reinterpret_cast<float*>(smem8 + kQ8RingBytes);
+
+  // chunk j of this warp (segment lo + warp + (j / kc) * 8, codes from
+  // (j % kc) * 64) into ring slot j % kQ8Stages; nothing past its last.
+  const auto load = [&](int j) {
+    if (j >= mine * kc) return;
+    unsigned char* xs = ring + (j % kQ8Stages) * kQ8StageBytes;
+    unsigned char* ws = xs + kQ8XBytes;
+    const int s = lo + warp + (j / kc) * kQ8Warps;
+    const int k0 = (j % kc) * kQ8Chunk;
+    const int8_t* xseg = p.x + static_cast<size_t>(s) * p.xbar + k0;
+    if (p.xvec) {
+#pragma unroll
+      for (int e = lane; e < kQ8Rows * 4; e += 32) {
+        const int r = e / 4, part = 16 * (e % 4);
+        const bool ok = m0 + r < p.M && k0 + part < p.xbar;
+        cadc::copy16(xs + r * kQ8XStride + part,
+                     ok ? xseg + (m0 + r) * D + part : p.x, ok);
+      }
+    } else {
+      uint32_t v[kQ8Rows * 16 / 32];  // every load in flight, then stored
+#pragma unroll
+      for (int i = 0; i < kQ8Rows * 16 / 32; ++i) {
+        const int e = lane + 32 * i, r = e / 16, at = 4 * (e % 16);
+        v[i] = m0 + r < p.M ? bytes4(xseg + (m0 + r) * D + at, k0 + at,
+                                     p.xbar)
+                            : 0u;
+      }
+#pragma unroll
+      for (int i = 0; i < kQ8Rows * 16 / 32; ++i) {
+        const int e = lane + 32 * i;
+        *reinterpret_cast<uint32_t*>(xs + (e / 16) * kQ8XStride +
+                                     4 * (e % 16)) = v[i];
+      }
+    }
+    const size_t row0 = static_cast<size_t>(s) * p.xbar + k0;  // of w
+    const int8_t* wseg = p.w + row0 * p.N + n0;
+    if (p.wmode == kWSpan) {
+      // rows k0 .. k0+63 of all N columns, one contiguous span
+      const int valid = min(kQ8Chunk, p.xbar - k0) * p.N;  // 16 | valid
+      for (int e = lane; e < kQ8Chunk * p.N / 16; e += 32)
+        cadc::copy16(ws + 16 * e, 16 * e < valid ? wseg + 16 * e : p.w,
+                     16 * e < valid);
+    } else if (p.wmode == kW16) {
+#pragma unroll
+      for (int e = lane; e < kQ8Chunk * 2; e += 32) {
+        const int r = e / 2, c = 16 * (e % 2);
+        const bool ok = k0 + r < p.xbar && n0 + c < p.N;
+        cadc::copy16(ws + r * kQ8WStride + c,
+                     ok ? wseg + static_cast<size_t>(r) * p.N + c : p.w, ok);
+      }
+    } else if (p.wmode == kW4) {
+#pragma unroll 4
+      for (int e = lane; e < kQ8Chunk * 8; e += 32) {
+        const int r = e / 8, c = 4 * (e % 8);
+        const bool ok = k0 + r < p.xbar && n0 + c < p.N;
+        cadc::copy4(ws + r * kQ8WStride + c,
+                    ok ? wseg + static_cast<size_t>(r) * p.N + c : p.w, ok);
+      }
+    } else {
+#pragma unroll 1
+      for (int i0 = 0; i0 < kQ8Chunk * 8 / 32; i0 += 8) {
+        uint32_t v[8];  // 8 words' loads in flight, then stored
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int e = lane + 32 * (i0 + i), r = e / 8, c = 4 * (e % 8);
+          v[i] = k0 + r < p.xbar
+                     ? bytes4(wseg + static_cast<size_t>(r) * p.N + c,
+                              n0 + c, p.N)
+                     : 0u;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int e = lane + 32 * (i0 + i);
+          *reinterpret_cast<uint32_t*>(ws + (e / 8) * kQ8WStride +
+                                       4 * (e % 8)) = v[i];
+        }
+      }
+    }
+  };
+
+  const bool magic = p.xbar <= kMagicMaxXbar;
+  const int ps0 = magic ? kMagicBits : 0;
+  const float sc = *p.scale;
+  int ps[kNT][4];        // the segment's psum (+ kMagicBits)
+  float acc[kQ8Per];     // the single pass: this thread's sums
+#pragma unroll
+  for (int i = 0; i < kQ8Per; ++i) acc[i] = 0.f;
+
+#pragma unroll
+  for (int j = 0; j < kQ8Stages - 1; ++j) {
+    load(j);
+    cadc::copy_commit();
+  }
+  int j = 0;  // the warp's chunk
+  for (int rd = 0; rd < rounds; ++rd) {
+    if (rd < mine) {
+      const int s = lo + warp + rd * kQ8Warps;
+#pragma unroll
+      for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ps[ni][e] = ps0;
+      for (int c = 0; c < kc; ++c, ++j) {
+        cadc::copy_wait<kQ8Stages - 2>();
+        __syncwarp();  // chunk j landed; every lane is done with j - 1
+        load(j + kQ8Stages - 1);
+        cadc::copy_commit();
+        const unsigned char* xs = ring + (j % kQ8Stages) * kQ8StageBytes;
+        if (p.wmode == kWSpan)
+          transpose_span(xs + kQ8XBytes, wt, lane, p.N);
+        else
+          transpose_w(xs + kQ8XBytes, wt, lane);
+        __syncwarp();
+#pragma unroll
+        for (int kk = 0; kk < kQ8Chunk / 32; ++kk) {
+          if (c * kQ8Chunk + kk * 32 >= p.xbar) break;  // all zeros
+          // A: rows 0-15 x bytes 0-15 / 16-31 (a0 a1 / a2 a3); B: columns
+          // 0-7 / 8-15 of a pair of n8 tiles x bytes 0-15 / 16-31.
+          uint32_t a[4], b[kNT][2];
+          ldsm4(a, xs + (lane % 16) * kQ8XStride + kk * 32 + (lane / 16) * 16);
+#pragma unroll
+          for (int np = 0; np < kNT / 2; ++np) {
+            uint32_t r[4];
+            ldsm4(r, wt + (np * 16 + lane % 8 + (lane / 16) * 8) * kQ8TStride +
+                         kk * 32 + (lane / 8 % 2) * 16);
+            b[2 * np][0] = r[0];
+            b[2 * np][1] = r[1];
+            b[2 * np + 1][0] = r[2];
+            b[2 * np + 1][1] = r[3];
+          }
+#pragma unroll
+          for (int ni = 0; ni < kNT; ++ni)
+            mma_s8(ps[ni], a, b[ni][0], b[ni][1]);
+        }
+      }
+      // segment s done: v = float(psum) * scale, exactly as
+      // __fmul_rn(__int2float_rn(p), scale); then its gate and f(v).
+      float v[kNT][4];
+#pragma unroll
+      for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[ni][e] = __fmul_rn(
+              magic ? __fsub_rn(__int_as_float(ps[ni][e]), kMagicF)
+                    : __int2float_rn(ps[ni][e]),
+              sc);
+      // f's id is a constant in each copy of this code (seg_end<kFn>).
+      const auto seg_end = [&](auto fn_id) {
+        constexpr int kFn = decltype(fn_id)::value;
+        if constexpr (kGate) {
+          if (p.gate_kind == cadc::kGatePacked) {
+            // Lane (g, q) holds columns 2q, 2q+1 of each n8 tile of rows g
+            // and g+8: the tile's 32-column word is the quad's 4 n8 tiles.
+            const int nw_all = (p.N + cadc::kPack - 1) / cadc::kPack;
+            uint32_t* words = static_cast<uint32_t*>(p.gate) +
+                              static_cast<size_t>(s) * p.M * nw_all;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int m = m0 + h * 8 + g;
+              uint32_t bits = 0;
+#pragma unroll
+              for (int u = 0; u < kNT; ++u)
+#pragma unroll
+                for (int c = 0; c < 2; ++c)
+                  if (cadc::dendritic_grad(kFn, v[u][2 * h + c]) != 0.f)
+                    bits |= 1u << (8 * u + 2 * q + c);
+              bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
+              bits |= __shfl_xor_sync(0xffffffffu, bits, 2);
+              if (q == 0 && m < p.M)
+                words[static_cast<size_t>(m) * nw_all + n0 / cadc::kPack] =
+                    bits;
+            }
+          } else {
+            const size_t base = static_cast<size_t>(s) * p.M * p.N;
+#pragma unroll
+            for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int m = m0 + (e / 2) * 8 + g;
+                const int n = n0 + ni * 8 + 2 * q + e % 2;
+                if (m >= p.M || n >= p.N) continue;
+                const float gv = cadc::dendritic_grad(kFn, v[ni][e]);
+                const size_t at = base + static_cast<size_t>(m) * p.N + n;
+                if (p.gate_kind == cadc::kGateU8)
+                  static_cast<uint8_t*>(p.gate)[at] = gv != 0.f;
+                else
+                  static_cast<float*>(p.gate)[at] = gv;
+              }
+          }
+        }
+#pragma unroll
+        for (int ni = 0; ni < kNT; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            v[ni][e] = cadc::dendritic_rn(kFn, v[ni][e]);
+      };
+      switch (p.fn) {
+        case 0: seg_end(std::integral_constant<int, 0>{}); break;
+        case 1: seg_end(std::integral_constant<int, 1>{}); break;
+        case 2: seg_end(std::integral_constant<int, 2>{}); break;
+        case 3: seg_end(std::integral_constant<int, 3>{}); break;
+        default: seg_end(std::integral_constant<int, 4>{}); break;
+      }
+      // f(psum): the split into scratch[s], the single pass into this
+      // warp's row of tiles
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = h * 8 + g;
+#pragma unroll
+        for (int ni = 0; ni < kNT; ++ni) {
+          const int col = ni * 8 + 2 * q;
+          const float f0 = v[ni][2 * h], f1 = v[ni][2 * h + 1];
+          if (split) {
+            const int m = m0 + r, n = n0 + col;
+            float* dst =
+                p.scratch + (static_cast<size_t>(s) * p.M + m) * p.N + n;
+            if (m < p.M && n < p.N) dst[0] = f0;
+            if (m < p.M && n + 1 < p.N) dst[1] = f1;
+          } else {
+            *reinterpret_cast<float2*>(
+                sums + (warp * kQ8Rows + r) * kQ8SumStride + col) =
+                make_float2(f0, f1);
+          }
+        }
+      }
+    }
+    if (!split) {
+      // the round's segments lo + rd*8 .. added in order, 8 at most
+      __syncthreads();
+      const int live = min(kQ8Warps, hi - lo - rd * kQ8Warps);
+#pragma unroll
+      for (int i = 0; i < kQ8Per; ++i) {
+        const int e = tid + i * kQ8Threads;
+        const float* col =
+            sums + (e / kQ8Cols) * kQ8SumStride + e % kQ8Cols;
+        for (int w2 = 0; w2 < live; ++w2)
+          acc[i] = __fadd_rn(acc[i], col[w2 * kQ8Rows * kQ8SumStride]);
+      }
+      __syncthreads();  // the tiles are read before the next round writes
+    }
+  }
+
+  bool ok[kQ8Per];
+  size_t at[kQ8Per];
+#pragma unroll
+  for (int i = 0; i < kQ8Per; ++i) {
+    const int e = tid + i * kQ8Threads;
+    const int m = m0 + e / kQ8Cols, n = n0 + e % kQ8Cols;
+    ok[i] = m < p.M && n < p.N;
+    at[i] = ok[i] ? static_cast<size_t>(m) * p.N + n : 0;
+  }
+  if (split) {
+    // the last block of the tile to arrive adds its S tiles in order
+    int* counter = p.counters + blockIdx.y * gridDim.x + blockIdx.x;
+    if (!cadc::arrive_last(counter, gridDim.z)) return;
+    const size_t mn = static_cast<size_t>(p.M) * p.N;
+    for (int s0 = 0; s0 < p.S; s0 += kQ8MergeSegs) {
+      float v[kQ8MergeSegs][kQ8Per];
+#pragma unroll
+      for (int t = 0; t < kQ8MergeSegs; ++t)
+#pragma unroll
+        for (int i = 0; i < kQ8Per; ++i)
+          v[t][i] = ok[i] && s0 + t < p.S
+                        ? __ldcg(p.scratch + (s0 + t) * mn + at[i])
+                        : 0.f;
+#pragma unroll
+      for (int t = 0; t < kQ8MergeSegs; ++t)
+        if (s0 + t < p.S)
+#pragma unroll
+          for (int i = 0; i < kQ8Per; ++i)
+            acc[i] = __fadd_rn(acc[i], v[t][i]);
+    }
+    if (tid == 0) *counter = 0;
+  }
+#pragma unroll
+  for (int i = 0; i < kQ8Per; ++i)
+    if (ok[i]) p.y[at[i]] = acc[i];
+}
+
+template <bool kGate>
+int launch_q8(const Q8Mat& p, int groups, cudaStream_t stream) {
+  static std::atomic<uint64_t> opted_in{0};
+  if (const int e = cadc::opt_in(q8_mma_kernel<kGate>,
+                                 kQ8RingBytes + kQ8SumBytes, opted_in))
+    return e;
+  const dim3 grid((p.M + kQ8Rows - 1) / kQ8Rows,
+                  (p.N + kQ8Cols - 1) / kQ8Cols, groups);
+  const int smem = kQ8RingBytes + (p.scratch ? 0 : kQ8SumBytes);
+  q8_mma_kernel<kGate><<<grid, kQ8Threads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plan arguments: `scratch` NULL for the single pass, else an fp32
@@ -501,16 +989,33 @@ extern "C" int cadc_matmul_gate_launch(const void* x, const void* w, void* y,
 
 // K4 (gate_kind 0, gate NULL) and K4g (gate_kind 1-3, K1g's layouts):
 // x_q [M, S*xbar] and w [S*xbar, N] int8, row-major; scale: one fp32 in
-// device memory; y [M, N] fp32; the tile kernel with `rows` rows.
+// device memory; y [M, N] fp32; the int8 tensor-core kernel over `groups`
+// segment groups (1: the single pass, scratch NULL; more: scratch
+// [S, M, N] and the counters, 1 < groups <= S).
 extern "C" int cadc_matmul_q8_launch(const void* x, const void* w,
                                      const void* scale, void* y,
                                      void* scratch, void* counters,
                                      void* gate, int M, int N, int S,
                                      int xbar, int fn, int gate_kind,
-                                     int rows, void* stream) {
-  return tile_by_gate<int8_t, int>(x, w, scale, y, scratch, counters, gate,
-                                   M, N, S, xbar, fn, gate_kind, rows,
-                                   stream);
+                                     int groups, void* stream) {
+  if (groups < 1 || groups > S || (groups > 1) != (scratch != nullptr) ||
+      (scratch && !counters) || gate_kind < cadc::kGateNone ||
+      gate_kind > cadc::kGateF32 || (gate_kind != cadc::kGateNone && !gate))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t wa = reinterpret_cast<uintptr_t>(w);
+  const int wmode = wa % 16 == 0 && N % 16 == 0         ? kW16
+                    : wa % 16 == 0 && N <= kQ8Cols && xbar % 16 == 0 ? kWSpan
+                    : wa % 4 == 0 && N % 4 == 0           ? kW4
+                                                          : kWBytes;
+  const Q8Mat p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+                static_cast<const float*>(scale), static_cast<float*>(y),
+                static_cast<float*>(scratch), static_cast<int*>(counters),
+                gate, M, N, S, xbar, fn, gate_kind,
+                xa % 16 == 0 && xbar % 16 == 0, wmode};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (gate_kind == cadc::kGateNone) return launch_q8<false>(p, groups, st);
+  return launch_q8<true>(p, groups, st);
 }
 
 extern "C" const char* cadc_matmul_error_string(int code) {

@@ -1,16 +1,17 @@
 // Shared device code of the CADC kernels for Hopper (sm_90a): the dendritic
 // fns and their derivatives, the segmented forward tile kernel that K1
-// and K1g (cadc_matmul.cu), K3 (cadc_conv.cu) and the q8 kernels K4
-// (cadc_matmul.cu) and K5 (cadc_conv.cu) instantiate, and the ordered
-// segment sum that ends a launch split over segments (the tile kernel's
-// split, and cadc_matmul.cu's stream kernel).
+// and K1g (cadc_matmul.cu) and the gather kernels of K3 and K5
+// (cadc_conv.cu) instantiate, the ordered segment sum that ends a launch
+// split over segments (the tile kernel's split, and cadc_matmul.cu's
+// stream kernel), and the int8 tensor-core pieces of K4 (cadc_matmul.cu)
+// and K5's tap kernel (cadc_conv.cu).
 //
 // The forward tile kernel computes
 //
 //     y[M, N] = sum_s f( sum_{k < xbar, s*xbar + k < D} X(m, s*xbar + k) * w[s*xbar + k, n] )
 //
-// where X is read through a loader: the row-major x of a matmul (K1, K1g,
-// K4) or the implicit im2col gather of a convolution (K3, K5). f is applied
+// where X is read through a loader: the row-major x of a matmul (K1,
+// K1g) or the implicit im2col gather of a convolution (K3, K5). f is applied
 // per segment before the cross-segment sum, segments are added in order
 // s = 0, 1, ... into an fp32 accumulator, and each output element of y is
 // written once. With kGate the kernel also writes each segment's gate
@@ -19,7 +20,7 @@
 // padded to whole words), or one byte / one fp32 per psum.
 //
 // Acc is the psum's type. float (K1, K1g, K3): fp32 operands (bf16
-// widened), fp32 FMAs. int (K4, K5, the q8 kernels): int8 operands widened
+// widened), fp32 FMAs. int (K5's gather kernel): int8 operands widened
 // to int32, exact int32 multiply-adds — so the order of the psum's terms
 // is free — and at the end of each segment the psum is dequantized once,
 // float(p) * scale with scale read from device memory. In the q8 kernels
@@ -146,6 +147,37 @@ __device__ __forceinline__ void copy_wait() {
 __device__ __forceinline__ float bit_f(uint32_t word, int b) {
   return __uint_as_float((0u - ((word >> b) & 1u)) & 0x3f800000u);
 }
+
+// Four 8 x 8 matrices of 16-bit elements (here: 8 rows of 16 bytes each)
+// from shared memory; lane l gives the row address of matrix l / 8.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4],
+                                      const unsigned char* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// d += a (m16 x k32, row) * b (k32 x n8, col), int8 in, exact int32 sums.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An int32 psum that starts at the bits of 1.5 * 2^23 holds kMagicBits + p;
+// for |p| <= 2^22 (int8 codes, xbar <= kMagicMaxXbar: 256 * 128 * 128)
+// those are the bits of the float 1.5 * 2^23 + p, exactly, so one
+// subtraction of kMagicF gives float(p) with no rounding — the result of
+// __int2float_rn, which issues at 16 a clock per SM where the subtraction
+// issues at 128.
+constexpr int kMagicBits = 0x4B400000;
+constexpr float kMagicF = 12582912.f;
+constexpr int kMagicMaxXbar = 256;
 
 // Set a kernel's dynamic shared-memory opt-in once per device (host).
 template <typename Kernel>

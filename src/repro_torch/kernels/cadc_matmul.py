@@ -40,10 +40,13 @@ bytes a mode saves.
                                          (`_q8_kernel_with_gate`).
 The sources are csrc/cadc_matmul.cu (K1, K1g, K4, K4g) and
 csrc/cadc_bwd.cu (K2); their notes give the bounds and designs. Each
-forward is one launch under the plan `plan_fwd` picks from the shapes: the
-tile kernel (single pass, or split over segments and summed in order by
-the last block of each output tile, bitwise the single pass), or for K1 at
-M <= 8 the stream kernel, which streams w in 16-byte vectors. K2 is at
+forward is one launch. K1 and K1g run under the plan `plan_fwd` picks from
+the shapes: the tile kernel (single pass, or split over segments and
+summed in order by the last block of each output tile, bitwise the single
+pass), or for K1 at M <= 8 the stream kernel, which streams w in 16-byte
+vectors. K4 and K4g run the int8 tensor-core kernel (`mma.sync` s8 ->
+s32) under `plan_fwd_q8`: the single pass, or the segments split over
+blocks in groups, bitwise the single pass. K2 is at
 most two launches (dx, dw) under the plan `plan_bwd` picks: tiles
 narrowed to the segments, dw's M-splits added in order by the last block
 of each tile.
@@ -127,6 +130,15 @@ _TAIL_S = (1.5e-6, 3.5e-8, 5e-11)
 _GRID_X_MAX, _GRID_YZ_MAX = 2**31 - 1, 65535  # CUDA's grid: x; y and z
 # The q8 plain versions' fp32 psums are exact while xbar * 128 * 128 <= 2^24.
 Q8_MAX_XBAR = 1024
+# K4's launch plan (`plan_fwd_q8`; csrc/cadc_matmul.cu `q8_mma_kernel`): a
+# block owns Q8_ROWS x Q8_COLS outputs of y and each of its Q8_WARPS warps
+# computes that tile for its own segments; `groups` > 1 splits the segments
+# over blocks, whose f(psum) tiles the last block of the tile adds in
+# order.
+Q8_ROWS, Q8_COLS, Q8_WARPS = 16, 32, 8
+# The kernel's psums start at the bits of 1.5 * 2^23 (Q8_MAGIC_BITS) up to
+# this xbar, where |psum| <= xbar * 128 * 128 <= 2^22 keeps them exact.
+Q8_MAGIC_BITS, Q8_MAGIC_MAX_XBAR = 0x4B400000, 256
 
 
 def _check_shapes(x: Tensor, w: Tensor, crossbar_size: int) -> int:
@@ -478,6 +490,125 @@ def plan_fwd(m: int, n: int, n_seg: int, crossbar_size: int, *,
             else _make_plan("tile", 8, split, m, n, n_seg, vec))
 
 
+class Q8Plan(NamedTuple):
+    """A K4 launch: the segments in `groups` groups (1: the single pass;
+    more: one block per (tile, group), the groups' f(psum) tiles added in
+    order by the last block of each tile); `grid` (M tiles, N tiles,
+    groups) of the one launch, tiles of Q8_ROWS x Q8_COLS."""
+    groups: int
+    grid: Tuple[int, int, int]
+
+    @property
+    def split(self) -> bool:
+        return self.groups > 1
+
+    @property
+    def tiles(self) -> int:
+        """Output tiles: the arrival counters a split launch uses."""
+        return self.grid[0] * self.grid[1]
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    def fits(self) -> bool:
+        """The grid is within CUDA's limits, and a split's tiles within the
+        device's arrival counters."""
+        return (self.grid[0] <= _GRID_X_MAX
+                and max(self.grid[1:]) <= _GRID_YZ_MAX
+                and (not self.split or self.tiles <= N_COUNTERS))
+
+
+# The planner's model of a K4 launch (us, `_q8_seconds`), fitted by
+# tools/profile_k4.py --refit to its --set plans sweep on an H100 80GB HBM3
+# at 700 W: _Q8_FIXED, then per wave of blocks (one block an SM)
+# _Q8_ROUND per round of segments (one a warp) and _Q8_LOAD per segment a
+# block holds at once (its warps' loads share the SM), each per 64-code
+# chunk of a segment; a split adds the last block's ordered sum,
+# _Q8_MERGE[0] + _Q8_MERGE[1] per Q8_MERGE_SEGS segments (the loads it
+# keeps in flight: csrc/cadc_matmul.cu kQ8MergeSegs).
+_Q8_FIXED = 1.606
+_Q8_ROUND = 1.297
+_Q8_LOAD = 0.074
+_Q8_MERGE = (0.811, 1.393)
+Q8_MERGE_SEGS = 32
+
+
+def _q8_plan(groups: int, m: int, n: int) -> Q8Plan:
+    return Q8Plan(groups, (-(-m // Q8_ROWS), -(-n // Q8_COLS), groups))
+
+
+def _q8_seconds(plan: Q8Plan, n_seg: int, crossbar_size: int) -> float:
+    """The planner's model of a launch's time (us)."""
+    chunks = -(-crossbar_size // 64)
+    held = -(-n_seg // plan.groups)           # segments a block takes
+    rounds = -(-held // Q8_WARPS)
+    per_block = chunks * (rounds * _Q8_ROUND + min(held, Q8_WARPS) * _Q8_LOAD)
+    t = _Q8_FIXED + -(-plan.blocks // SMS) * per_block
+    if plan.split:
+        t += _Q8_MERGE[0] + _Q8_MERGE[1] * -(-n_seg // Q8_MERGE_SEGS)
+    return t
+
+
+def _q8_groups(n_seg: int) -> list:
+    """The segment groups the planner weighs: 1, 2, 4, ... and n_seg."""
+    return [1 << i for i in range(n_seg.bit_length())
+            if 1 << i < n_seg] + [n_seg]
+
+
+def _q8_group_ok(n_seg: int, groups: int) -> bool:
+    """groups of ceil(n_seg / groups) segments leave none empty."""
+    return (1 <= groups <= n_seg
+            and -(-n_seg // -(-n_seg // groups)) == groups)
+
+
+def plan_fwd_q8(m: int, n: int, n_seg: int, crossbar_size: int, *,
+                _force=None) -> Q8Plan:
+    """K4's launch plan for x [m, n_seg*xbar] @ w [n_seg*xbar, n], from the
+    shapes alone: of the segment groups `_q8_groups` lists (1 is the single
+    pass), the one `_q8_seconds` rates fastest (ties: fewer groups) whose
+    grid fits. Every plan computes each output as the plain version's chain
+    of additions, so every plan gives the same bits. `_force` = groups
+    builds that plan instead, for tests, and raises on one the shape does
+    not admit (past n_seg, leaving a group empty, or a grid that does not
+    fit). Cached."""
+    return _plan_fwd_q8(int(m), int(n), int(n_seg), int(crossbar_size),
+                        None if _force is None else int(_force))
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_fwd_q8(m, n, n_seg, crossbar_size, _force) -> Q8Plan:
+    if min(m, n, n_seg, crossbar_size) < 1:
+        raise ValueError(f"K4 plans M, N, S, xbar >= 1; got {m}, {n}, "
+                         f"{n_seg}, {crossbar_size}")
+    if _force is not None:
+        plan = _q8_plan(_force, m, n)
+        if not _q8_group_ok(n_seg, _force) or not plan.fits():
+            raise ValueError(f"K4: no plan of {_force} groups for M={m} "
+                             f"N={n} S={n_seg} xbar={crossbar_size}")
+        return plan
+    cands = [(_q8_seconds(p, n_seg, crossbar_size), p.groups, p)
+             for p in (_q8_plan(gr, m, n) for gr in _q8_groups(n_seg))
+             if _q8_group_ok(n_seg, p.groups) and p.fits()]
+    if not cands:
+        raise ValueError(f"K4: M={m} N={n} exceed CUDA's grid")
+    return min(cands)[-1]
+
+
+def q8_plans(m: int, n: int, n_seg: int, crossbar_size: int) -> list:
+    """The planner's plan, then every other group count `_q8_groups` lists:
+    the plans tests and tools hold to each other, bitwise."""
+    out = [plan_fwd_q8(m, n, n_seg, crossbar_size)]
+    for groups in _q8_groups(n_seg):
+        try:
+            p = plan_fwd_q8(m, n, n_seg, crossbar_size, _force=groups)
+        except ValueError:
+            continue
+        if p not in out:
+            out.append(p)
+    return out
+
+
 def _counters(device) -> Tensor:
     """The device's arrival counters (zeroed int32 [N_COUNTERS]), made at
     the first split launch, which must not be inside a CUDA graph capture.
@@ -497,10 +628,10 @@ def _counters(device) -> Tensor:
 
 def _fwd_launch(x: Tensor, w: Tensor, crossbar_size: int, fn: str,
                 mode: str, scale: Optional[Tensor] = None,
-                plan: Optional[Plan] = None
-                ) -> Tuple[Tensor, Optional[Tensor]]:
+                plan=None) -> Tuple[Tensor, Optional[Tensor]]:
     """K1 (mode 'none') or K1g on CUDA tensors; K4 / K4g with `scale`. One
-    launch under `plan` (default: plan_fwd's)."""
+    launch under `plan` (default: plan_fwd's, or with `scale` plan_fwd_q8's;
+    a q8 plan of another shape raises)."""
     n_seg = _check_shapes(x, w, crossbar_size)
     m, n = x.shape[0], w.shape[1]
     x, w = x.contiguous(), w.contiguous()
@@ -509,14 +640,20 @@ def _fwd_launch(x: Tensor, w: Tensor, crossbar_size: int, fn: str,
             if mode in ("packed", "bytes") else None)
     if m == 0 or n == 0:
         return y, gate
-    if plan is None:
-        vec = (16 // x.element_size()
-               if gate is None and scale is None else 0)
-        plan = plan_fwd(m, n, n_seg, crossbar_size, vec=vec)
-    if max(plan.grid[1:]) > 65535:
-        raise ValueError(f"M={m}, S={n_seg} exceed the kernel's grid")
-    if plan.kernel == "stream" and (gate is not None or scale is not None):
-        raise ValueError("the stream kernel runs K1 only")
+    if scale is not None:
+        if plan is None:
+            plan = plan_fwd_q8(m, n, n_seg, crossbar_size)
+        elif not isinstance(plan, Q8Plan) or plan != plan_fwd_q8(
+                m, n, n_seg, crossbar_size, _force=plan.groups):
+            raise ValueError(f"K4: plan {plan} is not one of this shape's")
+    else:
+        if plan is None:
+            vec = 16 // x.element_size() if gate is None else 0
+            plan = plan_fwd(m, n, n_seg, crossbar_size, vec=vec)
+        if max(plan.grid[1:]) > 65535:
+            raise ValueError(f"M={m}, S={n_seg} exceed the kernel's grid")
+        if plan.kernel == "stream" and gate is not None:
+            raise ValueError("the stream kernel runs K1 only")
     scratch = counters = None
     if plan.split:
         scratch = torch.empty((n_seg, m, n), dtype=torch.float32,
@@ -528,11 +665,10 @@ def _fwd_launch(x: Tensor, w: Tensor, crossbar_size: int, fn: str,
     args = (y.data_ptr(), ptr(scratch), ptr(counters))
     if scale is not None:
         code = lib.cadc_matmul_q8_launch(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), *args,
-            None if gate is None else gate.data_ptr(), m, n, n_seg,
-            crossbar_size, FN_IDS[fn],
-            _gate_kind(mode if gate is not None else "none", fn), plan.width,
-            stream)
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), *args, ptr(gate),
+            m, n, n_seg, crossbar_size, FN_IDS[fn],
+            _gate_kind(mode if gate is not None else "none", fn),
+            plan.groups, stream)
     elif gate is None:
         code = lib.cadc_matmul_launch(
             x.data_ptr(), w.data_ptr(), *args, m, n, n_seg, crossbar_size,

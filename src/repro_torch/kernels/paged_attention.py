@@ -28,8 +28,11 @@ The plain version makes two choices beyond the JAX gather:
     reductions group their terms by the reduced length, so only equal
     shapes keep the paged cache bitwise equal to the dense one;
   * entries no q token may read are zeroed after the gather, so garbage
-    (NaN) in dead or unallocated blocks never meets a 0 weight, and an
-    idle slot (all -1) yields 0, as in the kernel.
+    (NaN) in dead or unallocated blocks never meets a 0 weight;
+  * a q row with no valid entry writes 0 — an idle slot (all -1), or with
+    Q > 1 a token whose window holds only -1 blocks while a later token
+    of its slot reads — the rule of `_flash_kernel` and of the kernel,
+    where `paged_attention_xla` averages every gathered V of the slot.
 
 Ring-validity mask (`_ring_mask`, shared by both): for q token t of a
 slot at base position pos (absolute position qp = pos + t), ring entry i
@@ -156,7 +159,11 @@ def paged_attention_torch(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                                              device=k_c.device))
     v_c = torch.where(read, v_c, torch.zeros((), dtype=v_c.dtype,
                                              device=v_c.device))
-    return masked_sdpa(q, k_c, v_c, valid, softcap)
+    out = masked_sdpa(q, k_c, v_c, valid, softcap)
+    # a row that reads nothing: 0, not the softmax of its NEG_INF scores
+    empty = ~valid.any(dim=-1)[:, :, None, None]             # [B, Q, 1, 1]
+    return torch.where(empty, torch.zeros((), dtype=out.dtype,
+                                          device=out.device), out)
 
 
 @functools.lru_cache(maxsize=None)

@@ -142,24 +142,6 @@ def test_paged_attention_kernel_chunk_groups(cuda_device, b):
             assert torch.equal(got[1], torch.zeros_like(got[1]))
 
 
-def _k6_want(q, kp, vp, tbl, pos, *, kind, window, softcap=None):
-    """The plain version, but 0 in a row that may read no entry of its
-    slot: the rule of K6 and of the JAX package's `_flash_kernel`, where
-    the gather formulation averages the V its slot reads (with Q > 1 a
-    token can see nothing while a later one of its slot sees entries)."""
-    want = pa.paged_attention_torch(q, kp, vp, tbl, pos, kind=kind,
-                                    window=window, softcap=softcap)
-    bs, nb = kp.shape[1], tbl.shape[1]
-    valid = pa._ring_mask(pos, torch.arange(nb * bs, device=q.device),
-                          kind=kind, ring_len=nb * bs, window=window,
-                          q_len=q.shape[1])
-    live = (tbl >= 0).repeat_interleave(bs, dim=1)
-    empty = ~(valid & live[:, None]).any(-1)                    # [B, Q]
-    return torch.where(empty[:, :, None, None],
-                       torch.zeros((), dtype=want.dtype, device=want.device),
-                       want)
-
-
 # K6 under every plan: (Q, H, K) with R = Q * H / K rows of 2 (one tile
 # of 2), 6 (a tile of 8, 2 padded) and 24 (3 tiles of 8); fp32 within
 # 2e-5 of the plain version, bf16 within 3e-2 (chip_smoke.py K6_TOL)
@@ -181,7 +163,7 @@ def test_paged_attention_every_plan(cuda_device, dtype, q_len, h, kh,
     args = [a.to(dtype) for a in args] + [
         torch.from_numpy(a).to(cuda_device) for a in (tbl, pos)]
     kw = dict(kind=kind, window=12, softcap=softcap)
-    want = _k6_want(*args, **kw)
+    want = pa.paged_attention_torch(*args, **kw)
     shape = (5, kh, 6, q_len * h // kh, 64, args[0].element_size(), 8)
     plans = pa.paged_plans(*shape)
     assert len(plans) == 2 * 4   # cps 1, 2, 3, 6 x 128 / 256 threads
@@ -211,7 +193,7 @@ def test_paged_attention_wide_rows_every_plan(cuda_device, dtype, hd, kind):
     args = [torch.from_numpy(a).to(cuda_device) for a in (q, kp, vp)]
     args = [a.to(dtype) for a in args] + [
         torch.from_numpy(a).to(cuda_device) for a in (tbl, pos)]
-    want = _k6_want(*args, kind=kind, window=32)
+    want = pa.paged_attention_torch(*args, kind=kind, window=32)
     plans = pa.paged_plans(4, 1, 4, 4, hd, args[0].element_size(), 16)
     assert max(p.smem for p in plans) > 48 * 1024
     for plan in plans:
@@ -1052,8 +1034,8 @@ def test_matmul_plans_are_bitwise(cuda_device, d, n, m, fn, mode):
                                    (128, 512, 10), (32, 4096, 11)])
 @pytest.mark.parametrize("fn", ["relu", "sublinear"])
 def test_q8_matmul_plans_are_bitwise(cuda_device, m, d, n, fn):
-    """K4 and K4g under every plan equal the plain version bitwise (the
-    q8 FC shapes of VGG-16, ResNet-18 and the SNN)."""
+    """K4 and K4g under every plan of `q8_plans` equal the plain version
+    bitwise (the q8 FC shapes of VGG-16, ResNet-18 and the SNN)."""
     xbar = 64
     x = _codes(cuda_device, m + n, (m, d), -7, 8)
     w = _codes(cuda_device, d + n, (d, n), -1, 2)
@@ -1061,12 +1043,154 @@ def test_q8_matmul_plans_are_bitwise(cuda_device, m, d, n, fn):
     want = cm.cadc_matmul_q8_torch(x, w, scale, crossbar_size=xbar, fn=fn)
     wy, wgate = cm.cadc_matmul_q8_gate_torch(x, w, scale, crossbar_size=xbar,
                                              fn=fn, mode="bytes")
-    for plan in _all_plans(m, n, d // xbar, xbar):
+    plans = cm.q8_plans(m, n, d // xbar, xbar)
+    assert len(plans) > 1
+    for plan in plans:
         y, _ = cm._fwd_launch(x, w, xbar, fn, "none", scale, plan=plan)
         yg, gate = cm._fwd_launch(x, w, xbar, fn, "bytes", scale, plan=plan)
         torch.cuda.synchronize()
         assert torch.equal(y, want) and torch.equal(yg, wy), plan
         assert torch.equal(gate, wgate), plan
+
+
+# K4's int8 tensor-core kernel: the five q8 FC shapes (VGG-16 f1-f3,
+# ResNet-18's fc, the SNN's fc), then ragged M (5, 33) x N (10, 11, 33, 100)
+_Q8_MMA_SHAPES = ([(128, 512, 512), (128, 512, 512), (128, 512, 100),
+                   (128, 512, 10), (32, 4096, 11)]
+                  + [(m, 256, n) for m in (5, 33) for n in (10, 11, 33, 100)])
+# (fn, gate mode) of every gate layout: none, packed words, bytes, fp32
+_Q8_MMA_MODES = [("relu", "none"), ("relu", "packed"), ("relu", "bytes"),
+                 ("sublinear", "bytes"), ("identity", "none"),
+                 ("tanh", "none")]
+
+
+def _q8_every_plan(x, w, scale, xbar, modes=_Q8_MMA_MODES):
+    """Every plan of `q8_plans` bitwise the plain version (tanh within 1e-6
+    of scale) and bitwise each other plan, outputs and gates."""
+    m, n = x.shape[0], w.shape[1]
+    plans = cm.q8_plans(m, n, x.shape[1] // xbar, xbar)
+    for fn, mode in modes:
+        if mode == "none":
+            want, wgate = cm.cadc_matmul_q8_torch(
+                x, w, scale, crossbar_size=xbar, fn=fn), None
+        else:
+            want, wgate = cm.cadc_matmul_q8_gate_torch(
+                x, w, scale, crossbar_size=xbar, fn=fn, mode=mode)
+        first = None
+        for plan in plans:
+            y, gate = cm._fwd_launch(x, w, xbar, fn, mode, scale, plan=plan)
+            torch.cuda.synchronize()
+            _q8_equal(y, want, fn)
+            if wgate is not None:
+                assert torch.equal(gate, wgate), (fn, mode, plan)
+            if first is None:
+                first = y, gate
+            assert torch.equal(y, first[0]), (fn, mode, plan)
+            assert gate is None or torch.equal(gate, first[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xbar", [32, 64, 96, 128, 256, 512])
+@pytest.mark.parametrize("m,d,n", _Q8_MMA_SHAPES)
+def test_q8_mma_every_plan_is_bitwise(cuda_device, m, d, n, xbar):
+    """D padded to whole crossbars as ops pads it; xbar 96 ends its
+    segments inside a 64-code chunk, 32 in the first half of one."""
+    dp = -(-d // xbar) * xbar
+    x = _codes(cuda_device, m + n + xbar, (m, dp), -7, 8)
+    w = _codes(cuda_device, dp + n, (dp, n), -1, 2)
+    _q8_every_plan(x, w, torch.tensor(0.0123, device=cuda_device), xbar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xbar", [256, 512])
+@pytest.mark.parametrize("fx,fw", [(-128, -128), (127, -128), (-128, 127)])
+def test_q8_mma_extreme_codes(cuda_device, xbar, fx, fw):
+    """Codes at -128 / 127: |psum| reaches 2^22 at xbar 256 (the top of the
+    magic conversion) and 2^23 at 512 (past it: __int2float_rn)."""
+    m, n = 33, 40
+    x = torch.full((m, 2 * xbar), fx, dtype=torch.int8, device=cuda_device)
+    w = torch.full((2 * xbar, n), fw, dtype=torch.int8, device=cuda_device)
+    x[::3] = 127 if fx == -128 else -128   # psums of both signs
+    _q8_every_plan(x, w, torch.tensor(3e-7, device=cuda_device), xbar,
+                   [("identity", "none"), ("relu", "packed"),
+                    ("relu", "bytes"), ("sublinear", "bytes")])
+
+
+@pytest.mark.cuda
+def test_q8_mma_off_alignment(cuda_device):
+    """x and w starting off 16 bytes (byte loads), N a multiple of 4 (4-byte
+    copies) and xbar off 16: every plan still the plain version's bits."""
+    m, n, xbar = 33, 100, 40
+    xb = _codes(cuda_device, 1, (m * 3 * xbar + 1,), -7, 8)
+    wb = _codes(cuda_device, 2, (3 * xbar * n + 3,), -1, 2)
+    x, w = xb[1:].view(m, 3 * xbar), wb[3:].view(3 * xbar, n)
+    assert x.data_ptr() % 16 and w.data_ptr() % 4
+    _q8_every_plan(x, w, torch.tensor(0.0123, device=cuda_device), xbar)
+    _q8_every_plan(x.clone(), w.clone(),
+                   torch.tensor(0.0123, device=cuda_device), xbar)
+
+
+@pytest.mark.cuda
+def test_q8_mma_one_launch_a_call(cuda_device):
+    """K4 and K4g each launch once a call, under the planner's plan, single
+    pass and split alike."""
+    scale = torch.tensor(0.0123, device=cuda_device)
+    for m, d, n in ((128, 512, 512), (32, 4096, 11)):
+        x = _codes(cuda_device, 3, (m, d), -7, 8)
+        w = _codes(cuda_device, 4, (d, n), -1, 2)
+        before = (cm.cadc_matmul_q8_cuda.launches,
+                  cm.cadc_matmul_q8_gate_cuda.launches)
+        cm.cadc_matmul_q8_cuda(x, w, scale, crossbar_size=64, fn="relu")
+        cm.cadc_matmul_q8_gate_cuda(x, w, scale, crossbar_size=64,
+                                    fn="relu", mode="packed")
+        assert (cm.cadc_matmul_q8_cuda.launches,
+                cm.cadc_matmul_q8_gate_cuda.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    assert cm.plan_fwd_q8(32, 11, 64, 64).split
+
+
+@pytest.mark.cuda
+def test_q8_mma_counters_read_zero_and_replay(cuda_device):
+    """Every split plan leaves the arrival counters zero, eager and in a
+    CUDA graph replayed twice; the replays and back-to-back calls with no
+    sync between them give the same bits."""
+    scale = torch.tensor(0.0123, device=cuda_device)
+    x = _codes(cuda_device, 5, (32, 4096), -7, 8)
+    w = _codes(cuda_device, 6, (4096, 11), -1, 2)
+    plans = [p for p in cm.q8_plans(32, 11, 64, 64) if p.split]
+    assert len(plans) >= 5
+    calls = [lambda p=p: cm._fwd_launch(x, w, 64, "relu", "packed", scale,
+                                        plan=p) for p in plans]
+    eager = [c() for c in calls]
+    again = [c() for c in calls]
+    torch.cuda.synchronize()
+    counters = cm._counters(cuda_device)
+    assert int(counters.abs().sum()) == 0
+    for (y0, g0), (y1, g1) in zip(eager, again):
+        assert torch.equal(y0, y1) and torch.equal(g0, g1)
+        assert torch.equal(y0, eager[0][0])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c() for c in calls]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(counters.abs().sum()) == 0
+        for (y, g), (y0, g0) in zip(outs, eager):
+            assert torch.equal(y, y0) and torch.equal(g, g0)
+
+
+@pytest.mark.cuda
+def test_q8_mma_refuses_another_shapes_plan(cuda_device):
+    scale = torch.tensor(0.0123, device=cuda_device)
+    x = _codes(cuda_device, 7, (128, 512), -7, 8)
+    w = _codes(cuda_device, 8, (512, 10), -1, 2)
+    other = cm.plan_fwd_q8(128, 100, 8, 64)
+    with pytest.raises(ValueError, match="not one of this shape's"):
+        cm._fwd_launch(x, w, 64, "relu", "none", scale, plan=other)
+    with pytest.raises(ValueError, match="not one of this shape's"):
+        cm._fwd_launch(x, w, 64, "relu", "none", scale,
+                       plan=cm.plan_fwd(128, 10, 8, 64))
 
 
 @pytest.mark.cuda

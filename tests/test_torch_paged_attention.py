@@ -131,6 +131,37 @@ class TestPlainMatchesJax:
         assert np.array_equal(got[1], np.zeros_like(got[1]))
         np.testing.assert_allclose(got, want, **TOL)
 
+    @pytest.mark.parametrize("h,kh", [(4, 2), (8, 1)])
+    @pytest.mark.parametrize("softcap", [None, 30.0])
+    def test_row_that_reads_nothing_writes_zero(self, h, kh, softcap):
+        """Q = 3, slot 3 at position 47 of a 48-entry local ring, window
+        12, blocks 4-5 unallocated: its first token's window holds only
+        -1 blocks while the later two read block 0. The plain version
+        writes 0 in that row, as `_flash_kernel` (interpret mode) and K6
+        do; every other row keeps its value. `paged_attention_xla`
+        differs there on purpose (pinned): a uniform softmax over NEG_INF
+        scores averages every V it gathered for the slot, the -1 blocks'
+        stand-in (pool block 0) included."""
+        args = _geometry(np.random.RandomState(h * 10 + kh), b=5, q_len=3,
+                         h=h, kh=kh, nb=6, positions=(5, 20, 31, 47, 2))
+        q, kp, vp, tbl, pos = args
+        assert (tbl[3, 4:] == -1).all() and (tbl[3, :4] >= 0).all()
+        kw = dict(kind="local", window=12, softcap=softcap)
+        got = _port(args, **kw)
+        want = _jax(args, "interpret", **kw)
+        assert np.array_equal(got[3, 0], np.zeros_like(got[3, 0]))
+        assert np.array_equal(want[3, 0], np.zeros_like(want[3, 0]))
+        assert np.abs(got[3, 1:]).min() > 0
+        np.testing.assert_allclose(got, want, **TOL)
+        xla = _jax(args, "xla", **kw)
+        v_ring = vp[np.maximum(tbl[3], 0)].reshape(-1, kh, vp.shape[-1])
+        mean = np.repeat(v_ring.mean(axis=0), h // kh, axis=0)  # [h, hd]
+        np.testing.assert_allclose(xla[3, 0], mean, **TOL)
+        assert np.abs(xla[3, 0]).max() > 1e-3
+        rest = np.ones(got.shape[:2], bool)
+        rest[3, 0] = False
+        np.testing.assert_allclose(got[rest], xla[rest], **TOL)
+
     @pytest.mark.parametrize("kind", ["global", "local"])
     def test_covered_prefix_slice_equals_full_bitwise(self, kind):
         q, kp, vp, tbl, pos = _geometry(np.random.RandomState(11),
