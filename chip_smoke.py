@@ -7,15 +7,17 @@ Phases; any failure exits non-zero and prints no result line:
   1. build the CUDA kernels from src/repro_torch/csrc (one nvcc per source,
      all started together);
   2. K1 (CADC matmul) against its plain version on the card at every
-     gemma3-1b linear shape, M = 8 (decode: the stream kernel), 256 and
-     every prefill M of the main path (8 slots x each prompt bucket), fp32
-     (TF32 off) and bf16, relu and identity;
+     gemma3-1b linear shape, M = 8 (decode: the stream kernel), 32 (a
+     verify step: 8 slots x Q = 4), 256 and every prefill M of the main
+     path (8 slots x each prompt bucket), fp32 (TF32 off) and bf16, relu
+     and identity;
   3. K6 (paged attention) against its plain version under the planner's
      plan and every forced plan (plan_paged): the main path's ring
      geometry (ring 160 under a 512 window, each covered-prefix table
-     width it slices), longer local and global rings, -1 blocks, NaN-filled
-     dead blocks, an idle slot, and enough slots that the ring is split
-     into groups of several chunks;
+     width it slices), the verify steps' (Q = 4 on the 176-entry headroom
+     rings, each width covered_blocks(pos + 3) slices), longer local and
+     global rings, -1 blocks, NaN-filled dead blocks, an idle slot, and
+     enough slots that the ring is split into groups of several chunks;
   4. the main path: ServeEngine at full gemma3-1b width in bf16 with CADC
      linears and kernel_impl="auto" (8 slots, 16 Poisson requests, prompts
      <= 128, gen <= 32, block 16). Launch counts are zeroed just before it
@@ -35,6 +37,24 @@ Phases; any failure exits non-zero and prints no result line:
      K6 once per layer: its groups merge inside the kernel). K6 also
      beside the launch floor (a one-element add_ under the same replay)
      and SDPA's fastest backend that takes the masked call.
+
+Slice 4, speculative decoding and checkpoints:
+  4a. the verify gap: on one engine state (8 slots after a prefill, bf16),
+     max |delta logit| between each row of a Q = 4 verify step and a
+     Q = 1 decode step at the same prefix, with the kernels on, K1 alone,
+     K6 alone and neither, and the head as one GEMM against per column;
+  4b. serve_spec: phase 4's workload with spec_tokens = 3 under the n-gram
+     proposer, the draft model (gemma3-1b at 3 layers), an oracle that
+     replays the spec_tokens=0 streams and its anti-oracle: all 16
+     requests finish, exact launch counts (K6 once a layer a verify step;
+     K1 7 x layers a verify step and a prefill, plus the draft model's),
+     the anti-oracle accepts nothing; every stream equals the
+     spec_tokens=0 stream or leaves it first at a token whose greedy
+     top-2 margin is below the gap of 4a; the n-gram engine's device time
+     per verify step under the profiler;
+  9a. ckpt_resume: LeNet-5 (K3, K1g, K2) 4 steps straight against 2 steps
+     that save and a new train() call that resumes to 4: bitwise params,
+     exact launch counts.
 
 Slice 2, CNN training (fp32, TF32 off):
   7. K1g / K2 against their plain versions at every FC shape of LeNet-5
@@ -149,6 +169,8 @@ LOGITS_RTOL = 1e-4
 # The main path (phase 4): engine geometry and Poisson workload.
 N_SLOTS, MAX_LEN, BLOCK = 8, 160, 16
 PROMPT_LEN, MAX_NEW = (64, 128), (16, 32)
+# Slice 4, speculative decoding: drafts a slot a verify step (Q = K + 1).
+SPEC_K = 3
 
 
 def fail(msg: str) -> None:
@@ -336,14 +358,17 @@ def linear_shapes(cfg):
 
 
 def k1_rows():
-    """M of every K1 call on the main path: N_SLOTS at decode, N_SLOTS x the
-    engine's prompt bucket at each batched prefill (rows are padded to the
-    bucket, whatever the number admitted); plus 256, a mid size."""
+    """M of every K1 call on the serving paths: N_SLOTS at decode, N_SLOTS x
+    the engine's prompt bucket at each batched prefill (rows are padded to
+    the bucket, whatever the number admitted), N_SLOTS x (SPEC_K + 1) at a
+    verify step; plus 256, a mid size. The draft model has the target's
+    widths and runs K1 at N_SLOTS (its rollout and re-feed steps) and at
+    the same prefill rows."""
     from repro_torch.serve.engine import _bucket
 
     lo, hi = PROMPT_LEN
-    return sorted({N_SLOTS, 256} | {N_SLOTS * _bucket(p)
-                                    for p in range(lo, hi + 1)})
+    return sorted({N_SLOTS, N_SLOTS * (SPEC_K + 1), 256}
+                  | {N_SLOTS * _bucket(p) for p in range(lo, hi + 1)})
 
 
 def check_k1(cfg, dev, report):
@@ -377,20 +402,21 @@ def check_k1(cfg, dev, report):
 
 
 def k6_inputs(cfg, dev, dtype, *, kind, ring_len, nb, positions, gen,
-              n_blocks=None):
-    """q, pools, a fragmented table (trailing -1 past each slot's live
-    blocks, an idle last slot) and positions for len(positions) slots."""
+              n_blocks=None, q_len=1):
+    """q [B, q_len, H, hd], pools, a fragmented table (trailing -1 past each
+    slot's live blocks, an idle last slot) and positions for
+    len(positions) slots."""
     b = len(positions)
     bs, h, kh, hd = 16, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     n_blocks = n_blocks or b * (ring_len // bs) + 4
-    q = torch.randn(b, 1, h, hd, generator=gen, device=dev).to(dtype)
+    q = torch.randn(b, q_len, h, hd, generator=gen, device=dev).to(dtype)
     kp = torch.randn(n_blocks, bs, kh, hd, generator=gen, device=dev).to(dtype)
     vp = torch.randn(n_blocks, bs, kh, hd, generator=gen, device=dev).to(dtype)
     perm = torch.randperm(n_blocks, generator=gen, device=dev).cpu().numpy()
     tbl = np.full((b, ring_len // bs), -1, np.int32)
     take = 0
     for i, p in enumerate(positions[:-1]):
-        live = min(-(-(p + 1) // bs), ring_len // bs)
+        live = min(-(-(p + q_len) // bs), ring_len // bs)
         tbl[i, :live] = perm[take:take + live]
         take += live
     pos = torch.tensor(positions, dtype=torch.int32, device=dev)
@@ -421,6 +447,35 @@ def main_path_k6_cases(cfg):
     return cases
 
 
+def spec_ring(cfg, kind: str) -> int:
+    """The verify step's ring: PagedBackend(spec_tokens=SPEC_K)'s rule."""
+    from repro_torch.models.lm.attention import cache_len
+
+    need = cache_len(cfg, kind, MAX_LEN + SPEC_K, headroom=SPEC_K)
+    return -(-need // BLOCK) * BLOCK
+
+
+def spec_k6_cases(cfg):
+    """(kind, window, ring_len, table blocks, positions, Q) of the verify
+    steps of serve_spec: Q = SPEC_K + 1 on the headroom rings, sliced to
+    each width covered_blocks(pos + SPEC_K) gives for base positions
+    PROMPT_LEN[0] .. MAX_LEN - 1; N_SLOTS - 1 busy slots spread over the
+    base positions that width covers, and an idle last slot."""
+    cases = []
+    for kind in ("local", "global"):
+        ring = spec_ring(cfg, kind)
+        widths = set()
+        for p in range(PROMPT_LEN[0], MAX_LEN):
+            k = -(-min(p + SPEC_K + 1, ring) // BLOCK)
+            widths.add(min(1 << (k - 1).bit_length(), ring // BLOCK))
+        for nb in sorted(widths):
+            top = min(MAX_LEN, nb * BLOCK - SPEC_K) - 1
+            pos = np.linspace(PROMPT_LEN[0], top, N_SLOTS - 1).astype(int)
+            cases.append((kind, cfg.local_window, ring, nb,
+                          pos.tolist() + [0], SPEC_K + 1))
+    return cases
+
+
 def check_k6(cfg, dev, report):
     from repro_torch.kernels import cadc_matmul as cm
     from repro_torch.kernels import paged_attention as pa
@@ -428,18 +483,19 @@ def check_k6(cfg, dev, report):
     gen = torch.Generator(device=dev).manual_seed(2)
     worst = 0.0
     many = np.random.RandomState(2).randint(0, 2048, size=40).tolist()
-    cases = main_path_k6_cases(cfg) + [
+    cases = [c + (1,) for c in main_path_k6_cases(cfg) + [
         ("local", 512, 512, 32, [3, 200, 511, 512, 700, 1023, 1500, 9]),
         ("local", 64, 128, 8, [3, 63, 64, 130, 300, 77, 127, 0]),
         ("global", 512, 160, 4, [0, 10, 33, 40, 50, 60, 63, 2]),  # warm-up
         ("local", 512, 512, 32, many),  # 40 slots: groups of 5 chunks
-    ]
+    ]] + spec_k6_cases(cfg)
     n_plans = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for kind, window, ring, nb, positions in cases:
+        for kind, window, ring, nb, positions, q_len in cases:
             q, kp, vp, tbl, pos = k6_inputs(cfg, dev, dtype, kind=kind,
                                             ring_len=ring, nb=nb,
-                                            positions=positions, gen=gen)
+                                            positions=positions, gen=gen,
+                                            q_len=q_len)
             t = torch.as_tensor(tbl, device=dev)
             kw = dict(kind=kind, window=window, ring_len=ring)
             want = pa.paged_attention_torch(q, kp, vp, t, pos, **kw)
@@ -447,7 +503,8 @@ def check_k6(cfg, dev, report):
             dirty_k, dirty_v = kp.clone(), vp.clone()
             idx = torch.arange(ring, device=dev)
             valid = pa._ring_mask(pos, idx, kind=kind, ring_len=ring,
-                                  window=window, q_len=1)[:, 0].cpu()
+                                  window=window, q_len=q_len
+                                  ).any(dim=1).cpu()
             read = set()
             for i in range(len(positions)):
                 for c in range(nb):
@@ -465,7 +522,7 @@ def check_k6(cfg, dev, report):
                         dirty_k[int(tbl[i, c]), off] = float("nan")
                         dirty_v[int(tbl[i, c]), off] = float("nan")
             shape = (len(positions), cfg.n_kv_heads, nb,
-                     cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
+                     q_len * cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
                      q.element_size(), 16)
             # the planner's plan (None) and every forced plan
             for plan in [None] + pa.paged_plans(*shape):
@@ -478,7 +535,7 @@ def check_k6(cfg, dev, report):
                 worst = max(worst, err)
                 n_plans += 1
                 tag = (f"K6 {kind} window={window} ring={ring} nb={nb} "
-                       f"B={len(positions)} {dtype} plan {plan}")
+                       f"B={len(positions)} Q={q_len} {dtype} plan {plan}")
                 if not err <= K6_TOL[dtype]:
                     fail(f"{tag}: max abs err {err} > {K6_TOL[dtype]}")
                 if not torch.equal(dirty, got) or torch.isnan(dirty).any():
@@ -489,12 +546,13 @@ def check_k6(cfg, dev, report):
     if int(cm._counters(dev).abs().sum()):
         fail("K6 left the arrival counters nonzero")
     report["k6_max_abs_err"] = worst
-    report["k6_cases"] = [c[:4] + (len(c[4]),) for c in cases]
+    report["k6_cases"] = [c[:4] + (len(c[4]), c[5]) for c in cases]
     print(f"K6 paged_attention: {2 * len(cases)} cases x every plan "
           f"({n_plans} runs) ok (main path "
-          f"{[c[:4] for c in main_path_k6_cases(cfg)]}; NaN garbage, idle "
-          f"slot, covered prefix, 40 slots), max abs err {worst:.3e}",
-          flush=True)
+          f"{[c[:4] for c in main_path_k6_cases(cfg)]}; verify steps at "
+          f"Q={SPEC_K + 1} {[c[:4] for c in spec_k6_cases(cfg)]}; NaN "
+          f"garbage, idle slot, covered prefix, 40 slots), max abs err "
+          f"{worst:.3e}", flush=True)
 
 
 def serve_main_path(cfg, params, dev, report):
@@ -553,21 +611,24 @@ def serve_main_path(cfg, params, dev, report):
         "ttft_ms_p50", "ttft_ms_p99", "prefill_ms_p50", "decode_tokens")}
     report["serve"].update(decode_steps=n_dec, prefills=n_pre, wall_s=wall,
                            launches=launches)
+    base = {"workload": workload, "summary": summary,
+            "tokens": [engine.results[rid].tokens
+                       for rid in sorted(engine.results)]}
     profile_decode(engine, cfg, report)
-    return launches
+    return launches, base
 
 
-def profile_decode(engine, cfg, report) -> None:
+def profile_decode(engine, cfg, report, key="serve", max_new=12) -> None:
     """Device busy time per decode step with every slot busy: torch.profiler
-    (CUPTI) over 8 pure decode steps, summing the device-side events. A
-    diagnostic: if the profiler cannot trace here, it is recorded as not
-    measured and the run goes on."""
+    (CUPTI) over 8 pure decode (or verify) steps, summing the device-side
+    events, into report[key]. A diagnostic: if the profiler cannot trace
+    here, it is recorded as not measured and the run goes on."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.RandomState(7)
     for _ in range(engine.ecfg.n_slots):
         engine.submit(rng.randint(0, cfg.vocab_size, size=96).astype(np.int32),
-                      12)
+                      max_new)
     engine.step()  # admission, batched prefill, first decode step
     n_steps = 8
     try:
@@ -586,33 +647,33 @@ def profile_decode(engine, cfg, report) -> None:
             rows.append((us, e.key, e.count))
     except Exception as e:  # diagnostic only: keep the smoke run going
         print(f"profiler: not measured ({e!r})", file=sys.stderr)
-        report["serve"]["device_busy_ms_per_step"] = f"not measured: {e!r}"
+        report[key]["device_busy_ms_per_step"] = f"not measured: {e!r}"
         engine.run()
         return
     engine.run()  # drain
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e3 / n_steps
-    report["serve"]["device_busy_ms_per_step"] = busy if rows else \
+    report[key]["device_busy_ms_per_step"] = busy if rows else \
         "not measured: the profiler saw no device events"
-    report["serve"]["device_top_per_step"] = [
+    report[key]["device_top_per_step"] = [
         {"name": k[:90], "ms": us / 1e3 / n_steps, "calls": c / n_steps}
         for us, k, c in rows[:12]]
     groups = {}
-    for us, key, calls in rows:
-        name = ("K1 stream kernel" if "stream_kernel" in key
-                else "K1 tile kernel" if "RowMajor" in key
-                else "K6 paged attention" if "paged_attention" in key
+    for us, kname, calls in rows:
+        name = ("K1 stream kernel" if "stream_kernel" in kname
+                else "K1 tile kernel" if "RowMajor" in kname
+                else "K6 paged attention" if "paged_attention" in kname
                 else "other (PyTorch)")
         g = groups.setdefault(name, {"ms": 0.0, "calls": 0.0})
         g["ms"] += us / 1e3 / n_steps
         g["calls"] += calls / n_steps
-    report["serve"]["device_ms_per_step_by_kernel"] = groups
+    report[key]["device_ms_per_step_by_kernel"] = groups
     k6_calls = groups.get("K6 paged attention", {}).get("calls", 0)
     if k6_calls != cfg.n_layers:
         fail(f"decode profile: {k6_calls} K6 launches a step, want one a "
              f"layer ({cfg.n_layers})")
-    print(f"profiler: device busy per decode step: "
-          f"{report['serve']['device_busy_ms_per_step']} ms (8 slots busy, "
+    print(f"profiler ({key}): device busy per step: "
+          f"{report[key]['device_busy_ms_per_step']} ms (8 slots busy, "
           f"{n_steps} steps)", flush=True)
     for gname, g in sorted(groups.items(), key=lambda kv: -kv[1]["ms"]):
         print(f"  {gname}: {g['ms']:.3f} ms/step over {g['calls']:.0f} "
@@ -703,14 +764,287 @@ def fp32_logits_check(cfg, params, dev, report):
           f"greedy picks equal on {same}/{len(picks)} steps", flush=True)
 
 
-def time_k1(cfg, dev, launches, report):
+def replay_proposer(k, streams, vocab, shift):
+    """The oracle (shift 0: replays the spec_tokens=0 streams, so every
+    draft stands until the cap) or its anti-oracle (shift 1: those tokens
+    + 1 mod vocab, so none does) of tests/test_speculative.py. A history no
+    stream extends (a warm-up request, or a stream that left the greedy one
+    at a near-tie) gets its last token + shift, repeated."""
+    from repro_torch.serve import Proposer
+
+    class Replay(Proposer):
+        def propose(self, active, histories):
+            out = np.zeros((len(histories), self.k), np.int32)
+            for s, hist in enumerate(histories):
+                if not active[s]:
+                    continue
+                full = next((f for f in streams if f.size >= hist.size
+                             and np.array_equal(f[: hist.size], hist)), None)
+                if full is None:
+                    cont = np.full(self.k, hist[-1], np.int64)
+                else:
+                    cont = full[hist.size: hist.size + self.k]
+                    cont = np.concatenate(
+                        [cont, np.zeros(self.k - cont.size, np.int64)])
+                out[s] = (cont + shift) % vocab
+            return out
+
+    return Replay(k)
+
+
+def verify_gap(cfg, params, dev, report) -> float:
+    """max |logit| difference between each row t of a verify step (Q =
+    SPEC_K + 1) and a Q = 1 decode step at the same prefix, on one engine
+    state: N_SLOTS slots after a batched prefill of prompts of 64..128
+    tokens on the headroom rings, the drafts being the decode steps' own
+    greedy picks (so each row's prefix is the decode's), tables sliced as
+    the engine slices them. Measured in bf16 (the serving path; the
+    kernels-on gap bounds the stream check) and in fp32 (TF32 off; finer
+    than bf16's rounding of the logits), each with the kernels on, K1
+    alone (plain paged attention), K6 alone (plain linears) and neither;
+    plus the head as one GEMM over the step's rows against the per-column
+    head the verify step computes, and the device time of both."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models.lm import transformer as tf
+    from repro_torch.serve.backends import PagedBackend
+    from repro_torch.serve.blocks import BlockTables
+
+    rng = np.random.RandomState(8)
+    lengths = np.linspace(*PROMPT_LEN, N_SLOTS).astype(np.int32)
+    tokens = np.zeros((N_SLOTS, PROMPT_LEN[1]), np.int64)
+    for i, n in enumerate(lengths):
+        tokens[i, :n] = rng.randint(0, cfg.vocab_size, size=n)
+    slot_ids = np.arange(N_SLOTS, dtype=np.int32)
+
+    def gap(path_cfg):
+        backend = PagedBackend(path_cfg, N_SLOTS, MAX_LEN, BLOCK, dev,
+                               spec_tokens=SPEC_K)
+        caches = backend.init_caches()
+        tables = BlockTables(N_SLOTS, backend.blocks_per_slot,
+                             backend.n_blocks)
+        for slot in range(N_SLOTS):
+            tables.assign(slot)
+
+        def sliced(max_pos):
+            cov = backend.covered_blocks(max_pos)
+            return {k: torch.as_tensor(np.ascontiguousarray(v[:, :cov[k]]),
+                                       device=dev)
+                    for k, v in tables.tables.items()}
+
+        p = steps_lib.cast_compute(params, path_cfg)
+        first, _, contribs = steps_lib.make_batched_prefill_step(path_cfg)(
+            p, {"tokens": torch.as_tensor(tokens, device=dev)},
+            torch.as_tensor(lengths, device=dev))
+        backend.write_prefill(caches, contribs, slot_ids, lengths,
+                              tables.tables)
+        pos = torch.as_tensor(lengths.astype(np.int64), device=dev)
+        top = int(lengths.max())
+        dec_caches = [type(c)(c.k.clone(), c.v.clone()) for c in caches]
+        fed, dec = [first.long()], []
+        for t in range(SPEC_K + 1):
+            nxt, lg = backend.decode(p, dec_caches, sliced(top + t), fed[-1],
+                                     pos + t)
+            dec.append(lg)
+            fed.append(nxt.long())
+        heads = []
+        head = tf._head
+        tf._head = lambda pp, x, c: heads.append(x) or head(pp, x, c)
+        try:
+            _, ver, _ = backend.decode_spec(
+                p, caches, sliced(top + SPEC_K),
+                torch.stack(fed[:SPEC_K + 1], dim=1), pos)
+        finally:
+            tf._head = head
+        torch.cuda.synchronize()
+        err = max(float((ver[:, t] - dec[t]).abs().max())
+                  for t in range(SPEC_K + 1))
+        x = torch.cat(heads, dim=1)
+        one = head(p, x, path_cfg)
+        per_col = torch.cat([head(p, x[:, t:t + 1], path_cfg)
+                             for t in range(x.shape[1])], dim=1)
+        return err, float((one - per_col).abs().max())
+
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        for name, kimpl, aimpl in (("kernels", "auto", "auto"),
+                                   ("K1 only", "auto", "torch"),
+                                   ("K6 only", "torch", "auto"),
+                                   ("plain", "torch", "torch")):
+            err, head_one_gemm = gap(cfg.with_overrides(
+                dtype=dtype, kernel_impl=kimpl, paged_attn_impl=aimpl))
+            out.setdefault(dtype, {})[name] = {
+                "max_abs_logit_gap": err, "head_as_one_gemm": head_one_gemm}
+        print(f"verify step vs Q = 1 decode, max |delta logit| ({dtype}, "
+              f"one state, {N_SLOTS} slots, Q = {SPEC_K + 1}): "
+              + "; ".join(f"{k} {v['max_abs_logit_gap']:.4g}"
+                          for k, v in out[dtype].items())
+              + f"; the head as one GEMM over the {N_SLOTS * (SPEC_K + 1)} "
+              f"rows against per column: "
+              f"{out[dtype]['kernels']['head_as_one_gemm']:.4g}", flush=True)
+    # what the per-column head costs: device ms of the verify step's head,
+    # bf16, as one GEMM and per column
+    p = steps_lib.cast_compute(params, cfg)
+    x = torch.randn(N_SLOTS, SPEC_K + 1, cfg.d_model, device=dev).to(
+        torch.bfloat16)
+    one_ms = device_ms(lambda: tf._head(p, x, cfg), 10)
+    col_ms = device_ms(lambda: [tf._head(p, x[:, t:t + 1], cfg)
+                                for t in range(SPEC_K + 1)], 10)
+    del p
+    out["head_ms"] = {"one_gemm": one_ms, "per_column": col_ms}
+    print(f"verify step's head (bf16): one GEMM {one_ms:.3f} ms, per column "
+          f"{col_ms:.3f} ms", flush=True)
+    report["verify_gap"] = out
+    gap_all = out["bfloat16"]["kernels"]["max_abs_logit_gap"]
+    if not math.isfinite(gap_all):
+        fail(f"verify gap is not finite: {gap_all}")
+    return gap_all
+
+
+def serve_spec(cfg, params, dev, base, gap, report) -> None:
+    """Slice 4's path: the main path's workload through the engine with
+    spec_tokens = SPEC_K under four proposers (n-gram, the draft model —
+    gemma3-1b at default_draft_config's 3 layers, random weights from seed
+    1 — the oracle and its anti-oracle), each after a warm-up, with exact
+    launch counts. Every stream must equal the spec_tokens=0 stream, or
+    leave it first at a token whose top-2 logit margin in the greedy run
+    is below the measured verify gap."""
+    from repro_torch.kernels import cadc_matmul as cm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve import EngineConfig, ServeEngine, poisson_workload
+
+    workload = base["workload"]
+    greedy = base["tokens"]
+    streams = [np.concatenate([p, np.asarray(t, np.int64)])
+               for (_, p, _), t in zip(workload, greedy)]
+
+    # top-2 margins of the greedy run at every token (a run that records
+    # its logits; its streams must be the timed run's)
+    ref = ServeEngine(cfg, params, EngineConfig(
+        n_slots=N_SLOTS, max_len=MAX_LEN, block_size=BLOCK,
+        record_logits=True), device=dev)
+    ref.run(workload)
+    margins = []
+    for i, rid in enumerate(sorted(ref.results)):
+        req = ref.results[rid]
+        if req.tokens != greedy[i]:
+            fail(f"greedy run is not deterministic: request {i} differs "
+                 "between two spec_tokens=0 runs")
+        top2 = np.sort(np.stack(req.logits), axis=-1)[:, -2:]
+        margins.append(top2[:, 1] - top2[:, 0])
+        req.logits = []
+    del ref
+
+    warm = poisson_workload(n_requests=2, rate=1.0, vocab_size=cfg.vocab_size,
+                            prompt_len=(16, 32), max_new=(2, 4), seed=99)
+    plain = base["summary"]
+    out = {}
+    for name in ("ngram", "model", "oracle", "anti"):
+        engine = ServeEngine(cfg, params, EngineConfig(
+            n_slots=N_SLOTS, max_len=MAX_LEN, block_size=BLOCK,
+            spec_tokens=SPEC_K,
+            spec_draft="model" if name == "model" else "ngram"), device=dev)
+        if name in ("oracle", "anti"):
+            engine.proposer = replay_proposer(SPEC_K, streams,
+                                              cfg.vocab_size,
+                                              int(name == "anti"))
+        engine.run(warm)
+        engine.reset_metrics()
+        advances = [0]  # the draft model's re-feed steps (on_commit)
+        commit = engine.proposer.on_commit
+
+        def counted(committed, commit=commit):
+            advances[0] += max(len(c) for c in committed if c is not None)
+            commit(committed)
+
+        engine.proposer.on_commit = counted
+        torch.cuda.synchronize()
+        cm.cadc_matmul_cuda.launches = 0
+        pa.paged_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        summary = engine.run(workload)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"cadc_matmul": cm.cadc_matmul_cuda.launches,
+                    "paged_attention": pa.paged_attention_cuda.launches}
+        engine.proposer.on_commit = commit
+        tel = engine.telemetry
+        n_ver, n_pre = tel.spec_steps, len(tel.prefill_s)
+        draft = 0
+        if name == "model":
+            draft = 7 * engine.proposer.cfg_d.n_layers * (
+                SPEC_K * n_ver + advances[0] + n_pre)
+        want = {"cadc_matmul": 7 * cfg.n_layers * (n_ver + n_pre) + draft,
+                "paged_attention": cfg.n_layers * n_ver}
+        if n_ver != len(tel.step_s) or launches != want:
+            fail(f"serve_spec {name}: launched {launches}, want {want} "
+                 f"({n_ver} verify steps, {n_pre} prefills, draft "
+                 f"{draft})")
+        if summary["requests_finished"] != len(workload):
+            fail(f"serve_spec {name}: {summary['requests_finished']}/"
+                 f"{len(workload)} requests finished")
+        sp = summary["speculative"]
+        if name == "anti" and (tel.spec_accepted != 0
+                               or tel.spec_committed != tel.spec_slot_steps):
+            fail(f"serve_spec anti-oracle: {tel.spec_accepted} drafts "
+                 f"accepted, {tel.spec_committed} tokens over "
+                 f"{tel.spec_slot_steps} slot-steps (want 0, one a step)")
+        diverged = []
+        for i, rid in enumerate(sorted(engine.results)):
+            toks = engine.results[rid].tokens
+            if len(toks) != workload[i][2] or not all(
+                    0 <= t < cfg.vocab_size for t in toks):
+                fail(f"serve_spec {name} request {i}: {len(toks)} tokens "
+                     f"(want {workload[i][2]}) or one outside the vocab")
+            if toks == greedy[i]:
+                continue
+            at = next(j for j, (a, b) in enumerate(zip(toks, greedy[i]))
+                      if a != b)
+            m = float(margins[i][at])
+            diverged.append({"request": i, "token": at, "margin": m})
+            if not m < gap:
+                fail(f"serve_spec {name} request {i}: the stream leaves the "
+                     f"greedy one at token {at}, where the greedy top-2 "
+                     f"margin {m:.4g} is not below the verify gap {gap:.4g}")
+        out[name] = {k: summary[k] for k in (
+            "tokens_per_s", "tokens_per_s_p50", "step_ms_p50",
+            "step_ms_p99", "ttft_ms_p50", "decode_tokens")}
+        out[name].update(
+            requests_finished=summary["requests_finished"],
+            accept_rate=sp["accept_rate"],
+            tokens_per_step=sp["tokens_per_step"], drafted=sp["drafted"],
+            accepted=sp["accepted"], verify_steps=n_ver, prefills=n_pre,
+            draft_refeed_steps=advances[0] if name == "model" else 0,
+            launches=launches, wall_s=wall, diverged=diverged)
+        print(f"serve_spec {name} (K={SPEC_K}): "
+              f"{summary['requests_finished']}/{len(workload)} requests, "
+              f"tok/s {summary['tokens_per_s']:.1f} (spec_tokens=0: "
+              f"{plain['tokens_per_s']:.1f}), step ms p50 "
+              f"{summary['step_ms_p50']:.3f} p99 {summary['step_ms_p99']:.3f}"
+              f" (spec_tokens=0: {plain['step_ms_p50']:.3f} / "
+              f"{plain['step_ms_p99']:.3f}), accept rate "
+              f"{sp['accept_rate']:.3f}, tokens/slot/step "
+              f"{sp['tokens_per_step']:.3f}, {n_ver} verify steps, launches "
+              f"{json.dumps(launches)}; streams: "
+              f"{len(workload) - len(diverged)} equal to spec_tokens=0, "
+              f"{len(diverged)} leave it at near-ties {diverged}",
+              flush=True)
+        if name == "ngram":
+            # 40 new tokens: the 8 profiled steps all verify, even at full
+            # acceptance
+            profile_decode(engine, cfg, out, key="ngram", max_new=40)
+        del engine
+    report["serve_spec"] = out
+
+
+def time_k1(cfg, dev, launches, report, m=N_SLOTS):
     """One decode step's K1 work: the seven linears at M = 8 slots, bf16,
-    relu, x 26 layers. Weights rotate over copies that hold 3x the L2
-    cache, as in a real step that streams 1.5 GB of weights."""
+    relu, x 26 layers (with m = 32: a verify step's). Weights rotate over
+    copies that hold 3x the L2 cache, as in a real step that streams 1.5 GB
+    of weights."""
     from repro_torch.kernels import cadc_matmul as cm
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    m, dt, xbar = 8, torch.bfloat16, cfg.crossbar_size
+    dt, xbar = torch.bfloat16, cfg.crossbar_size
     tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0, "ops": 0.0}
     per_shape = {}
     for name, d, n in linear_shapes(cfg):
@@ -744,6 +1078,19 @@ def time_k1(cfg, dev, launches, report):
         del ws
     layers = cfg.n_layers
     b_ms, b_by = bound_ms(tot["bytes"] * layers, tot["ops"] * layers, dt)
+    if m != N_SLOTS:
+        report["k1_timing_verify"] = {
+            "unit": f"one verify step: 7 linears x {layers} layers, M={m}, "
+                    "bf16, relu",
+            "per_shape_one_call": per_shape, "ms": tot["ms"] * layers,
+            "plain_ms": tot["plain"] * layers,
+            "matmul_ms": tot["lib"] * layers, "bound_ms": b_ms}
+        print(f"K1 at a verify step (M={m}): {tot['ms'] * layers:.3f} ms "
+              f"(plain {tot['plain'] * layers:.3f}, torch.matmul "
+              f"{tot['lib'] * layers:.3f}, bound {b_ms:.3f} by {b_by}); "
+              f"plans {sorted({v['plan'] for v in per_shape.values()})}",
+              flush=True)
+        return None
     # prefill-sized M (8 slots x a 128-token bucket) at the w_gate shape
     m_pre, (_, d_g, n_g) = 1024, linear_shapes(cfg)[4]
     xp = torch.randn(m_pre, d_g, generator=gen, device=dev).to(dt)
@@ -1429,6 +1776,64 @@ def lenet_path(dev, report):
     print(f"LeNet-5 path (vConv + CADC, {LENET_STEPS} steps each, batch "
           f"{LENET_BATCH}): {wall:.1f} s, launches {json.dumps(got)} as the "
           f"layer list says", flush=True)
+
+
+def ckpt_resume(dev, report) -> None:
+    """Slice 4's training part: LeNet-5 (CADC relu at crossbar 64: K3, K1g,
+    K2) trained 4 steps straight, then 2 steps that save and, in a new
+    train() call on the same ckpt_dir, resumed to step 4: the params must
+    be bitwise the straight run's; exact launch counts over the three
+    calls (8 train steps, 3 eval batches)."""
+    import shutil
+
+    from repro_torch import ckpt
+    from repro_torch.data import synthetic
+    from repro_torch.models.cnn import lenet5
+    from repro_torch.models.common import LayerMode
+    from repro_torch.train import loop
+
+    d = os.path.join(REPO, "build", "ckpt_resume")
+    shutil.rmtree(d, ignore_errors=True)
+    kw = dict(init_fn=lenet5.init, apply_fn=lenet5.apply,
+              batch_fn=synthetic.make_classification_dataset(
+                  synthetic.ClassificationSpec(**MNIST), device=dev),
+              mode=LayerMode(impl="cadc", crossbar_size=64, fn="relu"),
+              device=dev)
+
+    def cfg(steps, ckpt_dir=None):
+        return loop.TrainConfig(steps=steps, batch_size=LENET_BATCH,
+                                eval_every=1, eval_batches=1,
+                                ckpt_dir=ckpt_dir, ckpt_every=2)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    straight = loop.train(cfg=cfg(4), **kw)
+    loop.train(cfg=cfg(2, d), **kw)
+    if ckpt.all_steps(d) != [2]:
+        fail(f"ckpt_resume: checkpoints {ckpt.all_steps(d)} after 2 steps, "
+             "want [2]")
+    resumed = loop.train(cfg=cfg(4, d), **kw)
+    got = read_counts()
+    wall = time.perf_counter() - t0
+    tr, ev = per_step_launches("lenet5", "cadc")
+    want = expect(tr, ev, 8, 3)
+    if got != want:
+        fail(f"ckpt_resume launched {got}, want {want}")
+    if [h["step"] for h in resumed["history"]] != [2, 3]:
+        fail(f"ckpt_resume: the resumed run took steps "
+             f"{[h['step'] for h in resumed['history']]}, want [2, 3]")
+    names, a = ckpt.checkpoint._flatten(resumed["params"])
+    _, b = ckpt.checkpoint._flatten(straight["params"])
+    differ = [n for n, x, y in zip(names, a, b) if not torch.equal(x, y)]
+    if differ:
+        fail(f"ckpt_resume: resumed params differ from the straight run's "
+             f"at {differ}")
+    shutil.rmtree(d, ignore_errors=True)
+    report["ckpt_resume"] = {"wall_s": wall, "launches": got,
+                             "leaves_bitwise": len(names)}
+    print(f"ckpt_resume: LeNet-5 4 steps straight = 2 steps + save + resume "
+          f"to 4, bitwise over {len(names)} param tensors, launches "
+          f"{json.dumps(got)}, {wall:.1f} s", flush=True)
 
 
 def _model(model):
@@ -2632,17 +3037,21 @@ def main() -> None:
     check_k3(dev, report)
 
     params = tf.init(cfg, seed=0, device=dev)        # fp32, random weights
-    launches = serve_main_path(cfg, params, dev, report)
+    launches, base = serve_main_path(cfg, params, dev, report)
     fp32_logits_check(cfg, params, dev, report)
+    gap = verify_gap(cfg, params, dev, report)
+    serve_spec(cfg, params, dev, base, gap, report)
     del params
     torch.cuda.empty_cache()
 
     lenet_path(dev, report)
+    ckpt_resume(dev, report)
     training_parity(dev, report)
     train_launches, resnet_trained = resnet_main_path(dev, report)
     time_resnet_step(dev, report)
     torch.cuda.empty_cache()
 
+    time_k1(cfg, dev, launches, report, m=N_SLOTS * (SPEC_K + 1))
     kernels = [time_k1(cfg, dev, launches, report),
                time_k6(cfg, dev, launches, report),
                *time_train_kernels(dev, train_launches, report)]

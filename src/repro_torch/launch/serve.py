@@ -3,12 +3,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_1b \
         --smoke --cadc --slots 4 --requests 12 --rate 0.5 --device cpu
 
-The port of repro.launch.serve, minus speculative decoding and plus
---device (default cuda; the run raises when CUDA is absent) and
---kernel-impl (the CADC-linear backend; the config default 'auto' runs the
-CUDA kernel on a CUDA device and the plain segmented linear on the CPU).
-Requests arrive as a Poisson-style synthetic stream, so the engine
-exercises admission queueing, eviction and slot/block reuse.
+The port of repro.launch.serve, plus --device (default cuda; the run
+raises when CUDA is absent) and --kernel-impl (the CADC-linear backend;
+the config default 'auto' runs the CUDA kernel on a CUDA device and the
+plain segmented linear on the CPU). Requests arrive as a Poisson-style
+synthetic stream, so the engine exercises admission queueing, eviction
+and slot/block reuse. --spec-tokens K turns decode steps into draft/verify
+steps (K drafts a slot scored in one multi-token paged append; --draft
+picks the proposer) without changing the committed token streams.
 """
 from __future__ import annotations
 
@@ -55,6 +57,14 @@ def main(argv=None):
                     help="CADC-linear backend (default cfg.kernel_impl, "
                     "'auto': the CUDA kernel on a CUDA device, the plain "
                     "segmented linear on the CPU)")
+    ap.add_argument("--spec-tokens", type=int, default=0,
+                    help="speculative decoding: K draft tokens verified "
+                    "per slot per step in one multi-token paged append "
+                    "(0 = off; committed streams equal plain greedy "
+                    "decode)")
+    ap.add_argument("--draft", choices=["ngram", "model"], default="ngram",
+                    help="draft proposer for --spec-tokens: prompt-lookup "
+                    "n-gram (model-free) or a shrunk-config draft model")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain "
                     "PyTorch paths)")
@@ -83,6 +93,8 @@ def main(argv=None):
         backend=args.backend,
         prefill_mode="decode" if args.prefill_via_decode else "batched",
         telemetry_every=args.telemetry_every,
+        spec_tokens=args.spec_tokens,
+        spec_draft=args.draft,
     ), device=args.device)
     workload = poisson_workload(
         n_requests=n_requests, rate=args.rate, vocab_size=cfg.vocab_size,
@@ -99,6 +111,13 @@ def main(argv=None):
     print(f"  step ms p50/p99 = {summary['step_ms_p50']:.1f}/"
           f"{summary['step_ms_p99']:.1f}  TTFT ms p50/p99 = "
           f"{summary['ttft_ms_p50']:.1f}/{summary['ttft_ms_p99']:.1f}")
+    if "speculative" in summary:
+        sp = summary["speculative"]
+        print(f"  speculative (K={args.spec_tokens}, draft={args.draft}): "
+              f"accept rate {sp['accept_rate']:.2f}, "
+              f"{sp['tokens_per_step']:.2f} tokens/slot/step "
+              f"({sp['accepted']}/{sp['drafted']} drafts over "
+              f"{sp['steps']} steps)")
     if "blocks" in summary:
         print(f"  blocks: {json.dumps(summary['blocks'])}")
     if "psum_sparsity" in summary:

@@ -113,11 +113,20 @@ class PagedKV(NamedTuple):
     v: Tensor
 
 
-def cache_len(cfg: ArchConfig, kind: str, seq_len: int) -> int:
+def cache_len(cfg: ArchConfig, kind: str, seq_len: int, *,
+              headroom: int = 0) -> int:
     """Logical per-slot cache length for an attention layer kind — the one
-    source of the ring geometry for the dense and the paged caches."""
+    source of the ring geometry for the dense and the paged caches.
+
+    `headroom` buys multi-token appends (speculative verify steps of
+    Q = headroom + 1 tokens) the sequential decode's semantics on local
+    rings: a Q-token append equals Q one-token steps only while no write
+    lands inside an earlier q token's window, which needs
+    ring_len >= window + Q - 1 (attention_decode_paged). Entries past the
+    window are masked either way, so the headroom changes capacity, never
+    the attention output."""
     if kind == "local":
-        return min(cfg.local_window, seq_len)
+        return min(cfg.local_window + headroom, seq_len)
     return seq_len
 
 

@@ -14,6 +14,8 @@ numpy arrays) and returns this layout.
 
 Caches: a list with one entry per layer — attention.KVCache rings (dense)
 or attention.PagedKV pools (paged), updated in place by the decode steps.
+`decode_step_spec` is the speculative verify step: Q tokens a slot in one
+multi-token paged append.
 """
 from __future__ import annotations
 
@@ -163,8 +165,10 @@ def _decode_layers(params: Params, tokens: Tensor, position: Tensor,
                    caches: Sequence, cfg: ArchConfig,
                    block_tables: Optional[Dict[str, Tensor]],
                    ring_lens: Optional[Dict[str, int]]) -> Tensor:
-    """tokens [B] -> logits [B, V]; caches updated in place."""
-    x = ll.embed(params["embed"], tokens[:, None], cfg)
+    """tokens [B] -> logits [B, V]; tokens [B, Q] (a multi-token paged
+    append) -> logits [B, Q, V]; caches updated in place."""
+    multi = tokens.ndim == 2
+    x = ll.embed(params["embed"], tokens if multi else tokens[:, None], cfg)
     for i, kind in enumerate(layout(cfg)):
         p, cache = params["layers"][i], caches[i]
         if block_tables is None:
@@ -179,7 +183,13 @@ def _decode_layers(params: Params, tokens: Tensor, position: Tensor,
                     ring_len=ring_lens[kind] if ring_lens else None), None)
         with ll.tap_scope(f"layer{i:02d}.{kind}"):
             x, _ = _attn_residual(p, x, cfg, fn)
-    return _head(params, x, cfg)[:, 0]
+    if not multi:
+        return _head(params, x, cfg)[:, 0]
+    # one head product a token column, each in the decode step's [B, 1, d]
+    # shape: a GEMM's output rows can depend on its row count (the CPU's
+    # BLAS picks its kernel by it); in this shape they are the decode's
+    return torch.cat([_head(params, x[:, t:t + 1], cfg)
+                      for t in range(x.shape[1])], dim=1)
 
 
 def decode_step(params: Params, tokens: Tensor, position: Tensor, caches,
@@ -197,6 +207,38 @@ def decode_step_paged(params: Params, tokens: Tensor, position: Tensor,
     one [B, nb] int32 table per attention kind (-1 = unallocated), possibly
     a covered-prefix slice — `ring_lens` then carries the true per-kind
     ring lengths."""
+    return _decode_layers(params, tokens, position, caches, cfg,
+                          block_tables, ring_lens)
+
+
+def decode_step_spec(params: Params, tokens: Tensor, position: Tensor,
+                     caches, block_tables: Dict[str, Tensor], cfg: ArchConfig,
+                     ring_lens: Optional[Dict[str, int]] = None) -> Tensor:
+    """Speculative verify step: Q tokens a slot scored in ONE forward.
+
+    tokens [B, Q >= 2] — column 0 the last committed token, columns
+    1..Q-1 the drafts; position [B] the base position of column 0 (token t
+    sits at position + t). Returns logits [B, Q, V]: logits[:, t] is
+    conditioned on the prefix ending at token t, so its argmax is the
+    token greedy decode emits after accepting tokens 0..t.
+
+    The paged pools are written in place with all Q tokens' K/V (the
+    multi-token append of attention_decode_paged, which fails fast when Q
+    exceeds the ring). Entries of rejected drafts need no rollback: the
+    next append's base advances by the commit count c >= 1 and covers
+    [base + c, base + c + Q - 1], a superset of the stale
+    [base + c, base + Q - 1], and an append writes before it attends, so
+    every stale entry is rewritten before any q token reads it. On local
+    rings this is the sequential decode only with ring headroom
+    (attention.cache_len(headroom=)). Recurrent layers, whose states the
+    JAX package stacks per token for the caller to select
+    (`_recurrent_decode_multi`), come with the recurrent kinds: the port
+    refuses them at init."""
+    if tokens.ndim != 2 or tokens.shape[1] < 2:
+        raise ValueError(
+            f"decode_step_spec wants tokens [B, Q >= 2]; got "
+            f"{tuple(tokens.shape)} (use decode_step_paged for single "
+            f"tokens)")
     return _decode_layers(params, tokens, position, caches, cfg,
                           block_tables, ring_lens)
 

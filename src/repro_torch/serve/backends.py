@@ -1,13 +1,24 @@
 """Device-side cache backends for the serve engine.
 
-Port of repro.serve.backends (dense and paged; no speculative headroom).
-Both backends expose
+Port of repro.serve.backends (dense and paged). Both backends expose
 
     init_caches() -> caches
     decode(params, caches, tables, tokens, positions) -> (next, logits)
     write_prefill(caches, contribs, slot_ids, lengths, host_tables)
 
-and update the caches in place. `DenseBackend` keeps per-slot ring caches
+and update the caches in place; the paged backend built with
+spec_tokens=K adds the speculative draft/verify step
+
+    decode_spec(params, caches, tables, tokens [B, K+1], positions)
+        -> (greedy [B, K+1], logits, keep [B])
+
+which scores the committed token and K drafts in one multi-token append
+and computes the accepted-prefix length (KV entries of rejected drafts
+need no rollback: the next append rewrites them before any read). Its
+rings get K entries of headroom (attention.cache_len). The JAX package
+also returns the caches, and rolls recurrent states back to the kept
+token (`_select_spec_states`); here the caches are written in place and
+the port has no recurrent kinds yet. `DenseBackend` keeps per-slot ring caches
 ([n_slots, L, K, hd]); `PagedBackend` scatters each ring over
 block-table-indexed pools. On the plain attention path the two are
 bit-identical by construction: the paged writer places exactly the
@@ -115,17 +126,34 @@ class PagedBackend(_Backend):
 
     def __init__(self, cfg: ArchConfig, n_slots: int, max_len: int,
                  block_size: int, device: torch.device,
-                 n_blocks: Optional[Dict[str, int]] = None):
+                 n_blocks: Optional[Dict[str, int]] = None,
+                 spec_tokens: int = 0):
         super().__init__(cfg, n_slots, max_len, device)
         self.block_size = block_size
-        self.ring_len = {k: attn.cache_len(cfg, k, max_len)
-                         for k in sorted(set(self.kinds))}
-        for k, l in self.ring_len.items():
-            if l % block_size != 0:
-                raise ValueError(
-                    f"block_size={block_size} must divide the {k!r} ring "
-                    f"length {l} (max_len={max_len}, "
-                    f"local_window={cfg.local_window})")
+        self.spec_tokens = spec_tokens
+        kinds = sorted(set(self.kinds))
+        if spec_tokens:
+            # A verify step appends Q = K + 1 tokens. Local rings get
+            # window + K entries, so no write lands inside an earlier
+            # draft's window; global rings hold positions up to
+            # max_len - 1 + K (a slot's last step may draft past its last
+            # committed token), where the clip at ring_len - 1 would put
+            # two drafts on one entry. Rounded up to whole blocks: the
+            # extra entries are masked, they change capacity, not output.
+            alloc = max_len + spec_tokens
+            self.ring_len = {
+                k: -(-attn.cache_len(cfg, k, alloc, headroom=spec_tokens)
+                     // block_size) * block_size
+                for k in kinds}
+        else:
+            self.ring_len = {k: attn.cache_len(cfg, k, max_len)
+                             for k in kinds}
+            for k, l in self.ring_len.items():
+                if l % block_size != 0:
+                    raise ValueError(
+                        f"block_size={block_size} must divide the {k!r} ring "
+                        f"length {l} (max_len={max_len}, "
+                        f"local_window={cfg.local_window})")
         self.blocks_per_slot = {k: l // block_size
                                 for k, l in self.ring_len.items()}
         self.n_blocks = dict(n_blocks) if n_blocks else {
@@ -168,13 +196,38 @@ class PagedBackend(_Backend):
         return tf.decode_step_paged(params, tokens, positions, caches, tables,
                                     self.cfg, ring_lens=self.ring_len)
 
+    def decode_spec(self, params, caches, tables, tokens: Tensor,
+                    positions: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+        """One draft/verify step. tokens [B, Q]: column 0 the last committed
+        token, 1..Q-1 the drafts. Returns (greedy [B, Q], logits [B, Q, V],
+        keep [B]): greedy[:, t] is the token greedy decode emits after
+        accepting tokens 0..t; keep in 1..Q is how many input tokens stand
+        (the committed one and the accepted drafts) — the engine commits
+        greedy[:, :keep] and advances the positions by keep."""
+        if not self.spec_tokens:
+            raise ValueError("backend built without spec_tokens")
+        logits = tf.decode_step_spec(params, tokens, positions, caches,
+                                     tables, self.cfg,
+                                     ring_lens=self.ring_len)
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        # draft t (tokens[:, t + 1]) stands iff every draft before it does
+        # and it equals the target's greedy continuation greedy[:, t]
+        match = (tokens[:, 1:] == greedy[:, :-1]).to(torch.int32)
+        keep = 1 + torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
+        return greedy, logits, keep
+
 
 def make_backend(name: str, cfg: ArchConfig, n_slots: int, max_len: int,
                  block_size: int, device: torch.device,
-                 n_blocks: Optional[Dict[str, int]] = None) -> _Backend:
+                 n_blocks: Optional[Dict[str, int]] = None,
+                 spec_tokens: int = 0) -> _Backend:
     if name == "dense":
+        if spec_tokens:
+            raise ValueError(
+                "speculative decoding needs the paged backend (the dense "
+                "ring writer is single-token)")
         return DenseBackend(cfg, n_slots, max_len, device)
     if name == "paged":
         return PagedBackend(cfg, n_slots, max_len, block_size, device,
-                            n_blocks)
+                            n_blocks, spec_tokens)
     raise ValueError(f"unknown cache backend {name!r}")

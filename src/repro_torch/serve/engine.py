@@ -1,7 +1,6 @@
 """ServeEngine: continuous batching over the CADC decode path.
 
-Port of repro.serve.engine without speculative decoding (spec_tokens > 0
-raises NotImplementedError). One engine iteration = (admit waiting
+Port of repro.serve.engine. One engine iteration = (admit waiting
 requests into free slots) -> (batched prefill for the admissions) -> (one
 decode step across all slots). Every slot runs at its own position;
 finished sequences are evicted, their slot and — under the paged backend
@@ -14,6 +13,14 @@ Prefill modes:
     the first token falls out of the prefill logits.
   * 'decode': each prefill-phase slot feeds its next prompt token through
     the ordinary decode step (caches built by the decode step itself).
+
+Speculative decoding (EngineConfig.spec_tokens = K > 0, paged backend and
+batched prefill only): each decode step becomes a draft/verify step — a
+proposer (serve.speculative) offers K tokens a slot, the target scores
+all K + 1 positions in one multi-token `decode_step_spec`, and the longest
+draft prefix matching the target's greedy continuations is committed with
+the bonus token. The committed streams are those of spec_tokens=0 greedy
+decode for any proposer (tests/test_torch_speculative.py).
 
 Parameters are cast to the compute dtype once, at construction
 (launch/steps.py). Caches live on `device` and are updated in place.
@@ -88,20 +95,24 @@ class EngineConfig:
     record_logits: bool = False       # keep per-token logits (tests)
     eos_token: Optional[int] = None
     n_blocks: Optional[Dict[str, int]] = None  # paged pool sizes (per kind)
-    # Speculative decoding is not ported; any value > 0 raises.
+    # Speculative decoding: K > 0 drafts K tokens a slot a step and
+    # verifies them in one multi-token step; the committed streams equal
+    # spec_tokens=0 greedy decode. Paged backend + batched prefill only.
     spec_tokens: int = 0
+    spec_draft: str = "ngram"         # 'ngram' | 'model' (serve.speculative)
 
 
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, params, ecfg: EngineConfig, *,
                  device=device_lib.DEFAULT_DEVICE):
-        if ecfg.spec_tokens:
-            raise NotImplementedError(
-                "speculative decoding is not ported (spec_tokens must be 0)")
         if not cfg.supports_decode():
             raise ValueError(f"{cfg.name} is encoder-only: no decode step")
         if ecfg.prefill_mode not in ("batched", "decode"):
             raise ValueError(f"bad prefill_mode {ecfg.prefill_mode!r}")
+        if ecfg.spec_tokens and ecfg.prefill_mode != "batched":
+            # decode-mode prefill would interleave prompt tokens with
+            # drafts inside one multi-token append
+            raise ValueError("speculative decoding needs batched prefill")
         self.device = device_lib.resolve(device)
         self.cfg = cfg
         self.ecfg = ecfg
@@ -112,7 +123,13 @@ class ServeEngine:
                                 else ecfg.telemetry_every)
         self.backend = backends_lib.make_backend(
             ecfg.backend, cfg, ecfg.n_slots, ecfg.max_len, ecfg.block_size,
-            self.device, ecfg.n_blocks)
+            self.device, ecfg.n_blocks, ecfg.spec_tokens)
+        self.proposer = None
+        if ecfg.spec_tokens:
+            from repro_torch.serve import speculative as spec_lib
+            self.proposer = spec_lib.make_proposer(
+                ecfg.spec_draft, ecfg.spec_tokens, cfg, ecfg.n_slots,
+                ecfg.max_len, device=self.device)
         self.caches = self.backend.init_caches()
         self.tables: Optional[BlockTables] = None
         if ecfg.backend == "paged":
@@ -222,12 +239,17 @@ class ServeEngine:
         admitted = self._admit(it)
         if admitted and self.ecfg.prefill_mode == "batched":
             self._batched_prefill(admitted)
+        if admitted and self.proposer is not None:
+            self.proposer.on_admit(admitted)
 
         if not any(p != IDLE for p in self.slot_phase):
             return
         if self.telemetry_every and it % self.telemetry_every == 0:
             self._sample_sparsity()
-        self._decode_step()
+        if self.ecfg.spec_tokens:
+            self._spec_decode_step()
+        else:
+            self._decode_step()
 
     # ------------------------------------------------------------------
     # admission / eviction
@@ -388,6 +410,88 @@ class ServeEngine:
                     emitted += 1
                     self._maybe_finish(s)
         self.telemetry.record_step(dt, emitted)
+
+    # ------------------------------------------------------------------
+    # speculative decode (draft / verify)
+    # ------------------------------------------------------------------
+
+    def _spec_decode_step(self) -> None:
+        """One draft/verify step: K proposer drafts a decoding slot, ONE
+        multi-token decode_spec over all K + 1 positions, and the commit of
+        the longest draft prefix matching the target's greedy continuations
+        plus the bonus token. Every slot advances by its own count; commits
+        are capped at max_new and cut after eos, so a slot can finish — and
+        be evicted — mid-draft, with rejected-draft KV left behind that no
+        later read sees (decode_step_spec)."""
+        n, k = self.ecfg.n_slots, self.ecfg.spec_tokens
+        active = np.array([p == DECODE for p in self.slot_phase])
+        histories: List[Optional[np.ndarray]] = [None] * n
+        for s in range(n):
+            if active[s]:
+                req = self.slot_req[s]
+                histories[s] = np.concatenate(
+                    [req.prompt, np.asarray(req.tokens, np.int32)])
+        # drafting is part of the measured step: a draft model pays K
+        # decode steps here (dt sums propose, verify and on_commit)
+        t0 = time.perf_counter()
+        drafts = self.proposer.propose(active, histories)
+        dt = time.perf_counter() - t0
+
+        tokens = np.zeros((n, k + 1), np.int64)
+        for s in range(n):
+            if active[s]:
+                tokens[s, 0] = self.slot_last[s]
+                tokens[s, 1:] = drafts[s]
+        positions = self.slot_pos.astype(np.int64)
+
+        covered = None
+        if self.tables is not None:
+            # the append writes (and its q tokens may read) up to position
+            # base + k: cover the drafts, not just the base
+            act_pos = [int(positions[s]) for s in range(n) if active[s]]
+            covered = self.backend.covered_blocks(max(act_pos, default=0) + k)
+        dev_tables = self._device_tables(covered)
+
+        t0 = time.perf_counter()
+        greedy, logits, keep = self.backend.decode_spec(
+            self.params, self.caches, dev_tables,
+            torch.as_tensor(tokens, device=self.device),
+            torch.as_tensor(positions, device=self.device))
+        greedy_np = greedy.cpu().numpy()
+        keep_np = keep.cpu().numpy()
+        logits_np = logits.cpu().numpy() if self.ecfg.record_logits else None
+        dt += time.perf_counter() - t0
+
+        emitted = accepted = 0
+        committed: List[Optional[np.ndarray]] = [None] * n
+        for s in range(n):
+            if not active[s]:
+                continue
+            req = self.slot_req[s]
+            accepted += int(keep_np[s]) - 1
+            c = min(int(keep_np[s]), req.max_new - len(req.tokens))
+            toks = greedy_np[s, :c]
+            if self.ecfg.eos_token is not None:
+                hits = np.flatnonzero(toks == self.ecfg.eos_token)
+                if hits.size:
+                    c = int(hits[0]) + 1
+                    toks = toks[:c]
+            committed[s] = toks
+            req.tokens.extend(int(t) for t in toks)
+            if logits_np is not None:
+                req.logits.extend(logits_np[s, i] for i in range(c))
+            self.slot_last[s] = int(toks[-1])
+            self.slot_pos[s] += c
+            emitted += c
+        t0 = time.perf_counter()
+        self.proposer.on_commit(committed)
+        dt += time.perf_counter() - t0
+        n_active = int(active.sum())
+        self.telemetry.record_step(dt, emitted)
+        self.telemetry.record_spec(n_active * k, accepted, emitted, n_active)
+        for s in range(n):
+            if active[s]:
+                self._maybe_finish(s)
 
     # ------------------------------------------------------------------
     # telemetry probe

@@ -10,8 +10,11 @@ q8 eval mode evaluates through K5 / K4. Params are nested dicts; a step
 returns new ones and leaves its inputs as they were. The ADC noise is
 seeded as in JAX: a train step under an ADC mode draws from
 fold_in(seed + 17, step), eval batch i from fold_in(rng, i) (ints here,
-torch.Generator seeds; models/common.Ctx). Checkpointing (`ckpt_dir`)
-comes with a later slice of the port.
+torch.Generator seeds; models/common.Ctx). With `ckpt_dir` the loop saves
+{"params", "model_state", "opt"} every `ckpt_every` steps (repro_torch.ckpt,
+files the JAX package reads too) and resumes from the newest complete one;
+batches and the ADC noise are functions of (seed, step), so a resumed run
+takes the steps an unbroken one would have.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import ckpt
 from repro_torch.core.adc import fold_in
 from repro_torch.device import resolve
 from repro_torch.models.common import Ctx, LayerMode
@@ -34,7 +38,9 @@ class TrainConfig:
     batch_size: int = 64
     eval_every: int = 50
     eval_batches: int = 4
-    ckpt_dir: Optional[str] = None   # a later slice; set -> NotImplementedError
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 100
+    keep_k: int = 2
     seed: int = 0
     # Kernel backend override for every weight-bearing layer: None keeps
     # the LayerMode's own setting; 'auto' | 'cuda' | 'torch' force it.
@@ -122,10 +128,9 @@ def train(*, apply_fn: Callable,
     """Returns {'params', 'state', 'history', 'eval'}. Starts from
     `initial` = (params, model_state), or from init_fn(generator,
     device=..., **init_kwargs) with a generator seeded by cfg.seed on
-    `device`. `eval_rng` seeds the ADC noise of the final evaluation."""
-    if cfg.ckpt_dir:
-        raise NotImplementedError("checkpointing (ckpt/) comes with a later "
-                                  "slice of the port")
+    `device`. `eval_rng` seeds the ADC noise of the final evaluation.
+    Restartable through cfg.ckpt_dir (the newest complete checkpoint
+    there replaces the initial state and sets the first step)."""
     optimizer = optimizer or opt_lib.adamw(1e-3)
     overrides = {k: v for k, v in (("kernel", cfg.kernel),
                                    ("save_gate", cfg.save_gate))
@@ -140,6 +145,13 @@ def train(*, apply_fn: Callable,
         initial = init_fn(gen, device=dev, **(init_kwargs or {}))
     params, model_state = initial
     opt_state = optimizer.init(params)
+    start_step = 0
+
+    if cfg.ckpt_dir and ckpt.latest_step(cfg.ckpt_dir) is not None:
+        tree = {"params": params, "model_state": model_state, "opt": opt_state}
+        start_step, tree = ckpt.restore(cfg.ckpt_dir, tree)
+        params, model_state, opt_state = (tree["params"], tree["model_state"],
+                                          tree["opt"])
 
     train_step = make_train_step(apply_fn, mode, optimizer,
                                  input_key=input_key,
@@ -148,7 +160,7 @@ def train(*, apply_fn: Callable,
     eval_step = make_eval_step(apply_fn, ev_mode, input_key=input_key)
 
     history: List[Dict[str, float]] = []
-    for step in range(cfg.steps):
+    for step in range(start_step, cfg.steps):
         batch = batch_fn(step, cfg.batch_size)
         params, model_state, opt_state, metrics = train_step(
             params, model_state, opt_state, batch, step,
@@ -156,6 +168,10 @@ def train(*, apply_fn: Callable,
         if step % cfg.eval_every == 0 or step == cfg.steps - 1:
             history.append({"step": step,
                             **{k: float(v) for k, v in metrics.items()}})
+        if cfg.ckpt_dir and (step + 1) % cfg.ckpt_every == 0:
+            ckpt.save(cfg.ckpt_dir, step + 1,
+                      {"params": params, "model_state": model_state,
+                       "opt": opt_state}, keep_k=cfg.keep_k)
 
     ev = evaluate(apply_fn, params, model_state, batch_fn, ev_mode,
                   n_batches=cfg.eval_batches, batch_size=cfg.batch_size,

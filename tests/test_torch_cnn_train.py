@@ -30,6 +30,7 @@ from repro.models.cnn import lenet5 as jlenet
 from repro.models.cnn import resnet18 as jresnet
 from repro.train import loop as jloop
 from repro.train import optimizer as jopt
+from repro_torch import ckpt
 from repro_torch.core import costmodel as tcost
 from repro_torch.core import sparsity as tsp
 from repro_torch.data import synthetic as tsyn
@@ -292,12 +293,26 @@ def test_synthetic_data_is_a_function_of_seed_and_step():
     assert t.shape == (10, 28, 28, 1)
 
 
-def test_layer_mode_rejects_slice_3_options():
-    """Of what slice 2 refused, checkpointing is still to come; the
-    quantized modes, the ADC model and the q8 kernels are ported
-    (tests/test_torch_cnn_q8.py holds them to the JAX package)."""
-    with pytest.raises(NotImplementedError):
-        tloop.train(apply_fn=tlenet.apply, batch_fn=None,
-                    cfg=tloop.TrainConfig(ckpt_dir="x"))
+def test_layer_mode_rejects_slice_3_options(tmp_path):
+    """What slice 2 refused is ported: the quantized modes, the ADC model
+    and the q8 kernels (tests/test_torch_cnn_q8.py), and checkpointing —
+    a run on a ckpt_dir saves, and a rerun past its last step restores the
+    saved state and takes no step (tests/test_torch_ckpt.py holds the
+    files to the JAX package's). A kernel name of the JAX package is
+    still refused."""
+    spec = tsyn.ClassificationSpec(n_classes=10, hw=28, channels=1)
+    kw = dict(init_fn=tlenet.init, apply_fn=tlenet.apply,
+              batch_fn=tsyn.make_classification_dataset(spec, device="cpu"),
+              mode=tcm.LayerMode(impl="cadc", crossbar_size=64),
+              device="cpu")
+    cfg = tloop.TrainConfig(steps=1, batch_size=4, eval_batches=1,
+                            ckpt_dir=str(tmp_path), ckpt_every=1)
+    out = tloop.train(cfg=cfg, **kw)
+    assert ckpt.all_steps(str(tmp_path)) == [1]
+    again = tloop.train(cfg=cfg, **kw)
+    assert again["history"] == []
+    for a, b in zip(tloop._flatten(again["params"]),
+                    tloop._flatten(out["params"])):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError):
         tcm.LayerMode(kernel="pallas")

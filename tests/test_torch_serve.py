@@ -278,9 +278,15 @@ class TestScheduling:
             ServeEngine(tcfg, params, EngineConfig(
                 n_slots=2, max_len=32, block_size=16,
                 n_blocks={"global": 1, "local": 1}), device="cpu")
-        with pytest.raises(NotImplementedError, match="speculative"):
-            ServeEngine(tcfg, params, EngineConfig(spec_tokens=2),
-                        device="cpu")
+        # speculative decoding needs the paged backend and batched prefill
+        with pytest.raises(ValueError, match="paged"):
+            ServeEngine(tcfg, params, EngineConfig(
+                n_slots=2, max_len=32, block_size=16, backend="dense",
+                spec_tokens=2), device="cpu")
+        with pytest.raises(ValueError, match="batched"):
+            ServeEngine(tcfg, params, EngineConfig(
+                n_slots=2, max_len=32, block_size=16, prefill_mode="decode",
+                spec_tokens=2), device="cpu")
 
     def test_unported_layer_kinds_raise(self):
         cfg = tsmoke("gemma3_1b").with_overrides(pattern=("global", "rglru"))
