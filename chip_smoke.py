@@ -56,6 +56,33 @@ Slice 4, speculative decoding and checkpoints:
      that save and a new train() call that resumes to 4: bitwise params,
      exact launch counts.
 
+Slice 5, the attention-only LM families (after slice 4's phases):
+  5a. K1 against its plain version at each of the 23 linear shapes of
+     gemma-7b, codeqwen1.5-7b, phi4-mini, mixtral-8x22b, qwen2-moe-a2.7b
+     and internvl2-1b at published width (attention, FFN or shared
+     experts, untied heads, the vit projection; d_in padded to whole
+     crossbars), M = 8, 32 and 1024 (internvl2's also 4 and 2048), fp32
+     (TF32 off) and bf16, relu;
+  5b. K6 at each config's geometry (H / K / head_dim; R = 1, 3, 6, 7 rows
+     at decode and 4x that at Q = 4) on its path's rings, as phase 3 does:
+     every plan, NaN in dead entries, an idle slot;
+  5c. the slice's path: qwen2-moe-a2.7b at full width (24 layers,
+     d_model 2048, 60 routed experts at top-4 + 4 shared, qkv bias, an
+     untied head over 151 936 tokens; random bf16 weights from seed 0) on
+     phase 4's engine and workload: all 16 requests finish, K1 169 and K6
+     24 launches a decode step (K1 169 a prefill), step ms, tok/s, TTFT,
+     and the device time per decode step under the profiler split into
+     K1, K6, the expert products and the MoE dispatch;
+  5d. qwen2-moe-a2.7b at 4 layers in fp32: phase 5's kernel-vs-plain
+     logits check;
+  5e. internvl2-1b at full width: 4 requests with random [256, 1024]
+     patch tensors, prompts of 256..288 tokens, 16 new tokens, exact
+     launch counts; one prompt under two patch tensors gives two first
+     tokens' logits;
+  5f. (timed after the training phases, beside phase 6's K1) K1 device
+     times at M = 8 at every shape of 5a beside torch.matmul, the plain
+     version and the bound; qwen2-moe's K1 time a decode step.
+
 Slice 2, CNN training (fp32, TF32 off):
   7. K1g / K2 against their plain versions at every FC shape of LeNet-5
      and ResNet-18's fc, M = 64 and 128, xbar 64 / 128 / 256, relu /
@@ -171,6 +198,16 @@ N_SLOTS, MAX_LEN, BLOCK = 8, 160, 16
 PROMPT_LEN, MAX_NEW = (64, 128), (16, 32)
 # Slice 4, speculative decoding: drafts a slot a verify step (Q = K + 1).
 SPEC_K = 3
+# Slice 5, the attention-only LM families: the configs whose K1 shapes and
+# K6 geometries are checked; qwen2-moe-a2.7b served at full width on the
+# main path's engine and workload, and at MOE_FP32_LAYERS layers in fp32;
+# internvl2-1b's patch prefix: VIT_REQUESTS requests of VIT_PROMPT tokens
+# (the 256-token image and text), VIT_NEW new tokens each.
+SLICE5_ARCHS = ("gemma_7b", "codeqwen15_7b", "phi4_mini_38b",
+                "mixtral_8x22b", "qwen2_moe_a27b", "internvl2_1b")
+MOE_ARCH, VIT_ARCH = "qwen2_moe_a27b", "internvl2_1b"
+MOE_FP32_LAYERS = 4
+VIT_REQUESTS, VIT_MAX_LEN, VIT_PROMPT, VIT_NEW = 4, 304, (256, 288), 16
 
 
 def fail(msg: str) -> None:
@@ -345,16 +382,39 @@ def build_kernels(report):
 
 
 def linear_shapes(cfg):
-    """(name, D padded to whole crossbars, N) of the seven CADC linears."""
+    """(name, D padded to whole crossbars, N) of every CADC linear K1 runs:
+    a layer's four attention linears and three FFN linears (an MoE
+    layer's shared experts, d_shared wide; a routed-only MoE layer has
+    none: its experts are batched GEMMs), then an untied head and the vit
+    frontend's projection."""
     from repro_torch.core.cadc import num_segments
 
     xb = cfg.crossbar_size
     pad = lambda d: num_segments(d, xb) * xb  # noqa: E731
     d, hq, hkv = cfg.d_model, cfg.n_heads * cfg.head_dim, \
         cfg.n_kv_heads * cfg.head_dim
-    return [("wq", pad(d), hq), ("wk", pad(d), hkv), ("wv", pad(d), hkv),
-            ("wo", pad(hq), d), ("w_gate", pad(d), cfg.d_ff),
-            ("w_up", pad(d), cfg.d_ff), ("w_down", pad(cfg.d_ff), d)]
+    out = [("wq", pad(d), hq), ("wk", pad(d), hkv), ("wv", pad(d), hkv),
+           ("wo", pad(hq), d)]
+    d_ff = (cfg.moe.d_shared * (cfg.moe.n_shared > 0) if cfg.moe.n_experts
+            else cfg.d_ff * (cfg.ffn_type != "none"))
+    if d_ff:
+        out += [("w_gate", pad(d), d_ff), ("w_up", pad(d), d_ff),
+                ("w_down", pad(d_ff), d)]
+    if not cfg.tie_embeddings:
+        out.append(("head", pad(d), cfg.padded_vocab))
+    if cfg.frontend == "vit":
+        out.append(("frontend_proj", pad(cfg.frontend_dim), d))
+    return out
+
+
+def k1_per_pass(cfg, prefill: bool = False) -> int:
+    """K1 launches of one forward (a decode step, a verify step or a
+    batched prefill): each layer's linears, an untied head, and at a vit
+    prefill the frontend's projection."""
+    per_layer = sum(name not in ("head", "frontend_proj")
+                    for name, _, _ in linear_shapes(cfg))
+    return (per_layer * cfg.n_layers + (not cfg.tie_embeddings)
+            + (prefill and cfg.frontend == "vit"))
 
 
 def k1_rows():
@@ -371,6 +431,22 @@ def k1_rows():
                   | {N_SLOTS * _bucket(p) for p in range(lo, hi + 1)})
 
 
+def k1_case(cm, gen, dev, xbar, d, n, m, dtype, fn) -> float:
+    """K1 against its plain version on one random x [m, d], w [d, n]:
+    the max abs error; fails past K1_RTOL of the output's scale."""
+    x = torch.randn(m, d, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(d, n, generator=gen, device=dev)
+         / math.sqrt(d)).to(dtype)
+    got = cm.cadc_matmul_cuda(x, w, crossbar_size=xbar, fn=fn)
+    want = cm.cadc_matmul_torch(x, w, crossbar_size=xbar, fn=fn)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = K1_RTOL * max(1.0, want.abs().max().item())
+    if not err <= tol:
+        fail(f"K1 D={d} N={n} M={m} {dtype} {fn}: max abs err {err} > {tol}")
+    return err
+
+
 def check_k1(cfg, dev, report):
     from repro_torch.kernels import cadc_matmul as cm
 
@@ -381,21 +457,10 @@ def check_k1(cfg, dev, report):
     for d, n in sorted({(d, n) for _, d, n in linear_shapes(cfg)}):
         for m in rows:
             for dtype in (torch.float32, torch.bfloat16):
-                x = torch.randn(m, d, generator=gen, device=dev).to(dtype)
-                w = (torch.randn(d, n, generator=gen, device=dev)
-                     / math.sqrt(d)).to(dtype)
                 for fn in ("relu", "identity"):
-                    got = cm.cadc_matmul_cuda(x, w, crossbar_size=xbar, fn=fn)
-                    want = cm.cadc_matmul_torch(x, w, crossbar_size=xbar,
-                                                fn=fn)
-                    torch.cuda.synchronize()
-                    err = (got - want).abs().max().item()
-                    tol = K1_RTOL * max(1.0, want.abs().max().item())
-                    worst = max(worst, err)
+                    worst = max(worst, k1_case(cm, gen, dev, xbar, d, n, m,
+                                               dtype, fn))
                     n_checks += 1
-                    if not err <= tol:
-                        fail(f"K1 D={d} N={n} M={m} {dtype} {fn}: max abs "
-                             f"err {err} > {tol}")
     report["k1_max_abs_err"] = worst
     print(f"K1 cadc_matmul: {n_checks} checks ok (M in {rows}), max abs err "
           f"{worst:.3e}", flush=True)
@@ -423,57 +488,121 @@ def k6_inputs(cfg, dev, dtype, *, kind, ring_len, nb, positions, gen,
     return q, kp, vp, tbl[:, :nb], pos
 
 
-def main_path_k6_cases(cfg):
-    """(kind, window, ring_len, table blocks, positions) of the main path's
-    decode steps: rings of cache_len(kind, MAX_LEN) under the config's
-    window, sliced to each covered-prefix width the engine's rule
-    (PagedBackend.covered_blocks) gives for positions PROMPT_LEN[0] ..
-    MAX_LEN - 1; N_SLOTS - 1 busy slots spread over the positions that
-    width covers, and an idle last slot."""
+def main_path_k6_cases(cfg, max_len=MAX_LEN, lo=PROMPT_LEN[0]):
+    """(kind, window, ring_len, table blocks, positions) of a serving
+    path's decode steps (the main path's by default): rings of
+    cache_len(kind, max_len) under the config's window, sliced to each
+    covered-prefix width the engine's rule (PagedBackend.covered_blocks)
+    gives for positions lo .. max_len - 1; N_SLOTS - 1 busy slots spread
+    over the positions that width covers, and an idle last slot."""
     from repro_torch.models.lm.attention import cache_len
 
     cases = []
     for kind in ("local", "global"):
-        ring = cache_len(cfg, kind, MAX_LEN)
+        if kind not in cfg.pattern:
+            continue
+        ring = cache_len(cfg, kind, max_len)
         widths = set()
-        for p in range(PROMPT_LEN[0], MAX_LEN):
+        for p in range(lo, max_len):
             k = -(-min(p + 1, ring) // BLOCK)
             widths.add(min(1 << (k - 1).bit_length(), ring // BLOCK))
         for nb in sorted(widths):
-            top = min(MAX_LEN, nb * BLOCK) - 1
-            pos = np.linspace(PROMPT_LEN[0], top, N_SLOTS - 1).astype(int)
+            top = min(max_len, nb * BLOCK) - 1
+            pos = np.linspace(lo, top, N_SLOTS - 1).astype(int)
             cases.append((kind, cfg.local_window, ring, nb,
                           pos.tolist() + [0]))
     return cases
 
 
-def spec_ring(cfg, kind: str) -> int:
+def spec_ring(cfg, kind: str, max_len=MAX_LEN) -> int:
     """The verify step's ring: PagedBackend(spec_tokens=SPEC_K)'s rule."""
     from repro_torch.models.lm.attention import cache_len
 
-    need = cache_len(cfg, kind, MAX_LEN + SPEC_K, headroom=SPEC_K)
+    need = cache_len(cfg, kind, max_len + SPEC_K, headroom=SPEC_K)
     return -(-need // BLOCK) * BLOCK
 
 
-def spec_k6_cases(cfg):
+def spec_k6_cases(cfg, max_len=MAX_LEN, lo=PROMPT_LEN[0]):
     """(kind, window, ring_len, table blocks, positions, Q) of the verify
-    steps of serve_spec: Q = SPEC_K + 1 on the headroom rings, sliced to
-    each width covered_blocks(pos + SPEC_K) gives for base positions
-    PROMPT_LEN[0] .. MAX_LEN - 1; N_SLOTS - 1 busy slots spread over the
-    base positions that width covers, and an idle last slot."""
+    steps of serve_spec (or of a path of max_len and shortest prompt lo):
+    Q = SPEC_K + 1 on the headroom rings, sliced to each width
+    covered_blocks(pos + SPEC_K) gives for base positions lo ..
+    max_len - 1; N_SLOTS - 1 busy slots spread over the base positions
+    that width covers, and an idle last slot."""
     cases = []
     for kind in ("local", "global"):
-        ring = spec_ring(cfg, kind)
+        if kind not in cfg.pattern:
+            continue
+        ring = spec_ring(cfg, kind, max_len)
         widths = set()
-        for p in range(PROMPT_LEN[0], MAX_LEN):
+        for p in range(lo, max_len):
             k = -(-min(p + SPEC_K + 1, ring) // BLOCK)
             widths.add(min(1 << (k - 1).bit_length(), ring // BLOCK))
         for nb in sorted(widths):
-            top = min(MAX_LEN, nb * BLOCK - SPEC_K) - 1
-            pos = np.linspace(PROMPT_LEN[0], top, N_SLOTS - 1).astype(int)
+            top = min(max_len, nb * BLOCK - SPEC_K) - 1
+            pos = np.linspace(lo, top, N_SLOTS - 1).astype(int)
             cases.append((kind, cfg.local_window, ring, nb,
                           pos.tolist() + [0], SPEC_K + 1))
     return cases
+
+
+def k6_case(pa, cfg, dev, dtype, case, gen) -> tuple:
+    """K6 under the planner's plan and every forced plan against its plain
+    version on one case (kind, window, ring, nb, positions, Q): within
+    K6_TOL, unchanged by NaN in every entry no live row may read, 0 for
+    the idle last slot. Returns (max abs err, plans run)."""
+    kind, window, ring, nb, positions, q_len = case
+    q, kp, vp, tbl, pos = k6_inputs(cfg, dev, dtype, kind=kind,
+                                    ring_len=ring, nb=nb,
+                                    positions=positions, gen=gen,
+                                    q_len=q_len)
+    t = torch.as_tensor(tbl, device=dev)
+    kw = dict(kind=kind, window=window, ring_len=ring)
+    want = pa.paged_attention_torch(q, kp, vp, t, pos, **kw)
+    # NaN in every block no live entry of this case can read
+    dirty_k, dirty_v = kp.clone(), vp.clone()
+    idx = torch.arange(ring, device=dev)
+    valid = pa._ring_mask(pos, idx, kind=kind, ring_len=ring,
+                          window=window, q_len=q_len).any(dim=1).cpu()
+    read = set()
+    for i in range(len(positions)):
+        for c in range(nb):
+            if tbl[i, c] >= 0 and bool(valid[i, c * 16:(c + 1) * 16].any()):
+                read.add(int(tbl[i, c]))
+    dead = [j for j in range(kp.shape[0]) if j not in read]
+    dirty_k[dead] = float("nan")
+    dirty_v[dead] = float("nan")
+    # ... and in every masked entry of the blocks that are read
+    for i in range(len(positions)):
+        for c in range(nb):
+            if int(tbl[i, c]) in read:
+                off = (~valid[i, c * 16:(c + 1) * 16]).nonzero()[:, 0]
+                off = off.to(dev)
+                dirty_k[int(tbl[i, c]), off] = float("nan")
+                dirty_v[int(tbl[i, c]), off] = float("nan")
+    shape = (len(positions), cfg.n_kv_heads, nb,
+             q_len * cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
+             q.element_size(), 16)
+    worst, n_plans = 0.0, 0
+    # the planner's plan (None) and every forced plan
+    for plan in [None] + pa.paged_plans(*shape):
+        got = pa.paged_attention_cuda(q, kp, vp, t, pos, plan=plan, **kw)
+        dirty = pa.paged_attention_cuda(q, dirty_k, dirty_v, t, pos,
+                                        plan=plan, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        worst = max(worst, err)
+        n_plans += 1
+        tag = (f"K6 {cfg.name} H/K={cfg.n_heads}/{cfg.n_kv_heads} "
+               f"hd={cfg.head_dim} {kind} window={window} ring={ring} "
+               f"nb={nb} B={len(positions)} Q={q_len} {dtype} plan {plan}")
+        if not err <= K6_TOL[dtype]:
+            fail(f"{tag}: max abs err {err} > {K6_TOL[dtype]}")
+        if not torch.equal(dirty, got) or torch.isnan(dirty).any():
+            fail(f"{tag}: NaN garbage in dead blocks changed the output")
+        if not torch.equal(got[-1], torch.zeros_like(got[-1])):
+            fail(f"{tag}: idle slot (all -1) is not exactly 0")
+    return worst, n_plans
 
 
 def check_k6(cfg, dev, report):
@@ -491,58 +620,9 @@ def check_k6(cfg, dev, report):
     ]] + spec_k6_cases(cfg)
     n_plans = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for kind, window, ring, nb, positions, q_len in cases:
-            q, kp, vp, tbl, pos = k6_inputs(cfg, dev, dtype, kind=kind,
-                                            ring_len=ring, nb=nb,
-                                            positions=positions, gen=gen,
-                                            q_len=q_len)
-            t = torch.as_tensor(tbl, device=dev)
-            kw = dict(kind=kind, window=window, ring_len=ring)
-            want = pa.paged_attention_torch(q, kp, vp, t, pos, **kw)
-            # NaN in every block no live entry of this case can read
-            dirty_k, dirty_v = kp.clone(), vp.clone()
-            idx = torch.arange(ring, device=dev)
-            valid = pa._ring_mask(pos, idx, kind=kind, ring_len=ring,
-                                  window=window, q_len=q_len
-                                  ).any(dim=1).cpu()
-            read = set()
-            for i in range(len(positions)):
-                for c in range(nb):
-                    if tbl[i, c] >= 0 and bool(valid[i, c * 16:(c + 1) * 16].any()):
-                        read.add(int(tbl[i, c]))
-            dead = [j for j in range(kp.shape[0]) if j not in read]
-            dirty_k[dead] = float("nan")
-            dirty_v[dead] = float("nan")
-            # ... and in every masked entry of the blocks that are read
-            for i in range(len(positions)):
-                for c in range(nb):
-                    if int(tbl[i, c]) in read:
-                        off = (~valid[i, c * 16:(c + 1) * 16]).nonzero()[:, 0]
-                        off = off.to(dev)
-                        dirty_k[int(tbl[i, c]), off] = float("nan")
-                        dirty_v[int(tbl[i, c]), off] = float("nan")
-            shape = (len(positions), cfg.n_kv_heads, nb,
-                     q_len * cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
-                     q.element_size(), 16)
-            # the planner's plan (None) and every forced plan
-            for plan in [None] + pa.paged_plans(*shape):
-                got = pa.paged_attention_cuda(q, kp, vp, t, pos, plan=plan,
-                                              **kw)
-                dirty = pa.paged_attention_cuda(q, dirty_k, dirty_v, t, pos,
-                                                plan=plan, **kw)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                worst = max(worst, err)
-                n_plans += 1
-                tag = (f"K6 {kind} window={window} ring={ring} nb={nb} "
-                       f"B={len(positions)} Q={q_len} {dtype} plan {plan}")
-                if not err <= K6_TOL[dtype]:
-                    fail(f"{tag}: max abs err {err} > {K6_TOL[dtype]}")
-                if not torch.equal(dirty, got) or torch.isnan(dirty).any():
-                    fail(f"{tag}: NaN garbage in dead blocks changed the "
-                         "output")
-                if not torch.equal(got[-1], torch.zeros_like(got[-1])):
-                    fail(f"{tag}: idle slot (all -1) is not exactly 0")
+        for case in cases:
+            err, n = k6_case(pa, cfg, dev, dtype, case, gen)
+            worst, n_plans = max(worst, err), n_plans + n
     if int(cm._counters(dev).abs().sum()):
         fail("K6 left the arrival counters nonzero")
     report["k6_max_abs_err"] = worst
@@ -555,8 +635,10 @@ def check_k6(cfg, dev, report):
           f"{worst:.3e}", flush=True)
 
 
-def serve_main_path(cfg, params, dev, report):
-    """The main path: the engine at full width; returns launch counts."""
+def serve_main_path(cfg, params, dev, report, key="serve"):
+    """The main path (or slice 5's, qwen2-moe-a2.7b's under key
+    "serve_moe"): the engine at full width on the main path's workload;
+    returns launch counts and the run's streams."""
     from repro_torch.kernels import cadc_matmul as cm
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.serve import EngineConfig, ServeEngine, poisson_workload
@@ -591,13 +673,13 @@ def serve_main_path(cfg, params, dev, report):
         if len(toks) != g or not all(0 <= t < cfg.vocab_size for t in toks):
             fail(f"request {rid}: {len(toks)} tokens (want {g}) or a token "
                  "outside the vocabulary")
-    want = {"cadc_matmul": 7 * cfg.n_layers * (n_dec + n_pre),
+    want = {"cadc_matmul": k1_per_pass(cfg) * (n_dec + n_pre),
             "paged_attention": cfg.n_layers * n_dec}
     for name, n in launches.items():
         if n <= 0 or n != want[name]:
             fail(f"{name} launched {n} times on the main path, want "
                  f"{want[name]} ({n_dec} decode steps, {n_pre} prefills)")
-    print(f"serve gemma3-1b full width bf16 cadc: {len(workload)} requests, "
+    print(f"serve {cfg.name} full width bf16 cadc: {len(workload)} requests, "
           f"{summary['decode_tokens']} decode tokens, {n_dec} decode steps, "
           f"{n_pre} prefills, {wall:.2f} s", flush=True)
     print(f"tok/s {summary['tokens_per_s']:.1f}", flush=True)
@@ -606,23 +688,55 @@ def serve_main_path(cfg, params, dev, report):
     print(f"TTFT ms p50 {summary['ttft_ms_p50']:.3f} p99 "
           f"{summary['ttft_ms_p99']:.3f}", flush=True)
     print(f"launches on the main path: {json.dumps(launches)}", flush=True)
-    report["serve"] = {k: summary[k] for k in (
+    report[key] = {k: summary[k] for k in (
         "tokens_per_s", "tokens_per_s_p50", "step_ms_p50", "step_ms_p99",
         "ttft_ms_p50", "ttft_ms_p99", "prefill_ms_p50", "decode_tokens")}
-    report["serve"].update(decode_steps=n_dec, prefills=n_pre, wall_s=wall,
-                           launches=launches)
+    report[key].update(decode_steps=n_dec, prefills=n_pre, wall_s=wall,
+                       launches=launches)
     base = {"workload": workload, "summary": summary,
             "tokens": [engine.results[rid].tokens
                        for rid in sorted(engine.results)]}
-    profile_decode(engine, cfg, report)
+    profile_decode(engine, cfg, report, key=key)
     return launches, base
+
+
+MOE_SPANS = ("moe block", "moe expert products", "moe shared FFN")
+
+
+def moe_spans():
+    """Wrap the MoE block, its expert products and its shared FFN in
+    profiler ranges (MOE_SPANS); returns the function that unwraps them."""
+    from torch.profiler import record_function
+
+    from repro_torch.models.lm import ffn as ffn_lib
+    from repro_torch.models.lm import moe as moe_lib
+
+    saved = [(moe_lib, "moe_apply", MOE_SPANS[0]),
+             (moe_lib, "_expert_linear", MOE_SPANS[1]),
+             (ffn_lib, "ffn_apply", MOE_SPANS[2])]
+    saved = [(mod, name, label, getattr(mod, name))
+             for mod, name, label in saved]
+    for mod, name, label, fn in saved:
+        def wrapped(*a, fn=fn, label=label, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        setattr(mod, name, wrapped)
+
+    def restore():
+        for mod, name, _, fn in saved:
+            setattr(mod, name, fn)
+    return restore
 
 
 def profile_decode(engine, cfg, report, key="serve", max_new=12) -> None:
     """Device busy time per decode step with every slot busy: torch.profiler
     (CUPTI) over 8 pure decode (or verify) steps, summing the device-side
-    events, into report[key]. A diagnostic: if the profiler cannot trace
-    here, it is recorded as not measured and the run goes on."""
+    events, into report[key]. For an MoE config the device time under the
+    MoE ranges (moe_spans) is split out: the expert products, and the
+    dispatch (the block less its expert products and shared FFN: router,
+    top-k, sort, scatter, gather, combine). A diagnostic: if the profiler
+    cannot trace here, it is recorded as not measured and the run goes
+    on."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.RandomState(7)
@@ -631,6 +745,7 @@ def profile_decode(engine, cfg, report, key="serve", max_new=12) -> None:
                       max_new)
     engine.step()  # admission, batched prefill, first decode step
     n_steps = 8
+    restore = moe_spans() if cfg.moe.n_experts else (lambda: None)
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -639,17 +754,27 @@ def profile_decode(engine, cfg, report, key="serve", max_new=12) -> None:
             torch.cuda.synchronize()
         rows = []
         for e in prof.key_averages():
-            if "CUDA" not in str(getattr(e, "device_type", "")):
+            # a range's own device-side copy (a user annotation) is no
+            # kernel: its time is its kernels'
+            if ("CUDA" not in str(getattr(e, "device_type", ""))
+                    or e.key in MOE_SPANS):
                 continue
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = getattr(e, "self_cuda_time_total", 0)
             rows.append((us, e.key, e.count))
+        spans = {label: 0.0 for label in MOE_SPANS}
+        if cfg.moe.n_experts:
+            for e in prof.events():
+                if e.name in spans and "CPU" in str(e.device_type):
+                    spans[e.name] += e.device_time_total / 1e3 / n_steps
     except Exception as e:  # diagnostic only: keep the smoke run going
         print(f"profiler: not measured ({e!r})", file=sys.stderr)
         report[key]["device_busy_ms_per_step"] = f"not measured: {e!r}"
+        restore()
         engine.run()
         return
+    restore()
     engine.run()  # drain
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e3 / n_steps
@@ -667,6 +792,18 @@ def profile_decode(engine, cfg, report, key="serve", max_new=12) -> None:
         g = groups.setdefault(name, {"ms": 0.0, "calls": 0.0})
         g["ms"] += us / 1e3 / n_steps
         g["calls"] += calls / n_steps
+    if cfg.moe.n_experts:
+        # the MoE ranges hold PyTorch kernels only but for the shared
+        # FFN's K1 launches, which stay in the K1 groups
+        other = groups.pop("other (PyTorch)", {"ms": 0.0, "calls": 0.0})
+        experts = spans["moe expert products"]
+        dispatch = (spans["moe block"] - experts
+                    - spans["moe shared FFN"])
+        groups["MoE expert products (torch.bmm)"] = {"ms": experts}
+        groups["MoE dispatch and combine"] = {"ms": dispatch}
+        other["ms"] -= experts + dispatch
+        groups["other (PyTorch; the launches count the MoE's too)"] = other
+        report[key]["moe_spans_ms_per_step"] = spans
     report[key]["device_ms_per_step_by_kernel"] = groups
     k6_calls = groups.get("K6 paged attention", {}).get("calls", 0)
     if k6_calls != cfg.n_layers:
@@ -676,11 +813,12 @@ def profile_decode(engine, cfg, report, key="serve", max_new=12) -> None:
           f"{report[key]['device_busy_ms_per_step']} ms (8 slots busy, "
           f"{n_steps} steps)", flush=True)
     for gname, g in sorted(groups.items(), key=lambda kv: -kv[1]["ms"]):
-        print(f"  {gname}: {g['ms']:.3f} ms/step over {g['calls']:.0f} "
-              f"launches", flush=True)
+        calls = (f" over {g['calls']:.0f} launches" if "calls" in g
+                 else "")
+        print(f"  {gname}: {g['ms']:.3f} ms/step{calls}", flush=True)
 
 
-def fp32_logits_check(cfg, params, dev, report):
+def fp32_logits_check(cfg, params, dev, report, key="fp32_logits"):
     """One batched prefill + 4 decode steps, kernel path vs plain path, fed
     the same tokens (the plain path's greedy picks)."""
     from repro_torch.kernels import cadc_matmul as cm
@@ -743,7 +881,7 @@ def fp32_logits_check(cfg, params, dev, report):
     # every layer of each decode step
     for name, seen, need in (
             ("plain", n_plain, (0, 0)),
-            ("kernel", n_kern, (7 * cfg.n_layers * 5, cfg.n_layers * 4))):
+            ("kernel", n_kern, (k1_per_pass(cfg) * 5, cfg.n_layers * 4))):
         if seen != need:
             fail(f"fp32 {name} path launched (cadc_matmul, paged_attention)"
                  f" = {seen}, want {need}")
@@ -756,10 +894,11 @@ def fp32_logits_check(cfg, params, dev, report):
             fail(f"fp32 logits step {step}: max abs err {err} > "
                  f"{LOGITS_RTOL} x {scale}")
     same = sum(bool(torch.equal(a, b)) for a, b in zip(picks, kpicks))
-    report["fp32_logits"] = {"max_err_over_scale": worst_rel,
-                             "greedy_steps_equal": same,
-                             "steps": len(picks), "launches": n_kern}
-    print(f"fp32 full width: prefill + 4 decode steps, kernel vs plain "
+    report[key] = {"max_err_over_scale": worst_rel,
+                   "greedy_steps_equal": same, "steps": len(picks),
+                   "launches": n_kern}
+    print(f"fp32 {cfg.name} at full width, {cfg.n_layers} layers: prefill + "
+          f"4 decode steps, kernel vs plain "
           f"logits max err / scale {worst_rel:.3e} (tol {LOGITS_RTOL}); "
           f"greedy picks equal on {same}/{len(picks)} steps", flush=True)
 
@@ -1265,6 +1404,280 @@ def time_k6(cfg, dev, launches, report):
             "max_abs_err": report["k6_max_abs_err"],
             "ms": tot["ms"], "plain_ms": tot["plain"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": tot["lib"]}
+
+
+# ---------------------------------------------------------------------------
+# slice 5: the attention-only LM families (MoE, qkv bias, untied heads, the
+# vit patch prefix)
+# ---------------------------------------------------------------------------
+
+def slice5_cfg(arch: str, **kw):
+    from repro_torch.configs import get_config
+
+    return get_config(arch).with_overrides(linear_impl="cadc",
+                                           kernel_impl="auto", **kw)
+
+
+def n_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(n_params(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(n_params(v) for v in tree)
+    return tree.numel()
+
+
+def slice5_k1_shapes() -> dict:
+    """{(D, N): (configs, names)} of every K1 shape of the six configs."""
+    out = {}
+    for arch in SLICE5_ARCHS:
+        cfg = slice5_cfg(arch)
+        for name, d, n in linear_shapes(cfg):
+            archs, names = out.setdefault((d, n), (set(), set()))
+            archs.add(arch)
+            names.add(name)
+    return out
+
+
+def slice5_k1_rows(archs) -> list:
+    """M of the checks at a shape: a decode step's 8 slots, a verify step's
+    32 rows and the main path's 1024-row prefill; internvl2-1b's path adds
+    its 4 slots and its 2048-row prefill (4 slots x a 512-token bucket)."""
+    rows = {N_SLOTS, N_SLOTS * (SPEC_K + 1), 1024}
+    if VIT_ARCH in archs:
+        rows |= {VIT_REQUESTS, VIT_REQUESTS * 512}
+    return sorted(rows)
+
+
+def check_k1_slice5(dev, report) -> None:
+    """K1 against its plain version at every K1 shape of the six configs
+    (qwen2-moe's and internvl2's paths, the others' published widths), at
+    the rows slice5_k1_rows gives, fp32 (TF32 off) and bf16, relu."""
+    from repro_torch.kernels import cadc_matmul as cm
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst, n_checks = 0.0, 0
+    shapes = slice5_k1_shapes()
+    for (d, n), (archs, _) in sorted(shapes.items()):
+        for m in slice5_k1_rows(archs):
+            for dtype in (torch.float32, torch.bfloat16):
+                worst = max(worst, k1_case(cm, gen, dev, 256, d, n, m, dtype,
+                                           "relu"))
+                n_checks += 1
+        torch.cuda.empty_cache()
+    report["k1_slice5"] = {"checks": n_checks, "max_abs_err": worst,
+                           "shapes": sorted(shapes)}
+    report["k1_max_abs_err"] = max(report["k1_max_abs_err"], worst)
+    print(f"K1 at the six configs' {len(shapes)} shapes: {n_checks} checks "
+          f"ok, max abs err {worst:.3e}", flush=True)
+
+
+def check_k6_slice5(dev, report) -> None:
+    """K6 under every plan at each config's geometry: its path's rings
+    (qwen2-moe and the text-only configs at the main path's max_len 160,
+    prompts from 64; internvl2 at 304, prompts from 256) at Q = 1 and at a
+    verify step's Q = 4 on the headroom rings, fp32 and bf16."""
+    from repro_torch.kernels import cadc_matmul as cm
+    from repro_torch.kernels import paged_attention as pa
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    worst, n_plans, n_cases, seen = 0.0, 0, 0, []
+    for arch in SLICE5_ARCHS:
+        cfg = slice5_cfg(arch)
+        geo = ((VIT_MAX_LEN, VIT_PROMPT[0]) if arch == VIT_ARCH
+               else (MAX_LEN, PROMPT_LEN[0]))
+        cases = ([c + (1,) for c in main_path_k6_cases(cfg, *geo)]
+                 + spec_k6_cases(cfg, *geo))
+        for dtype in (torch.float32, torch.bfloat16):
+            for case in cases:
+                err, n = k6_case(pa, cfg, dev, dtype, case, gen)
+                worst, n_plans = max(worst, err), n_plans + n
+                n_cases += 1
+        r = cfg.n_heads // cfg.n_kv_heads
+        seen.append(f"{arch} H/K {cfg.n_heads}/{cfg.n_kv_heads} hd "
+                    f"{cfg.head_dim} R {r}/{r * (SPEC_K + 1)} "
+                    f"{[c[:4] for c in cases]}")
+    if int(cm._counters(dev).abs().sum()):
+        fail("K6 left the arrival counters nonzero")
+    report["k6_slice5"] = {"cases": n_cases, "runs": n_plans,
+                           "max_abs_err": worst, "geometries": seen}
+    report["k6_max_abs_err"] = max(report["k6_max_abs_err"], worst)
+    print(f"K6 at the six configs' geometries: {n_cases} cases x every plan "
+          f"({n_plans} runs) ok, max abs err {worst:.3e}; "
+          + "; ".join(seen), flush=True)
+
+
+def moe_main_path(dev, report) -> dict:
+    """Slice 5's path: qwen2-moe-a2.7b at full width (24 layers, 60 routed
+    experts at top-4 and 4 shared, qkv bias, an untied head of 151 936
+    rows) with random weights from seed 0 drawn in bf16, CADC relu at
+    crossbar 256, through the main path's engine and workload (K1 on the
+    attention linears, the shared experts and the head: 169 launches a
+    decode step and a prefill; K6 once a layer a decode step)."""
+    from repro_torch.models.lm import transformer as tf
+
+    cfg = slice5_cfg(MOE_ARCH)
+    if (k1_per_pass(cfg), cfg.n_layers) != (7 * 24 + 1, 24):
+        fail(f"{cfg.name}: {k1_per_pass(cfg)} K1 launches a pass, want 169")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = n_params(params)
+    print(f"{cfg.name}: {n / 1e9:.3f} B parameters drawn in bf16 layer by "
+          f"layer in {init_s:.1f} s; expert products: torch.bmm on bf16 "
+          f"operands with out_dtype=torch.float32", flush=True)
+    launches, _ = serve_main_path(cfg, params, dev, report, key="serve_moe")
+    report["serve_moe"].update(
+        params=n, init_s=init_s,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        expert_products="torch.bmm(bf16, bf16, out_dtype=torch.float32)")
+    print(f"{cfg.name}: peak device memory "
+          f"{report['serve_moe']['peak_gib']:.2f} GiB", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_fp32_logits(dev, report) -> None:
+    """qwen2-moe-a2.7b at published width and MOE_FP32_LAYERS layers in
+    fp32 (TF32 off): one batched prefill and 4 decode steps, kernel-path
+    logits against plain-path logits (full depth in fp32 does not fit)."""
+    from repro_torch.models.lm import transformer as tf
+
+    cfg = slice5_cfg(MOE_ARCH, n_layers=MOE_FP32_LAYERS)
+    params = tf.init(cfg, seed=0, device=dev)
+    fp32_logits_check(cfg, params, dev, report, key="fp32_logits_moe")
+    del params
+    torch.cuda.empty_cache()
+
+
+def vit_path(dev, report) -> None:
+    """internvl2-1b at full width through the patch prefix: VIT_REQUESTS
+    requests, each with a random [256, 1024] patch tensor, prompts of
+    VIT_PROMPT tokens, VIT_NEW new tokens; exact K1 (168 a decode step,
+    169 a prefill: the frontend's projection) and K6 counts. The last
+    request repeats the first one's prompt under other patches: its first
+    token's logits must differ."""
+    from repro_torch.models.lm import transformer as tf
+    from repro_torch.kernels import cadc_matmul as cm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    cfg = slice5_cfg(VIT_ARCH)
+    params = tf.init(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    engine = ServeEngine(cfg, params, EngineConfig(
+        n_slots=VIT_REQUESTS, max_len=VIT_MAX_LEN, block_size=BLOCK,
+        record_logits=True), device=dev)
+    rng = np.random.RandomState(6)
+    lens = np.linspace(*VIT_PROMPT, VIT_REQUESTS - 1).astype(int)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lens]
+    prompts.append(prompts[0])
+    shape = (cfg.frontend_len, cfg.frontend_dim)
+    torch.cuda.synchronize()
+    cm.cadc_matmul_cuda.launches = 0
+    pa.paged_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    for prompt in prompts:
+        engine.submit(prompt, VIT_NEW,
+                      patches=rng.randn(*shape).astype(np.float32))
+    summary = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"cadc_matmul": cm.cadc_matmul_cuda.launches,
+                "paged_attention": pa.paged_attention_cuda.launches}
+    n_dec = len(engine.telemetry.step_s)
+    n_pre = len(engine.telemetry.prefill_s)
+    want = {"cadc_matmul": k1_per_pass(cfg) * n_dec
+            + k1_per_pass(cfg, prefill=True) * n_pre,
+            "paged_attention": cfg.n_layers * n_dec}
+    if launches != want:
+        fail(f"vit path launched {launches}, want {want} ({n_dec} decode "
+             f"steps, {n_pre} prefills)")
+    res = [engine.results[rid] for rid in sorted(engine.results)]
+    if len(res) != VIT_REQUESTS or any(
+            len(r.tokens) != VIT_NEW
+            or not all(0 <= t < cfg.vocab_size for t in r.tokens)
+            or not all(np.isfinite(lg).all() for lg in r.logits)
+            for r in res):
+        fail(f"vit path: {len(res)} requests finished, or a stream of "
+             f"other than {VIT_NEW} tokens, a token outside the vocabulary "
+             "or non-finite logits")
+    gap = float(np.abs(res[0].logits[0] - res[-1].logits[0]).max())
+    if not gap > 0:
+        fail("vit path: one prompt under two patch tensors gave the same "
+             "first-token logits")
+    report["serve_vit"] = {k: summary[k] for k in (
+        "tokens_per_s", "step_ms_p50", "step_ms_p99", "ttft_ms_p50",
+        "decode_tokens")}
+    report["serve_vit"].update(decode_steps=n_dec, prefills=n_pre,
+                               wall_s=wall, launches=launches,
+                               patch_logit_gap=gap)
+    print(f"serve {cfg.name} full width bf16 cadc, patch prefix: "
+          f"{len(res)} requests of {[p.size for p in prompts]} tokens "
+          f"({cfg.frontend_len} image), {n_dec} decode steps, {n_pre} "
+          f"prefills, {wall:.2f} s, tok/s {summary['tokens_per_s']:.1f}, "
+          f"launches {json.dumps(launches)}; one prompt under two patch "
+          f"tensors: first-token logits differ by up to {gap:.4g}",
+          flush=True)
+    del engine, params
+    torch.cuda.empty_cache()
+
+
+def time_k1_slice5(dev, report) -> None:
+    """K1 device ms at M = 8 (a decode step's rows), bf16, relu, at every
+    K1 shape of the six configs, beside its plain version, torch.matmul
+    and the bound (weights rotated over copies that hold 3x the L2, as in
+    time_k1); then qwen2-moe-a2.7b's K1 time a decode step from them."""
+    from repro_torch.kernels import cadc_matmul as cm
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    dt, m, xbar = torch.bfloat16, N_SLOTS, 256
+    per_shape = {}
+    for (d, n), (archs, names) in sorted(slice5_k1_shapes().items()):
+        x = torch.randn(m, d, generator=gen, device=dev).to(dt)
+        ws = rotation(lambda: (torch.randn(d, n, generator=gen, device=dev)
+                               / math.sqrt(d)).to(dt), d * n * 2)
+        reps = max(20, len(ws))
+        pick = itertools.cycle(ws).__next__
+        saved = cm.cadc_matmul_cuda.launches
+        k = device_ms(lambda: cm.cadc_matmul_cuda(x, pick(),
+                                                  crossbar_size=xbar,
+                                                  fn="relu"), reps)
+        cm.cadc_matmul_cuda.launches = saved   # comparison launches
+        p = device_ms(lambda: cm.cadc_matmul_torch(x, pick(),
+                                                   crossbar_size=xbar,
+                                                   fn="relu"), len(ws))
+        lib = device_ms(lambda: torch.matmul(x, pick()), reps)
+        nbytes = m * d * 2 + d * n * 2 + m * n * 4
+        plan = cm.plan_fwd(m, n, d // xbar, xbar, vec=8)
+        per_shape[f"{d}x{n}"] = {
+            "D": d, "N": n, "configs": sorted(archs), "names": sorted(names),
+            "plan": f"{plan.kernel} {plan.width} split={plan.split} "
+                    f"grid={plan.grid}",
+            "ms": k, "plain_ms": p, "matmul_ms": lib,
+            "bound_ms": bound_ms(nbytes, 2 * m * d * n, dt)[0]}
+        print(f"K1 M=8 D={d} N={n} ({'/'.join(sorted(names))} of "
+              f"{', '.join(sorted(archs))}): {k * 1e3:.2f} us, torch.matmul "
+              f"{lib * 1e3:.2f}, plain {p * 1e3:.2f}, bound "
+              f"{per_shape[f'{d}x{n}']['bound_ms'] * 1e3:.2f} ({plan.kernel}"
+              f" {plan.width}, grid {plan.grid})", flush=True)
+        del ws
+        torch.cuda.empty_cache()
+    cfg = slice5_cfg(MOE_ARCH)
+    step = {"ms": 0.0, "matmul_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for name, d, n in linear_shapes(cfg):
+        times = 1 if name == "head" else cfg.n_layers
+        for key in step:
+            step[key] += per_shape[f"{d}x{n}"][key] * times
+    report["k1_timing_slice5"] = {
+        "unit": "one call at M=8, bf16, relu", "per_shape": per_shape,
+        "qwen2_moe_decode_step": step}
+    print(f"K1 a {cfg.name} decode step (169 launches at M=8): "
+          f"{step['ms']:.3f} ms, torch.matmul {step['matmul_ms']:.3f}, "
+          f"plain {step['plain_ms']:.3f}, bound {step['bound_ms']:.3f} "
+          "(sums of the one-call times)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3044,6 +3457,12 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
 
+    check_k1_slice5(dev, report)
+    check_k6_slice5(dev, report)
+    moe_main_path(dev, report)
+    moe_fp32_logits(dev, report)
+    vit_path(dev, report)
+
     lenet_path(dev, report)
     ckpt_resume(dev, report)
     training_parity(dev, report)
@@ -3051,6 +3470,10 @@ def main() -> None:
     time_resnet_step(dev, report)
     torch.cuda.empty_cache()
 
+    # after the training steps' peak-memory readings: device_ms runs each
+    # call's warm-up on a new side stream, and PyTorch keeps the cuBLAS
+    # workspace it allocates for every stream cuBLAS has run on
+    time_k1_slice5(dev, report)
     time_k1(cfg, dev, launches, report, m=N_SLOTS * (SPEC_K + 1))
     kernels = [time_k1(cfg, dev, launches, report),
                time_k6(cfg, dev, launches, report),

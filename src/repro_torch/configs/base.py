@@ -207,10 +207,18 @@ class ArchConfig:
         return out
 
 
-# The archs the port has. The JAX package registers ten; the others join
-# as their layer kinds are ported (ROADMAP.md).
+# The archs the port has: every LM of the JAX package built from attention
+# layers. recurrentgemma_9b and xlstm_13b (recurrent kinds) and
+# hubert_xlarge (an encoder with an audio frontend) join as those are
+# ported (ROADMAP.md).
 ARCH_IDS = [
     "gemma3_1b",
+    "gemma_7b",
+    "codeqwen15_7b",
+    "phi4_mini_38b",
+    "mixtral_8x22b",
+    "qwen2_moe_a27b",
+    "internvl2_1b",
 ]
 
 

@@ -2,6 +2,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_1b \
         --smoke --cadc --slots 4 --requests 12 --rate 0.5 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen2_moe_a27b --cadc --slots 8 --prompt-len 128 --gen 32
+
+--arch is any of configs.ARCH_IDS (the attention-only LMs: gemma3-1b,
+gemma-7b, codeqwen1.5-7b, phi4-mini, mixtral-8x22b, qwen2-moe-a2.7b,
+internvl2-1b); mixtral-8x22b fits one card only at --smoke size. Random
+weights are drawn in the compute dtype layer by layer (transformer.init
+dtype=), so a full-width model needs no fp32 copy on the card. A vit
+arch's requests get a zero image here: patches reach the engine through
+ServeEngine.submit(patches=) only, as in the JAX CLI.
 
 The port of repro.launch.serve, plus --device (default cuda; the run
 raises when CUDA is absent) and --kernel-impl (the CADC-linear backend;
@@ -19,14 +29,16 @@ import json
 
 import numpy as np
 
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, smoke_config
+from repro_torch.models.lm import layers as ll
 from repro_torch.models.lm import transformer as tf
 from repro_torch.serve import EngineConfig, ServeEngine, poisson_workload
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help=f"one of {', '.join(ARCH_IDS)}")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--cadc", action="store_true")
     ap.add_argument("--slots", "--batch", type=int, default=None,
@@ -85,7 +97,10 @@ def main(argv=None):
     max_len = -(-max_len // block) * block  # round up to block granularity
     n_requests = args.requests or 2 * slots
 
-    params = tf.init(cfg, seed=args.seed, device=args.device)
+    # the engine keeps bf16_wire parameters in the compute dtype: draw
+    # them so, with no fp32 copy of the model
+    params = tf.init(cfg, seed=args.seed, device=args.device,
+                     dtype=ll.cdtype(cfg) if cfg.bf16_wire else None)
     engine = ServeEngine(cfg, params, EngineConfig(
         n_slots=slots,
         max_len=max_len,

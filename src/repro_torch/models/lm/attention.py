@@ -37,13 +37,12 @@ Tensor = torch.Tensor
 
 def attn_init(gen: torch.Generator, cfg: ArchConfig,
               device: torch.device) -> Dict:
-    if cfg.attn_qkv_bias:
-        raise NotImplementedError("qkv bias is not ported")
     d, h, k_, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b = cfg.attn_qkv_bias
     return {
-        "wq": ll.linear_init(gen, d, h * hd, cfg, device),
-        "wk": ll.linear_init(gen, d, k_ * hd, cfg, device),
-        "wv": ll.linear_init(gen, d, k_ * hd, cfg, device),
+        "wq": ll.linear_init(gen, d, h * hd, cfg, device, bias=b),
+        "wk": ll.linear_init(gen, d, k_ * hd, cfg, device, bias=b),
+        "wv": ll.linear_init(gen, d, k_ * hd, cfg, device, bias=b),
         "wo": ll.linear_init(gen, h * hd, d, cfg, device),
     }
 

@@ -12,12 +12,14 @@ from repro_torch.models.lm import layers as ll
 Tensor = torch.Tensor
 
 
-def ffn_init(gen: torch.Generator, cfg: ArchConfig,
-             device: torch.device) -> Dict:
+def ffn_init(gen: torch.Generator, cfg: ArchConfig, device: torch.device,
+             d_ff: int = 0) -> Dict:
+    """d_ff: the hidden width (0: cfg.d_ff; MoE's shared experts pass
+    theirs)."""
     if cfg.ffn_type not in ("swiglu", "geglu"):
         raise NotImplementedError(
             f"ffn_type {cfg.ffn_type!r} is not ported (swiglu, geglu are)")
-    d, d_ff = cfg.d_model, cfg.d_ff
+    d, d_ff = cfg.d_model, d_ff or cfg.d_ff
     return {
         "w_gate": ll.linear_init(gen, d, d_ff, cfg, device),
         "w_up": ll.linear_init(gen, d, d_ff, cfg, device),

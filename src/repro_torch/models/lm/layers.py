@@ -90,19 +90,28 @@ def _tap_record(psums32: Tensor, fn: str, segments: int) -> None:
 # ---------------------------------------------------------------------------
 
 def linear_init(gen: torch.Generator, d_in: int, d_out: int,
-                cfg: ArchConfig, device: torch.device) -> Params:
+                cfg: ArchConfig, device: torch.device, *,
+                bias: bool = False) -> Params:
     std = 1.0 / math.sqrt(d_in)
     if cfg.linear_impl == "cadc":
         xbar = cfg.crossbar_size
         s = cadc_lib.num_segments(d_in, xbar)
         w = torch.randn(s * xbar, d_out, generator=gen, device=device) * std
         w[d_in:] = 0.0  # padded rows see zero-padded activations anyway
-        return {"w": w.reshape(s, xbar, d_out)}
-    return {"w": torch.randn(d_in, d_out, generator=gen, device=device) * std}
+        p = {"w": w.reshape(s, xbar, d_out)}
+    else:
+        p = {"w": torch.randn(d_in, d_out, generator=gen, device=device)
+             * std}
+    if bias:
+        p["b"] = torch.zeros(d_out, device=device)
+    return p
 
 
 def linear_apply(p: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
-    """x [..., d_in] -> [..., d_out] through the dense or CADC path.
+    """x [..., d_in] -> [..., d_out] through the dense or CADC path, plus
+    the bias "b" where the layer has one, added in the compute dtype after
+    the product (after K1's output on the kernel path, as the JAX package
+    adds it after its kernel's).
 
     Plain segmented path: psums are stored in the compute dtype when
     bf16_wire (the JAX package's choice, so that tensor-parallel partial
@@ -114,17 +123,23 @@ def linear_apply(p: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
         s, xbar, d_out = w.shape
         xp = cadc_lib.pad_to_segments(x, -1, xbar).to(dt)
         if kops.resolve(cfg.kernel_impl, x) == "cuda":
-            return kops.cadc_matmul(
+            y = kops.cadc_matmul(
                 xp, w.reshape(s * xbar, d_out).to(dt), crossbar_size=xbar,
                 fn=cfg.dendritic_fn, impl=cfg.kernel_impl)
-        xs = xp.reshape(*x.shape[:-1], s, xbar)
-        psums = torch.einsum("...sk,skn->...sn", xs.float(), w.to(dt).float())
-        if cfg.bf16_wire:
-            psums = psums.to(dt)
-        ps32 = psums.float()
-        _tap_record(ps32, cfg.dendritic_fn, s)
-        return dendritic.get(cfg.dendritic_fn)(ps32).sum(dim=-2).to(dt)
-    return torch.matmul(x.to(dt), w.to(dt))
+        else:
+            xs = xp.reshape(*x.shape[:-1], s, xbar)
+            psums = torch.einsum("...sk,skn->...sn", xs.float(),
+                                 w.to(dt).float())
+            if cfg.bf16_wire:
+                psums = psums.to(dt)
+            ps32 = psums.float()
+            _tap_record(ps32, cfg.dendritic_fn, s)
+            y = dendritic.get(cfg.dendritic_fn)(ps32).sum(dim=-2).to(dt)
+    else:
+        y = torch.matmul(x.to(dt), w.to(dt))
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -158,11 +173,18 @@ def embed(p: Params, tokens: Tensor, cfg: ArchConfig) -> Tensor:
     return x
 
 
-def lm_head(p_emb: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
-    """Tied head: x @ table^T -> fp32 logits over the logical vocab. The
-    product runs in the compute dtype (a bf16 run rounds the logits to
-    bf16 before the fp32 cast; fp32 runs are exact)."""
-    logits = torch.matmul(x, p_emb["table"].to(x.dtype).t()).float()
+def lm_head(p_head: Optional[Params], p_emb: Params, x: Tensor,
+            cfg: ArchConfig) -> Tensor:
+    """fp32 logits over the logical vocab. Tied: x @ table^T. Untied:
+    linear_apply through `p_head` (a segmented linear through K1 under
+    CADC). Either product ends in the compute dtype: a bf16 run rounds the
+    logits to bf16 before the fp32 cast, as the JAX package's untied head
+    does (so greedy picks break bf16 ties at the first index, as there);
+    fp32 runs are exact."""
+    if cfg.tie_embeddings:
+        logits = torch.matmul(x, p_emb["table"].to(x.dtype).t()).float()
+    else:
+        logits = linear_apply(p_head, x, cfg).float()
     return logits[..., : cfg.vocab_size]
 
 

@@ -1,14 +1,18 @@
 """The LM stack: embedding -> pattern-cycled attention blocks -> norm -> head.
 
 Port of repro.models.lm.transformer for the attention layer kinds
-('global', 'local'); MoE, recurrent and xLSTM kinds raise at init. The JAX
-package stacks each pattern position's parameters over the unit repeats
-and runs them as one lax.scan; here the stack is a Python list of layers,
-layer i having kind cfg.pattern_for_layers[i], and the scan is a loop.
+('global', 'local'), each with a dense FFN or an MoE block, tied or untied
+heads, and the ViT patch prefix; recurrent and xLSTM kinds and the audio
+frontend raise at init. The JAX package stacks each pattern position's
+parameters over the unit repeats and runs them as one lax.scan; here the
+stack is a Python list of layers, layer i having kind
+cfg.pattern_for_layers[i], and the scan is a loop.
 
-Parameters: {"embed": {"table"}, "final_norm": {"scale"},
-"layers": [{"ln1", "attn": {"wq", "wk", "wv", "wo"}, "ln2",
-"ffn": {"w_gate", "w_up", "w_down"}}, ...]} — the JAX names, one dict per
+Parameters: {"embed": {"table"}, "final_norm": {"scale"}, "head": {"w"}
+(untied heads), "frontend_proj": {"w", "b"} (vit), "layers": [{"ln1",
+"attn": {"wq", "wk", "wv", "wo"} (+ "b" with qkv bias), "ln2", "ffn":
+{"w_gate", "w_up", "w_down"} or "moe": {"router", "w_gate", "w_up",
+"w_down", "shared", "shared_gate"}}, ...]} — the JAX names, one dict per
 layer. `params_from_numpy` takes the JAX package's `tf.init` pytree (as
 numpy arrays) and returns this layout.
 
@@ -28,6 +32,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.lm import attention as attn
 from repro_torch.models.lm import ffn as ffn_lib
 from repro_torch.models.lm import layers as ll
+from repro_torch.models.lm import moe as moe_lib
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -35,44 +40,64 @@ ATTN_KINDS = ("global", "local")
 
 
 def layout(cfg: ArchConfig) -> Tuple[str, ...]:
-    """Kind of every layer, in stack order."""
+    """Kind of every layer, in stack order. Refuses what is not ported:
+    the recurrent and xLSTM kinds and the audio frontend (an encoder's;
+    ffn.ffn_init refuses the plain gelu FFN)."""
     kinds = cfg.pattern_for_layers
     other = sorted(set(kinds) - set(ATTN_KINDS))
     if other:
         raise NotImplementedError(
             f"layer kinds {other} are not ported (attention kinds are)")
-    if cfg.moe.n_experts > 0 or cfg.frontend is not None:
-        raise NotImplementedError("MoE layers and modality frontends are "
-                                  "not ported")
-    if not cfg.tie_embeddings:
-        raise NotImplementedError("untied LM heads are not ported")
+    if cfg.frontend not in (None, "vit"):
+        raise NotImplementedError(
+            f"the {cfg.frontend!r} frontend is not ported (vit is)")
     return kinds
 
 
 def _layer_init(gen: torch.Generator, cfg: ArchConfig,
                 device: torch.device) -> Params:
-    return {
+    p = {
         "ln1": ll.rmsnorm_init(cfg.d_model, device),
         "attn": attn.attn_init(gen, cfg, device),
         "ln2": ll.rmsnorm_init(cfg.d_model, device),
-        "ffn": ffn_lib.ffn_init(gen, cfg, device),
     }
+    if cfg.moe.n_experts > 0:
+        p["moe"] = moe_lib.moe_init(gen, cfg, device)
+    elif cfg.ffn_type != "none":
+        p["ffn"] = ffn_lib.ffn_init(gen, cfg, device)
+    return p
 
 
 def init(cfg: ArchConfig, *, seed: int = 0,
-         device=device_lib.DEFAULT_DEVICE) -> Params:
-    """Random fp32 parameters from a seeded torch.Generator on `device`.
-    (The JAX package's jax.random draws cannot be reproduced here; parity
-    tests load JAX-initialised parameters with params_from_numpy.)"""
+         device=device_lib.DEFAULT_DEVICE,
+         dtype: Optional[torch.dtype] = None) -> Params:
+    """Random parameters from a seeded torch.Generator on `device`: fp32,
+    or cast to `dtype` leaf group by leaf group as they are drawn (the
+    same draws in the same order, so init(dtype=d) is bitwise
+    cast_params(init(), d), without holding the whole fp32 model). The JAX
+    package's jax.random draws cannot be reproduced here; parity tests
+    load JAX-initialised parameters with params_from_numpy."""
     dev = device_lib.resolve(device)
     kinds = layout(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return {
-        "embed": ll.embedding_init(gen, cfg.padded_vocab, cfg.d_model, dev),
-        "final_norm": ll.rmsnorm_init(cfg.d_model, dev),
-        "layers": [_layer_init(gen, cfg, dev) for _ in kinds],
+
+    def cast(tree):
+        return tree if dtype is None else cast_params(tree, dtype)
+
+    params: Params = {
+        "embed": cast(ll.embedding_init(gen, cfg.padded_vocab, cfg.d_model,
+                                        dev)),
+        "final_norm": cast(ll.rmsnorm_init(cfg.d_model, dev)),
     }
+    if not cfg.tie_embeddings:
+        params["head"] = cast(ll.linear_init(gen, cfg.d_model,
+                                             cfg.padded_vocab, cfg, dev))
+    if cfg.frontend is not None:
+        params["frontend_proj"] = cast(ll.linear_init(
+            gen, cfg.frontend_dim, cfg.d_model, cfg, dev, bias=True))
+    params["layers"] = [cast(_layer_init(gen, cfg, dev)) for _ in kinds]
+    return params
 
 
 def tree_map(fn, tree):
@@ -89,7 +114,10 @@ def params_from_numpy(tree: Params, cfg: ArchConfig,
     """The JAX package's `tf.init(key, cfg)` pytree, as numpy arrays, in the
     port's layout. units[j] is stacked over the reps of the pattern: its
     row r becomes layer r * len(pattern) + j; tail[i] becomes layer
-    reps * len(pattern) + i. Segmented weights stay [S, xbar, d_out]."""
+    reps * len(pattern) + i (an MoE layer's expert banks slice the same
+    way, [reps, E, S, xbar, N] rows to [E, S, xbar, N]). Segmented weights
+    stay [S, xbar, d_out]; "head", "frontend_proj" and every bias "b" are
+    carried over where the pytree has them."""
     dev = device_lib.resolve(device)
     kinds = layout(cfg)
     p = len(cfg.pattern)
@@ -103,11 +131,11 @@ def params_from_numpy(tree: Params, cfg: ArchConfig,
             layers.append(tree_map(lambda a, r=r: a[r], units[j]))
     layers.extend(tail)
     to_t = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
-    return {
-        "embed": tree_map(to_t, tree["embed"]),
-        "final_norm": tree_map(to_t, tree["final_norm"]),
-        "layers": [tree_map(to_t, layer) for layer in layers],
-    }
+    out = {k: tree_map(to_t, tree[k])
+           for k in ("embed", "final_norm", "head", "frontend_proj")
+           if k in tree}
+    out["layers"] = [tree_map(to_t, layer) for layer in layers]
+    return out
 
 
 def cast_params(params: Params, dtype: torch.dtype) -> Params:
@@ -121,19 +149,38 @@ def cast_params(params: Params, dtype: torch.dtype) -> Params:
 # ---------------------------------------------------------------------------
 
 def _attn_residual(p: Params, x: Tensor, cfg: ArchConfig, attn_fn):
-    """ln1 -> attn_fn -> residual -> ln2 -> ffn -> residual, shared by the
-    dense decode, paged decode and prefill paths (one implementation, so
-    the paged == dense invariant cannot drift). attn_fn(h) -> (y, extra)."""
+    """ln1 -> attn_fn -> residual -> ln2 -> moe / ffn -> residual, shared
+    by the dense decode, paged decode and prefill paths (one
+    implementation, so the paged == dense invariant cannot drift).
+    attn_fn(h) -> (y, extra). The MoE aux loss is dropped: serving takes
+    no gradient."""
     h = ll.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     y, extra = attn_fn(h)
     x = x + y
     h = ll.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-    return x + ffn_lib.ffn_apply(p["ffn"], h, cfg), extra
+    if cfg.moe.n_experts > 0:
+        x = x + moe_lib.moe_apply(p["moe"], h, cfg)[0]
+    elif cfg.ffn_type != "none":
+        x = x + ffn_lib.ffn_apply(p["ffn"], h, cfg)
+    return x, extra
 
 
 def _head(params: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
     x = ll.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    return ll.lm_head(params["embed"], x, cfg)
+    return ll.lm_head(params.get("head"), params["embed"], x, cfg)
+
+
+def _embed_inputs(params: Params, batch: Dict[str, Tensor],
+                  cfg: ArchConfig) -> Tensor:
+    """Token embeddings; for vit archs the projected patches
+    batch["patches"] [B, frontend_len, frontend_dim] overlay the first
+    frontend_len positions (those positions are the image)."""
+    x = ll.embed(params["embed"], batch["tokens"], cfg)
+    if cfg.frontend == "vit":
+        patches = ll.linear_apply(params["frontend_proj"], batch["patches"],
+                                  cfg)
+        x = torch.cat([patches.to(x.dtype), x[:, patches.shape[1]:]], dim=1)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -249,11 +296,11 @@ def decode_step_spec(params: Params, tokens: Tensor, position: Tensor,
 
 def forward_prefill(params: Params, batch: Dict[str, Tensor],
                     cfg: ArchConfig) -> Tuple[Tensor, List[Tuple[Tensor, Tensor]]]:
-    """Batched prefill over left-aligned prompts (positions 0..S-1).
-    Returns (logits fp32 [B, S, V], per-layer rope'd (k, v) [B, S, K, hd]);
+    """Batched prefill over left-aligned prompts (positions 0..S-1);
+    batch {"tokens": [B, S]} (+ "patches" for vit archs). Returns (logits fp32 [B, S, V], per-layer rope'd (k, v) [B, S, K, hd]);
     padded tail tokens contribute entries the cache writers mask out."""
     tokens = batch["tokens"]
-    x = ll.embed(params["embed"], tokens, cfg)
+    x = _embed_inputs(params, batch, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     contribs = []
     for i, kind in enumerate(layout(cfg)):

@@ -54,12 +54,17 @@ def _bucket(n: int) -> int:
     return b
 
 
-def make_prefill_batch(n_slots: int, admitted, device: torch.device):
+def make_prefill_batch(cfg: ArchConfig, n_slots: int, admitted,
+                       device: torch.device):
     """Padded prefill inputs for an admission wave: (batch dict, lengths
     [n_slots], slot_ids [n_slots]) with sentinel rows (id == n_slots) for
     padding, which the cache writers drop. Prompt lengths are bucketed to
-    powers of two so only a few shapes ever run."""
+    powers of two so only a few shapes ever run. Shared by the engine and
+    the draft-model proposer: the draft's cache frontier mirrors the
+    target's only while the two prefill layouts are one."""
     s_pad = _bucket(max(r.prompt.size for _, r in admitted))
+    if cfg.frontend == "vit":
+        s_pad = max(s_pad, _bucket(cfg.frontend_len))
     tokens = np.zeros((n_slots, s_pad), np.int64)
     lengths = np.zeros(n_slots, np.int32)
     slot_ids = np.full(n_slots, n_slots, np.int32)
@@ -67,7 +72,19 @@ def make_prefill_batch(n_slots: int, admitted, device: torch.device):
         tokens[i, : req.prompt.size] = req.prompt
         lengths[i] = req.prompt.size
         slot_ids[i] = slot
-    return {"tokens": torch.as_tensor(tokens, device=device)}, lengths, slot_ids
+    batch = {"tokens": torch.as_tensor(tokens, device=device)}
+    if cfg.frontend == "vit":
+        # the prefill overlays these onto the first frontend_len positions
+        # (those positions are the image). Requests without patches get
+        # zeros, and a prompt shorter than frontend_len lies wholly under
+        # that zero image, as in the JAX package.
+        patches = np.zeros((n_slots, cfg.frontend_len, cfg.frontend_dim),
+                           np.float32)
+        for i, (_, req) in enumerate(admitted):
+            if req.patches is not None:
+                patches[i] = req.patches
+        batch["patches"] = torch.as_tensor(patches, device=device)
+    return batch, lengths, slot_ids
 
 
 @dataclasses.dataclass
@@ -76,6 +93,9 @@ class Request:
     prompt: np.ndarray          # [P] int32
     max_new: int
     arrival_step: int = 0
+    # vit archs: image embeddings [frontend_len, frontend_dim] overlaying
+    # the first frontend_len prompt positions; None -> zeros (text only)
+    patches: Optional[np.ndarray] = None
     tokens: List[int] = dataclasses.field(default_factory=list)
     logits: List[np.ndarray] = dataclasses.field(default_factory=list)
     done: bool = False
@@ -109,6 +129,8 @@ class ServeEngine:
             raise ValueError(f"{cfg.name} is encoder-only: no decode step")
         if ecfg.prefill_mode not in ("batched", "decode"):
             raise ValueError(f"bad prefill_mode {ecfg.prefill_mode!r}")
+        if cfg.frontend == "vit" and ecfg.prefill_mode == "decode":
+            raise ValueError("vit-frontend archs need prefill_mode='batched'")
         if ecfg.spec_tokens and ecfg.prefill_mode != "batched":
             # decode-mode prefill would interleave prompt tokens with
             # drafts inside one multi-token append
@@ -157,7 +179,10 @@ class ServeEngine:
     # ------------------------------------------------------------------
 
     def submit(self, prompt: np.ndarray, max_new: int, *,
-               arrival_step: int = 0, rid: Optional[int] = None) -> int:
+               arrival_step: int = 0, rid: Optional[int] = None,
+               patches: Optional[np.ndarray] = None) -> int:
+        """Queue a request; `patches` [frontend_len, frontend_dim] are a
+        vit arch's image embeddings (None: a zero image)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -165,6 +190,19 @@ class ServeEngine:
             raise ValueError(
                 f"prompt ({prompt.size}) + max_new ({max_new}) exceeds "
                 f"max_len={self.ecfg.max_len}")
+        if patches is not None:
+            want = (self.cfg.frontend_len, self.cfg.frontend_dim)
+            if self.cfg.frontend != "vit":
+                raise ValueError(f"{self.cfg.name} takes no patches")
+            if tuple(np.shape(patches)) != want:
+                raise ValueError(f"patches must be {want}")
+            if prompt.size < self.cfg.frontend_len:
+                # the image occupies positions 0..frontend_len-1: a shorter
+                # prompt would cache and attend a truncated image
+                raise ValueError(
+                    f"vit prompts must span the image prefix: need >= "
+                    f"frontend_len={self.cfg.frontend_len} tokens, got "
+                    f"{prompt.size}")
         if rid is None:
             rid = self._next_rid
         elif (rid in self.results
@@ -173,7 +211,7 @@ class ServeEngine:
             raise ValueError(f"rid {rid} already in use")
         self._next_rid = max(self._next_rid, rid) + 1
         req = Request(rid=rid, prompt=prompt, max_new=max_new,
-                      arrival_step=arrival_step)
+                      arrival_step=arrival_step, patches=patches)
         # keep FIFO-by-arrival; re-sort only on out-of-order submission
         out_of_order = bool(self.queue) and (
             (self.queue[-1].arrival_step, self.queue[-1].rid)
@@ -320,7 +358,7 @@ class ServeEngine:
 
     def _batched_prefill(self, admitted: List[Tuple[int, Request]]) -> None:
         batch, lengths, slot_ids = make_prefill_batch(
-            self.ecfg.n_slots, admitted, self.device)
+            self.cfg, self.ecfg.n_slots, admitted, self.device)
 
         t0 = time.perf_counter()
         first, last, contribs = self._prefill_fn(

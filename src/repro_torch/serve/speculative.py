@@ -149,8 +149,8 @@ class DraftModelProposer(Proposer):
         # the engine's own prefill-batch builder: the draft frontier
         # mirrors the target's only while the layouts match. Stale KV of a
         # reused slot needs no reset: ring masking never reads it.
-        batch, lengths, slot_ids = make_prefill_batch(self.n_slots, admitted,
-                                                      self.device)
+        batch, lengths, slot_ids = make_prefill_batch(
+            self.cfg_d, self.n_slots, admitted, self.device)
         _, _, contribs = self._prefill(self.params, batch,
                                        self._tensor(lengths))
         self.backend.write_prefill(self.caches, contribs, slot_ids, lengths,

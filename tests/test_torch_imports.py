@@ -98,10 +98,19 @@ def test_entry_points_default_to_cuda_and_raise(no_cuda):
 def test_registry_names_only_ported_archs():
     from repro_torch.configs import ARCH_IDS, get_config
 
-    assert ARCH_IDS == ["gemma3_1b"]
+    assert ARCH_IDS == ["gemma3_1b", "gemma_7b", "codeqwen15_7b",
+                        "phi4_mini_38b", "mixtral_8x22b", "qwen2_moe_a27b",
+                        "internvl2_1b"]
     cfg = get_config("gemma3-1b")
     assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) == (
         26, 1152, 6912, 262144)
-    assert cfg.kernel_impl == "auto" and cfg.paged_attn_impl == "auto"
-    with pytest.raises(ValueError, match="unknown arch"):
-        get_config("mixtral_8x22b")
+    moe = get_config("qwen2_moe_a27b")
+    assert (moe.n_layers, moe.d_model, moe.vocab_size, moe.moe.n_experts,
+            moe.moe.top_k, moe.moe.d_shared) == (24, 2048, 151936, 60, 4,
+                                                 5632)
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        assert cfg.kernel_impl == "auto" and cfg.paged_attn_impl == "auto"
+    for arch in ("recurrentgemma_9b", "xlstm_13b", "hubert_xlarge"):
+        with pytest.raises(ValueError, match="unknown arch"):
+            get_config(arch)

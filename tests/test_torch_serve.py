@@ -1,4 +1,4 @@
-"""The port's gemma3-1b serve path against the JAX package, on the CPU.
+"""The port's serve path against the JAX package, on the CPU.
 
 Same parameters on both sides (the JAX package's `tf.init`, carried over
 by `params_from_numpy`), smoke size, fp32, CADC linears. The port's
@@ -6,7 +6,8 @@ prefill and decode logits match the JAX model within 1e-4; its engine
 emits the JAX engine's token streams on a Poisson workload; inside the
 port the paged cache is bitwise equal to the dense one through eviction
 and slot/block reuse; and its psum-sparsity tap reads the JAX tap's
-gate-off fractions.
+gate-off fractions. The same engine serves internvl2-1b's patch prefix and
+the MoE archs with the JAX engine's streams.
 """
 import functools
 
@@ -293,6 +294,18 @@ class TestScheduling:
         with pytest.raises(NotImplementedError, match="rglru"):
             ttf.init(cfg, device="cpu")
 
+    @pytest.mark.parametrize("override,match", [
+        (dict(pattern=("mlstm", "slstm")), "mlstm"),
+        (dict(frontend="audio", frontend_dim=48), "audio"),
+        (dict(ffn_type="gelu"), "gelu")])
+    def test_what_is_still_refused(self, override, match):
+        """Recurrent and xLSTM kinds, the audio frontend and the gelu FFN
+        are the port's refusals; MoE, qkv bias, untied heads and the vit
+        prefix are served (tests/test_torch_lm_archs.py)."""
+        cfg = tsmoke("gemma3_1b").with_overrides(**override)
+        with pytest.raises(NotImplementedError, match=match):
+            ttf.init(cfg, device="cpu")
+
     def test_block_allocator(self):
         a = BlockAllocator(4)
         got = a.alloc(3)
@@ -321,3 +334,102 @@ class TestScheduling:
         assert summary["requests_finished"] == 3
         out = capsys.readouterr().out
         assert "tok/s" in out and "psum gate-off" in out
+
+
+@functools.lru_cache(maxsize=None)
+def _setup_arch(arch):
+    jcfg = jsmoke(arch, linear_impl="cadc")
+    tcfg = tsmoke(arch, linear_impl="cadc")
+    jparams = jtf.init(jax.random.PRNGKey(0), jcfg)
+    tree = jax.tree_util.tree_map(np.array, jparams)
+    return jcfg, jparams, tcfg, _tparams(tree, tcfg)
+
+
+class TestVitPatches:
+    """internvl2-1b's smoke config: image embeddings per request overlay
+    the first frontend_len prompt positions in the batched prefill."""
+
+    def _workload(self, cfg):
+        rng = np.random.RandomState(9)
+        out = []
+        for i in range(3):
+            prompt = rng.randint(0, cfg.vocab_size,
+                                 size=cfg.frontend_len + i).astype(np.int32)
+            patches = (None if i == 1 else rng.randn(
+                cfg.frontend_len, cfg.frontend_dim).astype(np.float32))
+            out.append((i, prompt, 3, patches))
+        return out
+
+    def test_patch_streams_match_jax_engine(self):
+        """Three requests on two slots (one without patches: a zero image):
+        the port's streams are the JAX engine's."""
+        jcfg, jparams, tcfg, params = _setup_arch("internvl2_1b")
+        wl = self._workload(jcfg)
+        ecfg = dict(n_slots=2, max_len=32, block_size=16)
+        jeng = JServeEngine(jcfg, jparams, JEngineConfig(**ecfg))
+        teng = ServeEngine(tcfg, params, EngineConfig(**ecfg), device="cpu")
+        for eng in (jeng, teng):
+            for a, p, g, patches in wl:
+                eng.submit(p.copy(), g, arrival_step=a, patches=patches)
+            eng.run()
+        assert sorted(teng.results) == sorted(jeng.results) == [0, 1, 2]
+        for rid in jeng.results:
+            assert teng.results[rid].tokens == jeng.results[rid].tokens, rid
+
+    def test_patches_change_output_and_are_checked(self):
+        """Distinct patches give distinct first-token logits (those
+        positions are the image); a prompt shorter than the image, patches
+        of another shape, patches for a text arch and the decode-mode
+        prefill are refused."""
+        _, _, tcfg, params = _setup_arch("internvl2_1b")
+        prompt = np.arange(1, tcfg.frontend_len + 3, dtype=np.int32)
+        outs = []
+        for fill in (0.0, 0.5):
+            eng = ServeEngine(tcfg, params, EngineConfig(
+                n_slots=1, max_len=32, block_size=16, record_logits=True),
+                device="cpu")
+            eng.submit(prompt, 2, patches=np.full(
+                (tcfg.frontend_len, tcfg.frontend_dim), fill, np.float32))
+            eng.run()
+            outs.append(eng.results[0].logits[0])
+        assert not np.array_equal(outs[0], outs[1])
+        image = np.zeros((tcfg.frontend_len, tcfg.frontend_dim), np.float32)
+        with pytest.raises(ValueError, match="frontend_len"):
+            eng.submit(np.arange(4, dtype=np.int32), 2, patches=image)
+        with pytest.raises(ValueError, match="patches must be"):
+            eng.submit(prompt, 2, patches=image[:, :-1])
+        with pytest.raises(ValueError, match="batched"):
+            ServeEngine(tcfg, params, EngineConfig(
+                n_slots=1, max_len=32, prefill_mode="decode"), device="cpu")
+        _, _, gcfg, gtree = _setup()
+        text = ServeEngine(gcfg, _tparams(gtree, gcfg), EngineConfig(
+            n_slots=1, max_len=32), device="cpu")
+        with pytest.raises(ValueError, match="takes no patches"):
+            text.submit(prompt, 2, patches=image)
+
+
+class TestMoEStreams:
+    @pytest.mark.parametrize("arch", ["mixtral_8x22b", "qwen2_moe_a27b"])
+    def test_token_streams_match_jax_engine(self, arch):
+        """Batched prefill (capacity over the padded rows, as in JAX) and
+        MoE decode steps through admission and slot reuse."""
+        jcfg, jparams, tcfg, params = _setup_arch(arch)
+        wl = poisson_workload(n_requests=4, rate=1.0,
+                              vocab_size=jcfg.vocab_size, prompt_len=(3, 9),
+                              max_new=(2, 5), seed=4)
+        ecfg = dict(n_slots=2, max_len=32, block_size=16)
+        jeng = JServeEngine(jcfg, jparams, JEngineConfig(**ecfg))
+        jeng.run([(a, p.copy(), g) for a, p, g in wl])
+        teng = ServeEngine(tcfg, params, EngineConfig(**ecfg), device="cpu")
+        teng.run([(a, p.copy(), g) for a, p, g in wl])
+        assert sorted(teng.results) == sorted(jeng.results)
+        for rid in jeng.results:
+            assert teng.results[rid].tokens == jeng.results[rid].tokens, rid
+
+    def test_cli_serves_moe_on_cpu(self, capsys):
+        summary = tserve_cli.main([
+            "--arch", "qwen2_moe_a27b", "--smoke", "--cadc", "--slots",
+            "2", "--requests", "3", "--prompt-len", "6", "--gen", "3",
+            "--device", "cpu"])
+        assert summary["requests_finished"] == 3
+        assert "arch=qwen2-moe-a2.7b" in capsys.readouterr().out

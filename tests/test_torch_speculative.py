@@ -12,6 +12,9 @@ the n-gram proposer (K = 2) and the draft-model proposer (K = 3):
     engine's (the draft model given the JAX draft's parameters);
   * decode_step_spec's logits match JAX's on the same paged caches within
     1e-4, and the headroom rings are JAX's.
+On mixtral-8x22b's and qwen2-moe-a2.7b's smoke configs (MoE, untied
+heads) the streams and counts equal the JAX spec engine's; greedy is not
+the reference there (TestMoESpeculative).
 
 The edges of tests/test_speculative.py: zero acceptance, full acceptance
 across the eviction boundary, eos inside an accepted run, the ring
@@ -230,6 +233,51 @@ def _port_caches(jcaches, cfg):
             torch.cat([torch.as_tensor(np.array(a)),
                        torch.zeros((1,) + a.shape[1:])]) for a in c)))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_engines(arch, draft, k):
+    """(JAX spec engine, port spec engine) on an MoE arch's smoke config,
+    the port's draft model given the JAX draft's parameters."""
+    jcfg = jsmoke(arch, linear_impl="cadc")
+    tcfg = tsmoke(arch, linear_impl="cadc")
+    jparams = jtf.init(jax.random.PRNGKey(0), jcfg)
+    params = ttf.params_from_numpy(jax.tree_util.tree_map(np.array, jparams),
+                                   tcfg, "cpu")
+    wl = _workload(jcfg.vocab_size)
+    jeng = JServeEngine(jcfg, jparams, JEngineConfig(
+        **ECFG, spec_tokens=k, spec_draft=draft))
+    jeng.run([(a, p.copy(), g) for a, p, g in wl])
+    teng = ServeEngine(tcfg, params, EngineConfig(
+        **ECFG, spec_tokens=k, spec_draft=draft), device="cpu")
+    if draft == "model":
+        teng.proposer = DraftModelProposer(
+            k, tcfg, ECFG["n_slots"], ECFG["max_len"],
+            params=_jax_draft_tree(jeng), device="cpu")
+    teng.run([(a, p.copy(), g) for a, p, g in wl])
+    return jeng, teng
+
+
+class TestMoESpeculative:
+    """A verify step of B x Q tokens routes with the capacity of B x Q
+    (moe.capacity), which can drop pairs that Q single steps keep: an MoE
+    spec stream need not equal greedy decode, in the JAX package too. The
+    port's is held to the JAX spec engine's instead."""
+
+    @pytest.mark.parametrize("draft,k", PROPOSERS)
+    @pytest.mark.parametrize("arch", ["mixtral_8x22b", "qwen2_moe_a27b"])
+    def test_streams_and_counts_match_jax_engine(self, arch, draft, k):
+        jeng, teng = _moe_engines(arch, draft, k)
+        assert sorted(jeng.results) == sorted(teng.results) == [0, 1, 2]
+        for rid in jeng.results:
+            assert teng.results[rid].tokens == jeng.results[rid].tokens
+        for key in ("spec_steps", "spec_drafted", "spec_accepted",
+                    "spec_committed", "spec_slot_steps"):
+            assert getattr(teng.telemetry, key) == getattr(jeng.telemetry,
+                                                           key), key
+        # the draft model of an untied arch carries its own head
+        if draft == "model":
+            assert "head" in teng.proposer.params
 
 
 class TestModules:
