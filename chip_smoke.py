@@ -83,6 +83,39 @@ Slice 5, the attention-only LM families (after slice 4's phases):
      times at M = 8 at every shape of 5a beside torch.matmul, the plain
      version and the bound; qwen2-moe's K1 time a decode step.
 
+Slice 6, the recurrent LM families (after slice 5's phases):
+  6a. K1 against its plain version at each of the 10 linear shapes of
+     recurrentgemma-9b and xlstm-1.3b at published width (mLSTM's 4096 ->
+     8 gates, sLSTM's 2048 -> 2730 and 2730 -> 2048 padded to 2816, the MQA
+     4096 -> 256, xlstm's untied head), M = 8 (a decode step; a recurrent
+     prefill's rows a token) and 32 (a verify step's attention rows), fp32
+     (TF32 off) and bf16, relu;
+  6b. K6 at recurrentgemma-9b's geometry (MQA: 16 q heads over 1 kv head
+     of 256, R = 16 rows at decode and 64 at Q = 4) on the main path's
+     160-entry rings and the verify step's 176, as phase 3 does: every
+     plan, NaN in dead entries, an idle slot;
+  6c. recurrentgemma-9b at full width (38 layers: 12 x (rglru, rglru,
+     local) + (rglru, rglru); random bf16 weights from seed 0) on phase 4's
+     engine and the first REC_REQUESTS requests of its workload: all
+     finish, K1 292 and K6 12 launches a decode step, a prefill's K1 from
+     its bucket (the recurrent layers run their cell a token at a time),
+     step ms, tok/s, TTFT, peak memory, and the device time per decode
+     step under the profiler split into K1, K6, the recurrent cells' own
+     PyTorch kernels (profiler ranges, `rec_spans`) and other PyTorch;
+     then its verify gap (bf16, kernels on) and `serve_spec` on the same
+     requests under the oracle and the anti-oracle (every verify step
+     rolls each recurrent layer back to the kept token): exact launch
+     counts, the anti-oracle accepts nothing, every stream equal to
+     greedy or leaving it at a near-tie below the gap;
+  6d. recurrentgemma-9b at 3 layers (rglru, rglru, local) in fp32: phase
+     5's kernel-vs-plain logits check;
+  6e. xlstm-1.3b at full width (48 layers: 6 x (7 mlstm + slstm); no KV
+     pool) the same way: K1 277 launches a decode step, no K6; then at 2
+     layers (mlstm, slstm) in fp32;
+  6f. (timed after the training phases, beside 5f) K1 device times at
+     M = 8 at every shape of 6a beside torch.matmul, the plain version and
+     the bound; each config's K1 time a decode step.
+
 Slice 2, CNN training (fp32, TF32 off):
   7. K1g / K2 against their plain versions at every FC shape of LeNet-5
      and ResNet-18's fc, M = 64 and 128, xbar 64 / 128 / 256, relu /
@@ -208,6 +241,16 @@ SLICE5_ARCHS = ("gemma_7b", "codeqwen15_7b", "phi4_mini_38b",
 MOE_ARCH, VIT_ARCH = "qwen2_moe_a27b", "internvl2_1b"
 MOE_FP32_LAYERS = 4
 VIT_REQUESTS, VIT_MAX_LEN, VIT_PROMPT, VIT_NEW = 4, 304, (256, 288), 16
+# Slice 6, the recurrent LM families: recurrentgemma-9b (RG-LRU with local
+# MQA attention) and xlstm-1.3b (mLSTM / sLSTM, no attention) at full width
+# on the main path's engine, the first REC_REQUESTS requests of its
+# workload, and recurrentgemma's speculative path on the same requests:
+# a recurrent prefill runs the decode cell a token at a time, ~70
+# launches a layer a token, so a 128-token prefill is host-bound for
+# seconds (PERF.md §5), and the request count is cut from 16.
+SLICE6_ARCHS = ("recurrentgemma_9b", "xlstm_13b")
+RG_ARCH, XL_ARCH = SLICE6_ARCHS
+REC_REQUESTS = 3
 
 
 def fail(msg: str) -> None:
@@ -407,14 +450,82 @@ def linear_shapes(cfg):
     return out
 
 
-def k1_per_pass(cfg, prefill: bool = False) -> int:
-    """K1 launches of one forward (a decode step, a verify step or a
-    batched prefill): each layer's linears, an untied head, and at a vit
-    prefill the frontend's projection."""
-    per_layer = sum(name not in ("head", "frontend_proj")
-                    for name, _, _ in linear_shapes(cfg))
-    return (per_layer * cfg.n_layers + (not cfg.tie_embeddings)
-            + (prefill and cfg.frontend == "vit"))
+ATTN_KINDS = ("global", "local")
+
+
+def kind_linear_shapes(cfg, kind: str):
+    """(name, D padded to whole crossbars, N) of the K1 launches of one
+    token through one layer of `kind`: an attention layer's (linear_shapes
+    without the head and the frontend), an rglru layer's five RG-LRU
+    linears and its FFN, an mLSTM block's six (its up-projection to 2 x 2d,
+    q / k / v over d_inner 2d, the 2H gate pre-activations, the
+    down-projection), an sLSTM block's four (the 4d gates, the 4/3 GeGLU
+    up / gate and its down-projection)."""
+    from repro_torch.core.cadc import num_segments
+    from repro_torch.models.lm import xlstm
+
+    if kind in ATTN_KINDS:
+        return [s for s in linear_shapes(cfg)
+                if s[0] not in ("head", "frontend_proj")]
+    xb = cfg.crossbar_size
+    pad = lambda d: num_segments(d, xb) * xb  # noqa: E731
+    d = cfg.d_model
+    if kind == "rglru":
+        rw = cfg.rnn_width or d
+        return [("w_gate", pad(d), rw), ("w_x", pad(d), rw),
+                ("w_r", pad(rw), rw), ("w_i", pad(rw), rw),
+                ("w_out", pad(rw), d), ("ffn.w_gate", pad(d), cfg.d_ff),
+                ("ffn.w_up", pad(d), cfg.d_ff),
+                ("ffn.w_down", pad(cfg.d_ff), d)]
+    if kind == "mlstm":
+        di = int(xlstm.PROJ_FACTOR_M * d)
+        return [("w_up", pad(d), 2 * di), ("w_q", pad(di), di),
+                ("w_k", pad(di), di), ("w_v", pad(di), di),
+                ("w_if", pad(di), 2 * cfg.n_heads), ("w_down", pad(di), d)]
+    if kind == "slstm":
+        dp = int(xlstm.PROJ_FACTOR_S * d)
+        return [("w_gates", pad(d), 4 * d), ("w_up_gate", pad(d), dp),
+                ("w_up", pad(d), dp), ("w_down", pad(dp), d)]
+    fail(f"unknown layer kind {kind!r}")
+
+
+def k1_per_pass(cfg, prefill: bool = False, tokens: int = 1) -> int:
+    """K1 launches of one forward: a decode step (tokens 1), a verify step
+    of `tokens` columns, or a batched prefill (prefill=True) over a bucket
+    of `tokens` positions. Each attention layer's linears launch once (all
+    tokens are rows of one product); each recurrent layer's once a token
+    (its cell runs a token at a time, as decode does); an untied head once
+    (a verify step's once a column); at a vit prefill also the frontend's
+    projection."""
+    per_kind = {k: len(kind_linear_shapes(cfg, k))
+                for k in set(cfg.pattern_for_layers)}
+    layers = sum(per_kind[k] * (1 if k in ATTN_KINDS else tokens)
+                 for k in cfg.pattern_for_layers)
+    head = (not cfg.tie_embeddings) * (1 if prefill else tokens)
+    return layers + head + (prefill and cfg.frontend == "vit")
+
+
+def n_attn_layers(cfg) -> int:
+    """K6 launches of a decode or verify step: one an attention layer."""
+    return sum(k in ATTN_KINDS for k in cfg.pattern_for_layers)
+
+
+def record_prefill_buckets(obj) -> list:
+    """Wrap obj._prefill_fn (the engine's batched prefill step) to append
+    each call's bucket (the prompt width) to the returned list: a
+    recurrent layer's K1 launches a prefill follow its bucket."""
+    buckets, fn = [], obj._prefill_fn
+
+    def wrapped(params, batch, lengths):
+        buckets.append(int(batch["tokens"].shape[1]))
+        return fn(params, batch, lengths)
+
+    obj._prefill_fn = wrapped
+    return buckets
+
+
+def k1_prefills(cfg, buckets) -> int:
+    return sum(k1_per_pass(cfg, prefill=True, tokens=s) for s in buckets)
 
 
 def k1_rows():
@@ -635,10 +746,14 @@ def check_k6(cfg, dev, report):
           f"{worst:.3e}", flush=True)
 
 
-def serve_main_path(cfg, params, dev, report, key="serve"):
-    """The main path (or slice 5's, qwen2-moe-a2.7b's under key
-    "serve_moe"): the engine at full width on the main path's workload;
-    returns launch counts and the run's streams."""
+def serve_main_path(cfg, params, dev, report, key="serve", n_requests=16):
+    """The main path (or a later slice's under its own key: qwen2-moe-a2.7b
+    "serve_moe", recurrentgemma-9b "serve_rg", xlstm-1.3b "serve_xl"): the
+    engine at full width on the main path's workload (its first
+    n_requests requests); returns launch counts and the run's streams. K1
+    must launch as k1_per_pass says for every decode step and for every
+    prefill at its bucket, K6 once an attention layer a decode step; a
+    kernel the config runs must have launched."""
     from repro_torch.kernels import cadc_matmul as cm
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.serve import EngineConfig, ServeEngine, poisson_workload
@@ -652,7 +767,8 @@ def serve_main_path(cfg, params, dev, report, key="serve"):
     workload = poisson_workload(n_requests=16, rate=0.5,
                                 vocab_size=cfg.vocab_size,
                                 prompt_len=PROMPT_LEN, max_new=MAX_NEW,
-                                seed=0)
+                                seed=0)[:n_requests]
+    buckets = record_prefill_buckets(engine)
     torch.cuda.synchronize()
     cm.cadc_matmul_cuda.launches = 0
     pa.paged_attention_cuda.launches = 0
@@ -673,15 +789,17 @@ def serve_main_path(cfg, params, dev, report, key="serve"):
         if len(toks) != g or not all(0 <= t < cfg.vocab_size for t in toks):
             fail(f"request {rid}: {len(toks)} tokens (want {g}) or a token "
                  "outside the vocabulary")
-    want = {"cadc_matmul": k1_per_pass(cfg) * (n_dec + n_pre),
-            "paged_attention": cfg.n_layers * n_dec}
+    want = {"cadc_matmul": k1_per_pass(cfg) * n_dec
+            + k1_prefills(cfg, buckets),
+            "paged_attention": n_attn_layers(cfg) * n_dec}
     for name, n in launches.items():
-        if n <= 0 or n != want[name]:
+        if n != want[name] or (name == "cadc_matmul" and n <= 0):
             fail(f"{name} launched {n} times on the main path, want "
-                 f"{want[name]} ({n_dec} decode steps, {n_pre} prefills)")
+                 f"{want[name]} ({n_dec} decode steps, {n_pre} prefills at "
+                 f"buckets {buckets})")
     print(f"serve {cfg.name} full width bf16 cadc: {len(workload)} requests, "
           f"{summary['decode_tokens']} decode tokens, {n_dec} decode steps, "
-          f"{n_pre} prefills, {wall:.2f} s", flush=True)
+          f"{n_pre} prefills (buckets {buckets}), {wall:.2f} s", flush=True)
     print(f"tok/s {summary['tokens_per_s']:.1f}", flush=True)
     print(f"step ms p50 {summary['step_ms_p50']:.3f} p99 "
           f"{summary['step_ms_p99']:.3f}", flush=True)
@@ -692,7 +810,9 @@ def serve_main_path(cfg, params, dev, report, key="serve"):
         "tokens_per_s", "tokens_per_s_p50", "step_ms_p50", "step_ms_p99",
         "ttft_ms_p50", "ttft_ms_p99", "prefill_ms_p50", "decode_tokens")}
     report[key].update(decode_steps=n_dec, prefills=n_pre, wall_s=wall,
-                       launches=launches)
+                       launches=launches, prefill_buckets=list(buckets),
+                       k1_per_decode_step=k1_per_pass(cfg),
+                       k6_per_decode_step=n_attn_layers(cfg))
     base = {"workload": workload, "summary": summary,
             "tokens": [engine.results[rid].tokens
                        for rid in sorted(engine.results)]}
@@ -701,21 +821,16 @@ def serve_main_path(cfg, params, dev, report, key="serve"):
 
 
 MOE_SPANS = ("moe block", "moe expert products", "moe shared FFN")
+REC_SPANS = ("recurrent cell", "linear")
 
 
-def moe_spans():
-    """Wrap the MoE block, its expert products and its shared FFN in
-    profiler ranges (MOE_SPANS); returns the function that unwraps them."""
+def wrap_spans(targets):
+    """Wrap each (module, function name, label) of `targets` in a profiler
+    range of that label; returns the function that unwraps them."""
     from torch.profiler import record_function
 
-    from repro_torch.models.lm import ffn as ffn_lib
-    from repro_torch.models.lm import moe as moe_lib
-
-    saved = [(moe_lib, "moe_apply", MOE_SPANS[0]),
-             (moe_lib, "_expert_linear", MOE_SPANS[1]),
-             (ffn_lib, "ffn_apply", MOE_SPANS[2])]
     saved = [(mod, name, label, getattr(mod, name))
-             for mod, name, label in saved]
+             for mod, name, label in targets]
     for mod, name, label, fn in saved:
         def wrapped(*a, fn=fn, label=label, **kw):
             with record_function(label):
@@ -726,6 +841,42 @@ def moe_spans():
         for mod, name, _, fn in saved:
             setattr(mod, name, fn)
     return restore
+
+
+def moe_spans():
+    """Wrap the MoE block, its expert products and its shared FFN in
+    profiler ranges (MOE_SPANS)."""
+    from repro_torch.models.lm import ffn as ffn_lib
+    from repro_torch.models.lm import moe as moe_lib
+
+    return wrap_spans([(moe_lib, "moe_apply", MOE_SPANS[0]),
+                       (moe_lib, "_expert_linear", MOE_SPANS[1]),
+                       (ffn_lib, "ffn_apply", MOE_SPANS[2])])
+
+
+def rec_spans():
+    """Wrap the recurrent decode cells (rglru_decode, mlstm_decode,
+    slstm_decode: their linears, conv step, gates and state arithmetic)
+    and every linear_apply in profiler ranges (REC_SPANS): a cell's own
+    PyTorch kernels are the cell range less the linear ranges inside it."""
+    from repro_torch.models.lm import layers as ll
+    from repro_torch.models.lm import rglru as rglru_lib
+    from repro_torch.models.lm import xlstm as xlstm_lib
+
+    return wrap_spans([(rglru_lib, "rglru_decode", REC_SPANS[0]),
+                       (xlstm_lib, "mlstm_decode", REC_SPANS[0]),
+                       (xlstm_lib, "slstm_decode", REC_SPANS[0]),
+                       (ll, "linear_apply", REC_SPANS[1])])
+
+
+def _inside(event, label: str) -> bool:
+    """Whether a profiler range event runs inside a range named `label`."""
+    parent = getattr(event, "cpu_parent", None)
+    while parent is not None:
+        if parent.name == label:
+            return True
+        parent = getattr(parent, "cpu_parent", None)
+    return False
 
 
 def profile_decode(engine, cfg, report, key="serve", max_new=12) -> None:
@@ -745,7 +896,9 @@ def profile_decode(engine, cfg, report, key="serve", max_new=12) -> None:
                       max_new)
     engine.step()  # admission, batched prefill, first decode step
     n_steps = 8
-    restore = moe_spans() if cfg.moe.n_experts else (lambda: None)
+    recurrent = n_attn_layers(cfg) < cfg.n_layers
+    restore = (moe_spans() if cfg.moe.n_experts else
+               rec_spans() if recurrent else (lambda: None))
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -757,17 +910,24 @@ def profile_decode(engine, cfg, report, key="serve", max_new=12) -> None:
             # a range's own device-side copy (a user annotation) is no
             # kernel: its time is its kernels'
             if ("CUDA" not in str(getattr(e, "device_type", ""))
-                    or e.key in MOE_SPANS):
+                    or e.key in MOE_SPANS + REC_SPANS):
                 continue
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = getattr(e, "self_cuda_time_total", 0)
             rows.append((us, e.key, e.count))
         spans = {label: 0.0 for label in MOE_SPANS}
-        if cfg.moe.n_experts:
-            for e in prof.events():
-                if e.name in spans and "CPU" in str(e.device_type):
-                    spans[e.name] += e.device_time_total / 1e3 / n_steps
+        cell = {"cells": 0.0, "their linears": 0.0}
+        for e in prof.events() if cfg.moe.n_experts or recurrent else ():
+            if "CPU" not in str(e.device_type):
+                continue
+            ms = e.device_time_total / 1e3 / n_steps
+            if e.name in spans:
+                spans[e.name] += ms
+            elif e.name == REC_SPANS[0]:
+                cell["cells"] += ms
+            elif e.name == REC_SPANS[1] and _inside(e, REC_SPANS[0]):
+                cell["their linears"] += ms
     except Exception as e:  # diagnostic only: keep the smoke run going
         print(f"profiler: not measured ({e!r})", file=sys.stderr)
         report[key]["device_busy_ms_per_step"] = f"not measured: {e!r}"
@@ -804,11 +964,22 @@ def profile_decode(engine, cfg, report, key="serve", max_new=12) -> None:
         other["ms"] -= experts + dispatch
         groups["other (PyTorch; the launches count the MoE's too)"] = other
         report[key]["moe_spans_ms_per_step"] = spans
+    if recurrent:
+        # a cell range holds its linears' K1 launches (counted in the K1
+        # groups) and their casts and bias adds: its own PyTorch kernels
+        # are the range less the linear ranges inside it
+        other = groups.pop("other (PyTorch)", {"ms": 0.0, "calls": 0.0})
+        own = cell["cells"] - cell["their linears"]
+        groups["recurrent cells' own PyTorch (conv step, gates, state)"] = {
+            "ms": own}
+        other["ms"] -= own
+        groups["other (PyTorch; the launches count the cells' too)"] = other
+        report[key]["recurrent_spans_ms_per_step"] = cell
     report[key]["device_ms_per_step_by_kernel"] = groups
     k6_calls = groups.get("K6 paged attention", {}).get("calls", 0)
-    if k6_calls != cfg.n_layers:
-        fail(f"decode profile: {k6_calls} K6 launches a step, want one a "
-             f"layer ({cfg.n_layers})")
+    if k6_calls != n_attn_layers(cfg):
+        fail(f"decode profile: {k6_calls} K6 launches a step, want one an "
+             f"attention layer ({n_attn_layers(cfg)})")
     print(f"profiler ({key}): device busy per step: "
           f"{report[key]['device_busy_ms_per_step']} ms (8 slots busy, "
           f"{n_steps} steps)", flush=True)
@@ -877,11 +1048,14 @@ def fp32_logits_check(cfg, params, dev, report, key="fp32_logits"):
     (want, picks), n_plain = counted(plain_cfg, None)
     (got, kpicks), n_kern = counted(kern_cfg, picks)
     # the plain path launches no kernel; the kernel path launches K1 for
-    # every linear of the prefill and of the 4 decode steps, and K6 for
-    # every layer of each decode step
+    # every linear of the prefill (a recurrent layer's once a token of
+    # its 128-wide bucket) and of the 4 decode steps, and K6 for every
+    # attention layer of each decode step
+    need_k1 = (k1_per_pass(cfg, prefill=True, tokens=tokens.shape[1])
+               + 4 * k1_per_pass(cfg))
     for name, seen, need in (
             ("plain", n_plain, (0, 0)),
-            ("kernel", n_kern, (k1_per_pass(cfg) * 5, cfg.n_layers * 4))):
+            ("kernel", n_kern, (need_k1, n_attn_layers(cfg) * 4))):
         if seen != need:
             fail(f"fp32 {name} path launched (cadc_matmul, paged_attention)"
                  f" = {seen}, want {need}")
@@ -897,7 +1071,8 @@ def fp32_logits_check(cfg, params, dev, report, key="fp32_logits"):
     report[key] = {"max_err_over_scale": worst_rel,
                    "greedy_steps_equal": same, "steps": len(picks),
                    "launches": n_kern}
-    print(f"fp32 {cfg.name} at full width, {cfg.n_layers} layers: prefill + "
+    print(f"fp32 {cfg.name} at full width, {cfg.n_layers} layers "
+          f"{''.join(k[0] for k in cfg.pattern_for_layers)}: prefill + "
           f"4 decode steps, kernel vs plain "
           f"logits max err / scale {worst_rel:.3e} (tol {LOGITS_RTOL}); "
           f"greedy picks equal on {same}/{len(picks)} steps", flush=True)
@@ -931,18 +1106,15 @@ def replay_proposer(k, streams, vocab, shift):
     return Replay(k)
 
 
-def verify_gap(cfg, params, dev, report) -> float:
-    """max |logit| difference between each row t of a verify step (Q =
-    SPEC_K + 1) and a Q = 1 decode step at the same prefix, on one engine
-    state: N_SLOTS slots after a batched prefill of prompts of 64..128
-    tokens on the headroom rings, the drafts being the decode steps' own
-    greedy picks (so each row's prefix is the decode's), tables sliced as
-    the engine slices them. Measured in bf16 (the serving path; the
-    kernels-on gap bounds the stream check) and in fp32 (TF32 off; finer
-    than bf16's rounding of the logits), each with the kernels on, K1
-    alone (plain paged attention), K6 alone (plain linears) and neither;
-    plus the head as one GEMM over the step's rows against the per-column
-    head the verify step computes, and the device time of both."""
+def one_state_gap(cfg, params, dev) -> tuple:
+    """On one engine state (N_SLOTS slots after a batched prefill of
+    prompts of 64..128 tokens on the headroom rings), the max |logit|
+    difference between each row t of a verify step (Q = SPEC_K + 1) and a
+    Q = 1 decode step at the same prefix, the drafts being the decode
+    steps' own greedy picks (so each row's prefix is the decode's), tables
+    sliced as the engine slices them; and the head as one GEMM over the
+    step's rows against the per-column head the verify step computes.
+    Returns (verify gap, head gap)."""
     from repro_torch.launch import steps as steps_lib
     from repro_torch.models.lm import transformer as tf
     from repro_torch.serve.backends import PagedBackend
@@ -955,62 +1127,69 @@ def verify_gap(cfg, params, dev, report) -> float:
         tokens[i, :n] = rng.randint(0, cfg.vocab_size, size=n)
     slot_ids = np.arange(N_SLOTS, dtype=np.int32)
 
-    def gap(path_cfg):
-        backend = PagedBackend(path_cfg, N_SLOTS, MAX_LEN, BLOCK, dev,
-                               spec_tokens=SPEC_K)
-        caches = backend.init_caches()
-        tables = BlockTables(N_SLOTS, backend.blocks_per_slot,
-                             backend.n_blocks)
-        for slot in range(N_SLOTS):
-            tables.assign(slot)
+    backend = PagedBackend(cfg, N_SLOTS, MAX_LEN, BLOCK, dev,
+                           spec_tokens=SPEC_K)
+    caches = backend.init_caches()
+    tables = BlockTables(N_SLOTS, backend.blocks_per_slot, backend.n_blocks)
+    for slot in range(N_SLOTS):
+        tables.assign(slot)
 
-        def sliced(max_pos):
-            cov = backend.covered_blocks(max_pos)
-            return {k: torch.as_tensor(np.ascontiguousarray(v[:, :cov[k]]),
-                                       device=dev)
-                    for k, v in tables.tables.items()}
+    def sliced(max_pos):
+        cov = backend.covered_blocks(max_pos)
+        return {k: torch.as_tensor(np.ascontiguousarray(v[:, :cov[k]]),
+                                   device=dev)
+                for k, v in tables.tables.items()}
 
-        p = steps_lib.cast_compute(params, path_cfg)
-        first, _, contribs = steps_lib.make_batched_prefill_step(path_cfg)(
-            p, {"tokens": torch.as_tensor(tokens, device=dev)},
-            torch.as_tensor(lengths, device=dev))
-        backend.write_prefill(caches, contribs, slot_ids, lengths,
-                              tables.tables)
-        pos = torch.as_tensor(lengths.astype(np.int64), device=dev)
-        top = int(lengths.max())
-        dec_caches = [type(c)(c.k.clone(), c.v.clone()) for c in caches]
-        fed, dec = [first.long()], []
-        for t in range(SPEC_K + 1):
-            nxt, lg = backend.decode(p, dec_caches, sliced(top + t), fed[-1],
-                                     pos + t)
-            dec.append(lg)
-            fed.append(nxt.long())
-        heads = []
-        head = tf._head
-        tf._head = lambda pp, x, c: heads.append(x) or head(pp, x, c)
-        try:
-            _, ver, _ = backend.decode_spec(
-                p, caches, sliced(top + SPEC_K),
-                torch.stack(fed[:SPEC_K + 1], dim=1), pos)
-        finally:
-            tf._head = head
-        torch.cuda.synchronize()
-        err = max(float((ver[:, t] - dec[t]).abs().max())
-                  for t in range(SPEC_K + 1))
-        x = torch.cat(heads, dim=1)
-        one = head(p, x, path_cfg)
-        per_col = torch.cat([head(p, x[:, t:t + 1], path_cfg)
-                             for t in range(x.shape[1])], dim=1)
-        return err, float((one - per_col).abs().max())
+    p = steps_lib.cast_compute(params, cfg)
+    first, _, contribs = steps_lib.make_batched_prefill_step(cfg)(
+        p, {"tokens": torch.as_tensor(tokens, device=dev)},
+        torch.as_tensor(lengths, device=dev))
+    backend.write_prefill(caches, contribs, slot_ids, lengths, tables.tables)
+    pos = torch.as_tensor(lengths.astype(np.int64), device=dev)
+    top = int(lengths.max())
+    dec_caches = tf.copy_caches(caches)
+    fed, dec = [first.long()], []
+    for t in range(SPEC_K + 1):
+        nxt, lg = backend.decode(p, dec_caches, sliced(top + t), fed[-1],
+                                 pos + t)
+        dec.append(lg)
+        fed.append(nxt.long())
+    heads = []
+    head = tf._head
+    tf._head = lambda pp, x, c: heads.append(x) or head(pp, x, c)
+    try:
+        _, ver, _ = backend.decode_spec(
+            p, caches, sliced(top + SPEC_K),
+            torch.stack(fed[:SPEC_K + 1], dim=1), pos)
+    finally:
+        tf._head = head
+    torch.cuda.synchronize()
+    err = max(float((ver[:, t] - dec[t]).abs().max())
+              for t in range(SPEC_K + 1))
+    x = torch.cat(heads, dim=1)
+    one = head(p, x, cfg)
+    per_col = torch.cat([head(p, x[:, t:t + 1], cfg)
+                         for t in range(x.shape[1])], dim=1)
+    return err, float((one - per_col).abs().max())
+
+
+def verify_gap(cfg, params, dev, report) -> float:
+    """one_state_gap measured in bf16 (the serving path; the kernels-on gap
+    bounds the stream check) and in fp32 (TF32 off; finer than bf16's
+    rounding of the logits), each with the kernels on, K1 alone (plain
+    paged attention), K6 alone (plain linears) and neither; and the device
+    time of the verify step's head as one GEMM and per column."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models.lm import transformer as tf
 
     out = {}
+    variants = (("kernels", "auto", "auto"), ("K1 only", "auto", "torch"),
+                ("K6 only", "torch", "auto"), ("plain", "torch", "torch"))
     for dtype in ("bfloat16", "float32"):
-        for name, kimpl, aimpl in (("kernels", "auto", "auto"),
-                                   ("K1 only", "auto", "torch"),
-                                   ("K6 only", "torch", "auto"),
-                                   ("plain", "torch", "torch")):
-            err, head_one_gemm = gap(cfg.with_overrides(
-                dtype=dtype, kernel_impl=kimpl, paged_attn_impl=aimpl))
+        for name, kimpl, aimpl in variants:
+            err, head_one_gemm = one_state_gap(cfg.with_overrides(
+                dtype=dtype, kernel_impl=kimpl, paged_attn_impl=aimpl),
+                params, dev)
             out.setdefault(dtype, {})[name] = {
                 "max_abs_logit_gap": err, "head_as_one_gemm": head_one_gemm}
         print(f"verify step vs Q = 1 decode, max |delta logit| ({dtype}, "
@@ -1020,6 +1199,10 @@ def verify_gap(cfg, params, dev, report) -> float:
               + f"; the head as one GEMM over the {N_SLOTS * (SPEC_K + 1)} "
               f"rows against per column: "
               f"{out[dtype]['kernels']['head_as_one_gemm']:.4g}", flush=True)
+    gap_all = out["bfloat16"]["kernels"]["max_abs_logit_gap"]
+    if not math.isfinite(gap_all):
+        fail(f"verify gap is not finite: {gap_all}")
+    report["verify_gap"] = out
     # what the per-column head costs: device ms of the verify step's head,
     # bf16, as one GEMM and per column
     p = steps_lib.cast_compute(params, cfg)
@@ -1032,21 +1215,20 @@ def verify_gap(cfg, params, dev, report) -> float:
     out["head_ms"] = {"one_gemm": one_ms, "per_column": col_ms}
     print(f"verify step's head (bf16): one GEMM {one_ms:.3f} ms, per column "
           f"{col_ms:.3f} ms", flush=True)
-    report["verify_gap"] = out
-    gap_all = out["bfloat16"]["kernels"]["max_abs_logit_gap"]
-    if not math.isfinite(gap_all):
-        fail(f"verify gap is not finite: {gap_all}")
     return gap_all
 
 
-def serve_spec(cfg, params, dev, base, gap, report) -> None:
+def serve_spec(cfg, params, dev, base, gap, report, key="serve_spec",
+               proposers=("ngram", "model", "oracle", "anti")) -> None:
     """Slice 4's path: the main path's workload through the engine with
     spec_tokens = SPEC_K under four proposers (n-gram, the draft model —
     gemma3-1b at default_draft_config's 3 layers, random weights from seed
     1 — the oracle and its anti-oracle), each after a warm-up, with exact
-    launch counts. Every stream must equal the spec_tokens=0 stream, or
-    leave it first at a token whose top-2 logit margin in the greedy run
-    is below the measured verify gap."""
+    launch counts (slice 6 runs recurrentgemma-9b's path under key, with
+    the oracle and the anti-oracle: every recurrent layer rolls back to
+    the kept token at every verify step). Every stream must equal the
+    spec_tokens=0 stream, or leave it first at a token whose top-2 logit
+    margin in the greedy run is below the measured verify gap."""
     from repro_torch.kernels import cadc_matmul as cm
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.serve import EngineConfig, ServeEngine, poisson_workload
@@ -1073,11 +1255,12 @@ def serve_spec(cfg, params, dev, base, gap, report) -> None:
         req.logits = []
     del ref
 
+
     warm = poisson_workload(n_requests=2, rate=1.0, vocab_size=cfg.vocab_size,
                             prompt_len=(16, 32), max_new=(2, 4), seed=99)
     plain = base["summary"]
     out = {}
-    for name in ("ngram", "model", "oracle", "anti"):
+    for name in proposers:
         engine = ServeEngine(cfg, params, EngineConfig(
             n_slots=N_SLOTS, max_len=MAX_LEN, block_size=BLOCK,
             spec_tokens=SPEC_K,
@@ -1096,6 +1279,7 @@ def serve_spec(cfg, params, dev, base, gap, report) -> None:
             commit(committed)
 
         engine.proposer.on_commit = counted
+        buckets = record_prefill_buckets(engine)
         torch.cuda.synchronize()
         cm.cadc_matmul_cuda.launches = 0
         pa.paged_attention_cuda.launches = 0
@@ -1109,11 +1293,13 @@ def serve_spec(cfg, params, dev, base, gap, report) -> None:
         tel = engine.telemetry
         n_ver, n_pre = tel.spec_steps, len(tel.prefill_s)
         draft = 0
-        if name == "model":
-            draft = 7 * engine.proposer.cfg_d.n_layers * (
-                SPEC_K * n_ver + advances[0] + n_pre)
-        want = {"cadc_matmul": 7 * cfg.n_layers * (n_ver + n_pre) + draft,
-                "paged_attention": cfg.n_layers * n_ver}
+        if name == "model":  # its rollout and re-feed steps, its prefills
+            cfg_d = engine.proposer.cfg_d
+            draft = (k1_per_pass(cfg_d) * (SPEC_K * n_ver + advances[0])
+                     + k1_prefills(cfg_d, buckets))
+        want = {"cadc_matmul": k1_per_pass(cfg, tokens=SPEC_K + 1) * n_ver
+                + k1_prefills(cfg, buckets) + draft,
+                "paged_attention": n_attn_layers(cfg) * n_ver}
         if n_ver != len(tel.step_s) or launches != want:
             fail(f"serve_spec {name}: launched {launches}, want {want} "
                  f"({n_ver} verify steps, {n_pre} prefills, draft "
@@ -1154,7 +1340,7 @@ def serve_spec(cfg, params, dev, base, gap, report) -> None:
             accepted=sp["accepted"], verify_steps=n_ver, prefills=n_pre,
             draft_refeed_steps=advances[0] if name == "model" else 0,
             launches=launches, wall_s=wall, diverged=diverged)
-        print(f"serve_spec {name} (K={SPEC_K}): "
+        print(f"{key} {cfg.name} {name} (K={SPEC_K}): "
               f"{summary['requests_finished']}/{len(workload)} requests, "
               f"tok/s {summary['tokens_per_s']:.1f} (spec_tokens=0: "
               f"{plain['tokens_per_s']:.1f}), step ms p50 "
@@ -1172,7 +1358,7 @@ def serve_spec(cfg, params, dev, base, gap, report) -> None:
             # acceptance
             profile_decode(engine, cfg, out, key="ngram", max_new=40)
         del engine
-    report["serve_spec"] = out
+    report[key] = out
 
 
 def time_k1(cfg, dev, launches, report, m=N_SLOTS):
@@ -1625,17 +1811,18 @@ def vit_path(dev, report) -> None:
     torch.cuda.empty_cache()
 
 
-def time_k1_slice5(dev, report) -> None:
-    """K1 device ms at M = 8 (a decode step's rows), bf16, relu, at every
-    K1 shape of the six configs, beside its plain version, torch.matmul
-    and the bound (weights rotated over copies that hold 3x the L2, as in
-    time_k1); then qwen2-moe-a2.7b's K1 time a decode step from them."""
+def time_k1_shapes(dev, shapes: dict, seed: int) -> dict:
+    """K1 device ms at M = 8 (a decode step's rows; a recurrent prefill's
+    rows a token), bf16, relu, at each shape of `shapes` ({(D, N):
+    (configs, names)}), beside its plain version, torch.matmul and the
+    bound (weights rotated over copies that hold 3x the L2, as in
+    time_k1). Returns {"DxN": record}."""
     from repro_torch.kernels import cadc_matmul as cm
 
-    gen = torch.Generator(device=dev).manual_seed(13)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     dt, m, xbar = torch.bfloat16, N_SLOTS, 256
     per_shape = {}
-    for (d, n), (archs, names) in sorted(slice5_k1_shapes().items()):
+    for (d, n), (archs, names) in sorted(shapes.items()):
         x = torch.randn(m, d, generator=gen, device=dev).to(dt)
         ws = rotation(lambda: (torch.randn(d, n, generator=gen, device=dev)
                                / math.sqrt(d)).to(dt), d * n * 2)
@@ -1665,12 +1852,29 @@ def time_k1_slice5(dev, report) -> None:
               f" {plan.width}, grid {plan.grid})", flush=True)
         del ws
         torch.cuda.empty_cache()
-    cfg = slice5_cfg(MOE_ARCH)
+    return per_shape
+
+
+def k1_step_time(cfg, per_shape: dict, shapes) -> dict:
+    """A decode step's K1 time from one-call times: each (name, D, N) of
+    `shapes` that many times (name, D, N, times)."""
     step = {"ms": 0.0, "matmul_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    for name, d, n in linear_shapes(cfg):
-        times = 1 if name == "head" else cfg.n_layers
+    for _, d, n, times in shapes:
         for key in step:
             step[key] += per_shape[f"{d}x{n}"][key] * times
+    step["launches"] = sum(t for *_, t in shapes)
+    return step
+
+
+def time_k1_slice5(dev, report) -> None:
+    """K1 device ms at M = 8 at every K1 shape of the six configs
+    (time_k1_shapes); then qwen2-moe-a2.7b's K1 time a decode step from
+    them."""
+    per_shape = time_k1_shapes(dev, slice5_k1_shapes(), 13)
+    cfg = slice5_cfg(MOE_ARCH)
+    step = k1_step_time(cfg, per_shape, [
+        (name, d, n, 1 if name == "head" else cfg.n_layers)
+        for name, d, n in linear_shapes(cfg)])
     report["k1_timing_slice5"] = {
         "unit": "one call at M=8, bf16, relu", "per_shape": per_shape,
         "qwen2_moe_decode_step": step}
@@ -1678,6 +1882,205 @@ def time_k1_slice5(dev, report) -> None:
           f"{step['ms']:.3f} ms, torch.matmul {step['matmul_ms']:.3f}, "
           f"plain {step['plain_ms']:.3f}, bound {step['bound_ms']:.3f} "
           "(sums of the one-call times)", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# slice 6: the recurrent LM families (RG-LRU; xLSTM's mLSTM and sLSTM)
+# ---------------------------------------------------------------------------
+
+def decode_step_shapes(cfg) -> list:
+    """(name, D, N, launches) of a decode step's K1 calls: each kind's
+    linears times its layers, and an untied head once."""
+    kinds = cfg.pattern_for_layers
+    out = [(f"{kind}.{name}", d, n, kinds.count(kind))
+           for kind in sorted(set(kinds))
+           for name, d, n in kind_linear_shapes(cfg, kind)]
+    if not cfg.tie_embeddings:
+        out += [s + (1,) for s in linear_shapes(cfg) if s[0] == "head"]
+    return out
+
+
+def slice6_k1_shapes() -> dict:
+    """{(D, N): (configs, names)} of every K1 shape of the two configs."""
+    out = {}
+    for arch in SLICE6_ARCHS:
+        for name, d, n, _ in decode_step_shapes(slice5_cfg(arch)):
+            archs, names = out.setdefault((d, n), (set(), set()))
+            archs.add(arch)
+            names.add(name)
+    return out
+
+
+def check_k1_slice6(dev, report) -> None:
+    """K1 against its plain version at every K1 shape of recurrentgemma-9b
+    and xlstm-1.3b at published width (mLSTM's 4096 -> 8 gates, sLSTM's
+    2048 -> 2730 and 2730 -> 2048 padded to 2816, the MQA 4096 -> 256,
+    xlstm's untied head): M = 8 (a decode step, and a recurrent prefill's
+    rows a token: the prefill batch holds the 8 slots) and 32 (a verify
+    step's attention rows), fp32 (TF32 off) and bf16, relu."""
+    from repro_torch.kernels import cadc_matmul as cm
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    worst, n_checks = 0.0, 0
+    shapes = slice6_k1_shapes()
+    rows = (N_SLOTS, N_SLOTS * (SPEC_K + 1))
+    for (d, n) in sorted(shapes):
+        for m in rows:
+            for dtype in (torch.float32, torch.bfloat16):
+                worst = max(worst, k1_case(cm, gen, dev, 256, d, n, m, dtype,
+                                           "relu"))
+                n_checks += 1
+        torch.cuda.empty_cache()
+    plans = sorted({f"{p.kernel} {p.width} split={p.split}" for p in (
+        cm.plan_fwd(m, n, d // 256, 256, vec=v) for d, n in shapes
+        for m in rows for v in (4, 8))})
+    report["k1_slice6"] = {"checks": n_checks, "max_abs_err": worst,
+                           "shapes": sorted(shapes), "plans": plans}
+    report["k1_max_abs_err"] = max(report["k1_max_abs_err"], worst)
+    print(f"K1 at the recurrent configs' {len(shapes)} shapes "
+          f"{sorted(shapes)}: {n_checks} checks ok (M {rows}; plans {plans}),"
+          f" max abs err {worst:.3e}", flush=True)
+
+
+def check_k6_slice6(dev, report) -> None:
+    """K6 under every plan at recurrentgemma-9b's geometry (MQA: 16 query
+    heads over 1 kv head of 256, so R = 16 q rows at decode and 64 at
+    Q = 4), its local window of 2048 cut to the main path's rings (160
+    entries, 176 with the verify step's headroom), fp32 and bf16: NaN in
+    dead entries, an idle slot, 0 spills (checked at the build)."""
+    from repro_torch.kernels import cadc_matmul as cm
+    from repro_torch.kernels import paged_attention as pa
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    cfg = slice5_cfg(RG_ARCH)
+    cases = ([c + (1,) for c in main_path_k6_cases(cfg)]
+             + spec_k6_cases(cfg))
+    worst, n_plans = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in cases:
+            err, n = k6_case(pa, cfg, dev, dtype, case, gen)
+            worst, n_plans = max(worst, err), n_plans + n
+    if int(cm._counters(dev).abs().sum()):
+        fail("K6 left the arrival counters nonzero")
+    r = cfg.n_heads // cfg.n_kv_heads
+    report["k6_slice6"] = {"cases": 2 * len(cases), "runs": n_plans,
+                           "max_abs_err": worst,
+                           "geometry": [c[:4] + (c[5],) for c in cases]}
+    report["k6_max_abs_err"] = max(report["k6_max_abs_err"], worst)
+    print(f"K6 at {cfg.name}'s geometry (H/K {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"hd {cfg.head_dim}, R {r}/{r * (SPEC_K + 1)}; "
+          f"{[c[:4] + (c[5],) for c in cases]}): {2 * len(cases)} cases x "
+          f"every plan ({n_plans} runs) ok, max abs err {worst:.3e}",
+          flush=True)
+
+
+def rec_main_path(arch: str, dev, report, want_k1: int, want_k6: int,
+                  n_requests: int):
+    """A recurrent config at full width, random bf16 weights from seed 0
+    drawn layer by layer, CADC relu at crossbar 256, on the main path's
+    engine and workload (its first n_requests requests): exact launch
+    counts (want_k1 / want_k6 a decode step; a prefill's K1 from its
+    bucket), step ms, tok/s, TTFT, peak memory and the decode profile
+    split into K1, K6, the recurrent cells' own PyTorch kernels and other
+    PyTorch. Returns (cfg, params, launches, base)."""
+    from repro_torch.models.lm import transformer as tf
+    from repro_torch.serve.backends import PagedBackend
+
+    cfg = slice5_cfg(arch)
+    if (k1_per_pass(cfg), n_attn_layers(cfg)) != (want_k1, want_k6):
+        fail(f"{cfg.name}: K1 / K6 {k1_per_pass(cfg)} / {n_attn_layers(cfg)}"
+             f" a decode step, want {want_k1} / {want_k6}")
+    pool = PagedBackend(cfg, N_SLOTS, MAX_LEN, BLOCK, dev).n_blocks
+    if bool(pool) != bool(want_k6):
+        fail(f"{cfg.name}: KV pool blocks {pool} with {want_k6} attention "
+             "layers")
+    key = {RG_ARCH: "serve_rg", XL_ARCH: "serve_xl"}[arch]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = n_params(params)
+    print(f"{cfg.name}: {n / 1e9:.3f} B parameters drawn in bf16 layer by "
+          f"layer in {init_s:.1f} s; KV pool blocks {pool}", flush=True)
+    launches, base = serve_main_path(cfg, params, dev, report, key=key,
+                                     n_requests=n_requests)
+    report[key].update(params=n, init_s=init_s, kv_pool_blocks=pool,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f"{cfg.name}: peak device memory {report[key]['peak_gib']:.2f} "
+          "GiB", flush=True)
+    return cfg, params, launches, base
+
+
+def rec_fp32_logits(arch: str, dev, report) -> None:
+    """A recurrent config at published width and small depth in fp32 (TF32
+    off): recurrentgemma-9b at 3 layers (one rglru, rglru, local unit),
+    xlstm-1.3b at 2 (mlstm, slstm); phase 5's kernel-vs-plain logits check
+    (one batched prefill, the recurrent layers a token at a time, and 4
+    decode steps fed the same tokens)."""
+    from repro_torch.models.lm import transformer as tf
+
+    kw = (dict(n_layers=3) if arch == RG_ARCH else
+          dict(n_layers=2, pattern=("mlstm", "slstm")))
+    cfg = slice5_cfg(arch, **kw)
+    params = tf.init(cfg, seed=0, device=dev)
+    fp32_logits_check(cfg, params, dev, report,
+                      key={RG_ARCH: "fp32_logits_rg",
+                           XL_ARCH: "fp32_logits_xl"}[arch])
+    del params
+    torch.cuda.empty_cache()
+
+
+def recurrent_paths(dev, report) -> dict:
+    """Slice 6's paths: recurrentgemma-9b (K1 292 and K6 12 launches a
+    decode step) with its speculative path under the oracle and the
+    anti-oracle, then xlstm-1.3b (K1 277, no K6, no KV pool), each then at
+    small depth in fp32. Returns their launch counts."""
+    out = {}
+    cfg, params, out["recurrentgemma-9b"], base = rec_main_path(
+        RG_ARCH, dev, report, 292, 12, REC_REQUESTS)
+    # the bf16 kernels-on gap: the one the stream check reads
+    gap, _ = one_state_gap(cfg.with_overrides(
+        dtype="bfloat16", kernel_impl="auto", paged_attn_impl="auto"),
+        params, dev)
+    if not math.isfinite(gap):
+        fail(f"{cfg.name} verify gap is not finite: {gap}")
+    report["verify_gap_rg"] = {"bfloat16": {"kernels": {
+        "max_abs_logit_gap": gap}}}
+    print(f"verify step vs Q = 1 decode, max |delta logit| ({cfg.name}, "
+          f"bf16, kernels on, one state, {N_SLOTS} slots, Q = {SPEC_K + 1})"
+          f": {gap:.4g}", flush=True)
+    serve_spec(cfg, params, dev, base, gap, report, key="serve_spec_rg",
+               proposers=("oracle", "anti"))
+    del params, base
+    torch.cuda.empty_cache()
+    rec_fp32_logits(RG_ARCH, dev, report)
+    _, params, out["xlstm-1.3b"], _ = rec_main_path(
+        XL_ARCH, dev, report, 277, 0, REC_REQUESTS)
+    del params
+    torch.cuda.empty_cache()
+    rec_fp32_logits(XL_ARCH, dev, report)
+    return out
+
+
+def time_k1_slice6(dev, report) -> None:
+    """K1 device ms at M = 8 at every K1 shape of the two recurrent configs
+    (time_k1_shapes); then each config's K1 time a decode step (292 and
+    277 launches) from them."""
+    per_shape = time_k1_shapes(dev, slice6_k1_shapes(), 23)
+    steps = {}
+    for arch in SLICE6_ARCHS:
+        cfg = slice5_cfg(arch)
+        step = steps[cfg.name] = k1_step_time(cfg, per_shape,
+                                              decode_step_shapes(cfg))
+        print(f"K1 a {cfg.name} decode step ({step['launches']} launches at "
+              f"M=8): {step['ms']:.3f} ms, torch.matmul "
+              f"{step['matmul_ms']:.3f}, plain {step['plain_ms']:.3f}, bound "
+              f"{step['bound_ms']:.3f} (sums of the one-call times)",
+              flush=True)
+    report["k1_timing_slice6"] = {
+        "unit": "one call at M=8, bf16, relu", "per_shape": per_shape,
+        "decode_step": steps}
 
 
 # ---------------------------------------------------------------------------
@@ -3463,6 +3866,10 @@ def main() -> None:
     moe_fp32_logits(dev, report)
     vit_path(dev, report)
 
+    check_k1_slice6(dev, report)
+    check_k6_slice6(dev, report)
+    report["slice6_launches"] = recurrent_paths(dev, report)
+
     lenet_path(dev, report)
     ckpt_resume(dev, report)
     training_parity(dev, report)
@@ -3474,6 +3881,7 @@ def main() -> None:
     # call's warm-up on a new side stream, and PyTorch keeps the cuBLAS
     # workspace it allocates for every stream cuBLAS has run on
     time_k1_slice5(dev, report)
+    time_k1_slice6(dev, report)
     time_k1(cfg, dev, launches, report, m=N_SLOTS * (SPEC_K + 1))
     kernels = [time_k1(cfg, dev, launches, report),
                time_k6(cfg, dev, launches, report),

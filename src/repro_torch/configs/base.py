@@ -207,10 +207,9 @@ class ArchConfig:
         return out
 
 
-# The archs the port has: every LM of the JAX package built from attention
-# layers. recurrentgemma_9b and xlstm_13b (recurrent kinds) and
-# hubert_xlarge (an encoder with an audio frontend) join as those are
-# ported (ROADMAP.md).
+# The archs the port has: every LM of the JAX package but hubert_xlarge
+# (an encoder with an audio frontend and a gelu FFN), which joins when
+# those are ported (ROADMAP.md).
 ARCH_IDS = [
     "gemma3_1b",
     "gemma_7b",
@@ -219,6 +218,8 @@ ARCH_IDS = [
     "mixtral_8x22b",
     "qwen2_moe_a27b",
     "internvl2_1b",
+    "recurrentgemma_9b",
+    "xlstm_13b",
 ]
 
 

@@ -4,10 +4,14 @@
         --smoke --cadc --slots 4 --requests 12 --rate 0.5 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen2_moe_a27b --cadc --slots 8 --prompt-len 128 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma_9b --smoke --cadc --device cpu --spec-tokens 3
 
---arch is any of configs.ARCH_IDS (the attention-only LMs: gemma3-1b,
-gemma-7b, codeqwen1.5-7b, phi4-mini, mixtral-8x22b, qwen2-moe-a2.7b,
-internvl2-1b); mixtral-8x22b fits one card only at --smoke size. Random
+--arch is any of configs.ARCH_IDS (the attention-only LMs gemma3-1b,
+gemma-7b, codeqwen1.5-7b, phi4-mini, mixtral-8x22b, qwen2-moe-a2.7b and
+internvl2-1b; the recurrent recurrentgemma-9b, RG-LRU with local MQA
+attention, and xlstm-1.3b, mLSTM and sLSTM blocks with no KV cache);
+mixtral-8x22b fits one card only at --smoke size. Random
 weights are drawn in the compute dtype layer by layer (transformer.init
 dtype=), so a full-width model needs no fp32 copy on the card. A vit
 arch's requests get a zero image here: patches reach the engine through

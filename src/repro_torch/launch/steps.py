@@ -29,12 +29,14 @@ def cast_compute(params, cfg: ArchConfig):
 
 def make_batched_prefill_step(cfg: ArchConfig) -> Callable:
     """Serving prefill over left-aligned ragged prompts. lengths [B] picks
-    each slot's own last-token logits. Returns (next_tokens [B],
-    last_logits [B, V], cache contributions)."""
+    each slot's own last-token logits and freezes its recurrent states at
+    its own length. Returns (next_tokens [B], last_logits [B, V], cache
+    contributions)."""
 
     def batched_prefill_step(params, batch: Dict[str, Tensor],
                              lengths: Tensor):
-        logits, contribs = tf.forward_prefill(params, batch, cfg)
+        logits, contribs = tf.forward_prefill(params, batch, cfg,
+                                              lengths=lengths)
         idx = (lengths - 1).clamp(min=0).to(torch.int64)
         last = logits[torch.arange(logits.shape[0], device=logits.device), idx]
         return torch.argmax(last, dim=-1).to(torch.int32), last, contribs

@@ -1,25 +1,34 @@
-"""The LM stack: embedding -> pattern-cycled attention blocks -> norm -> head.
+"""The LM stack: embedding -> pattern-cycled blocks -> norm -> head.
 
-Port of repro.models.lm.transformer for the attention layer kinds
-('global', 'local'), each with a dense FFN or an MoE block, tied or untied
-heads, and the ViT patch prefix; recurrent and xLSTM kinds and the audio
-frontend raise at init. The JAX package stacks each pattern position's
-parameters over the unit repeats and runs them as one lax.scan; here the
-stack is a Python list of layers, layer i having kind
-cfg.pattern_for_layers[i], and the scan is a loop.
+Port of the serving part of repro.models.lm.transformer: the attention
+layer kinds ('global', 'local', each with a dense FFN or an MoE block),
+the RG-LRU kind ('rglru', a recurrent block and an FFN) and the xLSTM
+kinds ('mlstm', 'slstm', a block with no FFN); tied or untied heads and
+the ViT patch prefix. The audio frontend (an encoder's) raises at init,
+an unknown kind raises as the JAX package's _layer_init does. The JAX
+package stacks each pattern position's parameters over the unit repeats
+and runs them as one lax.scan; here the stack is a Python list of layers,
+layer i having kind cfg.pattern_for_layers[i], and the scan is a loop.
 
 Parameters: {"embed": {"table"}, "final_norm": {"scale"}, "head": {"w"}
-(untied heads), "frontend_proj": {"w", "b"} (vit), "layers": [{"ln1",
-"attn": {"wq", "wk", "wv", "wo"} (+ "b" with qkv bias), "ln2", "ffn":
-{"w_gate", "w_up", "w_down"} or "moe": {"router", "w_gate", "w_up",
-"w_down", "shared", "shared_gate"}}, ...]} — the JAX names, one dict per
-layer. `params_from_numpy` takes the JAX package's `tf.init` pytree (as
-numpy arrays) and returns this layout.
+(untied heads), "frontend_proj": {"w", "b"} (vit), "layers": [...]} with
+one dict a layer, the JAX names: an attention layer {"ln1", "attn": {"wq",
+"wk", "wv", "wo"} (+ "b" with qkv bias), "ln2", "ffn": {"w_gate", "w_up",
+"w_down"} or "moe": {...}}; an rglru layer {"ln1", "rec": {"w_x",
+"w_gate", "conv": {"w", "b"}, "w_r", "w_i", "lam", "w_out"}, "ln2",
+"ffn"}; an xLSTM layer {"block": {...}} (xlstm.py). `params_from_numpy`
+takes the JAX package's `tf.init` pytree (as numpy arrays) and returns
+this layout.
 
-Caches: a list with one entry per layer — attention.KVCache rings (dense)
-or attention.PagedKV pools (paged), updated in place by the decode steps.
-`decode_step_spec` is the speculative verify step: Q tokens a slot in one
-multi-token paged append.
+Caches: a list with one entry per layer. Attention layers hold
+attention.KVCache rings (dense) or attention.PagedKV pools (paged),
+written in place; recurrent layers hold their per-slot state
+(rglru.RGLRUState, xlstm.MLSTMState / SLSTMState: batch == the slots), the
+same in both layouts, and a step replaces the list entry with the new
+state. `decode_step_spec` is the speculative verify step: Q tokens a slot
+in one multi-token paged append on attention layers; recurrent layers run
+the one-token cell Q times and leave their per-token states stacked
+[Q, ...] in the list for the caller to select (serve.backends).
 """
 from __future__ import annotations
 
@@ -33,39 +42,54 @@ from repro_torch.models.lm import attention as attn
 from repro_torch.models.lm import ffn as ffn_lib
 from repro_torch.models.lm import layers as ll
 from repro_torch.models.lm import moe as moe_lib
+from repro_torch.models.lm import rglru as rglru_lib
+from repro_torch.models.lm import xlstm as xlstm_lib
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
 ATTN_KINDS = ("global", "local")
+RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
 
 
 def layout(cfg: ArchConfig) -> Tuple[str, ...]:
-    """Kind of every layer, in stack order. Refuses what is not ported:
-    the recurrent and xLSTM kinds and the audio frontend (an encoder's;
-    ffn.ffn_init refuses the plain gelu FFN)."""
+    """Kind of every layer, in stack order. Refuses an unknown kind (as the
+    JAX package's _layer_init does) and what is not ported: the audio
+    frontend (an encoder's; ffn.ffn_init refuses the plain gelu FFN)."""
     kinds = cfg.pattern_for_layers
-    other = sorted(set(kinds) - set(ATTN_KINDS))
-    if other:
-        raise NotImplementedError(
-            f"layer kinds {other} are not ported (attention kinds are)")
+    for kind in kinds:
+        if kind not in ATTN_KINDS + RECURRENT_KINDS:
+            raise ValueError(f"unknown layer kind {kind!r}")
     if cfg.frontend not in (None, "vit"):
         raise NotImplementedError(
             f"the {cfg.frontend!r} frontend is not ported (vit is)")
     return kinds
 
 
-def _layer_init(gen: torch.Generator, cfg: ArchConfig,
+def _layer_init(gen: torch.Generator, kind: str, cfg: ArchConfig,
                 device: torch.device) -> Params:
-    p = {
-        "ln1": ll.rmsnorm_init(cfg.d_model, device),
-        "attn": attn.attn_init(gen, cfg, device),
-        "ln2": ll.rmsnorm_init(cfg.d_model, device),
-    }
-    if cfg.moe.n_experts > 0:
-        p["moe"] = moe_lib.moe_init(gen, cfg, device)
-    elif cfg.ffn_type != "none":
-        p["ffn"] = ffn_lib.ffn_init(gen, cfg, device)
-    return p
+    if kind in ATTN_KINDS:
+        p = {
+            "ln1": ll.rmsnorm_init(cfg.d_model, device),
+            "attn": attn.attn_init(gen, cfg, device),
+            "ln2": ll.rmsnorm_init(cfg.d_model, device),
+        }
+        if cfg.moe.n_experts > 0:
+            p["moe"] = moe_lib.moe_init(gen, cfg, device)
+        elif cfg.ffn_type != "none":
+            p["ffn"] = ffn_lib.ffn_init(gen, cfg, device)
+        return p
+    if kind == "mlstm":
+        return {"block": xlstm_lib.mlstm_init(gen, cfg, device)}
+    if kind == "slstm":
+        return {"block": xlstm_lib.slstm_init(gen, cfg, device)}
+    if kind == "rglru":
+        return {
+            "ln1": ll.rmsnorm_init(cfg.d_model, device),
+            "rec": rglru_lib.rglru_init(gen, cfg, device),
+            "ln2": ll.rmsnorm_init(cfg.d_model, device),
+            "ffn": ffn_lib.ffn_init(gen, cfg, device),
+        }
+    raise ValueError(f"unknown layer kind {kind!r}")
 
 
 def init(cfg: ArchConfig, *, seed: int = 0,
@@ -96,7 +120,8 @@ def init(cfg: ArchConfig, *, seed: int = 0,
     if cfg.frontend is not None:
         params["frontend_proj"] = cast(ll.linear_init(
             gen, cfg.frontend_dim, cfg.d_model, cfg, dev, bias=True))
-    params["layers"] = [cast(_layer_init(gen, cfg, dev)) for _ in kinds]
+    params["layers"] = [cast(_layer_init(gen, kind, cfg, dev))
+                        for kind in kinds]
     return params
 
 
@@ -116,7 +141,8 @@ def params_from_numpy(tree: Params, cfg: ArchConfig,
     row r becomes layer r * len(pattern) + j; tail[i] becomes layer
     reps * len(pattern) + i (an MoE layer's expert banks slice the same
     way, [reps, E, S, xbar, N] rows to [E, S, xbar, N]). Segmented weights
-    stay [S, xbar, d_out]; "head", "frontend_proj" and every bias "b" are
+    stay [S, xbar, d_out]; "head", "frontend_proj", every bias "b" and the
+    recurrent layers' raw leaves ("lam", "conv" {"w", "b"}, "r_gates") are
     carried over where the pytree has them."""
     dev = device_lib.resolve(device)
     kinds = layout(cfg)
@@ -165,6 +191,44 @@ def _attn_residual(p: Params, x: Tensor, cfg: ArchConfig, attn_fn):
     return x, extra
 
 
+def _recurrent_layer(p: Params, x: Tensor, kind: str, cfg: ArchConfig,
+                     state) -> Tuple[Tensor, Any]:
+    """One token through a recurrent layer: x [B, 1, d] -> (x, new state).
+    xLSTM: the block plus a residual; rglru: pre-norm RG-LRU plus a
+    residual, then pre-norm FFN plus a residual. The one form of the
+    decode, verify and prefill paths."""
+    if kind == "mlstm":
+        y, state = xlstm_lib.mlstm_decode(p["block"], x, cfg, state)
+        return x + y, state
+    if kind == "slstm":
+        y, state = xlstm_lib.slstm_decode(p["block"], x, cfg, state)
+        return x + y, state
+    h = ll.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    y, state = rglru_lib.rglru_decode(p["rec"], h, cfg, state)
+    x = x + y
+    h = ll.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+    return x + ffn_lib.ffn_apply(p["ffn"], h, cfg), state
+
+
+def _recurrent_decode_multi(p: Params, x: Tensor, kind: str,
+                            cfg: ArchConfig, state) -> Tuple[Tensor, Any]:
+    """A Q-token append on a recurrent layer (the speculative verify step):
+    the one-token cell run Q times, each at the [B, 1, d] shape of a decode
+    step, so its outputs and states are bitwise Q sequential steps (the
+    Q tokens are not batched: a GEMM's rows can depend on its row count).
+    Returns (x [B, Q, d], every token's state stacked [Q, ...]): state
+    folds each token in irreversibly, so the caller rolls a slot back to
+    the state of its last accepted token."""
+    ys, states = [], []
+    for t in range(x.shape[1]):
+        y, state = _recurrent_layer(p, x[:, t:t + 1].contiguous(), kind,
+                                    cfg, state)
+        ys.append(y)
+        states.append(state)
+    return torch.cat(ys, dim=1), type(state)(
+        *(torch.stack(leaves) for leaves in zip(*states)))
+
+
 def _head(params: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
     x = ll.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return ll.lm_head(params.get("head"), params["embed"], x, cfg)
@@ -184,51 +248,89 @@ def _embed_inputs(params: Params, batch: Dict[str, Tensor],
 
 
 # ---------------------------------------------------------------------------
-# decode (serve) path
+# caches
 # ---------------------------------------------------------------------------
 
+def init_layer_state(kind: str, cfg: ArchConfig, batch: int,
+                     device: torch.device):
+    """The init state of a recurrent layer kind for `batch` slots (fp32;
+    the mLSTM and sLSTM stabilizers m at -inf)."""
+    if kind == "mlstm":
+        return xlstm_lib.mlstm_init_state(cfg, batch, device)
+    if kind == "slstm":
+        return xlstm_lib.slstm_init_state(cfg, batch, device)
+    if kind == "rglru":
+        return rglru_lib.rglru_init_state(cfg, batch, device)
+    raise ValueError(f"unknown layer kind {kind!r}")
+
+
 def init_caches(cfg: ArchConfig, batch: int, seq_len: int, dtype=None,
-                device=device_lib.DEFAULT_DEVICE) -> List[attn.KVCache]:
-    """Dense ring caches, one per layer."""
+                device=device_lib.DEFAULT_DEVICE) -> List[Any]:
+    """Dense caches, one per layer: ring caches for attention layers,
+    state rows for recurrent ones."""
     dev = device_lib.resolve(device)
     dtype = dtype or ll.cdtype(cfg)
     return [attn.init_cache(cfg, kind, batch, seq_len, dtype, dev)
+            if kind in ATTN_KINDS else init_layer_state(kind, cfg, batch, dev)
             for kind in layout(cfg)]
 
 
-def init_paged_caches(cfg: ArchConfig, block_size: int,
+def init_paged_caches(cfg: ArchConfig, n_slots: int, block_size: int,
                       n_blocks: Dict[str, int], dtype=None,
-                      device=device_lib.DEFAULT_DEVICE) -> List[attn.PagedKV]:
-    """Paged KV pools, one per layer, [n_blocks[kind] + 1, block_size, K,
-    hd] (the last block is the write sink, see attention.PagedKV). Every
-    layer of one kind shares the engine's one block table for it."""
+                      device=device_lib.DEFAULT_DEVICE) -> List[Any]:
+    """Paged KV pools for attention layers, [n_blocks[kind] + 1,
+    block_size, K, hd] (the last block is the write sink, see
+    attention.PagedKV); every layer of one kind shares the engine's one
+    block table for it. Recurrent layers keep per-slot state rows
+    (batch == n_slots), exactly as the dense layout does."""
     dev = device_lib.resolve(device)
     dtype = dtype or ll.cdtype(cfg)
     return [attn.init_paged_pool(cfg, n_blocks[kind], block_size, dtype, dev)
+            if kind in ATTN_KINDS
+            else init_layer_state(kind, cfg, n_slots, dev)
             for kind in layout(cfg)]
 
 
+def copy_caches(caches: Sequence) -> List[Any]:
+    """A copy of every cache tensor (a decode step on the copy leaves the
+    original untouched)."""
+    return [type(c)(*(t.clone() for t in c)) for c in caches]
+
+
+# ---------------------------------------------------------------------------
+# decode (serve) path
+# ---------------------------------------------------------------------------
+
 def _decode_layers(params: Params, tokens: Tensor, position: Tensor,
-                   caches: Sequence, cfg: ArchConfig,
+                   caches: List, cfg: ArchConfig,
                    block_tables: Optional[Dict[str, Tensor]],
                    ring_lens: Optional[Dict[str, int]]) -> Tensor:
-    """tokens [B] -> logits [B, V]; tokens [B, Q] (a multi-token paged
-    append) -> logits [B, Q, V]; caches updated in place."""
+    """tokens [B] -> logits [B, V]; tokens [B, Q] (a multi-token append)
+    -> logits [B, Q, V]. KV caches are written in place; a recurrent
+    layer's list entry becomes its new state (stacked [Q, ...] per token
+    for Q > 1)."""
     multi = tokens.ndim == 2
     x = ll.embed(params["embed"], tokens if multi else tokens[:, None], cfg)
     for i, kind in enumerate(layout(cfg)):
         p, cache = params["layers"][i], caches[i]
-        if block_tables is None:
-            fn = lambda h, p=p, cache=cache, kind=kind: (  # noqa: E731
-                attn.attention_decode(p["attn"], h, cfg, kind=kind,
-                                      position=position, cache=cache), None)
-        else:
-            fn = lambda h, p=p, cache=cache, kind=kind: (  # noqa: E731
-                attn.attention_decode_paged(
-                    p["attn"], h, cfg, kind=kind, position=position,
-                    cache=cache, block_table=block_tables[kind],
-                    ring_len=ring_lens[kind] if ring_lens else None), None)
         with ll.tap_scope(f"layer{i:02d}.{kind}"):
+            if kind not in ATTN_KINDS:
+                run = _recurrent_decode_multi if x.shape[1] > 1 else \
+                    _recurrent_layer
+                x, caches[i] = run(p, x, kind, cfg, cache)
+                continue
+            if block_tables is None:
+                fn = lambda h, p=p, cache=cache, kind=kind: (  # noqa: E731
+                    attn.attention_decode(p["attn"], h, cfg, kind=kind,
+                                          position=position, cache=cache),
+                    None)
+            else:
+                fn = lambda h, p=p, cache=cache, kind=kind: (  # noqa: E731
+                    attn.attention_decode_paged(
+                        p["attn"], h, cfg, kind=kind, position=position,
+                        cache=cache, block_table=block_tables[kind],
+                        ring_len=ring_lens[kind] if ring_lens else None),
+                    None)
             x, _ = _attn_residual(p, x, cfg, fn)
     if not multi:
         return _head(params, x, cfg)[:, 0]
@@ -253,7 +355,7 @@ def decode_step_paged(params: Params, tokens: Tensor, position: Tensor,
     """decode_step against paged KV pools (updated in place). block_tables:
     one [B, nb] int32 table per attention kind (-1 = unallocated), possibly
     a covered-prefix slice — `ring_lens` then carries the true per-kind
-    ring lengths."""
+    ring lengths. A stack with no attention kind takes an empty dict."""
     return _decode_layers(params, tokens, position, caches, cfg,
                           block_tables, ring_lens)
 
@@ -277,10 +379,11 @@ def decode_step_spec(params: Params, tokens: Tensor, position: Tensor,
     [base + c, base + Q - 1], and an append writes before it attends, so
     every stale entry is rewritten before any q token reads it. On local
     rings this is the sequential decode only with ring headroom
-    (attention.cache_len(headroom=)). Recurrent layers, whose states the
-    JAX package stacks per token for the caller to select
-    (`_recurrent_decode_multi`), come with the recurrent kinds: the port
-    refuses them at init."""
+    (attention.cache_len(headroom=)). Recurrent layers fold each token in
+    irreversibly: their list entries come back as every token's state
+    stacked [Q, ...] (_recurrent_decode_multi), and the caller must select
+    the state of each slot's last kept token (backends.PagedBackend.
+    decode_spec) before the caches serve another step."""
     if tokens.ndim != 2 or tokens.shape[1] < 2:
         raise ValueError(
             f"decode_step_spec wants tokens [B, Q >= 2]; got "
@@ -294,20 +397,52 @@ def decode_step_spec(params: Params, tokens: Tensor, position: Tensor,
 # batched prefill (full-sequence forward that yields cache contributions)
 # ---------------------------------------------------------------------------
 
+def _recurrent_prefill(p: Params, x: Tensor, kind: str, cfg: ArchConfig,
+                       lengths: Tensor):
+    """The decode cell run over the prompt token by token at [B, 1, d]
+    (so the final state is bitwise what feeding the prompt through
+    decode_step leaves behind), each slot's state frozen at
+    t >= lengths[slot]: (x [B, S, d], the final per-slot state)."""
+    b, s = x.shape[0], x.shape[1]
+    state = init_layer_state(kind, cfg, b, x.device)
+    ys = []
+    for t in range(s):
+        y, new = _recurrent_layer(p, x[:, t:t + 1].contiguous(), kind, cfg,
+                                  state)
+        keep = t < lengths
+        state = type(new)(*(
+            torch.where(keep.reshape((b,) + (1,) * (nl.ndim - 1)), nl, ol)
+            for nl, ol in zip(new, state)))
+        ys.append(y)
+    return torch.cat(ys, dim=1), state
+
+
 def forward_prefill(params: Params, batch: Dict[str, Tensor],
-                    cfg: ArchConfig) -> Tuple[Tensor, List[Tuple[Tensor, Tensor]]]:
-    """Batched prefill over left-aligned prompts (positions 0..S-1);
-    batch {"tokens": [B, S]} (+ "patches" for vit archs). Returns (logits fp32 [B, S, V], per-layer rope'd (k, v) [B, S, K, hd]);
-    padded tail tokens contribute entries the cache writers mask out."""
+                    cfg: ArchConfig, *, lengths: Optional[Tensor] = None
+                    ) -> Tuple[Tensor, List[Any]]:
+    """Batched prefill over left-aligned prompts (positions 0..S-1) of
+    per-slot lengths [B] (default S); batch {"tokens": [B, S]} (+
+    "patches" for vit archs). Returns (logits fp32 [B, S, V], per-layer
+    contributions): an attention layer's rope'd (k, v) [B, S, K, hd] —
+    padded tail tokens give entries the cache writers mask out — and a
+    recurrent layer's final state at each slot's own length."""
     tokens = batch["tokens"]
+    b, s = tokens.shape
+    if lengths is None:
+        lengths = torch.full((b,), s, dtype=torch.int64,
+                             device=tokens.device)
+    kinds = layout(cfg)
     x = _embed_inputs(params, batch, cfg)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    positions = torch.arange(s, device=tokens.device)[None, :]
     contribs = []
-    for i, kind in enumerate(layout(cfg)):
+    for i, kind in enumerate(kinds):
         p = params["layers"][i]
-        x, kv = _attn_residual(p, x, cfg, lambda h, p=p, kind=kind:
-                               attn.attention_prefill(p["attn"], h, cfg,
-                                                      kind=kind,
-                                                      positions=positions))
-        contribs.append(kv)
+        if kind in ATTN_KINDS:
+            x, c = _attn_residual(p, x, cfg, lambda h, p=p, kind=kind:
+                                  attn.attention_prefill(p["attn"], h, cfg,
+                                                         kind=kind,
+                                                         positions=positions))
+        else:
+            x, c = _recurrent_prefill(p, x, kind, cfg, lengths)
+        contribs.append(c)
     return _head(params, x, cfg), contribs

@@ -23,7 +23,12 @@ the bonus token. The committed streams are those of spec_tokens=0 greedy
 decode for any proposer (tests/test_torch_speculative.py).
 
 Parameters are cast to the compute dtype once, at construction
-(launch/steps.py). Caches live on `device` and are updated in place.
+(launch/steps.py). Caches live on `device` and are updated in place. An
+admitted slot's recurrent state rows (rglru, mlstm, slstm layers) are put
+back to their init state before its prefill (backends reset_slots): in
+decode-mode prefill a slot would otherwise carry its last request's
+state into the next one. A stack with no attention kind (xLSTM) has no
+block tables and no pools.
 """
 from __future__ import annotations
 
@@ -272,13 +277,17 @@ class ServeEngine:
             if trace.arrival_wall is None:
                 trace.arrival_wall = now
 
-        # stale KV of a reused slot needs no reset: ring masking never
-        # reads it (attention kinds only in the port)
         admitted = self._admit(it)
-        if admitted and self.ecfg.prefill_mode == "batched":
-            self._batched_prefill(admitted)
-        if admitted and self.proposer is not None:
-            self.proposer.on_admit(admitted)
+        if admitted:
+            mask = np.zeros(self.ecfg.n_slots, bool)
+            mask[[slot for slot, _ in admitted]] = True
+            # recurrent slots restart from their init state; stale KV
+            # needs no reset (ring masking never reads it)
+            self.backend.reset_slots(self.caches, mask)
+            if self.ecfg.prefill_mode == "batched":
+                self._batched_prefill(admitted)
+            if self.proposer is not None:
+                self.proposer.on_admit(admitted)
 
         if not any(p != IDLE for p in self.slot_phase):
             return
@@ -543,7 +552,7 @@ class ServeEngine:
             return
         ucfg = self.cfg.with_overrides(kernel_impl="torch",
                                        paged_attn_impl="torch")
-        caches = [type(c)(c.k.clone(), c.v.clone()) for c in self.caches]
+        caches = tf.copy_caches(self.caches)
         n = self.ecfg.n_slots
         active = [self.slot_phase[s] != IDLE for s in range(n)]
         tokens = torch.as_tensor(np.array(

@@ -18,7 +18,9 @@ a decode step.
     port writes caches in place, so `propose` rolls out on a copy of them
     (the JAX package relies on immutable arrays for that), and
     `on_commit` re-feeds the tokens the target committed under a per-slot
-    mask: the caches never hold speculation the target rejected.
+    mask: the caches never hold speculation the target rejected. Its
+    admitted slots' recurrent states are reset before their prefill, as
+    the engine's are, so a recurrent draft model works.
 """
 from __future__ import annotations
 
@@ -30,7 +32,6 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import steps as steps_lib
-from repro_torch.models.lm import attention as attn
 from repro_torch.models.lm import transformer as tf
 from repro_torch.serve import backends as backends_lib
 
@@ -135,9 +136,6 @@ class DraftModelProposer(Proposer):
         self.last = np.zeros(n_slots, np.int64)
         self._prefill = steps_lib.make_batched_prefill_step(self.cfg_d)
 
-    def _copy_caches(self) -> List[attn.KVCache]:
-        return [attn.KVCache(c.k.clone(), c.v.clone()) for c in self.caches]
-
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
@@ -146,9 +144,13 @@ class DraftModelProposer(Proposer):
             return
         from repro_torch.serve.engine import make_prefill_batch
 
+        mask = np.zeros(self.n_slots, bool)
+        mask[[slot for slot, _ in admitted]] = True
+        # recurrent slots restart from their init state; stale KV needs no
+        # reset (ring masking never reads it)
+        self.backend.reset_slots(self.caches, mask)
         # the engine's own prefill-batch builder: the draft frontier
-        # mirrors the target's only while the layouts match. Stale KV of a
-        # reused slot needs no reset: ring masking never reads it.
+        # mirrors the target's only while the layouts match
         batch, lengths, slot_ids = make_prefill_batch(
             self.cfg_d, self.n_slots, admitted, self.device)
         _, _, contribs = self._prefill(self.params, batch,
@@ -163,7 +165,7 @@ class DraftModelProposer(Proposer):
 
     def propose(self, active, histories):
         del histories  # the draft caches ARE the history
-        caches = self._copy_caches()  # the rollout's; self.caches stay
+        caches = tf.copy_caches(self.caches)  # the rollout's; ours stay
         tokens, pos = self._tensor(self.last), self._tensor(self.pos)
         drafts = []
         for _ in range(self.k):
@@ -192,15 +194,15 @@ class DraftModelProposer(Proposer):
                 act[: inputs.size, s] = True
         for t in range(cmax):
             mask = self._tensor(act[t])
-            old = self._copy_caches() if not act[t].all() else None
+            old = tf.copy_caches(self.caches) if not act[t].all() else None
             tf.decode_step(self.params, self._tensor(feed[t]),
                            self._tensor(self.pos + t), self.caches,
                            self.cfg_d)
             if old is not None:  # slots with nothing to feed keep their rows
-                m = mask.reshape(-1, 1, 1, 1)
-                for c, o in zip(self.caches, old):
-                    c.k.copy_(torch.where(m, c.k, o.k))
-                    c.v.copy_(torch.where(m, c.v, o.v))
+                for i, (c, o) in enumerate(zip(self.caches, old)):
+                    self.caches[i] = type(c)(*(
+                        torch.where(mask.reshape((-1,) + (1,) * (a.ndim - 1)),
+                                    a, b) for a, b in zip(c, o)))
         for s, c in enumerate(committed):
             if counts[s]:
                 self.pos[s] += counts[s]

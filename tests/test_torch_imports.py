@@ -100,7 +100,7 @@ def test_registry_names_only_ported_archs():
 
     assert ARCH_IDS == ["gemma3_1b", "gemma_7b", "codeqwen15_7b",
                         "phi4_mini_38b", "mixtral_8x22b", "qwen2_moe_a27b",
-                        "internvl2_1b"]
+                        "internvl2_1b", "recurrentgemma_9b", "xlstm_13b"]
     cfg = get_config("gemma3-1b")
     assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) == (
         26, 1152, 6912, 262144)
@@ -108,9 +108,15 @@ def test_registry_names_only_ported_archs():
     assert (moe.n_layers, moe.d_model, moe.vocab_size, moe.moe.n_experts,
             moe.moe.top_k, moe.moe.d_shared) == (24, 2048, 151936, 60, 4,
                                                  5632)
+    rg, xl = get_config("recurrentgemma_9b"), get_config("xlstm_13b")
+    assert (rg.n_layers, rg.d_model, rg.rnn_width, rg.pattern,
+            rg.local_window) == (38, 4096, 4096, ("rglru", "rglru", "local"),
+                                 2048)
+    assert (xl.n_layers, xl.d_model, xl.n_heads, xl.vocab_size,
+            xl.pattern.count("mlstm"), xl.pattern[-1]) == (48, 2048, 4, 50304,
+                                                           7, "slstm")
     for arch in ARCH_IDS:
         cfg = get_config(arch)
         assert cfg.kernel_impl == "auto" and cfg.paged_attn_impl == "auto"
-    for arch in ("recurrentgemma_9b", "xlstm_13b", "hubert_xlarge"):
-        with pytest.raises(ValueError, match="unknown arch"):
-            get_config(arch)
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("hubert_xlarge")

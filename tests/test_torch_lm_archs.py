@@ -1,20 +1,24 @@
-"""The port's attention-only LM families against the JAX package, on the CPU.
+"""The port's LM families against the JAX package, on the CPU.
 
 gemma-7b (MHA, GeGLU), codeqwen1.5-7b (qkv bias, untied head),
 phi4-mini (GQA), mixtral-8x22b (MoE top-2, sliding window, untied head),
-qwen2-moe-a2.7b (MoE top-4 with shared experts, qkv bias, untied head) and
-internvl2-1b (the ViT patch prefix, qkv bias) at their smoke sizes, fp32,
-the JAX package's `tf.init` parameters carried over by
-`params_from_numpy`:
+qwen2-moe-a2.7b (MoE top-4 with shared experts, qkv bias, untied head),
+internvl2-1b (the ViT patch prefix, qkv bias), recurrentgemma-9b (RG-LRU
+with local MQA attention) and xlstm-1.3b (mLSTM and sLSTM blocks, no
+attention, untied head) at their smoke sizes, fp32, the JAX package's
+`tf.init` parameters carried over by `params_from_numpy`:
 
   * the port's init makes the JAX pytree's leaves (names, shapes, dtypes);
-  * forward_prefill logits and every layer's K/V within 1e-4 of JAX's,
+  * forward_prefill(lengths=) over ragged prompts: logits, every layer's
+    K/V and every recurrent layer's final state within 1e-4 of JAX's,
     CADC and dense linears;
-  * paged decode steps on random pools with fragmented tables, slots past
-    the local window: logits and appended pools within 1e-4 of
-    decode_step_paged's;
+  * paged decode steps on random pools and random recurrent states with
+    fragmented tables, slots past the local window: logits, appended
+    pools and new states within 1e-4 of decode_step_paged's;
   * inside the port the paged engine equals the dense one bitwise, tokens
     and logits, through eviction and slot reuse;
+  * the recurrent archs' prefill states are bitwise the states that
+    feeding each prompt through decode_step leaves behind;
   * init(dtype=bf16) is bitwise cast_params(init(), bf16).
 """
 import functools
@@ -28,12 +32,17 @@ from repro.configs import smoke_config as jsmoke
 from repro.models.lm import transformer as jtf
 from repro_torch.configs import smoke_config as tsmoke
 from repro_torch.models.lm import attention as tattn
+from repro_torch.models.lm import rglru as trg
 from repro_torch.models.lm import transformer as ttf
+from repro_torch.models.lm import xlstm as txl
 from repro_torch.serve import EngineConfig, ServeEngine
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 ARCHS = ["gemma_7b", "codeqwen15_7b", "phi4_mini_38b", "mixtral_8x22b",
-         "qwen2_moe_a27b", "internvl2_1b"]
+         "qwen2_moe_a27b", "internvl2_1b", "recurrentgemma_9b", "xlstm_13b"]
+RECURRENT_ARCHS = ["recurrentgemma_9b", "xlstm_13b"]
+STATES = {"rglru": trg.RGLRUState, "mlstm": txl.MLSTMState,
+          "slstm": txl.SLSTMState}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -79,21 +88,40 @@ def _leaves(tree):
     return [(p, tuple(a.shape), str(a.dtype)) for p, a in _walk(tree)]
 
 
-def _port_caches(jcaches, cfg):
-    """The JAX package's paged caches ({"units", "tail"}, units stacked over
-    the pattern's reps) as the port's per-layer pools, each with its sink
-    block."""
+def _layer_of(tree, i, cfg):
+    """Layer i's subtree of a JAX {"units", "tail"} pytree (units stacked
+    over the pattern's reps)."""
     p = len(cfg.pattern)
-    units, tail = jcaches["units"], jcaches["tail"]
+    units, tail = tree["units"], tree["tail"]
     reps = (cfg.n_layers - len(tail)) // p
+    if i < reps * p:
+        return jax.tree_util.tree_map(lambda a: a[i // p], units[i % p])
+    return tail[i - reps * p]
+
+
+def _port_caches(jcaches, cfg):
+    """The JAX package's paged caches as the port's per-layer list: each
+    attention pool with its sink block, each recurrent state as the port's
+    state tuple."""
     out = []
-    for i in range(cfg.n_layers):
-        c = (jax.tree_util.tree_map(lambda a: a[i // p], units[i % p])
-             if i < reps * p else tail[i - reps * p])
+    for i, kind in enumerate(cfg.pattern_for_layers):
+        c = _layer_of(jcaches, i, cfg)
+        if kind in STATES:
+            out.append(STATES[kind](*(torch.as_tensor(np.array(a))
+                                      for a in c)))
+            continue
         out.append(tattn.PagedKV(*(
             torch.cat([torch.as_tensor(np.array(a)),
                        torch.zeros((1,) + a.shape[1:])]) for a in c)))
     return out
+
+
+def _assert_caches_close(got, want):
+    for g, w in zip(got, want):
+        assert type(g) is type(w)
+        for name, a, b in zip(type(g)._fields, g, w):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=name,
+                                       **TOL)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -108,27 +136,39 @@ class TestModelParity:
         names = {p for p, _, _ in _leaves(mine)}
         assert ("/head/w" in names) == (not tcfg.tie_embeddings)
         assert ("/frontend_proj/b" in names) == (tcfg.frontend == "vit")
-        assert ("/layers/0/attn/wq/b" in names) == tcfg.attn_qkv_bias
-        assert ("/layers/0/moe/router" in names) == (tcfg.moe.n_experts > 0)
+        i = next((i for i, k in enumerate(tcfg.pattern_for_layers)
+                  if k in ttf.ATTN_KINDS), None)
+        assert (f"/layers/{i}/attn/wq/b" in names) == tcfg.attn_qkv_bias
+        assert (f"/layers/{i}/moe/router" in names) == (
+            tcfg.moe.n_experts > 0)
+        for j, kind in enumerate(tcfg.pattern_for_layers):
+            raw = {"rglru": ["rec/lam", "rec/conv/w", "ffn/w_up/w"],
+                   "mlstm": ["block/conv/b", "block/w_if/b"],
+                   "slstm": ["block/r_gates"]}.get(kind, [])
+            assert all(f"/layers/{j}/{r}" in names for r in raw), kind
 
     @pytest.mark.parametrize("linear_impl", ["cadc", "dense"])
     def test_prefill_logits_match_jax(self, arch, linear_impl):
+        """Ragged lengths: the recurrent states freeze at each prompt's own
+        end (attention layers ignore them)."""
         jcfg, jparams, tcfg, tree = _setup(arch, linear_impl)
-        batch = _batch(jcfg, 2, 40, seed=0)
+        batch = _batch(jcfg, 3, 40, seed=0)
+        lengths = np.array([40, 17, 33], np.int32)
         want, contribs = jtf.forward_prefill(
             jparams, {k: jax.numpy.asarray(v) for k, v in batch.items()},
-            jcfg)
+            jcfg, lengths=jax.numpy.asarray(lengths))
         got, tcontribs = ttf.forward_prefill(
             ttf.params_from_numpy(tree, tcfg, device="cpu"),
-            {k: torch.from_numpy(v) for k, v in batch.items()}, tcfg)
-        assert tuple(got.shape) == (2, 40, tcfg.vocab_size)
+            {k: torch.from_numpy(v) for k, v in batch.items()}, tcfg,
+            lengths=torch.from_numpy(lengths))
+        assert tuple(got.shape) == (3, 40, tcfg.vocab_size)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-        j_last = contribs["units"][0] if contribs["units"] else None
-        for i, (k, v) in enumerate(tcontribs):
-            jk, jv = (jax.tree_util.tree_map(lambda a: a[i], j_last)
-                      if j_last is not None else contribs["tail"][i])
-            np.testing.assert_allclose(k.numpy(), np.asarray(jk), **TOL)
-            np.testing.assert_allclose(v.numpy(), np.asarray(jv), **TOL)
+        assert len(tcontribs) == tcfg.n_layers
+        for i, c in enumerate(tcontribs):
+            jc = _layer_of(contribs, i, tcfg)
+            assert len(c) == len(jc)
+            for a, b in zip(c, jc):
+                np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
 
     def test_paged_decode_logits_match_jax(self, arch):
         """Random pools, fragmented tables; slots at the start, mid ring and
@@ -136,7 +176,7 @@ class TestModelParity:
         jcfg, jparams, tcfg, tree = _setup(arch)
         params = ttf.params_from_numpy(tree, tcfg, device="cpu")
         n_slots, max_len, bs = 3, 48, 16
-        kinds = sorted(set(jcfg.pattern))
+        kinds = [k for k in sorted(set(jcfg.pattern)) if k in ttf.ATTN_KINDS]
         ring = {k: tattn.cache_len(tcfg, k, max_len) for k in kinds}
         n_blocks = {k: n_slots * ring[k] // bs + 2 for k in kinds}
         rng = np.random.RandomState(3)
@@ -145,7 +185,8 @@ class TestModelParity:
             jtf.init_paged_caches(jcfg, n_slots, bs, n_blocks, max_len))
         tables = {k: rng.permutation(n_blocks[k])[: n_slots * ring[k] // bs]
                   .astype(np.int32).reshape(n_slots, -1) for k in kinds}
-        tables[kinds[0]][0, -1] = -1     # an unallocated block
+        if kinds:
+            tables[kinds[0]][0, -1] = -1     # an unallocated block
         tcaches = _port_caches(jcaches, tcfg)
         pos = np.array([0, 13, max_len - 6], np.int32)
         step = jax.jit(functools.partial(jtf.decode_step_paged, cfg=jcfg,
@@ -161,9 +202,7 @@ class TestModelParity:
                                         tcfg, ring_lens=ring)
             np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
             pos = pos + 1
-        for got, want in zip(tcaches, _port_caches(jcaches, tcfg)):
-            np.testing.assert_allclose(got.k.numpy(), want.k.numpy(), **TOL)
-            np.testing.assert_allclose(got.v.numpy(), want.v.numpy(), **TOL)
+        _assert_caches_close(tcaches, _port_caches(jcaches, tcfg))
 
     def test_paged_bit_identical_to_dense(self, arch):
         """The same schedule through both cache layouts: every token and
@@ -198,3 +237,31 @@ class TestModelParity:
         for (_, a), (_, b) in zip(_walk(direct), _walk(cast)):
             assert a.dtype == torch.bfloat16 and torch.equal(a, b)
 
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_prefill_state_is_the_decode_state(arch):
+    """Every recurrent layer's prefill state, bitwise the state that
+    feeding slot b's prompt through decode_step leaves in row b, for
+    ragged prompts (the batch keeps its rows, so every GEMM keeps its
+    row count). Recurrent layers ahead of any attention layer only:
+    past one, the prefill's attention output is a [B, S] product."""
+    _, _, tcfg, tree = _setup(arch)
+    kinds = tcfg.pattern_for_layers
+    first_attn = next((i for i, k in enumerate(kinds)
+                       if k in ttf.ATTN_KINDS), len(kinds))
+    assert first_attn > 0
+    params = ttf.params_from_numpy(tree, tcfg, device="cpu")
+    tokens = torch.from_numpy(_batch(tcfg, 3, 12, seed=6)["tokens"]
+                              ).long()
+    lengths = torch.tensor([12, 5, 9])
+    _, contribs = ttf.forward_prefill(params, {"tokens": tokens}, tcfg,
+                                      lengths=lengths)
+    for b, n in enumerate(lengths.tolist()):
+        caches = ttf.init_caches(tcfg, 3, 16, device="cpu")
+        for t in range(n):
+            ttf.decode_step(params, tokens[:, t], torch.tensor(t),
+                            caches, tcfg)
+        for i in range(first_attn):
+            for name, a, c in zip(type(caches[i])._fields, caches[i],
+                                  contribs[i]):
+                assert torch.equal(a[b], c[b]), (i, name, b)

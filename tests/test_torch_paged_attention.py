@@ -230,7 +230,7 @@ def test_write_to_unallocated_block_goes_to_the_sink():
     """A slot whose table maps no block at its position: its K/V write
     changes no addressable block (JAX drops it), only the sink."""
     tcfg = tsmoke("gemma3_1b")
-    p = ttf._layer_init(torch.Generator().manual_seed(0), tcfg,
+    p = ttf._layer_init(torch.Generator().manual_seed(0), "global", tcfg,
                         torch.device("cpu"))["attn"]
     pool = tattn.init_paged_pool(tcfg, 4, 8, torch.float32,
                                  torch.device("cpu"))

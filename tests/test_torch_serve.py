@@ -6,8 +6,10 @@ prefill and decode logits match the JAX model within 1e-4; its engine
 emits the JAX engine's token streams on a Poisson workload; inside the
 port the paged cache is bitwise equal to the dense one through eviction
 and slot/block reuse; and its psum-sparsity tap reads the JAX tap's
-gate-off fractions. The same engine serves internvl2-1b's patch prefix and
-the MoE archs with the JAX engine's streams.
+gate-off fractions. The same engine serves internvl2-1b's patch prefix,
+the MoE archs and the recurrent archs (recurrentgemma-9b, xlstm-1.3b:
+per-slot states reset at admission; xLSTM with no KV pool) with the JAX
+engine's streams.
 """
 import functools
 
@@ -24,7 +26,9 @@ from repro.serve import ServeEngine as JServeEngine
 from repro_torch.configs import smoke_config as tsmoke
 from repro_torch.launch import serve as tserve_cli
 from repro_torch.launch import steps as tsteps
+from repro_torch.models.lm import attention as tattn
 from repro_torch.models.lm import transformer as ttf
+from repro_torch.models.lm import xlstm as txl
 from repro_torch.serve import (BlockAllocator, EngineConfig, ServeEngine,
                                poisson_workload)
 
@@ -290,18 +294,26 @@ class TestScheduling:
                 spec_tokens=2), device="cpu")
 
     def test_unported_layer_kinds_raise(self):
-        cfg = tsmoke("gemma3_1b").with_overrides(pattern=("global", "rglru"))
-        with pytest.raises(NotImplementedError, match="rglru"):
+        """A kind the JAX package does not know either raises ValueError,
+        as its _layer_init does; the recurrent kinds are served."""
+        cfg = tsmoke("gemma3_1b").with_overrides(pattern=("global", "mamba"))
+        with pytest.raises(ValueError, match="unknown layer kind 'mamba'"):
             ttf.init(cfg, device="cpu")
+        with pytest.raises(ValueError, match="unknown layer kind 'mamba'"):
+            jtf.init(jax.random.PRNGKey(0), jsmoke("gemma3_1b").with_overrides(
+                pattern=("global", "mamba")))
+        for pattern in (("global", "rglru"), ("mlstm", "slstm")):
+            cfg = tsmoke("gemma3_1b").with_overrides(pattern=pattern)
+            assert ttf.layout(cfg) == cfg.pattern_for_layers
 
     @pytest.mark.parametrize("override,match", [
-        (dict(pattern=("mlstm", "slstm")), "mlstm"),
-        (dict(frontend="audio", frontend_dim=48), "audio"),
-        (dict(ffn_type="gelu"), "gelu")])
+        pytest.param(dict(frontend="audio", frontend_dim=48), "audio",
+                     id="override1-audio"),
+        pytest.param(dict(ffn_type="gelu"), "gelu", id="override2-gelu")])
     def test_what_is_still_refused(self, override, match):
-        """Recurrent and xLSTM kinds, the audio frontend and the gelu FFN
-        are the port's refusals; MoE, qkv bias, untied heads and the vit
-        prefix are served (tests/test_torch_lm_archs.py)."""
+        """The audio frontend and the gelu FFN (hubert-xlarge's) are the
+        port's refusals; MoE, qkv bias, untied heads, the vit prefix and
+        the recurrent kinds are served (tests/test_torch_lm_archs.py)."""
         cfg = tsmoke("gemma3_1b").with_overrides(**override)
         with pytest.raises(NotImplementedError, match=match):
             ttf.init(cfg, device="cpu")
@@ -433,3 +445,70 @@ class TestMoEStreams:
             "--device", "cpu"])
         assert summary["requests_finished"] == 3
         assert "arch=qwen2-moe-a2.7b" in capsys.readouterr().out
+
+
+class TestRecurrentStreams:
+    """recurrentgemma-9b (RG-LRU + local MQA attention) and xlstm-1.3b
+    (mLSTM, sLSTM: no attention) at smoke size."""
+
+    @pytest.mark.parametrize("prefill_mode", ["batched", "decode"])
+    @pytest.mark.parametrize("arch", ["recurrentgemma_9b", "xlstm_13b"])
+    def test_token_streams_match_jax_engine(self, arch, prefill_mode):
+        """Six requests on two slots: every slot is reused, so each
+        admission must reset its recurrent rows (in decode-mode prefill
+        the state would otherwise carry over from the last request)."""
+        jcfg, jparams, tcfg, params = _setup_arch(arch)
+        wl = poisson_workload(n_requests=6, rate=1.0,
+                              vocab_size=jcfg.vocab_size, prompt_len=(3, 9),
+                              max_new=(2, 5), seed=4)
+        ecfg = dict(n_slots=2, max_len=32, block_size=16,
+                    prefill_mode=prefill_mode)
+        jeng = JServeEngine(jcfg, jparams, JEngineConfig(**ecfg))
+        jeng.run([(a, p.copy(), g) for a, p, g in wl])
+        teng = ServeEngine(tcfg, params, EngineConfig(**ecfg), device="cpu")
+        teng.run([(a, p.copy(), g) for a, p, g in wl])
+        assert sorted(teng.results) == sorted(jeng.results) == list(range(6))
+        for rid in jeng.results:
+            assert teng.results[rid].tokens == jeng.results[rid].tokens, rid
+        assert max(teng.slot_uses) > 1
+
+    def test_admission_resets_the_slot(self):
+        """A request served in a reused slot equals the same request served
+        alone on a fresh engine, bitwise (decode-mode prefill, logits)."""
+        _, _, tcfg, params = _setup_arch("xlstm_13b")
+        rng = np.random.RandomState(3)
+        prompts = [rng.randint(0, tcfg.vocab_size, size=5).astype(np.int32)
+                   for _ in range(2)]
+        runs = []
+        for wl in ([(0, prompts[0], 3), (1, prompts[1], 3)],
+                   [(0, prompts[1], 3)]):
+            eng = ServeEngine(tcfg, params, EngineConfig(
+                n_slots=1, max_len=32, prefill_mode="decode",
+                record_logits=True), device="cpu")
+            eng.run(wl)
+            runs.append(eng.results[max(eng.results)])
+        assert runs[0].tokens == runs[1].tokens
+        for a, b in zip(runs[0].logits, runs[1].logits):
+            assert np.array_equal(a, b)
+
+    def test_xlstm_holds_no_kv_pool(self):
+        _, _, tcfg, params = _setup_arch("xlstm_13b")
+        eng = ServeEngine(tcfg, params, EngineConfig(
+            n_slots=2, max_len=32, block_size=16), device="cpu")
+        assert eng.backend.ring_len == {} and eng.backend.n_blocks == {}
+        assert eng.tables.tables == {}
+        assert not any(isinstance(c, (tattn.PagedKV, tattn.KVCache))
+                       for c in eng.caches)
+        assert all(c.C.shape[0] == 2 for c in eng.caches
+                   if isinstance(c, txl.MLSTMState))
+        summary = eng.run(_staggered_workload(tcfg.vocab_size))
+        assert summary["requests_finished"] == 3 and summary["blocks"] == {}
+
+    def test_cli_serves_recurrent_on_cpu(self, capsys):
+        summary = tserve_cli.main([
+            "--arch", "recurrentgemma_9b", "--smoke", "--cadc", "--slots",
+            "2", "--requests", "3", "--prompt-len", "6", "--gen", "4",
+            "--spec-tokens", "3", "--device", "cpu"])
+        assert summary["requests_finished"] == 3
+        out = capsys.readouterr().out
+        assert "arch=recurrentgemma-9b" in out and "accept rate" in out

@@ -20,6 +20,13 @@ The edges of tests/test_speculative.py: zero acceptance, full acceptance
 across the eviction boundary, eos inside an accepted run, the ring
 fail-fast and the rejections. NgramProposer proposes what JAX's does;
 DraftModelProposer.propose leaves the draft caches bitwise unchanged.
+
+On the recurrent archs (TestRecurrentSpeculative): recurrentgemma-9b's spec
+engines under the n-gram, draft-model, oracle and anti-oracle proposers
+(and xlstm-1.3b's under the n-gram one) give the JAX spec engine's streams
+and counts; the anti-oracle's logits are bitwise plain greedy; and after a
+verify step with mixed acceptance every slot's recurrent state is bitwise
+the state `keep` sequential decode steps leave (the rollback).
 """
 import functools
 
@@ -462,3 +469,144 @@ class TestProposers:
         for (k0, v0), (k1, v1) in zip(before, after):
             assert torch.equal(k0[1], k1[1]) and torch.equal(v0[1], v1[1])
             assert not torch.equal(k0[0], k1[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _setup_arch(arch):
+    jcfg = jsmoke(arch, linear_impl="cadc")
+    tcfg = tsmoke(arch, linear_impl="cadc")
+    jparams = jtf.init(jax.random.PRNGKey(0), jcfg)
+    tree = jax.tree_util.tree_map(np.array, jparams)
+    return jcfg, jparams, tcfg, ttf.params_from_numpy(tree, tcfg, "cpu")
+
+
+def _run_arch(arch, *, proposer=None, **kw):
+    _, _, tcfg, params = _setup_arch(arch)
+    eng = ServeEngine(tcfg, params, EngineConfig(
+        **ECFG, record_logits=True, **kw), device="cpu")
+    if proposer is not None:
+        eng.proposer = proposer
+    eng.run([(a, p.copy(), g) for a, p, g in _workload(tcfg.vocab_size)])
+    return eng
+
+
+@functools.lru_cache(maxsize=None)
+def _base_arch(arch):
+    return _run_arch(arch)
+
+
+@functools.lru_cache(maxsize=None)
+def _recurrent_engines(arch, draft, k):
+    """(JAX spec engine, port spec engine) under one proposer: "ngram" and
+    "model" as the engines build them (the port's draft model given the
+    JAX draft's parameters), "oracle" / "anti" replaying the port's
+    spec_tokens=0 streams in both."""
+    jcfg, jparams, tcfg, params = _setup_arch(arch)
+    wl = _workload(jcfg.vocab_size)
+    replay = draft in ("oracle", "anti")
+
+    def oracle():
+        base = _base_arch(arch)
+        return OracleProposer(k, base, tcfg.vocab_size,
+                              shift=int(draft == "anti"))
+
+    jeng = JServeEngine(jcfg, jparams, JEngineConfig(
+        **ECFG, spec_tokens=k, spec_draft="ngram" if replay else draft))
+    if replay:
+        jeng.proposer = oracle()
+    jeng.run([(a, p.copy(), g) for a, p, g in wl])
+    proposer = oracle() if replay else None
+    if draft == "model":
+        proposer = DraftModelProposer(
+            k, tcfg, ECFG["n_slots"], ECFG["max_len"],
+            params=_jax_draft_tree(jeng), device="cpu")
+    teng = _run_arch(arch, proposer=proposer, spec_tokens=k,
+                     spec_draft="ngram" if replay else draft)
+    return jeng, teng
+
+
+class TestRecurrentSpeculative:
+    @pytest.mark.parametrize("arch,draft", [
+        ("recurrentgemma_9b", "ngram"), ("recurrentgemma_9b", "model"),
+        ("recurrentgemma_9b", "oracle"), ("recurrentgemma_9b", "anti"),
+        ("xlstm_13b", "ngram")])
+    def test_streams_and_counts_match_jax_engine(self, arch, draft):
+        jeng, teng = _recurrent_engines(arch, draft, 3)
+        assert sorted(jeng.results) == sorted(teng.results) == [0, 1, 2]
+        for rid in jeng.results:
+            assert teng.results[rid].tokens == jeng.results[rid].tokens
+        for key in ("spec_steps", "spec_drafted", "spec_accepted",
+                    "spec_committed", "spec_slot_steps"):
+            assert getattr(teng.telemetry, key) == getattr(jeng.telemetry,
+                                                           key), key
+        if draft == "anti":
+            assert teng.telemetry.spec_accepted == 0
+        if draft == "oracle":
+            assert teng.telemetry.spec_accepted > 0
+
+    @pytest.mark.parametrize("arch", ["recurrentgemma_9b", "xlstm_13b"])
+    def test_anti_oracle_logits_are_plain_greedy(self, arch):
+        """Every draft rejected: each verify step rolls every slot back to
+        its first token's state; streams and logits bitwise plain greedy."""
+        base = _base_arch(arch)
+        anti = OracleProposer(3, base, base.cfg.vocab_size, shift=1)
+        spec = _run_arch(arch, proposer=anti, spec_tokens=3)
+        _assert_streams_equal(spec, base)
+        assert spec.telemetry.spec_accepted == 0
+
+    @pytest.mark.parametrize("arch", ["recurrentgemma_9b", "xlstm_13b"])
+    def test_rollback_is_keep_sequential_steps(self, arch):
+        """Three slots after a ragged prefill; drafts built from the
+        sequential greedy continuation so that slot b keeps 1, 2 and 4
+        tokens. After decode_spec each recurrent layer's row b is bitwise
+        the state keep_b sequential decode steps leave (recurrent layers
+        ahead of the attention layers: later ones see a Q-row attention
+        product)."""
+        from repro_torch.launch import steps as tsteps
+        from repro_torch.serve.blocks import BlockTables
+
+        _, _, tcfg, params = _setup_arch(arch)
+        n, k = 3, 3
+        be = tbackends.PagedBackend(tcfg, n, 32, 16, CPU, spec_tokens=k)
+        caches = be.init_caches()
+        tables = BlockTables(n, be.blocks_per_slot, be.n_blocks)
+        for slot in range(n):
+            tables.assign(slot)
+        dev_tables = {kk: torch.as_tensor(v) for kk, v in
+                      tables.tables.items()}
+        rng = np.random.RandomState(9)
+        lengths = np.array([5, 9, 7], np.int32)
+        tokens = np.zeros((n, 9), np.int64)
+        for b, m in enumerate(lengths):
+            tokens[b, :m] = rng.randint(0, tcfg.vocab_size, size=m)
+        first, _, contribs = tsteps.make_batched_prefill_step(tcfg)(
+            params, {"tokens": torch.as_tensor(tokens)},
+            torch.as_tensor(lengths))
+        be.write_prefill(caches, contribs, np.arange(n, dtype=np.int32),
+                         lengths, tables.tables)
+        pos = torch.as_tensor(lengths.astype(np.int64))
+        kinds = ttf.layout(tcfg)
+        rec = range(next((i for i, kind in enumerate(kinds)
+                          if kind in ttf.ATTN_KINDS), len(kinds)))
+        assert len(rec) > 0
+
+        seq = ttf.copy_caches(caches)
+        fed, states = [first.long()], []
+        for t in range(k + 1):
+            nxt, _ = be.decode(params, seq, dev_tables, fed[-1], pos + t)
+            fed.append(nxt.long())
+            states.append(ttf.copy_caches(seq))
+        greedy = torch.stack(fed, dim=1)                # [n, k + 2]
+        drafts = greedy[:, 1:k + 1].clone()
+        drafts[0] = (drafts[0] + 1) % tcfg.vocab_size   # keep 1
+        drafts[1, 1:] = (drafts[1, 1:] + 1) % tcfg.vocab_size  # keep 2
+        verify = torch.cat([greedy[:, :1], drafts], dim=1)
+        g, _, keep = be.decode_spec(params, caches, dev_tables, verify, pos)
+        assert keep.tolist() == [1, 2, 4]
+        assert torch.equal(g[2], greedy[2, 1:])
+        for b, kb in enumerate(keep.tolist()):
+            for i in rec:
+                for name, got, want in zip(type(caches[i])._fields,
+                                           caches[i], states[kb - 1][i]):
+                    assert got.shape == want.shape
+                    assert torch.equal(got[b], want[b]), (i, name, b, kb)
