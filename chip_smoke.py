@@ -94,10 +94,11 @@ Slice 6, the recurrent LM families (after slice 5's phases):
      of 256, R = 16 rows at decode and 64 at Q = 4) on the main path's
      160-entry rings and the verify step's 176, as phase 3 does: every
      plan, NaN in dead entries, an idle slot;
-  6c. recurrentgemma-9b at full width (38 layers: 12 x (rglru, rglru,
-     local) + (rglru, rglru); random bf16 weights from seed 0) on phase 4's
-     engine and the first REC_REQUESTS requests of its workload: all
-     finish, K1 292 and K6 12 launches a decode step, a prefill's K1 from
+  6c. recurrentgemma-9b at published width and REC_LAYERS 14 of its 38
+     layers (4 x (rglru, rglru, local) + (rglru, rglru); random bf16
+     weights from seed 0) on phase 4's engine and the first REC_REQUESTS
+     requests of its workload: all
+     finish, K1 108 and K6 4 launches a decode step, a prefill's K1 from
      its bucket (the recurrent layers run their cell a token at a time),
      step ms, tok/s, TTFT, peak memory, and the device time per decode
      step under the profiler split into K1, K6, the recurrent cells' own
@@ -109,9 +110,9 @@ Slice 6, the recurrent LM families (after slice 5's phases):
      greedy or leaving it at a near-tie below the gap;
   6d. recurrentgemma-9b at 3 layers (rglru, rglru, local) in fp32: phase
      5's kernel-vs-plain logits check;
-  6e. xlstm-1.3b at full width (48 layers: 6 x (7 mlstm + slstm); no KV
-     pool) the same way: K1 277 launches a decode step, no K6; then at 2
-     layers (mlstm, slstm) in fp32;
+  6e. xlstm-1.3b at published width and 16 of its 48 layers (2 x (7
+     mlstm + slstm); no KV pool) the same way: K1 93 launches a decode
+     step, no K6; then at 2 layers (mlstm, slstm) in fp32;
   6f. (timed after the training phases, beside 5f) K1 device times at
      M = 8 at every shape of 6a beside torch.matmul, the plain version and
      the bound; each config's K1 time a decode step.
@@ -188,6 +189,43 @@ Slice 3, the paper's 4/2/4b operating point (int8 q8 kernels, TF32 off):
      replaced (built from tools/profile_k4.py), torch._int_mm, the bound
      and the launch floor.
 
+Slice 7, LM training (after slice 2's training phases; bf16 compute on
+fp32 masters, TF32 off):
+ 19. K1g (K1 under 'recompute') and K2 against their plain versions at
+     the LM paths' 11 linear shapes (gemma3-1b's 7, hubert-xlarge's, the
+     qwen2-moe-a2.7b head's N = 152 064) at M = 2048 rows a microbatch,
+     crossbar 256, relu, bf16 and fp32 operands (K2 on their fp32 casts,
+     as the backward runs it), save_gate packed / bytes / recompute; K2
+     under the planner's plan and one forced plan per shape, dx bitwise;
+ 20. the slice's main path: gemma3-1b at full width (26 layers, 1.05 B
+     parameters, random weights from seed 0, CADC relu at crossbar 256,
+     remat on, make_optimizer's AdamW) trained through
+     repro_torch.launch.train: 6 steps of 8 x 1024 synthetic LM tokens in
+     4 microbatches; a finite loss at every step, exact launch counts (K1g
+     1456 and K2 728 a step: 182 CADC linears x 4 micros, K1g once more in
+     the non-reentrant remat recompute; no K1), step ms (host clock, and
+     CUDA events over 2 more steps), tokens/s, peak memory, and the
+     profiler's device time per step split into K1g, K2 dx / dw, the tied
+     head's bf16 GEMMs, attention's fp32 GEMMs and other PyTorch;
+ 21. kernel path against plain path at published width: gemma3-1b at 2
+     layers in fp32 (loss and every gradient within 1e-4 of scale) and in
+     bf16 (loss within LM_BF16_LOSS_RTOL), hubert-xlarge at 4 layers in
+     fp32 (frames, bidirectional attention, the gelu FFN, the untied
+     504-way head), qwen2-moe-a2.7b at 2 layers in fp32 and bf16 (the aux
+     loss, the expert banks' backward, the 152 064-wide head); exact
+     launch counts, none on the plain path; gemma3-1b's prefill step (K1
+     only) against the plain path's logits;
+ 22. lm_resume: gemma3-1b at 2 layers, 4 steps straight against 2 steps
+     that save and a resume to 4 through the train CLI's --ckpt-dir: params
+     and AdamW moments bitwise, exact launch counts;
+ 23. the twin of examples/lm_cadc_train.py (gemma3-1b smoke, crossbar 64,
+     200 steps): the loss decreases, exact launch counts;
+ 24. (timed after the training phases, beside phase 12) K1g and K2 device
+     times at gemma3-1b's 7 linear shapes at M = 2048, summed over a
+     train step, beside their plain versions, torch.matmul (bf16; the
+     fp32 dx / dw pair), the bound and the backward's fp32 copies: the
+     kernels line's K1g and K2 rows gain the LM step ("lm_step").
+
 Prints the serving and training metrics, the card's name and power limit,
 one JSON line of kernel records and, last, {"ok": true, "device": {...}}.
 `--report PATH` also writes the full record (per-shape times, ptxas
@@ -248,9 +286,15 @@ VIT_REQUESTS, VIT_MAX_LEN, VIT_PROMPT, VIT_NEW = 4, 304, (256, 288), 16
 # a recurrent prefill runs the decode cell a token at a time, ~70
 # launches a layer a token, so a 128-token prefill is host-bound for
 # seconds (PERF.md §5), and the request count is cut from 16.
+# The main paths run recurrentgemma-9b at REC_LAYERS 14 of its 38 layers
+# (four (rglru, rglru, local) units and its (rglru, rglru) tail) and
+# xlstm-1.3b at 16 of 48 (two 7 mLSTM + sLSTM units), widths as published:
+# the prefill's host time is linear in the depth, and slice 7's phases
+# need the time (PERF.md §4).
 SLICE6_ARCHS = ("recurrentgemma_9b", "xlstm_13b")
 RG_ARCH, XL_ARCH = SLICE6_ARCHS
 REC_REQUESTS = 3
+REC_LAYERS = {RG_ARCH: 14, XL_ARCH: 16}
 
 
 def fail(msg: str) -> None:
@@ -321,17 +365,19 @@ def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def profile_device(run, n: int, group, what: str):
+def profile_device(run, n: int, group, what: str, cpu: bool = True):
     """torch.profiler over run(0) .. run(n - 1), CUDA events around them:
     (wall ms per call under the profiler, device-busy ms per call, rows
     [(ms per call, kernel name, launches per call)] largest first, and the
-    rows summed by group(name) into {group: {"ms", "calls"}})."""
+    rows summed by group(name) into {group: {"ms", "calls"}}). cpu=False
+    traces the device alone (a train step of ~100 k host ops takes tens of
+    seconds to trace on the host; the rows need only the kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]
+                 + ([ProfilerActivity.CPU] if cpu else [])) as prof:
         start.record()
         for i in range(n):
             run(i)
@@ -426,10 +472,10 @@ def build_kernels(report):
 
 def linear_shapes(cfg):
     """(name, D padded to whole crossbars, N) of every CADC linear K1 runs:
-    a layer's four attention linears and three FFN linears (an MoE
-    layer's shared experts, d_shared wide; a routed-only MoE layer has
-    none: its experts are batched GEMMs), then an untied head and the vit
-    frontend's projection."""
+    a layer's four attention linears and three FFN linears (two for the
+    gelu FFN; an MoE layer's shared experts, d_shared wide; a routed-only
+    MoE layer has none: its experts are batched GEMMs), then an untied
+    head and the vit or audio frontend's projection."""
     from repro_torch.core.cadc import num_segments
 
     xb = cfg.crossbar_size
@@ -441,11 +487,12 @@ def linear_shapes(cfg):
     d_ff = (cfg.moe.d_shared * (cfg.moe.n_shared > 0) if cfg.moe.n_experts
             else cfg.d_ff * (cfg.ffn_type != "none"))
     if d_ff:
-        out += [("w_gate", pad(d), d_ff), ("w_up", pad(d), d_ff),
-                ("w_down", pad(d_ff), d)]
+        out += ([] if cfg.ffn_type == "gelu" and not cfg.moe.n_experts
+                else [("w_gate", pad(d), d_ff)])
+        out += [("w_up", pad(d), d_ff), ("w_down", pad(d_ff), d)]
     if not cfg.tie_embeddings:
         out.append(("head", pad(d), cfg.padded_vocab))
-    if cfg.frontend == "vit":
+    if cfg.frontend is not None:
         out.append(("frontend_proj", pad(cfg.frontend_dim), d))
     return out
 
@@ -1976,8 +2023,9 @@ def check_k6_slice6(dev, report) -> None:
 
 def rec_main_path(arch: str, dev, report, want_k1: int, want_k6: int,
                   n_requests: int):
-    """A recurrent config at full width, random bf16 weights from seed 0
-    drawn layer by layer, CADC relu at crossbar 256, on the main path's
+    """A recurrent config at published width and REC_LAYERS depth, random
+    bf16 weights from seed 0 drawn layer by layer, CADC relu at crossbar
+    256, on the main path's
     engine and workload (its first n_requests requests): exact launch
     counts (want_k1 / want_k6 a decode step; a prefill's K1 from its
     bucket), step ms, tok/s, TTFT, peak memory and the decode profile
@@ -1986,7 +2034,7 @@ def rec_main_path(arch: str, dev, report, want_k1: int, want_k6: int,
     from repro_torch.models.lm import transformer as tf
     from repro_torch.serve.backends import PagedBackend
 
-    cfg = slice5_cfg(arch)
+    cfg = slice5_cfg(arch, n_layers=REC_LAYERS[arch])
     if (k1_per_pass(cfg), n_attn_layers(cfg)) != (want_k1, want_k6):
         fail(f"{cfg.name}: K1 / K6 {k1_per_pass(cfg)} / {n_attn_layers(cfg)}"
              f" a decode step, want {want_k1} / {want_k6}")
@@ -2032,13 +2080,13 @@ def rec_fp32_logits(arch: str, dev, report) -> None:
 
 
 def recurrent_paths(dev, report) -> dict:
-    """Slice 6's paths: recurrentgemma-9b (K1 292 and K6 12 launches a
-    decode step) with its speculative path under the oracle and the
-    anti-oracle, then xlstm-1.3b (K1 277, no K6, no KV pool), each then at
-    small depth in fp32. Returns their launch counts."""
+    """Slice 6's paths at REC_LAYERS depth: recurrentgemma-9b (K1 108 and
+    K6 4 launches a decode step) with its speculative path under the
+    oracle and the anti-oracle, then xlstm-1.3b (K1 93, no K6, no KV pool),
+    each then at smaller depth in fp32. Returns their launch counts."""
     out = {}
     cfg, params, out["recurrentgemma-9b"], base = rec_main_path(
-        RG_ARCH, dev, report, 292, 12, REC_REQUESTS)
+        RG_ARCH, dev, report, 108, 4, REC_REQUESTS)
     # the bf16 kernels-on gap: the one the stream check reads
     gap, _ = one_state_gap(cfg.with_overrides(
         dtype="bfloat16", kernel_impl="auto", paged_attn_impl="auto"),
@@ -2056,7 +2104,7 @@ def recurrent_paths(dev, report) -> dict:
     torch.cuda.empty_cache()
     rec_fp32_logits(RG_ARCH, dev, report)
     _, params, out["xlstm-1.3b"], _ = rec_main_path(
-        XL_ARCH, dev, report, 277, 0, REC_REQUESTS)
+        XL_ARCH, dev, report, 93, 0, REC_REQUESTS)
     del params
     torch.cuda.empty_cache()
     rec_fp32_logits(XL_ARCH, dev, report)
@@ -2277,9 +2325,10 @@ def _check_gate(cm, gate, want_gate, psums, scale, n, tag) -> int:
         if not err <= TRAIN_RTOL:
             fail(f"{tag}: fp32 gate err / scale {err} > {TRAIN_RTOL}")
         return 0
-    if not torch.equal(got[far], want[far]):
+    differ = got != want
+    if bool((differ & far).any()):
         fail(f"{tag}: gate bits differ where |psum| > {GATE_NEAR} x scale")
-    return int((got != want).sum())
+    return int(differ.sum())
 
 
 def _check_matmul_case(cm, x, w, g, psums, xbar, fn, save_gate, tag,
@@ -3165,6 +3214,588 @@ def time_train_kernels(dev, launches, report):
 
 
 # ---------------------------------------------------------------------------
+# slice 7: LM training through K1g and K2
+# ---------------------------------------------------------------------------
+
+# gemma3-1b trained at full width through the LM train CLI
+# (launch/train.py): LM_BATCH x LM_SEQ tokens a step in LM_MICRO
+# microbatches of LM_M rows (two q chunks of 512 and the 512 window bite),
+# LM_STEPS steps, CADC relu at crossbar LM_XBAR, bf16 compute on fp32
+# masters, remat on; the kernel-vs-plain checks at LM_PARITY_LAYERS layers;
+# the twin of examples/lm_cadc_train.py for LM_TWIN_STEPS steps.
+LM_ARCH, HUBERT_ARCH = "gemma3_1b", "hubert_xlarge"
+LM_BATCH, LM_SEQ, LM_MICRO, LM_STEPS = 8, 1024, 4, 6
+LM_M = LM_BATCH * LM_SEQ // LM_MICRO
+LM_XBAR = 256
+LM_PARITY_LAYERS = {LM_ARCH: 2, HUBERT_ARCH: 4, MOE_ARCH: 2}
+LM_PARITY_TOKENS = {LM_ARCH: (2, 1024), HUBERT_ARCH: (2, 512),
+                    MOE_ARCH: (1, 256)}
+LM_RESUME_LAYERS, LM_TWIN_STEPS = 2, 200
+# The bf16 loss, kernel path against plain path. The plain path stores
+# each segment's psum in bf16 (bf16_wire: a relative rounding of up to
+# 2^-9 a psum before f and the segment sum) where the kernels keep fp32,
+# so each CADC output differs by up to about a bf16 half-ulp of its psums;
+# through 2 layers and the tied head the mean loss over 2048 tokens moves
+# by far less than one bf16 ulp of it (2^-7 relative): 1e-2 of the loss.
+LM_BF16_LOSS_RTOL = 1e-2
+
+
+def lm_cfg(arch: str, **kw):
+    """An LM config at published width with CADC relu at crossbar LM_XBAR,
+    the kernels on ('auto')."""
+    from repro_torch.configs import get_config
+
+    return get_config(arch).with_overrides(
+        linear_impl="cadc", crossbar_size=LM_XBAR, dendritic_fn="relu",
+        kernel_impl="auto", **kw)
+
+
+def lm_step_launches(cfg, n_micro: int) -> dict:
+    """K1g and K2 launches of one train step: every CADC linear runs K1g
+    in the forward and K2 in the backward; a layer's linears run K1g once
+    more in the remat recompute (non-reentrant checkpoint); an untied head
+    and a frontend projection run outside the layers. No K1."""
+    per_layer = len(linear_shapes(cfg.with_overrides(
+        tie_embeddings=True, frontend=None)))
+    outside = (not cfg.tie_embeddings) + (cfg.frontend is not None)
+    n = cfg.n_layers * per_layer
+    return {"cadc_matmul_gate": n_micro * (n * (2 if cfg.remat else 1)
+                                           + outside),
+            "cadc_segmented_bwd": n_micro * (n + outside)}
+
+
+def lm_kernel_shapes() -> list:
+    """(name, D padded to whole crossbars, N) of the LM paths' CADC linears
+    at crossbar 256, each shape once: gemma3-1b's 7 linears, hubert-xlarge's
+    (attention, the gelu FFN, the 504-way head, the frame projection) and
+    qwen2-moe-a2.7b's untied head."""
+    out, seen = [], set()
+    for arch in (LM_ARCH, HUBERT_ARCH, MOE_ARCH):
+        shapes = linear_shapes(lm_cfg(arch))
+        if arch == MOE_ARCH:
+            shapes = [s for s in shapes if s[0] == "head"]
+        for name, d, n in shapes:
+            if (d, n) not in seen:
+                seen.add((d, n))
+                out.append((f"{arch}.{name}", d, n))
+    return out
+
+
+def check_k1g_k2_lm(dev, report) -> None:
+    """K1g (K1 where the mode saves nothing) and K2 against their plain
+    versions at every shape of lm_kernel_shapes, M = LM_M rows, relu, bf16
+    and fp32 operands (K2 on their fp32 casts, as CadcMatmulFn.backward
+    runs it), save_gate packed / bytes / recompute; K2 under the planner's
+    plan and one forced plan per shape (dx bitwise the planner's)."""
+    from repro_torch.kernels import cadc_matmul as cm
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    worst = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
+    n_checks = near = forced = 0
+    for name, d, n in lm_kernel_shapes():
+        x32 = torch.randn(LM_M, d, generator=gen, device=dev)
+        w32 = torch.randn(d, n, generator=gen, device=dev) / math.sqrt(d)
+        g = torch.randn(LM_M, n, generator=gen, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w = x32.to(dtype), w32.to(dtype)
+            xf, wf = x.float(), w.float()
+            psums = torch.stack([xf[:, i:i + LM_XBAR] @ wf[i:i + LM_XBAR]
+                                 for i in range(0, d, LM_XBAR)])
+            for mode in ("packed", "bytes", "recompute"):
+                tag = f"{name} M={LM_M} {str(dtype)[6:]} save_gate={mode}"
+                kw = dict(crossbar_size=LM_XBAR, fn="relu")
+                if mode == "recompute":
+                    y, gate = cm.cadc_matmul_cuda(x, w, **kw), None
+                    want_y = cm.cadc_matmul_torch(x, w, **kw)
+                else:
+                    y, gate = cm.cadc_matmul_gate_cuda(x, w, mode=mode, **kw)
+                    want_y, want_gate = cm.cadc_matmul_gate_torch(
+                        x, w, mode=mode, **kw)
+                    near += _check_gate(cm, gate, want_gate, psums,
+                                        max(1.0, float(want_y.abs().max())),
+                                        n, tag)
+                    del want_gate
+                err = track("k1g", y, want_y)
+                worst["fwd"] = max(worst["fwd"], err)
+                if not err <= TRAIN_RTOL:
+                    fail(f"{tag}: forward err / scale {err} > {TRAIN_RTOL}")
+                del y, want_y
+                dx, dw = cm.cadc_segmented_bwd_cuda(g, xf, wf, gate,
+                                                    mode=mode, **kw)
+                want_dx, want_dw = cm.cadc_segmented_bwd_torch(
+                    g, xf, wf, gate, mode=mode, **kw)
+                got = [("dx", dx, want_dx), ("dw", dw, want_dw)]
+                plan = cm.plan_bwd(LM_M, n, d, LM_XBAR, mode)
+                other = next((p for p in cm.bwd_plans(
+                    LM_M, n, d, LM_XBAR, mode)[1:]
+                    if p.dw_tile != plan.dw_tile), None)
+                if other is None:
+                    fail(f"{tag}: no other K2 plan than {plan}")
+                pdx, pdw = keep_counts(lambda: cm.cadc_segmented_bwd_cuda(
+                    g, xf, wf, gate, mode=mode, plan=other, **kw))
+                if not torch.equal(pdx, dx):
+                    fail(f"{tag}: K2 plan {other}: dx differs from the "
+                         "planner's")
+                forced += 1
+                got.append(("dw", pdw, want_dw))
+                for key, a, b in got:
+                    e = track("k2", a, b)
+                    worst[key] = max(worst[key], e)
+                    if not e <= TRAIN_RTOL:
+                        fail(f"{tag}: {key} err / scale {e} > {TRAIN_RTOL}")
+                n_checks += 1
+                del dx, dw, want_dx, want_dw, pdx, pdw, gate, got
+            del psums, x, w, xf, wf
+        del x32, w32, g
+        torch.cuda.empty_cache()
+    report["k1g_k2_lm_checks"] = {
+        "n": n_checks, "m": LM_M, "shapes": lm_kernel_shapes(),
+        "max_err_over_scale": worst, "near_zero_gate_mismatches": near,
+        "k2_forced_plans": forced}
+    print(f"K1g/K2 at the LM shapes: {n_checks} checks ok "
+          f"({len(lm_kernel_shapes())} shapes, M {LM_M}, bf16 and fp32, "
+          f"relu, save_gate packed / "
+          f"bytes / recompute; K2 also under {forced} forced plans, dx "
+          f"bitwise); max err / scale {worst}; gate bit mismatches at "
+          f"|psum| <= {GATE_NEAR} x scale: {near}", flush=True)
+
+
+def lm_group(key: str) -> str:
+    """A profiler kernel name's group on the LM train step: K1g, K2's dx /
+    dw, cuBLAS's bf16 GEMMs (Hopper's `nvjet` kernels; on this path only
+    the tied head: forward, dx and dW of the table), its fp32 GEMMs
+    (attention's scores and PV products, forward and backward, fp32 with
+    TF32 off: `sm80_xmma_gemm_f32f32`) and the rest."""
+    k = key.lower()
+    for pat, name in (("cadc::fwd_tile_kernel", "K1g cadc_matmul_gate"),
+                      ("bwd_dx", "K2 dx"), ("bwd_dw", "K2 dw")):
+        if pat in k:
+            return name
+    if "nvjet" in k or ("gemm" in k and "bf16" in k):
+        return "tied head (torch.matmul, bf16)"
+    if "gemm" in k or "xmma" in k or "cutlass" in k:
+        return "attention products (fp32)"
+    return "other (PyTorch)"
+
+
+def lm_train_path(dev, report) -> dict:
+    """The slice's main path: gemma3-1b at full width trained through
+    repro_torch.launch.train (LM_STEPS steps): exact K1g / K2 launch
+    counts, a finite loss at every step, step ms, tokens/s and peak
+    memory; then 2 more steps timed by CUDA events and 1 under the
+    profiler (device busy per step by lm_group). Returns the counts."""
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = train.main(["--arch", LM_ARCH, "--cadc", "--crossbar",
+                      str(LM_XBAR), "--steps", str(LM_STEPS), "--batch",
+                      str(LM_BATCH), "--seq", str(LM_SEQ), "--microbatch",
+                      str(LM_MICRO), "--log-every", "1", "--device", "cuda"])
+    got = read_counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    cfg = out["cfg"]
+    want = expect(lm_step_launches(cfg, LM_MICRO), {}, LM_STEPS, 0)
+    if got != want:
+        fail(f"{cfg.name} train path launched {got}, want {want}")
+    losses = [h["loss"] for h in out["history"]]
+    if len(losses) != LM_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"{cfg.name}: losses {losses}")
+    n = n_params(out["params"])
+    tokens = LM_BATCH * LM_SEQ
+    host_ms = [1e3 * s for s in out["step_s"]]
+    print(f"{cfg.name} LM training ({n / 1e9:.3f} B parameters, "
+          f"{cfg.n_layers} layers, bf16 on fp32 masters, CADC relu xbar "
+          f"{LM_XBAR}, remat): {LM_STEPS} steps of {LM_BATCH} x {LM_SEQ} "
+          f"tokens in {LM_MICRO} micros in {wall:.1f} s; losses "
+          f"{[round(v, 4) for v in losses]}; step ms (host) "
+          f"{[round(v, 1) for v in host_ms]}; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches {json.dumps(got)} as "
+          f"lm_step_launches says", flush=True)
+
+    step = steps_lib.make_train_step(cfg, steps_lib.make_optimizer(cfg),
+                                     n_micro=LM_MICRO)
+    data = synthetic.make_lm_dataset(synthetic.LMTokenSpec(
+        vocab_size=cfg.vocab_size, seq_len=LM_SEQ), device=dev)
+    batches = [train.make_batch(data(LM_STEPS + i, LM_BATCH)["tokens"], cfg,
+                                LM_SEQ) for i in range(2)]
+    state = [out["params"], out["opt_state"]]
+    del out
+
+    def run(i):
+        state[0], state[1], m = step(state[0], state[1], batches[i % 2],
+                                     LM_STEPS + i)
+        return m
+
+    times = []
+    for i in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = run(i)
+        end.record()
+        torch.cuda.synchronize()
+        if not math.isfinite(float(m["loss"])):
+            fail(f"{cfg.name}: a non-finite loss at a timed step")
+        times.append(start.elapsed_time(end))
+    p50 = float(np.median(times))
+    wall_ms, busy, rows, groups = profile_device(lambda i: run(2 + i), 1,
+                                                 lm_group,
+                                                 "the LM train step",
+                                                 cpu=False)
+    report["lm_train"] = {
+        "arch": cfg.name, "params": n, "layers": cfg.n_layers,
+        "batch": LM_BATCH, "seq": LM_SEQ, "micro": LM_MICRO,
+        "steps": LM_STEPS, "losses": losses, "wall_s": wall,
+        "step_ms_host": host_ms, "step_ms_events": times,
+        "step_ms_p50": p50, "tokens_per_s": tokens / (p50 / 1e3),
+        "peak_memory_bytes": peak, "launches": got,
+        "profiled_wall_ms_per_step": wall_ms,
+        "device_busy_ms_per_step": busy,
+        "idle_share": max(0.0, 1.0 - busy / wall_ms),
+        "device_ms_per_step_by_group": groups,
+        "device_top_per_step": [{"name": k[:110], "ms": ms, "calls": c}
+                                for ms, k, c in rows[:24]]}
+    print(f"{cfg.name} train step (CUDA events, 2 steps): p50 {p50:.1f} ms, "
+          f"{tokens / (p50 / 1e3):.0f} tokens/s; profiler: device busy "
+          f"{busy:.1f} of {wall_ms:.1f} ms per step (idle share "
+          f"{max(0.0, 1.0 - busy / wall_ms):.3f})", flush=True)
+    for gname, g in sorted(groups.items(), key=lambda kv: -kv[1]["ms"]):
+        print(f"  {gname}: {g['ms']:.2f} ms/step over {g['calls']:.0f} "
+              f"launches", flush=True)
+    for ms, k, c in rows[:12]:
+        print(f"    {ms:8.3f} ms x{c:.0f} {k[:100]}", flush=True)
+    del state, batches, step
+    torch.cuda.empty_cache()
+    return got
+
+
+def _lm_batch(cfg, b: int, s: int, dev, seed: int) -> dict:
+    """Random tokens (frames for the audio frontend) and labels."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    labels = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev)
+    if cfg.frontend == "audio":
+        return {"frames": torch.randn(b, s, cfg.frontend_dim, generator=gen,
+                                      device=dev), "labels": labels}
+    return {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                    device=dev), "labels": labels}
+
+
+def _lm_loss_and_grads(cfg, params, batch):
+    """lm_loss + 0.01 * aux of forward_train on cast_compute(params), and
+    the gradient of every fp32 master, as the train step takes them."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models.lm import transformer as tf
+
+    leaves = [p.detach().requires_grad_() for p in steps_lib._leaves(params)]
+    live = steps_lib._rebuild(params, leaves)
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    logits, aux = tf.forward_train(steps_lib.cast_compute(live, cfg), inputs,
+                                   cfg)
+    loss = tf.lm_loss(logits, batch["labels"])[0] + 0.01 * aux
+    del logits
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return float(loss), [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(leaves, grads)]
+
+
+def lm_parity(dev, report) -> None:
+    """Kernel path (kernel_impl 'auto': K1g / K2) against plain path
+    ('torch') from the same params and batch, at published width and
+    LM_PARITY_LAYERS layers: gemma3-1b in fp32 (loss and every gradient
+    within 1e-4 of scale) and bf16 (loss within LM_BF16_LOSS_RTOL; the
+    gradients' error reported), hubert-xlarge in fp32 (frames,
+    bidirectional attention, the gelu FFN, the untied 504-way head),
+    qwen2-moe-a2.7b in fp32 (the aux loss, the expert banks' backward,
+    K1g / K2 at the 152 064-wide head) and in bf16 (the expert products'
+    fp32-output torch.bmm under autograd); exact launch counts, none on
+    the plain path. Then gemma3-1b's prefill step (no gradient: K1)
+    against the plain path's."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models.lm import transformer as tf
+
+    out = {}
+    runs = [(LM_ARCH, "float32"), (LM_ARCH, "bfloat16"),
+            (HUBERT_ARCH, "float32"), (MOE_ARCH, "float32"),
+            (MOE_ARCH, "bfloat16")]
+    for arch, dtype in runs:
+        cfg = lm_cfg(arch, n_layers=LM_PARITY_LAYERS[arch], dtype=dtype)
+        b, s = LM_PARITY_TOKENS[arch]
+        params = tf.init(cfg, seed=0, device=dev)
+        batch = _lm_batch(cfg, b, s, dev, seed=7)
+        res = {}
+        for impl in ("auto", "torch"):
+            zero_counts()
+            res[impl] = _lm_loss_and_grads(
+                cfg.with_overrides(kernel_impl=impl), params, batch) + (
+                read_counts(),)
+        (lk, gk, nk), (lp, gp, np_) = res["auto"], res["torch"]
+        want = expect(lm_step_launches(cfg, 1), {}, 1, 0)
+        if nk != want or any(np_.values()):
+            fail(f"{cfg.name} {dtype}: launches kernel path {nk} (want "
+                 f"{want}), plain path {np_} (want none)")
+        worst_g = max(rel_err(a, c)[0] for a, c in zip(gk, gp))
+        loss_err = abs(lk - lp) / max(1.0, abs(lp))
+        tol = LOSS0_RTOL if dtype == "float32" else LM_BF16_LOSS_RTOL
+        if not (math.isfinite(lk) and loss_err <= tol):
+            fail(f"{cfg.name} {dtype}: loss {lk} vs plain {lp} (rel err "
+                 f"{loss_err} > {tol})")
+        if dtype == "float32" and not worst_g <= TRAIN_RTOL:
+            fail(f"{cfg.name} fp32: gradient err / scale {worst_g} > "
+                 f"{TRAIN_RTOL}")
+        if not all(bool(torch.isfinite(g).all()) for g in gk):
+            fail(f"{cfg.name} {dtype}: a non-finite gradient")
+        key = f"{arch}.{dtype}"
+        out[key] = {"layers": cfg.n_layers, "tokens": [b, s],
+                    "loss": [lk, lp], "loss_rel_err": loss_err,
+                    "grad_err_over_scale": worst_g, "launches": nk}
+        print(f"LM parity {cfg.name} ({cfg.n_layers} layers, {dtype}, "
+              f"{b} x {s} tokens): loss {lk:.6f} vs plain {lp:.6f} (rel "
+              f"err {loss_err:.2e}, tol {tol}); grads max err / scale "
+              f"{worst_g:.2e}{'' if dtype == 'float32' else ' (reported)'};"
+              f" launches {json.dumps(nk)}", flush=True)
+        del params, batch, res, gk, gp
+        torch.cuda.empty_cache()
+    cfg = lm_cfg(LM_ARCH, n_layers=LM_PARITY_LAYERS[LM_ARCH],
+                 dtype="float32")
+    params = tf.init(cfg, seed=0, device=dev)
+    batch = {"tokens": _lm_batch(cfg, *LM_PARITY_TOKENS[LM_ARCH], dev,
+                                 seed=8)["tokens"]}
+    zero_counts()
+    got = steps_lib.make_prefill_step(cfg)(params, batch)
+    nk = read_counts()
+    want = steps_lib.make_prefill_step(cfg.with_overrides(
+        kernel_impl="torch"))(params, batch)
+    err = rel_err(got, want)[0]
+    k1 = cfg.n_layers * len(linear_shapes(cfg))
+    if nk != {**{k: 0 for k in nk}, "cadc_matmul": k1}:
+        fail(f"prefill step launched {nk}, want K1 x {k1} only")
+    if not err <= LOGITS_RTOL:
+        fail(f"prefill step logits err / scale {err} > {LOGITS_RTOL}")
+    out["prefill_step"] = {"logits_err_over_scale": err, "launches": nk}
+    print(f"prefill step ({cfg.name}, {cfg.n_layers} layers, fp32): "
+          f"next-token logits err / scale {err:.2e} against the plain "
+          f"path; K1 x {k1}, no K1g / K2", flush=True)
+    report["lm_parity"] = out
+    del params
+    torch.cuda.empty_cache()
+
+
+def lm_resume(dev, report) -> None:
+    """gemma3-1b at full width and LM_RESUME_LAYERS layers through the
+    train CLI: 4 steps straight against 2 steps that save (--ckpt-dir)
+    and a second call that resumes to 4: params and AdamW moments
+    bitwise, the same losses, exact launch counts over the three calls."""
+    import shutil
+
+    from repro_torch import ckpt
+    from repro_torch.launch import train
+
+    d = os.path.join(REPO, "build", "lm_resume")
+    shutil.rmtree(d, ignore_errors=True)
+
+    def run(steps, ckpt_dir=None):
+        argv = ["--arch", LM_ARCH, "--cadc", "--crossbar", str(LM_XBAR),
+                "--steps", str(steps), "--batch", str(LM_BATCH), "--seq",
+                str(LM_SEQ), "--microbatch", str(LM_MICRO), "--layers",
+                str(LM_RESUME_LAYERS), "--log-every", "1", "--device",
+                "cuda"]
+        if ckpt_dir:
+            argv += ["--ckpt-dir", ckpt_dir, "--ckpt-every", "2",
+                     "--keep-k", "1"]
+        return train.main(argv)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    straight = run(4)
+    run(2, d)
+    if ckpt.all_steps(d) != [2]:
+        fail(f"lm_resume: checkpoints {ckpt.all_steps(d)} after 2 steps, "
+             "want [2]")
+    resumed = run(4, d)
+    got = read_counts()
+    wall = time.perf_counter() - t0
+    want = expect(lm_step_launches(resumed["cfg"], LM_MICRO), {}, 8, 0)
+    if got != want:
+        fail(f"lm_resume launched {got}, want {want}")
+    if [h["step"] for h in resumed["history"]] != [2, 3] or [
+            h["loss"] for h in resumed["history"]] != [
+            h["loss"] for h in straight["history"][2:]]:
+        fail(f"lm_resume: resumed history {resumed['history']} against "
+             f"{straight['history']}")
+    names, a = ckpt.checkpoint._flatten([resumed["params"],
+                                         resumed["opt_state"]])
+    _, b = ckpt.checkpoint._flatten([straight["params"],
+                                     straight["opt_state"]])
+    differ = [nm for nm, x, y in zip(names, a, b) if not torch.equal(x, y)]
+    if differ:
+        fail(f"lm_resume: resumed state differs from the straight run's at "
+             f"{differ[:5]}")
+    shutil.rmtree(d, ignore_errors=True)
+    report["lm_resume"] = {"layers": LM_RESUME_LAYERS, "wall_s": wall,
+                           "launches": got, "tensors_bitwise": len(names)}
+    print(f"lm_resume: {resumed['cfg'].name} at {LM_RESUME_LAYERS} layers, "
+          f"4 steps straight = 2 steps + save + resume to 4, bitwise over "
+          f"{len(names)} tensors (params and AdamW moments), launches "
+          f"{json.dumps(got)}, {wall:.1f} s", flush=True)
+    del straight, resumed
+    torch.cuda.empty_cache()
+
+
+def lm_twin(dev, report) -> None:
+    """The twin of examples/lm_cadc_train.py on the card: gemma3-1b's smoke
+    config, CADC at crossbar 64, batch 8, seq 128, LM_TWIN_STEPS steps; the
+    loss must decrease (the twin raises otherwise); exact launch counts."""
+    from repro_torch.launch import lm_cadc_train
+
+    zero_counts()
+    t0 = time.perf_counter()
+    out = lm_cadc_train.main(["--steps", str(LM_TWIN_STEPS), "--device",
+                              "cuda"])
+    got = read_counts()
+    wall = time.perf_counter() - t0
+    want = expect(lm_step_launches(out["cfg"], 1), {}, LM_TWIN_STEPS, 0)
+    if got != want:
+        fail(f"lm_cadc_train twin launched {got}, want {want}")
+    losses = [h["loss"] for h in out["history"]]
+    report["lm_twin"] = {"steps": LM_TWIN_STEPS, "losses": losses,
+                         "wall_s": wall, "launches": got}
+    print(f"lm_cadc_train twin ({out['cfg'].name} smoke, {LM_TWIN_STEPS} "
+          f"steps): loss {losses[0]:.4f} -> {losses[-1]:.4f}, {wall:.1f} s, "
+          f"launches {json.dumps(got)}", flush=True)
+
+
+def time_lm_kernels(dev, launches, rows, report) -> None:
+    """K1g (bf16 operands) and K2 (their fp32 casts) device times at
+    gemma3-1b's 7 linear shapes, M = LM_M, relu's packed gate, summed over
+    one train step (each shape x 26 layers x LM_MICRO micros, K1g twice
+    under remat), beside their plain versions, the vConv PyTorch calls
+    (torch.matmul in bf16; the fp32 dx / dw pair), the bound, and the
+    fp32 copies CadcMatmulFn.backward makes (g, x, w up; dx, dw down).
+    Adds each row's "lm_step" record and the LM path's launches."""
+    from repro_torch.kernels import cadc_matmul as cm
+
+    cfg = lm_cfg(LM_ARCH)
+    per = lm_step_launches(cfg, LM_MICRO)
+    k1g_per_shape = per["cadc_matmul_gate"] // (cfg.n_layers * 7)
+    k2_per_shape = per["cadc_segmented_bwd"] // (cfg.n_layers * 7)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    kw = dict(crossbar_size=LM_XBAR, fn="relu")
+    tot = {k: {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0,
+               "ops": 0.0, "copies": 0.0} for k in ("k1g", "k2")}
+    per_shape = {}
+    m = LM_M
+    for name, d, n in linear_shapes(cfg):
+        count = cfg.n_layers  # one linear of this name a layer
+        s = d // LM_XBAR
+        gate_b = s * m * -(-n // 32) * 4
+        flops = 2 * m * d * n
+        w16 = (torch.randn(d, n, generator=gen, device=dev)
+               / math.sqrt(d)).to(torch.bfloat16)
+        w32 = w16.float()
+
+        def make_x(d=d):
+            return (torch.randn(m, d, generator=gen, device=dev).to(
+                torch.bfloat16),)
+
+        def make_bwd(d=d, n=n):
+            return (torch.randn(m, n, generator=gen, device=dev),
+                    torch.randn(m, d, generator=gen, device=dev))
+
+        _, gate = cm.cadc_matmul_gate_cuda(make_x()[0], w16, mode="packed",
+                                           **kw)
+        rec = per_shape[name] = {"d": d, "n": n}
+        for key, make, kern, plain, lib, nbytes, ops, dt in (
+                ("k1g", make_x,
+                 lambda x: cm.cadc_matmul_gate_cuda(x, w16, mode="packed",
+                                                    **kw),
+                 lambda x: cm.cadc_matmul_gate_torch(x, w16, mode="packed",
+                                                     **kw),
+                 lambda x: torch.matmul(x, w16),
+                 2 * (m * d + d * n) + 4 * m * n + gate_b, flops,
+                 torch.bfloat16),
+                ("k2", make_bwd,
+                 lambda g, x: cm.cadc_segmented_bwd_cuda(
+                     g, x, w32, gate, mode="packed", **kw),
+                 lambda g, x: cm.cadc_segmented_bwd_torch(
+                     g, x, w32, gate, mode="packed", **kw),
+                 lambda g, x: (torch.matmul(g, w32.T), torch.matmul(x.T, g)),
+                 4 * (m * n + 2 * m * d + 2 * d * n) + gate_b, 2 * flops,
+                 torch.float32)):
+            first = make()
+            ops_set = [first] + rotation(make, sum(
+                t.numel() * t.element_size() for t in first))[1:]
+            reps = max(8, len(ops_set))
+            pick = itertools.cycle(ops_set).__next__
+            k = keep_counts(lambda: device_ms(lambda: kern(*pick()), reps))
+            pl = keep_counts(lambda: device_ms(lambda: plain(*pick()), reps))
+            lb = device_ms(lambda: lib(*pick()), reps)
+            b_ms, b_by = bound_ms(nbytes, ops, dt)
+            mult = count * (k1g_per_shape if key == "k1g" else k2_per_shape)
+            rec[key] = {"ms": k, "plain_ms": pl, "library_ms": lb,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "per_step": mult}
+            t = tot[key]
+            t["ms"] += mult * k
+            t["plain"] += mult * pl
+            t["lib"] += mult * lb
+            t["bytes"] += mult * nbytes
+            t["ops"] += mult * ops
+            del ops_set, first
+        # the backward's fp32 copies: g is fp32 already (the bf16 output's
+        # cotangent is cast), x and w go up to fp32, dx and dw back to bf16
+        g16 = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
+        x16 = make_x()[0]
+        dxf = torch.randn(m, d, generator=gen, device=dev)
+
+        def copies():
+            g16.float(), x16.float(), w16.float()
+            dxf.to(torch.bfloat16), w32.to(torch.bfloat16)
+
+        rec["fp32_copies_ms"] = device_ms(copies, 8)
+        tot["k2"]["copies"] += count * k2_per_shape * rec["fp32_copies_ms"]
+        print(f"LM {name} M={m} D={d} N={n}: K1g {rec['k1g']['ms']:.4f} ms "
+              f"(torch.matmul bf16 {rec['k1g']['library_ms']:.4f}, bound "
+              f"{rec['k1g']['bound_ms']:.4f}), K2 {rec['k2']['ms']:.4f} ms "
+              f"(fp32 torch.matmul pair {rec['k2']['library_ms']:.4f}, "
+              f"bound {rec['k2']['bound_ms']:.4f}), the backward's fp32 "
+              f"copies {rec['fp32_copies_ms']:.4f} ms", flush=True)
+        del w16, w32, gate, g16, x16, dxf
+        torch.cuda.empty_cache()
+    report["lm_kernel_timing"] = {
+        "unit": f"one gemma3-1b train step: {LM_BATCH} x {LM_SEQ} tokens in "
+                f"{LM_MICRO} micros of {m} rows, xbar {LM_XBAR}, relu, "
+                "packed gate, K1g twice a linear a micro (remat)",
+        "per_shape_one_call": per_shape,
+        "per_step": {k: dict(v) for k, v in tot.items()}}
+    names = {"k1g": "cadc_matmul_gate", "k2": "cadc_segmented_bwd"}
+    for row in rows:
+        key = next((k for k, v in names.items() if v == row["name"]), None)
+        if key is None:
+            continue
+        t = tot[key]
+        b_ms, b_by = bound_ms(t["bytes"], t["ops"], torch.bfloat16
+                              if key == "k1g" else torch.float32)
+        row["launches"] += launches[row["name"]]
+        row["lm_step"] = {"launches": per[row["name"]], "ms": t["ms"],
+                          "plain_ms": t["plain"], "bound_ms": b_ms,
+                          "bound_by": b_by, "library_ms": t["lib"]}
+        if key == "k2":
+            row["lm_step"]["fp32_copies_ms"] = t["copies"]
+        print(f"{row['name']} per gemma3-1b train step: {t['ms']:.2f} ms "
+              f"over {per[row['name']]} launches (plain {t['plain']:.2f}, "
+              f"vConv library {t['lib']:.2f}, bound {b_ms:.3f} by {b_by})"
+              + (f"; the backward's fp32 copies {t['copies']:.2f} ms"
+                 if key == "k2" else ""), flush=True)
+
+
+# ---------------------------------------------------------------------------
 # slice 3: the paper's 4/2/4b operating point through K4 and K5
 # ---------------------------------------------------------------------------
 
@@ -3843,14 +4474,22 @@ def main() -> None:
     report = {"torch": torch.__version__, "cuda": torch.version.cuda,
               "device": torch.cuda.get_device_name(0)}
     t_start = time.perf_counter()
+    phases = report["phase_end_s"] = {}
+
+    def mark(name: str) -> None:
+        """Seconds since the start at the end of each group of phases."""
+        phases[name] = time.perf_counter() - t_start
+        print(f"[{phases[name]:.0f} s] {name} done", flush=True)
 
     build_kernels(report)
+    mark("build")
     cfg = get_config("gemma3_1b").with_overrides(linear_impl="cadc",
                                                  kernel_impl="auto")
     check_k1(cfg, dev, report)
     check_k6(cfg, dev, report)
     check_k1g_k2(dev, report)
     check_k3(dev, report)
+    mark("kernel checks (K1, K6, K1g / K2, K3)")
 
     params = tf.init(cfg, seed=0, device=dev)        # fp32, random weights
     launches, base = serve_main_path(cfg, params, dev, report)
@@ -3859,16 +4498,19 @@ def main() -> None:
     serve_spec(cfg, params, dev, base, gap, report)
     del params
     torch.cuda.empty_cache()
+    mark("gemma3-1b serving, speculative serving")
 
     check_k1_slice5(dev, report)
     check_k6_slice5(dev, report)
     moe_main_path(dev, report)
     moe_fp32_logits(dev, report)
     vit_path(dev, report)
+    mark("slice 5")
 
     check_k1_slice6(dev, report)
     check_k6_slice6(dev, report)
     report["slice6_launches"] = recurrent_paths(dev, report)
+    mark("slice 6")
 
     lenet_path(dev, report)
     ckpt_resume(dev, report)
@@ -3876,6 +4518,16 @@ def main() -> None:
     train_launches, resnet_trained = resnet_main_path(dev, report)
     time_resnet_step(dev, report)
     torch.cuda.empty_cache()
+    mark("CNN training")
+
+    check_k1g_k2_lm(dev, report)
+    mark("K1g / K2 at the LM shapes")
+    lm_launches = lm_train_path(dev, report)
+    mark("gemma3-1b LM training")
+    lm_parity(dev, report)
+    lm_resume(dev, report)
+    lm_twin(dev, report)
+    mark("LM parity, resume, twin")
 
     # after the training steps' peak-memory readings: device_ms runs each
     # call's warm-up on a new side stream, and PyTorch keeps the cuBLAS
@@ -3886,7 +4538,9 @@ def main() -> None:
     kernels = [time_k1(cfg, dev, launches, report),
                time_k6(cfg, dev, launches, report),
                *time_train_kernels(dev, train_launches, report)]
+    time_lm_kernels(dev, lm_launches, kernels, report)
     torch.cuda.empty_cache()
+    mark("kernel timing")
 
     check_k4(dev, report)
     check_k5(dev, report)

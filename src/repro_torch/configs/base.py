@@ -96,8 +96,9 @@ class ArchConfig:
     # counterpart of the JAX package's 'xla', its default there: it honors
     # bf16_wire and feeds the psum telemetry tap).
     kernel_impl: str = "auto"
-    # Gradient-residual format of the fused kernels. Carried for config
-    # parity with the JAX package; the port's slice is forward-only.
+    # Gradient-residual format of the CADC matmul under autograd ('auto' |
+    # 'packed' | 'bytes' | 'recompute'; kernels/cadc_matmul.py gate_mode):
+    # what K1g saves in the forward for K2, the backward.
     kernel_save_gate: str = "auto"
     # Paged-attention decode backend ('auto' | 'cuda' | 'torch'): 'cuda' is
     # the flash-decoding kernel over the block table (kernels/
@@ -207,9 +208,8 @@ class ArchConfig:
         return out
 
 
-# The archs the port has: every LM of the JAX package but hubert_xlarge
-# (an encoder with an audio frontend and a gelu FFN), which joins when
-# those are ported (ROADMAP.md).
+# The archs the port has: every LM of the JAX package. hubert_xlarge is an
+# encoder (no decode path): it is trained, never served.
 ARCH_IDS = [
     "gemma3_1b",
     "gemma_7b",
@@ -220,6 +220,7 @@ ARCH_IDS = [
     "internvl2_1b",
     "recurrentgemma_9b",
     "xlstm_13b",
+    "hubert_xlarge",
 ]
 
 

@@ -1,13 +1,15 @@
 """Deterministic synthetic data: classification images (MNIST / CIFAR
-proxies) and event streams (a DVS Gesture proxy).
+proxies), event streams (a DVS Gesture proxy) and LM token streams.
 
-Port of repro.data.synthetic's CNN part. No dataset is downloaded: the
+Port of repro.data.synthetic. No dataset is downloaded: the
 generators draw LEARNABLE class-conditional inputs (smooth low-rank class
-templates plus Gaussian noise; class-dependent Bernoulli firing-rate maps)
-so CADC-vs-vConv accuracy and convergence are measurable. Every batch is a pure function of (seed, step),
+templates plus Gaussian noise; class-dependent Bernoulli firing-rate maps;
+a hash-chained token language) so CADC-vs-vConv accuracy and convergence
+are measurable. Every batch is a pure function of (seed, step),
 drawn from a torch.Generator seeded from both. torch's generators cannot
 give jax.random's bits, so the numbers differ from the JAX package's for
-the same spec; tests that compare the two feed JAX-made batches to both.
+the same spec; tests that compare the two feed JAX-made batches to both
+(for the LM streams: JAX-drawn starts and noise to the port's chain).
 """
 from __future__ import annotations
 
@@ -91,5 +93,65 @@ def make_event_dataset(n_classes: int = 11, hw: int = 32, t_steps: int = 8,
         u = torch.rand((batch_size, t_steps, hw, hw, 2), generator=g,
                        device=dev)
         return {"events": (u < rates).float(), "label": labels}
+
+    return batch_fn
+
+
+@dataclasses.dataclass(frozen=True)
+class LMTokenSpec:
+    vocab_size: int = 32768
+    seq_len: int = 1024
+    seed: int = 0
+    order: int = 2  # markov order of the synthetic language
+
+
+_HASH_MULT = 2654435761
+_U32 = 0xFFFFFFFF
+
+
+def _mul_u32(h: Tensor, mult: int) -> Tensor:
+    """(h * mult) mod 2**32 for h in [0, 2**32) held in int64, without an
+    int64 overflow: h's 16-bit halves are multiplied apart."""
+    lo, hi = h & 0xFFFF, h >> 16
+    return (lo * mult + (((hi * mult) & 0xFFFF) << 16)) & _U32
+
+
+def lm_chain(first: Tensor, noise: Tensor, vocab_size: int) -> Tensor:
+    """The language of make_lm_dataset: first [B, order] start tokens,
+    noise [B, L] uniform in [0, 1) -> tokens [B, L] int32. Token t is the
+    hash of the `order` tokens before it, h = ((h ^ tok) * 2654435761) mod
+    2**32 over them from h = 0, taken mod vocab_size — or, where noise[t] <
+    0.1, int(noise[t] * vocab_size): a 10 % uniform resample."""
+    ctx = [first[:, i].to(torch.int64) for i in range(first.shape[1])]
+    out = []
+    for t in range(noise.shape[1]):
+        h = torch.zeros_like(ctx[0])
+        for c in ctx:
+            h = _mul_u32(h ^ c, _HASH_MULT)
+        eps = noise[:, t]
+        rnd = (eps * vocab_size).to(torch.int64)
+        nxt = torch.where(eps < 0.1, rnd, h % vocab_size)
+        ctx = ctx[1:] + [nxt]
+        out.append(nxt)
+    return torch.stack(out, dim=1).to(torch.int32)
+
+
+def make_lm_dataset(spec: LMTokenSpec, device="cuda"
+                    ) -> Callable[[int, int], Dict[str, Tensor]]:
+    """Synthetic token streams with local structure (hash-chained next-token
+    distribution) so an LM's loss decreases measurably. batch_fn(step, bs)
+    -> {'tokens': [B, L + 1] int32} on `device` (shift for inputs / labels
+    downstream). The starts and the noise come from a CPU torch.Generator
+    seeded by (seed, step) and the chain runs on the CPU, so a batch is the
+    same on every device."""
+    dev = resolve(device)
+
+    def batch_fn(step: int, batch_size: int) -> Dict[str, Tensor]:
+        gen = torch.Generator().manual_seed(
+            (spec.seed + 1) * 1_000_003 + step)
+        first = torch.randint(0, spec.vocab_size, (batch_size, spec.order),
+                              generator=gen)
+        noise = torch.rand((batch_size, spec.seq_len + 1), generator=gen)
+        return {"tokens": lm_chain(first, noise, spec.vocab_size).to(dev)}
 
     return batch_fn

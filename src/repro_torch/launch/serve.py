@@ -88,6 +88,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = (smoke_config if args.smoke else get_config)(args.arch)
+    if not cfg.supports_decode():
+        raise SystemExit(f"{cfg.name} is encoder-only: it has no decode step "
+                         "to serve (train it: python -m "
+                         "repro_torch.launch.train)")
     if args.cadc:
         cfg = cfg.with_overrides(linear_impl="cadc")
     if args.attn_impl is not None:

@@ -1,5 +1,6 @@
-"""GQA/MQA attention: RoPE, global-causal / sliding-local prefill, and
-decode against dense ring caches or paged KV pools.
+"""GQA/MQA attention: RoPE, global-causal / sliding-local / bidirectional
+(encoder) full-sequence attention for training and prefill, and decode
+against dense ring caches or paged KV pools.
 
 Port of repro.models.lm.attention. Decode takes PER-SLOT positions (a [B]
 vector; a scalar broadcasts): the continuous-batching engine runs every
@@ -63,6 +64,14 @@ def _sdpa(q, k, v, mask, cfg: ArchConfig):
     return masked_sdpa(q, k, v, mask, cfg.attn_logit_softcap)
 
 
+def attention_train(p: Dict, x: Tensor, cfg: ArchConfig, *, kind: str,
+                    positions: Tensor) -> Tensor:
+    """kind: 'global' (causal, or bidirectional for encoders) | 'local'
+    (causal sliding window), over the whole sequence in q chunks of
+    cfg.attn_chunk rows."""
+    return _attention_full(p, x, cfg, kind=kind, positions=positions)[0]
+
+
 def attention_prefill(p: Dict, x: Tensor, cfg: ArchConfig, *, kind: str,
                       positions: Tensor) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
     """Batched-prefill attention: the full-sequence forward, also returning
@@ -74,17 +83,22 @@ def attention_prefill(p: Dict, x: Tensor, cfg: ArchConfig, *, kind: str,
 def _attention_full(p: Dict, x: Tensor, cfg: ArchConfig, *, kind: str,
                     positions: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """Causal (and, for 'local', windowed) attention over the whole
-    sequence, in q chunks of cfg.attn_chunk rows against every key (the
-    masks give each chunk exactly the JAX package's keys)."""
+    sequence — every key for an encoder (cfg.is_encoder) — in q chunks of
+    cfg.attn_chunk rows against every key (the masks give each chunk
+    exactly the JAX package's keys)."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     kpos = torch.arange(s, device=x.device)
     outs = []
     for c0 in range(0, s, cfg.attn_chunk):
         qpos = torch.arange(c0, min(c0 + cfg.attn_chunk, s), device=x.device)
-        mask = kpos[None, :] <= qpos[:, None]
-        if kind == "local":
-            mask &= kpos[None, :] > qpos[:, None] - cfg.local_window
+        if cfg.is_encoder:
+            mask = torch.ones(qpos.numel(), s, dtype=torch.bool,
+                              device=x.device)
+        else:
+            mask = kpos[None, :] <= qpos[:, None]
+            if kind == "local":
+                mask &= kpos[None, :] > qpos[:, None] - cfg.local_window
         outs.append(_sdpa(q[:, c0:c0 + qpos.numel()], k, v,
                           mask.expand(b, -1, -1), cfg))
     out = torch.cat(outs, dim=1).reshape(b, s, -1)

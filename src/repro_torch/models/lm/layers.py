@@ -72,6 +72,7 @@ def tap_scope(label: str):
 def _tap_record(psums32: Tensor, fn: str, segments: int) -> None:
     if _PSUM_TAP is None:
         return
+    psums32 = psums32.detach()  # the records hold no autograd graph
     if _TAP_ROWS is not None:
         psums32 = psums32[_TAP_ROWS]
     gate = dendritic.grad(fn)(psums32)
@@ -125,7 +126,8 @@ def linear_apply(p: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
         if kops.resolve(cfg.kernel_impl, x) == "cuda":
             y = kops.cadc_matmul(
                 xp, w.reshape(s * xbar, d_out).to(dt), crossbar_size=xbar,
-                fn=cfg.dendritic_fn, impl=cfg.kernel_impl)
+                fn=cfg.dendritic_fn, impl=cfg.kernel_impl,
+                save_gate=cfg.kernel_save_gate)
         else:
             xs = xp.reshape(*x.shape[:-1], s, xbar)
             psums = torch.einsum("...sk,skn->...sn", xs.float(),

@@ -62,6 +62,30 @@ def _expert_linear_init(gen: torch.Generator, n_e: int, d_in: int,
     return torch.randn(n_e, d_in, d_out, generator=gen, device=device) * std
 
 
+class _Bmm32Fn(torch.autograd.Function):
+    """torch.bmm(a, b, out_dtype=float32) on CUDA operands of a narrower
+    dtype, differentiable: torch 2.11 defines no derivative for it. The
+    backward is the CPU path's (a.float() @ b.float() under autograd) and
+    the JAX package's transpose of its fp32-output einsum: the fp32
+    cotangent against fp32 copies of the operands, each gradient rounded
+    to its operand's dtype. The forward keeps no fp32 copy of the bank."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype)
+        return da, db
+
+
 def _bmm32(a: Tensor, b: Tensor) -> Tensor:
     """a [B, M, K] @ b [B, K, N] -> fp32 [B, M, N]: the products of the
     compute-dtype operands summed in fp32 (the JAX package's
@@ -70,7 +94,7 @@ def _bmm32(a: Tensor, b: Tensor) -> Tensor:
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
     if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _Bmm32Fn.apply(a, b)
     return torch.bmm(a.float(), b.float())  # bf16 products are exact in fp32
 
 

@@ -1,24 +1,27 @@
 """The LM stack: embedding -> pattern-cycled blocks -> norm -> head.
 
-Port of the serving part of repro.models.lm.transformer: the attention
-layer kinds ('global', 'local', each with a dense FFN or an MoE block),
-the RG-LRU kind ('rglru', a recurrent block and an FFN) and the xLSTM
-kinds ('mlstm', 'slstm', a block with no FFN); tied or untied heads and
-the ViT patch prefix. The audio frontend (an encoder's) raises at init,
-an unknown kind raises as the JAX package's _layer_init does. The JAX
+Port of repro.models.lm.transformer: the attention layer kinds ('global',
+'local', each with a dense FFN or an MoE block), the RG-LRU kind ('rglru',
+a recurrent block and an FFN) and the xLSTM kinds ('mlstm', 'slstm', a
+block with no FFN); tied or untied heads, the ViT patch prefix and the
+audio frontend (an encoder's frames through frontend_proj). An unknown
+kind raises as the JAX package's _layer_init does. Serving runs every
+kind; training (`forward_train`, `lm_loss`) runs the attention kinds, and
+raises on a recurrent one: their training forms are not ported yet. The JAX
 package stacks each pattern position's parameters over the unit repeats
 and runs them as one lax.scan; here the stack is a Python list of layers,
 layer i having kind cfg.pattern_for_layers[i], and the scan is a loop.
 
 Parameters: {"embed": {"table"}, "final_norm": {"scale"}, "head": {"w"}
-(untied heads), "frontend_proj": {"w", "b"} (vit), "layers": [...]} with
+(untied heads), "frontend_proj": {"w", "b"} (vit, audio), "layers": [...]} with
 one dict a layer, the JAX names: an attention layer {"ln1", "attn": {"wq",
 "wk", "wv", "wo"} (+ "b" with qkv bias), "ln2", "ffn": {"w_gate", "w_up",
-"w_down"} or "moe": {...}}; an rglru layer {"ln1", "rec": {"w_x",
+"w_down"} ({"w_up", "w_down"} with biases for gelu) or "moe": {...}};
+an rglru layer {"ln1", "rec": {"w_x",
 "w_gate", "conv": {"w", "b"}, "w_r", "w_i", "lam", "w_out"}, "ln2",
 "ffn"}; an xLSTM layer {"block": {...}} (xlstm.py). `params_from_numpy`
 takes the JAX package's `tf.init` pytree (as numpy arrays) and returns
-this layout.
+this layout; `params_to_numpy` is its inverse.
 
 Caches: a list with one entry per layer. Attention layers hold
 attention.KVCache rings (dense) or attention.PagedKV pools (paged),
@@ -34,7 +37,9 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch.configs.base import ArchConfig
@@ -52,16 +57,12 @@ RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
 
 
 def layout(cfg: ArchConfig) -> Tuple[str, ...]:
-    """Kind of every layer, in stack order. Refuses an unknown kind (as the
-    JAX package's _layer_init does) and what is not ported: the audio
-    frontend (an encoder's; ffn.ffn_init refuses the plain gelu FFN)."""
+    """Kind of every layer, in stack order. Refuses an unknown kind, as the
+    JAX package's _layer_init does."""
     kinds = cfg.pattern_for_layers
     for kind in kinds:
         if kind not in ATTN_KINDS + RECURRENT_KINDS:
             raise ValueError(f"unknown layer kind {kind!r}")
-    if cfg.frontend not in (None, "vit"):
-        raise NotImplementedError(
-            f"the {cfg.frontend!r} frontend is not ported (vit is)")
     return kinds
 
 
@@ -164,6 +165,32 @@ def params_from_numpy(tree: Params, cfg: ArchConfig,
     return out
 
 
+def params_to_numpy(params: Params, cfg: ArchConfig) -> Params:
+    """The inverse of params_from_numpy: the port's parameters as the JAX
+    package's `tf.init` pytree of numpy arrays — units[j] layer
+    r * len(pattern) + j stacked over the reps r (a tuple over the pattern
+    positions), tail a tuple of the remaining layers. Bitwise: stacking
+    copies the values. Checkpoints of this tree are the JAX package's."""
+    kinds = layout(cfg)
+    p = len(cfg.pattern)
+    reps = len(kinds) // p if cfg.scan_layers else 0
+    layers = [tree_map(lambda t: t.detach().cpu().numpy(), layer)
+              for layer in params["layers"]]
+
+    def stack(*leaves):
+        if isinstance(leaves[0], dict):
+            return {k: stack(*(l[k] for l in leaves)) for k in leaves[0]}
+        return np.stack(leaves)
+
+    out = {k: tree_map(lambda t: t.detach().cpu().numpy(), params[k])
+           for k in ("embed", "final_norm", "head", "frontend_proj")
+           if k in params}
+    if reps > 0:
+        out["units"] = tuple(stack(*layers[j:reps * p:p]) for j in range(p))
+    out["tail"] = tuple(layers[reps * p:])
+    return out
+
+
 def cast_params(params: Params, dtype: torch.dtype) -> Params:
     """Floating parameters cast to `dtype` (integers untouched)."""
     return tree_map(
@@ -176,19 +203,21 @@ def cast_params(params: Params, dtype: torch.dtype) -> Params:
 
 def _attn_residual(p: Params, x: Tensor, cfg: ArchConfig, attn_fn):
     """ln1 -> attn_fn -> residual -> ln2 -> moe / ffn -> residual, shared
-    by the dense decode, paged decode and prefill paths (one
+    by the train, dense decode, paged decode and prefill paths (one
     implementation, so the paged == dense invariant cannot drift).
-    attn_fn(h) -> (y, extra). The MoE aux loss is dropped: serving takes
-    no gradient."""
+    attn_fn(h) -> (y, extra). Returns (x, extra, the MoE aux loss: None
+    without MoE; the serving paths drop it)."""
     h = ll.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     y, extra = attn_fn(h)
     x = x + y
     h = ll.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+    aux = None
     if cfg.moe.n_experts > 0:
-        x = x + moe_lib.moe_apply(p["moe"], h, cfg)[0]
+        y, aux = moe_lib.moe_apply(p["moe"], h, cfg)
+        x = x + y
     elif cfg.ffn_type != "none":
         x = x + ffn_lib.ffn_apply(p["ffn"], h, cfg)
-    return x, extra
+    return x, extra, aux
 
 
 def _recurrent_layer(p: Params, x: Tensor, kind: str, cfg: ArchConfig,
@@ -238,13 +267,83 @@ def _embed_inputs(params: Params, batch: Dict[str, Tensor],
                   cfg: ArchConfig) -> Tensor:
     """Token embeddings; for vit archs the projected patches
     batch["patches"] [B, frontend_len, frontend_dim] overlay the first
-    frontend_len positions (those positions are the image)."""
+    frontend_len positions (those positions are the image); for the audio
+    frontend the projected frames batch["frames"] [B, S, frontend_dim]
+    are the whole input."""
+    if cfg.frontend == "audio":
+        return ll.linear_apply(params["frontend_proj"], batch["frames"], cfg)
     x = ll.embed(params["embed"], batch["tokens"], cfg)
     if cfg.frontend == "vit":
         patches = ll.linear_apply(params["frontend_proj"], batch["patches"],
                                   cfg)
         x = torch.cat([patches.to(x.dtype), x[:, patches.shape[1]:]], dim=1)
     return x
+
+
+# ---------------------------------------------------------------------------
+# train forward
+# ---------------------------------------------------------------------------
+
+def _layer_train(p: Params, x: Tensor, kind: str, cfg: ArchConfig,
+                 positions: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
+    """One attention layer over the whole sequence: (x, the MoE aux loss
+    or None)."""
+    x, _, aux = _attn_residual(p, x, cfg, lambda h: (attn.attention_train(
+        p["attn"], h, cfg, kind=kind, positions=positions), None))
+    return x, aux
+
+
+def forward_train(params: Params, batch: Dict[str, Tensor],
+                  cfg: ArchConfig) -> Tuple[Tensor, Tensor]:
+    """batch: {"tokens": [B, S]} (+ "patches" for vit archs; "frames"
+    [B, S, frontend_dim] alone for the audio frontend). Returns (logits
+    fp32 [B, S, V], the MoE aux loss summed over layers).
+
+    cfg.remat recomputes each layer in the backward: the layer runs under
+    torch.utils.checkpoint with use_reentrant=False, which keeps only the
+    layer's input and runs the layer's forward again, with autograd on,
+    when the backward reaches it (the JAX package's jax.checkpoint). On
+    the card a CADC linear then launches K1g twice a step (the forward
+    and the recompute, each saving its gate) and K2 once. (The reentrant
+    form would run the first pass with autograd off, so K1 then K1g, but
+    it refuses torch.autograd.grad.)
+
+    The recurrent kinds' training forms (the RG-LRU scan, the chunkwise
+    mLSTM, the sLSTM scan) are not ported: a stack with one raises."""
+    kinds = layout(cfg)
+    rec = sorted(set(kinds) & set(RECURRENT_KINDS))
+    if rec:
+        raise NotImplementedError(
+            f"forward_train: the training forms of the {rec} layers are not "
+            f"ported yet (ROADMAP.md Queue 1 item 4b); these layers serve")
+    x = _embed_inputs(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux = torch.zeros((), device=x.device)
+    for i, kind in enumerate(kinds):
+        args = (params["layers"][i], x, kind, cfg, positions)
+        x, a = (torch.utils.checkpoint.checkpoint(
+                    _layer_train, *args, use_reentrant=False)
+                if cfg.remat else _layer_train(*args))
+        if a is not None:  # without MoE the JAX package adds zeros
+            aux = aux + a
+    return _head(params, x, cfg), aux
+
+
+def lm_loss(logits: Tensor, labels: Tensor, *, z_loss: float = 1e-4
+            ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Causal LM cross-entropy plus z-loss (z_loss * logsumexp^2), averaged
+    over the unmasked labels [B, S] (-1 = masked). Returns (loss, {"ce",
+    "acc"}), the metrics detached."""
+    mask = (labels >= 0).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    idx = labels.clamp(min=0).to(torch.int64)[..., None]
+    picked = torch.gather(logits, -1, idx)[..., 0]
+    ce = (lse - picked) * mask
+    zl = z_loss * lse.square() * mask
+    denom = mask.sum().clamp(min=1.0)
+    loss = (ce + zl).sum() / denom
+    hit = (logits.detach().argmax(dim=-1) == labels).float() * mask
+    return loss, {"ce": ce.detach().sum() / denom, "acc": hit.sum() / denom}
 
 
 # ---------------------------------------------------------------------------
@@ -331,7 +430,7 @@ def _decode_layers(params: Params, tokens: Tensor, position: Tensor,
                         cache=cache, block_table=block_tables[kind],
                         ring_len=ring_lens[kind] if ring_lens else None),
                     None)
-            x, _ = _attn_residual(p, x, cfg, fn)
+            x = _attn_residual(p, x, cfg, fn)[0]
     if not multi:
         return _head(params, x, cfg)[:, 0]
     # one head product a token column, each in the decode step's [B, 1, d]
@@ -438,10 +537,10 @@ def forward_prefill(params: Params, batch: Dict[str, Tensor],
     for i, kind in enumerate(kinds):
         p = params["layers"][i]
         if kind in ATTN_KINDS:
-            x, c = _attn_residual(p, x, cfg, lambda h, p=p, kind=kind:
-                                  attn.attention_prefill(p["attn"], h, cfg,
-                                                         kind=kind,
-                                                         positions=positions))
+            x, c, _ = _attn_residual(p, x, cfg, lambda h, p=p, kind=kind:
+                                     attn.attention_prefill(
+                                         p["attn"], h, cfg, kind=kind,
+                                         positions=positions))
         else:
             x, c = _recurrent_prefill(p, x, kind, cfg, lengths)
         contribs.append(c)

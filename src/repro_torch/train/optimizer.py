@@ -23,15 +23,21 @@ class Optimizer(NamedTuple):
 
 
 def _tmap(f, *trees):
-    """tree_map over nested dicts (the first tree gives the structure)."""
+    """tree_map over nested dicts, lists and tuples (the first tree gives
+    the structure)."""
     if isinstance(trees[0], dict):
         return {k: _tmap(f, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], (list, tuple)):
+        return type(trees[0])(_tmap(f, *xs) for xs in zip(*trees))
     return f(*trees)
 
 
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree

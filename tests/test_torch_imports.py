@@ -100,7 +100,8 @@ def test_registry_names_only_ported_archs():
 
     assert ARCH_IDS == ["gemma3_1b", "gemma_7b", "codeqwen15_7b",
                         "phi4_mini_38b", "mixtral_8x22b", "qwen2_moe_a27b",
-                        "internvl2_1b", "recurrentgemma_9b", "xlstm_13b"]
+                        "internvl2_1b", "recurrentgemma_9b", "xlstm_13b",
+                        "hubert_xlarge"]
     cfg = get_config("gemma3-1b")
     assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size) == (
         26, 1152, 6912, 262144)
@@ -118,5 +119,11 @@ def test_registry_names_only_ported_archs():
     for arch in ARCH_IDS:
         cfg = get_config(arch)
         assert cfg.kernel_impl == "auto" and cfg.paged_attn_impl == "auto"
+    hub = get_config("hubert_xlarge")
+    assert (hub.n_layers, hub.d_model, hub.n_heads, hub.head_dim, hub.d_ff,
+            hub.vocab_size, hub.ffn_type, hub.frontend, hub.frontend_dim,
+            hub.is_encoder, hub.tie_embeddings) == (
+        48, 1280, 16, 80, 5120, 504, "gelu", "audio", 512, True, False)
+    assert not hub.supports_decode()
     with pytest.raises(ValueError, match="unknown arch"):
-        get_config("hubert_xlarge")
+        get_config("hubert_xxl")

@@ -667,6 +667,117 @@ def test_conv_and_linear_grads_through_kernels(cuda_device, save_gate):
         _rel_close(got, want)
 
 
+# gemma3-1b's attention output projection at crossbar 256 (LM training:
+# bf16 forward, fp32 backward), M = 512 rows of a microbatch
+_LM_M, _LM_D, _LM_N, _LM_XBAR = 512, 1024, 1152, 256
+
+
+def _lm_operands(dev, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev, dtype)  # noqa: E731
+    return (t(rng.randn(_LM_M, _LM_D)),
+            t(rng.randn(_LM_D, _LM_N) / np.sqrt(_LM_D)),
+            torch.from_numpy(rng.randn(_LM_M, _LM_N).astype(np.float32)).to(
+                dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["packed", "bytes"])
+def test_k1g_bf16_at_an_lm_shape(cuda_device, mode):
+    """K1g on bf16 operands at an LM shape against its plain version: the
+    fp32 output within 1e-4 of scale (both sum fp32 psums of exact bf16
+    products, in other orders), the gate bits equal wherever the psum is
+    not within 1e-5 of scale of 0."""
+    x, w, _ = _lm_operands(cuda_device, torch.bfloat16)
+    kw = dict(crossbar_size=_LM_XBAR, fn="relu", mode=mode)
+    before = cm.cadc_matmul_gate_cuda.launches
+    y, gate = cm.cadc_matmul_gate_cuda(x, w, **kw)
+    want_y, want_gate = cm.cadc_matmul_gate_torch(x, w, **kw)
+    torch.cuda.synchronize()
+    assert cm.cadc_matmul_gate_cuda.launches == before + 1
+    assert y.dtype == torch.float32 and gate.dtype == want_gate.dtype
+    _rel_close(y, want_y)
+    far = _seg_psums(x, w, _LM_XBAR).abs() > 1e-5 * max(
+        1.0, float(want_y.float().abs().max()))
+    if mode == "packed":
+        gate = cm._unpack_mask(gate, _LM_N).bool()
+        want_gate = cm._unpack_mask(want_gate, _LM_N).bool()
+    assert torch.equal(gate[far], want_gate[far])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save_gate", ["auto", "packed", "bytes",
+                                       "recompute"])
+def test_lm_linear_bf16_under_autograd(cuda_device, save_gate):
+    """ops.cadc_matmul as an LM linear trains it (bf16 operands; K1g, or
+    K1 then the recomputing K2 under 'recompute'; K2 on the fp32 casts)
+    against the plain path on the same card: y, dx and dw (all bf16)
+    within 1e-2 of scale."""
+    x0, w0, g = _lm_operands(cuda_device, torch.bfloat16, seed=1)
+    out = {}
+    for impl in ("cuda", "torch"):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        y = ops.cadc_matmul(x, w, crossbar_size=_LM_XBAR, fn="relu",
+                            impl=impl, save_gate=save_gate)
+        y.backward(g.to(y.dtype))
+        out[impl] = (y.detach(), x.grad, w.grad)
+    for got, want in zip(out["cuda"], out["torch"]):
+        assert got.dtype == torch.bfloat16
+        _rel_close(got, want, tol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["packed", "recompute"])
+def test_k2_at_an_lm_shape(cuda_device, mode):
+    """K2 at the LM shape, fp32 (the backward's casts), under the planner's
+    plan and one forced plan (another dw tile): dx bitwise across them, dw
+    the same bits on two runs, both within 1e-4 of scale of the plain
+    version (the gate saved by K1g for 'packed')."""
+    x, w, g = _lm_operands(cuda_device, torch.float32, seed=2)
+    kw = dict(crossbar_size=_LM_XBAR, fn="relu", mode=mode)
+    gate = (cm.cadc_matmul_gate_cuda(x, w, crossbar_size=_LM_XBAR, fn="relu",
+                                     mode=mode)[1]
+            if mode == "packed" else None)
+    dx, dw = cm.cadc_segmented_bwd_cuda(g, x, w, gate, **kw)
+    want_dx, want_dw = cm.cadc_segmented_bwd_torch(g, x, w, gate, **kw)
+    _rel_close(dx, want_dx)
+    _rel_close(dw, want_dw)
+    plan = cm.plan_bwd(_LM_M, _LM_N, _LM_D, _LM_XBAR, mode)
+    other = next(p for p in cm.bwd_plans(_LM_M, _LM_N, _LM_D, _LM_XBAR,
+                                         mode)[1:]
+                 if p.dw_tile != plan.dw_tile)
+    fdx, fdw = cm.cadc_segmented_bwd_cuda(g, x, w, gate, plan=other, **kw)
+    _, fdw2 = cm.cadc_segmented_bwd_cuda(g, x, w, gate, plan=other, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(fdx, dx) and torch.equal(fdw, fdw2)
+    _rel_close(fdw, want_dw)
+
+
+@pytest.mark.cuda
+def test_moe_expert_product_is_differentiable_in_bf16(cuda_device):
+    """The MoE expert products (torch.bmm with an fp32 output, which torch
+    does not differentiate) under autograd on bf16 operands: the output is
+    the fp32 product, the gradients those of a.float() @ b.float()
+    rounded to bf16 (the CPU path's)."""
+    from repro_torch.models.lm import moe
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    a0 = torch.randn(6, 24, 64, generator=gen, device=cuda_device)
+    b0 = torch.randn(6, 64, 40, generator=gen, device=cuda_device)
+    g = torch.randn(6, 24, 40, generator=gen, device=cuda_device)
+    a, b = (t.to(torch.bfloat16).requires_grad_() for t in (a0, b0))
+    y = moe._bmm32(a, b)
+    y.backward(g)
+    a32, b32 = (t.detach().float().requires_grad_() for t in (a, b))
+    want = torch.bmm(a32, b32)
+    want.backward(g)
+    assert y.dtype == torch.float32
+    _rel_close(y, want)
+    for got, ref in ((a.grad, a32.grad), (b.grad, b32.grad)):
+        assert got.dtype == torch.bfloat16
+        _rel_close(got, ref.to(torch.bfloat16), tol=1e-2)
+
+
 @pytest.mark.cuda
 def test_serve_cli_default_runs_the_kernel(cuda_device):
     """kernel_impl defaults to 'auto': the serve CLI with --cadc and no

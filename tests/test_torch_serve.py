@@ -307,16 +307,25 @@ class TestScheduling:
             assert ttf.layout(cfg) == cfg.pattern_for_layers
 
     @pytest.mark.parametrize("override,match", [
-        pytest.param(dict(frontend="audio", frontend_dim=48), "audio",
+        pytest.param(dict(frontend="audio", frontend_dim=48,
+                          is_encoder=True), "encoder-only",
                      id="override1-audio"),
-        pytest.param(dict(ffn_type="gelu"), "gelu", id="override2-gelu")])
+        pytest.param(dict(ffn_type="gelu", is_encoder=True), "encoder-only",
+                     id="override2-gelu")])
     def test_what_is_still_refused(self, override, match):
-        """The audio frontend and the gelu FFN (hubert-xlarge's) are the
-        port's refusals; MoE, qkv bias, untied heads, the vit prefix and
-        the recurrent kinds are served (tests/test_torch_lm_archs.py)."""
+        """The audio frontend and the gelu FFN (hubert-xlarge's encoder) now
+        lay out and train (tests/test_torch_lm_train.py); the serve engine
+        and CLI refuse an encoder: it has no decode step."""
         cfg = tsmoke("gemma3_1b").with_overrides(**override)
-        with pytest.raises(NotImplementedError, match=match):
-            ttf.init(cfg, device="cpu")
+        params = ttf.init(cfg, device="cpu")
+        assert ttf.layout(cfg) == cfg.pattern_for_layers
+        with pytest.raises(ValueError, match=match):
+            ServeEngine(cfg, params, EngineConfig(n_slots=2, max_len=32,
+                                                  block_size=16),
+                        device="cpu")
+        with pytest.raises(SystemExit, match="encoder-only"):
+            tserve_cli.main(["--arch", "hubert_xlarge", "--smoke",
+                            "--device", "cpu"])
 
     def test_block_allocator(self):
         a = BlockAllocator(4)
