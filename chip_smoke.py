@@ -226,6 +226,39 @@ fp32 masters, TF32 off):
      fp32 dx / dw pair), the bound and the backward's fp32 copies: the
      kernels line's K1g and K2 rows gain the LM step ("lm_step").
 
+Slice 8, the recurrent families trained (after slice 7's gemma3-1b
+path; bf16 compute on fp32 masters, TF32 off):
+ 25. K1g and K2 as in phase 19 at recurrentgemma-9b's and xlstm-1.3b's 10
+     train shapes (lm_kernel_shapes: 4096 -> 4096 / 256 / 12 288, 12 288
+     -> 4096; 2048 -> 8192, 4096 -> 8 (the mLSTM gates, 2H), 4096 ->
+     2048, 2048 -> 2730 and 2730 (2816 padded) -> 2048 (the sLSTM GeGLU),
+     the untied head 2048 -> 50 432), M = 2048;
+ 26. recurrentgemma-9b at full width and 3 layers (rglru, rglru, local;
+     1.705 B parameters) trained through repro_torch.launch.train as
+     phase 20 does: REC_TRAIN_STEPS steps of 8 x 1024 tokens in 4 micros,
+     then 2 timed and 1 profiled; a finite loss at every step, finite
+     parameters, one micro's gradients all finite, exact launch counts
+     (K1g 184 and K2 92 a step: 23 linears x 4 micros, K1g twice under
+     remat; the tied head on torch.matmul), step ms, tokens/s, peak
+     memory, the busy split and the idle share;
+ 27. xlstm-1.3b at full width and 8 layers (7 mLSTM + sLSTM; 0.773 B) the
+     same way at 4 x 1024 tokens in 2 micros (the chunkwise mLSTM, 4
+     chunks of 256; K1g 186 = 2 x (2 x 46 + the untied head) and K2 94 a
+     step); its sLSTM loop leaves the card waiting on the host;
+ 28. (in phase 21's lm_parity) recurrentgemma-9b at 3 layers over 1 x
+     2560 tokens (its 2048 window bites) and xlstm-1.3b at 8 over 2 x 512
+     (two mLSTM chunks), fp32 (loss and every gradient) and bf16 (loss);
+ 29. each training form against its decode cell at full width in fp32,
+     one layer, 2 x REC_FORM_S tokens (rglru_apply / rglru_decode, the
+     chunkwise mLSTM / its sequential form / mlstm_decode, slstm_apply /
+     slstm_decode) within REC_FORM_RTOL; then the costs of the RG-LRU
+     scan, the chunkwise mLSTM and an sLSTM block at a train micro's
+     shape under the profiler (wall, busy, device operations; the sLSTM's
+     a token, forward and backward);
+ 30. (after phase 24) the kernels line's K1g and K2 rows gain both
+     recurrent paths' launches and "<arch>_step": launches a step, the
+     profiler's device ms a step and the bound of the step's linears.
+
 Prints the serving and training metrics, the card's name and power limit,
 one JSON line of kernel records and, last, {"ok": true, "device": {...}}.
 `--report PATH` also writes the full record (per-shape times, ptxas
@@ -3227,9 +3260,31 @@ LM_ARCH, HUBERT_ARCH = "gemma3_1b", "hubert_xlarge"
 LM_BATCH, LM_SEQ, LM_MICRO, LM_STEPS = 8, 1024, 4, 6
 LM_M = LM_BATCH * LM_SEQ // LM_MICRO
 LM_XBAR = 256
-LM_PARITY_LAYERS = {LM_ARCH: 2, HUBERT_ARCH: 4, MOE_ARCH: 2}
+# Slice 8, the recurrent families trained at full width through the same
+# CLI (REC_TRAIN: one period of each pattern — recurrentgemma-9b's
+# (rglru, rglru, local), xlstm-1.3b's 7 mLSTM + sLSTM —, batch x LM_SEQ
+# tokens in micros of LM_M rows, so the chunkwise mLSTM runs 4 chunks of
+# 256), REC_TRAIN_STEPS steps (2: at 3 the whole run took 810 s on an H100
+# 80GB at 700 W, past the 800 s it aims under), then the 2 timed and 1
+# profiled; kernel vs plain at LM_PARITY_LAYERS / LM_PARITY_TOKENS
+# (recurrentgemma over 2560 tokens, so its 2048 local window bites; xlstm
+# over two mLSTM chunks); each training form against its decode cell over
+# REC_FORM_S tokens.
+REC_TRAIN = {RG_ARCH: dict(layers=3, batch=8, micro=4),
+             XL_ARCH: dict(layers=8, batch=4, micro=2)}
+REC_TRAIN_STEPS = 2
+LM_PARITY_LAYERS = {LM_ARCH: 2, HUBERT_ARCH: 4, MOE_ARCH: 2, RG_ARCH: 3,
+                    XL_ARCH: 8}
 LM_PARITY_TOKENS = {LM_ARCH: (2, 1024), HUBERT_ARCH: (2, 512),
-                    MOE_ARCH: (1, 256)}
+                    MOE_ARCH: (1, 256), RG_ARCH: (1, 2560),
+                    XL_ARCH: (2, 512)}
+REC_FORM_S = 512
+# A training form against its decode cell at full width in fp32: the
+# scans add in another order than the cell, and K1 sums a linear's psums
+# at M = B * S rows in the form and at M = B in the cell (each within
+# K1_RTOL of the plain version): the JAX package's fp32 bound, 1e-4 of
+# scale.
+REC_FORM_RTOL = 1e-4
 LM_RESUME_LAYERS, LM_TWIN_STEPS = 2, 200
 # The bf16 loss, kernel path against plain path. The plain path stores
 # each segment's psum in bf16 (bf16_wire: a relative rounding of up to
@@ -3252,26 +3307,46 @@ def lm_cfg(arch: str, **kw):
 
 def lm_step_launches(cfg, n_micro: int) -> dict:
     """K1g and K2 launches of one train step: every CADC linear runs K1g
-    in the forward and K2 in the backward; a layer's linears run K1g once
-    more in the remat recompute (non-reentrant checkpoint); an untied head
-    and a frontend projection run outside the layers. No K1."""
-    per_layer = len(linear_shapes(cfg.with_overrides(
-        tie_embeddings=True, frontend=None)))
+    in the forward and K2 in the backward; a layer's linears (each layer
+    its kind's, kind_linear_shapes) run K1g once more in the remat
+    recompute (non-reentrant checkpoint); an untied head and a frontend
+    projection run outside the layers. No K1."""
+    from repro_torch.models.lm import transformer as tf
+
     outside = (not cfg.tie_embeddings) + (cfg.frontend is not None)
-    n = cfg.n_layers * per_layer
+    n = sum(len(kind_linear_shapes(cfg, kind)) for kind in tf.layout(cfg))
     return {"cadc_matmul_gate": n_micro * (n * (2 if cfg.remat else 1)
                                            + outside),
             "cadc_segmented_bwd": n_micro * (n + outside)}
 
 
+def train_linear_shapes(cfg) -> list:
+    """(name, D padded to whole crossbars, N) of every CADC linear a train
+    step runs, layer by layer (kind_linear_shapes of each layer's kind,
+    named "kind.name"), then an untied head and a frontend projection
+    (linear_shapes' last)."""
+    from repro_torch.models.lm import transformer as tf
+
+    out = [(f"{kind}.{name}", d, n) for kind in tf.layout(cfg)
+           for name, d, n in kind_linear_shapes(cfg, kind)]
+    return out + [s for s in linear_shapes(cfg)
+                  if s[0] in ("head", "frontend_proj")]
+
+
 def lm_kernel_shapes() -> list:
     """(name, D padded to whole crossbars, N) of the LM paths' CADC linears
     at crossbar 256, each shape once: gemma3-1b's 7 linears, hubert-xlarge's
-    (attention, the gelu FFN, the 504-way head, the frame projection) and
-    qwen2-moe-a2.7b's untied head."""
+    (attention, the gelu FFN, the 504-way head, the frame projection),
+    qwen2-moe-a2.7b's untied head, and the recurrent configs' (REC_TRAIN:
+    recurrentgemma-9b's RG-LRU, FFN and MQA linears; xlstm-1.3b's mLSTM
+    gates N = 8 (2H), its sLSTM GeGLU at N and D = 2730 (2816 padded),
+    its untied head)."""
     out, seen = [], set()
-    for arch in (LM_ARCH, HUBERT_ARCH, MOE_ARCH):
-        shapes = linear_shapes(lm_cfg(arch))
+    for arch in (LM_ARCH, HUBERT_ARCH, MOE_ARCH, *REC_TRAIN):
+        cfg = lm_cfg(arch)
+        shapes = (train_linear_shapes(cfg.with_overrides(
+                      n_layers=REC_TRAIN[arch]["layers"]))
+                  if arch in REC_TRAIN else linear_shapes(cfg))
         if arch == MOE_ARCH:
             shapes = [s for s in shapes if s[0] == "head"]
         for name, d, n in shapes:
@@ -3364,8 +3439,9 @@ def lm_group(key: str) -> str:
     """A profiler kernel name's group on the LM train step: K1g, K2's dx /
     dw, cuBLAS's bf16 GEMMs (Hopper's `nvjet` kernels; on this path only
     the tied head: forward, dx and dW of the table), its fp32 GEMMs
-    (attention's scores and PV products, forward and backward, fp32 with
-    TF32 off: `sm80_xmma_gemm_f32f32`) and the rest."""
+    (attention's scores and PV products, the chunkwise mLSTM's and the
+    sLSTM cell's products, forward and backward, fp32 with TF32 off:
+    `sm80_xmma_gemm_f32f32`) and the rest."""
     k = key.lower()
     for pat, name in (("cadc::fwd_tile_kernel", "K1g cadc_matmul_gate"),
                       ("bwd_dx", "K2 dx"), ("bwd_dw", "K2 dw")):
@@ -3374,16 +3450,20 @@ def lm_group(key: str) -> str:
     if "nvjet" in k or ("gemm" in k and "bf16" in k):
         return "tied head (torch.matmul, bf16)"
     if "gemm" in k or "xmma" in k or "cutlass" in k:
-        return "attention products (fp32)"
+        return "fp32 GEMMs (attention; the mLSTM / sLSTM products)"
     return "other (PyTorch)"
 
 
-def lm_train_path(dev, report) -> dict:
-    """The slice's main path: gemma3-1b at full width trained through
-    repro_torch.launch.train (LM_STEPS steps): exact K1g / K2 launch
-    counts, a finite loss at every step, step ms, tokens/s and peak
-    memory; then 2 more steps timed by CUDA events and 1 under the
-    profiler (device busy per step by lm_group). Returns the counts."""
+def lm_train_path(dev, report, arch=LM_ARCH, layers=None, batch=LM_BATCH,
+                  micro=LM_MICRO, steps=LM_STEPS, key="lm_train") -> dict:
+    """A config trained at full width through repro_torch.launch.train
+    (`steps` steps of `batch` x LM_SEQ tokens in `micro` micros; `layers`
+    cuts the depth): exact K1g / K2 launch counts, a finite loss at every
+    step, finite parameters after them, step ms, tokens/s and peak memory;
+    then 2 more steps timed by CUDA events and 1 under the profiler
+    (device busy per step by lm_group), and one micro's loss and gradients
+    (every one finite) on the trained parameters. Returns the counts and
+    report[key]."""
     from repro_torch.data import synthetic
     from repro_torch.launch import steps as steps_lib
     from repro_torch.launch import train
@@ -3392,44 +3472,48 @@ def lm_train_path(dev, report) -> dict:
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.perf_counter()
-    out = train.main(["--arch", LM_ARCH, "--cadc", "--crossbar",
-                      str(LM_XBAR), "--steps", str(LM_STEPS), "--batch",
-                      str(LM_BATCH), "--seq", str(LM_SEQ), "--microbatch",
-                      str(LM_MICRO), "--log-every", "1", "--device", "cuda"])
+    out = train.main(["--arch", arch, "--cadc", "--crossbar", str(LM_XBAR),
+                      "--steps", str(steps), "--batch", str(batch), "--seq",
+                      str(LM_SEQ), "--microbatch", str(micro), "--log-every",
+                      "1", "--device", "cuda"]
+                     + (["--layers", str(layers)] if layers else []))
     got = read_counts()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     cfg = out["cfg"]
-    want = expect(lm_step_launches(cfg, LM_MICRO), {}, LM_STEPS, 0)
+    want = expect(lm_step_launches(cfg, micro), {}, steps, 0)
     if got != want:
         fail(f"{cfg.name} train path launched {got}, want {want}")
     losses = [h["loss"] for h in out["history"]]
-    if len(losses) != LM_STEPS or not all(map(math.isfinite, losses)):
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
         fail(f"{cfg.name}: losses {losses}")
+    if not all(bool(torch.isfinite(t).all())
+               for t in steps_lib._leaves(out["params"])):
+        fail(f"{cfg.name}: a non-finite parameter after {steps} steps")
     n = n_params(out["params"])
-    tokens = LM_BATCH * LM_SEQ
+    tokens = batch * LM_SEQ
     host_ms = [1e3 * s for s in out["step_s"]]
     print(f"{cfg.name} LM training ({n / 1e9:.3f} B parameters, "
-          f"{cfg.n_layers} layers, bf16 on fp32 masters, CADC relu xbar "
-          f"{LM_XBAR}, remat): {LM_STEPS} steps of {LM_BATCH} x {LM_SEQ} "
-          f"tokens in {LM_MICRO} micros in {wall:.1f} s; losses "
-          f"{[round(v, 4) for v in losses]}; step ms (host) "
+          f"{cfg.n_layers} layers {list(cfg.pattern_for_layers)}, bf16 on "
+          f"fp32 masters, CADC relu xbar {LM_XBAR}, remat): {steps} steps "
+          f"of {batch} x {LM_SEQ} tokens in {micro} micros in {wall:.1f} s; "
+          f"losses {[round(v, 4) for v in losses]}; step ms (host) "
           f"{[round(v, 1) for v in host_ms]}; peak memory "
           f"{peak / 2**30:.2f} GiB; launches {json.dumps(got)} as "
           f"lm_step_launches says", flush=True)
 
     step = steps_lib.make_train_step(cfg, steps_lib.make_optimizer(cfg),
-                                     n_micro=LM_MICRO)
+                                     n_micro=micro)
     data = synthetic.make_lm_dataset(synthetic.LMTokenSpec(
         vocab_size=cfg.vocab_size, seq_len=LM_SEQ), device=dev)
-    batches = [train.make_batch(data(LM_STEPS + i, LM_BATCH)["tokens"], cfg,
+    batches = [train.make_batch(data(steps + i, batch)["tokens"], cfg,
                                 LM_SEQ) for i in range(2)]
     state = [out["params"], out["opt_state"]]
     del out
 
     def run(i):
         state[0], state[1], m = step(state[0], state[1], batches[i % 2],
-                                     LM_STEPS + i)
+                                     steps + i)
         return m
 
     times = []
@@ -3446,25 +3530,38 @@ def lm_train_path(dev, report) -> dict:
     p50 = float(np.median(times))
     wall_ms, busy, rows, groups = profile_device(lambda i: run(2 + i), 1,
                                                  lm_group,
-                                                 "the LM train step",
+                                                 f"the {cfg.name} train step",
                                                  cpu=False)
-    report["lm_train"] = {
+    rows_a_micro = batch // micro
+    loss, grads = _lm_loss_and_grads(
+        cfg, state[0], {k: v[:rows_a_micro] for k, v in batches[0].items()})
+    if not (math.isfinite(loss)
+            and all(bool(torch.isfinite(g).all()) for g in grads)):
+        fail(f"{cfg.name}: a non-finite loss or gradient on one micro")
+    del grads
+    rec = report[key] = {
         "arch": cfg.name, "params": n, "layers": cfg.n_layers,
-        "batch": LM_BATCH, "seq": LM_SEQ, "micro": LM_MICRO,
-        "steps": LM_STEPS, "losses": losses, "wall_s": wall,
+        "pattern": list(cfg.pattern_for_layers),
+        "batch": batch, "seq": LM_SEQ, "micro": micro,
+        "steps": steps, "losses": losses, "wall_s": wall,
         "step_ms_host": host_ms, "step_ms_events": times,
         "step_ms_p50": p50, "tokens_per_s": tokens / (p50 / 1e3),
         "peak_memory_bytes": peak, "launches": got,
+        "launches_per_step": lm_step_launches(cfg, micro),
         "profiled_wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy,
         "idle_share": max(0.0, 1.0 - busy / wall_ms),
+        "device_launches_per_step": sum(r[2] for r in rows),
         "device_ms_per_step_by_group": groups,
         "device_top_per_step": [{"name": k[:110], "ms": ms, "calls": c}
-                                for ms, k, c in rows[:24]]}
+                                for ms, k, c in rows[:24]],
+        "grads_finite_one_micro": True}
     print(f"{cfg.name} train step (CUDA events, 2 steps): p50 {p50:.1f} ms, "
           f"{tokens / (p50 / 1e3):.0f} tokens/s; profiler: device busy "
           f"{busy:.1f} of {wall_ms:.1f} ms per step (idle share "
-          f"{max(0.0, 1.0 - busy / wall_ms):.3f})", flush=True)
+          f"{rec['idle_share']:.3f}) over "
+          f"{rec['device_launches_per_step']:.0f} launches; one micro's "
+          f"loss {loss:.4f}, every gradient finite", flush=True)
     for gname, g in sorted(groups.items(), key=lambda kv: -kv[1]["ms"]):
         print(f"  {gname}: {g['ms']:.2f} ms/step over {g['calls']:.0f} "
               f"launches", flush=True)
@@ -3514,16 +3611,20 @@ def lm_parity(dev, report) -> None:
     bidirectional attention, the gelu FFN, the untied 504-way head),
     qwen2-moe-a2.7b in fp32 (the aux loss, the expert banks' backward,
     K1g / K2 at the 152 064-wide head) and in bf16 (the expert products'
-    fp32-output torch.bmm under autograd); exact launch counts, none on
-    the plain path. Then gemma3-1b's prefill step (no gradient: K1)
-    against the plain path's."""
+    fp32-output torch.bmm under autograd), recurrentgemma-9b (the RG-LRU
+    scan; the local window of 2048 bites at 2560 tokens) and xlstm-1.3b
+    (two chunks of the chunkwise mLSTM, the sLSTM loop, the untied head)
+    in fp32 and bf16; exact launch counts, none on the plain path. Then
+    gemma3-1b's prefill step (no gradient: K1) against the plain path's."""
     from repro_torch.launch import steps as steps_lib
     from repro_torch.models.lm import transformer as tf
 
     out = {}
     runs = [(LM_ARCH, "float32"), (LM_ARCH, "bfloat16"),
             (HUBERT_ARCH, "float32"), (MOE_ARCH, "float32"),
-            (MOE_ARCH, "bfloat16")]
+            (MOE_ARCH, "bfloat16"), (RG_ARCH, "float32"),
+            (RG_ARCH, "bfloat16"), (XL_ARCH, "float32"),
+            (XL_ARCH, "bfloat16")]
     for arch, dtype in runs:
         cfg = lm_cfg(arch, n_layers=LM_PARITY_LAYERS[arch], dtype=dtype)
         b, s = LM_PARITY_TOKENS[arch]
@@ -3671,6 +3772,201 @@ def lm_twin(dev, report) -> None:
           f"launches {json.dumps(got)}", flush=True)
 
 
+def lm_linear_work(m: int, d: int, n: int) -> dict:
+    """{"k1g", "k2": (bytes, operations)} of one call at an LM linear of
+    m rows, D = d (whole crossbars) and N = n: K1g reads bf16 x and w,
+    writes the fp32 output and the packed gate; K2 reads fp32 g, x, w and
+    the gate and writes fp32 dx and dw, twice K1g's operations."""
+    gate_b = d // LM_XBAR * m * -(-n // 32) * 4
+    flops = 2 * m * d * n
+    return {"k1g": (2 * (m * d + d * n) + 4 * m * n + gate_b, flops),
+            "k2": (4 * (m * n + 2 * m * d + 2 * d * n) + gate_b,
+                   2 * flops)}
+
+
+def _profiled(fn) -> dict:
+    """One fn() under the profiler (device activity only): wall ms (CUDA
+    events), device busy ms and device operations (kernels, copies)."""
+    wall, busy, rows, _ = profile_device(lambda i: fn(), 1, lambda k: "all",
+                                         "a recurrent training form",
+                                         cpu=False)
+    return {"wall_ms": wall, "busy_ms": busy,
+            "launches": sum(r[2] for r in rows)}
+
+
+def rec_forms(dev, report) -> None:
+    """Slice 8's form checks and costs. (1) Each training form against its
+    decode cell run token by token, fp32, one layer at full width, 2 x
+    REC_FORM_S tokens, no gradient (K1): rglru_apply against rglru_decode,
+    mlstm_apply's chunkwise form (2 chunks of 256) against its sequential
+    form (mlstm_chunk 0) and against mlstm_decode, slstm_apply against
+    slstm_decode, each within REC_FORM_RTOL of scale and finite. (2) What
+    each recurrence costs at a train micro's shape (2 x LM_SEQ tokens, bf16
+    inputs as the step gives them): the forward and the forward with its
+    backward of _linear_scan (recurrentgemma-9b's a, b), _mlstm_chunkwise
+    (xlstm-1.3b's q / k / v / gates) and an sLSTM block (slstm_apply, its
+    linears included), each under the profiler — wall ms, device busy ms,
+    device operations; a micro under remat runs the forward twice and the
+    backward once. The sLSTM's operations a token, forward and backward,
+    from the difference between LM_SEQ and LM_SEQ / 2 tokens."""
+    from repro_torch.models.lm import rglru as rg
+    from repro_torch.models.lm import transformer as tf
+    from repro_torch.models.lm import xlstm as xl
+
+    gen = torch.Generator(device=dev).manual_seed(30)
+    b, s = 2, REC_FORM_S
+
+    def decode_run(decode, init_state, p, x, cfg):
+        state, ys = init_state(cfg, b, dev), []
+        for t in range(s):
+            y, state = decode(p, x[:, t:t + 1], cfg, state)
+            ys.append(y)
+        return torch.cat(ys, dim=1)
+
+    checks = {}
+    with torch.no_grad():
+        cfg = lm_cfg(RG_ARCH, dtype="float32")
+        p = rg.rglru_init(gen, cfg, dev)
+        x = torch.randn(b, s, cfg.d_model, generator=gen, device=dev)
+        checks["rglru_apply vs rglru_decode"] = (
+            rg.rglru_apply(p, x, cfg),
+            decode_run(rg.rglru_decode, rg.rglru_init_state, p, x, cfg))
+        cfg = lm_cfg(XL_ARCH, dtype="float32")
+        p = xl.mlstm_init(gen, cfg, dev)
+        x = torch.randn(b, s, cfg.d_model, generator=gen, device=dev)
+        chunked = xl.mlstm_apply(p, x, cfg)
+        checks["mlstm_apply chunkwise vs sequential"] = (
+            chunked, xl.mlstm_apply(p, x, cfg.with_overrides(mlstm_chunk=0)))
+        checks["mlstm_apply chunkwise vs mlstm_decode"] = (
+            chunked,
+            decode_run(xl.mlstm_decode, xl.mlstm_init_state, p, x, cfg))
+        p = xl.slstm_init(gen, cfg, dev)
+        checks["slstm_apply vs slstm_decode"] = (
+            xl.slstm_apply(p, x, cfg),
+            decode_run(xl.slstm_decode, xl.slstm_init_state, p, x, cfg))
+        del p, x, chunked
+    out = {"tokens": [b, s], "err_over_scale": {}}
+    for name, (got, want) in checks.items():
+        err = rel_err(got, want)[0]
+        if not (bool(torch.isfinite(got).all()) and err <= REC_FORM_RTOL):
+            fail(f"{name} (fp32, full width, {b} x {s} tokens): err / "
+                 f"scale {err} > {REC_FORM_RTOL}, or not finite")
+        out["err_over_scale"][name] = err
+    del checks
+    print(f"training forms against their decode cells (fp32, full width, "
+          f"{b} x {s} tokens, tol {REC_FORM_RTOL}): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in
+                      out["err_over_scale"].items()), flush=True)
+
+    bf = torch.bfloat16
+    s = LM_SEQ
+
+    def leaf(*shape, dtype=bf, unit=False):
+        """A random input that takes a gradient: N(0, 1), or U(0, 1)."""
+        draw = torch.rand if unit else torch.randn
+        return draw(*shape, generator=gen, device=dev).to(
+            dtype).requires_grad_()
+
+    def cost(fwd, tokens=s):
+        """fwd() -> (out, inputs): the forward, then with the backward."""
+        def both():
+            y, ins = fwd()
+            torch.autograd.grad(y.float().square().sum(), ins)
+        both()  # warm up
+        return {"tokens": [b, tokens], "fwd": _profiled(lambda: fwd()[0]),
+                "fwd_bwd": _profiled(both)}
+
+    rw = lm_cfg(RG_ARCH).rnn_width
+    a, bb = leaf(b, s, rw, dtype=torch.float32, unit=True), leaf(
+        b, s, rw, dtype=torch.float32)
+    costs = {"rglru _linear_scan": cost(
+        lambda: (rg._linear_scan(a, bb), (a, bb)))}
+    del a, bb
+    cfg = lm_cfg(XL_ARCH)
+    di, dh = xl._mlstm_dims(cfg)
+    h = cfg.n_heads
+    qkvif = [leaf(b, s, h, dh) for _ in range(3)] + [leaf(b, s, h)
+                                                     for _ in range(2)]
+    costs["mlstm _mlstm_chunkwise"] = cost(lambda: (xl._mlstm_chunkwise(
+        *qkvif, chunk=cfg.mlstm_chunk, dh=dh), qkvif))
+    del qkvif
+    p = tf.cast_params(xl.slstm_init(gen, cfg, dev), bf)
+    leaves = []
+    tf.tree_map(lambda t: leaves.append(t.requires_grad_()), p)
+    for n in (s // 2, s):
+        x = leaf(b, n, cfg.d_model)
+        costs[f"slstm_apply {n}"] = keep_counts(lambda: cost(
+            lambda: (xl.slstm_apply(p, x, cfg), leaves + [x]), n))
+        del x
+    half, full = costs[f"slstm_apply {s // 2}"], costs[f"slstm_apply {s}"]
+    per_token = {k: (full[k]["launches"] - half[k]["launches"]) / (s // 2)
+                 for k in ("fwd", "fwd_bwd")}
+    out["slstm_launches_per_token"] = {
+        "forward": per_token["fwd"],
+        "backward": per_token["fwd_bwd"] - per_token["fwd"],
+        "micro_under_remat": per_token["fwd"] + per_token["fwd_bwd"]}
+    for rec in costs.values():
+        rec["micro_under_remat"] = {k: rec["fwd"][k] + rec["fwd_bwd"][k]
+                                    for k in rec["fwd"]}
+    out["costs"] = costs
+    report["rec_forms"] = out
+    for name, rec in costs.items():
+        r = rec["micro_under_remat"]
+        print(f"  {name} ({rec['tokens'][0]} x {rec['tokens'][1]} tokens): "
+              f"forward {rec['fwd']['wall_ms']:.2f} ms wall / "
+              f"{rec['fwd']['busy_ms']:.2f} busy / "
+              f"{rec['fwd']['launches']:.0f} ops; forward + backward "
+              f"{rec['fwd_bwd']['wall_ms']:.2f} / "
+              f"{rec['fwd_bwd']['busy_ms']:.2f} / "
+              f"{rec['fwd_bwd']['launches']:.0f}; a micro under remat "
+              f"{r['wall_ms']:.2f} / {r['busy_ms']:.2f} / "
+              f"{r['launches']:.0f}", flush=True)
+    print(f"  the sLSTM loop's device operations a token: "
+          f"{json.dumps(out['slstm_launches_per_token'])}", flush=True)
+    del p, leaves
+    torch.cuda.empty_cache()
+
+
+def rec_step_rows(rows, launches: dict, report) -> None:
+    """The kernels line's K1g and K2 rows gain each recurrent train path's
+    launches, and a record of its step (REC_TRAIN): launches a step, the
+    device ms a step the profiler gave its group, the bound of its linears'
+    work (LM_M rows a micro; K1g's bf16 operands and packed gate, twice a
+    layer's linear under remat; K2 on fp32 casts, as time_lm_kernels
+    counts them)."""
+    names = {"cadc_matmul_gate": ("k1g", ("K1g cadc_matmul_gate",)),
+             "cadc_segmented_bwd": ("k2", ("K2 dx", "K2 dw"))}
+    for arch, kw in REC_TRAIN.items():
+        rec = report[f"{arch}_train"]
+        cfg = lm_cfg(arch, n_layers=kw["layers"])
+        outside = {"head", "frontend_proj"}
+        tot = {"k1g": [0.0, 0.0], "k2": [0.0, 0.0]}
+        for name, d, n in train_linear_shapes(cfg):
+            work = lm_linear_work(LM_M, d, n)
+            times = {"k1g": kw["micro"] * (1 if name in outside
+                                           or not cfg.remat else 2),
+                     "k2": kw["micro"]}
+            for key, t in tot.items():
+                t[0] += times[key] * work[key][0]
+                t[1] += times[key] * work[key][1]
+        for row in rows:
+            if row["name"] not in names:
+                continue
+            key, groups = names[row["name"]]
+            b_ms, b_by = bound_ms(*tot[key], torch.bfloat16
+                                  if key == "k1g" else torch.float32)
+            ms = sum(rec["device_ms_per_step_by_group"].get(
+                g, {"ms": 0.0})["ms"] for g in groups)
+            row["launches"] += launches[arch][row["name"]]
+            row[f"{arch}_step"] = {
+                "launches": rec["launches_per_step"][row["name"]],
+                "ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+            print(f"{row['name']} per {cfg.name} train step ({cfg.n_layers} "
+                  f"layers): {ms:.2f} ms over "
+                  f"{rec['launches_per_step'][row['name']]} launches "
+                  f"(profiler), bound {b_ms:.3f} by {b_by}", flush=True)
+
+
 def time_lm_kernels(dev, launches, rows, report) -> None:
     """K1g (bf16 operands) and K2 (their fp32 casts) device times at
     gemma3-1b's 7 linear shapes, M = LM_M, relu's packed gate, summed over
@@ -3693,9 +3989,7 @@ def time_lm_kernels(dev, launches, rows, report) -> None:
     m = LM_M
     for name, d, n in linear_shapes(cfg):
         count = cfg.n_layers  # one linear of this name a layer
-        s = d // LM_XBAR
-        gate_b = s * m * -(-n // 32) * 4
-        flops = 2 * m * d * n
+        work = lm_linear_work(m, d, n)
         w16 = (torch.randn(d, n, generator=gen, device=dev)
                / math.sqrt(d)).to(torch.bfloat16)
         w32 = w16.float()
@@ -3717,8 +4011,7 @@ def time_lm_kernels(dev, launches, rows, report) -> None:
                                                     **kw),
                  lambda x: cm.cadc_matmul_gate_torch(x, w16, mode="packed",
                                                      **kw),
-                 lambda x: torch.matmul(x, w16),
-                 2 * (m * d + d * n) + 4 * m * n + gate_b, flops,
+                 lambda x: torch.matmul(x, w16), *work["k1g"],
                  torch.bfloat16),
                 ("k2", make_bwd,
                  lambda g, x: cm.cadc_segmented_bwd_cuda(
@@ -3726,8 +4019,7 @@ def time_lm_kernels(dev, launches, rows, report) -> None:
                  lambda g, x: cm.cadc_segmented_bwd_torch(
                      g, x, w32, gate, mode="packed", **kw),
                  lambda g, x: (torch.matmul(g, w32.T), torch.matmul(x.T, g)),
-                 4 * (m * n + 2 * m * d + 2 * d * n) + gate_b, 2 * flops,
-                 torch.float32)):
+                 *work["k2"], torch.float32)):
             first = make()
             ops_set = [first] + rotation(make, sum(
                 t.numel() * t.element_size() for t in first))[1:]
@@ -4524,10 +4816,16 @@ def main() -> None:
     mark("K1g / K2 at the LM shapes")
     lm_launches = lm_train_path(dev, report)
     mark("gemma3-1b LM training")
+    rec_launches = {arch: lm_train_path(dev, report, arch=arch,
+                                        steps=REC_TRAIN_STEPS,
+                                        key=f"{arch}_train", **kw)
+                    for arch, kw in REC_TRAIN.items()}
+    mark("recurrentgemma-9b and xlstm-1.3b LM training")
     lm_parity(dev, report)
     lm_resume(dev, report)
     lm_twin(dev, report)
-    mark("LM parity, resume, twin")
+    rec_forms(dev, report)
+    mark("LM parity, resume, twin, the recurrent forms")
 
     # after the training steps' peak-memory readings: device_ms runs each
     # call's warm-up on a new side stream, and PyTorch keeps the cuBLAS
@@ -4539,6 +4837,7 @@ def main() -> None:
                time_k6(cfg, dev, launches, report),
                *time_train_kernels(dev, train_launches, report)]
     time_lm_kernels(dev, lm_launches, kernels, report)
+    rec_step_rows(kernels, rec_launches, report)
     torch.cuda.empty_cache()
     mark("kernel timing")
 

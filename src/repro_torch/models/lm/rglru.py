@@ -1,12 +1,11 @@
-"""Griffin / RecurrentGemma recurrent block [arXiv:2402.19427], the decode
-half.
+"""Griffin / RecurrentGemma recurrent block [arXiv:2402.19427].
 
 RG-LRU: h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t), with
 a_t = exp(-c * softplus(Lambda) * r_t), r_t / i_t input-dependent
-sigmoids. Port of the serving part of repro.models.lm.rglru: decode carries
-(h, conv buffer) per slot. The training form (the associative scan over a
-sequence) is not ported: serving runs the decode cell over time, prefill
-included (transformer.py).
+sigmoids. Port of repro.models.lm.rglru. Decode carries (h, conv buffer)
+per slot, and serving runs the decode cell over time, prefill included
+(transformer.py). Training (rglru_apply) runs the diagonal recurrence over
+the whole sequence as a log-depth scan (_linear_scan).
 """
 from __future__ import annotations
 
@@ -18,7 +17,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.lm import layers as ll
-from repro_torch.models.lm.xlstm import _causal_conv1d_init, _conv1d_step
+from repro_torch.models.lm.xlstm import (_causal_conv1d, _causal_conv1d_init,
+                                        _conv1d_step)
 
 Tensor = torch.Tensor
 C_RGLRU = 8.0
@@ -58,6 +58,39 @@ def _rglru_coeffs(p: Dict, u: Tensor, cfg: ArchConfig
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9)) * (
         i * u.float())
     return a, b
+
+
+def _linear_scan(a: Tensor, b: Tensor) -> Tensor:
+    """h_t = a_t * h_{t-1} + b_t from h_{-1} = 0 along dim 1 of a, b [B, S,
+    C] (fp32): ceil(log2 S) rounds of Hillis-Steele doubling with the JAX
+    package's combine, (a1, b1) then (a2, b2) -> (a1 * a2, a2 * b1 + b2).
+    Round k leaves positions t < k as they are and combines t >= k with
+    t - k. Each round is built out of place (the untouched head cat the
+    combined tail), so autograd saves what its backward needs. The sums
+    run in another order than jax.lax.associative_scan's odd / even
+    recursion and than the decode cell's: equal within fp32 rounding, not
+    bitwise."""
+    s = a.shape[1]
+    k = 1
+    while k < s:
+        b = torch.cat([b[:, :k], a[:, k:] * b[:, :-k] + b[:, k:]], dim=1)
+        if 2 * k < s:  # the last round's products of a are never read
+            a = torch.cat([a[:, :k], a[:, :-k] * a[:, k:]], dim=1)
+        k *= 2
+    return b
+
+
+def rglru_apply(p: Dict, x: Tensor, cfg: ArchConfig) -> Tensor:
+    """Training path, x [B, S, d] -> [B, S, d]: the tanh-gelu gate, w_x,
+    the causal conv, the recurrence's coefficients (fp32), the scan over S
+    from h = 0, h rounded to the compute dtype before the gate multiply,
+    and w_out."""
+    xg = F.gelu(ll.linear_apply(p["w_gate"], x, cfg), approximate="tanh")
+    xi = ll.linear_apply(p["w_x"], x, cfg)
+    u = _causal_conv1d(p["conv"], xi)
+    a, b = _rglru_coeffs(p, u, cfg)
+    h = _linear_scan(a, b)
+    return ll.linear_apply(p["w_out"], h.to(x.dtype) * xg, cfg)
 
 
 def rglru_init_state(cfg: ArchConfig, batch: int,

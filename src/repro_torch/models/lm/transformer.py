@@ -5,9 +5,8 @@ Port of repro.models.lm.transformer: the attention layer kinds ('global',
 a recurrent block and an FFN) and the xLSTM kinds ('mlstm', 'slstm', a
 block with no FFN); tied or untied heads, the ViT patch prefix and the
 audio frontend (an encoder's frames through frontend_proj). An unknown
-kind raises as the JAX package's _layer_init does. Serving runs every
-kind; training (`forward_train`, `lm_loss`) runs the attention kinds, and
-raises on a recurrent one: their training forms are not ported yet. The JAX
+kind raises as the JAX package's _layer_init does. Serving and training
+(`forward_train`, `lm_loss`) run every kind. The JAX
 package stacks each pattern position's parameters over the unit repeats
 and runs them as one lax.scan; here the stack is a Python list of layers,
 layer i having kind cfg.pattern_for_layers[i], and the scan is a loop.
@@ -286,8 +285,19 @@ def _embed_inputs(params: Params, batch: Dict[str, Tensor],
 
 def _layer_train(p: Params, x: Tensor, kind: str, cfg: ArchConfig,
                  positions: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
-    """One attention layer over the whole sequence: (x, the MoE aux loss
-    or None)."""
+    """One layer over the whole sequence: (x, the MoE aux loss or None).
+    An attention layer: _attn_residual; an mLSTM or sLSTM block: a bare
+    residual; an rglru layer: pre-norm RG-LRU plus a residual, then
+    pre-norm FFN plus a residual."""
+    if kind == "mlstm":
+        return x + xlstm_lib.mlstm_apply(p["block"], x, cfg), None
+    if kind == "slstm":
+        return x + xlstm_lib.slstm_apply(p["block"], x, cfg), None
+    if kind == "rglru":
+        h = ll.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+        x = x + rglru_lib.rglru_apply(p["rec"], h, cfg)
+        h = ll.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+        return x + ffn_lib.ffn_apply(p["ffn"], h, cfg), None
     x, _, aux = _attn_residual(p, x, cfg, lambda h: (attn.attention_train(
         p["attn"], h, cfg, kind=kind, positions=positions), None))
     return x, aux
@@ -308,14 +318,9 @@ def forward_train(params: Params, batch: Dict[str, Tensor],
     form would run the first pass with autograd off, so K1 then K1g, but
     it refuses torch.autograd.grad.)
 
-    The recurrent kinds' training forms (the RG-LRU scan, the chunkwise
-    mLSTM, the sLSTM scan) are not ported: a stack with one raises."""
+    The recurrent layers run their training forms (rglru.rglru_apply,
+    xlstm.mlstm_apply / slstm_apply) under the same remat."""
     kinds = layout(cfg)
-    rec = sorted(set(kinds) & set(RECURRENT_KINDS))
-    if rec:
-        raise NotImplementedError(
-            f"forward_train: the training forms of the {rec} layers are not "
-            f"ported yet (ROADMAP.md Queue 1 item 4b); these layers serve")
     x = _embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), device=x.device)

@@ -754,6 +754,72 @@ def test_k2_at_an_lm_shape(cuda_device, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,n", [(4096, 8), (2048, 2730), (2730, 2048)],
+                         ids=["mlstm-w_if", "slstm-w_up", "slstm-w_down"])
+def test_lm_linear_bf16_under_autograd_at_recurrent_shapes(cuda_device, d,
+                                                           n):
+    """The recurrent configs' odd linears as training runs them (bf16, K1g
+    forward, K2 backward on the fp32 casts): N = 8 (xlstm-1.3b's mLSTM gate
+    pre-activations, 2H), and N or D = 2730 (its sLSTM GeGLU: bf16 rows of
+    5460 bytes, off 16; D padded to 2816, a ragged last segment of 170).
+    One K1g and one K2 launch; y, dx and dw (bf16) within 1e-2 of scale of
+    the plain path's on the same card."""
+    rng = np.random.RandomState(5)
+    x0 = torch.from_numpy(rng.randn(_LM_M, d).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    w0 = torch.from_numpy((rng.randn(d, n) / np.sqrt(d)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    g = torch.from_numpy(rng.randn(_LM_M, n).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    out = {}
+    for impl in ("cuda", "torch"):
+        before = (cm.cadc_matmul_gate_cuda.launches,
+                  cm.cadc_segmented_bwd_cuda.launches)
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        y = ops.cadc_matmul(x, w, crossbar_size=_LM_XBAR, fn="relu",
+                            impl=impl)
+        y.backward(g)
+        torch.cuda.synchronize()
+        assert (cm.cadc_matmul_gate_cuda.launches,
+                cm.cadc_segmented_bwd_cuda.launches) == (
+            (before[0] + 1, before[1] + 1) if impl == "cuda" else before)
+        out[impl] = (y.detach(), x.grad, w.grad)
+    for got, want in zip(out["cuda"], out["torch"]):
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        _rel_close(got, want, tol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [64, 128])
+def test_mlstm_chunkwise_equals_sequential_on_cuda(cuda_device, chunk):
+    """The chunkwise mLSTM on the card (fp32, TF32 off) against its
+    sequential form from m = -inf: h within 1e-4 (relative norm, as
+    tests/test_mlstm_chunkwise.py holds the JAX pair), the gradients of
+    q, k, v and the gates finite and within 1e-3 of scale."""
+    from repro_torch.models.lm import xlstm
+
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    b, s, h, dh = 2, 256, 4, 64
+    ins = [torch.randn(b, s, h, dh, generator=gen, device=cuda_device)
+           for _ in range(3)]
+    ins += [2 * torch.randn(b, s, h, generator=gen, device=cuda_device)
+            for _ in range(2)]
+    cot = torch.randn(b, s, h, dh, generator=gen, device=cuda_device)
+    out = []
+    for run in (lambda *t: xlstm._mlstm_chunkwise(*t, chunk=chunk, dh=dh),
+                lambda *t: xlstm._mlstm_sequential(*t, dh=dh)):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        y = run(*leaves)
+        grads = torch.autograd.grad((y * cot).sum(), leaves)
+        assert all(torch.isfinite(t).all() for t in (y, *grads))
+        out.append((y.detach(), grads))
+    (yc, gc), (ys, gs) = out
+    assert float(torch.linalg.norm(yc - ys) / torch.linalg.norm(ys)) < 1e-4
+    for got, want in zip(gc, gs):
+        _rel_close(got, want, tol=1e-3)
+
+
+@pytest.mark.cuda
 def test_moe_expert_product_is_differentiable_in_bf16(cuda_device):
     """The MoE expert products (torch.bmm with an fp32 output, which torch
     does not differentiate) under autograd on bf16 operands: the output is

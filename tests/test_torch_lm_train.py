@@ -1,9 +1,12 @@
 """LM training in the port against the JAX package, on the CPU.
 
 Every attention-only smoke config (gemma3-1b, gemma-7b, codeqwen1.5-7b,
-phi4-mini, mixtral-8x22b, qwen2-moe-a2.7b, internvl2-1b) and
+phi4-mini, mixtral-8x22b, qwen2-moe-a2.7b, internvl2-1b),
 hubert-xlarge's encoder (audio frames, bidirectional attention, the gelu
-FFN, an untied head), CADC linears, fp32, TF32 off. The port draws the
+FFN, an untied head) and the recurrent ones (recurrentgemma-9b: RG-LRU
+and local attention; xlstm-1.3b: mLSTM and sLSTM, at S = 80 the
+sequential mLSTM, and as "xlstm_13b.chunk16" at mlstm_chunk 16 and S = 64
+the chunkwise one), CADC linears, fp32, TF32 off. The port draws the
 parameters; `params_to_numpy` hands them to JAX in its `tf.init` layout,
 so both packages run on the same values. JAX runs its default
 kernel_impl="xla" (the oracle); the port its plain path. Tolerance: the
@@ -16,8 +19,6 @@ JAX package's fp32 bound, 1e-4 of scale (tests/test_kernel_grads.py TOL).
   * the loss (lm_loss + 0.01 * aux, the train step's) and every gradient
     against jax.value_and_grad of the same loss;
   * remat on and off give bitwise-equal gradients;
-  * forward_train refuses the recurrent kinds (their training forms are
-    the next slice);
   * make_lm_dataset's chain equals JAX's token for token, fed the starts
     and noise jax.random draws as src/repro/data/synthetic.py does.
 """
@@ -37,7 +38,12 @@ from repro_torch.data import synthetic as tsyn
 from repro_torch.models.lm import transformer as ttf
 
 ARCHS = ["gemma3_1b", "gemma_7b", "codeqwen15_7b", "phi4_mini_38b",
-         "mixtral_8x22b", "qwen2_moe_a27b", "internvl2_1b", "hubert_xlarge"]
+         "mixtral_8x22b", "qwen2_moe_a27b", "internvl2_1b", "hubert_xlarge",
+         "recurrentgemma_9b", "xlstm_13b"]
+# each arch, and xlstm at mlstm_chunk 16 over S = 64 (4 chunks: the
+# chunkwise mLSTM; at S = 80 and the default chunk of 256 it scans)
+CASES = ARCHS + ["xlstm_13b.chunk16"]
+VARIANTS = {"chunk16": ({"mlstm_chunk": 16}, 64)}
 TOL = 1e-4
 B, S = 2, 80  # gemma3's smoke window is 32 and its q chunk 64: both bite
 
@@ -55,11 +61,11 @@ def _fp32_one_thread():
     torch.backends.cudnn.allow_tf32 = prev[2]
 
 
-def _batch(cfg, seed=0):
+def _batch(cfg, s=S, seed=0):
     """numpy batch: tokens (or frames), patches for vit, labels with every
     fifth position and one whole row tail masked."""
     rng = np.random.RandomState(seed)
-    s = max(S, cfg.frontend_len + 8) if cfg.frontend == "vit" else S
+    s = max(s, cfg.frontend_len + 8) if cfg.frontend == "vit" else s
     out = {}
     if cfg.frontend == "audio":
         out["frames"] = rng.randn(B, s, cfg.frontend_dim).astype(np.float32)
@@ -100,12 +106,14 @@ def _port_run(params, cfg, batch):
 
 
 @functools.lru_cache(maxsize=None)
-def _case(arch):
-    tcfg = tsmoke(arch, linear_impl="cadc")
-    jcfg = jsmoke(arch, linear_impl="cadc")
+def _case(case):
+    arch, _, variant = case.partition(".")
+    overrides, s = VARIANTS[variant] if variant else ({}, S)
+    tcfg = tsmoke(arch, linear_impl="cadc").with_overrides(**overrides)
+    jcfg = jsmoke(arch, linear_impl="cadc").with_overrides(**overrides)
     params = ttf.init(tcfg, seed=0, device="cpu")
     tree = ttf.params_to_numpy(params, tcfg)
-    batch = _batch(tcfg)
+    batch = _batch(tcfg, s)
     jb = {k: jnp.asarray(v) for k, v in batch.items() if k != "labels"}
     labels = jnp.asarray(batch["labels"])
 
@@ -146,7 +154,7 @@ def test_params_to_numpy_is_the_jax_tree(arch):
     assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CASES)
 def test_forward_train_and_lm_loss_match_jax(arch):
     *_, want, got = _case(arch)
     jl, jlog, jaux, jm, _ = want
@@ -160,7 +168,7 @@ def test_forward_train_and_lm_loss_match_jax(arch):
     assert not metrics["ce"].requires_grad
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CASES)
 def test_grads_match_jax_value_and_grad(arch):
     *_, want, got = _case(arch)
     gw = jax.tree_util.tree_flatten_with_path(want[4])
@@ -174,7 +182,8 @@ def test_grads_match_jax_value_and_grad(arch):
 
 
 @pytest.mark.parametrize("arch", ["gemma3_1b", "qwen2_moe_a27b",
-                                  "hubert_xlarge"])
+                                  "hubert_xlarge", "recurrentgemma_9b",
+                                  "xlstm_13b", "xlstm_13b.chunk16"])
 def test_remat_on_and_off_give_bitwise_grads(arch):
     tcfg, _, params, batch, _, got = _case(arch)
     assert tcfg.remat
@@ -182,15 +191,6 @@ def test_remat_on_and_off_give_bitwise_grads(arch):
     assert torch.equal(off[2], got[2])
     a, b = jax.tree_util.tree_leaves(off[4]), jax.tree_util.tree_leaves(got[4])
     assert len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
-
-
-@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "xlstm_13b"])
-def test_forward_train_refuses_the_recurrent_kinds(arch):
-    cfg = tsmoke(arch, linear_impl="cadc")
-    params = ttf.init(cfg, seed=0, device="cpu")
-    tokens = torch.zeros(1, 8, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
-        ttf.forward_train(params, {"tokens": tokens}, cfg)
 
 
 def _jax_draws(spec, step, batch_size):

@@ -1,5 +1,7 @@
 """The port's LM train step, its CLI and its checkpoints against the JAX
-package, on the CPU (gemma3-1b's smoke config, CADC linears, fp32).
+package, on the CPU (gemma3-1b's smoke config, CADC linears, fp32; the
+train step and the port's checkpoints also on recurrentgemma-9b's and
+xlstm-1.3b's).
 
   * steps.make_train_step against the JAX package's make_train_step
     (jitted, no mesh) at n_micro 1 and 2: the losses of 3 steps and the
@@ -10,8 +12,9 @@ package, on the CPU (gemma3-1b's smoke config, CADC linears, fp32).
     ill-conditioned at these sizes);
   * make_prefill_step's next-token logits against JAX's;
   * an LM checkpoint ({"params", "opt"}, the JAX layout) written by the
-    port is restored bitwise by repro.ckpt.restore, and one written by
-    the JAX package by the port's train CLI;
+    port is restored bitwise by repro.ckpt.restore (for the recurrent
+    configs too: their raw leaves lam, conv and r_gates), and one written
+    by the JAX package by the port's train CLI;
   * the train CLI stopped after its step-2 save and started again resumes to
     step 4 bitwise the unbroken run (params, AdamW moments, losses);
   * the watchdog raises on a step past its timeout; the twin of
@@ -51,8 +54,8 @@ def _one_thread():
 
 
 @functools.lru_cache(maxsize=None)
-def _cfgs():
-    return tsmoke(ARCH, linear_impl="cadc"), jsmoke(ARCH, linear_impl="cadc")
+def _cfgs(arch=ARCH):
+    return tsmoke(arch, linear_impl="cadc"), jsmoke(arch, linear_impl="cadc")
 
 
 def _tokens(step, b=4, s=32):
@@ -71,7 +74,19 @@ def _max_abs(tp, jp, cfg) -> float:
                          ids=["micro1-warmup", "micro2-warmup",
                               "micro2-lr1e-3"])
 def test_train_step_matches_jax(n_micro, lr):
-    tcfg, jcfg = _cfgs()
+    _train_step_parity(ARCH, n_micro, lr)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "xlstm_13b"])
+@pytest.mark.parametrize("n_micro,lr", [(1, None), (2, 1e-3)],
+                         ids=["micro1-warmup", "micro2-lr1e-3"])
+def test_recurrent_train_step_matches_jax(arch, n_micro, lr):
+    """The recurrent configs (xlstm at S = 32: the sequential mLSTM)."""
+    _train_step_parity(arch, n_micro, lr)
+
+
+def _train_step_parity(arch, n_micro, lr):
+    tcfg, jcfg = _cfgs(arch)
     t_opt = topt.adamw(lr) if lr else tsteps.make_optimizer(tcfg)
     j_opt = jopt.adamw(lr) if lr else jsteps.make_optimizer(jcfg)
     tstep = tsteps.make_train_step(tcfg, t_opt, n_micro=n_micro)
@@ -113,8 +128,8 @@ def test_prefill_step_matches_jax():
                                atol=TOL)
 
 
-def _train_cli(steps, ckpt_dir=None, extra=()):
-    argv = ["--arch", ARCH, "--smoke", "--cadc", "--crossbar", "64",
+def _train_cli(steps, ckpt_dir=None, extra=(), arch=ARCH):
+    argv = ["--arch", arch, "--smoke", "--cadc", "--crossbar", "64",
             "--steps", str(steps), "--batch", "4", "--seq", "32",
             "--microbatch", "2", "--log-every", "1", "--device", "cpu",
             *extra]
@@ -131,8 +146,18 @@ def _equal_trees(a, b) -> bool:
 
 
 def test_port_lm_checkpoint_restores_bitwise_in_jax(tmp_path):
-    tcfg, jcfg = _cfgs()
-    out = _train_cli(2, str(tmp_path))
+    _port_checkpoint_in_jax(ARCH, tmp_path)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "xlstm_13b"])
+def test_recurrent_port_lm_checkpoint_restores_bitwise_in_jax(arch,
+                                                               tmp_path):
+    _port_checkpoint_in_jax(arch, tmp_path)
+
+
+def _port_checkpoint_in_jax(arch, tmp_path):
+    tcfg, jcfg = _cfgs(arch)
+    out = _train_cli(2, str(tmp_path), arch=arch)
     assert tckpt.all_steps(str(tmp_path)) == [2]
     shapes = jax.eval_shape(lambda k: jtf.init(k, jcfg),
                             jax.random.PRNGKey(0))
