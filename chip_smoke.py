@@ -94,11 +94,11 @@ Slice 6, the recurrent LM families (after slice 5's phases):
      of 256, R = 16 rows at decode and 64 at Q = 4) on the main path's
      160-entry rings and the verify step's 176, as phase 3 does: every
      plan, NaN in dead entries, an idle slot;
-  6c. recurrentgemma-9b at published width and REC_LAYERS 14 of its 38
-     layers (4 x (rglru, rglru, local) + (rglru, rglru); random bf16
+  6c. recurrentgemma-9b at published width and REC_LAYERS 8 of its 38
+     layers (2 x (rglru, rglru, local) + (rglru, rglru); random bf16
      weights from seed 0) on phase 4's engine and the first REC_REQUESTS
      requests of its workload: all
-     finish, K1 108 and K6 4 launches a decode step, a prefill's K1 from
+     finish, K1 62 and K6 2 launches a decode step, a prefill's K1 from
      its bucket (the recurrent layers run their cell a token at a time),
      step ms, tok/s, TTFT, peak memory, and the device time per decode
      step under the profiler split into K1, K6, the recurrent cells' own
@@ -110,8 +110,8 @@ Slice 6, the recurrent LM families (after slice 5's phases):
      greedy or leaving it at a near-tie below the gap;
   6d. recurrentgemma-9b at 3 layers (rglru, rglru, local) in fp32: phase
      5's kernel-vs-plain logits check;
-  6e. xlstm-1.3b at published width and 16 of its 48 layers (2 x (7
-     mlstm + slstm); no KV pool) the same way: K1 93 launches a decode
+  6e. xlstm-1.3b at published width and 8 of its 48 layers (7 mlstm +
+     slstm; no KV pool) the same way: K1 47 launches a decode
      step, no K6; then at 2 layers (mlstm, slstm) in fp32;
   6f. (timed after the training phases, beside 5f) K1 device times at
      M = 8 at every shape of 6a beside torch.matmul, the plain version and
@@ -246,7 +246,7 @@ path; bf16 compute on fp32 masters, TF32 off):
      chunks of 256; K1g 186 = 2 x (2 x 46 + the untied head) and K2 94 a
      step); its sLSTM loop leaves the card waiting on the host;
  28. (in phase 21's lm_parity) recurrentgemma-9b at 3 layers over 1 x
-     2560 tokens (its 2048 window bites) and xlstm-1.3b at 8 over 2 x 512
+     2560 tokens (its 2048 window bites) and xlstm-1.3b at 8 over 1 x 512
      (two mLSTM chunks), fp32 (loss and every gradient) and bf16 (loss);
  29. each training form against its decode cell at full width in fp32,
      one layer, 2 x REC_FORM_S tokens (rglru_apply / rglru_decode, the
@@ -258,6 +258,29 @@ path; bf16 compute on fp32 masters, TF32 off):
  30. (after phase 24) the kernels line's K1g and K2 rows gain both
      recurrent paths' launches and "<arch>_step": launches a step, the
      profiler's device ms a step and the bound of the step's linears.
+
+Slice 9, multi-device training (one card: NCCL refuses two ranks on one
+device, so the multi-rank step and CLI are tested on the CPU over gloo):
+ 31. phases 20, 22, 23, 26 and 27 run the train CLI's mesh form: main()
+     opens a one-rank NCCL group first, the CLI joins it, and its FSDP
+     step (steps.make_fsdp_train_step) makes every collective at world 1
+     (the gathers, reduce-scatters and all-reduces; at one rank NCCL
+     copies the first two's buffers and skips an in-place all-reduce);
+     the timed and profiled steps are the CLI's own step, the profile
+     splits out the collectives, and every kernel must run on one stream;
+ 32. tp_cadc: the tensor-parallel CADC linear (parallel/tp_cadc.py) at
+     gemma3-1b's w_down (6912 -> 1152, crossbar 128, 54 segments) and
+     w_gate (1152 -> 6912, crossbar 64, 18), M = 8 and 2048: at one rank
+     on NCCL, fp32 wire, bitwise the unsharded K1; over 2 ranks spawned
+     on the one card over gloo (CUDA tensors), K1 once a rank a call,
+     fp32 wire within 1e-5 of scale and bf16 wire within 0.01 relative of
+     the unsharded K1 (the JAX test's bounds).
+
+The decode profiles (phase 6 and its later twins) count K1 and K6 with
+the wrappers' launch counters over the profiled steps (exact: K1 as
+k1_per_pass says, K6 once an attention layer a step) and report the
+kernel records the profiler lost beside them (the device times are "not
+measured" past 1 %).
 
 Prints the serving and training metrics, the card's name and power limit,
 one JSON line of kernel records and, last, {"ok": true, "device": {...}}.
@@ -319,15 +342,16 @@ VIT_REQUESTS, VIT_MAX_LEN, VIT_PROMPT, VIT_NEW = 4, 304, (256, 288), 16
 # a recurrent prefill runs the decode cell a token at a time, ~70
 # launches a layer a token, so a 128-token prefill is host-bound for
 # seconds (PERF.md §5), and the request count is cut from 16.
-# The main paths run recurrentgemma-9b at REC_LAYERS 14 of its 38 layers
-# (four (rglru, rglru, local) units and its (rglru, rglru) tail) and
-# xlstm-1.3b at 16 of 48 (two 7 mLSTM + sLSTM units), widths as published:
-# the prefill's host time is linear in the depth, and slice 7's phases
-# need the time (PERF.md §4).
+# The main paths run recurrentgemma-9b at REC_LAYERS 8 of its 38 layers
+# (two (rglru, rglru, local) units and its (rglru, rglru) tail) and
+# xlstm-1.3b at 8 of 48 (one 7 mLSTM + sLSTM unit), widths as published:
+# the prefill's host time is linear in the depth, and the later slices'
+# phases need the time (PERF.md §4; 14 / 16 layers in PRs 20-21, 38 / 48
+# before).
 SLICE6_ARCHS = ("recurrentgemma_9b", "xlstm_13b")
 RG_ARCH, XL_ARCH = SLICE6_ARCHS
 REC_REQUESTS = 3
-REC_LAYERS = {RG_ARCH: 14, XL_ARCH: 16}
+REC_LAYERS = {RG_ARCH: 8, XL_ARCH: 8}
 
 
 def fail(msg: str) -> None:
@@ -398,17 +422,22 @@ def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def profile_device(run, n: int, group, what: str, cpu: bool = True):
+def profile_device(run, n: int, group, what: str, cpu: bool = True,
+                   streams: list = None):
     """torch.profiler over run(0) .. run(n - 1), CUDA events around them:
     (wall ms per call under the profiler, device-busy ms per call, rows
     [(ms per call, kernel name, launches per call)] largest first, and the
     rows summed by group(name) into {group: {"ms", "calls"}}). cpu=False
     traces the device alone (a train step of ~100 k host ops takes tens of
-    seconds to trace on the host; the rows need only the kernels)."""
+    seconds to trace on the host; the rows need only the kernels).
+    `streams`, a list, gets the id of every stream the device work ran
+    on. The window opens after a synchronize: work queued before it
+    stays outside."""
     from torch.profiler import ProfilerActivity, profile
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]
                  + ([ProfilerActivity.CPU] if cpu else [])) as prof:
         start.record()
@@ -424,6 +453,9 @@ def profile_device(run, n: int, group, what: str, cpu: bool = True):
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
         rows.append((us / 1e3 / n, e.key, e.count / n))
+    if streams is not None:
+        streams.extend(sorted({e.device_resource_id for e in prof.events()
+                               if "CUDA" in str(e.device_type)}))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     if busy <= 0:
@@ -965,10 +997,16 @@ def profile_decode(engine, cfg, report, key="serve", max_new=12) -> None:
     events, into report[key]. For an MoE config the device time under the
     MoE ranges (moe_spans) is split out: the expert products, and the
     dispatch (the block less its expert products and shared FFN: router,
-    top-k, sort, scatter, gather, combine). A diagnostic: if the profiler
-    cannot trace here, it is recorded as not measured and the run goes
-    on."""
+    top-k, sort, scatter, gather, combine). The launch gate is the
+    wrappers' counters over the profiled steps (the profiler drops a few
+    kernel records a window: PERF.md §6, PR 22). A diagnostic: if the
+    profiler cannot trace here, or lost more than 1 % of the counted
+    launches, the device times are recorded as not measured and the run
+    goes on."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import cadc_matmul as cm
+    from repro_torch.kernels import paged_attention as pa
 
     rng = np.random.RandomState(7)
     for _ in range(engine.ecfg.n_slots):
@@ -979,12 +1017,19 @@ def profile_decode(engine, cfg, report, key="serve", max_new=12) -> None:
     recurrent = n_attn_layers(cfg) < cfg.n_layers
     restore = (moe_spans() if cfg.moe.n_experts else
                rec_spans() if recurrent else (lambda: None))
+    # the window opens on an idle card (the first step's kernels stay
+    # outside it) and the wrappers count its launches: they, not the
+    # profile, are the launch gate
+    torch.cuda.synchronize()
+    counted = (cm.cadc_matmul_cuda.launches, pa.paged_attention_cuda.launches)
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n_steps):
                 engine.step()
             torch.cuda.synchronize()
+        counted = {"K1": cm.cadc_matmul_cuda.launches - counted[0],
+                   "K6": pa.paged_attention_cuda.launches - counted[1]}
         rows = []
         for e in prof.key_averages():
             # a range's own device-side copy (a user annotation) is no
@@ -1056,10 +1101,28 @@ def profile_decode(engine, cfg, report, key="serve", max_new=12) -> None:
         groups["other (PyTorch; the launches count the cells' too)"] = other
         report[key]["recurrent_spans_ms_per_step"] = cell
     report[key]["device_ms_per_step_by_kernel"] = groups
-    k6_calls = groups.get("K6 paged attention", {}).get("calls", 0)
-    if k6_calls != n_attn_layers(cfg):
-        fail(f"decode profile: {k6_calls} K6 launches a step, want one an "
-             f"attention layer ({n_attn_layers(cfg)})")
+    want = {"K1": k1_per_pass(cfg) * n_steps,
+            "K6": n_attn_layers(cfg) * n_steps}
+    if counted != want:
+        fail(f"decode profile: the wrappers launched {counted} over "
+             f"{n_steps} steps, want {want} (K6 once an attention layer)")
+    seen = {"K1": sum(g["calls"] for name, g in groups.items()
+                      if name.startswith("K1")) * n_steps,
+            "K6": groups.get("K6 paged attention", {}).get("calls", 0)
+            * n_steps}
+    lost = {k: counted[k] - seen[k] for k in counted}
+    report[key]["launches_profiled_vs_counted"] = {
+        "profiled": seen, "counted": counted, "lost": lost}
+    if any(lost.values()):
+        # the profiler (kineto / CUPTI) dropped kernel records: a few a
+        # window, more with each session a process has run, whatever the
+        # window's bounds (PERF.md §6, PR 22); the launch counts above are
+        # the wrappers', and the device times lack the dropped kernels
+        print(f"profiler ({key}): lost {lost} of the {counted} launches "
+              "the wrappers counted", flush=True)
+        if sum(lost.values()) > 0.01 * sum(counted.values()):
+            report[key]["device_busy_ms_per_step"] = (
+                f"not measured: the profiler lost {lost} of {counted}")
     print(f"profiler ({key}): device busy per step: "
           f"{report[key]['device_busy_ms_per_step']} ms (8 slots busy, "
           f"{n_steps} steps)", flush=True)
@@ -2113,13 +2176,13 @@ def rec_fp32_logits(arch: str, dev, report) -> None:
 
 
 def recurrent_paths(dev, report) -> dict:
-    """Slice 6's paths at REC_LAYERS depth: recurrentgemma-9b (K1 108 and
-    K6 4 launches a decode step) with its speculative path under the
-    oracle and the anti-oracle, then xlstm-1.3b (K1 93, no K6, no KV pool),
+    """Slice 6's paths at REC_LAYERS depth: recurrentgemma-9b (K1 62 and
+    K6 2 launches a decode step) with its speculative path under the
+    oracle and the anti-oracle, then xlstm-1.3b (K1 47, no K6, no KV pool),
     each then at smaller depth in fp32. Returns their launch counts."""
     out = {}
     cfg, params, out["recurrentgemma-9b"], base = rec_main_path(
-        RG_ARCH, dev, report, 108, 4, REC_REQUESTS)
+        RG_ARCH, dev, report, 62, 2, REC_REQUESTS)
     # the bf16 kernels-on gap: the one the stream check reads
     gap, _ = one_state_gap(cfg.with_overrides(
         dtype="bfloat16", kernel_impl="auto", paged_attn_impl="auto"),
@@ -2137,7 +2200,7 @@ def recurrent_paths(dev, report) -> dict:
     torch.cuda.empty_cache()
     rec_fp32_logits(RG_ARCH, dev, report)
     _, params, out["xlstm-1.3b"], _ = rec_main_path(
-        XL_ARCH, dev, report, 93, 0, REC_REQUESTS)
+        XL_ARCH, dev, report, 47, 0, REC_REQUESTS)
     del params
     torch.cuda.empty_cache()
     rec_fp32_logits(XL_ARCH, dev, report)
@@ -3268,16 +3331,18 @@ LM_XBAR = 256
 # 80GB at 700 W, past the 800 s it aims under), then the 2 timed and 1
 # profiled; kernel vs plain at LM_PARITY_LAYERS / LM_PARITY_TOKENS
 # (recurrentgemma over 2560 tokens, so its 2048 local window bites; xlstm
-# over two mLSTM chunks); each training form against its decode cell over
-# REC_FORM_S tokens.
+# over two mLSTM chunks; since PR 22 one sequence each for gemma3-1b,
+# hubert-xlarge and xlstm-1.3b, not two: the issue's first cut of the
+# run's time for slice 9's phases); each training form against its decode
+# cell over REC_FORM_S tokens.
 REC_TRAIN = {RG_ARCH: dict(layers=3, batch=8, micro=4),
              XL_ARCH: dict(layers=8, batch=4, micro=2)}
 REC_TRAIN_STEPS = 2
 LM_PARITY_LAYERS = {LM_ARCH: 2, HUBERT_ARCH: 4, MOE_ARCH: 2, RG_ARCH: 3,
                     XL_ARCH: 8}
-LM_PARITY_TOKENS = {LM_ARCH: (2, 1024), HUBERT_ARCH: (2, 512),
+LM_PARITY_TOKENS = {LM_ARCH: (1, 1024), HUBERT_ARCH: (1, 512),
                     MOE_ARCH: (1, 256), RG_ARCH: (1, 2560),
-                    XL_ARCH: (2, 512)}
+                    XL_ARCH: (1, 512)}
 REC_FORM_S = 512
 # A training form against its decode cell at full width in fp32: the
 # scans add in another order than the cell, and K1 sums a linear's psums
@@ -3435,9 +3500,16 @@ def check_k1g_k2_lm(dev, report) -> None:
           f"|psum| <= {GATE_NEAR} x scale: {near}", flush=True)
 
 
+COLLECTIVES = "device-to-device copies (at one rank the collectives' too)"
+
+
 def lm_group(key: str) -> str:
     """A profiler kernel name's group on the LM train step: K1g, K2's dx /
-    dw, cuBLAS's bf16 GEMMs (Hopper's `nvjet` kernels; on this path only
+    dw, the device-to-device copies and NCCL's kernels (at one rank NCCL
+    copies all_gather's and reduce_scatter's buffers with cudaMemcpyAsync
+    and launches no kernel; the model makes a few copies of its own:
+    lm_train_path counts the collective calls beside them), cuBLAS's
+    bf16 GEMMs (Hopper's `nvjet` kernels; on this path only
     the tied head: forward, dx and dW of the table), its fp32 GEMMs
     (attention's scores and PV products, the chunkwise mLSTM's and the
     sLSTM cell's products, forward and backward, fp32 with TF32 off:
@@ -3447,6 +3519,8 @@ def lm_group(key: str) -> str:
                       ("bwd_dx", "K2 dx"), ("bwd_dw", "K2 dw")):
         if pat in k:
             return name
+    if "nccl" in k or k.startswith("memcpy dtod"):
+        return COLLECTIVES
     if "nvjet" in k or ("gemm" in k and "bf16" in k):
         return "tied head (torch.matmul, bf16)"
     if "gemm" in k or "xmma" in k or "cutlass" in k:
@@ -3454,18 +3528,48 @@ def lm_group(key: str) -> str:
     return "other (PyTorch)"
 
 
+def count_collectives():
+    """Wrap the collectives the data-parallel step makes (parallel.comm's
+    all_gather / reduce_scatter, torch.distributed.all_reduce) to count
+    their calls; returns (counts, the function that unwraps them)."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import comm
+
+    counts = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+    saved = [(comm, "_all_gather", "all_gather"),
+             (comm, "_reduce_scatter", "reduce_scatter"),
+             (dist, "all_reduce", "all_reduce")]
+    saved = [(mod, name, key, getattr(mod, name)) for mod, name, key in saved]
+    for mod, name, key, fn in saved:
+        def wrapped(*a, fn=fn, key=key, **kw):
+            counts[key] += 1
+            return fn(*a, **kw)
+        setattr(mod, name, wrapped)
+
+    def restore():
+        for mod, name, _, fn in saved:
+            setattr(mod, name, fn)
+    return counts, restore
+
+
 def lm_train_path(dev, report, arch=LM_ARCH, layers=None, batch=LM_BATCH,
                   micro=LM_MICRO, steps=LM_STEPS, key="lm_train") -> dict:
-    """A config trained at full width through repro_torch.launch.train
-    (`steps` steps of `batch` x LM_SEQ tokens in `micro` micros; `layers`
-    cuts the depth): exact K1g / K2 launch counts, a finite loss at every
-    step, finite parameters after them, step ms, tokens/s and peak memory;
-    then 2 more steps timed by CUDA events and 1 under the profiler
-    (device busy per step by lm_group), and one micro's loss and gradients
-    (every one finite) on the trained parameters. Returns the counts and
-    report[key]."""
+    """A config trained at full width through repro_torch.launch.train, the
+    mesh form on the NCCL group of one rank that main() holds (`steps`
+    steps of `batch` x LM_SEQ tokens in `micro` micros; `layers` cuts the
+    depth): exact K1g / K2 launch counts, a finite loss at every step,
+    finite parameters after them, step ms, tokens/s and peak memory; then
+    2 more steps of the CLI's own step (steps.make_fsdp_train_step) timed
+    by CUDA events and 1 under the profiler (device busy per step by
+    lm_group, the collectives split out; every kernel on one stream; the
+    collectives' calls counted, and at one rank the profile's
+    device-to-device copies must be all_gather's and reduce_scatter's),
+    and one micro's loss and gradients (every one finite) on the trained
+    parameters. Returns the counts and report[key]."""
+    import torch.distributed as dist
+
     from repro_torch.data import synthetic
-    from repro_torch.launch import steps as steps_lib
     from repro_torch.launch import train
 
     torch.cuda.synchronize()
@@ -3488,22 +3592,24 @@ def lm_train_path(dev, report, arch=LM_ARCH, layers=None, batch=LM_BATCH,
     if len(losses) != steps or not all(map(math.isfinite, losses)):
         fail(f"{cfg.name}: losses {losses}")
     if not all(bool(torch.isfinite(t).all())
-               for t in steps_lib._leaves(out["params"])):
+               for t in _leaves(out["params"])):
         fail(f"{cfg.name}: a non-finite parameter after {steps} steps")
     n = n_params(out["params"])
     tokens = batch * LM_SEQ
     host_ms = [1e3 * s for s in out["step_s"]]
+    mesh = dict(zip(out["mesh"].axis_names, out["mesh"].shape))
     print(f"{cfg.name} LM training ({n / 1e9:.3f} B parameters, "
           f"{cfg.n_layers} layers {list(cfg.pattern_for_layers)}, bf16 on "
-          f"fp32 masters, CADC relu xbar {LM_XBAR}, remat): {steps} steps "
+          f"fp32 masters, CADC relu xbar {LM_XBAR}, remat; mesh {mesh} over "
+          f"{dist.get_backend()}, {sum(d is not None for d in out['dims'])} "
+          f"of {len(out['dims'])} leaves sharded over 'data'): {steps} steps "
           f"of {batch} x {LM_SEQ} tokens in {micro} micros in {wall:.1f} s; "
           f"losses {[round(v, 4) for v in losses]}; step ms (host) "
           f"{[round(v, 1) for v in host_ms]}; peak memory "
           f"{peak / 2**30:.2f} GiB; launches {json.dumps(got)} as "
           f"lm_step_launches says", flush=True)
 
-    step = steps_lib.make_train_step(cfg, steps_lib.make_optimizer(cfg),
-                                     n_micro=micro)
+    step = out["train_step"]
     data = synthetic.make_lm_dataset(synthetic.LMTokenSpec(
         vocab_size=cfg.vocab_size, seq_len=LM_SEQ), device=dev)
     batches = [train.make_batch(data(steps + i, batch)["tokens"], cfg,
@@ -3528,10 +3634,19 @@ def lm_train_path(dev, report, arch=LM_ARCH, layers=None, batch=LM_BATCH,
             fail(f"{cfg.name}: a non-finite loss at a timed step")
         times.append(start.elapsed_time(end))
     p50 = float(np.median(times))
-    wall_ms, busy, rows, groups = profile_device(lambda i: run(2 + i), 1,
-                                                 lm_group,
-                                                 f"the {cfg.name} train step",
-                                                 cpu=False)
+    calls, restore = count_collectives()
+    streams = []
+    try:
+        wall_ms, busy, rows, groups = profile_device(
+            lambda i: run(2 + i), 1, lm_group, f"the {cfg.name} train step",
+            cpu=False, streams=streams)
+    finally:
+        restore()
+    if len(streams) != 1:
+        fail(f"{cfg.name} train step: device work on {len(streams)} "
+             f"streams ({streams}), want one")
+    copies = sum(c for ms, k, c in rows if k.lower().startswith(
+        "memcpy dtod"))
     rows_a_micro = batch // micro
     loss, grads = _lm_loss_and_grads(
         cfg, state[0], {k: v[:rows_a_micro] for k, v in batches[0].items()})
@@ -3541,13 +3656,16 @@ def lm_train_path(dev, report, arch=LM_ARCH, layers=None, batch=LM_BATCH,
     del grads
     rec = report[key] = {
         "arch": cfg.name, "params": n, "layers": cfg.n_layers,
-        "pattern": list(cfg.pattern_for_layers),
+        "pattern": list(cfg.pattern_for_layers), "mesh": mesh,
+        "backend": dist.get_backend(),
         "batch": batch, "seq": LM_SEQ, "micro": micro,
         "steps": steps, "losses": losses, "wall_s": wall,
         "step_ms_host": host_ms, "step_ms_events": times,
         "step_ms_p50": p50, "tokens_per_s": tokens / (p50 / 1e3),
         "peak_memory_bytes": peak, "launches": got,
         "launches_per_step": lm_step_launches(cfg, micro),
+        "collective_calls_per_step": calls, "streams": streams,
+        "dtod_copies_per_step": copies,
         "profiled_wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy,
         "idle_share": max(0.0, 1.0 - busy / wall_ms),
@@ -3560,7 +3678,10 @@ def lm_train_path(dev, report, arch=LM_ARCH, layers=None, batch=LM_BATCH,
           f"{tokens / (p50 / 1e3):.0f} tokens/s; profiler: device busy "
           f"{busy:.1f} of {wall_ms:.1f} ms per step (idle share "
           f"{rec['idle_share']:.3f}) over "
-          f"{rec['device_launches_per_step']:.0f} launches; one micro's "
+          f"{rec['device_launches_per_step']:.0f} launches on one stream; "
+          f"collective calls a step {json.dumps(calls)} (at one rank "
+          f"{calls['all_gather'] + calls['reduce_scatter']} of the profile's "
+          f"{copies:.0f} device-to-device copies); one micro's "
           f"loss {loss:.4f}, every gradient finite", flush=True)
     for gname, g in sorted(groups.items(), key=lambda kv: -kv[1]["ms"]):
         print(f"  {gname}: {g['ms']:.2f} ms/step over {g['calls']:.0f} "
@@ -3570,6 +3691,12 @@ def lm_train_path(dev, report, arch=LM_ARCH, layers=None, batch=LM_BATCH,
     del state, batches, step
     torch.cuda.empty_cache()
     return got
+
+
+def _leaves(tree) -> list:
+    from repro_torch.launch import steps as steps_lib
+
+    return steps_lib._leaves(tree)
 
 
 def _lm_batch(cfg, b: int, s: int, dev, seed: int) -> dict:
@@ -4085,6 +4212,170 @@ def time_lm_kernels(dev, launches, rows, report) -> None:
               f"vConv library {t['lib']:.2f}, bound {b_ms:.3f} by {b_by})"
               + (f"; the backward's fp32 copies {t['copies']:.2f} ms"
                  if key == "k2" else ""), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# slice 9: multi-device training — the tensor-parallel CADC linear
+# ---------------------------------------------------------------------------
+
+# gemma3-1b's w_down (6912 -> 1152) at crossbar 128 (54 segments, 27 a rank
+# at 2 ranks) and w_gate (1152 -> 6912) at crossbar 64 (18 segments), at
+# M = 8 (a decode step) and LM_M rows (a train micro). TP_RTOL: the fp32
+# wire against the unsharded K1 adds the two ranks' partial sums in
+# another order (1e-5 of scale, the JAX test's fp32 bound); TP_BF16_REL:
+# the bf16 wire's relative error (the JAX test's bound).
+TP_CASES = [("w_down", 6912, 1152, 128), ("w_gate", 1152, 6912, 64)]
+TP_M = (8, LM_M)
+TP_RANKS = 2
+TP_RTOL, TP_BF16_REL = 1e-5, 0.01
+
+
+def tp_inputs(name: str, m: int, dev):
+    """The case's x [m, D] and w [D, N] (fp32, seeded by the case, the
+    same on every rank)."""
+    i = [c[0] for c in TP_CASES].index(name)
+    _, d, n, _ = TP_CASES[i]
+    gen = torch.Generator().manual_seed(1000 * i + m)
+    x = torch.randn(m, d, generator=gen)
+    w = torch.randn(d, n, generator=gen) / math.sqrt(d)
+    return x.to(dev), w.to(dev)
+
+
+def tp_rank(rank: int, store: str, out) -> None:
+    """One rank of the 2-rank TP run (a spawned process on the same card,
+    gloo over CUDA tensors): every case at fp32 and bf16 wire, K1 counted
+    a call; puts (rank, results) or (rank, the traceback) on `out`."""
+    import traceback
+
+    try:
+        sys.path.insert(0, os.path.join(REPO, "src"))
+        import torch.distributed as dist
+
+        from repro_torch.kernels import cadc_matmul as cm
+        from repro_torch.parallel import tp_cadc
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", store=dist.FileStore(store, TP_RANKS),
+                                rank=rank, world_size=TP_RANKS)
+        res = {}
+        for name, _, _, xbar in TP_CASES:
+            for m in TP_M:
+                x, w = tp_inputs(name, m, dev)
+                w_seg = tp_cadc.segment_weights(w, xbar)
+                for wire in (None, torch.bfloat16):
+                    before = cm.cadc_matmul_cuda.launches
+                    y = tp_cadc.tp_cadc_linear(x, w_seg, wire_dtype=wire)
+                    torch.cuda.synchronize()
+                    res[name, m, str(wire)] = (
+                        y.cpu().numpy(), cm.cadc_matmul_cuda.launches - before,
+                        str(y.device))
+        dist.destroy_process_group()
+        out.put((rank, res))
+    except BaseException:
+        out.put((rank, traceback.format_exc()))
+
+
+def tp_cadc_path(dev, report) -> dict:
+    """parallel/tp_cadc.py on the card: (1) at one rank on main()'s NCCL
+    group, fp32 wire, each case bitwise the unsharded K1 (ops.cadc_matmul
+    on the whole weight), one K1 launch a call; (2) TP_RANKS ranks on the
+    one card over gloo (gloo's all_reduce takes the CUDA tensors; NCCL
+    refuses two ranks on one device), spawned here: each rank one K1
+    launch a call over its segments, y at fp32 wire within TP_RTOL of
+    scale and at bf16 wire within TP_BF16_REL relative of the unsharded
+    K1, both ranks bitwise equal. Returns the launch counts."""
+    import multiprocessing as mp
+    import queue
+    import shutil
+
+    from repro_torch.kernels import cadc_matmul as cm
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import tp_cadc
+
+    t0 = time.perf_counter()
+    launches = {"one_rank": 0, "two_ranks": 0}
+    want = {}
+    for name, _, _, xbar in TP_CASES:
+        for m in TP_M:
+            x, w = tp_inputs(name, m, dev)
+            before = cm.cadc_matmul_cuda.launches
+            y = tp_cadc.tp_cadc_linear(x, tp_cadc.segment_weights(w, xbar),
+                                       wire_dtype=None)
+            launches["one_rank"] += cm.cadc_matmul_cuda.launches - before
+            want[name, m] = keep_counts(lambda: ops.cadc_matmul(
+                x, w, crossbar_size=xbar, fn="relu"))
+            if not torch.equal(y, want[name, m]):
+                fail(f"tp_cadc {name} M={m} at one rank (NCCL): not bitwise "
+                     "the unsharded K1")
+    if launches["one_rank"] != len(TP_CASES) * len(TP_M):
+        fail(f"tp_cadc at one rank launched K1 {launches['one_rank']} times")
+    one_rank_s = time.perf_counter() - t0
+
+    d = os.path.join(REPO, "build", "tp_cadc")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=tp_rank, args=(r, os.path.join(d, "store"),
+                                               out), daemon=True)
+             for r in range(TP_RANKS)]
+    t1 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < TP_RANKS:
+            try:
+                rank, res = out.get(timeout=240)
+            except queue.Empty:
+                fail(f"tp_cadc: {TP_RANKS - len(got)} ranks gave no result "
+                     "in 240 s")
+            if isinstance(res, str):
+                fail(f"tp_cadc rank {rank} failed:\n{res}")
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(d, ignore_errors=True)
+    two_ranks_s = time.perf_counter() - t1
+    worst = {"fp32": 0.0, "bf16": 0.0}
+    for key, (y0, n0, place) in got[0].items():
+        name, m, wire = key
+        y1, n1, _ = got[1][key]
+        if n0 != 1 or n1 != 1 or place != "cuda:0":
+            fail(f"tp_cadc {key}: K1 launches {n0} / {n1} on {place}")
+        if not np.array_equal(y0, y1):
+            fail(f"tp_cadc {key}: the ranks' outputs differ")
+        launches["two_ranks"] += n0 + n1
+        ref = want[name, m].cpu().numpy()
+        if wire == "None":
+            err = float(np.abs(y0 - ref).max()) / max(
+                1.0, float(np.abs(ref).max()))
+            worst["fp32"] = max(worst["fp32"], err)
+            if not err <= TP_RTOL:
+                fail(f"tp_cadc {key}: fp32 wire err / scale {err}")
+        else:
+            rel = float(np.linalg.norm(y0 - ref) / np.linalg.norm(ref))
+            worst["bf16"] = max(worst["bf16"], rel)
+            if not 0 < rel < TP_BF16_REL:
+                fail(f"tp_cadc {key}: bf16 wire relative error {rel}")
+    report["tp_cadc"] = {
+        "cases": TP_CASES, "m": list(TP_M), "ranks": TP_RANKS,
+        "launches": launches, "fp32_wire_err_over_scale": worst["fp32"],
+        "bf16_wire_rel_err": worst["bf16"], "one_rank_s": one_rank_s,
+        "two_ranks_s": two_ranks_s}
+    print(f"tp_cadc: {len(TP_CASES)} gemma3-1b linears x M {list(TP_M)}: "
+          f"one rank (NCCL) bitwise the unsharded K1; {TP_RANKS} ranks on "
+          f"the card over gloo, K1 once a rank a call, fp32 wire err / scale "
+          f"{worst['fp32']:.2e}, bf16 wire relative err {worst['bf16']:.2e}; "
+          f"launches {json.dumps(launches)}; {one_rank_s:.1f} s + "
+          f"{two_ranks_s:.1f} s", flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4760,7 +5051,10 @@ def main() -> None:
     except ImportError as e:
         fail(f"the port is not importable next to chip_smoke.py ({e})")
 
-    dev = torch.device("cuda")
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report = {"torch": torch.__version__, "cuda": torch.version.cuda,
@@ -4814,18 +5108,29 @@ def main() -> None:
 
     check_k1g_k2_lm(dev, report)
     mark("K1g / K2 at the LM shapes")
+    # the LM train CLI's mesh form joins this group of one rank: the
+    # steps make every collective over NCCL, as at any world size
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
     lm_launches = lm_train_path(dev, report)
     mark("gemma3-1b LM training")
-    rec_launches = {arch: lm_train_path(dev, report, arch=arch,
-                                        steps=REC_TRAIN_STEPS,
-                                        key=f"{arch}_train", **kw)
-                    for arch, kw in REC_TRAIN.items()}
-    mark("recurrentgemma-9b and xlstm-1.3b LM training")
+    tp_launches = tp_cadc_path(dev, report)
+    mark("tp_cadc")
+    rec_launches = {}
+    for arch, kw in REC_TRAIN.items():
+        rec_launches[arch] = lm_train_path(dev, report, arch=arch,
+                                           steps=REC_TRAIN_STEPS,
+                                           key=f"{arch}_train", **kw)
+        mark(f"{arch} LM training")
     lm_parity(dev, report)
+    mark("lm_parity")
     lm_resume(dev, report)
+    mark("lm_resume")
     lm_twin(dev, report)
+    mark("lm_twin")
     rec_forms(dev, report)
-    mark("LM parity, resume, twin, the recurrent forms")
+    mark("rec_forms")
+    dist.destroy_process_group()
 
     # after the training steps' peak-memory readings: device_ms runs each
     # call's warm-up on a new side stream, and PyTorch keeps the cuBLAS
@@ -4838,6 +5143,7 @@ def main() -> None:
                *time_train_kernels(dev, train_launches, report)]
     time_lm_kernels(dev, lm_launches, kernels, report)
     rec_step_rows(kernels, rec_launches, report)
+    kernels[0]["tp_cadc_launches"] = tp_launches
     torch.cuda.empty_cache()
     mark("kernel timing")
 

@@ -11,6 +11,7 @@ kernel and its plain version (kernels/cadc_matmul.py) are held against it.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional, Union
 
 import torch
@@ -85,3 +86,21 @@ def vconv_matmul(x: Tensor, w: Tensor, *, crossbar_size: int,
     return cadc_matmul(x, w, crossbar_size=crossbar_size, fn="identity",
                        return_psums=return_psums,
                        psum_transform=psum_transform)
+
+
+def cadc_einsum_segments(x_seg: Tensor, w_seg: Tensor,
+                         fn: FnOrName = "relu") -> Tensor:
+    """Pre-segmented form: x_seg [..., S, K], w_seg [S, K, N] -> [..., N]
+    in x_seg.dtype (fp32 psums). The local work of the tensor-parallel
+    CADC linear (parallel/tp_cadc.py), whose segments stay on their
+    device: no collective before f()."""
+    f = _resolve_fn(fn)
+    psums = torch.einsum("...sk,skn->...sn", x_seg.float(), w_seg.float())
+    return f(psums).sum(dim=-2).to(x_seg.dtype)
+
+
+def make_cadc_linear(crossbar_size: int, fn: FnOrName = "relu"
+                     ) -> Callable[[Tensor, Tensor], Tensor]:
+    """A (x, w) -> y closure over cadc_matmul: a drop-in for torch.matmul
+    in model definitions."""
+    return functools.partial(cadc_matmul, crossbar_size=crossbar_size, fn=fn)

@@ -1,27 +1,84 @@
-"""Step functions. Port of repro.launch.steps.
+"""Step functions and abstract inputs. Port of repro.launch.steps.
 
 train_step: microbatched gradient accumulation -> AdamW update, as the JAX
 package's make_train_step (fp32 master parameters, cast to the compute
 dtype inside the differentiated loss, so the gradients reach the masters
-through the cast).
+through the cast). make_fsdp_train_step: the same function over the ranks
+of a "data" group, each holding its shards of the masters and of AdamW's
+moments (parallel/fsdp.py) — what the JAX step computes under a mesh.
 prefill_step: the full-sequence forward, last-position logits.
 batched_prefill_step / serve_step (decode): the serving steps. Serving
 takes no gradient, so there the port casts the parameters once, when the
 engine is built (`cast_compute`), and the steps take the cast parameters:
 every product sees the values a per-step cast would give.
+
+abstract_params / abstract_opt_state / abstract_caches / input_specs: the
+trees on the "meta" device (shapes and dtypes, no storage), what the
+sharding rules and the production mesh plan from.
 """
 from __future__ import annotations
 
+import collections
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.lm import layers as ll
 from repro_torch.models.lm import transformer as tf
+from repro_torch.parallel import comm, fsdp
 from repro_torch.train import optimizer as opt_lib
 
 Tensor = torch.Tensor
+META = torch.device("meta")
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Tensor]:
+    """Meta-device stand-ins for a step's batch, as the JAX package's
+    ShapeDtypeStructs: int32 tokens / labels, fp32 patches and frames."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def t(shape_, dtype=torch.int32):
+        return torch.empty(shape_, dtype=dtype, device=META)
+
+    if shape.kind == "decode":  # one new token, caches sized at seq_len
+        return {"tokens": t((b,)), "position": t(())}
+    if cfg.frontend == "audio":
+        out = {"frames": t((b, s, cfg.frontend_dim), torch.float32)}
+    else:
+        out = {"tokens": t((b, s))}
+        if cfg.frontend == "vit":
+            out["patches"] = t((b, cfg.frontend_len, cfg.frontend_dim),
+                               torch.float32)
+    if shape.kind == "train":
+        out["labels"] = t((b, s))
+    return out
+
+
+def abstract_params(cfg: ArchConfig):
+    """tf.init's tree on the meta device, floats in cfg.params_dtype."""
+    dt = getattr(torch, cfg.params_dtype)
+    return tf.init(cfg, device=META,
+                   dtype=None if dt == torch.float32 else dt)
+
+
+def abstract_caches(cfg: ArchConfig, batch: int, seq_len: int):
+    return tf.init_caches(cfg, batch, seq_len, device=META)
+
+
+def abstract_opt_state(optimizer: opt_lib.Optimizer, params_shape):
+    return optimizer.init(params_shape)
+
+
+# ---------------------------------------------------------------------------
+# steps
+# ---------------------------------------------------------------------------
 
 
 def make_optimizer(cfg: ArchConfig) -> opt_lib.Optimizer:
@@ -97,6 +154,107 @@ def make_train_step(cfg: ArchConfig,
                                                   step)
             params = opt_lib.apply_updates(plain, updates)
         return params, opt_state, {"loss": lsum / n_micro}
+
+    return train_step
+
+
+def make_fsdp_train_step(cfg: ArchConfig, mesh: mesh_lib.Mesh,
+                         dims: list, group=None,
+                         optimizer: Optional[opt_lib.Optimizer] = None,
+                         n_micro: Optional[int] = None) -> Callable:
+    """train_step(shards, opt_state, batch, step) -> (shards, opt_state,
+    {"loss"}): make_train_step's function over the ranks of the "data"
+    group `group` (default: the default process group), FSDP over it.
+
+    shards: this rank's blocks of the fp32 masters (fsdp.shard by `dims`,
+    fsdp.data_dims under `mesh`); opt_state the moments' blocks. batch:
+    the GLOBAL batch, the same on every rank. Micro i is make_train_step's
+    micro i, rows [i * B / n_micro, (i + 1) * B / n_micro), split over the
+    ranks in rank order (B must divide by n_micro x world, else
+    ValueError). For each micro every leaf is cast to the compute dtype
+    where make_train_step casts it (cast_compute: its blocks, before the
+    wire) and all-gathered; the loss of the rank's rows over world is
+    differentiated with respect to the gathered leaves, and each
+    gradient is reduce-scattered back onto the blocks (all-reduced for a
+    leaf no rank shards) in the compute dtype, then added in fp32: the
+    gradient the cast's backward hands the masters. An MoE block routes
+    over the whole micro (moe.moe_apply's token_group). The clip's global
+    norm is one all-reduce of the shards' squared sums (a whole leaf's
+    counted once); the loss is the mean over the ranks. The collectives
+    run at every world size, one rank included, on the default stream:
+    at world 1 the step is make_train_step's, bitwise.
+
+    Data parallelism over "pod" and tensor parallelism over "model" inside
+    the step are not ported: a mesh with either raises
+    NotImplementedError."""
+    if "pod" in mesh.axis_names or mesh_lib.axis_size(mesh, "model") != 1:
+        raise NotImplementedError(
+            f"mesh {mesh_lib.axis_sizes(mesh)}: the step shards over "
+            "'data' only (TP over 'model' and DP over 'pod' are not ported)")
+    optimizer = optimizer or make_optimizer(cfg)
+    n_micro = n_micro or cfg.n_microbatches
+    cast = ll.cdtype(cfg) if cfg.bf16_wire else None
+
+    def train_step(shards, opt_state, batch: Dict[str, Tensor], step: int):
+        grp = dist.group.WORLD if group is None else group
+        world, rank = dist.get_world_size(grp), dist.get_rank(grp)
+        masters = [p.detach() for p in _leaves(shards)]
+        if len(masters) != len(dims):
+            raise ValueError(f"{len(masters)} leaves, {len(dims)} dims")
+        b = next(iter(batch.values())).shape[0]
+        if b % (n_micro * world):
+            raise ValueError(f"batch {b} does not divide into {n_micro} "
+                             f"micros over {world} ranks")
+        rows = b // (n_micro * world)
+        gsum = [torch.zeros(p.shape, device=p.device) for p in masters]
+        lsum = torch.zeros((), device=masters[0].device)
+        for i in range(n_micro):
+            lo = (i * world + rank) * rows
+            micro = {k: v[lo:lo + rows] for k, v in batch.items()}
+            with torch.no_grad():
+                live = [fsdp.gather(p.to(cast) if cast and p.dtype ==
+                                    torch.float32 else p, d, grp)
+                        .detach().requires_grad_()
+                        for p, d in zip(masters, dims)]
+            logits, aux = tf.forward_train(_rebuild(shards, live), micro, cfg,
+                                           token_group=grp)
+            loss = tf.lm_loss(logits, micro["labels"])[0] + 0.01 * aux
+            del logits
+            grads = list(torch.autograd.grad(loss / world, live,
+                                             allow_unused=True))
+            lsum = lsum + loss.detach()
+            del loss
+            # a gradient autograd hands to two leaves is one tensor: the
+            # in-place all-reduce takes a copy of it
+            shared = collections.Counter(id(g) for g in grads)
+            with torch.no_grad():
+                for j, d in enumerate(dims):
+                    g = grads[j]
+                    if g is None:
+                        g = torch.zeros_like(live[j])
+                    if d is None:
+                        if shared[id(g)] > 1 or not g.is_contiguous():
+                            g = g.clone(memory_format=torch.contiguous_format)
+                        dist.all_reduce(g, group=grp)
+                    else:
+                        g = comm.reduce_scatter(g, d, grp)
+                    gsum[j] = gsum[j] + g.float()
+                    grads[j] = live[j] = None
+        with torch.no_grad():
+            grads = [g / n_micro for g in gsum]
+            del gsum
+            sq = torch.stack([g.float().square().sum()
+                              if d is not None or rank == 0
+                              else g.new_zeros(())
+                              for g, d in zip(grads, dims)])
+            dist.all_reduce(sq, group=grp)
+            plain = _rebuild(shards, masters)
+            updates, opt_state = optimizer.update(
+                _rebuild(shards, grads), opt_state, plain, step,
+                sq_norm=sum(sq.unbind()))
+            new = opt_lib.apply_updates(plain, updates)
+            dist.all_reduce(lsum, group=grp)
+        return new, opt_state, {"loss": lsum / world / n_micro}
 
     return train_step
 

@@ -28,8 +28,9 @@ the JAX package's order of operations on the CPU:
     scatter-add over the expert-sorted pairs — where a CUDA index_add_
     would add them in an order that changes from run to run.
 The load-balance aux loss is returned as in the JAX package; the serve
-path drops it. The activation-sharding constraints are left out (one
-device).
+path drops it. The activation-sharding constraints are left out; under
+the data-parallel train step the block routes over the whole batch
+(moe_apply's token_group).
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ import math
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
@@ -44,6 +46,7 @@ from repro_torch.core import cadc as cadc_lib
 from repro_torch.core import dendritic
 from repro_torch.models.lm import ffn as ffn_lib
 from repro_torch.models.lm import layers as ll
+from repro_torch.parallel import comm
 
 Tensor = torch.Tensor
 
@@ -151,9 +154,22 @@ def _top_k(probs: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     return w[..., :k], e[..., :k]
 
 
-def moe_apply(p: Dict, x: Tensor, cfg: ArchConfig) -> Tuple[Tensor, Tensor]:
+def moe_apply(p: Dict, x: Tensor, cfg: ArchConfig,
+              token_group=None) -> Tuple[Tensor, Tensor]:
     """x [B, S, d] -> (y [B, S, d], aux_loss scalar). Capacity follows
-    the token count B * S, padded rows included, as in the JAX package."""
+    the token count B * S, padded rows included, as in the JAX package.
+
+    token_group: a process group whose ranks hold the other rows of one
+    batch, in rank order (the data-parallel train step's "data" group).
+    Routing, capacity and the aux loss then run over the whole batch, as
+    the JAX package's one global program runs them: every rank computes
+    the block over the gathered rows (world x the block's work) and keeps
+    its own; the gather's backward sums each row's gradient over the
+    ranks."""
+    if token_group is not None:
+        b, r = x.shape[0], dist.get_rank(token_group)
+        y, aux = moe_apply(p, comm.gather_rows(x, token_group), cfg)
+        return y[r * b:(r + 1) * b], aux
     m = cfg.moe
     e_n, k = m.n_experts, m.top_k
     b, s_, d = x.shape

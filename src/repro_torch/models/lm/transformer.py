@@ -100,10 +100,13 @@ def init(cfg: ArchConfig, *, seed: int = 0,
     same draws in the same order, so init(dtype=d) is bitwise
     cast_params(init(), d), without holding the whole fp32 model). The JAX
     package's jax.random draws cannot be reproduced here; parity tests
-    load JAX-initialised parameters with params_from_numpy."""
+    load JAX-initialised parameters with params_from_numpy. On the "meta"
+    device the tree has the shapes and dtypes and no storage
+    (launch/steps.abstract_params)."""
     dev = device_lib.resolve(device)
     kinds = layout(cfg)
-    gen = torch.Generator(device=dev)
+    # a meta tensor draws nothing; torch has no meta Generator
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
 
     def cast(tree):
@@ -200,19 +203,20 @@ def cast_params(params: Params, dtype: torch.dtype) -> Params:
 # blocks
 # ---------------------------------------------------------------------------
 
-def _attn_residual(p: Params, x: Tensor, cfg: ArchConfig, attn_fn):
+def _attn_residual(p: Params, x: Tensor, cfg: ArchConfig, attn_fn,
+                   token_group=None):
     """ln1 -> attn_fn -> residual -> ln2 -> moe / ffn -> residual, shared
     by the train, dense decode, paged decode and prefill paths (one
     implementation, so the paged == dense invariant cannot drift).
     attn_fn(h) -> (y, extra). Returns (x, extra, the MoE aux loss: None
-    without MoE; the serving paths drop it)."""
+    without MoE; the serving paths drop it). token_group: moe_apply's."""
     h = ll.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     y, extra = attn_fn(h)
     x = x + y
     h = ll.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
     aux = None
     if cfg.moe.n_experts > 0:
-        y, aux = moe_lib.moe_apply(p["moe"], h, cfg)
+        y, aux = moe_lib.moe_apply(p["moe"], h, cfg, token_group)
         x = x + y
     elif cfg.ffn_type != "none":
         x = x + ffn_lib.ffn_apply(p["ffn"], h, cfg)
@@ -284,7 +288,8 @@ def _embed_inputs(params: Params, batch: Dict[str, Tensor],
 # ---------------------------------------------------------------------------
 
 def _layer_train(p: Params, x: Tensor, kind: str, cfg: ArchConfig,
-                 positions: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
+                 positions: Tensor, token_group=None
+                 ) -> Tuple[Tensor, Optional[Tensor]]:
     """One layer over the whole sequence: (x, the MoE aux loss or None).
     An attention layer: _attn_residual; an mLSTM or sLSTM block: a bare
     residual; an rglru layer: pre-norm RG-LRU plus a residual, then
@@ -299,12 +304,14 @@ def _layer_train(p: Params, x: Tensor, kind: str, cfg: ArchConfig,
         h = ll.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
         return x + ffn_lib.ffn_apply(p["ffn"], h, cfg), None
     x, _, aux = _attn_residual(p, x, cfg, lambda h: (attn.attention_train(
-        p["attn"], h, cfg, kind=kind, positions=positions), None))
+        p["attn"], h, cfg, kind=kind, positions=positions), None),
+        token_group)
     return x, aux
 
 
 def forward_train(params: Params, batch: Dict[str, Tensor],
-                  cfg: ArchConfig) -> Tuple[Tensor, Tensor]:
+                  cfg: ArchConfig, *, token_group=None
+                  ) -> Tuple[Tensor, Tensor]:
     """batch: {"tokens": [B, S]} (+ "patches" for vit archs; "frames"
     [B, S, frontend_dim] alone for the audio frontend). Returns (logits
     fp32 [B, S, V], the MoE aux loss summed over layers).
@@ -319,13 +326,16 @@ def forward_train(params: Params, batch: Dict[str, Tensor],
     it refuses torch.autograd.grad.)
 
     The recurrent layers run their training forms (rglru.rglru_apply,
-    xlstm.mlstm_apply / slstm_apply) under the same remat."""
+    xlstm.mlstm_apply / slstm_apply) under the same remat. token_group:
+    the group whose ranks hold the batch's other rows, for the MoE blocks
+    to route over the whole batch (moe.moe_apply; the data-parallel train
+    step, launch/steps.py)."""
     kinds = layout(cfg)
     x = _embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), device=x.device)
     for i, kind in enumerate(kinds):
-        args = (params["layers"][i], x, kind, cfg, positions)
+        args = (params["layers"][i], x, kind, cfg, positions, token_group)
         x, a = (torch.utils.checkpoint.checkpoint(
                     _layer_train, *args, use_reentrant=False)
                 if cfg.remat else _layer_train(*args))

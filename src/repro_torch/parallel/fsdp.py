@@ -1,0 +1,58 @@
+"""Fully sharded storage over the "data" axis (ZeRO-3 style): each rank
+holds its block of every parameter leaf along the dim the sharding rules
+give "data" (parallel/sharding.py), whole copies of the leaves they leave
+unsharded over "data"; the optimizer state inherits the layout. Rank r's
+block is the r-th along that dim (DTensor's Shard(dim)); the rules'
+divisibility guard makes the blocks equal.
+
+Trees are the port's params: nested dicts and lists of tensors, flattened
+in launch/steps._leaves order. The data-parallel train step
+(launch/steps.make_fsdp_train_step) gathers the blocks for each micro and
+reduce-scatters the gradients back onto them.
+"""
+from __future__ import annotations
+
+from typing import Any, List, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import Mesh
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding
+
+Tensor = torch.Tensor
+
+
+def _spec_leaves(specs):
+    """The specs of a params tree (dicts and lists; a spec is a tuple)."""
+    if isinstance(specs, dict):
+        for v in specs.values():
+            yield from _spec_leaves(v)
+    elif isinstance(specs, list):
+        for v in specs:
+            yield from _spec_leaves(v)
+    else:
+        yield specs
+
+
+def data_dims(params_shape: Any, cfg: ArchConfig,
+              mesh: Mesh) -> List[Optional[int]]:
+    """Each leaf's dim sharded over "data" under `mesh` (None: a whole copy
+    on every rank), in leaf order."""
+    specs = sharding.param_specs(params_shape, cfg, mesh)
+    return [sharding.data_dim(s) for s in _spec_leaves(specs)]
+
+
+def shard(t: Tensor, dim: Optional[int], rank: int, world: int) -> Tensor:
+    """Rank `rank`'s block of t along `dim` (a new tensor; t itself where
+    dim is None)."""
+    if dim is None:
+        return t
+    return t.chunk(world, dim)[rank].clone()
+
+
+def gather(t: Tensor, dim: Optional[int], group=None) -> Tensor:
+    """The whole leaf from every rank's block (t itself where dim is
+    None)."""
+    return t if dim is None else comm.all_gather(t, dim, group)

@@ -18,8 +18,9 @@ Tensor = torch.Tensor
 
 class Optimizer(NamedTuple):
     init: Callable[[PyTree], PyTree]
-    update: Callable[[PyTree, PyTree, PyTree, int], Tuple[PyTree, PyTree]]
-    # update(grads, opt_state, params, step) -> (updates, new_state)
+    update: Callable[..., Tuple[PyTree, PyTree]]
+    # update(grads, opt_state, params, step, *, sq_norm=None)
+    #   -> (updates, new_state); sq_norm: clip_by_global_norm's
 
 
 def _tmap(f, *trees):
@@ -43,9 +44,16 @@ def _leaves(tree):
         yield tree
 
 
-def clip_by_global_norm(grads: PyTree, max_norm: float
+def clip_by_global_norm(grads: PyTree, max_norm: float,
+                        sq_norm: Optional[Tensor] = None
                         ) -> Tuple[PyTree, Tensor]:
-    gnorm = torch.sqrt(sum(g.float().square().sum() for g in _leaves(grads)))
+    """grads scaled to a global norm of at most max_norm. sq_norm: the
+    squared global norm, given where `grads` are one rank's shards of the
+    gradient (the data-parallel step sums the shards' squares over the
+    ranks); by default the leaves' own."""
+    if sq_norm is None:
+        sq_norm = sum(g.float().square().sum() for g in _leaves(grads))
+    gnorm = torch.sqrt(sq_norm)
     scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
     return _tmap(lambda g: g * scale, grads), gnorm
 
@@ -79,9 +87,9 @@ def adamw(lr: Union[float, Callable] = 1e-3, b1: float = 0.9,
         zeros = lambda p: torch.zeros(p.shape, device=p.device)  # noqa: E731
         return {"m": _tmap(zeros, params), "v": _tmap(zeros, params)}
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, *, sq_norm=None):
         if max_grad_norm is not None:
-            grads, _ = clip_by_global_norm(grads, max_grad_norm)
+            grads, _ = clip_by_global_norm(grads, max_grad_norm, sq_norm)
         g32 = _tmap(lambda g: g.float(), grads)
         m = _tmap(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], g32)
         v = _tmap(lambda v_, g: b2 * v_ + (1 - b2) * g.square(), state["v"],
@@ -111,9 +119,9 @@ def sgd(lr: Union[float, Callable] = 0.1, momentum: float = 0.9,
     def init(params):
         return {"mom": _tmap(torch.zeros_like, params)}
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, *, sq_norm=None):
         if max_grad_norm is not None:
-            grads, _ = clip_by_global_norm(grads, max_grad_norm)
+            grads, _ = clip_by_global_norm(grads, max_grad_norm, sq_norm)
         g = (_tmap(lambda g_, p: g_ + weight_decay * p, grads, params)
              if weight_decay else grads)
         mom = _tmap(lambda m_, g_: momentum * m_ + g_, state["mom"], g)

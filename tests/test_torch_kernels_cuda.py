@@ -1556,3 +1556,92 @@ def test_conv_bwd_off_16_bytes_takes_the_patches_route(cuda_device):
     assert grads["aligned"][1] == (1, 0) and grads["off"][1] == (0, 1)
     assert torch.equal(grads["aligned"][0], want_dx)
     assert torch.equal(grads["off"][0], want_dx)
+
+
+# ---------------------------------------------------------------------------
+# multi-device training at one rank on NCCL: the tensor-parallel CADC
+# linear and the data-parallel (FSDP) train step
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_one_rank(cuda_device):
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield torch.device("cuda", 0)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 300])
+@pytest.mark.parametrize("d,n,xbar", [(6912, 1152, 128), (1152, 6912, 64)])
+def test_tp_cadc_linear_one_rank_is_bitwise_k1(nccl_one_rank, m, d, n,
+                                                xbar):
+    """At one rank the TP linear's local work is the whole product: one K1
+    launch, bitwise the unsharded kernel (fp32 wire); the NCCL all_reduce
+    of one rank changes nothing."""
+    from repro_torch.parallel import tp_cadc
+
+    dev = nccl_one_rank
+    gen = torch.Generator(device=dev).manual_seed(m)
+    x = torch.randn(m, d, generator=gen, device=dev)
+    w = torch.randn(d, n, generator=gen, device=dev) / d ** 0.5
+    before = cm.cadc_matmul_cuda.launches
+    y = tp_cadc.tp_cadc_linear(x, tp_cadc.segment_weights(w, xbar),
+                               wire_dtype=None)
+    torch.cuda.synchronize()
+    assert cm.cadc_matmul_cuda.launches == before + 1
+    assert torch.equal(y, ops.cadc_matmul(x, w, crossbar_size=xbar,
+                                          fn="relu"))
+    y16 = tp_cadc.tp_cadc_linear(x, tp_cadc.segment_weights(w, xbar))
+    assert y16.dtype == torch.float32
+    assert torch.equal(y16, y.to(torch.bfloat16).float())
+
+
+@pytest.mark.cuda
+def test_fsdp_step_one_rank_is_bitwise_the_train_step(nccl_one_rank):
+    """gemma3-1b at full width and 2 layers, CADC relu at crossbar 256,
+    bf16 on fp32 masters: steps.make_fsdp_train_step at one rank on NCCL
+    (K1g / K2, the gathers and reduce-scatters as device copies) against
+    steps.make_train_step, 2 steps of 2 x 256 tokens in 2 micros: the
+    losses and every parameter and moment bitwise, the same launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import transformer as tf
+    from repro_torch.parallel import fsdp
+    from repro_torch.train import optimizer as opt_lib
+
+    dev = nccl_one_rank
+    cfg = get_config("gemma3_1b", n_layers=2, linear_impl="cadc",
+                     crossbar_size=256, kernel_impl="auto")
+    opt = opt_lib.adamw(1e-4, weight_decay=0.1, max_grad_norm=1.0)
+    mesh = mesh_lib.make_local_mesh()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batches = []
+    for _ in range(2):
+        toks = torch.randint(0, cfg.vocab_size, (2, 257), generator=gen,
+                             device=dev)
+        batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    runs = []
+    for make in ("plain", "fsdp"):
+        p = tf.init(cfg, seed=0, device=dev)
+        s = opt.init(p)
+        step = (steps.make_train_step(cfg, opt, n_micro=2) if make == "plain"
+                else steps.make_fsdp_train_step(
+                    cfg, mesh, fsdp.data_dims(p, cfg, mesh), optimizer=opt,
+                    n_micro=2))
+        before = cm.cadc_matmul_gate_cuda.launches
+        losses = []
+        for i, b in enumerate(batches):
+            p, s, m = step(p, s, b, i)
+            losses.append(float(m["loss"]))
+        runs.append((losses, steps._leaves([p, s]),
+                     cm.cadc_matmul_gate_cuda.launches - before))
+        del p, s
+    (la, ta, na), (lb, tb, nb) = runs
+    assert la == lb and na == nb > 0
+    assert all(torch.equal(a, b) for a, b in zip(ta, tb))
