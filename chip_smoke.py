@@ -242,9 +242,9 @@ path; bf16 compute on fp32 masters, TF32 off):
      remat; the tied head on torch.matmul), step ms, tokens/s, peak
      memory, the busy split and the idle share;
  27. xlstm-1.3b at full width and 8 layers (7 mLSTM + sLSTM; 0.773 B) the
-     same way at 4 x 1024 tokens in 2 micros (the chunkwise mLSTM, 4
-     chunks of 256; K1g 186 = 2 x (2 x 46 + the untied head) and K2 94 a
-     step); its sLSTM loop leaves the card waiting on the host;
+     same way at 2 x 1024 tokens in 1 micro (the chunkwise mLSTM, 4
+     chunks of 256; K1g 93 = 2 x 46 + the untied head and K2 47 a step);
+     its sLSTM loop leaves the card waiting on the host;
  28. (in phase 21's lm_parity) recurrentgemma-9b at 3 layers over 1 x
      2560 tokens (its 2048 window bites) and xlstm-1.3b at 8 over 1 x 512
      (two mLSTM chunks), fp32 (loss and every gradient) and bf16 (loss);
@@ -275,6 +275,25 @@ device, so the multi-rank step and CLI are tested on the CPU over gloo):
      on the one card over gloo (CUDA tensors), K1 once a rank a call,
      fp32 wire within 1e-5 of scale and bf16 wire within 0.01 relative of
      the unsharded K1 (the JAX test's bounds).
+
+Slice 10, tensor parallelism over "model" inside the LM step:
+ 33. the step of phase 31 is the TP-aware one (launch/steps.py: FSDP over
+     "data", TP over "model", DP over "pod"), here at (data 1, model 1):
+     the same exact K1g / K2 counts;
+ 34. in phase 32's two spawned ranks, after the TP linear: the LM train
+     step at (data 1, model 2) over gloo on gemma3-1b at full width, 2
+     layers, CADC relu at crossbar 128 (wo over 4 and w_down over 27 local
+     segments a rank through K1g / K2, the vocab-parallel tied head and
+     loss over 131 072 rows a rank), 2 steps of 2 x 1024 tokens in 2
+     micros under AdamW at a constant lr, in bf16 and in fp32, against
+     make_train_step on the card: bf16 losses within 1e-3 relative; fp32
+     losses within 1e-5, step 1's gradients leaf by leaf and the clip's
+     norm within 1e-2, step 2's gradients and the params' change within
+     0.1 (read through seeded probes of the whole leaves); two planted
+     faults (w_down's all-reduce, the FFN's copy_to backward) must fail
+     the 1e-2 gate; the ranks' losses
+     equal, K1g / K2 launches a rank exact; the kernels line's K1g and K2
+     rows gain them.
 
 The decode profiles (phase 6 and its later twins) count K1 and K6 with
 the wrappers' launch counters over the profiled steps (exact: K1 as
@@ -3331,12 +3350,14 @@ LM_XBAR = 256
 # 80GB at 700 W, past the 800 s it aims under), then the 2 timed and 1
 # profiled; kernel vs plain at LM_PARITY_LAYERS / LM_PARITY_TOKENS
 # (recurrentgemma over 2560 tokens, so its 2048 local window bites; xlstm
-# over two mLSTM chunks; since PR 22 one sequence each for gemma3-1b,
-# hubert-xlarge and xlstm-1.3b, not two: the issue's first cut of the
-# run's time for slice 9's phases); each training form against its decode
-# cell over REC_FORM_S tokens.
+# over two mLSTM chunks; one sequence each for gemma3-1b, hubert-xlarge
+# and xlstm-1.3b, not two: a cut of the run's time for slice 9's phases;
+# for slice 10's, xlstm-1.3b's train phase runs one micro of 2 x 1024 a
+# step, not two, since its sLSTM loop holds the host a micro: on the card
+# recurrentgemma-9b's is the one recurrent step that sums micros); each
+# training form against its decode cell over REC_FORM_S tokens.
 REC_TRAIN = {RG_ARCH: dict(layers=3, batch=8, micro=4),
-             XL_ARCH: dict(layers=8, batch=4, micro=2)}
+             XL_ARCH: dict(layers=8, batch=2, micro=1)}
 REC_TRAIN_STEPS = 2
 LM_PARITY_LAYERS = {LM_ARCH: 2, HUBERT_ARCH: 4, MOE_ARCH: 2, RG_ARCH: 3,
                     XL_ARCH: 8}
@@ -3753,6 +3774,7 @@ def lm_parity(dev, report) -> None:
             (RG_ARCH, "bfloat16"), (XL_ARCH, "float32"),
             (XL_ARCH, "bfloat16")]
     for arch, dtype in runs:
+        t0 = time.perf_counter()
         cfg = lm_cfg(arch, n_layers=LM_PARITY_LAYERS[arch], dtype=dtype)
         b, s = LM_PARITY_TOKENS[arch]
         params = tf.init(cfg, seed=0, device=dev)
@@ -3782,12 +3804,14 @@ def lm_parity(dev, report) -> None:
         key = f"{arch}.{dtype}"
         out[key] = {"layers": cfg.n_layers, "tokens": [b, s],
                     "loss": [lk, lp], "loss_rel_err": loss_err,
-                    "grad_err_over_scale": worst_g, "launches": nk}
+                    "grad_err_over_scale": worst_g, "launches": nk,
+                    "s": time.perf_counter() - t0}
         print(f"LM parity {cfg.name} ({cfg.n_layers} layers, {dtype}, "
               f"{b} x {s} tokens): loss {lk:.6f} vs plain {lp:.6f} (rel "
               f"err {loss_err:.2e}, tol {tol}); grads max err / scale "
               f"{worst_g:.2e}{'' if dtype == 'float32' else ' (reported)'};"
-              f" launches {json.dumps(nk)}", flush=True)
+              f" launches {json.dumps(nk)}; {out[key]['s']:.1f} s",
+              flush=True)
         del params, batch, res, gk, gp
         torch.cuda.empty_cache()
     cfg = lm_cfg(LM_ARCH, n_layers=LM_PARITY_LAYERS[LM_ARCH],
@@ -4230,6 +4254,196 @@ TP_RANKS = 2
 TP_RTOL, TP_BF16_REL = 1e-5, 0.01
 
 
+# Slice 10: the LM train step tensor-parallel over "model" at (data 1,
+# model 2), in the same two spawned ranks as the TP linear (gloo over the
+# card's tensors): gemma3-1b at full width and TP_STEP_LAYERS layers, CADC
+# relu at crossbar TP_STEP_XBAR, so wo (8 segments) and w_down (54) run
+# row-parallel over 4 and 27 local segments and the tied 262 144-row
+# vocab splits into 131 072 a rank; TP_STEP_STEPS steps of TP_STEP_BATCH
+# x LM_SEQ tokens in TP_STEP_MICRO micros against make_train_step on the
+# same card, same params and batches, under AdamW at a constant
+# TP_STEP_LR (make_optimizer's warm-up has lr(0) = 0: step 1 would leave
+# the params as they were), in bf16 on fp32 masters (the main path's
+# dtype) and in fp32. Each step's gradient, leaf by leaf, the clip's
+# global norm and the params' change over the steps are read through a
+# seeded N(0, 1) probe of each whole leaf (tp_step_err). The row-parallel
+# all-reduce adds the two ranks' partial outputs where one rank sums its
+# segments in one ordered sum, so the next layer's psums differ by
+# roundings, and a psum that close to 0 flips its relu gate, which moves
+# that row's gradient by O(1): small leaves move most. The gates: bf16
+# losses within TP_STEP_LOSS_RTOL relative (the FSDP step's bf16 bound;
+# bf16's gradients are reported, as lm_parity's are: its roundings move
+# small leaves by tens of percent); fp32 losses within LOSS0_RTOL, step
+# 1's gradients and every step's clip norm within TP_STEP_GRAD_RTOL, and
+# the later steps' gradients and the params' change within
+# TP_STEP_DRIFT_RTOL (AdamW's first update is about lr x the sign of each
+# gradient element, so an element that near 0 moves by 2 lr: the
+# params, and the gradients at them, drift apart further). An H100 80GB
+# at 700 W read 2.1e-3 for step 1's gradients, 1.5e-2 for step 2's and
+# 2.6e-2 for the params' change. Two planted faults, each an fp32 step
+# from the same params (`planted`), must fail the gradient gate: w_down's
+# row-parallel all-reduce skipped, and the FFN's copy_to backward
+# all-reduce skipped (the forward untouched); there they read 1.9 and
+# 0.89, with loss errors of 2.0e-4 and 0: the loss gate alone passes both.
+TP_STEP_MESH = (("data", "model"), (1, 2))
+TP_STEP_XBAR, TP_STEP_LAYERS = 128, 2
+TP_STEP_BATCH, TP_STEP_MICRO, TP_STEP_STEPS = 2, 2, 2
+TP_STEP_DTYPES = ("bfloat16", "float32")
+TP_STEP_LR = 1e-4
+TP_STEP_LOSS_RTOL = 1e-3
+TP_STEP_GRAD_RTOL, TP_STEP_DRIFT_RTOL = 1e-2, 0.1
+TP_STEP_FAULTS = ("w_down", "copy_to")
+
+
+def tp_step_cfg(dtype: str = "bfloat16"):
+    return lm_cfg(LM_ARCH, n_layers=TP_STEP_LAYERS).with_overrides(
+        crossbar_size=TP_STEP_XBAR, dtype=dtype,
+        bf16_wire=dtype == "bfloat16")
+
+
+def planted(fault: str, cfg, solo):
+    """A context in which this rank's TP step runs with a deliberate fault
+    (a control the gates must catch), by a one-rank group `solo` in place
+    of the "model" group at one collective: "w_down", w_down's
+    row-parallel all-reduce (each rank keeps its partial output);
+    "copy_to", the FFN's copy_to, whose backward all-reduce then leaves
+    each rank its own input gradient."""
+    import contextlib
+    import types
+
+    from repro_torch.models.lm import ffn
+    from repro_torch.parallel import comm, tp_cadc
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = tp_cadc.tp_cadc_row_linear, ffn.comm
+        s_loc = cfg.d_ff // cfg.crossbar_size // TP_STEP_MESH[1][1]
+
+        def row(x_loc, w_loc, **kw):
+            if w_loc.shape[0] == s_loc:
+                kw["group"] = solo
+            return saved[0](x_loc, w_loc, **kw)
+
+        if fault == "w_down":
+            tp_cadc.tp_cadc_row_linear = row
+        else:
+            ffn.comm = types.SimpleNamespace(
+                copy_to=lambda x, group: comm.copy_to(x, solo))
+        try:
+            yield
+        finally:
+            tp_cadc.tp_cadc_row_linear, ffn.comm = saved
+
+    return ctx()
+
+
+def tp_step_run(dev, dtype: str, mesh=None, faults=()) -> dict:
+    """TP_STEP_STEPS steps of tp_step_cfg(dtype) from seed-0 params on seeded
+    batches (the same on every rank): make_fsdp_train_step over `mesh`
+    (this process a rank of the default group), or make_train_step with
+    none. Returns the losses, the launch counts, the steps' wall seconds
+    (the probes' time taken out) and the seconds before them (params,
+    step, batches); "grads": each step's gradient as the optimizer gets it
+    (this rank's blocks), a (sum of squares, probe dot) pair a leaf and
+    the clip's squared global norm; "update": the same pairs of the
+    params' change over the steps; "split": whether each leaf is split
+    over "model"; "controls": a step from the same params under each of
+    `faults` (its loss and gradient pairs; over a mesh only)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models.lm import transformer as tf
+    from repro_torch.parallel import fsdp
+    from repro_torch.train import optimizer as opt_lib
+
+    t_setup = time.perf_counter()
+    cfg = tp_step_cfg(dtype)
+    params = tf.init(cfg, seed=0, device=dev)
+    shapes = [tuple(t.shape) for t in steps_lib._leaves(params)]
+    if mesh is None:
+        split = [False] * len(shapes)
+
+        def cut(j, t):
+            return t
+    else:
+        dims = fsdp.data_dims(params, cfg, mesh)
+        mdims = fsdp.model_dims(params, cfg, mesh)
+        split = [md is not None for md in mdims]
+        coords, sizes = {}, {}
+
+        def cut(j, t):
+            return fsdp.mesh_block(t, dims[j], mdims[j], coords, sizes)
+
+    def probes(leaves):
+        """(sum of squares, dot with the seeded probe of the whole leaf,
+        cut as this rank's block) a leaf, in fp64."""
+        gen = torch.Generator(device=dev)
+        out = []
+        for j, t in enumerate(leaves):
+            gen.manual_seed(j)
+            pr = cut(j, torch.randn(shapes[j], generator=gen, device=dev))
+            t = t.double().flatten()
+            out.append((float(t.square().sum()),
+                        float(t.dot(pr.double().flatten()))))
+        return out
+
+    base = opt_lib.adamw(TP_STEP_LR, weight_decay=0.1, max_grad_norm=1.0)
+    records, probe_s = [], [0.0]
+
+    def update(grads, state, prm, step, *, sq_norm=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        records.append((probes(steps_lib._leaves(grads)),
+                        None if sq_norm is None else float(sq_norm)))
+        probe_s[0] += time.perf_counter() - t
+        return base.update(grads, state, prm, step, sq_norm=sq_norm)
+
+    opt = opt_lib.Optimizer(base.init, update)
+    if mesh is None:
+        step = steps_lib.make_train_step(cfg, opt, n_micro=TP_STEP_MICRO)
+    else:
+        step = steps_lib.make_fsdp_train_step(cfg, mesh, dims, optimizer=opt,
+                                              n_micro=TP_STEP_MICRO)
+        coords.update(step.mesh_groups.coords)
+        sizes.update(step.mesh_groups.sizes)
+        params = steps_lib._rebuild(params, [
+            cut(j, t) for j, t in enumerate(steps_lib._leaves(params))])
+    init = [t.clone() for t in steps_lib._leaves(params)]
+    state = opt.init(params)
+    gen = torch.Generator().manual_seed(23)
+    batches = []
+    for _ in range(TP_STEP_STEPS):
+        toks = torch.randint(0, cfg.vocab_size,
+                             (TP_STEP_BATCH, LM_SEQ + 1), generator=gen)
+        batches.append({"tokens": toks[:, :-1].to(dev),
+                        "labels": toks[:, 1:].to(dev)})
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for i, b in enumerate(batches):
+        params, state, m = step(params, state, b, i)
+        losses.append(float(m["loss"]))
+    out = {"losses": losses, "launches": read_counts(),
+           "s": time.perf_counter() - t0 - probe_s[0],
+           "setup_s": t0 - t_setup, "grads": list(records),
+           "update": probes([a - b for a, b in zip(
+               steps_lib._leaves(params), init)]), "split": split,
+           "controls": {}}
+    if mesh is not None and faults:
+        # every rank makes every one-rank group, in the same order
+        solo = [dist.new_group([r]) for r in range(dist.get_world_size())]
+        for fault in faults:
+            del records[:]
+            p0 = steps_lib._rebuild(params, [t.clone() for t in init])
+            with planted(fault, cfg, solo[dist.get_rank()]):
+                _, _, m = step(p0, opt.init(p0), batches[0], 0)
+            out["controls"][fault] = {"loss": float(m["loss"]),
+                                      "grads": records[0]}
+            del p0
+    return out
+
+
 def tp_inputs(name: str, m: int, dev):
     """The case's x [m, D] and w [D, N] (fp32, seeded by the case, the
     same on every rank)."""
@@ -4244,7 +4458,9 @@ def tp_inputs(name: str, m: int, dev):
 def tp_rank(rank: int, store: str, out) -> None:
     """One rank of the 2-rank TP run (a spawned process on the same card,
     gloo over CUDA tensors): every case at fp32 and bf16 wire, K1 counted
-    a call; puts (rank, results) or (rank, the traceback) on `out`."""
+    a call; then the TP train step (tp_step_run over TP_STEP_MESH, bf16
+    and fp32, the planted faults in fp32); puts (rank, results) or (rank,
+    the traceback) on `out`."""
     import traceback
 
     try:
@@ -4271,6 +4487,12 @@ def tp_rank(rank: int, store: str, out) -> None:
                     res[name, m, str(wire)] = (
                         y.cpu().numpy(), cm.cadc_matmul_cuda.launches - before,
                         str(y.device))
+        from repro_torch.launch import mesh as mesh_lib
+
+        mesh = mesh_lib.Mesh(*TP_STEP_MESH)
+        res["tp_step"] = {dt: tp_step_run(
+            dev, dt, mesh, TP_STEP_FAULTS if dt == "float32" else ())
+            for dt in TP_STEP_DTYPES}
         dist.destroy_process_group()
         out.put((rank, res))
     except BaseException:
@@ -4285,7 +4507,10 @@ def tp_cadc_path(dev, report) -> dict:
     refuses two ranks on one device), spawned here: each rank one K1
     launch a call over its segments, y at fp32 wire within TP_RTOL of
     scale and at bf16 wire within TP_BF16_REL relative of the unsharded
-    K1, both ranks bitwise equal. Returns the launch counts."""
+    K1, both ranks bitwise equal; then, in the same ranks, the TP train
+    step (tp_step_run over TP_STEP_MESH) against the one-rank step run
+    here while they start (tp_step_check). Returns the TP linear's launch
+    counts and the TP step's a rank."""
     import multiprocessing as mp
     import queue
     import shutil
@@ -4324,6 +4549,9 @@ def tp_cadc_path(dev, report) -> dict:
     t1 = time.perf_counter()
     for p in procs:
         p.start()
+    # the one-rank step on this process while the ranks start
+    ref = keep_counts(lambda: {dt: tp_step_run(dev, dt)
+                               for dt in TP_STEP_DTYPES})
     got = {}
     try:
         while len(got) < TP_RANKS:
@@ -4343,8 +4571,12 @@ def tp_cadc_path(dev, report) -> dict:
                 p.join()
         shutil.rmtree(d, ignore_errors=True)
     two_ranks_s = time.perf_counter() - t1
+    step_launches = tp_step_check(got, ref, report)
     worst = {"fp32": 0.0, "bf16": 0.0}
-    for key, (y0, n0, place) in got[0].items():
+    for key, res in got[0].items():
+        if key == "tp_step":
+            continue
+        y0, n0, place = res
         name, m, wire = key
         y1, n1, _ = got[1][key]
         if n0 != 1 or n1 != 1 or place != "cuda:0":
@@ -4366,6 +4598,7 @@ def tp_cadc_path(dev, report) -> dict:
                 fail(f"tp_cadc {key}: bf16 wire relative error {rel}")
     report["tp_cadc"] = {
         "cases": TP_CASES, "m": list(TP_M), "ranks": TP_RANKS,
+        "tp_step_launches_per_rank": step_launches,
         "launches": launches, "fp32_wire_err_over_scale": worst["fp32"],
         "bf16_wire_rel_err": worst["bf16"], "one_rank_s": one_rank_s,
         "two_ranks_s": two_ranks_s}
@@ -4375,7 +4608,139 @@ def tp_cadc_path(dev, report) -> dict:
           f"{worst['fp32']:.2e}, bf16 wire relative err {worst['bf16']:.2e}; "
           f"launches {json.dumps(launches)}; {one_rank_s:.1f} s + "
           f"{two_ranks_s:.1f} s", flush=True)
-    return launches
+    return launches, step_launches
+
+
+def tp_step_err(ranks, ref) -> float:
+    """The largest relative error of the ranks' (sum of squares, probe
+    dot) pairs against the one-rank pairs `ref`, over the leaves: a leaf
+    split over "model" summed over the ranks' blocks, a replicated one
+    rank 0's; its error the larger of the probe dot's and the norm's
+    distance over the one-rank leaf's norm (each about or below the
+    relative L2 distance of the two leaves)."""
+    worst = 0.0
+    for j, (ss, dot) in enumerate(ref):
+        parts = [r["pairs"][j] for r in ranks] if ranks[0]["split"][j] \
+            else [ranks[0]["pairs"][j]]
+        gs, gd = (sum(p[k] for p in parts) for k in (0, 1))
+        n = math.sqrt(ss)
+        err = (max(abs(gd - dot), abs(math.sqrt(gs) - n)) / n if n
+               else (0.0 if gs == 0 else math.inf))
+        worst = max(worst, err)
+    return worst
+
+
+def tp_step_check(got, ref, report) -> dict:
+    """The TP train step's gates over the ranks' results, for each dtype:
+    exact K1g / K2 launches a rank (lm_step_launches a step), nothing else
+    launched, the ranks' losses equal; the losses within
+    TP_STEP_LOSS_RTOL (bf16) or LOSS0_RTOL (fp32) relative of the one-rank
+    step's (`ref`); in fp32 step 1's gradients and the clip norms within
+    TP_STEP_GRAD_RTOL of the one-rank step's, the later gradients and the
+    params' change within TP_STEP_DRIFT_RTOL (tp_step_err), and each
+    planted fault beyond TP_STEP_GRAD_RTOL. Returns the launches a rank,
+    summed over the dtypes."""
+    total = {}
+    out = report["tp_step"] = {"mesh": dict(zip(*TP_STEP_MESH)),
+                               "backend": "gloo", "lr": TP_STEP_LR}
+    for dt in TP_STEP_DTYPES:
+        cfg = tp_step_cfg(dt)
+        per_step = lm_step_launches(cfg, TP_STEP_MICRO)
+        want = {k: 0 for k in counters()}
+        want.update({k: v * TP_STEP_STEPS for k, v in per_step.items()})
+        runs, one = [got[r]["tp_step"][dt] for r in range(TP_RANKS)], ref[dt]
+        for r, run in enumerate(runs):
+            if run["launches"] != want:
+                fail(f"TP step {dt} rank {r} launched {run['launches']}, "
+                     f"want {want}")
+            if run["losses"] != runs[0]["losses"]:
+                fail(f"TP step {dt}: rank {r}'s losses {run['losses']} "
+                     f"differ from rank 0's {runs[0]['losses']}")
+        if one["launches"] != want:
+            fail(f"one-rank step {dt} launched {one['launches']}, want "
+                 f"{want}")
+        for k, v in runs[0]["launches"].items():
+            total[k] = total.get(k, 0) + v
+
+        def ranks(pairs):
+            return [{"pairs": pairs(run), "split": run["split"]}
+                    for run in runs]
+
+        errs = [abs(a - b) / abs(b) for a, b in zip(runs[0]["losses"],
+                                                    one["losses"])]
+        grad_errs = [tp_step_err(ranks(lambda run: run["grads"][i][0]),
+                                 one["grads"][i][0])
+                     for i in range(TP_STEP_STEPS)]
+        # the clip's global norm: every rank's the same, each block once
+        clip_errs = []
+        for i in range(TP_STEP_STEPS):
+            n = math.sqrt(sum(ss for ss, _ in one["grads"][i][0]))
+            clip_errs.append(max(abs(math.sqrt(run["grads"][i][1]) - n)
+                                 for run in runs) / n)
+        update_err = tp_step_err(ranks(lambda run: run["update"]),
+                                 one["update"])
+        controls = {
+            fault: {"loss_rel_err": abs(runs[0]["controls"][fault]["loss"]
+                                        - one["losses"][0])
+                    / abs(one["losses"][0]),
+                    "grad_rel_err": tp_step_err(
+                        ranks(lambda run: run["controls"][fault]["grads"][0]),
+                        one["grads"][0][0])}
+            for fault in runs[0]["controls"]}
+        worst = (max(grad_errs[:1] + clip_errs),
+                 max(grad_errs[1:] + [update_err]))
+        loss_tol = TP_STEP_LOSS_RTOL if dt == "bfloat16" else LOSS0_RTOL
+        out[dt] = {
+            "arch": cfg.name, "layers": cfg.n_layers,
+            "crossbar": cfg.crossbar_size, "batch": TP_STEP_BATCH,
+            "seq": LM_SEQ, "micro": TP_STEP_MICRO, "steps": TP_STEP_STEPS,
+            "losses": runs[0]["losses"], "one_rank_losses": one["losses"],
+            "loss_rel_err": errs, "grad_rel_err": grad_errs,
+            "clip_norm_rel_err": clip_errs, "update_rel_err": update_err,
+            "controls": controls, "launches_per_rank": runs[0]["launches"],
+            "wall_s_per_rank": [run["s"] for run in runs],
+            "setup_s_per_rank": [run["setup_s"] for run in runs],
+            "one_rank_s": one["s"]}
+        print(f"TP step {dt} ({cfg.name}, {cfg.n_layers} layers, CADC relu "
+              f"xbar {cfg.crossbar_size}, mesh {out['mesh']} over gloo on "
+              f"the one card, AdamW at lr {TP_STEP_LR}): {TP_STEP_STEPS} "
+              f"steps of {TP_STEP_BATCH} x {LM_SEQ} tokens in "
+              f"{TP_STEP_MICRO} micros, losses "
+              f"{[round(v, 5) for v in runs[0]['losses']]} vs one rank "
+              f"{[round(v, 5) for v in one['losses']]} (rel err "
+              f"{max(errs):.2e}, tol {loss_tol}); gradients rel err "
+              f"{[f'{e:.2e}' for e in grad_errs]}, clip norm "
+              f"{max(clip_errs):.2e}, params' change {update_err:.2e}"
+              + (f" (tol {TP_STEP_GRAD_RTOL} step 1 and clip, "
+                 f"{TP_STEP_DRIFT_RTOL} after)" if dt == "float32"
+                 else " (reported)")
+              + "".join(f"; planted fault {k}: loss {v['loss_rel_err']:.2e},"
+                        f" gradients {v['grad_rel_err']:.2e}"
+                        for k, v in controls.items())
+              + f"; launches a rank "
+              f"{json.dumps({k: v for k, v in want.items() if v})}; wall "
+              f"{[round(run['s'], 1) for run in runs]} s a rank (gloo "
+              f"through the host, not a TP cost), one rank {one['s']:.1f} s",
+              flush=True)
+        if not (all(map(math.isfinite, runs[0]["losses"]))
+                and max(errs) <= loss_tol):
+            fail(f"TP step {dt} losses {runs[0]['losses']} vs the one-rank "
+                 f"step's {one['losses']} (rel err {errs} > {loss_tol})")
+        if dt == "bfloat16":
+            continue
+        if not (worst[0] <= TP_STEP_GRAD_RTOL
+                and worst[1] <= TP_STEP_DRIFT_RTOL):
+            fail(f"TP step {dt}: step 1's gradients / the clip norms rel err "
+                 f"{worst[0]} (tol {TP_STEP_GRAD_RTOL}), later gradients / "
+                 f"the params' change {worst[1]} (tol {TP_STEP_DRIFT_RTOL})")
+        if set(controls) != set(TP_STEP_FAULTS):
+            fail(f"TP step {dt}: planted faults run {sorted(controls)}")
+        for fault, c in controls.items():
+            if not c["grad_rel_err"] > TP_STEP_GRAD_RTOL:
+                fail(f"TP step: the planted fault {fault!r} passes the "
+                     f"gradient gate ({c['grad_rel_err']} <= "
+                     f"{TP_STEP_GRAD_RTOL})")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -5114,8 +5479,8 @@ def main() -> None:
                             world_size=1, device_id=dev)
     lm_launches = lm_train_path(dev, report)
     mark("gemma3-1b LM training")
-    tp_launches = tp_cadc_path(dev, report)
-    mark("tp_cadc")
+    tp_launches, tp_step_launches = tp_cadc_path(dev, report)
+    mark("tp_cadc, the TP train step")
     rec_launches = {}
     for arch, kw in REC_TRAIN.items():
         rec_launches[arch] = lm_train_path(dev, report, arch=arch,
@@ -5144,6 +5509,9 @@ def main() -> None:
     time_lm_kernels(dev, lm_launches, kernels, report)
     rec_step_rows(kernels, rec_launches, report)
     kernels[0]["tp_cadc_launches"] = tp_launches
+    for row in kernels:
+        if row["name"] in ("cadc_matmul_gate", "cadc_segmented_bwd"):
+            row["tp_step_launches_per_rank"] = tp_step_launches[row["name"]]
     torch.cuda.empty_cache()
     mark("kernel timing")
 

@@ -89,13 +89,17 @@ def vconv_matmul(x: Tensor, w: Tensor, *, crossbar_size: int,
 
 
 def cadc_einsum_segments(x_seg: Tensor, w_seg: Tensor,
-                         fn: FnOrName = "relu") -> Tensor:
+                         fn: FnOrName = "relu",
+                         psum_dtype: Optional[torch.dtype] = None) -> Tensor:
     """Pre-segmented form: x_seg [..., S, K], w_seg [S, K, N] -> [..., N]
-    in x_seg.dtype (fp32 psums). The local work of the tensor-parallel
-    CADC linear (parallel/tp_cadc.py), whose segments stay on their
-    device: no collective before f()."""
+    in x_seg.dtype (fp32 psums; `psum_dtype` rounds them to that dtype
+    first, as the LM's bf16_wire stores them). The local work of the
+    tensor-parallel CADC linear (parallel/tp_cadc.py), whose segments stay
+    on their device: no collective before f()."""
     f = _resolve_fn(fn)
     psums = torch.einsum("...sk,skn->...sn", x_seg.float(), w_seg.float())
+    if psum_dtype is not None:
+        psums = psums.to(psum_dtype).float()
     return f(psums).sum(dim=-2).to(x_seg.dtype)
 
 

@@ -1,0 +1,312 @@
+"""Dry run: plan every (arch x shape x mesh) cell at the production meshes
+on the meta device, with no card. Twin of repro.launch.dryrun.
+
+    python -m repro_torch.launch.dryrun --arch gemma3_1b --shape train_4k \
+        --mesh both [--smoke] [--override n_layers=2] [--out DIR]
+
+The JAX package lowers and compiles each cell's step for 256 / 512 fake
+devices and reads XLA's cost analysis. The port has no compiler to ask,
+so it plans a cell as one rank of the mesh sees it:
+
+  * a train cell runs rank 0's step (steps.make_fsdp_train_step: FSDP
+    over "data", TP over "model", DP over "pod") on rank 0's blocks of the
+    fp32 masters and of AdamW's moments and on the global batch, all on
+    the meta device (shapes, no storage), in a process group of 256 / 512
+    ranks whose collectives do nothing (torch's fake process group); the
+    parallel/comm wrappers record each collective's wire bytes per rank
+    by kind, with the ring formulas of the JAX package's
+    parse_collective_bytes. The step runs over one micro and over two, and
+    the bytes of n micros are the first's plus n - 1 times the
+    difference: every micro makes the same collectives (the twin of the
+    JAX dry run's two-probe extrapolation, exact here);
+  * a prefill or decode cell reports the rules' per-rank bytes of its
+    parameters and caches (sharding.cache_specs) and its FLOPs; no step
+    runs (the port's serve steps are single-device).
+
+Every cell reports n_params, n_active_params and model_flops (the JAX
+package's formulas), the per-rank parameter and optimizer bytes under the
+rules, the row-parallel linears that fall back to the gathered activation
+(transformer.tp_fallbacks), and roofline terms with an H100's datasheet
+figures: model FLOPs a chip over the bf16 dense peak; the least bytes a
+chip's step moves (train: its parameter and optimizer blocks read and
+written once; prefill / decode: its parameter and cache blocks read once)
+over the HBM rate; the recorded collective bytes over one NVLink
+direction. These are plans, not measurements. Cells the config skips
+(cfg.shape_cells / skip_reasons) are reported as SKIP. Reports are
+written as JSON under --out (default experiments/dryrun_torch/, ignored
+by git).
+
+A train cell runs cfg.n_microbatches micros, or the most below that
+give every data-parallel rank whole rows of each (mixtral-8x22b's 16
+micros of 256 rows over 512 ranks' 32-way data parallelism: 8), and
+reports the count as n_micro.
+
+--smoke plans the reduced configs at seq_len <= 128 and a global batch of
+the data-parallel size x n_microbatches (train) or <= 8 (prefill /
+decode). The JAX CLI's --audit and --audit-diff modes read XLA's cost
+analysis of unrolled lowerings; they have no counterpart here and are not
+ported.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import os
+import time
+import traceback
+from typing import Any, Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import ARCH_IDS, SHAPES, get_config, smoke_config
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models.lm import transformer as tf
+from repro_torch.parallel import comm, fsdp, sharding
+
+OUT_DIR = os.path.join(os.path.dirname(__file__),
+                       "../../../experiments/dryrun_torch")
+
+# NVIDIA H100 SXM5 80GB datasheet figures, not measurements
+CARD = "NVIDIA H100 SXM5 80GB (datasheet)"
+PEAK_FLOPS = 989e12      # dense bf16 tensor-core FLOP/s
+HBM_BW = 3.35e12         # HBM3 B/s
+LINK_BW = 450e9          # NVLink 4, B/s one direction (900 GB/s both)
+
+
+def model_flops(cfg, shape, n_params: int, n_active: int) -> float:
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                   else 1)
+    per_token = 6 * n_active if shape.kind == "train" else 2 * n_active
+    return float(per_token) * tokens
+
+
+def active_params(cfg, n_params: int) -> int:
+    """MoE: only top-k (+shared) experts are active per token."""
+    if cfg.moe.n_experts == 0:
+        return n_params
+    m = cfg.moe
+    per_expert = 3 * cfg.d_model * m.d_expert
+    return n_params - m.n_experts * per_expert + m.top_k * per_expert
+
+
+def block_bytes(tree, specs, mesh: mesh_lib.Mesh) -> int:
+    """Bytes of one rank's blocks of `tree` under `specs` (each dim
+    divided by the sizes of the axes its spec entry names)."""
+    sizes = mesh_lib.axis_sizes(mesh)
+    leaves = steps_lib._leaves(tree)
+    total = 0
+    for t, spec in zip(leaves, fsdp._spec_leaves(specs)):
+        n = t.numel()
+        for e in spec:
+            for a in (e if isinstance(e, tuple) else (e,)):
+                n //= sizes.get(a, 1) if a is not None else 1
+        total += n * t.element_size()
+    return total
+
+
+@contextlib.contextmanager
+def fake_group(world: int):
+    """A process group of `world` ranks, this process rank 0, whose
+    collectives return at once and move nothing."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("the dry run makes its own process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _cell_config(arch: str, shape_name: str, smoke: bool, overrides):
+    cfg = (smoke_config if smoke else get_config)(arch, **(overrides or {}))
+    shape = SHAPES[shape_name]
+    return cfg, shape
+
+
+def _smoke_shape(shape, dp: int, n_micro: int):
+    batch = (dp * n_micro if shape.kind == "train"
+             else min(shape.global_batch, 8))
+    return dataclasses.replace(shape, seq_len=min(shape.seq_len, 128),
+                               global_batch=batch)
+
+
+def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
+             smoke: bool = False,
+             overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """The plan of one cell (module docstring)."""
+    cfg, shape = _cell_config(arch, shape_name, smoke, overrides)
+    tag = "multi" if multi_pod else "single"
+    if shape_name not in cfg.shape_cells():
+        return {"arch": arch, "shape": shape_name, "mesh": tag,
+                "status": "SKIP", "reason": cfg.skip_reasons()[shape_name]}
+    mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod)
+    sizes = {a: mesh_lib.axis_size(mesh, a) for a in mesh_lib.AXES}
+    dp = sizes["pod"] * sizes["data"]
+    if smoke:
+        shape = _smoke_shape(shape, dp, cfg.n_microbatches)
+    t0 = time.perf_counter()
+
+    params_shape = steps_lib.abstract_params(cfg)
+    n_params = sum(t.numel() for t in steps_lib._leaves(params_shape))
+    n_active = active_params(cfg, n_params)
+    pspecs = sharding.param_specs(params_shape, cfg, mesh)
+    param_bytes = block_bytes(params_shape, pspecs, mesh)
+    report: Dict[str, Any] = {
+        "arch": arch, "shape": shape_name, "mesh": tag, "status": "OK",
+        "n_chips": mesh.size, "mesh_axes": mesh_lib.axis_sizes(mesh),
+        "seq_len": shape.seq_len, "global_batch": shape.global_batch,
+        "n_params": n_params, "n_active_params": n_active,
+        "tp_fallbacks": tf.tp_fallbacks(cfg, sizes),
+    }
+    memory = {"param_bytes_per_rank": param_bytes}
+    coll = None
+    if shape.kind == "train":
+        optimizer = steps_lib.make_optimizer(cfg)
+        opt_bytes = 2 * block_bytes(
+            tf.tree_map(lambda t: t.float(), params_shape), pspecs, mesh)
+        memory["opt_bytes_per_rank"] = opt_bytes
+        with fake_group(mesh.size):
+            dims = fsdp.data_dims(params_shape, cfg, mesh)
+            mdims = fsdp.model_dims(params_shape, cfg, mesh)
+            # every data-parallel rank takes whole rows of each micro: the
+            # micros are cut where the config's would give a rank a part
+            # of a row (JAX's GSPMD splits such a micro unevenly)
+            n_micro = cfg.n_microbatches
+            while shape.global_batch % (n_micro * dp):
+                n_micro -= 1
+            report["n_micro"] = n_micro
+            shards = None
+
+            def run(n):
+                # rank 0's step over n micros of the cell's micro rows
+                nonlocal shards
+                step = steps_lib.make_fsdp_train_step(
+                    cfg, mesh, dims, optimizer=optimizer, n_micro=n)
+                mg = step.mesh_groups
+                shards = steps_lib._rebuild(params_shape, [
+                    fsdp.mesh_block(t, d, md, mg.coords, mg.sizes)
+                    for t, d, md in zip(steps_lib._leaves(params_shape),
+                                        dims, mdims)])
+                rows = shape.global_batch // n_micro
+                batch = steps_lib.input_specs(cfg, dataclasses.replace(
+                    shape, global_batch=rows * n))
+                with comm.record() as tally:
+                    step(shards, optimizer.init(shards), batch, 0)
+                return tally
+
+            one = run(1)
+            two = run(2) if n_micro > 1 else one
+            coll = {k: one[k] + (n_micro - 1) * (two[k] - one[k])
+                    for k in one}
+            memory["shard_bytes_rank0"] = sum(
+                t.numel() * t.element_size()
+                for t in steps_lib._leaves(shards))
+        state_bytes = 2 * (param_bytes + opt_bytes)
+    else:
+        caches = (steps_lib.abstract_caches(cfg, shape.global_batch,
+                                            shape.seq_len)
+                  if shape.kind == "decode" else None)
+        if caches is not None:
+            memory["cache_bytes_per_rank"] = block_bytes(
+                caches, sharding.cache_specs(caches, cfg, mesh,
+                                             shape.global_batch), mesh)
+        report["step"] = ("not run: the port's serve steps are "
+                          "single-device")
+        state_bytes = param_bytes + memory.get("cache_bytes_per_rank", 0)
+    mflops = model_flops(cfg, shape, n_params, n_active)
+    report.update({
+        "plan_s": time.perf_counter() - t0,
+        "memory": memory,
+        "cost": {"model_flops": mflops,
+                 "model_flops_per_chip": mflops / mesh.size,
+                 "least_bytes_per_chip": state_bytes},
+        "collectives": coll,
+        "card": {"name": CARD, "peak_flops": PEAK_FLOPS, "hbm_bw": HBM_BW,
+                 "link_bw": LINK_BW},
+        "roofline_s": {
+            "compute": mflops / mesh.size / PEAK_FLOPS,
+            "memory": state_bytes / HBM_BW,
+            "collective": (coll["total"] / LINK_BW if coll is not None
+                           else None)},
+    })
+    terms = {k: v for k, v in report["roofline_s"].items() if v is not None}
+    report["bottleneck"] = max(terms, key=terms.get)
+    return report
+
+
+def save_report(report: Dict[str, Any], out_dir: str = OUT_DIR) -> str:
+    os.makedirs(out_dir, exist_ok=True)
+    fn = os.path.join(
+        out_dir, f"{report['arch']}__{report['shape']}__{report['mesh']}.json")
+    with open(fn, "w") as f:
+        json.dump(report, f, indent=2)
+    return fn
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None, help="arch id or 'all'")
+    ap.add_argument("--shape", default=None, help="shape name or 'all'")
+    ap.add_argument("--mesh", default="single",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--out", default=OUT_DIR)
+    ap.add_argument("--override", action="append", default=[],
+                    help="cfg override key=value (repeatable)")
+    args = ap.parse_args(argv)
+
+    overrides = {}
+    for ov in args.override:
+        k, v = ov.split("=", 1)
+        try:
+            v = json.loads(v)
+        except json.JSONDecodeError:
+            pass
+        overrides[k] = v
+
+    archs = ARCH_IDS if args.arch in (None, "all") else [args.arch]
+    shapes = list(SHAPES) if args.shape in (None, "all") else [args.shape]
+    meshes = {"single": [False], "multi": [True],
+              "both": [False, True]}[args.mesh]
+    reports = []
+    torch.set_grad_enabled(True)
+    for arch in archs:
+        for shape in shapes:
+            for mp in meshes:
+                tag = f"{arch} x {shape} x {'multi' if mp else 'single'}"
+                try:
+                    rep = run_cell(arch, shape, mp, smoke=args.smoke,
+                                   overrides=overrides)
+                    fn = save_report(rep, args.out)
+                    if rep["status"] == "SKIP":
+                        print(f"[SKIP] {tag}: {rep['reason']}", flush=True)
+                    else:
+                        r = rep["roofline_s"]
+                        coll = ("no step" if r["collective"] is None
+                                else f"{r['collective']:.3e}s")
+                        print(f"[OK]   {tag}: plan={rep['plan_s']:.1f}s "
+                              f"bottleneck={rep['bottleneck']} "
+                              f"compute={r['compute']:.3e}s "
+                              f"memory={r['memory']:.3e}s coll={coll} "
+                              f"-> {fn}", flush=True)
+                except Exception:
+                    print(f"[FAIL] {tag}", flush=True)
+                    traceback.print_exc()
+                    rep = {"arch": arch, "shape": shape,
+                           "mesh": "multi" if mp else "single",
+                           "status": "FAIL",
+                           "error": traceback.format_exc()[-2000:]}
+                    save_report(rep, args.out)
+                reports.append(rep)
+    return reports
+
+
+if __name__ == "__main__":
+    main()

@@ -4,8 +4,9 @@ train_step: microbatched gradient accumulation -> AdamW update, as the JAX
 package's make_train_step (fp32 master parameters, cast to the compute
 dtype inside the differentiated loss, so the gradients reach the masters
 through the cast). make_fsdp_train_step: the same function over the ranks
-of a "data" group, each holding its shards of the masters and of AdamW's
-moments (parallel/fsdp.py) — what the JAX step computes under a mesh.
+of a ("pod", "data", "model") mesh, each holding its blocks of the masters
+and of AdamW's moments (parallel/fsdp.py), tensor-parallel over "model" —
+what the JAX step computes under a mesh.
 prefill_step: the full-sequence forward, last-position logits.
 batched_prefill_step / serve_step (decode): the serving steps. Serving
 takes no gradient, so there the port casts the parameters once, when the
@@ -28,7 +29,7 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.lm import layers as ll
 from repro_torch.models.lm import transformer as tf
-from repro_torch.parallel import comm, fsdp
+from repro_torch.parallel import act_sharding, comm, fsdp
 from repro_torch.train import optimizer as opt_lib
 
 Tensor = torch.Tensor
@@ -159,103 +160,169 @@ def make_train_step(cfg: ArchConfig,
 
 
 def make_fsdp_train_step(cfg: ArchConfig, mesh: mesh_lib.Mesh,
-                         dims: list, group=None,
+                         dims: list,
                          optimizer: Optional[opt_lib.Optimizer] = None,
                          n_micro: Optional[int] = None) -> Callable:
     """train_step(shards, opt_state, batch, step) -> (shards, opt_state,
-    {"loss"}): make_train_step's function over the ranks of the "data"
-    group `group` (default: the default process group), FSDP over it.
+    {"loss"}): make_train_step's function over the ranks of `mesh` ("pod",
+    "data", "model"; rank r at the mesh coordinate r in row-major order,
+    launch/mesh.process_groups, made here by every rank): FSDP over
+    "data", tensor parallelism (TP) over "model", data parallelism over
+    "data" and "pod". The function's `mesh_groups` is this rank's
+    MeshGroups (its coordinates and groups).
 
-    shards: this rank's blocks of the fp32 masters (fsdp.shard by `dims`,
-    fsdp.data_dims under `mesh`); opt_state the moments' blocks. batch:
-    the GLOBAL batch, the same on every rank. Micro i is make_train_step's
-    micro i, rows [i * B / n_micro, (i + 1) * B / n_micro), split over the
-    ranks in rank order (B must divide by n_micro x world, else
-    ValueError). For each micro every leaf is cast to the compute dtype
-    where make_train_step casts it (cast_compute: its blocks, before the
-    wire) and all-gathered; the loss of the rank's rows over world is
-    differentiated with respect to the gathered leaves, and each
-    gradient is reduce-scattered back onto the blocks (all-reduced for a
-    leaf no rank shards) in the compute dtype, then added in fp32: the
-    gradient the cast's backward hands the masters. An MoE block routes
-    over the whole micro (moe.moe_apply's token_group). The clip's global
-    norm is one all-reduce of the shards' squared sums (a whole leaf's
-    counted once); the loss is the mean over the ranks. The collectives
-    run at every world size, one rank included, on the default stream:
-    at world 1 the step is make_train_step's, bitwise.
+    shards: this rank's blocks of the fp32 masters under the sharding
+    rules (fsdp.mesh_block by `dims`, fsdp.data_dims under `mesh`, and
+    fsdp.model_dims); opt_state the moments' blocks. batch: the GLOBAL
+    batch, the same on every rank. Micro i is make_train_step's micro i,
+    rows [i * B / n_micro, (i + 1) * B / n_micro), split over the
+    data-parallel ranks (pod x data, pod-major; B must divide by n_micro x
+    their count, else ValueError); a "model" group reads the same rows.
 
-    Data parallelism over "pod" and tensor parallelism over "model" inside
-    the step are not ported: a mesh with either raises
-    NotImplementedError."""
-    if "pod" in mesh.axis_names or mesh_lib.axis_size(mesh, "model") != 1:
+    For each micro every leaf is cast to the compute dtype where
+    make_train_step casts it (cast_compute: its blocks, before the wire)
+    and all-gathered over "data"; a leaf the TP plan
+    (transformer.tp_leaf_modes) does not use split is all-gathered over
+    "model" too. The layers run in the TP context (parallel.act_sharding:
+    Megatron's column / row / vocab / expert parallel layers over the
+    "model" group, each row-parallel CADC linear on whole local segments
+    or on the gathered activation; the vocab-parallel loss). The loss of
+    the rank's rows over the data-parallel size is differentiated with
+    respect to the gathered leaves; each gradient is summed over "model"
+    where the plan uses the leaf in part (reduce-scattered onto the
+    block, or all-reduced), cut to the rank's block where every rank
+    computes it whole, and reduce-scattered over "data" (all-reduced, in
+    a few flat buckets, for the leaves no rank shards over "data"), in the
+    compute dtype, then added in fp32; the micros' fp32 sums are
+    all-reduced over "pod" once a step, in flat buckets. An
+    MoE block routes over the whole micro (moe.moe_apply's token_group:
+    the data-parallel group). The clip's global norm is one all-reduce
+    of the blocks' squared sums, each block counted once; the loss is the
+    mean over the data-parallel ranks. The collectives run at every world
+    size, one rank included, on the default stream: at world 1 the step
+    is make_train_step's, bitwise.
+
+    Sequence parallelism (cfg.seq_sharding) is not ported: a model axis
+    > 1 with it raises NotImplementedError."""
+    sizes = {a: mesh_lib.axis_size(mesh, a) for a in mesh_lib.AXES}
+    if cfg.seq_sharding and sizes["model"] > 1:
         raise NotImplementedError(
-            f"mesh {mesh_lib.axis_sizes(mesh)}: the step shards over "
-            "'data' only (TP over 'model' and DP over 'pod' are not ported)")
+            "seq_sharding: sequence parallelism over 'model' is not ported")
     optimizer = optimizer or make_optimizer(cfg)
     n_micro = n_micro or cfg.n_microbatches
     cast = ll.cdtype(cfg) if cfg.bf16_wire else None
+    shape = abstract_params(cfg)
+    mdims = fsdp.model_dims(shape, cfg, mesh)
+    plan = tf.tp_leaf_modes(shape, cfg, sizes)
+    if len(dims) != len(plan):
+        raise ValueError(f"{len(dims)} dims for {len(plan)} leaves")
+    # a leaf the plan splits along another dim than the rules store it
+    # (an MoE block's shared expert, which JAX's rules read as a bank) is
+    # gathered, cut, and its gradient summed back over "model"
+    modes = [("cut", cd) if m == "split" and md != cd else (m, cd)
+             for (m, cd), md in zip(plan, mdims)]
+    shape_of = [tuple(x.shape) for x in _leaves(shape)]
+    mg = mesh_lib.process_groups(mesh)
+    grp, at = mg.groups, mg.coords
+    if dist.get_rank() == 0:
+        leaves = dict(collections.Counter(m for m, _ in modes))
+        print(f"tp plan {mesh_lib.axis_sizes(mesh)}: leaves {leaves}; "
+              "row-parallel linears on the gathered activation: "
+              f"{tf.tp_fallbacks(cfg, sizes) or 'none'}", flush=True)
 
     def train_step(shards, opt_state, batch: Dict[str, Tensor], step: int):
-        grp = dist.group.WORLD if group is None else group
-        world, rank = dist.get_world_size(grp), dist.get_rank(grp)
         masters = [p.detach() for p in _leaves(shards)]
         if len(masters) != len(dims):
             raise ValueError(f"{len(masters)} leaves, {len(dims)} dims")
+        dp, r = mg.dp_size(), mg.dp_rank()
         b = next(iter(batch.values())).shape[0]
-        if b % (n_micro * world):
+        if b % (n_micro * dp):
             raise ValueError(f"batch {b} does not divide into {n_micro} "
-                             f"micros over {world} ranks")
-        rows = b // (n_micro * world)
+                             f"micros over {dp} data-parallel ranks")
+        rows = b // (n_micro * dp)
         gsum = [torch.zeros(p.shape, device=p.device) for p in masters]
         lsum = torch.zeros((), device=masters[0].device)
         for i in range(n_micro):
-            lo = (i * world + rank) * rows
+            lo = (i * dp + r) * rows
             micro = {k: v[lo:lo + rows] for k, v in batch.items()}
             with torch.no_grad():
-                live = [fsdp.gather(p.to(cast) if cast and p.dtype ==
-                                    torch.float32 else p, d, grp)
-                        .detach().requires_grad_()
-                        for p, d in zip(masters, dims)]
-            logits, aux = tf.forward_train(_rebuild(shards, live), micro, cfg,
-                                           token_group=grp)
-            loss = tf.lm_loss(logits, micro["labels"])[0] + 0.01 * aux
-            del logits
-            grads = list(torch.autograd.grad(loss / world, live,
-                                             allow_unused=True))
+                live = []
+                for p, d, md, (mode, cd) in zip(masters, dims, mdims, modes):
+                    t = p.to(cast) if cast and p.dtype == torch.float32 \
+                        else p
+                    t = fsdp.gather(t, d, grp["data"])
+                    if mode != "split":
+                        t = fsdp.gather(t, md, grp["model"])
+                    if mode == "cut":
+                        t = comm.block(t, cd, at["model"], sizes["model"])
+                    live.append(t.detach().requires_grad_())
+            with act_sharding.tp_context(sizes, grp["model"], at["model"]):
+                logits, aux = tf.forward_train(_rebuild(shards, live), micro,
+                                               cfg, token_group=grp["dp"])
+                loss = (tf.lm_loss(logits, micro["labels"], cfg=cfg)[0]
+                        + 0.01 * aux)
+                del logits
+                grads = list(torch.autograd.grad(loss / dp, live,
+                                                 allow_unused=True))
             lsum = lsum + loss.detach()
             del loss
             # a gradient autograd hands to two leaves is one tensor: the
-            # in-place all-reduce takes a copy of it
+            # in-place collectives take a copy of it for each
             shared = collections.Counter(id(g) for g in grads)
+            whole = []          # the leaves no rank shards over "data"
             with torch.no_grad():
-                for j, d in enumerate(dims):
+                for j, (d, md, (mode, cd)) in enumerate(zip(dims, mdims,
+                                                            modes)):
                     g = grads[j]
                     if g is None:
                         g = torch.zeros_like(live[j])
+                    elif shared[id(g)] > 1:
+                        g = g.clone(memory_format=torch.contiguous_format)
+                    if mode == "cut":         # back into the whole leaf
+                        full = g.new_zeros(shape_of[j])
+                        comm.block(full, cd, at["model"],
+                                   sizes["model"]).copy_(g)
+                        g, mode = full, "partial"
+                    if mode == "partial":
+                        if md is None:
+                            g = comm.all_reduce(g.contiguous(), grp["model"])
+                        else:
+                            g = comm.reduce_scatter(g, md, grp["model"])
+                    elif md is not None and mode == "full":
+                        g = comm.block(g, md, at["model"], sizes["model"])
                     if d is None:
-                        if shared[id(g)] > 1 or not g.is_contiguous():
-                            g = g.clone(memory_format=torch.contiguous_format)
-                        dist.all_reduce(g, group=grp)
+                        whole.append((j, g))
                     else:
-                        g = comm.reduce_scatter(g, d, grp)
-                    gsum[j] = gsum[j] + g.float()
+                        gsum[j] = gsum[j] + comm.reduce_scatter(
+                            g, d, grp["data"]).float()
                     grads[j] = live[j] = None
+                comm.all_reduce_coalesced([g for _, g in whole],
+                                          grp["data"])
+                for j, g in whole:
+                    gsum[j] = gsum[j] + g.float()
+                del whole
         with torch.no_grad():
+            # data parallelism over "pod": the micros' sums, once a step
+            comm.all_reduce_coalesced(gsum, grp["pod"])
             grads = [g / n_micro for g in gsum]
             del gsum
-            sq = torch.stack([g.float().square().sum()
-                              if d is not None or rank == 0
-                              else g.new_zeros(())
-                              for g, d in zip(grads, dims)])
-            dist.all_reduce(sq, group=grp)
+            first = {a: at[a] == 0 for a in at}
+            sq = torch.stack([
+                g.float().square().sum()
+                if first["pod"] and (d is not None or first["data"])
+                and (md is not None or first["model"])
+                else g.new_zeros(())
+                for g, d, md in zip(grads, dims, mdims)])
+            comm.all_reduce(sq)
             plain = _rebuild(shards, masters)
             updates, opt_state = optimizer.update(
                 _rebuild(shards, grads), opt_state, plain, step,
                 sq_norm=sum(sq.unbind()))
             new = opt_lib.apply_updates(plain, updates)
-            dist.all_reduce(lsum, group=grp)
-        return new, opt_state, {"loss": lsum / world / n_micro}
+            comm.all_reduce(lsum, grp["dp"])
+        return new, opt_state, {"loss": lsum / dp / n_micro}
 
+    train_step.mesh_groups = mg
     return train_step
 
 

@@ -12,9 +12,10 @@ it joins the group from the environment (rank r on cuda:LOCAL_RANK); run
 plainly it makes a group of one rank. The backend follows --device: NCCL
 on cuda, gloo on cpu; a failed init raises (no other backend, no other
 device). The mesh is make_local_mesh() — (world, 1) ("data", "model") —
-or, with --production-mesh, the 16 x 16 pod mesh, which needs 256 ranks
-(ValueError otherwise). The step makes its collectives at every world
-size, one rank included. With a CUDA device and the config's kernel_impl
+or, with --production-mesh, the 16 x 16 pod mesh (FSDP over "data",
+tensor parallelism over "model"), which needs 256 ranks (ValueError
+otherwise). The step makes its collectives at every world size, one rank
+included. With a CUDA device and the config's kernel_impl
 'auto', every CADC linear trains through the CUDA kernels: K1g forward
 (twice a step under remat: the forward and the recompute), K2 backward.
 Fault tolerance, as in the JAX package:
@@ -23,9 +24,9 @@ Fault tolerance, as in the JAX package:
     --ckpt-every steps, keep-k GC; a restart resumes from the newest
     COMPLETE checkpoint. The files hold the unsharded {"params", "opt":
     {"m", "v"}} in the JAX package's pytree layout
-    (transformer.params_to_numpy): every rank gathers the leaves, rank 0
-    writes them, the others wait at a barrier; either package restores
-    the other's;
+    (transformer.params_to_numpy): every rank gathers the leaves (over
+    "data", then "model"), rank 0 writes them, the others wait at a
+    barrier; either package restores the other's;
   * elastic re-lay: every rank restores the whole tree and keeps its
     shards under the CURRENT mesh's rules, whatever world saved the file;
   * the data is a pure function of (seed, step), so a resumed run takes
@@ -134,14 +135,21 @@ def join_group(device: torch.device) -> bool:
     return True
 
 
-def save(ckpt_dir: str, step: int, shards, opt_state, dims, cfg,
-         keep_k: int) -> Optional[str]:
-    """Gather every leaf (one at a time, onto the host) and write the
-    unsharded checkpoint from rank 0; the other ranks wait at a barrier.
-    Returns the file's path on rank 0, None elsewhere."""
+def save(ckpt_dir: str, step: int, shards, opt_state, cfg, keep_k: int,
+         dims, mdims, groups) -> Optional[str]:
+    """Gather every leaf (one at a time, onto the host: its "data" blocks
+    along `dims`, then its "model" blocks along `mdims`, over the mesh's
+    groups `groups`, a launch/mesh.MeshGroups) and write the unsharded
+    checkpoint from rank 0; the other ranks wait at a barrier. Returns the
+    file's path on rank 0, None elsewhere."""
     def whole(tree):
-        it = iter(dims)
-        return tf.tree_map(lambda t: fsdp.gather(t, next(it)).cpu(), tree)
+        it = iter(zip(dims, mdims))
+
+        def one(t):
+            d, md = next(it)
+            t = fsdp.gather(t, d, groups.groups["data"])
+            return fsdp.gather(t, md, groups.groups["model"]).cpu()
+        return tf.tree_map(one, tree)
 
     params = whole(shards)
     opt = {k: whole(v) for k, v in opt_state.items()}
@@ -213,10 +221,13 @@ def _train(args, dev: torch.device) -> Dict[str, Any]:
         f"layers={cfg.n_layers}", flush=True)
 
     optimizer = steps_lib.make_optimizer(cfg)
-    dims = fsdp.data_dims(steps_lib.abstract_params(cfg), cfg, mesh)
+    shape = steps_lib.abstract_params(cfg)
+    dims = fsdp.data_dims(shape, cfg, mesh)
+    mdims = fsdp.model_dims(shape, cfg, mesh)
     train_step = steps_lib.make_fsdp_train_step(cfg, mesh, dims,
                                                 optimizer=optimizer,
                                                 n_micro=args.microbatch)
+    mg = train_step.mesh_groups
     params = tf.init(cfg, seed=0, device=dev)  # fp32 masters, whole
     n_params = sum(t.numel() for t in steps_lib._leaves(params))
     log(f"params: {n_params / 1e6:.1f}M", flush=True)
@@ -227,10 +238,10 @@ def _train(args, dev: torch.device) -> Dict[str, Any]:
             args.ckpt_dir, params, optimizer.init(params), cfg, dev)
         log(f"restored step {start_step} from {args.ckpt_dir}", flush=True)
 
-    def lay(tree):  # this rank's shards under the current mesh's rules
-        it = iter(dims)
-        return tf.tree_map(lambda t: fsdp.shard(t, next(it), rank, world),
-                           tree)
+    def lay(tree):  # this rank's blocks under the current mesh's rules
+        it = iter(zip(dims, mdims))
+        return tf.tree_map(lambda t: fsdp.mesh_block(t, *next(it), mg.coords,
+                                                     mg.sizes), tree)
 
     params = lay(params)
     opt_state = ({k: lay(v) for k, v in opt_state.items()} if opt_state
@@ -253,8 +264,8 @@ def _train(args, dev: torch.device) -> Dict[str, Any]:
                 flush=True)
             history.append({"step": step, "loss": loss, "s": dt})
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            fn = save(args.ckpt_dir, step + 1, params, opt_state, dims, cfg,
-                      args.keep_k)
+            fn = save(args.ckpt_dir, step + 1, params, opt_state, cfg,
+                      args.keep_k, dims, mdims, mg)
             log(f"ckpt -> {fn}", flush=True)
 
     if history:
@@ -264,7 +275,7 @@ def _train(args, dev: torch.device) -> Dict[str, Any]:
             flush=True)
     return {"history": history, "params": params, "opt_state": opt_state,
             "step_s": step_s, "cfg": cfg, "mesh": mesh, "dims": dims,
-            "train_step": train_step}
+            "model_dims": mdims, "train_step": train_step}
 
 
 if __name__ == "__main__":

@@ -18,6 +18,15 @@ new arrays); callers that must keep a cache unchanged pass a copy.
 
 QKV/O projections route through layers.linear_apply, so they are
 CADC-partitioned when the config says so.
+
+Training under the TP context (parallel.act_sharding; the JAX package's
+`_hshard` constraint, heads over "model") runs each rank's block of q
+heads: q column-parallel, k / v column-parallel over the kv heads where
+they divide the axis, else each rank computes the kv heads its q heads
+read (q_head // (H / K)) from the whole weight, then `wo` row-parallel
+(or, where its segments would span ranks, over the gathered heads).
+`heads_split` / `kv_split` / `wo_local` say which, for the layers and the
+train step's plan alike.
 """
 from __future__ import annotations
 
@@ -32,6 +41,8 @@ from repro_torch.kernels import ops as kops
 # while they agree.
 from repro_torch.kernels.paged_attention import _ring_mask, masked_sdpa
 from repro_torch.models.lm import layers as ll
+from repro_torch.parallel import act_sharding as sa
+from repro_torch.parallel import comm
 
 Tensor = torch.Tensor
 
@@ -46,6 +57,63 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig,
         "wv": ll.linear_init(gen, d, k_ * hd, cfg, device, bias=b),
         "wo": ll.linear_init(gen, h * hd, d, cfg, device),
     }
+
+
+def heads_split(cfg: ArchConfig, sizes: Optional[Dict[str, int]] = None
+                ) -> bool:
+    """Whether the q heads are split over "model" (H divides the axis)."""
+    return sa.splits(cfg.n_heads, sizes=sizes, enabled=cfg.act_sharding)
+
+
+def kv_split(cfg: ArchConfig, sizes: Optional[Dict[str, int]] = None
+             ) -> bool:
+    """Whether the kv heads are split too (K divides the axis); else each
+    rank computes the kv heads of its q heads from the whole weight."""
+    return heads_split(cfg, sizes) and sa.splits(
+        cfg.n_kv_heads, sizes=sizes, enabled=cfg.act_sharding)
+
+
+def wo_local(cfg: ArchConfig, model: int) -> bool:
+    """Whether `wo` runs row-parallel on each rank's heads (the heads'
+    features are whole segments on every rank)."""
+    return ll.segment_local(cfg, cfg.n_heads * cfg.head_dim, model)
+
+
+def _kv_heads_of(cfg: ArchConfig, rank: int, model: int):
+    """The kv heads [lo, hi) the q heads of `rank` read, and each local q
+    head's index among them."""
+    h_loc = cfg.n_heads // model
+    group = cfg.n_heads // cfg.n_kv_heads
+    q = range(rank * h_loc, (rank + 1) * h_loc)
+    lo, hi = q[0] // group, q[-1] // group + 1
+    return lo, hi, [j // group - lo for j in q]
+
+
+def _qkv_tp(p, x: Tensor, cfg: ArchConfig, positions: Tensor):
+    """_qkv over this rank's q heads (and the kv heads they read): q, k, v
+    with k / v expanded to one head per q head where the local q heads do
+    not group evenly over them."""
+    ctx = sa.current()
+    t = ctx.sizes["model"]
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads // t, cfg.head_dim
+    x = comm.copy_to(x, ctx.group)
+    q = ll.column_linear(p["wq"], x, cfg).reshape(b, s, h, hd)
+    if kv_split(cfg):
+        kw = {}
+        k_ = cfg.n_kv_heads // t
+    else:
+        lo, hi, idx = _kv_heads_of(cfg, ctx.rank, t)
+        kw = {"cols": (lo * hd, hi * hd)}
+        k_ = hi - lo
+    k = ll.column_linear(p["wk"], x, cfg, **kw).reshape(b, s, k_, hd)
+    v = ll.column_linear(p["wv"], x, cfg, **kw).reshape(b, s, k_, hd)
+    if not kv_split(cfg) and not (
+            h % k_ == 0 and idx == [j // (h // k_) for j in range(h)]):
+        sel = torch.tensor(idx, device=x.device)
+        k, v = k.index_select(2, sel), v.index_select(2, sel)
+    return (ll.rope(q, positions, cfg.rope_theta),
+            ll.rope(k, positions, cfg.rope_theta), v)
 
 
 def _qkv(p, x: Tensor, cfg: ArchConfig, positions: Tensor):
@@ -87,7 +155,8 @@ def _attention_full(p: Dict, x: Tensor, cfg: ArchConfig, *, kind: str,
     cfg.attn_chunk rows against every key (the masks give each chunk
     exactly the JAX package's keys)."""
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, positions)
+    tp = sa.current() is not None and heads_split(cfg)
+    q, k, v = (_qkv_tp if tp else _qkv)(p, x, cfg, positions)
     kpos = torch.arange(s, device=x.device)
     outs = []
     for c0 in range(0, s, cfg.attn_chunk):
@@ -102,6 +171,9 @@ def _attention_full(p: Dict, x: Tensor, cfg: ArchConfig, *, kind: str,
         outs.append(_sdpa(q[:, c0:c0 + qpos.numel()], k, v,
                           mask.expand(b, -1, -1), cfg))
     out = torch.cat(outs, dim=1).reshape(b, s, -1)
+    if tp:
+        local = wo_local(cfg, sa.current().sizes["model"])
+        return ll.row_or_gathered(p["wo"], out, cfg, local), k, v
     return ll.linear_apply(p["wo"], out, cfg), k, v
 
 

@@ -5,12 +5,18 @@ Port of repro.models.lm.layers. Linear weights are stored SEGMENTED
 axis is a real tensor axis, so f() is applied per segment before the
 cross-segment sum. Parameters are plain dicts of tensors with the JAX
 package's names.
+
+Tensor parallelism (inside parallel.act_sharding's context, the LM train
+step's): `column_linear` runs a rank's block of output columns,
+`row_linear` a rank's block of input features (segments, under CADC)
+followed by the all-reduce; `embed` and `lm_head` split the padded vocab
+over "model" (`vocab_split`). Outside the context every layer runs whole.
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -18,6 +24,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import cadc as cadc_lib
 from repro_torch.core import dendritic
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel import act_sharding as sa
+from repro_torch.parallel import comm
+from repro_torch.parallel import tp_cadc
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -145,6 +154,70 @@ def linear_apply(p: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
+# tensor-parallel forms
+# ---------------------------------------------------------------------------
+
+def segment_local(cfg: ArchConfig, features: int, model: int) -> bool:
+    """Whether a row-parallel linear over `features` inputs, split over
+    `model` ranks by its producer, runs on each rank's block: the features
+    divide, and under CADC each rank's slice is whole segments (so S
+    divides too). A crossbar never spans ranks: otherwise the activation
+    is gathered and the layer runs whole (`row_linear`'s fallback)."""
+    if features % model:
+        return False
+    return (cfg.linear_impl != "cadc"
+            or (features // model) % cfg.crossbar_size == 0)
+
+
+def column_linear(p: Params, x: Tensor, cfg: ArchConfig,
+                  cols: Optional[Tuple[int, int]] = None) -> Tensor:
+    """A column-parallel linear on x, already passed through comm.copy_to:
+    p["w"] is this rank's block of output columns, p["b"] (where the layer
+    has one) the whole bias, of which the block's columns are added.
+    `cols` = (lo, hi): p["w"] is the whole weight and the rank computes its
+    columns [lo, hi) (the bias likewise)."""
+    ctx = sa.current()
+    w = p["w"]
+    if cols is not None:
+        w = w[..., cols[0]:cols[1]]
+    q = {"w": w}
+    if "b" in p:
+        q["b"] = (p["b"][cols[0]:cols[1]] if cols is not None
+                  else comm.block(p["b"], 0, ctx.rank, ctx.sizes["model"]))
+    return linear_apply(q, x, cfg)
+
+
+def row_linear(p: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
+    """A row-parallel linear: x [..., F / T] is this rank's block of the
+    input features, p["w"] its block of the weight's rows (segments
+    [S / T, xbar, N] under CADC, which must be whole: segment_local).
+    Each rank's partial product (K1g / K2 over its local segments on the
+    card: tp_cadc.tp_cadc_row_linear) is all-reduced in the compute dtype
+    (comm.reduce_from), then the bias is added."""
+    ctx = sa.current()
+    w, dt = p["w"], cdtype(cfg)
+    if w.ndim == 3:
+        y = tp_cadc.tp_cadc_row_linear(
+            x.to(dt), w.to(dt), group=ctx.group, fn=cfg.dendritic_fn,
+            impl=cfg.kernel_impl, save_gate=cfg.kernel_save_gate,
+            psum_dtype=dt if cfg.bf16_wire else None)
+    else:
+        y = comm.reduce_from(torch.matmul(x.to(dt), w.to(dt)), ctx.group)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def row_or_gathered(p: Params, x: Tensor, cfg: ArchConfig,
+                    local: bool) -> Tensor:
+    """row_linear where the layer is segment-local, else the activation
+    gathered over "model" (comm.gather_from) through the whole weight."""
+    if local:
+        return row_linear(p, x, cfg)
+    return linear_apply(p, comm.gather_from(x, -1, sa.current().group), cfg)
+
+
+# ---------------------------------------------------------------------------
 # RMSNorm
 # ---------------------------------------------------------------------------
 
@@ -167,9 +240,37 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int,
     return {"table": torch.randn(vocab, d, generator=gen, device=device) * 0.02}
 
 
+def vocab_split(cfg: ArchConfig, sizes: Optional[Dict[str, int]] = None
+                ) -> bool:
+    """Whether the table, the head and the loss split the padded vocab over
+    "model" (the JAX package's logits constraint, layers.py:199)."""
+    return sa.splits(cfg.padded_vocab, sizes=sizes,
+                     enabled=cfg.act_sharding)
+
+
+def vocab_range(cfg: ArchConfig) -> Tuple[int, int, int]:
+    """(lo, rows, valid): this rank's first padded-vocab row, its row
+    count, and how many of them are real tokens (< vocab_size)."""
+    ctx = sa.current()
+    rows = cfg.padded_vocab // ctx.sizes["model"]
+    lo = ctx.rank * rows
+    return lo, rows, max(0, min(rows, cfg.vocab_size - lo))
+
+
 def embed(p: Params, tokens: Tensor, cfg: ArchConfig) -> Tensor:
+    """Token embeddings. Vocab-parallel (vocab_split, in the TP context):
+    p["table"] is this rank's rows; ids outside them read zeros and one
+    all-reduce sums the ranks' rows (exact: one rank holds each id)."""
     dt = cdtype(cfg)
-    x = p["table"].to(dt)[tokens]
+    if sa.current() is not None and vocab_split(cfg):
+        lo, rows, _ = vocab_range(cfg)
+        local = tokens - lo
+        inside = (local >= 0) & (local < rows)
+        x = p["table"].to(dt)[local.clamp(0, rows - 1)]
+        x = comm.reduce_from(torch.where(inside[..., None], x,
+                                         x.new_zeros(())), sa.current().group)
+    else:
+        x = p["table"].to(dt)[tokens]
     if cfg.emb_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(dt)
     return x
@@ -182,12 +283,20 @@ def lm_head(p_head: Optional[Params], p_emb: Params, x: Tensor,
     CADC). Either product ends in the compute dtype: a bf16 run rounds the
     logits to bf16 before the fp32 cast, as the JAX package's untied head
     does (so greedy picks break bf16 ties at the first index, as there);
-    fp32 runs are exact."""
+    fp32 runs are exact.
+
+    Vocab-parallel (vocab_split, in the TP context): the rank's block of
+    the table or of the head's columns gives the logits of its vocab rows,
+    of which the real ones (vocab_range) are returned; lm_loss reduces
+    over the ranks."""
+    tp = sa.current() is not None and vocab_split(cfg)
+    if tp:
+        x = comm.copy_to(x, sa.current().group)
     if cfg.tie_embeddings:
         logits = torch.matmul(x, p_emb["table"].to(x.dtype).t()).float()
     else:
         logits = linear_apply(p_head, x, cfg).float()
-    return logits[..., : cfg.vocab_size]
+    return logits[..., : vocab_range(cfg)[2] if tp else cfg.vocab_size]
 
 
 # ---------------------------------------------------------------------------

@@ -28,9 +28,16 @@ the JAX package's order of operations on the CPU:
     scatter-add over the expert-sorted pairs — where a CUDA index_add_
     would add them in an order that changes from run to run.
 The load-balance aux loss is returned as in the JAX package; the serve
-path drops it. The activation-sharding constraints are left out; under
-the data-parallel train step the block routes over the whole batch
-(moe_apply's token_group).
+path drops it. Under the data-parallel train step the block routes over
+the whole batch (moe_apply's token_group). Under the TP context
+(parallel.act_sharding; the JAX package's `_etp` constraint) the block
+is split over "model" (`tp_mode`): expert parallelism where E divides the
+axis — each rank runs its E / T experts on the whole dispatch and the
+ranks' combine rows are summed (one holds each pair: exact) — else
+within-expert TP, gate / up column-parallel and down row-parallel over
+d_expert (or over the gathered hidden where a rank's block is not whole
+segments). The router, the capacity and the aux loss are computed alike
+on every rank of the group.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ from repro_torch.core import cadc as cadc_lib
 from repro_torch.core import dendritic
 from repro_torch.models.lm import ffn as ffn_lib
 from repro_torch.models.lm import layers as ll
+from repro_torch.parallel import act_sharding as sa
 from repro_torch.parallel import comm
 
 Tensor = torch.Tensor
@@ -148,6 +156,23 @@ def capacity(n_tokens: int, cfg: ArchConfig) -> int:
     return max(8, -(-c // 8) * 8)  # multiple of 8, >= 8
 
 
+def tp_mode(cfg: ArchConfig, sizes=None):
+    """"ep" (experts over "model"), "etp" (d_expert over "model") or None
+    (the block runs whole)."""
+    m, on = cfg.moe, cfg.act_sharding
+    if sa.splits(m.n_experts, sizes=sizes, enabled=on):
+        return "ep"
+    if sa.splits(m.d_expert, sizes=sizes, enabled=on):
+        return "etp"
+    return None
+
+
+def down_local(cfg: ArchConfig, model: int) -> bool:
+    """Whether the within-expert TP down product runs on each rank's block
+    of d_expert (whole segments on every rank)."""
+    return ll.segment_local(cfg, cfg.moe.d_expert, model)
+
+
 def _top_k(probs: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     """jax.lax.top_k: the k largest, ties to the lower index first."""
     w, e = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -198,16 +223,45 @@ def moe_apply(p: Dict, x: Tensor, cfg: ArchConfig,
     sink = e_n * c                                         # dropped pairs
     dest = torch.where(pos < c, se * c + pos, sink)
 
+    # the shared experts' gate, replicated over "model", before the TP
+    # region: its gradient and the router's join the region's sum last,
+    # in the order the one-process step adds them
+    if m.n_shared > 0:
+        gate = torch.sigmoid(tokens.float() @ p["shared_gate"].float())
     dt = ll.cdtype(cfg)
+    ctx = sa.current()
+    mode = tp_mode(cfg) if ctx is not None else None
+    shared_tp = (ctx is not None and m.n_shared > 0
+                 and ffn_lib.hidden_split(_shared_cfg(cfg), m.d_shared))
+    # one copy_to for the experts and the shared experts: each reads
+    # `region` where it runs tensor-parallel, `tokens` where replicated
+    region = (comm.copy_to(tokens, ctx.group) if mode or shared_tp
+              else tokens)
+    src = region if mode else tokens
     buf = torch.zeros(sink + 1, d, dtype=dt, device=dev)
-    buf[dest] = tokens[st_].to(dt)
+    buf[dest] = src[st_].to(dt)
     ein = buf[:sink].reshape(e_n, c, d)
 
+    partial = False
+    if mode == "ep":          # this rank's experts [lo, lo + e_loc)
+        e_loc = e_n // ctx.sizes["model"]
+        lo = ctx.rank * e_loc
+        ein = ein[lo:lo + e_loc]
     g = F.silu(_expert_linear(p["w_gate"], ein, cfg))
     u = _expert_linear(p["w_up"], ein, cfg)
-    eout = _expert_linear(p["w_down"], g * u, cfg)         # [E, C, d]
+    if mode == "etp" and not down_local(cfg, ctx.sizes["model"]):
+        eout = _expert_linear(p["w_down"],
+                              comm.gather_from(g * u, -1, ctx.group), cfg)
+    else:
+        eout = _expert_linear(p["w_down"], g * u, cfg)     # [E, C, d]
+        partial = mode is not None
+    if mode == "ep":
+        eout = torch.cat([eout.new_zeros(lo, c, d), eout,
+                          eout.new_zeros(e_n - lo - e_loc, c, d)])
 
     gathered = torch.cat([eout.reshape(sink, d), eout.new_zeros(1, d)])[dest]
+    if partial:               # the ranks' rows (EP) or partial sums
+        gathered = comm.reduce_from(gathered, ctx.group)
     pairs = torch.empty(t * k, d, dtype=torch.float32, device=dev)
     pairs[order] = gathered.float() * sw[:, None]          # pair t*k + j
     by_expert = torch.argsort(top_e, dim=1)
@@ -218,8 +272,9 @@ def moe_apply(p: Dict, x: Tensor, cfg: ArchConfig,
         y = y + pairs[:, j]
 
     if m.n_shared > 0:
-        sh = ffn_lib.ffn_apply(p["shared"], tokens, _shared_cfg(cfg))
-        gate = torch.sigmoid(tokens.float() @ p["shared_gate"].float())
+        sh = ffn_lib.ffn_apply(p["shared"], region if shared_tp else tokens,
+                               _shared_cfg(cfg), d_ff=m.d_shared,
+                               copied=shared_tp)
         y = y + sh.float() * gate
 
     return y.reshape(b, s_, d).to(x.dtype), aux

@@ -34,10 +34,12 @@ the one-token cell Q times and leave their per-token states stacked
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from repro_torch import device as device_lib
@@ -48,6 +50,8 @@ from repro_torch.models.lm import layers as ll
 from repro_torch.models.lm import moe as moe_lib
 from repro_torch.models.lm import rglru as rglru_lib
 from repro_torch.models.lm import xlstm as xlstm_lib
+from repro_torch.parallel import act_sharding
+from repro_torch.parallel import comm
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -309,6 +313,113 @@ def _layer_train(p: Params, x: Tensor, kind: str, cfg: ArchConfig,
     return x, aux
 
 
+def tp_leaf_modes(params_shape: Params, cfg: ArchConfig,
+                  sizes: Dict[str, int]) -> List[Tuple[str, Optional[int]]]:
+    """How forward_train's layers use each leaf under the TP context of a
+    mesh with axis sizes `sizes`, in leaf order (the train step's plan),
+    as (mode, dim):
+
+      ("split", dim) — the rank's block along `dim` over "model" (column-,
+                  row-, vocab- or expert-parallel): its gradient is the
+                  block's, whole;
+      ("partial", None) — the whole leaf, of which the rank uses a part (a
+                  column-parallel layer's bias, the kv weights the q heads
+                  of a rank read): its gradient is summed over "model";
+      ("full", None) — the whole leaf in a part of the model every rank
+                  runs alike (norms, routers, recurrent blocks, the
+                  fallbacks): its gradient is the same on every rank.
+
+    The predicates are the layers' own (layers.vocab_split,
+    attention.heads_split / kv_split / wo_local, ffn.hidden_split /
+    down_local, moe.tp_mode / down_local)."""
+    t = sizes.get("model", 1)
+    vocab = ll.vocab_split(cfg, sizes)
+    heads = attn.heads_split(cfg, sizes)
+    kv = attn.kv_split(cfg, sizes)
+    moe_mode = moe_lib.tp_mode(cfg, sizes)
+    full, partial = ("full", None), ("partial", None)
+
+    def ffn_mode(role, leaf, d_ff, ndim):
+        if not ffn_lib.hidden_split(cfg, d_ff, sizes):
+            return full
+        if role == "w_down":
+            return (("split", 0) if leaf == "w"
+                    and ffn_lib.down_local(cfg, d_ff, t) else full)
+        return ("split", ndim - 1) if leaf == "w" else partial
+
+    def mode(names, ndim):
+        leaf = names[-1]
+        role = names[-2] if leaf in ("w", "b") and len(names) > 1 else leaf
+        if names[0] in ("embed", "head"):
+            return (("split", 0 if names[0] == "embed" else ndim - 1)
+                    if vocab else full)
+        if names[0] != "layers" or len(names) < 4:
+            return full
+        sub = names[2]
+        if sub == "attn" and heads:
+            if role == "wo":
+                return (("split", 0) if leaf == "w"
+                        and attn.wo_local(cfg, t) else full)
+            if leaf == "b":
+                return partial
+            return ("split", ndim - 1) if role == "wq" or kv else partial
+        if sub == "ffn":
+            return ffn_mode(role, leaf, cfg.d_ff, ndim)
+        if sub == "moe" and names[3] == "shared":
+            return ffn_mode(role, leaf, cfg.moe.d_shared, ndim)
+        if sub == "moe" and role in ("w_gate", "w_up", "w_down"):
+            if moe_mode == "ep":
+                return ("split", 0)
+            if moe_mode == "etp":
+                if role != "w_down":
+                    return ("split", ndim - 1)
+                return ("split", 1) if moe_lib.down_local(cfg, t) else full
+        return full
+
+    out: List[Tuple[str, Optional[int]]] = []
+
+    def walk(tree, names):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, names + (str(k),))
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                walk(v, names + (f"[{i}]",))
+        else:
+            out.append(mode(names, tree.ndim))
+
+    walk(params_shape, ())
+    return out
+
+
+def tp_fallbacks(cfg: ArchConfig, sizes: Dict[str, int]) -> List[str]:
+    """The row-parallel linears of `cfg` that run whole on the gathered
+    activation under a "model" axis of sizes["model"] ranks (their
+    producer is split, but a rank's block of their inputs is not whole
+    segments)."""
+    t = sizes.get("model", 1)
+    kinds = set(layout(cfg))
+    out = []
+    if kinds & set(ATTN_KINDS) and attn.heads_split(cfg, sizes) \
+            and not attn.wo_local(cfg, t):
+        out.append("attn.wo")
+    ffn_kinds = ({"rglru"} if cfg.moe.n_experts else
+                 {"rglru"} | set(ATTN_KINDS))
+    if cfg.ffn_type != "none" and kinds & ffn_kinds \
+            and ffn_lib.hidden_split(cfg, cfg.d_ff, sizes) \
+            and not ffn_lib.down_local(cfg, cfg.d_ff, t):
+        out.append("ffn.w_down")
+    if cfg.moe.n_experts and kinds & set(ATTN_KINDS):
+        if (moe_lib.tp_mode(cfg, sizes) == "etp"
+                and not moe_lib.down_local(cfg, t)):
+            out.append("moe.w_down")
+        m = cfg.moe
+        if m.n_shared and ffn_lib.hidden_split(cfg, m.d_shared, sizes) \
+                and not ffn_lib.down_local(cfg, m.d_shared, t):
+            out.append("moe.shared.w_down")
+    return out
+
+
 def forward_train(params: Params, batch: Dict[str, Tensor],
                   cfg: ArchConfig, *, token_group=None
                   ) -> Tuple[Tensor, Tensor]:
@@ -344,20 +455,83 @@ def forward_train(params: Params, batch: Dict[str, Tensor],
     return _head(params, x, cfg), aux
 
 
-def lm_loss(logits: Tensor, labels: Tensor, *, z_loss: float = 1e-4
+class _VocabLse(torch.autograd.Function):
+    """logsumexp over the vocab rows of every rank of `group` (each rank's
+    logits [..., V_r]): the global max and the sum of exp by all-reduce.
+    The operations of torch.logsumexp (log(sum(exp(x - m))) + m, an
+    infinite max taken as 0) and of its backward (g * exp(x - lse)), so a
+    group of one is bitwise torch.logsumexp."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        m = (x.amax(dim=-1) if x.shape[-1] else
+             x.new_full(x.shape[:-1], -math.inf))
+        comm.all_reduce(m, group, dist.ReduceOp.MAX)
+        m = m.masked_fill(m.abs() == math.inf, 0)
+        s = torch.exp(x - m[..., None]).sum(dim=-1)
+        comm.all_reduce(s, group)
+        lse = s.log().add_(m)
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g[..., None] * (x - lse[..., None]).exp(), None
+
+
+def _vocab_parallel_terms(logits: Tensor, labels: Tensor, cfg: ArchConfig):
+    """(lse, the label's logit, the argmax) of vocab-parallel logits (this
+    rank's real rows, layers.vocab_range) over the "model" group."""
+    ctx = act_sharding.current()
+    lo, _, valid = ll.vocab_range(cfg)
+    lse = _VocabLse.apply(logits, ctx.group)
+    local = labels.to(torch.int64) - lo
+    inside = (local >= 0) & (local < valid)
+    idx = local.clamp(0, max(valid - 1, 0))[..., None]
+    picked = (torch.gather(logits, -1, idx)[..., 0] if valid
+              else logits.new_zeros(labels.shape))
+    picked = comm.reduce_from(torch.where(inside, picked,
+                                          picked.new_zeros(())), ctx.group)
+    with torch.no_grad():
+        m = torch.full(labels.shape, -math.inf, device=logits.device)
+        first = torch.full(labels.shape, cfg.padded_vocab,
+                           dtype=torch.int64, device=logits.device)
+        if valid:
+            m, first = logits.max(dim=-1)
+            first = first + lo
+        top = comm.all_reduce(m.clone(), ctx.group, dist.ReduceOp.MAX)
+        first = torch.where(m == top, first, cfg.padded_vocab)
+        comm.all_reduce(first, ctx.group, dist.ReduceOp.MIN)
+    return lse, picked, first
+
+
+def lm_loss(logits: Tensor, labels: Tensor, *, z_loss: float = 1e-4,
+            cfg: Optional[ArchConfig] = None
             ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Causal LM cross-entropy plus z-loss (z_loss * logsumexp^2), averaged
     over the unmasked labels [B, S] (-1 = masked). Returns (loss, {"ce",
-    "acc"}), the metrics detached."""
+    "acc"}), the metrics detached.
+
+    In the TP context, where `cfg` splits the vocab over "model"
+    (layers.vocab_split), `logits` are this rank's vocab rows
+    (forward_train's) and the loss is vocab-parallel: the global max, the
+    sum of exp and the label's logit by all-reduce, the padded rows left
+    out as the head leaves them out; the same value on every rank."""
     mask = (labels >= 0).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    idx = labels.clamp(min=0).to(torch.int64)[..., None]
-    picked = torch.gather(logits, -1, idx)[..., 0]
+    if (cfg is not None and act_sharding.current() is not None
+            and ll.vocab_split(cfg)):
+        lse, picked, top = _vocab_parallel_terms(logits, labels, cfg)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        idx = labels.clamp(min=0).to(torch.int64)[..., None]
+        picked = torch.gather(logits, -1, idx)[..., 0]
+        top = logits.detach().argmax(dim=-1)
     ce = (lse - picked) * mask
     zl = z_loss * lse.square() * mask
     denom = mask.sum().clamp(min=1.0)
     loss = (ce + zl).sum() / denom
-    hit = (logits.detach().argmax(dim=-1) == labels).float() * mask
+    hit = (top == labels).float() * mask
     return loss, {"ce": ce.detach().sum() / denom, "acc": hit.sum() / denom}
 
 

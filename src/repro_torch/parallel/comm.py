@@ -1,11 +1,29 @@
 """The collectives the port's parallel paths make, over a process group.
 
 all_gather / reduce_scatter along any tensor dim (rank r's block is the
-r-th along it: DTensor's Shard(dim) layout), and `gather_rows`, an
-all-gather along dim 0 whose backward is the reduce-scatter of the
-gradient (the sum over ranks of each rank's gradient of its rows).
+r-th along it: DTensor's Shard(dim) layout), all_reduce (sum, max or
+min; `all_reduce_coalesced`: many tensors in a few flat buckets), and the
+differentiable forms the train step's layers use:
+
+  * `gather_rows`: all-gather along dim 0, backward the reduce-scatter of
+    the gradient (the sum over ranks of each rank's gradient of its rows);
+  * Megatron's conjugate pair around a tensor-parallel region:
+    `copy_to` (identity forward, all-reduce backward) in front of a
+    column-parallel layer, `reduce_from` (all-reduce forward, identity
+    backward) after a row-parallel one;
+  * `gather_from`: all-gather along a dim, backward this rank's block of
+    the gradient (each rank holds the whole gradient already).
+
+Every collective goes through `all_gather` / `reduce_scatter` /
+`all_reduce` here, which add its wire bytes per rank to the open
+`record()` tallies, with the ring formulas of the JAX package's dry run
+(`parse_collective_bytes`): all-gather result x (g-1)/g, all-reduce 2 x
+result x (g-1)/g, reduce-scatter the scattered block x (g-1).
 """
 from __future__ import annotations
+
+import contextlib
+from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -18,6 +36,33 @@ _all_gather = getattr(dist, "all_gather_single", None) \
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
     or dist.reduce_scatter_tensor
 
+KINDS = ("all-gather", "all-reduce", "reduce-scatter")
+_TALLIES: List[Dict[str, float]] = []
+
+
+@contextlib.contextmanager
+def record():
+    """Yield a {kind: wire bytes per rank} dict ("total" added on exit)
+    that every collective made while it is open adds to."""
+    tally = {k: 0.0 for k in KINDS}
+    _TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        _TALLIES.remove(tally)
+        tally["total"] = sum(tally[k] for k in KINDS)
+
+
+def _count(kind: str, t: Tensor, world: int) -> None:
+    if not _TALLIES:
+        return
+    size = t.numel() * t.element_size()
+    size *= {"all-gather": (world - 1) / world,
+             "all-reduce": 2 * (world - 1) / world,
+             "reduce-scatter": world - 1}[kind]
+    for tally in _TALLIES:
+        tally[kind] += size
+
 
 def all_gather(t: Tensor, dim: int, group=None) -> Tensor:
     """The ranks' blocks of `t` concatenated along `dim`, in rank order.
@@ -28,6 +73,7 @@ def all_gather(t: Tensor, dim: int, group=None) -> Tensor:
     src = t.contiguous()
     buf = src.new_empty((world, *src.shape))
     _all_gather(buf.flatten(0, 1), src, group=group)  # gloo: the concat form
+    _count("all-gather", buf, world)
     return buf.movedim(0, dim).flatten(dim, dim + 1)
 
 
@@ -40,7 +86,55 @@ def reduce_scatter(t: Tensor, dim: int, group=None) -> Tensor:
         dim, 0).contiguous()
     out = src.new_empty(src.shape[1:])
     _reduce_scatter(out, src.flatten(0, 1), group=group)
+    _count("reduce-scatter", out, world)
     return out
+
+
+def all_reduce(t: Tensor, group=None, op=dist.ReduceOp.SUM) -> Tensor:
+    """t reduced over the group's ranks, in place; returns t."""
+    dist.all_reduce(t, op=op, group=group)
+    _count("all-reduce", t, dist.get_world_size(group))
+    return t
+
+
+def all_reduce_coalesced(ts: List[Tensor], group=None,
+                         bucket_bytes: int = 2 ** 28) -> None:
+    """Each tensor of `ts` summed over the ranks, in place, by one
+    all_reduce a bucket: the tensors of one dtype copied end to end into
+    flat buckets of at most `bucket_bytes` and the sums copied back (a
+    contiguous tensor alone in its bucket, as one larger than that is, is
+    reduced where it lies); an elementwise sum, so each tensor ends as its
+    own all_reduce would leave it. A tensor listed twice is summed once."""
+    by_dtype: Dict[torch.dtype, List[Tensor]] = {}
+    for t in {id(t): t for t in ts}.values():
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group_ts in by_dtype.values():
+        buckets, size = [[]], 0
+        for t in group_ts:
+            n = t.numel() * t.element_size()
+            if buckets[-1] and size + n > bucket_bytes:
+                buckets.append([])
+                size = 0
+            buckets[-1].append(t)
+            size += n
+        for bucket in buckets:
+            if len(bucket) == 1 and bucket[0].is_contiguous():
+                all_reduce(bucket[0], group)     # alone: no copy
+                continue
+            flat = all_reduce(torch.cat([t.reshape(-1) for t in bucket]),
+                              group)
+            for t, part in zip(bucket, flat.split([t.numel()
+                                                   for t in bucket])):
+                t.copy_(part.view(t.shape))
+
+
+def block(t: Tensor, dim: Optional[int], rank: int, world: int) -> Tensor:
+    """Rank `rank`'s block of t along `dim` (a view; t where dim is
+    None)."""
+    if dim is None:
+        return t
+    n = t.shape[dim] // world
+    return t.narrow(dim, rank * n, n)
 
 
 class _GatherRows(torch.autograd.Function):
@@ -59,3 +153,57 @@ def gather_rows(x: Tensor, group=None) -> Tensor:
     differentiable: the backward hands each rank the sum over ranks of the
     gradient of its own rows."""
     return _GatherRows.apply(x, group)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(memory_format=torch.contiguous_format),
+                          ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format),
+                          group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        grp = ctx.group
+        return (block(g, ctx.dim, dist.get_rank(grp),
+                      dist.get_world_size(grp)), None, None)
+
+
+def copy_to(x: Tensor, group) -> Tensor:
+    """x as is; its gradient is the sum of the ranks' gradients (in front
+    of a layer whose ranks each compute part of the output)."""
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(x: Tensor, group) -> Tensor:
+    """The sum of the ranks' x; the gradient passes through unchanged (each
+    rank's partial output gets the whole output's gradient)."""
+    return _ReduceFrom.apply(x, group)
+
+
+def gather_from(x: Tensor, dim: int, group) -> Tensor:
+    """The ranks' blocks of x along `dim`, whole; the gradient is this
+    rank's block of the whole gradient (every rank holds the same one)."""
+    return _GatherFrom.apply(x, dim % x.ndim, group)

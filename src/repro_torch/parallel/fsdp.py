@@ -3,7 +3,9 @@ holds its block of every parameter leaf along the dim the sharding rules
 give "data" (parallel/sharding.py), whole copies of the leaves they leave
 unsharded over "data"; the optimizer state inherits the layout. Rank r's
 block is the r-th along that dim (DTensor's Shard(dim)); the rules'
-divisibility guard makes the blocks equal.
+divisibility guard makes the blocks equal. On a mesh with a "model" axis a
+leaf is also cut along the dim the rules give "model" (`model_dims`,
+`mesh_block`); "pod" holds whole copies.
 
 Trees are the port's params: nested dicts and lists of tensors, flattened
 in launch/steps._leaves order. The data-parallel train step
@@ -36,12 +38,25 @@ def _spec_leaves(specs):
         yield specs
 
 
+def axis_dims(params_shape: Any, cfg: ArchConfig, mesh: Mesh,
+              axis: str) -> List[Optional[int]]:
+    """Each leaf's dim sharded over `axis` under `mesh` (None: a whole copy
+    on every rank of that axis), in leaf order."""
+    specs = sharding.param_specs(params_shape, cfg, mesh)
+    return [sharding.data_dim(s, axis) for s in _spec_leaves(specs)]
+
+
 def data_dims(params_shape: Any, cfg: ArchConfig,
               mesh: Mesh) -> List[Optional[int]]:
     """Each leaf's dim sharded over "data" under `mesh` (None: a whole copy
     on every rank), in leaf order."""
-    specs = sharding.param_specs(params_shape, cfg, mesh)
-    return [sharding.data_dim(s) for s in _spec_leaves(specs)]
+    return axis_dims(params_shape, cfg, mesh, "data")
+
+
+def model_dims(params_shape: Any, cfg: ArchConfig,
+               mesh: Mesh) -> List[Optional[int]]:
+    """Each leaf's dim sharded over "model" under `mesh`, in leaf order."""
+    return axis_dims(params_shape, cfg, mesh, "model")
 
 
 def shard(t: Tensor, dim: Optional[int], rank: int, world: int) -> Tensor:
@@ -50,6 +65,15 @@ def shard(t: Tensor, dim: Optional[int], rank: int, world: int) -> Tensor:
     if dim is None:
         return t
     return t.chunk(world, dim)[rank].clone()
+
+
+def mesh_block(t: Tensor, data_dim: Optional[int],
+               model_dim: Optional[int], coords, sizes) -> Tensor:
+    """The block of t a rank at mesh coordinates `coords` (axis sizes
+    `sizes`) stores: its "data" block, then its "model" block of that (a
+    new tensor)."""
+    t = shard(t, data_dim, coords["data"], sizes["data"])
+    return shard(t, model_dim, coords["model"], sizes["model"])
 
 
 def gather(t: Tensor, dim: Optional[int], group=None) -> Tensor:

@@ -19,7 +19,16 @@ Rank r of a group of T owns segments [r * S / T, (r + 1) * S / T). On the
 card y_loc is one K1 launch (kernels/ops.cadc_matmul) over the rank's
 slice of x and its segments, reshaped to [S_loc * xbar, N]; impl="torch"
 (or a CPU tensor under "auto") runs the plain version,
-core.cadc.cadc_einsum_segments. A forward: it runs without autograd.
+core.cadc.cadc_einsum_segments. `tp_cadc_linear` is a forward: it runs
+without autograd.
+
+`tp_cadc_row_linear` is the differentiable form the LM train step's
+row-parallel layers run (models/lm/layers.row_linear): the rank holds its
+segments' weight block and its segment-aligned slice of the activation,
+K1g runs over them forward and K2 backward (CadcMatmulFn on the local
+[S_loc * xbar, N] block), and Megatron's row-parallel all-reduce
+(comm.reduce_from: the sum forward, the gradient unchanged backward)
+carries the partial outputs in their own dtype.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import torch.distributed as dist
 
 from repro_torch.core import cadc as cadc_lib
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel import comm
 
 Tensor = torch.Tensor
 
@@ -76,6 +86,35 @@ def tp_cadc_linear(x: Tensor, w_seg: Tensor, *, group=None,
     y = y_loc.to(wire_dtype or torch.float32)   # psum-compressed wire
     dist.all_reduce(y, group=group)             # the ONLY collective
     return y.float()
+
+
+def tp_cadc_row_linear(x_loc: Tensor, w_loc: Tensor, *, group,
+                       fn: str = "relu", impl: str = "auto",
+                       save_gate: str = "auto",
+                       psum_dtype: Optional[torch.dtype] = None) -> Tensor:
+    """y[..., N] = all_reduce(sum over the local segments s of
+    f(x_s @ w_s)) over `group`, differentiable.
+
+    x_loc: [..., S_loc * xbar], this rank's slice of the activation, cut
+      on segment boundaries (ValueError otherwise: a crossbar never spans
+      ranks); w_loc: [S_loc, xbar, N], this rank's segments.
+    The product runs in x_loc's dtype with fp32 psums (`psum_dtype`:
+    stored in that dtype first, on the plain path, as linear_apply's
+    bf16_wire does); the all-reduce carries the result in x_loc's dtype.
+    """
+    s_loc, xbar, n = w_loc.shape
+    if x_loc.shape[-1] != s_loc * xbar:
+        raise ValueError(f"x [..., {x_loc.shape[-1]}] is not the {s_loc} "
+                         f"local segments of {xbar} rows")
+    if kops.resolve(impl, x_loc) == "cuda":
+        y = kops.cadc_matmul(x_loc, w_loc.reshape(s_loc * xbar, n),
+                             crossbar_size=xbar, fn=fn, impl=impl,
+                             save_gate=save_gate)
+    else:
+        y = cadc_lib.cadc_einsum_segments(
+            x_loc.reshape(*x_loc.shape[:-1], s_loc, xbar), w_loc, fn,
+            psum_dtype)
+    return comm.reduce_from(y, group)
 
 
 def tp_vconv_linear(x: Tensor, w_seg: Tensor, *, group=None,

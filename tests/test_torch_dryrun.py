@@ -1,0 +1,152 @@
+"""The dry-run twin (repro_torch.launch.dryrun) on the CPU, with no card.
+
+  * a smoke train cell on each production mesh (256 and 512 ranks under
+    torch's fake process group, rank 0's step on the meta device): the
+    step runs, its collectives are recorded, and rank 0's blocks hold the
+    bytes the rules give a rank; the bytes extrapolated from one micro and
+    two equal a three-micro step's; a skipped cell on each mesh;
+  * n_params, n_active_params and model_flops equal to the JAX package's
+    dry run for every architecture and shape at full width (JAX's
+    repro.launch.dryrun sets XLA_FLAGS when imported, so its side runs in
+    a subprocess);
+  * for every architecture at full width on both meshes, the per-rank
+    parameter bytes (block_bytes over the rules' specs) equal the bytes
+    of rank 0's blocks cut by fsdp.mesh_block.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch.distributed as dist
+
+from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import steps
+from repro_torch.parallel import fsdp, sharding
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+JAX_SIDE = """
+import json
+from repro.configs import ARCH_IDS, SHAPES, get_config
+from repro.launch import dryrun
+from repro.launch import steps as steps_lib
+import jax, numpy as np
+out = {}
+for arch in ARCH_IDS:
+    cfg = get_config(arch)
+    shape = steps_lib.abstract_params(cfg)
+    n = sum(int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(shape))
+    act = dryrun.active_params(cfg, n)
+    out[arch] = {"n_params": n, "n_active_params": act,
+                 "model_flops": {s: dryrun.model_flops(cfg, SHAPES[s], n, act)
+                                 for s in SHAPES}}
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_smoke_train_cell_runs_rank0s_step(multi_pod):
+    rep = dryrun.run_cell("gemma3_1b", "train_4k", multi_pod, smoke=True)
+    assert not dist.is_initialized()
+    assert rep["status"] == "OK"
+    assert rep["n_chips"] == (512 if multi_pod else 256)
+    mem = rep["memory"]
+    assert mem["shard_bytes_rank0"] == mem["param_bytes_per_rank"] > 0
+    assert mem["opt_bytes_per_rank"] == 2 * mem["param_bytes_per_rank"]
+    coll = rep["collectives"]
+    assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
+    assert coll["all-reduce"] > 0
+    assert coll["total"] == sum(coll[k] for k in dryrun.comm.KINDS)
+    assert rep["bottleneck"] in rep["roofline_s"]
+    assert rep["global_batch"] == (32 if multi_pod else 16)
+
+
+def test_micros_extrapolate_exactly():
+    """The cell's bytes (rank 0's step over one micro and over two) equal
+    rank 0's step over all three micros, recorded directly."""
+    rep = dryrun.run_cell("gemma3_1b", "train_4k", False, smoke=True,
+                          overrides={"n_microbatches": 3})
+    assert rep["n_micro"] == 3
+    cfg = dryrun._cell_config("gemma3_1b", "train_4k", True,
+                              {"n_microbatches": 3})[0]
+    mesh = mesh_lib.make_production_mesh()
+    shape = steps.abstract_params(cfg)
+    opt = steps.make_optimizer(cfg)
+    with dryrun.fake_group(mesh.size):
+        dims = fsdp.data_dims(shape, cfg, mesh)
+        mdims = fsdp.model_dims(shape, cfg, mesh)
+        step = steps.make_fsdp_train_step(cfg, mesh, dims, optimizer=opt,
+                                          n_micro=3)
+        mg = step.mesh_groups
+        shards = steps._rebuild(shape, [
+            fsdp.mesh_block(t, d, md, mg.coords, mg.sizes)
+            for t, d, md in zip(steps._leaves(shape), dims, mdims)])
+        batch = steps.input_specs(cfg, dataclasses.replace(
+            SHAPES["train_4k"], seq_len=128, global_batch=48))
+        with dryrun.comm.record() as direct:
+            step(shards, opt.init(shards), batch, 0)
+    assert rep["global_batch"] == 48 and rep["seq_len"] == 128
+    assert rep["collectives"] == pytest.approx(direct, rel=1e-12)
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_skipped_cell(multi_pod):
+    rep = dryrun.run_cell("gemma_7b", "long_500k", multi_pod)
+    assert rep["status"] == "SKIP"
+    assert rep["reason"] == get_config("gemma_7b").skip_reasons()["long_500k"]
+    enc = dryrun.run_cell("hubert_xlarge", "decode_32k", multi_pod)
+    assert enc["status"] == "SKIP" and "encoder" in enc["reason"]
+
+
+def test_decode_cell_reports_the_rules_bytes():
+    rep = dryrun.run_cell("gemma3_1b", "decode_32k", False, smoke=True)
+    assert rep["status"] == "OK" and rep["collectives"] is None
+    assert "not run" in rep["step"]
+    assert rep["memory"]["cache_bytes_per_rank"] > 0
+
+
+@pytest.fixture(scope="module")
+def jax_counts():
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", JAX_SIDE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_counts_and_flops_match_jax(arch, jax_counts):
+    cfg = get_config(arch)
+    n = sum(t.numel() for t in steps._leaves(steps.abstract_params(cfg)))
+    act = dryrun.active_params(cfg, n)
+    want = jax_counts[arch]
+    assert n == want["n_params"]
+    assert act == want["n_active_params"]
+    for s in SHAPES:
+        assert dryrun.model_flops(cfg, SHAPES[s], n, act) \
+            == want["model_flops"][s]
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_per_rank_param_bytes_are_the_rules_blocks(arch):
+    cfg = get_config(arch, linear_impl="cadc")
+    shape = steps.abstract_params(cfg)
+    for multi_pod in (False, True):
+        mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod)
+        sizes = {a: mesh_lib.axis_size(mesh, a) for a in mesh_lib.AXES}
+        coords = {a: 0 for a in mesh_lib.AXES}
+        want = sum(
+            fsdp.mesh_block(t, d, md, coords, sizes).numel() * 4
+            for t, d, md in zip(steps._leaves(shape),
+                                fsdp.data_dims(shape, cfg, mesh),
+                                fsdp.model_dims(shape, cfg, mesh)))
+        got = dryrun.block_bytes(shape, sharding.param_specs(shape, cfg,
+                                                             mesh), mesh)
+        assert got == want
+        assert 0 < got < 4 * sum(t.numel() for t in steps._leaves(shape))

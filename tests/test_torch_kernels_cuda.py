@@ -1560,7 +1560,7 @@ def test_conv_bwd_off_16_bytes_takes_the_patches_route(cuda_device):
 
 # ---------------------------------------------------------------------------
 # multi-device training at one rank on NCCL: the tensor-parallel CADC
-# linear and the data-parallel (FSDP) train step
+# linear (no-grad and row-parallel forms) and the mesh train step
 # ---------------------------------------------------------------------------
 
 @pytest.fixture
@@ -1602,12 +1602,54 @@ def test_tp_cadc_linear_one_rank_is_bitwise_k1(nccl_one_rank, m, d, n,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,xbar", [(1024, 256), (6912, 256), (6912, 128)])
+def test_tp_cadc_row_linear_one_rank_is_bitwise_k1g_k2(nccl_one_rank, d,
+                                                        xbar, dtype):
+    """The differentiable row-parallel CADC linear at one rank on NCCL, at
+    gemma3-1b's wo (1024 -> 1152) and w_down (6912 -> 1152) shapes: its
+    local segments are all of them, so its K1g forward and K2 backward
+    are the unsharded ops.cadc_matmul's, bitwise (y, dx, dw), one launch
+    each; the one-rank all_reduce changes nothing."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import tp_cadc
+
+    dev = nccl_one_rank
+    gen = torch.Generator(device=dev).manual_seed(d + xbar)
+    x = torch.randn(512, d, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(d, 1152, generator=gen, device=dev) / d ** 0.5).to(dtype)
+    g = torch.randn(512, 1152, generator=gen, device=dev).to(dtype)
+    out = {}
+    for form in ("tp", "whole"):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        before = (cm.cadc_matmul_gate_cuda.launches,
+                  cm.cadc_segmented_bwd_cuda.launches)
+        if form == "tp":
+            y = tp_cadc.tp_cadc_row_linear(
+                xr, wr.reshape(d // xbar, xbar, 1152),
+                group=dist.group.WORLD, fn="relu")
+        else:
+            y = ops.cadc_matmul(xr, wr, crossbar_size=xbar, fn="relu")
+        y.backward(g)
+        torch.cuda.synchronize()
+        out[form] = (y.detach(), xr.grad, wr.grad,
+                     (cm.cadc_matmul_gate_cuda.launches - before[0],
+                      cm.cadc_segmented_bwd_cuda.launches - before[1]))
+    assert out["tp"][3] == out["whole"][3] == (1, 1)
+    for a, b in zip(out["tp"][:3], out["whole"][:3]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_fsdp_step_one_rank_is_bitwise_the_train_step(nccl_one_rank):
     """gemma3-1b at full width and 2 layers, CADC relu at crossbar 256,
-    bf16 on fp32 masters: steps.make_fsdp_train_step at one rank on NCCL
-    (K1g / K2, the gathers and reduce-scatters as device copies) against
-    steps.make_train_step, 2 steps of 2 x 256 tokens in 2 micros: the
-    losses and every parameter and moment bitwise, the same launches."""
+    bf16 on fp32 masters: steps.make_fsdp_train_step (the TP-aware step:
+    FSDP over "data", the column / row / vocab-parallel layers over a
+    "model" group of one) at one rank on NCCL (K1g / K2, the gathers and
+    reduce-scatters as device copies) against steps.make_train_step, 2
+    steps of 2 x 256 tokens in 2 micros: the losses and every parameter
+    and moment bitwise, the same launches."""
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import steps

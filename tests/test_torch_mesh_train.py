@@ -17,8 +17,9 @@ on the CPU over gloo.
     cpu): a run resumed from the step-2 checkpoint of an unbroken run
     writes that run's step-4 checkpoint bitwise; the world-2 checkpoint restores at worlds 1
     and 4 with every shard bitwise the saved leaf's block under the new
-    mesh's rules; --production-mesh refuses a world other than 256; a mesh
-    with a model axis is refused by the step.
+    mesh's rules; --production-mesh refuses a world other than 256; the
+    step refuses sequence parallelism under a model axis, a mesh the group
+    does not fit and a batch its ranks do not divide.
 
 Every spawn and subprocess has its own timeout (run_ranks: 120 s; the CLI:
 120 s), so a hung collective fails one test.
@@ -181,7 +182,11 @@ def test_step_refuses_what_it_does_not_shard(one_rank_group):
     p = tf.init(cfg, seed=0, device="cpu")
     for mesh in (mesh_lib.Mesh(("data", "model"), (1, 2)),
                  mesh_lib.make_production_mesh(multi_pod=True)):
+        seq = cfg.with_overrides(seq_sharding=True)
         with pytest.raises(NotImplementedError, match="not ported"):
+            steps.make_fsdp_train_step(seq, mesh, fsdp.data_dims(
+                p, seq, mesh))
+        with pytest.raises(ValueError, match="ranks"):
             steps.make_fsdp_train_step(cfg, mesh, fsdp.data_dims(
                 p, cfg, mesh))
     mesh = mesh_lib.make_local_mesh()
