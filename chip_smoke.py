@@ -295,6 +295,26 @@ Slice 10, tensor parallelism over "model" inside the LM step:
      equal, K1g / K2 launches a rank exact; the kernels line's K1g and K2
      rows gain them.
 
+Slice 11, the serving steps over the mesh (launch/steps.py
+make_mesh_prefill_step / make_mesh_serve_step):
+ 35. (after the kernel checks) the twin of examples/quickstart.py on the
+     card: K1 once, within its bound of the sequential oracle;
+ 36. (in main()'s one-rank NCCL group, after gemma3-1b's training)
+     gemma3-1b at full width (26 layers, bf16 on fp32 masters, CADC relu
+     at crossbar 256) at (data 1, model 1): the mesh prefill of 8 prompts
+     of 64..128 tokens and 16 decode steps from the dense caches the
+     one-device batched prefill filled, fed the one-device steps' tokens:
+     logits, tokens and caches bitwise make_prefill_step /
+     make_serve_step, K1 exact on both sides (182 a pass);
+ 37. in phase 32's two spawned ranks, after the TP step, at (data 1,
+     model 2) over gloo: gemma3-1b at 6 layers (both ring kinds
+     length-parallel) and phi4-mini-3.8b at 2 (head-parallel), a prefill
+     and 8 decode steps in fp32 (TF32 off: logits within LOGITS_RTOL of
+     the one-device steps on the card, fed the same tokens) and bf16
+     (reported), K1 a rank exact; the planted merge fault (each rank's
+     own partial softmax) must fail the fp32 gate; the kernels line's K1
+     row gains these launches ("mesh_serve_launches").
+
 The decode profiles (phase 6 and its later twins) count K1 and K6 with
 the wrappers' launch counters over the profiled steps (exact: K1 as
 k1_per_pass says, K6 once an attention layer a step) and report the
@@ -4459,8 +4479,9 @@ def tp_rank(rank: int, store: str, out) -> None:
     """One rank of the 2-rank TP run (a spawned process on the same card,
     gloo over CUDA tensors): every case at fp32 and bf16 wire, K1 counted
     a call; then the TP train step (tp_step_run over TP_STEP_MESH, bf16
-    and fp32, the planted faults in fp32); puts (rank, results) or (rank,
-    the traceback) on `out`."""
+    and fp32, the planted faults in fp32) and the mesh serve steps
+    (tp_serve_run); puts (rank, results) or (rank, the traceback) on
+    `out`."""
     import traceback
 
     try:
@@ -4493,6 +4514,7 @@ def tp_rank(rank: int, store: str, out) -> None:
         res["tp_step"] = {dt: tp_step_run(
             dev, dt, mesh, TP_STEP_FAULTS if dt == "float32" else ())
             for dt in TP_STEP_DTYPES}
+        res["tp_serve"] = tp_serve_run(dev, mesh)
         dist.destroy_process_group()
         out.put((rank, res))
     except BaseException:
@@ -4509,8 +4531,9 @@ def tp_cadc_path(dev, report) -> dict:
     scale and at bf16 wire within TP_BF16_REL relative of the unsharded
     K1, both ranks bitwise equal; then, in the same ranks, the TP train
     step (tp_step_run over TP_STEP_MESH) against the one-rank step run
-    here while they start (tp_step_check). Returns the TP linear's launch
-    counts and the TP step's a rank."""
+    here while they start (tp_step_check), and the mesh serve steps
+    (tp_serve_run, tp_serve_check). Returns the TP linear's launch counts,
+    the TP step's a rank and the serve steps' K1 a rank."""
     import multiprocessing as mp
     import queue
     import shutil
@@ -4572,9 +4595,10 @@ def tp_cadc_path(dev, report) -> dict:
         shutil.rmtree(d, ignore_errors=True)
     two_ranks_s = time.perf_counter() - t1
     step_launches = tp_step_check(got, ref, report)
+    serve_k1 = tp_serve_check(got, report)
     worst = {"fp32": 0.0, "bf16": 0.0}
     for key, res in got[0].items():
-        if key == "tp_step":
+        if key in ("tp_step", "tp_serve"):
             continue
         y0, n0, place = res
         name, m, wire = key
@@ -4608,7 +4632,7 @@ def tp_cadc_path(dev, report) -> dict:
           f"{worst['fp32']:.2e}, bf16 wire relative err {worst['bf16']:.2e}; "
           f"launches {json.dumps(launches)}; {one_rank_s:.1f} s + "
           f"{two_ranks_s:.1f} s", flush=True)
-    return launches, step_launches
+    return launches, step_launches, serve_k1
 
 
 def tp_step_err(ranks, ref) -> float:
@@ -4740,6 +4764,329 @@ def tp_step_check(got, ref, report) -> dict:
                 fail(f"TP step: the planted fault {fault!r} passes the "
                      f"gradient gate ({c['grad_rel_err']} <= "
                      f"{TP_STEP_GRAD_RTOL})")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# slice 11: the serving steps over the mesh
+# ---------------------------------------------------------------------------
+
+# launch/steps.py make_mesh_prefill_step / make_mesh_serve_step. At (data
+# 1, model 1), on main()'s one-rank NCCL group: gemma3-1b at full width
+# (26 layers, bf16 compute on fp32 masters, CADC relu at crossbar 256), one
+# mesh prefill of N_SLOTS prompts of PROMPT_LEN tokens (right-padded to the
+# longest) and MESH_SERVE_STEPS decode steps from the dense caches (rings
+# of MAX_LEN) the one-device batched prefill filled, fed the one-device
+# steps' tokens: bitwise make_prefill_step / make_serve_step, K1 exact
+# (k1_per_pass a pass). In phase 32's two spawned ranks over gloo at
+# (data 1, model 2) (TP_SERVE): gemma3-1b at 6 layers (one 5:1 period:
+# its 1 kv head does not divide 2, its rings of MAX_LEN do, so both ring
+# kinds are length-parallel) and phi4-mini-3.8b at 2 (8 kv heads:
+# head-parallel), in fp32 (TF32 off: prefill and every step's logits
+# within LOGITS_RTOL of the one-device steps on the card) and bf16
+# (reported), TP_SERVE_STEPS steps, K1 a rank exact; the planted fault
+# (attention._merge_partials replaced by the rank's own partial: each
+# rank attends its half of the ring only) must fail the fp32 gate.
+MESH_SERVE_STEPS = 16
+TP_SERVE = {LM_ARCH: 6, "phi4_mini_38b": 2}
+TP_SERVE_STEPS = 8
+TP_SERVE_DTYPES = ("float32", "bfloat16")
+
+
+def serve_cfg(arch: str, layers=None, dtype: str = "bfloat16"):
+    """lm_cfg at `layers` (default: all) in `dtype` (bf16_wire with bf16)."""
+    kw = {"n_layers": layers} if layers else {}
+    return lm_cfg(arch, **kw).with_overrides(
+        dtype=dtype, bf16_wire=dtype == "bfloat16")
+
+
+def serve_prompts(cfg):
+    """N_SLOTS seeded prompts of PROMPT_LEN tokens, right-padded with 0 to
+    the longest: (tokens [N_SLOTS, PROMPT_LEN[1]], lengths)."""
+    rng = np.random.RandomState(31)
+    lengths = rng.randint(PROMPT_LEN[0], PROMPT_LEN[1] + 1, N_SLOTS)
+    tokens = np.zeros((N_SLOTS, PROMPT_LEN[1]), np.int64)
+    for i, n in enumerate(lengths):
+        tokens[i, :n] = rng.randint(0, cfg.vocab_size, n)
+    return tokens, lengths
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def one_device_serve(cfg, params, dev, n_steps: int) -> dict:
+    """make_prefill_step's logits on serve_prompts; the dense caches the
+    batched prefill fills (as the dense backend writes them; its launches
+    left out of the counts); n_steps make_serve_step steps from them, each
+    fed the last step's tokens. Returns the prefill logits, the caches
+    after the prefill ("start"), the fed tokens, each step's logits and
+    tokens, the caches after the steps, ms a step and the launches."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models.lm import transformer as tf
+    from repro_torch.serve.backends import DenseBackend
+
+    tokens, lengths = serve_prompts(cfg)
+    tok = torch.as_tensor(tokens, device=dev)
+    zero_counts()
+    pre = steps_lib.make_prefill_step(cfg)(params, {"tokens": tok})
+    cast = steps_lib.cast_compute(params, cfg)
+    backend = DenseBackend(cfg, N_SLOTS, MAX_LEN, dev)
+    caches = backend.init_caches()
+
+    def fill():
+        nxt, _, contribs = steps_lib.make_batched_prefill_step(cfg)(
+            cast, {"tokens": tok}, torch.as_tensor(lengths, device=dev))
+        backend.write_prefill(caches, contribs, np.arange(N_SLOTS), lengths,
+                              None)
+        return nxt
+
+    nxt = keep_counts(fill)
+    start = tf.copy_caches(caches)
+    serve = steps_lib.make_serve_step(cfg)
+    pos = torch.as_tensor(lengths, dtype=torch.int64, device=dev)
+    out = {"prefill": pre, "start": start, "fed": [], "logits": [],
+           "tokens": [], "ms": []}
+    for i in range(n_steps):
+        out["fed"].append(nxt)
+        (nxt, lg), ms = _timed(lambda: serve(cast, nxt, pos + i, caches))
+        out["logits"].append(lg)
+        out["tokens"].append(nxt)
+        out["ms"].append(ms)
+    out["caches"], out["launches"] = caches, read_counts()
+    return out
+
+
+def mesh_serve(cfg, params, dev, mesh, ref, fault: bool = False) -> dict:
+    """The mesh prefill and serve steps over `mesh` (this process a rank of
+    the default group) on this rank's parameter blocks and its blocks of
+    ref["start"] (steps.cache_blocks), fed ref["fed"]: the prefill
+    logits, each step's logits and tokens, the cache blocks after the
+    steps, ms a step, the attention forms and this rank's launches.
+    fault: with the planted merge fault."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models.lm import attention
+    from repro_torch.models.lm import transformer as tf
+    from repro_torch.parallel import fsdp
+
+    dims = fsdp.data_dims(params, cfg, mesh)
+    mdims = fsdp.model_dims(params, cfg, mesh)
+    prefill = steps_lib.make_mesh_prefill_step(cfg, mesh, dims)
+    serve = steps_lib.make_mesh_serve_step(cfg, mesh, dims, MAX_LEN)
+    mg = serve.mesh_groups
+    shards = steps_lib._rebuild(params, [
+        fsdp.mesh_block(t, d, md, mg.coords, mg.sizes)
+        for t, d, md in zip(steps_lib._leaves(params), dims, mdims)])
+    blocks = steps_lib.cache_blocks(tf.copy_caches(ref["start"]), cfg, mesh,
+                                    N_SLOTS, mg.coords)
+    tokens, lengths = serve_prompts(cfg)
+    pos = torch.as_tensor(lengths, dtype=torch.int64, device=dev)
+    saved = attention._merge_partials
+    if fault:
+        attention._merge_partials = lambda out, top, total, group: out
+    try:
+        zero_counts()
+        pre = prefill(shards, {"tokens": torch.as_tensor(tokens, device=dev)})
+        out = {"prefill": pre, "logits": [], "tokens": [], "ms": []}
+        for i, fed in enumerate(ref["fed"]):
+            (nxt, lg), ms = _timed(lambda: serve(shards, fed, pos + i,
+                                                 blocks))
+            out["logits"].append(lg)
+            out["tokens"].append(nxt)
+            out["ms"].append(ms)
+        out["launches"] = read_counts()
+    finally:
+        attention._merge_partials = saved
+    out["caches"], out["forms"] = blocks, serve.attention_forms
+    return out
+
+
+def serve_launches(cfg, n_steps: int) -> dict:
+    """K1 launches of a prefill step over PROMPT_LEN[1] positions and
+    n_steps decode steps (one device, or a rank of the mesh steps: each
+    CADC linear is one launch a rank, split or whole); nothing else."""
+    want = {k: 0 for k in counters()}
+    want["cadc_matmul"] = (k1_per_pass(cfg, prefill=True,
+                                       tokens=PROMPT_LEN[1])
+                           + n_steps * k1_per_pass(cfg))
+    return want
+
+
+def logits_err(got, ref) -> float:
+    """The largest max |got - want| over max(1, max |want|) over the
+    prefill's and every step's logits."""
+    pairs = [(got["prefill"], ref["prefill"])] + list(zip(got["logits"],
+                                                          ref["logits"]))
+    return max((g.float() - w.float()).abs().max().item()
+               / max(1.0, w.float().abs().max().item()) for g, w in pairs)
+
+
+def mesh_serve_path(dev, report) -> dict:
+    """Slice 11 at (data 1, model 1) on main()'s one-rank NCCL group (see
+    MESH_SERVE_STEPS): the mesh steps bitwise the one-device steps, K1
+    exact on both. Returns the mesh steps' launches."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.lm import transformer as tf
+
+    t0 = time.perf_counter()
+    cfg = serve_cfg(LM_ARCH)
+    params = tf.init(cfg, seed=0, device=dev)      # fp32 masters
+    ref = one_device_serve(cfg, params, dev, MESH_SERVE_STEPS)
+    got = mesh_serve(cfg, params, dev, mesh_lib.Mesh(("data", "model"),
+                                                     (1, 1)), ref)
+    want = serve_launches(cfg, MESH_SERVE_STEPS)
+    for name, run in (("one-device", ref), ("mesh (1, 1)", got)):
+        if run["launches"] != want:
+            fail(f"mesh serve: the {name} steps launched {run['launches']}, "
+                 f"want {want}")
+    same = (torch.equal(got["prefill"], ref["prefill"])
+            and all(torch.equal(a, b) for a, b in zip(got["logits"],
+                                                      ref["logits"]))
+            and all(torch.equal(a, b) for a, b in zip(got["tokens"],
+                                                      ref["tokens"]))
+            and all(torch.equal(x, y) for a, b in zip(got["caches"],
+                                                      ref["caches"])
+                    for x, y in zip(a, b)))
+    if not same:
+        fail(f"mesh serve at (1, 1): not bitwise the one-device steps "
+             f"(logits err / scale {logits_err(got, ref)})")
+    p50 = {k: float(np.median(r["ms"][1:])) for k, r in (("one_device", ref),
+                                                         ("mesh", got))}
+    report["mesh_serve"] = {
+        "arch": cfg.name, "layers": cfg.n_layers, "slots": N_SLOTS,
+        "prompt": PROMPT_LEN[1], "steps": MESH_SERVE_STEPS,
+        "mesh": {"data": 1, "model": 1}, "backend": "nccl",
+        "bitwise": True, "launches": got["launches"]["cadc_matmul"],
+        "forms": got["forms"], "step_ms_p50": p50,
+        "s": time.perf_counter() - t0}
+    print(f"mesh serve ({cfg.name}, {cfg.n_layers} layers, bf16 on fp32 "
+          f"masters, mesh (data 1, model 1) on NCCL): prefill of "
+          f"{N_SLOTS} x {PROMPT_LEN[1]} and {MESH_SERVE_STEPS} decode steps "
+          f"bitwise make_prefill_step / make_serve_step; K1 "
+          f"{want['cadc_matmul']} each; decode step ms p50 mesh "
+          f"{p50['mesh']:.2f} vs one device {p50['one_device']:.2f}; "
+          f"{report['mesh_serve']['s']:.1f} s", flush=True)
+    del params, ref, got
+    torch.cuda.empty_cache()
+    return want["cadc_matmul"]
+
+
+def quickstart_twin(dev, report) -> None:
+    """repro_torch.launch.quickstart on the card: K1 once, within its
+    bound of the sequential oracle."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import quickstart
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = keep_counts(lambda: quickstart.main(["--device", str(dev)]))
+    if out["launches"] != 1 or not out["kernel_err"] < quickstart.KERNEL_TOL:
+        fail(f"quickstart twin: K1 launched {out['launches']} times, err "
+             f"{out['kernel_err']}")
+    report["quickstart"] = out
+    print(f"quickstart twin: K1 once, max |err| vs the oracle "
+          f"{out['kernel_err']:.2e} (tol {quickstart.KERNEL_TOL}); relu "
+          f"psum sparsity {out['sparsity']:.1%}", flush=True)
+
+
+def tp_serve_run(dev, mesh) -> dict:
+    """One rank of slice 11's 2-rank phase (see TP_SERVE): for each config
+    and dtype, the one-device steps on this rank, then the mesh steps
+    (and, for a length-parallel config in fp32, the planted fault), held
+    here against the one-device steps: small results only."""
+    from repro_torch.models.lm import transformer as tf
+
+    out = {}
+    for arch, layers in TP_SERVE.items():
+        for dt in TP_SERVE_DTYPES:
+            cfg = serve_cfg(arch, layers, dt)
+            params = tf.init(cfg, seed=0, device=dev)
+            ref = one_device_serve(cfg, params, dev, TP_SERVE_STEPS)
+            got = mesh_serve(cfg, params, dev, mesh, ref)
+            res = {"err": logits_err(got, ref),
+                   "greedy_equal": sum(bool(torch.equal(a, b)) for a, b in
+                                       zip(got["tokens"], ref["tokens"])),
+                   "launches": got["launches"],
+                   "one_device_launches": ref["launches"],
+                   "forms": got["forms"], "ms": got["ms"],
+                   "one_device_ms": ref["ms"]}
+            if dt == "float32" and "length-parallel" in got["forms"].values():
+                res["fault_err"] = logits_err(
+                    mesh_serve(cfg, params, dev, mesh, ref, fault=True), ref)
+            out[arch, dt] = res
+            del params, ref, got
+            torch.cuda.empty_cache()
+    return out
+
+
+def tp_serve_check(got, report) -> dict:
+    """Slice 11's gates over the two ranks' tp_serve_run results: K1 a
+    rank exact (serve_launches), the one-device runs' too; fp32 within
+    LOGITS_RTOL, the planted fault past it; bf16 reported; the forms
+    (gemma3-1b length-parallel on both kinds, phi4-mini head-parallel).
+    Returns the K1 launches a rank, summed over the runs."""
+    want_forms = {LM_ARCH: {"local": "length-parallel",
+                            "global": "length-parallel"},
+                  "phi4_mini_38b": {"global": "head-parallel"}}
+    out = report["tp_serve"] = {"mesh": {"data": 1, "model": 2},
+                                "backend": "gloo", "runs": {}}
+    total = 0
+    for arch, layers in TP_SERVE.items():
+        for dt in TP_SERVE_DTYPES:
+            cfg = serve_cfg(arch, layers, dt)
+            want = serve_launches(cfg, TP_SERVE_STEPS)
+            runs = [got[r]["tp_serve"][arch, dt] for r in range(TP_RANKS)]
+            for r, run in enumerate(runs):
+                if run["launches"] != want or \
+                        run["one_device_launches"] != want:
+                    fail(f"TP serve {arch} {dt} rank {r}: launched "
+                         f"{run['launches']} (one device "
+                         f"{run['one_device_launches']}), want {want}")
+                if run["forms"] != want_forms[arch]:
+                    fail(f"TP serve {arch}: forms {run['forms']}")
+            total += sum(run["launches"]["cadc_matmul"] for run in runs) \
+                // TP_RANKS
+            err = max(run["err"] for run in runs)
+            fault = [run.get("fault_err") for run in runs]
+            rec = out["runs"][f"{arch}.{dt}"] = {
+                "layers": layers, "err_over_scale": err,
+                "greedy_equal": [run["greedy_equal"] for run in runs],
+                "steps": TP_SERVE_STEPS, "forms": runs[0]["forms"],
+                "k1_per_rank": want["cadc_matmul"], "fault_err": fault,
+                "step_ms_p50": [float(np.median(run["ms"][1:]))
+                                for run in runs],
+                "one_device_step_ms_p50": [
+                    float(np.median(run["one_device_ms"][1:]))
+                    for run in runs]}
+            gated = dt == "float32"
+            print(f"TP serve {arch} ({layers} layers, {dt}, mesh (data 1, "
+                  f"model 2) over gloo, forms {runs[0]['forms']}): prefill "
+                  f"+ {TP_SERVE_STEPS} decode steps, logits err / scale "
+                  f"{err:.2e}" + (f" (tol {LOGITS_RTOL})" if gated
+                                  else " (reported)")
+                  + f"; greedy equal {rec['greedy_equal']} of "
+                  f"{TP_SERVE_STEPS}; K1 {want['cadc_matmul']} a rank"
+                  + (f"; planted merge fault {max(fault):.2e}"
+                     if fault[0] is not None else "")
+                  + f"; step ms p50 {rec['step_ms_p50']} a rank (gloo "
+                  f"through the host) vs one device "
+                  f"{rec['one_device_step_ms_p50']}", flush=True)
+            if not gated:
+                continue
+            if not err <= LOGITS_RTOL:
+                fail(f"TP serve {arch} fp32: logits err / scale {err} > "
+                     f"{LOGITS_RTOL}")
+            if (arch == LM_ARCH) != (fault[0] is not None):
+                fail(f"TP serve {arch}: the planted fault ran {fault}")
+            if fault[0] is not None and not min(fault) > LOGITS_RTOL:
+                fail(f"TP serve: the planted merge fault passes the fp32 "
+                     f"gate ({fault} <= {LOGITS_RTOL})")
     return total
 
 
@@ -5440,7 +5787,8 @@ def main() -> None:
     check_k6(cfg, dev, report)
     check_k1g_k2(dev, report)
     check_k3(dev, report)
-    mark("kernel checks (K1, K6, K1g / K2, K3)")
+    quickstart_twin(dev, report)
+    mark("kernel checks (K1, K6, K1g / K2, K3), the quickstart twin")
 
     params = tf.init(cfg, seed=0, device=dev)        # fp32, random weights
     launches, base = serve_main_path(cfg, params, dev, report)
@@ -5479,8 +5827,10 @@ def main() -> None:
                             world_size=1, device_id=dev)
     lm_launches = lm_train_path(dev, report)
     mark("gemma3-1b LM training")
-    tp_launches, tp_step_launches = tp_cadc_path(dev, report)
-    mark("tp_cadc, the TP train step")
+    mesh_serve_k1 = mesh_serve_path(dev, report)
+    mark("the mesh serve steps at (1, 1)")
+    tp_launches, tp_step_launches, tp_serve_k1 = tp_cadc_path(dev, report)
+    mark("tp_cadc, the TP train step, the TP serve steps")
     rec_launches = {}
     for arch, kw in REC_TRAIN.items():
         rec_launches[arch] = lm_train_path(dev, report, arch=arch,
@@ -5509,6 +5859,8 @@ def main() -> None:
     time_lm_kernels(dev, lm_launches, kernels, report)
     rec_step_rows(kernels, rec_launches, report)
     kernels[0]["tp_cadc_launches"] = tp_launches
+    kernels[0]["mesh_serve_launches"] = {
+        "one_rank": mesh_serve_k1, "two_ranks_per_rank": tp_serve_k1}
     for row in kernels:
         if row["name"] in ("cadc_matmul_gate", "cadc_segmented_bwd"):
             row["tp_step_launches_per_rank"] = tp_step_launches[row["name"]]

@@ -107,22 +107,53 @@ def _ring_mask(pos: Tensor, idx: Tensor, *, kind: str, ring_len: int,
     return idx <= qp
 
 
+def _masked_scores(q: Tensor, k: Tensor, valid: Tensor,
+                   softcap: Optional[float]) -> Tensor:
+    """masked_sdpa's fp32 scores [B, K, G, C, L] (G = H / K), NEG_INF
+    where `valid` is False."""
+    b, c, h, hd = q.shape
+    k_ = k.shape[2]
+    qg = q.reshape(b, c, k_, h // k_, hd)
+    scores = torch.einsum("bckgd,blkd->bkgcl", qg.float(), k.float())
+    scores = _softcap(scores * (hd ** -0.5), softcap)
+    return torch.where(valid[:, None, None], scores, NEG_INF)
+
+
+def _weighted_v(probs: Tensor, v: Tensor) -> Tensor:
+    """probs [B, K, G, C, L] rounded to v.dtype, times v [B, L, K, hd] in
+    fp32: [B, C, H, hd] fp32."""
+    out = torch.einsum("bkgcl,blkd->bckgd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.flatten(2, 3)
+
+
 def masked_sdpa(q: Tensor, k: Tensor, v: Tensor, valid: Tensor,
                 softcap: Optional[float]) -> Tensor:
     """q [B, C, H, hd], k/v [B, L, K, hd], valid [B, C, L] bool (True =
     keep) -> [B, C, H, hd] in q.dtype. The forms of the JAX `_sdpa`: fp32
     scores, softcap, NEG_INF masking, softmax, probabilities rounded to
     v.dtype before an fp32-accumulated PV product."""
-    b, c, h, hd = q.shape
-    k_ = k.shape[2]
-    qg = q.reshape(b, c, k_, h // k_, hd)
-    scores = torch.einsum("bckgd,blkd->bkgcl", qg.float(), k.float())
-    scores = _softcap(scores * (hd ** -0.5), softcap)
-    scores = torch.where(valid[:, None, None], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgcl,blkd->bckgd", probs.to(v.dtype).float(),
-                       v.float())
-    return out.reshape(b, c, h, hd).to(q.dtype)
+    scores = _masked_scores(q, k, valid, softcap)
+    return _weighted_v(torch.softmax(scores, dim=-1), v).to(q.dtype)
+
+
+def partial_sdpa(q: Tensor, k: Tensor, v: Tensor, valid: Tensor,
+                 softcap: Optional[float]) -> Tuple[Tensor, Tensor, Tensor]:
+    """masked_sdpa over one block of the keys, for a merge with the other
+    blocks' (the length-parallel decode, models/lm/attention.py): (the
+    block's output in fp32 [B, C, H, hd], the scores' max over the block
+    and the sum of exp(score - max) [B, C, H]). A block with no valid
+    entry has max NEG_INF and its softmax is uniform, as masked_sdpa's."""
+    b, c, h, _ = q.shape
+    scores = _masked_scores(q, k, valid, softcap)
+    top = scores.amax(dim=-1)
+    total = torch.exp(scores - top[..., None]).sum(dim=-1)
+    out = _weighted_v(torch.softmax(scores, dim=-1), v)
+
+    def per_head(t):                   # [B, K, G, C] -> [B, C, H]
+        return t.permute(0, 3, 1, 2).reshape(b, c, h)
+
+    return out, per_head(top), per_head(total)
 
 
 def paged_attention_torch(q: Tensor, k_pool: Tensor, v_pool: Tensor,

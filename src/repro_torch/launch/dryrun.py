@@ -19,9 +19,16 @@ so it plans a cell as one rank of the mesh sees it:
     the bytes of n micros are the first's plus n - 1 times the
     difference: every micro makes the same collectives (the twin of the
     JAX dry run's two-probe extrapolation, exact here);
-  * a prefill or decode cell reports the rules' per-rank bytes of its
-    parameters and caches (sharding.cache_specs) and its FLOPs; no step
-    runs (the port's serve steps are single-device).
+  * a prefill or decode cell runs rank 0's serving step the same way
+    (steps.make_mesh_prefill_step / make_mesh_serve_step: the parameters'
+    blocks gathered a call, TP over "model", DP over "data" and "pod")
+    on rank 0's parameter blocks and, for a decode cell, its blocks of the
+    dense caches under sharding.cache_specs (steps.cache_blocks), once,
+    inside the same record: a step has no micros. It reports the form
+    each attention kind took ("attention_forms": head-parallel,
+    length-parallel or replicated; attention.decode_form for a decode,
+    the train form for a prefill) and the bytes of rank 0's cache blocks
+    beside the rules' per-rank cache bytes.
 
 Every cell reports n_params, n_active_params and model_flops (the JAX
 package's formulas), the per-rank parameter and optimizer bytes under the
@@ -166,7 +173,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         "tp_fallbacks": tf.tp_fallbacks(cfg, sizes),
     }
     memory = {"param_bytes_per_rank": param_bytes}
-    coll = None
     if shape.kind == "train":
         optimizer = steps_lib.make_optimizer(cfg)
         opt_bytes = 2 * block_bytes(
@@ -210,15 +216,39 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
                 for t in steps_lib._leaves(shards))
         state_bytes = 2 * (param_bytes + opt_bytes)
     else:
-        caches = (steps_lib.abstract_caches(cfg, shape.global_batch,
-                                            shape.seq_len)
-                  if shape.kind == "decode" else None)
-        if caches is not None:
-            memory["cache_bytes_per_rank"] = block_bytes(
-                caches, sharding.cache_specs(caches, cfg, mesh,
-                                             shape.global_batch), mesh)
-        report["step"] = ("not run: the port's serve steps are "
-                          "single-device")
+        decode = shape.kind == "decode"
+        with fake_group(mesh.size):
+            dims = fsdp.data_dims(params_shape, cfg, mesh)
+            mdims = fsdp.model_dims(params_shape, cfg, mesh)
+            step = (steps_lib.make_mesh_serve_step(cfg, mesh, dims,
+                                                   shape.seq_len)
+                    if decode else
+                    steps_lib.make_mesh_prefill_step(cfg, mesh, dims))
+            mg = step.mesh_groups
+            shards = steps_lib._rebuild(params_shape, [
+                fsdp.mesh_block(t, d, md, mg.coords, mg.sizes)
+                for t, d, md in zip(steps_lib._leaves(params_shape), dims,
+                                    mdims)])
+            inputs = steps_lib.input_specs(cfg, shape)
+            if decode:
+                caches = steps_lib.abstract_caches(cfg, shape.global_batch,
+                                                   shape.seq_len)
+                memory["cache_bytes_per_rank"] = block_bytes(
+                    caches, sharding.cache_specs(caches, cfg, mesh,
+                                                 shape.global_batch), mesh)
+                blocks = steps_lib.cache_blocks(caches, cfg, mesh,
+                                                shape.global_batch,
+                                                mg.coords)
+                memory["cache_block_bytes_rank0"] = sum(
+                    t.numel() * t.element_size()
+                    for t in steps_lib._leaves(blocks))
+                with comm.record() as coll:
+                    step(shards, inputs["tokens"], inputs["position"],
+                         blocks)
+            else:
+                with comm.record() as coll:
+                    step(shards, inputs)
+        report["attention_forms"] = step.attention_forms
         state_bytes = param_bytes + memory.get("cache_bytes_per_rank", 0)
     mflops = model_flops(cfg, shape, n_params, n_active)
     report.update({
@@ -233,10 +263,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         "roofline_s": {
             "compute": mflops / mesh.size / PEAK_FLOPS,
             "memory": state_bytes / HBM_BW,
-            "collective": (coll["total"] / LINK_BW if coll is not None
-                           else None)},
+            "collective": coll["total"] / LINK_BW},
     })
-    terms = {k: v for k, v in report["roofline_s"].items() if v is not None}
+    terms = report["roofline_s"]
     report["bottleneck"] = max(terms, key=terms.get)
     return report
 
@@ -289,12 +318,14 @@ def main(argv=None) -> list:
                         print(f"[SKIP] {tag}: {rep['reason']}", flush=True)
                     else:
                         r = rep["roofline_s"]
-                        coll = ("no step" if r["collective"] is None
-                                else f"{r['collective']:.3e}s")
+                        forms = "".join(
+                            f" {k}={v}" for k, v in
+                            rep.get("attention_forms", {}).items())
                         print(f"[OK]   {tag}: plan={rep['plan_s']:.1f}s "
                               f"bottleneck={rep['bottleneck']} "
                               f"compute={r['compute']:.3e}s "
-                              f"memory={r['memory']:.3e}s coll={coll} "
+                              f"memory={r['memory']:.3e}s "
+                              f"coll={r['collective']:.3e}s{forms} "
                               f"-> {fn}", flush=True)
                 except Exception:
                     print(f"[FAIL] {tag}", flush=True)

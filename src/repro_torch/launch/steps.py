@@ -12,6 +12,11 @@ batched_prefill_step / serve_step (decode): the serving steps. Serving
 takes no gradient, so there the port casts the parameters once, when the
 engine is built (`cast_compute`), and the steps take the cast parameters:
 every product sees the values a per-step cast would give.
+make_mesh_prefill_step / make_mesh_serve_step: prefill_step and
+serve_step over the ranks of a ("pod", "data", "model") mesh, as the JAX
+package's dry run shards its steps: the parameters' blocks gathered a
+call, TP over "model", DP over "data" and "pod", the dense caches in
+blocks under the cache rule (`cache_blocks`).
 
 abstract_params / abstract_opt_state / abstract_caches / input_specs: the
 trees on the "meta" device (shapes and dtypes, no storage), what the
@@ -27,9 +32,10 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models.lm import attention as attn
 from repro_torch.models.lm import layers as ll
 from repro_torch.models.lm import transformer as tf
-from repro_torch.parallel import act_sharding, comm, fsdp
+from repro_torch.parallel import act_sharding, comm, fsdp, sharding
 from repro_torch.train import optimizer as opt_lib
 
 Tensor = torch.Tensor
@@ -75,6 +81,18 @@ def abstract_caches(cfg: ArchConfig, batch: int, seq_len: int):
 
 def abstract_opt_state(optimizer: opt_lib.Optimizer, params_shape):
     return optimizer.init(params_shape)
+
+
+def cache_blocks(caches, cfg: ArchConfig, mesh: mesh_lib.Mesh, batch: int,
+                 coords) -> list:
+    """The blocks of dense caches of a global `batch` that the rank at mesh
+    coordinates `coords` holds under sharding.cache_specs (the mesh serve
+    step's caches)."""
+    specs = sharding.cache_specs(caches, cfg, mesh, batch)
+    sizes = mesh_lib.axis_sizes(mesh)
+    return [type(c)(*(fsdp.spec_block(t, spec, coords, sizes)
+                      for t, spec in zip(c, cs)))
+            for c, cs in zip(caches, specs)]
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +177,49 @@ def make_train_step(cfg: ArchConfig,
     return train_step
 
 
+def _mesh_plan(cfg: ArchConfig, mesh: mesh_lib.Mesh, dims: list,
+               leaf_modes) -> tuple:
+    """(the axis sizes, the abstract params, each leaf's "model" dim under
+    the rules, each leaf's (mode, dim) under the plan `leaf_modes`
+    (transformer.tp_leaf_modes or serve_leaf_modes)) of a step over `mesh`.
+    A leaf the plan splits along another dim than the rules store it (an
+    MoE block's shared expert, which JAX's rules read as a bank) is
+    ("cut", dim): gathered, then cut. Sequence parallelism is not ported:
+    cfg.seq_sharding under a "model" axis > 1 raises NotImplementedError."""
+    sizes = {a: mesh_lib.axis_size(mesh, a) for a in mesh_lib.AXES}
+    if cfg.seq_sharding and sizes["model"] > 1:
+        raise NotImplementedError(
+            "seq_sharding: sequence parallelism over 'model' is not ported")
+    shape = abstract_params(cfg)
+    mdims = fsdp.model_dims(shape, cfg, mesh)
+    plan = leaf_modes(shape, cfg, sizes)
+    if len(dims) != len(plan):
+        raise ValueError(f"{len(dims)} dims for {len(plan)} leaves")
+    modes = [("cut", cd) if m == "split" and md != cd else (m, cd)
+             for (m, cd), md in zip(plan, mdims)]
+    return sizes, shape, mdims, modes
+
+
+def _gather_leaves(blocks: list, cfg: ArchConfig, dims: list, mdims: list,
+                   modes: list, mg: mesh_lib.MeshGroups) -> list:
+    """The leaves a step's layers read, from this rank's blocks: each cast
+    to the compute dtype where cast_compute casts it (its block, before the
+    wire), all-gathered over "data", and over "model" where the plan does
+    not read it split ("cut": then this rank's block along the plan's
+    dim)."""
+    cast = ll.cdtype(cfg) if cfg.bf16_wire else None
+    out = []
+    for p, d, md, (mode, cd) in zip(blocks, dims, mdims, modes):
+        t = p.to(cast) if cast and p.dtype == torch.float32 else p
+        t = fsdp.gather(t, d, mg.groups["data"])
+        if mode != "split":
+            t = fsdp.gather(t, md, mg.groups["model"])
+        if mode == "cut":
+            t = comm.block(t, cd, mg.coords["model"], mg.sizes["model"])
+        out.append(t)
+    return out
+
+
 def make_fsdp_train_step(cfg: ArchConfig, mesh: mesh_lib.Mesh,
                          dims: list,
                          optimizer: Optional[opt_lib.Optimizer] = None,
@@ -204,23 +265,10 @@ def make_fsdp_train_step(cfg: ArchConfig, mesh: mesh_lib.Mesh,
 
     Sequence parallelism (cfg.seq_sharding) is not ported: a model axis
     > 1 with it raises NotImplementedError."""
-    sizes = {a: mesh_lib.axis_size(mesh, a) for a in mesh_lib.AXES}
-    if cfg.seq_sharding and sizes["model"] > 1:
-        raise NotImplementedError(
-            "seq_sharding: sequence parallelism over 'model' is not ported")
     optimizer = optimizer or make_optimizer(cfg)
     n_micro = n_micro or cfg.n_microbatches
-    cast = ll.cdtype(cfg) if cfg.bf16_wire else None
-    shape = abstract_params(cfg)
-    mdims = fsdp.model_dims(shape, cfg, mesh)
-    plan = tf.tp_leaf_modes(shape, cfg, sizes)
-    if len(dims) != len(plan):
-        raise ValueError(f"{len(dims)} dims for {len(plan)} leaves")
-    # a leaf the plan splits along another dim than the rules store it
-    # (an MoE block's shared expert, which JAX's rules read as a bank) is
-    # gathered, cut, and its gradient summed back over "model"
-    modes = [("cut", cd) if m == "split" and md != cd else (m, cd)
-             for (m, cd), md in zip(plan, mdims)]
+    sizes, shape, mdims, modes = _mesh_plan(cfg, mesh, dims,
+                                            tf.tp_leaf_modes)
     shape_of = [tuple(x.shape) for x in _leaves(shape)]
     mg = mesh_lib.process_groups(mesh)
     grp, at = mg.groups, mg.coords
@@ -246,16 +294,8 @@ def make_fsdp_train_step(cfg: ArchConfig, mesh: mesh_lib.Mesh,
             lo = (i * dp + r) * rows
             micro = {k: v[lo:lo + rows] for k, v in batch.items()}
             with torch.no_grad():
-                live = []
-                for p, d, md, (mode, cd) in zip(masters, dims, mdims, modes):
-                    t = p.to(cast) if cast and p.dtype == torch.float32 \
-                        else p
-                    t = fsdp.gather(t, d, grp["data"])
-                    if mode != "split":
-                        t = fsdp.gather(t, md, grp["model"])
-                    if mode == "cut":
-                        t = comm.block(t, cd, at["model"], sizes["model"])
-                    live.append(t.detach().requires_grad_())
+                live = [t.detach().requires_grad_() for t in _gather_leaves(
+                    masters, cfg, dims, mdims, modes, mg)]
             with act_sharding.tp_context(sizes, grp["model"], at["model"]):
                 logits, aux = tf.forward_train(_rebuild(shards, live), micro,
                                                cfg, token_group=grp["dp"])
@@ -363,4 +403,105 @@ def make_serve_step(cfg: ArchConfig) -> Callable:
         logits = tf.decode_step(params, tokens, position, caches, cfg)
         return torch.argmax(logits, dim=-1).to(torch.int32), logits
 
+    return serve_step
+
+
+def _dp_rows(b: int, mg: mesh_lib.MeshGroups):
+    """The rows of a global batch of `b` this rank runs, and the group an
+    MoE block routes over: its data-parallel block where b divides the DP
+    size (the batch rule of sharding.cache_specs; the "dp" group holds the
+    other blocks), else every row and no group."""
+    dp = mg.dp_size()
+    if b % dp == 0 and b >= dp:
+        n = b // dp
+        return slice(mg.dp_rank() * n, (mg.dp_rank() + 1) * n), \
+            mg.groups["dp"]
+    return slice(None), None
+
+
+def make_mesh_prefill_step(cfg: ArchConfig, mesh: mesh_lib.Mesh,
+                           dims: list) -> Callable:
+    """prefill_step(shards, batch) -> next-token logits [b, V]:
+    make_prefill_step's function over the ranks of `mesh` (as
+    make_fsdp_train_step: rank r at mesh coordinate r, its `mesh_groups`
+    this rank's groups). shards: this rank's blocks of the parameters
+    (fsdp.mesh_block by `dims` and fsdp.model_dims); batch: the GLOBAL
+    batch. Each call casts the leaves as cast_compute does and gathers
+    them whole over "data", and over "model" where the train plan
+    (transformer.tp_leaf_modes) does not split them; forward_train then
+    runs in the TP context with no gradient (K1 on the card) over this
+    rank's rows (_dp_rows: its data-parallel block, or every row where
+    the batch does not divide), an MoE block routing over the whole
+    batch; the last position's vocab-parallel logits are gathered over
+    "model" into the logical vocab. Returns this rank's rows; every rank
+    of a "model" group the same. At world 1 it is make_prefill_step's,
+    bitwise. `attention_forms`: each attention kind's form."""
+    sizes, _, mdims, modes = _mesh_plan(cfg, mesh, dims, tf.tp_leaf_modes)
+    mg = mesh_lib.process_groups(mesh)
+    heads = attn.heads_split(cfg, sizes)
+
+    @torch.no_grad()
+    def prefill_step(shards, batch: Dict[str, Tensor]):
+        live = _gather_leaves(_leaves(shards), cfg, dims, mdims, modes, mg)
+        rows, group = _dp_rows(next(iter(batch.values())).shape[0], mg)
+        with act_sharding.tp_context(sizes, mg.groups["model"],
+                                     mg.coords["model"]):
+            logits, _ = tf.forward_train(
+                _rebuild(shards, live), {k: v[rows] for k, v in batch.items()},
+                cfg, token_group=group)
+            return ll.gather_logits(logits[:, -1], cfg)
+
+    prefill_step.mesh_groups = mg
+    prefill_step.attention_forms = {
+        kind: "head-parallel" if heads else "replicated"
+        for kind in tf.ATTN_KINDS if kind in tf.layout(cfg)}
+    return prefill_step
+
+
+def make_mesh_serve_step(cfg: ArchConfig, mesh: mesh_lib.Mesh, dims: list,
+                         seq_len: int) -> Callable:
+    """serve_step(shards, tokens, position, caches) -> (next tokens [b],
+    logits [b, V]): make_serve_step's decode step over the ranks of
+    `mesh`, on dense caches of `seq_len` positions (the rings of
+    attention.cache_len) held in blocks (cache_blocks: sharding.cache_specs
+    — batch over "pod" / "data" where it divides, kv heads over "model"
+    where they divide, else the ring length where it divides).
+
+    shards: this rank's parameter blocks, as make_mesh_prefill_step's;
+    tokens [B] and position (a scalar or [B]): the GLOBAL batch's;
+    caches: this rank's blocks, updated in place (a recurrent layer's list
+    entry replaced). Each call casts and gathers the leaves as
+    make_mesh_prefill_step does, under the serve plan
+    (transformer.serve_leaf_modes); decode_step runs in the TP context
+    over this rank's rows (_dp_rows), each attention layer in the form its
+    cache block implies (attention.decode_form, `attention_forms`), an MoE
+    block routing over the whole batch, the recurrent layers replicated
+    over "model" on their rows. The vocab-parallel logits are gathered
+    over "model" and cut to the vocab before the argmax, so ties break at
+    the first index as in make_serve_step. At world 1 it is
+    make_serve_step's, bitwise. No host sync: the step runs on the meta
+    device (launch/dryrun.py)."""
+    sizes, _, mdims, modes = _mesh_plan(cfg, mesh, dims,
+                                        tf.serve_leaf_modes)
+    mg = mesh_lib.process_groups(mesh)
+    kinds = [k for k in tf.ATTN_KINDS if k in tf.layout(cfg)]
+    ring_lens = {k: attn.cache_len(cfg, k, seq_len) for k in kinds}
+
+    @torch.no_grad()
+    def serve_step(shards, tokens: Tensor, position, caches):
+        live = _gather_leaves(_leaves(shards), cfg, dims, mdims, modes, mg)
+        rows, group = _dp_rows(tokens.shape[0], mg)
+        if torch.as_tensor(position).ndim:
+            position = position[rows]
+        with act_sharding.tp_context(sizes, mg.groups["model"],
+                                     mg.coords["model"]):
+            logits = ll.gather_logits(tf.decode_step(
+                _rebuild(shards, live), tokens[rows], position, caches, cfg,
+                ring_lens=ring_lens, token_group=group), cfg)
+        return torch.argmax(logits, dim=-1).to(torch.int32), logits
+
+    serve_step.mesh_groups = mg
+    serve_step.attention_forms = {
+        k: attn.decode_form(cfg, ring_lens[k], sizes["model"])
+        for k in kinds}
     return serve_step

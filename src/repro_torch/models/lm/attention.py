@@ -27,6 +27,16 @@ read (q_head // (H / K)) from the whole weight, then `wo` row-parallel
 (or, where its segments would span ranks, over the gathered heads).
 `heads_split` / `kv_split` / `wo_local` say which, for the layers and the
 train step's plan alike.
+
+Decode under the TP context (the mesh serve step, launch/steps.py) runs
+on each rank's block of the dense rings under the cache rule
+(parallel/sharding.py cache_specs), which also picks the form
+(`decode_form`): head-parallel where the kv heads divide "model" (the
+train form's q / k / v over the rank's heads, `wo` row-parallel or on the
+gathered heads), length-parallel where the ring length does (every head
+from the whole weights, the rank whose block holds the new entry writes
+it, the ranks' partial softmaxes merged over "model": `_merge_partials`),
+else replicated (the attention whole on every rank).
 """
 from __future__ import annotations
 
@@ -39,7 +49,8 @@ from repro_torch.kernels import ops as kops
 # One definition of the ring mask and of the SDPA form (NEG_INF masking,
 # softcap) for the dense and paged paths: paged == dense bitwise holds only
 # while they agree.
-from repro_torch.kernels.paged_attention import _ring_mask, masked_sdpa
+from repro_torch.kernels.paged_attention import (_ring_mask, masked_sdpa,
+                                                 partial_sdpa)
 from repro_torch.models.lm import layers as ll
 from repro_torch.parallel import act_sharding as sa
 from repro_torch.parallel import comm
@@ -77,6 +88,19 @@ def wo_local(cfg: ArchConfig, model: int) -> bool:
     """Whether `wo` runs row-parallel on each rank's heads (the heads'
     features are whole segments on every rank)."""
     return ll.segment_local(cfg, cfg.n_heads * cfg.head_dim, model)
+
+
+def decode_form(cfg: ArchConfig, ring_len: int, model: int) -> str:
+    """The form of a decode step's attention over a "model" axis of `model`
+    ranks, read off the layout the cache rule (sharding.cache_specs) gives
+    a dense ring of `ring_len` entries: "head-parallel" where the kv heads
+    divide the axis, "length-parallel" where the ring length does, else
+    "replicated"."""
+    if cfg.n_kv_heads % model == 0:
+        return "head-parallel"
+    if ring_len % model == 0:
+        return "length-parallel"
+    return "replicated"
 
 
 def _kv_heads_of(cfg: ArchConfig, rank: int, model: int):
@@ -231,14 +255,16 @@ def init_paged_pool(cfg: ArchConfig, n_blocks: int, block_size: int,
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _decode_qkv(p: Dict, x: Tensor, cfg: ArchConfig, position: Tensor):
+def _decode_qkv(p: Dict, x: Tensor, cfg: ArchConfig, position: Tensor,
+                qkv=_qkv):
     """x [B, Q, d]; position scalar or [B] is the BASE position (token t
-    sits at position + t). Returns q, k_new, v_new and pos [B] int64."""
+    sits at position + t). Returns q, k_new, v_new and pos [B] int64.
+    qkv: _qkv, or _qkv_tp for the rank's heads."""
     b, s = x.shape[0], x.shape[1]
     pos = torch.as_tensor(position, device=x.device).to(torch.int64)
     pos = pos.expand(b) if pos.ndim == 0 else pos
     qpos = pos[:, None] + torch.arange(s, device=x.device)[None, :]
-    q, k_new, v_new = _qkv(p, x, cfg, qpos)
+    q, k_new, v_new = qkv(p, x, cfg, qpos)
     return q, k_new, v_new, pos
 
 
@@ -247,25 +273,82 @@ def _ring_slot(pos: Tensor, l: int, kind: str) -> Tensor:
     return torch.remainder(pos, l) if kind == "local" else pos.clamp(0, l - 1)
 
 
-def _decode_mask(pos: Tensor, l: int, kind: str, window: int) -> Tensor:
-    """[B, L] validity of ring entries at per-slot positions `pos` [B]."""
-    return _ring_mask(pos, torch.arange(l, device=pos.device), kind=kind,
-                      ring_len=l, window=window, q_len=1)[:, 0]
+def _decode_mask(pos: Tensor, l: int, kind: str, window: int, lo: int = 0,
+                 n: Optional[int] = None) -> Tensor:
+    """[B, n] validity of ring entries [lo, lo + n) (default: the whole
+    ring of l entries) at per-slot positions `pos` [B]."""
+    idx = torch.arange(lo, lo + (l if n is None else n), device=pos.device)
+    return _ring_mask(pos, idx, kind=kind, ring_len=l, window=window,
+                      q_len=1)[:, 0]
+
+
+def _merge_partials(out: Tensor, top: Tensor, total: Tensor,
+                    group) -> Tensor:
+    """The softmax attention over the ranks' blocks of the ring from each
+    rank's partial_sdpa (its block's fp32 output [B, C, H, hd], its max and
+    sum of exp [B, C, H]): the partials all-gathered over `group` and
+    merged in rank order, so every rank holds the same bits. fp32."""
+    parts = comm.all_gather(torch.cat([out, top[..., None], total[..., None]],
+                                      dim=-1), 0, group)
+    parts = parts.unflatten(0, (-1, out.shape[0]))   # [T, B, C, H, hd + 2]
+    tops = parts[..., -2]
+    weight = parts[..., -1] * torch.exp(tops - tops.amax(dim=0))
+    acc, norm = weight[0, ..., None] * parts[0, ..., :-2], weight[0]
+    for r in range(1, parts.shape[0]):
+        acc = acc + weight[r, ..., None] * parts[r, ..., :-2]
+        norm = norm + weight[r]
+    return acc / norm[..., None]
 
 
 def attention_decode(p: Dict, x: Tensor, cfg: ArchConfig, *, kind: str,
-                     position: Tensor, cache: KVCache) -> Tensor:
+                     position: Tensor, cache: KVCache,
+                     ring_len: Optional[int] = None) -> Tensor:
     """One-token decode against a dense ring cache, written in place.
-    x [B, 1, d]; position scalar or [B]. Returns the attention output."""
+    x [B, 1, d]; position scalar or [B]. Returns the attention output.
+
+    Under the TP context `cache` is this rank's block of a logical ring of
+    `ring_len` entries (required there) under sharding.cache_specs, and
+    decode_form picks the form (module docstring). Length-parallel: rank
+    r's block holds entries [r L / T, (r + 1) L / T); a slot's new entry is
+    written by the rank whose block holds its ring index (the other ranks
+    rewrite what their block holds), each rank scores its block under the
+    ring mask at the block's offset, and _merge_partials combines them; a
+    row no rank may read gets masked_sdpa's uniform average."""
+    ctx = sa.current()
+    form = None
+    if ctx is not None:
+        if ring_len is None:
+            raise ValueError("a decode in the TP context needs the logical "
+                             "ring length of the cache's block")
+        t = ctx.sizes["model"]
+        form = decode_form(cfg, ring_len, t)
     b = x.shape[0]
-    q, k_new, v_new, pos = _decode_qkv(p, x, cfg, position)
-    l = cache.k.shape[1]
-    slot = _ring_slot(pos, l, kind)
+    heads = form == "head-parallel"
+    q, k_new, v_new, pos = _decode_qkv(p, x, cfg, position,
+                                       _qkv_tp if heads else _qkv)
+    n = cache.k.shape[1]
     rows = torch.arange(b, device=x.device)
-    cache.k[rows, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[rows, slot] = v_new[:, 0].to(cache.v.dtype)
-    valid = _decode_mask(pos, l, kind, cfg.local_window)
-    out = _sdpa(q, cache.k, cache.v, valid[:, None, :], cfg).reshape(b, 1, -1)
+    if form == "length-parallel":
+        lo, l = ctx.rank * n, n * t
+        slot = _ring_slot(pos, l, kind) - lo
+        mine = ((slot >= 0) & (slot < n))[:, None, None]
+        slot = slot.clamp(0, n - 1)
+        for c, new in ((cache.k, k_new), (cache.v, v_new)):
+            c[rows, slot] = torch.where(mine, new[:, 0].to(c.dtype),
+                                        c[rows, slot])
+        valid = _decode_mask(pos, l, kind, cfg.local_window, lo, n)
+        out = _merge_partials(*partial_sdpa(
+            q, cache.k, cache.v, valid[:, None, :], cfg.attn_logit_softcap),
+            ctx.group).to(q.dtype)
+    else:
+        slot = _ring_slot(pos, n, kind)
+        cache.k[rows, slot] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[rows, slot] = v_new[:, 0].to(cache.v.dtype)
+        valid = _decode_mask(pos, n, kind, cfg.local_window)
+        out = _sdpa(q, cache.k, cache.v, valid[:, None, :], cfg)
+    out = out.reshape(b, 1, -1)
+    if heads:
+        return ll.row_or_gathered(p["wo"], out, cfg, wo_local(cfg, t))
     return ll.linear_apply(p["wo"], out, cfg)
 
 

@@ -299,6 +299,21 @@ def lm_head(p_head: Optional[Params], p_emb: Params, x: Tensor,
     return logits[..., : vocab_range(cfg)[2] if tp else cfg.vocab_size]
 
 
+def gather_logits(logits: Tensor, cfg: ArchConfig) -> Tensor:
+    """The logical [..., vocab_size] logits from lm_head's: in the TP
+    context, where the vocab is split, each rank's real rows padded to its
+    block of the padded vocab, all-gathered over "model" in rank order and
+    cut to vocab_size (the last ranks hold fewer real rows, or none); else
+    `logits` as they are."""
+    ctx = sa.current()
+    if ctx is None or not vocab_split(cfg):
+        return logits
+    _, rows, valid = vocab_range(cfg)
+    block = torch.nn.functional.pad(logits, (0, rows - valid))
+    return comm.all_gather(block, block.ndim - 1,
+                           ctx.group)[..., :cfg.vocab_size]
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

@@ -376,20 +376,42 @@ def tp_leaf_modes(params_shape: Params, cfg: ArchConfig,
                 return ("split", 1) if moe_lib.down_local(cfg, t) else full
         return full
 
-    out: List[Tuple[str, Optional[int]]] = []
+    return [mode(names, leaf.ndim)
+            for names, leaf in _leaf_paths(params_shape)]
 
-    def walk(tree, names):
-        if isinstance(tree, dict):
-            for k, v in tree.items():
-                walk(v, names + (str(k),))
-        elif isinstance(tree, (list, tuple)):
-            for i, v in enumerate(tree):
-                walk(v, names + (f"[{i}]",))
-        else:
-            out.append(mode(names, tree.ndim))
 
-    walk(params_shape, ())
-    return out
+def _leaf_paths(tree, names: Tuple[str, ...] = ()):
+    """(names, leaf) of nested dicts, lists and tuples, in leaf order: the
+    dict keys, "[i]" for a sequence item."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_paths(v, names + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_paths(v, names + (f"[{i}]",))
+    else:
+        yield names, tree
+
+
+def serve_leaf_modes(params_shape: Params, cfg: ArchConfig,
+                     sizes: Dict[str, int]) -> List[Tuple[str, Optional[int]]]:
+    """How the mesh decode step's layers use each leaf (the serve step's
+    plan, tp_leaf_modes' (mode, dim) pairs in leaf order): the train plan,
+    but the attention leaves follow the form the cache rule gives the
+    decode (attention.decode_form), which the kv heads decide. Where they
+    divide "model" the form is head-parallel and the train plan's
+    attention entries hold (the kv heads split too). Otherwise every rank
+    computes every head (length-parallel or replicated) and reads the
+    attention leaves whole. gemma3-1b at model 2: its 4 q heads divide, so
+    the train step splits wq, but its one kv head does not, so the cache
+    splits the ring length and the decode reads wq, wk, wv and wo whole."""
+    # the head-parallel form does not depend on the ring's length
+    heads = attn.decode_form(cfg, 0, sizes.get("model", 1)) \
+        == "head-parallel"
+    train = tp_leaf_modes(params_shape, cfg, sizes)
+    return [m if heads or names[0] != "layers" or names[2] != "attn"
+            else ("full", None)
+            for (names, _), m in zip(_leaf_paths(params_shape), train)]
 
 
 def tp_fallbacks(cfg: ArchConfig, sizes: Dict[str, int]) -> List[str]:
@@ -592,11 +614,14 @@ def copy_caches(caches: Sequence) -> List[Any]:
 def _decode_layers(params: Params, tokens: Tensor, position: Tensor,
                    caches: List, cfg: ArchConfig,
                    block_tables: Optional[Dict[str, Tensor]],
-                   ring_lens: Optional[Dict[str, int]]) -> Tensor:
+                   ring_lens: Optional[Dict[str, int]],
+                   token_group=None) -> Tensor:
     """tokens [B] -> logits [B, V]; tokens [B, Q] (a multi-token append)
     -> logits [B, Q, V]. KV caches are written in place; a recurrent
     layer's list entry becomes its new state (stacked [Q, ...] per token
-    for Q > 1)."""
+    for Q > 1). ring_lens: each kind's logical ring length (paged: the
+    covered-prefix tables' true length; dense: the rings whose blocks the
+    caches are, in the TP context)."""
     multi = tokens.ndim == 2
     x = ll.embed(params["embed"], tokens if multi else tokens[:, None], cfg)
     for i, kind in enumerate(layout(cfg)):
@@ -609,8 +634,10 @@ def _decode_layers(params: Params, tokens: Tensor, position: Tensor,
                 continue
             if block_tables is None:
                 fn = lambda h, p=p, cache=cache, kind=kind: (  # noqa: E731
-                    attn.attention_decode(p["attn"], h, cfg, kind=kind,
-                                          position=position, cache=cache),
+                    attn.attention_decode(
+                        p["attn"], h, cfg, kind=kind, position=position,
+                        cache=cache,
+                        ring_len=ring_lens[kind] if ring_lens else None),
                     None)
             else:
                 fn = lambda h, p=p, cache=cache, kind=kind: (  # noqa: E731
@@ -619,7 +646,7 @@ def _decode_layers(params: Params, tokens: Tensor, position: Tensor,
                         cache=cache, block_table=block_tables[kind],
                         ring_len=ring_lens[kind] if ring_lens else None),
                     None)
-            x = _attn_residual(p, x, cfg, fn)[0]
+            x = _attn_residual(p, x, cfg, fn, token_group)[0]
     if not multi:
         return _head(params, x, cfg)[:, 0]
     # one head product a token column, each in the decode step's [B, 1, d]
@@ -630,10 +657,18 @@ def _decode_layers(params: Params, tokens: Tensor, position: Tensor,
 
 
 def decode_step(params: Params, tokens: Tensor, position: Tensor, caches,
-                cfg: ArchConfig) -> Tensor:
+                cfg: ArchConfig, *, ring_lens: Optional[Dict[str, int]] = None,
+                token_group=None) -> Tensor:
     """One decode step against dense caches (updated in place): tokens [B]
-    int -> logits [B, V]. position: scalar or [B] per-slot offsets."""
-    return _decode_layers(params, tokens, position, caches, cfg, None, None)
+    int -> logits [B, V]. position: scalar or [B] per-slot offsets.
+
+    In the TP context (the mesh serve step, launch/steps.py) the caches
+    are this rank's blocks, under sharding.cache_specs, of rings of
+    `ring_lens[kind]` entries, the logits this rank's vocab rows
+    (layers.lm_head), and `token_group` the group an MoE block routes
+    over (moe.moe_apply)."""
+    return _decode_layers(params, tokens, position, caches, cfg, None,
+                          ring_lens, token_group)
 
 
 def decode_step_paged(params: Params, tokens: Tensor, position: Tensor,

@@ -27,11 +27,12 @@ Tensor = torch.Tensor
 
 
 def _spec_leaves(specs):
-    """The specs of a params tree (dicts and lists; a spec is a tuple)."""
+    """The specs of a params or caches tree (dicts, lists and NamedTuples
+    — a cache entry's fields —; a spec is a plain tuple)."""
     if isinstance(specs, dict):
         for v in specs.values():
             yield from _spec_leaves(v)
-    elif isinstance(specs, list):
+    elif isinstance(specs, list) or hasattr(specs, "_fields"):
         for v in specs:
             yield from _spec_leaves(v)
     else:
@@ -74,6 +75,22 @@ def mesh_block(t: Tensor, data_dim: Optional[int],
     new tensor)."""
     t = shard(t, data_dim, coords["data"], sizes["data"])
     return shard(t, model_dim, coords["model"], sizes["model"])
+
+
+def spec_block(t: Tensor, spec, coords, sizes) -> Tensor:
+    """The block of t a rank at mesh coordinates `coords` stores under a
+    sharding spec (sharding.P): a dim split over several axes takes their
+    combined index, the first axis major (the data-parallel rank over
+    ("pod", "data")). A new tensor where any dim is split."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        index, count = 0, 1
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            index = index * sizes.get(a, 1) + coords.get(a, 0)
+            count *= sizes.get(a, 1)
+        t = shard(t, dim, index, count)
+    return t
 
 
 def gather(t: Tensor, dim: Optional[int], group=None) -> Tensor:

@@ -5,6 +5,11 @@
     step runs, its collectives are recorded, and rank 0's blocks hold the
     bytes the rules give a rank; the bytes extrapolated from one micro and
     two equal a three-micro step's; a skipped cell on each mesh;
+  * a smoke prefill and decode cell on each mesh: rank 0's serving step
+    runs, its collectives are recorded, each attention kind takes the form
+    the cache rule implies (gemma3-1b length-parallel, gemma-7b
+    head-parallel at full width on (16, 16)), rank 0's cache blocks hold
+    the rules' bytes, and long_500k's batch of 1 is every rank's;
   * n_params, n_active_params and model_flops equal to the JAX package's
     dry run for every architecture and shape at full width (JAX's
     repro.launch.dryrun sets XLA_FLAGS when imported, so its side runs in
@@ -104,10 +109,67 @@ def test_skipped_cell(multi_pod):
 
 
 def test_decode_cell_reports_the_rules_bytes():
+    """The decode cell runs rank 0's serve step: its collectives are
+    recorded, and rank 0's cache blocks hold the bytes the cache rule
+    gives a rank."""
     rep = dryrun.run_cell("gemma3_1b", "decode_32k", False, smoke=True)
-    assert rep["status"] == "OK" and rep["collectives"] is None
-    assert "not run" in rep["step"]
-    assert rep["memory"]["cache_bytes_per_rank"] > 0
+    assert not dist.is_initialized()
+    assert rep["status"] == "OK" and rep["collectives"] is not None
+    assert rep["collectives"]["all-gather"] > 0
+    assert rep["roofline_s"]["collective"] > 0
+    mem = rep["memory"]
+    assert mem["cache_bytes_per_rank"] == mem["cache_block_bytes_rank0"] > 0
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_prefill_cell_runs_rank0s_step(multi_pod):
+    rep = dryrun.run_cell("qwen2_moe_a27b", "prefill_32k", multi_pod,
+                          smoke=True)
+    assert not dist.is_initialized()
+    assert rep["status"] == "OK" and rep["collectives"]["total"] > 0
+    assert rep["attention_forms"] == {"global": "replicated"}
+    assert "cache_bytes_per_rank" not in rep["memory"]
+
+
+@pytest.mark.parametrize("arch, want", [
+    ("gemma3_1b", {"global": "length-parallel", "local": "length-parallel"}),
+    ("gemma_7b", {"global": "head-parallel"})])
+def test_decode_cell_takes_the_cache_rules_form(arch, want):
+    """At full width on (16, 16): gemma3-1b's one kv head does not divide
+    16, its rings of 32768 and 512 do (length-parallel); gemma-7b's 16 kv
+    heads divide (head-parallel). The forms are those cache_specs
+    implies; rank 0's cache blocks hold the rules' bytes."""
+    rep = dryrun.run_cell(arch, "decode_32k", False)
+    assert rep["status"] == "OK" and rep["attention_forms"] == want
+    assert rep["collectives"]["total"] > 0
+    mem = rep["memory"]
+    assert mem["cache_bytes_per_rank"] == mem["cache_block_bytes_rank0"] > 0
+    cfg = get_config(arch)
+    caches = steps.abstract_caches(cfg, 128, 32768)
+    specs = sharding.cache_specs(caches, cfg,
+                                 mesh_lib.make_production_mesh(), 128)
+    forms = {kind: {(None, "model"): "head-parallel",
+                    ("model", None): "length-parallel"}[spec.k[1:3]]
+             for kind, spec in zip(cfg.pattern_for_layers, specs)}
+    assert forms == want
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_long_500k_batch_of_one_is_replicated_over_dp(multi_pod):
+    """long_500k's batch of 1 does not divide the data-parallel ranks:
+    every rank holds (and runs) the one row, so a rank's cache block is
+    its "model" block of the whole batch."""
+    rep = dryrun.run_cell("gemma3_1b", "long_500k", multi_pod, smoke=True)
+    assert rep["status"] == "OK" and rep["global_batch"] == 1
+    cfg = dryrun._cell_config("gemma3_1b", "long_500k", True, None)[0]
+    mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod)
+    caches = steps.abstract_caches(cfg, 1, rep["seq_len"])
+    specs = sharding.cache_specs(caches, cfg, mesh, 1)
+    assert all(spec.k[0] is None for spec in specs)
+    whole = sum(t.numel() * t.element_size() for t in steps._leaves(caches))
+    mem = rep["memory"]
+    assert mem["cache_bytes_per_rank"] == mem["cache_block_bytes_rank0"] \
+        == whole // 16
 
 
 @pytest.fixture(scope="module")
