@@ -315,6 +315,28 @@ make_mesh_prefill_step / make_mesh_serve_step):
      own partial softmax) must fail the fp32 gate; the kernels line's K1
      row gains these launches ("mesh_serve_launches").
 
+Slice 12, sequence parallelism over "model" and the RG-LRU
+channel-parallel (TP_PHASES, in phase 32's two spawned ranks over gloo):
+ 38. after the TP step, the SP step: phase 34's runs under seq_sharding
+     (the residual stream each rank's 512-token block, the TP regions
+     entered by an all-gather along S and left by a reduce-scatter, K1g /
+     K2 on the same local segments), held to the same one-rank step at
+     the same bounds; the planted fault "norm" (the norms' gradient sums
+     over "model" skipped) must fail the 1e-2 gate;
+ 39. last in the ranks, recurrentgemma-9b at full width, 3 layers
+     (rglru, rglru, local), CADC relu at crossbar 256, fp32, 2 steps of
+     one micro of 1 x 1024 tokens, the RG-LRU channel-parallel (w_out
+     row-parallel over 8 local segments a rank) against make_train_step
+     on the card (run after the ranks end) at the same bounds; the
+     planted fault "channels" (lam and the conv's bias read at the other
+     rank's block) must fail the gate; the RG-LRU leaves' all-gathered
+     bytes over "model" a step, before the channel-parallel form and
+     now (none);
+ 40. (main()'s one-rank NCCL group, after phase 32) the SP step at (data
+     1, model 1): phase 34's bf16 config, 2 steps with and without
+     seq_sharding, bitwise, K1g / K2 exact. The kernels line's K1g and
+     K2 rows gain each of these phases' launches a rank.
+
 The decode profiles (phase 6 and its later twins) count K1 and K6 with
 the wrappers' launch counters over the profiled steps (exact: K1 as
 k1_per_pass says, K6 once an attention layer a step) and report the
@@ -3391,7 +3413,12 @@ REC_FORM_S = 512
 # K1_RTOL of the plain version): the JAX package's fp32 bound, 1e-4 of
 # scale.
 REC_FORM_RTOL = 1e-4
-LM_RESUME_LAYERS, LM_TWIN_STEPS = 2, 200
+# The twin ran 200 steps until slice 12's phases took the whole run
+# (813.2 s on an H100 80GB HBM3 at 700 W) past the ~800 s this script
+# aims under: 101 steps, whose last (step 100) is the 200-step run's
+# sixth logged loss (the twin is bitwise run to run on the card), below
+# its first.
+LM_RESUME_LAYERS, LM_TWIN_STEPS = 2, 101
 # The bf16 loss, kernel path against plain path. The plain path stores
 # each segment's psum in bf16 (bf16_wire: a relative rounding of up to
 # 2^-9 a psum before f and the segment sum) where the kernels keep fp32,
@@ -4314,11 +4341,56 @@ TP_STEP_LOSS_RTOL = 1e-3
 TP_STEP_GRAD_RTOL, TP_STEP_DRIFT_RTOL = 1e-2, 0.1
 TP_STEP_FAULTS = ("w_down", "copy_to")
 
+# Slice 12, in the same two spawned ranks after the TP step:
+# "sp_step", the TP step's runs under seq_sharding (sequence parallelism
+# over "model": the residual stream each rank's 512-token block, each
+# all-reduce of the TP regions a reduce-scatter and an all-gather), held
+# to the same one-rank make_train_step at the same bounds, with its
+# planted fault "norm" (the norms' gradients, each rank's of its block,
+# left unsummed: their all-reduce over the rank alone); "rg_tp_step",
+# recurrentgemma-9b at full width and one period of its pattern (rglru,
+# rglru, local), CADC relu at crossbar LM_XBAR as its train phase runs
+# it, fp32, RG_TP_STEPS steps of one micro of RG_TP_TOKENS, the RG-LRU
+# channel-parallel (w_out row-parallel on 8 local segments a rank)
+# against make_train_step on the card (run once the ranks have ended) at
+# the same bounds, with its planted fault "channels" (lam and the conv's
+# bias read at the other rank's channel block); and, on main()'s
+# one-rank NCCL group, "sp_one_rank": the TP step's bf16 config at (1, 1)
+# with and without seq_sharding, SP_ONE_RANK_STEPS steps, bitwise.
+SP_STEP_FAULTS = ("norm",)
+RG_TP_TOKENS, RG_TP_STEPS = (1, 1024), 2
+RG_TP_FAULTS = ("channels",)
+SP_ONE_RANK_STEPS = 2
 
-def tp_step_cfg(dtype: str = "bfloat16"):
+
+def tp_step_cfg(dtype: str = "bfloat16", seq: bool = False):
     return lm_cfg(LM_ARCH, n_layers=TP_STEP_LAYERS).with_overrides(
         crossbar_size=TP_STEP_XBAR, dtype=dtype,
-        bf16_wire=dtype == "bfloat16")
+        bf16_wire=dtype == "bfloat16", seq_sharding=seq)
+
+
+def rg_tp_cfg(dtype: str = "float32"):
+    return lm_cfg(RG_ARCH, n_layers=REC_TRAIN[RG_ARCH]["layers"]
+                  ).with_overrides(dtype=dtype,
+                                   bf16_wire=dtype == "bfloat16")
+
+
+# The TP step phases the spawned ranks run (tp_rank) and tp_step_check
+# gates: each phase's config a dtype, its dtypes, planted faults (fp32),
+# batch rows, micros and steps.
+TP_PHASES = {
+    "tp_step": dict(cfg=tp_step_cfg, dtypes=TP_STEP_DTYPES,
+                    faults=TP_STEP_FAULTS, batch=TP_STEP_BATCH,
+                    micro=TP_STEP_MICRO, steps=TP_STEP_STEPS,
+                    label="TP step"),
+    "sp_step": dict(cfg=lambda dt: tp_step_cfg(dt, seq=True),
+                    dtypes=TP_STEP_DTYPES, faults=SP_STEP_FAULTS,
+                    batch=TP_STEP_BATCH, micro=TP_STEP_MICRO,
+                    steps=TP_STEP_STEPS, label="SP step"),
+    "rg_tp_step": dict(cfg=rg_tp_cfg, dtypes=("float32",),
+                       faults=RG_TP_FAULTS, batch=RG_TP_TOKENS[0], micro=1,
+                       steps=RG_TP_STEPS, label="RG-LRU TP step"),
+}
 
 
 def planted(fault: str, cfg, solo):
@@ -4327,16 +4399,20 @@ def planted(fault: str, cfg, solo):
     of the "model" group at one collective: "w_down", w_down's
     row-parallel all-reduce (each rank keeps its partial output);
     "copy_to", the FFN's copy_to, whose backward all-reduce then leaves
-    each rank its own input gradient."""
+    each rank its own input gradient; "norm" (under seq_sharding), the
+    norms' gradient sums over "model" (each rank keeps its block of the
+    sequence's). Or by a wrong read: "channels", the RG-LRU's lam and
+    conv bias read at the next rank's channel block."""
     import contextlib
-    import types
 
-    from repro_torch.models.lm import ffn
-    from repro_torch.parallel import comm, tp_cadc
+    from repro_torch.models.lm import ffn, rglru
+    from repro_torch.models.lm import layers as ll
+    from repro_torch.parallel import act_sharding, comm, tp_cadc
 
     @contextlib.contextmanager
     def ctx():
-        saved = tp_cadc.tp_cadc_row_linear, ffn.comm
+        saved = (tp_cadc.tp_cadc_row_linear, ffn.ll, comm.all_reduce,
+                 rglru._channels)
         s_loc = cfg.d_ff // cfg.crossbar_size // TP_STEP_MESH[1][1]
 
         def row(x_loc, w_loc, **kw):
@@ -4344,24 +4420,49 @@ def planted(fault: str, cfg, solo):
                 kw["group"] = solo
             return saved[0](x_loc, w_loc, **kw)
 
+        def all_reduce(t, group=None, *args, **kw):
+            # the step's gradient sums over a group: a norm's is 1-D
+            if group is not None and t.ndim == 1 and t.numel() == cfg.d_model:
+                group = solo
+            return saved[2](t, group, *args, **kw)
+
+        def channels(t):
+            c = act_sharding.current()
+            t_ = c.sizes["model"]
+            return comm.block(t, t.ndim - 1, (c.rank + 1) % t_, t_)
+
+        class FaultyLayers:   # layers, the FFN's copy_to over `solo`
+            def __getattr__(self, name):
+                return getattr(ll, name)
+
+            @staticmethod
+            def tp_in(x):
+                return comm.copy_to(x, solo)
+
         if fault == "w_down":
             tp_cadc.tp_cadc_row_linear = row
+        elif fault == "copy_to":
+            ffn.ll = FaultyLayers()
+        elif fault == "norm":
+            comm.all_reduce = all_reduce
         else:
-            ffn.comm = types.SimpleNamespace(
-                copy_to=lambda x, group: comm.copy_to(x, solo))
+            rglru._channels = channels
         try:
             yield
         finally:
-            tp_cadc.tp_cadc_row_linear, ffn.comm = saved
+            (tp_cadc.tp_cadc_row_linear, ffn.ll, comm.all_reduce,
+             rglru._channels) = saved
 
     return ctx()
 
 
-def tp_step_run(dev, dtype: str, mesh=None, faults=()) -> dict:
-    """TP_STEP_STEPS steps of tp_step_cfg(dtype) from seed-0 params on seeded
-    batches (the same on every rank): make_fsdp_train_step over `mesh`
-    (this process a rank of the default group), or make_train_step with
-    none. Returns the losses, the launch counts, the steps' wall seconds
+def tp_step_run(dev, cfg, mesh=None, faults=(), batch=TP_STEP_BATCH,
+                n_micro=TP_STEP_MICRO, n_steps=TP_STEP_STEPS) -> dict:
+    """`n_steps` steps of `cfg` from seed-0 params on seeded batches of
+    `batch` x LM_SEQ tokens in `n_micro` micros (the same on every rank):
+    make_fsdp_train_step over `mesh` (this process a rank of the default
+    group), or make_train_step with none. Returns the losses, the launch
+    counts, the steps' wall seconds
     (the probes' time taken out) and the seconds before them (params,
     step, batches); "grads": each step's gradient as the optimizer gets it
     (this rank's blocks), a (sum of squares, probe dot) pair a leaf and
@@ -4377,7 +4478,6 @@ def tp_step_run(dev, dtype: str, mesh=None, faults=()) -> dict:
     from repro_torch.train import optimizer as opt_lib
 
     t_setup = time.perf_counter()
-    cfg = tp_step_cfg(dtype)
     params = tf.init(cfg, seed=0, device=dev)
     shapes = [tuple(t.shape) for t in steps_lib._leaves(params)]
     if mesh is None:
@@ -4396,15 +4496,21 @@ def tp_step_run(dev, dtype: str, mesh=None, faults=()) -> dict:
 
     def probes(leaves):
         """(sum of squares, dot with the seeded probe of the whole leaf,
-        cut as this rank's block) a leaf, in fp64."""
+        cut as this rank's block) a leaf, in fp64 (2^24 elements at a
+        time: a full-width table's block is half a billion)."""
         gen = torch.Generator(device=dev)
         out = []
         for j, t in enumerate(leaves):
             gen.manual_seed(j)
             pr = cut(j, torch.randn(shapes[j], generator=gen, device=dev))
-            t = t.double().flatten()
-            out.append((float(t.square().sum()),
-                        float(t.dot(pr.double().flatten()))))
+            ss = dot = 0.0
+            for a, b in zip(t.flatten().split(1 << 24),
+                            pr.flatten().split(1 << 24)):
+                a = a.double()
+                ss += float(a.square().sum())
+                dot += float(a.dot(b.double()))
+            out.append((ss, dot))
+            del pr
         return out
 
     base = opt_lib.adamw(TP_STEP_LR, weight_decay=0.1, max_grad_norm=1.0)
@@ -4420,21 +4526,22 @@ def tp_step_run(dev, dtype: str, mesh=None, faults=()) -> dict:
 
     opt = opt_lib.Optimizer(base.init, update)
     if mesh is None:
-        step = steps_lib.make_train_step(cfg, opt, n_micro=TP_STEP_MICRO)
+        step = steps_lib.make_train_step(cfg, opt, n_micro=n_micro)
     else:
         step = steps_lib.make_fsdp_train_step(cfg, mesh, dims, optimizer=opt,
-                                              n_micro=TP_STEP_MICRO)
+                                              n_micro=n_micro)
         coords.update(step.mesh_groups.coords)
         sizes.update(step.mesh_groups.sizes)
         params = steps_lib._rebuild(params, [
             cut(j, t) for j, t in enumerate(steps_lib._leaves(params))])
-    init = [t.clone() for t in steps_lib._leaves(params)]
+    # the initial blocks wait on the host: two ranks' steps share the card
+    init = [t.cpu() for t in steps_lib._leaves(params)]
     state = opt.init(params)
     gen = torch.Generator().manual_seed(23)
     batches = []
-    for _ in range(TP_STEP_STEPS):
+    for _ in range(n_steps):
         toks = torch.randint(0, cfg.vocab_size,
-                             (TP_STEP_BATCH, LM_SEQ + 1), generator=gen)
+                             (batch, LM_SEQ + 1), generator=gen)
         batches.append({"tokens": toks[:, :-1].to(dev),
                         "labels": toks[:, 1:].to(dev)})
     torch.cuda.synchronize()
@@ -4447,20 +4554,24 @@ def tp_step_run(dev, dtype: str, mesh=None, faults=()) -> dict:
     out = {"losses": losses, "launches": read_counts(),
            "s": time.perf_counter() - t0 - probe_s[0],
            "setup_s": t0 - t_setup, "grads": list(records),
-           "update": probes([a - b for a, b in zip(
-               steps_lib._leaves(params), init)]), "split": split,
+           "update": probes(a - b.to(dev) for a, b in zip(
+               steps_lib._leaves(params), init)), "split": split,
            "controls": {}}
+    tree = tf.tree_map(lambda t: None, params)
+    del params, state
+    torch.cuda.empty_cache()
     if mesh is not None and faults:
         # every rank makes every one-rank group, in the same order
         solo = [dist.new_group([r]) for r in range(dist.get_world_size())]
         for fault in faults:
             del records[:]
-            p0 = steps_lib._rebuild(params, [t.clone() for t in init])
+            p0 = steps_lib._rebuild(tree, [t.to(dev) for t in init])
             with planted(fault, cfg, solo[dist.get_rank()]):
                 _, _, m = step(p0, opt.init(p0), batches[0], 0)
             out["controls"][fault] = {"loss": float(m["loss"]),
                                       "grads": records[0]}
-            del p0
+            del p0, m
+            torch.cuda.empty_cache()
     return out
 
 
@@ -4475,16 +4586,53 @@ def tp_inputs(name: str, m: int, dev):
     return x.to(dev), w.to(dev)
 
 
+def rg_gather_bytes(dev, mesh) -> dict:
+    """The bytes a rank's step all-gathers over "model" a micro for
+    rg_tp_cfg's RG-LRU leaves (comm.record over steps._gather_leaves on
+    this rank's blocks of them): "before", under the plan before the
+    channel-parallel form (every RG-LRU leaf read whole), and "after",
+    under transformer.tp_leaf_modes."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models.lm import transformer as tf
+    from repro_torch.parallel import comm, fsdp
+
+    cfg = rg_tp_cfg()
+    shape = steps_lib.abstract_params(cfg)
+    dims = fsdp.data_dims(shape, cfg, mesh)
+    _, _, mdims, modes = steps_lib._mesh_plan(cfg, mesh, dims,
+                                              tf.tp_leaf_modes)
+    mg = mesh_lib.process_groups(mesh)
+    pick = [j for j, (names, _) in enumerate(tf._leaf_paths(shape))
+            if names[0] == "layers" and names[2] == "rec"]
+    leaves = steps_lib._leaves(shape)
+    blocks = [torch.zeros(fsdp.mesh_block(leaves[j], dims[j], mdims[j],
+                                          mg.coords, mg.sizes).shape,
+                          device=dev) for j in pick]
+    out = {}
+    for key, plan in (("before", [("full", None)] * len(pick)),
+                      ("after", [modes[j] for j in pick])):
+        with comm.record() as tally:
+            steps_lib._gather_leaves(blocks, cfg, [dims[j] for j in pick],
+                                     [mdims[j] for j in pick], plan, mg)
+        out[key] = tally["all-gather"]
+    return out
+
+
 def tp_rank(rank: int, store: str, out) -> None:
     """One rank of the 2-rank TP run (a spawned process on the same card,
     gloo over CUDA tensors): every case at fp32 and bf16 wire, K1 counted
-    a call; then the TP train step (tp_step_run over TP_STEP_MESH, bf16
-    and fp32, the planted faults in fp32) and the mesh serve steps
-    (tp_serve_run); puts (rank, results) or (rank, the traceback) on
-    `out`."""
+    a call; then the TP_PHASES train steps (tp_step_run over
+    TP_STEP_MESH, the planted faults in fp32: the TP step, the SP step),
+    the mesh serve steps (tp_serve_run), the RG-LRU TP step and its
+    leaves' gathered bytes (rg_gather_bytes); puts (rank, results) or
+    (rank, the traceback) on `out`."""
     import traceback
 
     try:
+        # two ranks' full-width steps share the card: fewer stranded blocks
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
         sys.path.insert(0, os.path.join(REPO, "src"))
         import torch.distributed as dist
 
@@ -4511,10 +4659,23 @@ def tp_rank(rank: int, store: str, out) -> None:
         from repro_torch.launch import mesh as mesh_lib
 
         mesh = mesh_lib.Mesh(*TP_STEP_MESH)
-        res["tp_step"] = {dt: tp_step_run(
-            dev, dt, mesh, TP_STEP_FAULTS if dt == "float32" else ())
-            for dt in TP_STEP_DTYPES}
+
+        def phase(key):
+            ph = TP_PHASES[key]
+            t0 = time.perf_counter()
+            res[key] = {dt: tp_step_run(
+                dev, ph["cfg"](dt), mesh,
+                ph["faults"] if dt == "float32" else (), ph["batch"],
+                ph["micro"], ph["steps"]) for dt in ph["dtypes"]}
+            res[key]["phase_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+
+        phase("tp_step")
+        phase("sp_step")
         res["tp_serve"] = tp_serve_run(dev, mesh)
+        torch.cuda.empty_cache()
+        phase("rg_tp_step")
+        res["rg_gather"] = rg_gather_bytes(dev, mesh)
         dist.destroy_process_group()
         out.put((rank, res))
     except BaseException:
@@ -4531,9 +4692,11 @@ def tp_cadc_path(dev, report) -> dict:
     scale and at bf16 wire within TP_BF16_REL relative of the unsharded
     K1, both ranks bitwise equal; then, in the same ranks, the TP train
     step (tp_step_run over TP_STEP_MESH) against the one-rank step run
-    here while they start (tp_step_check), and the mesh serve steps
-    (tp_serve_run, tp_serve_check). Returns the TP linear's launch counts,
-    the TP step's a rank and the serve steps' K1 a rank."""
+    here while they start (tp_step_check), the SP step against the same,
+    the mesh serve steps (tp_serve_run, tp_serve_check) and the RG-LRU TP
+    step against the one-rank step run here after they end. Returns
+    the TP linear's launch counts, each TP_PHASES phase's launches a rank
+    ({phase: {kernel: count}}) and the serve steps' K1 a rank."""
     import multiprocessing as mp
     import queue
     import shutil
@@ -4572,9 +4735,11 @@ def tp_cadc_path(dev, report) -> dict:
     t1 = time.perf_counter()
     for p in procs:
         p.start()
-    # the one-rank step on this process while the ranks start
-    ref = keep_counts(lambda: {dt: tp_step_run(dev, dt)
+    # the one-rank step on this process while the ranks start (the SP
+    # step's reference too: make_train_step ignores seq_sharding)
+    ref = keep_counts(lambda: {dt: tp_step_run(dev, tp_step_cfg(dt))
                                for dt in TP_STEP_DTYPES})
+    torch.cuda.empty_cache()
     got = {}
     try:
         while len(got) < TP_RANKS:
@@ -4594,11 +4759,30 @@ def tp_cadc_path(dev, report) -> dict:
                 p.join()
         shutil.rmtree(d, ignore_errors=True)
     two_ranks_s = time.perf_counter() - t1
-    step_launches = tp_step_check(got, ref, report)
+    # the RG-LRU step's one-rank reference once the ranks have left the
+    # card (the three would not fit on it together)
+    ph = TP_PHASES["rg_tp_step"]
+    rg_ref = keep_counts(lambda: {dt: tp_step_run(
+        dev, ph["cfg"](dt), batch=ph["batch"], n_micro=ph["micro"],
+        n_steps=ph["steps"]) for dt in ph["dtypes"]})
+    torch.cuda.empty_cache()
+    refs = {"tp_step": ref, "sp_step": ref, "rg_tp_step": rg_ref}
+    step_launches = {key: tp_step_check(got, refs[key], report, key)
+                     for key in TP_PHASES}
+    gathered = [got[r]["rg_gather"] for r in range(TP_RANKS)]
+    report["rg_tp_step"]["rglru_model_gather_bytes_per_rank_step"] = \
+        gathered
+    if not all(g["after"] == 0 < g["before"] for g in gathered):
+        fail(f"RG-LRU TP step: the RG-LRU leaves' all-gathers over "
+             f"'model' a step {gathered}: want none after, some before")
+    print(f"RG-LRU leaves all-gathered over 'model' a step a rank "
+          f"(comm.record): before the channel-parallel form "
+          f"{gathered[0]['before'] / 2 ** 20:.1f} MiB, now "
+          f"{gathered[0]['after'] / 2 ** 20:.1f} MiB", flush=True)
     serve_k1 = tp_serve_check(got, report)
     worst = {"fp32": 0.0, "bf16": 0.0}
     for key, res in got[0].items():
-        if key in ("tp_step", "tp_serve"):
+        if key in ("tp_serve", "rg_gather") or key in TP_PHASES:
             continue
         y0, n0, place = res
         name, m, wire = key
@@ -4635,6 +4819,73 @@ def tp_cadc_path(dev, report) -> dict:
     return launches, step_launches, serve_k1
 
 
+def sp_one_rank(dev, report) -> dict:
+    """The SP step at (data 1, model 1) on main()'s one-rank NCCL group:
+    tp_step_cfg's bf16 config, SP_ONE_RANK_STEPS steps of TP_STEP_BATCH x
+    LM_SEQ tokens in TP_STEP_MICRO micros, from the same params and
+    batches with and without seq_sharding (its all-gathers and
+    reduce-scatters then run over the one rank: NCCL copies). The losses
+    and the params must be bitwise, and K1g / K2 exact both ways.
+    Returns the SP run's launches."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models.lm import transformer as tf
+    from repro_torch.parallel import fsdp
+    from repro_torch.train import optimizer as opt_lib
+
+    mesh = mesh_lib.Mesh(("data", "model"), (1, 1))
+    gen = torch.Generator().manual_seed(29)
+    batches = []
+    for _ in range(SP_ONE_RANK_STEPS):
+        toks = torch.randint(0, tp_step_cfg().vocab_size,
+                             (TP_STEP_BATCH, LM_SEQ + 1), generator=gen)
+        batches.append({"tokens": toks[:, :-1].to(dev),
+                        "labels": toks[:, 1:].to(dev)})
+    runs = {}
+    for seq in (False, True):
+        cfg = tp_step_cfg("bfloat16", seq=seq)
+        params = tf.init(cfg, seed=0, device=dev)
+        opt = opt_lib.adamw(TP_STEP_LR, weight_decay=0.1, max_grad_norm=1.0)
+        step = steps_lib.make_fsdp_train_step(
+            cfg, mesh, fsdp.data_dims(params, cfg, mesh), optimizer=opt,
+            n_micro=TP_STEP_MICRO)
+        state = opt.init(params)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        losses = []
+        for i, b in enumerate(batches):
+            params, state, m = step(params, state, b, i)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        runs[seq] = (losses, steps_lib._leaves(params), read_counts(),
+                     time.perf_counter() - t0)
+        del state
+    want = {k: 0 for k in counters()}
+    want.update({k: v * SP_ONE_RANK_STEPS for k, v in
+                 lm_step_launches(tp_step_cfg(), TP_STEP_MICRO).items()})
+    (losses, params, n, s_tp), (sp_losses, sp_params, sp_n, s_sp) = \
+        runs[False], runs[True]
+    same = sp_losses == losses and all(
+        torch.equal(a, b) for a, b in zip(sp_params, params))
+    report["sp_one_rank"] = {
+        "mesh": {"data": 1, "model": 1}, "backend": "nccl",
+        "steps": SP_ONE_RANK_STEPS, "losses": sp_losses, "bitwise": same,
+        "launches": sp_n, "wall_s": {"tp": s_tp, "sp": s_sp}}
+    print(f"SP step at (1, 1) on NCCL ({tp_step_cfg().name}, "
+          f"{TP_STEP_LAYERS} layers, bf16): {SP_ONE_RANK_STEPS} steps, "
+          f"losses {sp_losses} bitwise the step without seq_sharding: "
+          f"{same}; launches {json.dumps({k: v for k, v in sp_n.items() if v})};"
+          f" wall {s_sp:.2f} s vs {s_tp:.2f} s", flush=True)
+    if not same:
+        fail(f"SP step at (1, 1): losses {sp_losses} vs {losses}, or the "
+             "params, not bitwise the step without seq_sharding")
+    if n != want or sp_n != want:
+        fail(f"SP step at (1, 1) launched {sp_n} (without SP {n}), want "
+             f"{want}")
+    return sp_n
+
+
 def tp_step_err(ranks, ref) -> float:
     """The largest relative error of the ranks' (sum of squares, probe
     dot) pairs against the one-rank pairs `ref`, over the leaves: a leaf
@@ -4654,8 +4905,8 @@ def tp_step_err(ranks, ref) -> float:
     return worst
 
 
-def tp_step_check(got, ref, report) -> dict:
-    """The TP train step's gates over the ranks' results, for each dtype:
+def tp_step_check(got, ref, report, key: str = "tp_step") -> dict:
+    """A TP_PHASES phase's gates over the ranks' results, for each dtype:
     exact K1g / K2 launches a rank (lm_step_launches a step), nothing else
     launched, the ranks' losses equal; the losses within
     TP_STEP_LOSS_RTOL (bf16) or LOSS0_RTOL (fp32) relative of the one-rank
@@ -4664,21 +4915,25 @@ def tp_step_check(got, ref, report) -> dict:
     params' change within TP_STEP_DRIFT_RTOL (tp_step_err), and each
     planted fault beyond TP_STEP_GRAD_RTOL. Returns the launches a rank,
     summed over the dtypes."""
+    ph = TP_PHASES[key]
+    label, n_steps = ph["label"], ph["steps"]
     total = {}
-    out = report["tp_step"] = {"mesh": dict(zip(*TP_STEP_MESH)),
-                               "backend": "gloo", "lr": TP_STEP_LR}
-    for dt in TP_STEP_DTYPES:
-        cfg = tp_step_cfg(dt)
-        per_step = lm_step_launches(cfg, TP_STEP_MICRO)
+    out = report[key] = {"mesh": dict(zip(*TP_STEP_MESH)),
+                         "backend": "gloo", "lr": TP_STEP_LR,
+                         "phase_s_per_rank": [got[r][key]["phase_s"]
+                                              for r in range(TP_RANKS)]}
+    for dt in ph["dtypes"]:
+        cfg = ph["cfg"](dt)
+        per_step = lm_step_launches(cfg, ph["micro"])
         want = {k: 0 for k in counters()}
-        want.update({k: v * TP_STEP_STEPS for k, v in per_step.items()})
-        runs, one = [got[r]["tp_step"][dt] for r in range(TP_RANKS)], ref[dt]
+        want.update({k: v * n_steps for k, v in per_step.items()})
+        runs, one = [got[r][key][dt] for r in range(TP_RANKS)], ref[dt]
         for r, run in enumerate(runs):
             if run["launches"] != want:
-                fail(f"TP step {dt} rank {r} launched {run['launches']}, "
+                fail(f"{label} {dt} rank {r} launched {run['launches']}, "
                      f"want {want}")
             if run["losses"] != runs[0]["losses"]:
-                fail(f"TP step {dt}: rank {r}'s losses {run['losses']} "
+                fail(f"{label} {dt}: rank {r}'s losses {run['losses']} "
                      f"differ from rank 0's {runs[0]['losses']}")
         if one["launches"] != want:
             fail(f"one-rank step {dt} launched {one['launches']}, want "
@@ -4694,10 +4949,10 @@ def tp_step_check(got, ref, report) -> dict:
                                                     one["losses"])]
         grad_errs = [tp_step_err(ranks(lambda run: run["grads"][i][0]),
                                  one["grads"][i][0])
-                     for i in range(TP_STEP_STEPS)]
+                     for i in range(n_steps)]
         # the clip's global norm: every rank's the same, each block once
         clip_errs = []
-        for i in range(TP_STEP_STEPS):
+        for i in range(n_steps):
             n = math.sqrt(sum(ss for ss, _ in one["grads"][i][0]))
             clip_errs.append(max(abs(math.sqrt(run["grads"][i][1]) - n)
                                  for run in runs) / n)
@@ -4716,8 +4971,9 @@ def tp_step_check(got, ref, report) -> dict:
         loss_tol = TP_STEP_LOSS_RTOL if dt == "bfloat16" else LOSS0_RTOL
         out[dt] = {
             "arch": cfg.name, "layers": cfg.n_layers,
-            "crossbar": cfg.crossbar_size, "batch": TP_STEP_BATCH,
-            "seq": LM_SEQ, "micro": TP_STEP_MICRO, "steps": TP_STEP_STEPS,
+            "crossbar": cfg.crossbar_size, "batch": ph["batch"],
+            "seq": LM_SEQ, "micro": ph["micro"], "steps": n_steps,
+            "seq_sharding": cfg.seq_sharding,
             "losses": runs[0]["losses"], "one_rank_losses": one["losses"],
             "loss_rel_err": errs, "grad_rel_err": grad_errs,
             "clip_norm_rel_err": clip_errs, "update_rel_err": update_err,
@@ -4725,11 +4981,12 @@ def tp_step_check(got, ref, report) -> dict:
             "wall_s_per_rank": [run["s"] for run in runs],
             "setup_s_per_rank": [run["setup_s"] for run in runs],
             "one_rank_s": one["s"]}
-        print(f"TP step {dt} ({cfg.name}, {cfg.n_layers} layers, CADC relu "
+        print(f"{label} {dt} ({cfg.name}, {cfg.n_layers} layers, CADC relu "
               f"xbar {cfg.crossbar_size}, mesh {out['mesh']} over gloo on "
-              f"the one card, AdamW at lr {TP_STEP_LR}): {TP_STEP_STEPS} "
-              f"steps of {TP_STEP_BATCH} x {LM_SEQ} tokens in "
-              f"{TP_STEP_MICRO} micros, losses "
+              f"the one card, AdamW at lr {TP_STEP_LR}"
+              + (", seq_sharding" if cfg.seq_sharding else "")
+              + f"): {n_steps} steps of {ph['batch']} x {LM_SEQ} tokens in "
+              f"{ph['micro']} micros, losses "
               f"{[round(v, 5) for v in runs[0]['losses']]} vs one rank "
               f"{[round(v, 5) for v in one['losses']]} (rel err "
               f"{max(errs):.2e}, tol {loss_tol}); gradients rel err "
@@ -4742,26 +4999,27 @@ def tp_step_check(got, ref, report) -> dict:
                         f" gradients {v['grad_rel_err']:.2e}"
                         for k, v in controls.items())
               + f"; launches a rank "
-              f"{json.dumps({k: v for k, v in want.items() if v})}; wall "
+              f"{json.dumps({k: v for k, v in want.items() if v})}; phase "
+              f"{max(out['phase_s_per_rank']):.1f} s; wall "
               f"{[round(run['s'], 1) for run in runs]} s a rank (gloo "
               f"through the host, not a TP cost), one rank {one['s']:.1f} s",
               flush=True)
         if not (all(map(math.isfinite, runs[0]["losses"]))
                 and max(errs) <= loss_tol):
-            fail(f"TP step {dt} losses {runs[0]['losses']} vs the one-rank "
+            fail(f"{label} {dt} losses {runs[0]['losses']} vs the one-rank "
                  f"step's {one['losses']} (rel err {errs} > {loss_tol})")
         if dt == "bfloat16":
             continue
         if not (worst[0] <= TP_STEP_GRAD_RTOL
                 and worst[1] <= TP_STEP_DRIFT_RTOL):
-            fail(f"TP step {dt}: step 1's gradients / the clip norms rel err "
+            fail(f"{label} {dt}: step 1's gradients / the clip norms rel err "
                  f"{worst[0]} (tol {TP_STEP_GRAD_RTOL}), later gradients / "
                  f"the params' change {worst[1]} (tol {TP_STEP_DRIFT_RTOL})")
-        if set(controls) != set(TP_STEP_FAULTS):
-            fail(f"TP step {dt}: planted faults run {sorted(controls)}")
+        if set(controls) != set(ph["faults"]):
+            fail(f"{label} {dt}: planted faults run {sorted(controls)}")
         for fault, c in controls.items():
             if not c["grad_rel_err"] > TP_STEP_GRAD_RTOL:
-                fail(f"TP step: the planted fault {fault!r} passes the "
+                fail(f"{label}: the planted fault {fault!r} passes the "
                      f"gradient gate ({c['grad_rel_err']} <= "
                      f"{TP_STEP_GRAD_RTOL})")
     return total
@@ -5830,7 +6088,10 @@ def main() -> None:
     mesh_serve_k1 = mesh_serve_path(dev, report)
     mark("the mesh serve steps at (1, 1)")
     tp_launches, tp_step_launches, tp_serve_k1 = tp_cadc_path(dev, report)
-    mark("tp_cadc, the TP train step, the TP serve steps")
+    mark("tp_cadc, the TP and SP train steps, the TP serve steps, the "
+         "RG-LRU TP step")
+    tp_step_launches["sp_one_rank"] = sp_one_rank(dev, report)
+    mark("the SP step at (1, 1)")
     rec_launches = {}
     for arch, kw in REC_TRAIN.items():
         rec_launches[arch] = lm_train_path(dev, report, arch=arch,
@@ -5863,7 +6124,8 @@ def main() -> None:
         "one_rank": mesh_serve_k1, "two_ranks_per_rank": tp_serve_k1}
     for row in kernels:
         if row["name"] in ("cadc_matmul_gate", "cadc_segmented_bwd"):
-            row["tp_step_launches_per_rank"] = tp_step_launches[row["name"]]
+            for key, counts in tp_step_launches.items():
+                row[f"{key}_launches_per_rank"] = counts[row["name"]]
     torch.cuda.empty_cache()
     mark("kernel timing")
 

@@ -30,6 +30,12 @@ so it plans a cell as one rank of the mesh sees it:
     the train form for a prefill) and the bytes of rank 0's cache blocks
     beside the rules' per-rank cache bytes.
 
+A cell planned under --override seq_sharding=True runs the train step
+sequence-parallel over "model" (launch/steps.seq_split), as the JAX
+package's --override does; prefill and decode steps ignore the flag, as
+the JAX package's do, and report as without it. A report carries its
+overrides.
+
 Every cell reports n_params, n_active_params and model_flops (the JAX
 package's formulas), the per-rank parameter and optimizer bytes under the
 rules, the row-parallel linears that fall back to the gathered activation
@@ -171,6 +177,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         "seq_len": shape.seq_len, "global_batch": shape.global_batch,
         "n_params": n_params, "n_active_params": n_active,
         "tp_fallbacks": tf.tp_fallbacks(cfg, sizes),
+        "overrides": dict(overrides or {}),
     }
     memory = {"param_bytes_per_rank": param_bytes}
     if shape.kind == "train":

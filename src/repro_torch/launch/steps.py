@@ -184,20 +184,29 @@ def _mesh_plan(cfg: ArchConfig, mesh: mesh_lib.Mesh, dims: list,
     (transformer.tp_leaf_modes or serve_leaf_modes)) of a step over `mesh`.
     A leaf the plan splits along another dim than the rules store it (an
     MoE block's shared expert, which JAX's rules read as a bank) is
-    ("cut", dim): gathered, then cut. Sequence parallelism is not ported:
-    cfg.seq_sharding under a "model" axis > 1 raises NotImplementedError."""
+    ("cut", dim): gathered, then cut."""
     sizes = {a: mesh_lib.axis_size(mesh, a) for a in mesh_lib.AXES}
-    if cfg.seq_sharding and sizes["model"] > 1:
-        raise NotImplementedError(
-            "seq_sharding: sequence parallelism over 'model' is not ported")
     shape = abstract_params(cfg)
     mdims = fsdp.model_dims(shape, cfg, mesh)
     plan = leaf_modes(shape, cfg, sizes)
     if len(dims) != len(plan):
         raise ValueError(f"{len(dims)} dims for {len(plan)} leaves")
-    modes = [("cut", cd) if m == "split" and md != cd else (m, cd)
-             for (m, cd), md in zip(plan, mdims)]
-    return sizes, shape, mdims, modes
+    return sizes, shape, mdims, _cut_modes(plan, mdims)
+
+
+def _cut_modes(plan: list, mdims: list) -> list:
+    return [("cut", cd) if m == "split" and md != cd else (m, cd)
+            for (m, cd), md in zip(plan, mdims)]
+
+
+def seq_split(cfg: ArchConfig, seq_len: int, sizes) -> bool:
+    """Whether the train step runs a micro of `seq_len` positions
+    sequence-parallel over "model": cfg.seq_sharding under act_sharding,
+    where the JAX package's _seq_shard constrains the residual stream
+    (act_sharding.splits: the length divides the axis; at one rank the
+    form runs with its collectives over that rank)."""
+    return act_sharding.splits(seq_len, sizes=sizes,
+                               enabled=cfg.act_sharding and cfg.seq_sharding)
 
 
 def _gather_leaves(blocks: list, cfg: ArchConfig, dims: list, mdims: list,
@@ -261,14 +270,22 @@ def make_fsdp_train_step(cfg: ArchConfig, mesh: mesh_lib.Mesh,
     of the blocks' squared sums, each block counted once; the loss is the
     mean over the data-parallel ranks. The collectives run at every world
     size, one rank included, on the default stream: at world 1 the step
-    is make_train_step's, bitwise.
+    is make_train_step's, bitwise, with or without sequence parallelism.
 
-    Sequence parallelism (cfg.seq_sharding) is not ported: a model axis
-    > 1 with it raises NotImplementedError."""
+    Sequence parallelism (cfg.seq_sharding; `seq_split` of the micro's
+    length): the layers carry the residual stream as the rank's block of
+    the sequence, entering each tensor-parallel region by an all-gather
+    along S and leaving it by a reduce-scatter in place of the all-reduce
+    (Megatron-SP, act_sharding's `seq`), and the plan is
+    tp_leaf_modes(seq=True): the norms' and the fallbacks' gradients,
+    each rank's of its block, are summed over "model" too. A micro whose
+    length does not divide the axis runs as without it."""
     optimizer = optimizer or make_optimizer(cfg)
     n_micro = n_micro or cfg.n_microbatches
     sizes, shape, mdims, modes = _mesh_plan(cfg, mesh, dims,
                                             tf.tp_leaf_modes)
+    seq_modes = _cut_modes(tf.tp_leaf_modes(shape, cfg, sizes, seq=True),
+                           mdims)
     shape_of = [tuple(x.shape) for x in _leaves(shape)]
     mg = mesh_lib.process_groups(mesh)
     grp, at = mg.groups, mg.coords
@@ -276,7 +293,10 @@ def make_fsdp_train_step(cfg: ArchConfig, mesh: mesh_lib.Mesh,
         leaves = dict(collections.Counter(m for m, _ in modes))
         print(f"tp plan {mesh_lib.axis_sizes(mesh)}: leaves {leaves}; "
               "row-parallel linears on the gathered activation: "
-              f"{tf.tp_fallbacks(cfg, sizes) or 'none'}", flush=True)
+              f"{tf.tp_fallbacks(cfg, sizes) or 'none'}"
+              + ("; sequence-parallel where S divides the model axis"
+                 if cfg.seq_sharding and cfg.act_sharding else ""),
+              flush=True)
 
     def train_step(shards, opt_state, batch: Dict[str, Tensor], step: int):
         masters = [p.detach() for p in _leaves(shards)]
@@ -288,6 +308,8 @@ def make_fsdp_train_step(cfg: ArchConfig, mesh: mesh_lib.Mesh,
             raise ValueError(f"batch {b} does not divide into {n_micro} "
                              f"micros over {dp} data-parallel ranks")
         rows = b // (n_micro * dp)
+        seq = seq_split(cfg, batch["labels"].shape[1], sizes)
+        plan = seq_modes if seq else modes
         gsum = [torch.zeros(p.shape, device=p.device) for p in masters]
         lsum = torch.zeros((), device=masters[0].device)
         for i in range(n_micro):
@@ -296,7 +318,8 @@ def make_fsdp_train_step(cfg: ArchConfig, mesh: mesh_lib.Mesh,
             with torch.no_grad():
                 live = [t.detach().requires_grad_() for t in _gather_leaves(
                     masters, cfg, dims, mdims, modes, mg)]
-            with act_sharding.tp_context(sizes, grp["model"], at["model"]):
+            with act_sharding.tp_context(sizes, grp["model"], at["model"],
+                                         seq):
                 logits, aux = tf.forward_train(_rebuild(shards, live), micro,
                                                cfg, token_group=grp["dp"])
                 loss = (tf.lm_loss(logits, micro["labels"], cfg=cfg)[0]
@@ -312,7 +335,7 @@ def make_fsdp_train_step(cfg: ArchConfig, mesh: mesh_lib.Mesh,
             whole = []          # the leaves no rank shards over "data"
             with torch.no_grad():
                 for j, (d, md, (mode, cd)) in enumerate(zip(dims, mdims,
-                                                            modes)):
+                                                            plan)):
                     g = grads[j]
                     if g is None:
                         g = torch.zeros_like(live[j])
@@ -426,11 +449,13 @@ def make_mesh_prefill_step(cfg: ArchConfig, mesh: mesh_lib.Mesh,
     make_fsdp_train_step: rank r at mesh coordinate r, its `mesh_groups`
     this rank's groups). shards: this rank's blocks of the parameters
     (fsdp.mesh_block by `dims` and fsdp.model_dims); batch: the GLOBAL
-    batch. Each call casts the leaves as cast_compute does and gathers
-    them whole over "data", and over "model" where the train plan
-    (transformer.tp_leaf_modes) does not split them; forward_train then
-    runs in the TP context with no gradient (K1 on the card) over this
-    rank's rows (_dp_rows: its data-parallel block, or every row where
+    batch. cfg.seq_sharding changes nothing here, as in the JAX package,
+    whose _seq_shard only its train layers call. Each call casts the
+    leaves as cast_compute does and gathers them whole over "data", and
+    over "model" where the train plan (transformer.tp_leaf_modes: the
+    RG-LRU block channel-parallel too) does not split them; forward_train
+    then runs in the TP context with no gradient (K1 on the card) over
+    this rank's rows (_dp_rows: its data-parallel block, or every row where
     the batch does not divide), an MoE block routing over the whole
     batch; the last position's vocab-parallel logits are gathered over
     "model" into the logical vocab. Returns this rank's rows; every rank

@@ -26,7 +26,12 @@ they divide the axis, else each rank computes the kv heads its q heads
 read (q_head // (H / K)) from the whole weight, then `wo` row-parallel
 (or, where its segments would span ranks, over the gathered heads).
 `heads_split` / `kv_split` / `wo_local` say which, for the layers and the
-train step's plan alike.
+train step's plan alike. Under sequence parallelism (the context's `seq`)
+the input is this rank's block of the sequence: the head-parallel form
+gathers it along S (layers.tp_in) and wo's output is reduce-scattered
+along S; a replicated attention runs on the gathered sequence
+(layers.whole_seq). Positions, RoPE and the masks are the whole
+sequence's either way.
 
 Decode under the TP context (the mesh serve step, launch/steps.py) runs
 on each rank's block of the dense rings under the cache rule
@@ -119,9 +124,9 @@ def _qkv_tp(p, x: Tensor, cfg: ArchConfig, positions: Tensor):
     not group evenly over them."""
     ctx = sa.current()
     t = ctx.sizes["model"]
+    x = ll.tp_in(x)
     b, s, _ = x.shape
     h, hd = cfg.n_heads // t, cfg.head_dim
-    x = comm.copy_to(x, ctx.group)
     q = ll.column_linear(p["wq"], x, cfg).reshape(b, s, h, hd)
     if kv_split(cfg):
         kw = {}
@@ -161,6 +166,9 @@ def attention_train(p: Dict, x: Tensor, cfg: ArchConfig, *, kind: str,
     """kind: 'global' (causal, or bidirectional for encoders) | 'local'
     (causal sliding window), over the whole sequence in q chunks of
     cfg.attn_chunk rows."""
+    if sa.current() is not None and not heads_split(cfg):
+        return ll.whole_seq(lambda h: _attention_full(
+            p, h, cfg, kind=kind, positions=positions)[0], x)
     return _attention_full(p, x, cfg, kind=kind, positions=positions)[0]
 
 
@@ -178,9 +186,9 @@ def _attention_full(p: Dict, x: Tensor, cfg: ArchConfig, *, kind: str,
     sequence — every key for an encoder (cfg.is_encoder) — in q chunks of
     cfg.attn_chunk rows against every key (the masks give each chunk
     exactly the JAX package's keys)."""
-    b, s, _ = x.shape
     tp = sa.current() is not None and heads_split(cfg)
     q, k, v = (_qkv_tp if tp else _qkv)(p, x, cfg, positions)
+    b, s = q.shape[:2]
     kpos = torch.arange(s, device=x.device)
     outs = []
     for c0 in range(0, s, cfg.attn_chunk):

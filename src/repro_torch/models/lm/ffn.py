@@ -5,7 +5,10 @@ Under the TP context (parallel.act_sharding; the JAX package's `_tp`
 constraint, d_ff over "model") the up / gate projections are
 column-parallel and w_down row-parallel over each rank's block of d_ff,
 or over the gathered hidden where that block is not whole segments
-(layers.segment_local)."""
+(layers.segment_local). Under sequence parallelism the split form gathers
+its input along S (layers.tp_in) and reduce-scatters w_down's output; a
+block whose hidden does not divide runs on the gathered sequence
+(layers.whole_seq)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -16,7 +19,6 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.lm import layers as ll
 from repro_torch.parallel import act_sharding as sa
-from repro_torch.parallel import comm
 
 Tensor = torch.Tensor
 
@@ -59,8 +61,10 @@ def ffn_apply(p: Dict, x: Tensor, cfg: ArchConfig,
     ctx = sa.current()
     d_ff = d_ff or cfg.d_ff
     tp = ctx is not None and hidden_split(cfg, d_ff)
+    if ctx is not None and ctx.seq and not tp:
+        return ll.whole_seq(lambda h: ffn_apply(p, h, cfg, d_ff), x)
     if tp and not copied:
-        x = comm.copy_to(x, ctx.group)
+        x = ll.tp_in(x)
         up = ll.column_linear
     else:
         up = ll.linear_apply

@@ -11,6 +11,16 @@ step's): `column_linear` runs a rank's block of output columns,
 `row_linear` a rank's block of input features (segments, under CADC)
 followed by the all-reduce; `embed` and `lm_head` split the padded vocab
 over "model" (`vocab_split`). Outside the context every layer runs whole.
+
+Sequence parallelism (the context's `seq`): the residual stream is each
+rank's block of the sequence [b, S / T, d]. A tensor-parallel region is
+entered by `tp_in` (an all-gather along S, reduce-scatter backward, in
+place of copy_to) and left by `tp_out` (a reduce-scatter along S,
+all-gather backward, in place of the row-parallel all-reduce); a
+fallback row-parallel linear runs its whole weight on the rank's S block
+of the gathered features; `whole_seq` runs a part every rank computes
+alike (a recurrent block, a replicated attention or FFN, an MoE block)
+on the gathered sequence and keeps the rank's block of its output.
 """
 from __future__ import annotations
 
@@ -157,6 +167,53 @@ def linear_apply(p: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
 # tensor-parallel forms
 # ---------------------------------------------------------------------------
 
+def seq_split() -> bool:
+    """Whether the residual stream is this rank's block of the sequence
+    (the TP context's `seq`)."""
+    ctx = sa.current()
+    return ctx is not None and ctx.seq
+
+
+def tp_in(x: Tensor) -> Tensor:
+    """x [b, S, ...] into a tensor-parallel region over "model": comm.copy_to,
+    or, under sequence parallelism (x this rank's block [b, S / T, ...]),
+    the ranks' blocks gathered along S with a reduce-scatter backward."""
+    ctx = sa.current()
+    if ctx.seq:
+        return comm.gather_to(x, 1, ctx.group)
+    return comm.copy_to(x, ctx.group)
+
+
+def tp_out(y: Tensor) -> Tensor:
+    """A row-parallel region's partial outputs y [b, S, ...] summed over
+    "model": comm.reduce_from, or, under sequence parallelism, this rank's
+    block along S of the sum (a reduce-scatter, all-gather backward)."""
+    ctx = sa.current()
+    if ctx.seq:
+        return comm.reduce_scatter_from(y, 1, ctx.group)
+    return comm.reduce_from(y, ctx.group)
+
+
+def whole_seq(fn, x: Tensor):
+    """fn(x) where the stream is seq-split: x [b, S / T, ...] gathered
+    along S (comm.gather_from), fn run on it with sequence parallelism off
+    (tensor-parallel regions inside it stay), and this rank's block of its
+    output cut out with an all-gather backward (comm.split_to). Every rank
+    computes fn alike, so its leaves' gradients are whole on every rank,
+    as without sequence parallelism. fn may return (y, extra...): y is
+    cut. Elsewhere fn on a view of x: fn's uses of x then add their
+    gradients before x's other uses do, in the order the gather's
+    backward adds them (so one rank's form is bitwise this one)."""
+    ctx = sa.current()
+    if ctx is None or not ctx.seq:
+        return fn(x.view_as(x))
+    with sa.tp_context(ctx.sizes, ctx.group, ctx.rank):
+        out = fn(comm.gather_from(x, 1, ctx.group))
+    if isinstance(out, tuple):
+        return (comm.split_to(out[0], 1, ctx.group),) + out[1:]
+    return comm.split_to(out, 1, ctx.group)
+
+
 def segment_local(cfg: ArchConfig, features: int, model: int) -> bool:
     """Whether a row-parallel linear over `features` inputs, split over
     `model` ranks by its producer, runs on each rank's block: the features
@@ -193,16 +250,18 @@ def row_linear(p: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
     [S / T, xbar, N] under CADC, which must be whole: segment_local).
     Each rank's partial product (K1g / K2 over its local segments on the
     card: tp_cadc.tp_cadc_row_linear) is all-reduced in the compute dtype
-    (comm.reduce_from), then the bias is added."""
+    (comm.reduce_from; under sequence parallelism reduce-scattered along
+    S, tp_out), then the bias is added."""
     ctx = sa.current()
     w, dt = p["w"], cdtype(cfg)
     if w.ndim == 3:
         y = tp_cadc.tp_cadc_row_linear(
             x.to(dt), w.to(dt), group=ctx.group, fn=cfg.dendritic_fn,
             impl=cfg.kernel_impl, save_gate=cfg.kernel_save_gate,
-            psum_dtype=dt if cfg.bf16_wire else None)
+            psum_dtype=dt if cfg.bf16_wire else None,
+            scatter_dim=1 if ctx.seq else None)
     else:
-        y = comm.reduce_from(torch.matmul(x.to(dt), w.to(dt)), ctx.group)
+        y = tp_out(torch.matmul(x.to(dt), w.to(dt)))
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -211,10 +270,18 @@ def row_linear(p: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
 def row_or_gathered(p: Params, x: Tensor, cfg: ArchConfig,
                     local: bool) -> Tensor:
     """row_linear where the layer is segment-local, else the activation
-    gathered over "model" (comm.gather_from) through the whole weight."""
+    gathered over "model" (comm.gather_from) through the whole weight.
+    Under sequence parallelism the fallback gathers the features with a
+    reduce-scatter backward (each rank's gradient covers its S block only)
+    and runs the whole weight on this rank's S block of them."""
     if local:
         return row_linear(p, x, cfg)
-    return linear_apply(p, comm.gather_from(x, -1, sa.current().group), cfg)
+    ctx = sa.current()
+    if ctx.seq:
+        x = comm.gather_to(x, -1, ctx.group)
+        return linear_apply(p, comm.block(x, 1, ctx.rank,
+                                          ctx.sizes["model"]), cfg)
+    return linear_apply(p, comm.gather_from(x, -1, ctx.group), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -260,17 +327,20 @@ def vocab_range(cfg: ArchConfig) -> Tuple[int, int, int]:
 def embed(p: Params, tokens: Tensor, cfg: ArchConfig) -> Tensor:
     """Token embeddings. Vocab-parallel (vocab_split, in the TP context):
     p["table"] is this rank's rows; ids outside them read zeros and one
-    all-reduce sums the ranks' rows (exact: one rank holds each id)."""
+    all-reduce sums the ranks' rows (exact: one rank holds each id), or,
+    under sequence parallelism, one reduce-scatter along S (tp_out). Else
+    the whole table, of which a seq-split stream keeps this rank's block
+    (comm.split_to)."""
     dt = cdtype(cfg)
-    if sa.current() is not None and vocab_split(cfg):
+    ctx = sa.current()
+    if ctx is not None and vocab_split(cfg):
         lo, rows, _ = vocab_range(cfg)
         local = tokens - lo
         inside = (local >= 0) & (local < rows)
         x = p["table"].to(dt)[local.clamp(0, rows - 1)]
-        x = comm.reduce_from(torch.where(inside[..., None], x,
-                                         x.new_zeros(())), sa.current().group)
+        x = tp_out(torch.where(inside[..., None], x, x.new_zeros(())))
     else:
-        x = p["table"].to(dt)[tokens]
+        x = split_seq(p["table"].to(dt)[tokens])
     if cfg.emb_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(dt)
     return x
@@ -288,15 +358,29 @@ def lm_head(p_head: Optional[Params], p_emb: Params, x: Tensor,
     Vocab-parallel (vocab_split, in the TP context): the rank's block of
     the table or of the head's columns gives the logits of its vocab rows,
     of which the real ones (vocab_range) are returned; lm_loss reduces
-    over the ranks."""
-    tp = sa.current() is not None and vocab_split(cfg)
+    over the ranks. Under sequence parallelism x is this rank's S block:
+    gathered along S (tp_in), or, where the vocab is whole, with
+    comm.gather_from (every rank then computes the whole logits)."""
+    ctx = sa.current()
+    tp = ctx is not None and vocab_split(cfg)
     if tp:
-        x = comm.copy_to(x, sa.current().group)
+        x = tp_in(x)
+    elif seq_split():
+        x = comm.gather_from(x, 1, ctx.group)
     if cfg.tie_embeddings:
         logits = torch.matmul(x, p_emb["table"].to(x.dtype).t()).float()
     else:
         logits = linear_apply(p_head, x, cfg).float()
     return logits[..., : vocab_range(cfg)[2] if tp else cfg.vocab_size]
+
+
+def split_seq(x: Tensor) -> Tensor:
+    """x [b, S, ...], the same on every rank, as the stream holds it: this
+    rank's block along S under sequence parallelism (comm.split_to: its
+    gradient gathered, so each rank's is whole), else x."""
+    if not seq_split():
+        return x
+    return comm.split_to(x, 1, sa.current().group)
 
 
 def gather_logits(logits: Tensor, cfg: ArchConfig) -> Tensor:

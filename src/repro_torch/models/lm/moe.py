@@ -193,7 +193,7 @@ def moe_apply(p: Dict, x: Tensor, cfg: ArchConfig,
     ranks."""
     if token_group is not None:
         b, r = x.shape[0], dist.get_rank(token_group)
-        y, aux = moe_apply(p, comm.gather_rows(x, token_group), cfg)
+        y, aux = moe_apply(p, comm.gather_to(x, 0, token_group), cfg)
         return y[r * b:(r + 1) * b], aux
     m = cfg.moe
     e_n, k = m.n_experts, m.top_k

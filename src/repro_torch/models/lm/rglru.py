@@ -6,6 +6,17 @@ sigmoids. Port of repro.models.lm.rglru. Decode carries (h, conv buffer)
 per slot, and serving runs the decode cell over time, prefill included
 (transformer.py). Training (rglru_apply) runs the diagonal recurrence over
 the whole sequence as a log-depth scan (_linear_scan).
+
+Under the TP context (parallel.act_sharding) with rnn_width divisible by
+"model" (`channels_split`), the block runs channel-parallel along the
+sharding rules' splits (parallel/sharding.py: w_gate, w_x, w_r, w_i
+column-parallel, w_out row-parallel, the depthwise conv's w by channel,
+lam and the biases whole): each rank computes its block of the rnn
+channels, w_r and w_i reading every channel of the conv output (gathered
+over "model"), the conv, the gates and the scan per channel, exact on a
+rank's block; w_out is row-parallel on whole local segments
+(layers.segment_local, `out_local`) or runs on the gathered channels.
+Decode runs the block whole.
 """
 from __future__ import annotations
 
@@ -17,6 +28,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.lm import layers as ll
+from repro_torch.parallel import act_sharding as sa
+from repro_torch.parallel import comm
 from repro_torch.models.lm.xlstm import (_causal_conv1d, _causal_conv1d_init,
                                         _conv1d_step)
 
@@ -48,16 +61,44 @@ def rglru_init(gen: torch.Generator, cfg: ArchConfig,
     }
 
 
-def _rglru_coeffs(p: Dict, u: Tensor, cfg: ArchConfig
-                  ) -> Tuple[Tensor, Tensor]:
-    """u: conv output [..., rw] -> (a, b) of the diagonal recurrence, fp32."""
-    r = torch.sigmoid(ll.linear_apply(p["w_r"], u, cfg).float())
-    i = torch.sigmoid(ll.linear_apply(p["w_i"], u, cfg).float())
-    log_a = -C_RGLRU * F.softplus(p["lam"]) * r
+def _coeffs(r_pre: Tensor, i_pre: Tensor, lam: Tensor, u: Tensor
+            ) -> Tuple[Tensor, Tensor]:
+    """(a, b) of the diagonal recurrence, fp32, from the gates'
+    pre-activations, Lambda and the conv output u, channel by channel."""
+    r = torch.sigmoid(r_pre.float())
+    i = torch.sigmoid(i_pre.float())
+    log_a = -C_RGLRU * F.softplus(lam) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9)) * (
         i * u.float())
     return a, b
+
+
+def _rglru_coeffs(p: Dict, u: Tensor, cfg: ArchConfig
+                  ) -> Tuple[Tensor, Tensor]:
+    """u: conv output [..., rw] -> (a, b) of the diagonal recurrence, fp32."""
+    return _coeffs(ll.linear_apply(p["w_r"], u, cfg),
+                   ll.linear_apply(p["w_i"], u, cfg), p["lam"], u)
+
+
+def channels_split(cfg: ArchConfig, sizes=None) -> bool:
+    """Whether the training block runs channel-parallel over "model"
+    (rnn_width divides the axis)."""
+    return sa.splits(cfg.rnn_width or cfg.d_model, sizes=sizes,
+                     enabled=cfg.act_sharding)
+
+
+def out_local(cfg: ArchConfig, model: int) -> bool:
+    """Whether w_out runs row-parallel on each rank's channels (whole
+    segments on every rank)."""
+    return ll.segment_local(cfg, cfg.rnn_width or cfg.d_model, model)
+
+
+def _channels(t: Tensor) -> Tensor:
+    """This rank's block of a whole per-channel leaf [..., rw] (lam, the
+    conv's bias) in the channel-parallel form."""
+    ctx = sa.current()
+    return comm.block(t, t.ndim - 1, ctx.rank, ctx.sizes["model"])
 
 
 def _linear_scan(a: Tensor, b: Tensor) -> Tensor:
@@ -84,13 +125,51 @@ def rglru_apply(p: Dict, x: Tensor, cfg: ArchConfig) -> Tensor:
     """Training path, x [B, S, d] -> [B, S, d]: the tanh-gelu gate, w_x,
     the causal conv, the recurrence's coefficients (fp32), the scan over S
     from h = 0, h rounded to the compute dtype before the gate multiply,
-    and w_out."""
+    and w_out. w_r and w_i read u through one view, as the
+    channel-parallel form reads it through one gather, so the two forms
+    sum u's gradient in the same order.
+
+    Under the TP context the channel-parallel form (module docstring)
+    where channels_split holds, else the block whole on every rank (on
+    the gathered sequence under sequence parallelism: layers.whole_seq).
+    Under sequence parallelism x is this rank's S block: the
+    channel-parallel form gathers it (layers.tp_in) and reduce-scatters
+    w_out's output along S."""
+    ctx = sa.current()
+    if ctx is not None and channels_split(cfg):
+        return _rglru_tp(p, x, cfg)
+    return ll.whole_seq(lambda h: _rglru_whole(p, h, cfg), x)
+
+
+def _rglru_whole(p: Dict, x: Tensor, cfg: ArchConfig) -> Tensor:
     xg = F.gelu(ll.linear_apply(p["w_gate"], x, cfg), approximate="tanh")
     xi = ll.linear_apply(p["w_x"], x, cfg)
     u = _causal_conv1d(p["conv"], xi)
-    a, b = _rglru_coeffs(p, u, cfg)
+    uw = u.view_as(u)
+    a, b = _coeffs(ll.linear_apply(p["w_r"], uw, cfg),
+                   ll.linear_apply(p["w_i"], uw, cfg), p["lam"], u)
     h = _linear_scan(a, b)
     return ll.linear_apply(p["w_out"], h.to(x.dtype) * xg, cfg)
+
+
+def _rglru_tp(p: Dict, x: Tensor, cfg: ArchConfig) -> Tensor:
+    """The channel-parallel form: p's split leaves are this rank's blocks
+    (w_gate, w_x, w_r, w_i its output channels, the conv's w its channels,
+    w_out its input rows where out_local), lam, the conv's bias and the
+    gates' biases whole."""
+    ctx = sa.current()
+    x = ll.tp_in(x)
+    xg = F.gelu(ll.column_linear(p["w_gate"], x, cfg), approximate="tanh")
+    xi = ll.column_linear(p["w_x"], x, cfg)
+    u = _causal_conv1d({"w": p["conv"]["w"],
+                        "b": _channels(p["conv"]["b"])}, xi)
+    uw = comm.gather_to(u, -1, ctx.group)   # w_r, w_i read every channel
+    a, b = _coeffs(ll.column_linear(p["w_r"], uw, cfg),
+                   ll.column_linear(p["w_i"], uw, cfg),
+                   _channels(p["lam"]), u)
+    h = _linear_scan(a, b)
+    return ll.row_or_gathered(p["w_out"], h.to(x.dtype) * xg, cfg,
+                              out_local(cfg, ctx.sizes["model"]))
 
 
 def rglru_init_state(cfg: ArchConfig, batch: int,

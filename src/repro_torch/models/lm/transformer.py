@@ -220,7 +220,10 @@ def _attn_residual(p: Params, x: Tensor, cfg: ArchConfig, attn_fn,
     h = ll.rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
     aux = None
     if cfg.moe.n_experts > 0:
-        y, aux = moe_lib.moe_apply(p["moe"], h, cfg, token_group)
+        # on the gathered sequence under sequence parallelism: the routing,
+        # the capacity and the aux loss read the whole micro on every rank
+        y, aux = ll.whole_seq(lambda h: moe_lib.moe_apply(
+            p["moe"], h, cfg, token_group), h)
         x = x + y
     elif cfg.ffn_type != "none":
         x = x + ffn_lib.ffn_apply(p["ffn"], h, cfg)
@@ -276,14 +279,26 @@ def _embed_inputs(params: Params, batch: Dict[str, Tensor],
     batch["patches"] [B, frontend_len, frontend_dim] overlay the first
     frontend_len positions (those positions are the image); for the audio
     frontend the projected frames batch["frames"] [B, S, frontend_dim]
-    are the whole input."""
+    are the whole input. Under sequence parallelism the result is this
+    rank's block of the sequence: the frames and the patches are projected
+    whole, then cut (layers.split_seq)."""
     if cfg.frontend == "audio":
-        return ll.linear_apply(params["frontend_proj"], batch["frames"], cfg)
+        return ll.split_seq(ll.linear_apply(params["frontend_proj"],
+                                            batch["frames"], cfg))
     x = ll.embed(params["embed"], batch["tokens"], cfg)
     if cfg.frontend == "vit":
         patches = ll.linear_apply(params["frontend_proj"], batch["patches"],
-                                  cfg)
-        x = torch.cat([patches.to(x.dtype), x[:, patches.shape[1]:]], dim=1)
+                                  cfg).to(x.dtype)
+        n = patches.shape[1]
+        if not ll.seq_split():
+            return torch.cat([patches, x[:, n:]], dim=1)
+        s = batch["tokens"].shape[1]
+        whole = ll.split_seq(torch.nn.functional.pad(patches,
+                                                     (0, 0, 0, s - n)))
+        ctx = act_sharding.current()
+        lo = ctx.rank * x.shape[1]
+        pos = torch.arange(lo, lo + x.shape[1], device=x.device)
+        x = torch.where((pos < n)[None, :, None], whole, x)
     return x
 
 
@@ -297,11 +312,16 @@ def _layer_train(p: Params, x: Tensor, kind: str, cfg: ArchConfig,
     """One layer over the whole sequence: (x, the MoE aux loss or None).
     An attention layer: _attn_residual; an mLSTM or sLSTM block: a bare
     residual; an rglru layer: pre-norm RG-LRU plus a residual, then
-    pre-norm FFN plus a residual."""
+    pre-norm FFN plus a residual. Under sequence parallelism x is this
+    rank's block of the sequence (the JAX package's _seq_shard) and so is
+    the result; the norms run on the block, the xLSTM blocks on the
+    gathered sequence (layers.whole_seq)."""
     if kind == "mlstm":
-        return x + xlstm_lib.mlstm_apply(p["block"], x, cfg), None
+        return x + ll.whole_seq(lambda h: xlstm_lib.mlstm_apply(
+            p["block"], h, cfg), x), None
     if kind == "slstm":
-        return x + xlstm_lib.slstm_apply(p["block"], x, cfg), None
+        return x + ll.whole_seq(lambda h: xlstm_lib.slstm_apply(
+            p["block"], h, cfg), x), None
     if kind == "rglru":
         h = ll.rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
         x = x + rglru_lib.rglru_apply(p["rec"], h, cfg)
@@ -314,7 +334,8 @@ def _layer_train(p: Params, x: Tensor, kind: str, cfg: ArchConfig,
 
 
 def tp_leaf_modes(params_shape: Params, cfg: ArchConfig,
-                  sizes: Dict[str, int]) -> List[Tuple[str, Optional[int]]]:
+                  sizes: Dict[str, int], seq: bool = False
+                  ) -> List[Tuple[str, Optional[int]]]:
     """How forward_train's layers use each leaf under the TP context of a
     mesh with axis sizes `sizes`, in leaf order (the train step's plan),
     as (mode, dim):
@@ -326,17 +347,33 @@ def tp_leaf_modes(params_shape: Params, cfg: ArchConfig,
                   column-parallel layer's bias, the kv weights the q heads
                   of a rank read): its gradient is summed over "model";
       ("full", None) — the whole leaf in a part of the model every rank
-                  runs alike (norms, routers, recurrent blocks, the
+                  runs alike (norms, routers, xLSTM blocks, the
                   fallbacks): its gradient is the same on every rank.
+
+    The RG-LRU block, where channels_split holds, splits w_gate, w_x, w_r,
+    w_i and the conv's w along their channels and w_out along its input
+    rows (or reads it whole: a fallback), lam and the biases partial.
+
+    `seq`: the plan under sequence parallelism (the residual stream each
+    rank's block of the sequence). The leaves applied to the rank's block
+    alone then get a part of their gradient and become partial: the
+    norms ln1, ln2 and final_norm, and a tensor-parallel block's whole
+    row-parallel leaves (a fallback's weight, w_down's bias). The parts
+    every rank computes alike on the gathered sequence
+    (layers.whole_seq: the xLSTM blocks, a replicated attention, FFN or
+    RG-LRU, the MoE block) and the vocab ends keep their modes.
 
     The predicates are the layers' own (layers.vocab_split,
     attention.heads_split / kv_split / wo_local, ffn.hidden_split /
-    down_local, moe.tp_mode / down_local)."""
+    down_local, moe.tp_mode / down_local, rglru.channels_split /
+    out_local)."""
     t = sizes.get("model", 1)
     vocab = ll.vocab_split(cfg, sizes)
     heads = attn.heads_split(cfg, sizes)
     kv = attn.kv_split(cfg, sizes)
     moe_mode = moe_lib.tp_mode(cfg, sizes)
+    rec = rglru_lib.channels_split(cfg, sizes)
+    hidden = ffn_lib.hidden_split(cfg, cfg.d_ff, sizes)
     full, partial = ("full", None), ("partial", None)
 
     def ffn_mode(role, leaf, d_ff, ndim):
@@ -363,6 +400,13 @@ def tp_leaf_modes(params_shape: Params, cfg: ArchConfig,
             if leaf == "b":
                 return partial
             return ("split", ndim - 1) if role == "wq" or kv else partial
+        if sub == "rec" and rec:
+            if role == "w_out":
+                return (("split", 0) if leaf == "w"
+                        and rglru_lib.out_local(cfg, t) else full)
+            if role == "lam" or leaf == "b":
+                return partial
+            return ("split", ndim - 1)    # w_gate, w_x, w_r, w_i, conv w
         if sub == "ffn":
             return ffn_mode(role, leaf, cfg.d_ff, ndim)
         if sub == "moe" and names[3] == "shared":
@@ -376,8 +420,24 @@ def tp_leaf_modes(params_shape: Params, cfg: ArchConfig,
                 return ("split", 1) if moe_lib.down_local(cfg, t) else full
         return full
 
-    return [mode(names, leaf.ndim)
-            for names, leaf in _leaf_paths(params_shape)]
+    def stream(names):
+        """Whether the leaf is applied to the rank's S block alone under
+        sequence parallelism."""
+        if names[0] == "final_norm":
+            return True
+        if names[0] != "layers":
+            return False
+        if names[2] in ("ln1", "ln2"):
+            return True
+        row = {"attn": ("wo", heads), "ffn": ("w_down", hidden),
+               "rec": ("w_out", rec)}.get(names[2])
+        return row is not None and names[3] == row[0] and row[1]
+
+    modes = []
+    for names, leaf in _leaf_paths(params_shape):
+        m = mode(names, leaf.ndim)
+        modes.append(partial if seq and m == full and stream(names) else m)
+    return modes
 
 
 def _leaf_paths(tree, names: Tuple[str, ...] = ()):
@@ -398,7 +458,9 @@ def serve_leaf_modes(params_shape: Params, cfg: ArchConfig,
     """How the mesh decode step's layers use each leaf (the serve step's
     plan, tp_leaf_modes' (mode, dim) pairs in leaf order): the train plan,
     but the attention leaves follow the form the cache rule gives the
-    decode (attention.decode_form), which the kv heads decide. Where they
+    decode (attention.decode_form), which the kv heads decide, and the
+    RG-LRU block is read whole (the decode runs it whole: the cache rule
+    does not split its state over "model"). Where they
     divide "model" the form is head-parallel and the train plan's
     attention entries hold (the kv heads split too). Otherwise every rank
     computes every head (length-parallel or replicated) and reads the
@@ -409,8 +471,9 @@ def serve_leaf_modes(params_shape: Params, cfg: ArchConfig,
     heads = attn.decode_form(cfg, 0, sizes.get("model", 1)) \
         == "head-parallel"
     train = tp_leaf_modes(params_shape, cfg, sizes)
-    return [m if heads or names[0] != "layers" or names[2] != "attn"
-            else ("full", None)
+    return [("full", None) if names[0] == "layers"
+            and (names[2] == "rec" or names[2] == "attn" and not heads)
+            else m
             for (names, _), m in zip(_leaf_paths(params_shape), train)]
 
 
@@ -431,6 +494,9 @@ def tp_fallbacks(cfg: ArchConfig, sizes: Dict[str, int]) -> List[str]:
             and ffn_lib.hidden_split(cfg, cfg.d_ff, sizes) \
             and not ffn_lib.down_local(cfg, cfg.d_ff, t):
         out.append("ffn.w_down")
+    if "rglru" in kinds and rglru_lib.channels_split(cfg, sizes) \
+            and not rglru_lib.out_local(cfg, t):
+        out.append("rglru.w_out")
     if cfg.moe.n_experts and kinds & set(ATTN_KINDS):
         if (moe_lib.tp_mode(cfg, sizes) == "etp"
                 and not moe_lib.down_local(cfg, t)):
@@ -462,10 +528,16 @@ def forward_train(params: Params, batch: Dict[str, Tensor],
     xlstm.mlstm_apply / slstm_apply) under the same remat. token_group:
     the group whose ranks hold the batch's other rows, for the MoE blocks
     to route over the whole batch (moe.moe_apply; the data-parallel train
-    step, launch/steps.py)."""
+    step, launch/steps.py).
+
+    Under sequence parallelism (the TP context's `seq`) the embeddings are
+    cut to this rank's block of the sequence and the layers carry it (the
+    JAX package's _seq_shard); the head gathers the sequence back, so the
+    logits are the whole sequence's."""
     kinds = layout(cfg)
     x = _embed_inputs(params, batch, cfg)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    s = batch["frames" if cfg.frontend == "audio" else "tokens"].shape[1]
+    positions = torch.arange(s, device=x.device)[None, :]
     aux = torch.zeros((), device=x.device)
     for i, kind in enumerate(kinds):
         args = (params["layers"][i], x, kind, cfg, positions, token_group)

@@ -18,6 +18,14 @@ shard_act's guards. The context (`tp_context`), entered by the train step
 "model" group and this rank's index in it; outside it every layer runs
 whole, as the serving paths and the one-process step do.
 
+Sequence parallelism (the JAX package's `_seq_shard`: the residual stream
+[B, S, d] seq-sharded over "model" between the train layers, under
+cfg.seq_sharding) is the context's `seq`: the train step sets it where
+`splits(S)` holds, and the layers then carry the residual as this rank's
+block of the sequence, entering a tensor-parallel region by an all-gather
+along S and leaving it by a reduce-scatter (Megatron-SP; models/lm/layers
+`tp_in` / `tp_out`).
+
 `shard_act` keeps the JAX function's signature and guards and returns x
 untouched: eager PyTorch places no constraint.
 """
@@ -36,17 +44,19 @@ class TPContext(NamedTuple):
     sizes: Dict[str, int]   # the mesh's axis sizes
     group: object           # the "model" process group
     rank: int               # this rank's index in it
+    seq: bool = False       # the residual stream is this rank's S block
 
 
 _CTX: Optional[TPContext] = None
 
 
 @contextlib.contextmanager
-def tp_context(sizes: Dict[str, int], group, rank: int):
+def tp_context(sizes: Dict[str, int], group, rank: int, seq: bool = False):
     """Run the LM's train layers tensor-parallel over `group` (the "model"
-    group of a mesh with axis sizes `sizes`; this rank is its `rank`-th)."""
+    group of a mesh with axis sizes `sizes`; this rank is its `rank`-th),
+    sequence-parallel too where `seq`."""
     global _CTX
-    prev, _CTX = _CTX, TPContext(dict(sizes), group, rank)
+    prev, _CTX = _CTX, TPContext(dict(sizes), group, rank, seq)
     try:
         yield _CTX
     finally:

@@ -5,14 +5,21 @@ r-th along it: DTensor's Shard(dim) layout), all_reduce (sum, max or
 min; `all_reduce_coalesced`: many tensors in a few flat buckets), and the
 differentiable forms the train step's layers use:
 
-  * `gather_rows`: all-gather along dim 0, backward the reduce-scatter of
-    the gradient (the sum over ranks of each rank's gradient of its rows);
   * Megatron's conjugate pair around a tensor-parallel region:
     `copy_to` (identity forward, all-reduce backward) in front of a
     column-parallel layer, `reduce_from` (all-reduce forward, identity
     backward) after a row-parallel one;
+  * its sequence-parallel form (Megatron-SP), where each rank holds its
+    block of the input along a dim: `gather_to` (all-gather forward,
+    reduce-scatter backward: the sum over ranks of each rank's gradient of
+    the whole, cut to the rank's block) in front of the region,
+    `reduce_scatter_from` (reduce-scatter forward, all-gather backward)
+    after it; gather_to along dim 0 also gathers the rows an MoE block
+    routes over;
   * `gather_from`: all-gather along a dim, backward this rank's block of
-    the gradient (each rank holds the whole gradient already).
+    the gradient (each rank holds the whole gradient already), and its
+    conjugate `split_to`: this rank's block forward, the gradient
+    all-gathered backward (every rank then holds the whole one).
 
 Every collective goes through `all_gather` / `reduce_scatter` /
 `all_reduce` here, which add its wire bytes per rank to the open
@@ -43,13 +50,14 @@ _TALLIES: List[Dict[str, float]] = []
 @contextlib.contextmanager
 def record():
     """Yield a {kind: wire bytes per rank} dict ("total" added on exit)
-    that every collective made while it is open adds to."""
+    that every collective made while it is open adds to (records nest:
+    each open one counts)."""
     tally = {k: 0.0 for k in KINDS}
     _TALLIES.append(tally)
     try:
         yield tally
     finally:
-        _TALLIES.remove(tally)
+        _TALLIES[:] = [t for t in _TALLIES if t is not tally]
         tally["total"] = sum(tally[k] for k in KINDS)
 
 
@@ -137,22 +145,40 @@ def block(t: Tensor, dim: Optional[int], rank: int, world: int) -> Tensor:
     return t.narrow(dim, rank * n, n)
 
 
-class _GatherRows(torch.autograd.Function):
+class _GatherTo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return all_gather(x, 0, group)
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_scatter(g, 0, ctx.group), None
+        return reduce_scatter(g, ctx.dim, ctx.group), None, None
 
 
-def gather_rows(x: Tensor, group=None) -> Tensor:
-    """Every rank's x [b, ...] stacked along dim 0 ([world * b, ...]),
-    differentiable: the backward hands each rank the sum over ranks of the
-    gradient of its own rows."""
-    return _GatherRows.apply(x, group)
+class _ReduceScatterFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.group), None, None
+
+
+def gather_to(x: Tensor, dim: int, group) -> Tensor:
+    """The ranks' blocks of x along `dim`, whole; the gradient is this
+    rank's block of the sum over the ranks of their gradients (in front of
+    layers whose ranks each compute part of the output from the whole)."""
+    return _GatherTo.apply(x, dim % x.ndim, group)
+
+
+def reduce_scatter_from(x: Tensor, dim: int, group) -> Tensor:
+    """This rank's block along `dim` of the sum of the ranks' x; the
+    gradient is the ranks' blocks of it gathered (each rank's partial x
+    gets the whole output's gradient)."""
+    return _ReduceScatterFrom.apply(x, dim % x.ndim, group)
 
 
 class _CopyTo(torch.autograd.Function):
@@ -191,6 +217,17 @@ class _GatherFrom(torch.autograd.Function):
                       dist.get_world_size(grp)), None, None)
 
 
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return block(x, dim, dist.get_rank(group), dist.get_world_size(group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.group), None, None
+
+
 def copy_to(x: Tensor, group) -> Tensor:
     """x as is; its gradient is the sum of the ranks' gradients (in front
     of a layer whose ranks each compute part of the output)."""
@@ -207,3 +244,10 @@ def gather_from(x: Tensor, dim: int, group) -> Tensor:
     """The ranks' blocks of x along `dim`, whole; the gradient is this
     rank's block of the whole gradient (every rank holds the same one)."""
     return _GatherFrom.apply(x, dim % x.ndim, group)
+
+
+def split_to(x: Tensor, dim: int, group) -> Tensor:
+    """This rank's block of x along `dim` (x the same on every rank); the
+    gradient is the ranks' blocks of it gathered, so each rank holds the
+    whole gradient of x."""
+    return _SplitTo.apply(x, dim % x.ndim, group)

@@ -28,7 +28,11 @@ segments' weight block and its segment-aligned slice of the activation,
 K1g runs over them forward and K2 backward (CadcMatmulFn on the local
 [S_loc * xbar, N] block), and Megatron's row-parallel all-reduce
 (comm.reduce_from: the sum forward, the gradient unchanged backward)
-carries the partial outputs in their own dtype.
+carries the partial outputs in their own dtype. Under sequence
+parallelism that collective is a reduce-scatter along S
+(comm.reduce_scatter_from, `scatter_dim`): the same local segments, the
+same f() on each rank, only the linear sum leaves the rank, and each rank
+keeps its block of the sequence.
 """
 from __future__ import annotations
 
@@ -91,9 +95,11 @@ def tp_cadc_linear(x: Tensor, w_seg: Tensor, *, group=None,
 def tp_cadc_row_linear(x_loc: Tensor, w_loc: Tensor, *, group,
                        fn: str = "relu", impl: str = "auto",
                        save_gate: str = "auto",
-                       psum_dtype: Optional[torch.dtype] = None) -> Tensor:
+                       psum_dtype: Optional[torch.dtype] = None,
+                       scatter_dim: Optional[int] = None) -> Tensor:
     """y[..., N] = all_reduce(sum over the local segments s of
-    f(x_s @ w_s)) over `group`, differentiable.
+    f(x_s @ w_s)) over `group`, differentiable; with `scatter_dim`, this
+    rank's block along that dim of the sum (a reduce-scatter).
 
     x_loc: [..., S_loc * xbar], this rank's slice of the activation, cut
       on segment boundaries (ValueError otherwise: a crossbar never spans
@@ -114,6 +120,8 @@ def tp_cadc_row_linear(x_loc: Tensor, w_loc: Tensor, *, group,
         y = cadc_lib.cadc_einsum_segments(
             x_loc.reshape(*x_loc.shape[:-1], s_loc, xbar), w_loc, fn,
             psum_dtype)
+    if scatter_dim is not None:
+        return comm.reduce_scatter_from(y, scatter_dim, group)
     return comm.reduce_from(y, group)
 
 

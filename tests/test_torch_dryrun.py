@@ -16,7 +16,13 @@
     a subprocess);
   * for every architecture at full width on both meshes, the per-rank
     parameter bytes (block_bytes over the rules' specs) equal the bytes
-    of rank 0's blocks cut by fsdp.mesh_block.
+    of rank 0's blocks cut by fsdp.mesh_block;
+  * --override seq_sharding=True: a train cell's activation all-reduces
+    over "model" become reduce-scatters and all-gathers of equal ring
+    bytes, the norms' gradient sums added (and, under remat, one
+    all-gather a layer); prefill and decode cells report as without it;
+    recurrentgemma-9b's train cell gathers none of its RG-LRU leaves over
+    "model".
 """
 import dataclasses
 import json
@@ -31,6 +37,8 @@ from repro_torch.configs import ARCH_IDS, SHAPES, get_config
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
+from repro_torch.models.lm import layers as ll
+from repro_torch.models.lm import transformer as tf
 from repro_torch.parallel import fsdp, sharding
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -212,3 +220,93 @@ def test_per_rank_param_bytes_are_the_rules_blocks(arch):
                                                              mesh), mesh)
         assert got == want
         assert 0 < got < 4 * sum(t.numel() for t in steps._leaves(shape))
+
+
+def _norm_ar_bytes(cfg, mesh, n_micro):
+    """The bytes a rank's step all-reduces over "model" for the norms'
+    gradients, summed under sequence parallelism: each norm leaf in the
+    compute dtype, 2 x its bytes x (T - 1) / T a micro."""
+    t = mesh_lib.axis_size(mesh, "model")
+    size = ll.cdtype(cfg).itemsize if cfg.bf16_wire else 4
+    n = sum(leaf.numel() for names, leaf in
+            tf._leaf_paths(steps.abstract_params(cfg))
+            if names[-1] == "scale" and (names[0] == "final_norm"
+                                         or names[2] in ("ln1", "ln2")))
+    return n_micro * 2 * n * size * (t - 1) / t
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_seq_sharding_trades_each_all_reduce_for_rs_and_ag(remat):
+    """gemma3-1b smoke with 16 heads (every part split over the model axis
+    of 16) on the production mesh: under seq_sharding the activations'
+    all-reduces over "model" become reduce-scatters and all-gathers of
+    equal ring bytes, and the norms' gradient sums are the only bytes
+    added; with remat on, each layer's recompute also re-gathers the FFN's
+    input (copy_to's forward moves nothing), one all-gather of the
+    micro's [b, S, d] a layer."""
+    over = {"n_heads": 16, "n_kv_heads": 16, "remat": remat}
+    base = dryrun.run_cell("gemma3_1b", "train_4k", False, smoke=True,
+                           overrides=over)
+    sp = dryrun.run_cell("gemma3_1b", "train_4k", False, smoke=True,
+                         overrides=dict(over, seq_sharding=True))
+    assert sp["overrides"]["seq_sharding"] is True
+    a, b = base["collectives"], sp["collectives"]
+    cfg = dryrun._cell_config("gemma3_1b", "train_4k", True, over)[0]
+    mesh = mesh_lib.make_production_mesh()
+    norms = _norm_ar_bytes(cfg, mesh, sp["n_micro"])
+    assert b["all-reduce"] < a["all-reduce"] / 10
+    moved = a["all-reduce"] + norms - b["all-reduce"]
+    extra = 0.0
+    if remat:
+        t = mesh_lib.axis_size(mesh, "model")
+        rows = sp["global_batch"] // (sp["n_micro"] * 16)
+        extra = (sp["n_micro"] * cfg.n_layers * rows * sp["seq_len"]
+                 * cfg.d_model * 4 * (t - 1) / t)
+    assert b["all-gather"] + b["reduce-scatter"] - a["all-gather"] \
+        - a["reduce-scatter"] == pytest.approx(moved + extra, rel=1e-12)
+    assert b["total"] - a["total"] == pytest.approx(norms + extra,
+                                                    rel=1e-12)
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_seq_sharding_serve_cells_report_as_without_it(shape):
+    reps = [dryrun.run_cell("gemma3_1b", shape, False, smoke=True,
+                            overrides=ov)
+            for ov in ({}, {"seq_sharding": True})]
+    for r in reps:
+        del r["plan_s"], r["overrides"]
+    assert reps[0] == reps[1]
+
+
+def test_rglru_leaves_are_not_gathered_over_model(monkeypatch):
+    """recurrentgemma-9b smoke's train cell (rnn_width 64 over a model
+    axis of 16): the step's leaf gathers move less by exactly the RG-LRU
+    leaves' all-gathers over "model" than with the block run whole
+    (rglru.channels_split off: the plan before the channel-parallel
+    form)."""
+    from repro_torch.models.lm import rglru
+
+    real, tallies = steps._gather_leaves, []
+
+    def gather(*a, **k):
+        with dryrun.comm.record() as tally:
+            out = real(*a, **k)
+        tallies.append(tally["all-gather"])
+        return out
+
+    monkeypatch.setattr(steps, "_gather_leaves", gather)
+    now = dryrun.run_cell("recurrentgemma_9b", "train_4k", False, smoke=True)
+    calls, moved = len(tallies), sum(tallies)
+    monkeypatch.setattr(rglru, "channels_split", lambda *a, **k: False)
+    del tallies[:]
+    dryrun.run_cell("recurrentgemma_9b", "train_4k", False, smoke=True)
+    assert len(tallies) == calls and now["status"] == "OK"
+    cfg = dryrun._cell_config("recurrentgemma_9b", "train_4k", True, None)[0]
+    mesh = mesh_lib.make_production_mesh()
+    shape = steps.abstract_params(cfg)
+    rec = sum(leaf.numel() for (names, leaf), md in zip(
+        tf._leaf_paths(shape), fsdp.model_dims(shape, cfg, mesh))
+        if names[0] == "layers" and names[2] == "rec" and md is not None)
+    assert rec > 0
+    assert sum(tallies) - moved == pytest.approx(
+        calls * rec * 4 * 15 / 16, rel=1e-12)

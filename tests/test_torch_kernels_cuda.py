@@ -1610,7 +1610,8 @@ def test_tp_cadc_row_linear_one_rank_is_bitwise_k1g_k2(nccl_one_rank, d,
     gemma3-1b's wo (1024 -> 1152) and w_down (6912 -> 1152) shapes: its
     local segments are all of them, so its K1g forward and K2 backward
     are the unsharded ops.cadc_matmul's, bitwise (y, dx, dw), one launch
-    each; the one-rank all_reduce changes nothing."""
+    each; the one-rank all_reduce changes nothing, nor does the
+    sequence-parallel form's one-rank reduce-scatter (scatter_dim)."""
     import torch.distributed as dist
 
     from repro_torch.parallel import tp_cadc
@@ -1621,14 +1622,15 @@ def test_tp_cadc_row_linear_one_rank_is_bitwise_k1g_k2(nccl_one_rank, d,
     w = (torch.randn(d, 1152, generator=gen, device=dev) / d ** 0.5).to(dtype)
     g = torch.randn(512, 1152, generator=gen, device=dev).to(dtype)
     out = {}
-    for form in ("tp", "whole"):
+    for form in ("tp", "sp", "whole"):
         xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
         before = (cm.cadc_matmul_gate_cuda.launches,
                   cm.cadc_segmented_bwd_cuda.launches)
-        if form == "tp":
+        if form != "whole":
             y = tp_cadc.tp_cadc_row_linear(
                 xr, wr.reshape(d // xbar, xbar, 1152),
-                group=dist.group.WORLD, fn="relu")
+                group=dist.group.WORLD, fn="relu",
+                scatter_dim=0 if form == "sp" else None)
         else:
             y = ops.cadc_matmul(xr, wr, crossbar_size=xbar, fn="relu")
         y.backward(g)
@@ -1636,9 +1638,10 @@ def test_tp_cadc_row_linear_one_rank_is_bitwise_k1g_k2(nccl_one_rank, d,
         out[form] = (y.detach(), xr.grad, wr.grad,
                      (cm.cadc_matmul_gate_cuda.launches - before[0],
                       cm.cadc_segmented_bwd_cuda.launches - before[1]))
-    assert out["tp"][3] == out["whole"][3] == (1, 1)
-    for a, b in zip(out["tp"][:3], out["whole"][:3]):
-        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert out["tp"][3] == out["sp"][3] == out["whole"][3] == (1, 1)
+    for form in ("tp", "sp"):
+        for a, b in zip(out[form][:3], out["whole"][:3]):
+            assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -1649,7 +1652,9 @@ def test_fsdp_step_one_rank_is_bitwise_the_train_step(nccl_one_rank):
     "model" group of one) at one rank on NCCL (K1g / K2, the gathers and
     reduce-scatters as device copies) against steps.make_train_step, 2
     steps of 2 x 256 tokens in 2 micros: the losses and every parameter
-    and moment bitwise, the same launches."""
+    and moment bitwise, the same launches; and so under seq_sharding (the
+    sequence-parallel form's gathers and reduce-scatters over the one
+    rank)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import steps
@@ -1669,12 +1674,13 @@ def test_fsdp_step_one_rank_is_bitwise_the_train_step(nccl_one_rank):
                              device=dev)
         batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
     runs = []
-    for make in ("plain", "fsdp"):
+    for make in ("plain", "fsdp", "fsdp_seq"):
         p = tf.init(cfg, seed=0, device=dev)
         s = opt.init(p)
+        c = cfg.with_overrides(seq_sharding=make == "fsdp_seq")
         step = (steps.make_train_step(cfg, opt, n_micro=2) if make == "plain"
                 else steps.make_fsdp_train_step(
-                    cfg, mesh, fsdp.data_dims(p, cfg, mesh), optimizer=opt,
+                    c, mesh, fsdp.data_dims(p, c, mesh), optimizer=opt,
                     n_micro=2))
         before = cm.cadc_matmul_gate_cuda.launches
         losses = []
@@ -1684,6 +1690,7 @@ def test_fsdp_step_one_rank_is_bitwise_the_train_step(nccl_one_rank):
         runs.append((losses, steps._leaves([p, s]),
                      cm.cadc_matmul_gate_cuda.launches - before))
         del p, s
-    (la, ta, na), (lb, tb, nb) = runs
-    assert la == lb and na == nb > 0
-    assert all(torch.equal(a, b) for a, b in zip(ta, tb))
+    (la, ta, na), *others = runs
+    for lb, tb, nb in others:
+        assert la == lb and na == nb > 0
+        assert all(torch.equal(a, b) for a, b in zip(ta, tb))

@@ -182,14 +182,18 @@ def test_step_refuses_what_it_does_not_shard(one_rank_group):
     p = tf.init(cfg, seed=0, device="cpu")
     for mesh in (mesh_lib.Mesh(("data", "model"), (1, 2)),
                  mesh_lib.make_production_mesh(multi_pod=True)):
-        seq = cfg.with_overrides(seq_sharding=True)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            steps.make_fsdp_train_step(seq, mesh, fsdp.data_dims(
-                p, seq, mesh))
         with pytest.raises(ValueError, match="ranks"):
             steps.make_fsdp_train_step(cfg, mesh, fsdp.data_dims(
                 p, cfg, mesh))
     mesh = mesh_lib.make_local_mesh()
+    # seq_sharding runs: at one rank its step is the step without it
+    seq = cfg.with_overrides(seq_sharding=True)
+    batch = _batches(cfg)[0]
+    got = [steps.make_fsdp_train_step(c, mesh, fsdp.data_dims(p, c, mesh))(
+        p, opt_lib.adamw(1e-3).init(p), batch, 0) for c in (cfg, seq)]
+    assert got[0][2]["loss"] == got[1][2]["loss"]
+    assert all(torch.equal(a, b) for a, b in zip(
+        steps._leaves(got[0][0]), steps._leaves(got[1][0])))
     step = steps.make_fsdp_train_step(cfg, mesh, fsdp.data_dims(p, cfg, mesh),
                                       n_micro=2)
     batch = {k: v[:3] for k, v in _batches(cfg)[0].items()}

@@ -27,7 +27,9 @@ and make_mesh_serve_step) on the CPU over gloo.
     the rank's own partial — fails the logits gate by 10x or more;
   * the serve plan against the train plan, and the decode form against
     sharding.cache_specs for every arch at full width;
-  * seq_sharding under a model axis > 1 raises NotImplementedError.
+  * cfg.seq_sharding changes nothing in the mesh prefill and serve steps
+    (the JAX package's _seq_shard is a train layer's constraint): at
+    (1, 2) their logits and tokens under it are bitwise those without it.
 
 Every spawn is bounded (run_ranks: 240 s).
 """
@@ -62,6 +64,7 @@ DTYPES = {"fp32": dict(dtype="float32", bf16_wire=False),
 DECODE_STEPS = 6
 RTOL, JAX_RTOL = 1e-5, 1e-4
 FAULT_CASE = "gemma3"
+SEQ_CASES = ("gemma3", "recurrentgemma")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -157,7 +160,7 @@ def _mesh_run(cfg, mesh, seq_len, prompts, lengths, caches, fed):
 
 def serve_rank(rank, world, shape, inputs):
     """Every case's mesh run on this rank; on (1, 2) also the planted
-    fault's logits."""
+    fault's logits and SEQ_CASES' runs under cfg.seq_sharding."""
     mesh = mesh_lib.Mesh(("data", "model"), shape)
     out = {}
     for case, (caches, fed) in inputs.items():
@@ -176,6 +179,13 @@ def serve_rank(rank, world, shape, inputs):
                                      _from_numpy(caches), fed)[1]
         finally:
             attn._merge_partials = saved
+        out["seq"] = {}
+        for case in SEQ_CASES:
+            caches, fed = inputs[case]
+            _, seq_len, lengths = CASES[case]
+            out["seq"][case] = _mesh_run(
+                _cfg(case).with_overrides(seq_sharding=True), mesh, seq_len,
+                _prompts(case), lengths, _from_numpy(caches), fed)[:3]
     return out
 
 
@@ -380,11 +390,10 @@ def test_decode_form_is_the_cache_rule(arch):
                 assert form == want, (kind, mesh, seq_len)
 
 
-def test_seq_sharding_under_a_model_axis_raises():
-    cfg = _cfg("gemma3").with_overrides(seq_sharding=True)
-    mesh = mesh_lib.Mesh(("data", "model"), (1, 2))
-    dims = fsdp.data_dims(steps.abstract_params(cfg), cfg, mesh)
-    for make in (steps.make_mesh_prefill_step,
-                 functools.partial(steps.make_mesh_serve_step, seq_len=48)):
-        with pytest.raises(NotImplementedError, match="seq_sharding"):
-            make(cfg, mesh, dims)
+def test_seq_sharding_leaves_the_mesh_serve_steps_bitwise(serve_runs):
+    for rank, out in enumerate(serve_runs("1x2")):
+        for case in SEQ_CASES:
+            (pre, logits, toks), want = out["seq"][case], out[case]
+            assert np.array_equal(pre, want[0]), (case, rank)
+            assert all(np.array_equal(a, b) for a, b in zip(logits, want[1]))
+            assert all(np.array_equal(a, b) for a, b in zip(toks, want[2]))

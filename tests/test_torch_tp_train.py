@@ -23,7 +23,10 @@ the LM train step, on the CPU over gloo.
     gathered activation, at crossbar 256 and 128 and T = 2, 4, 16;
   * the vocab-parallel loss (2 ranks, 300 real rows of 512) equal to
     lm_loss on the whole logits within 1e-6, its gradient too;
-  * seq_sharding under a model axis > 1 raises NotImplementedError;
+  * under seq_sharding (sequence parallelism over "model") the step at
+    (1, 2) equals the step without it at the bounds above
+    (tests/test_torch_seq_parallel.py holds it to make_train_step on
+    every case);
   * a checkpoint written at (2, 2) re-lays bitwise at (4, 1) and (1, 4);
   * comm.all_reduce_coalesced (the step's bucketed reductions) equals one
     all_reduce a tensor.
@@ -89,15 +92,15 @@ def _optimizer():
     return opt_lib.adamw(LR, weight_decay=0.1, max_grad_norm=1.0)
 
 
-def _batches(cfg):
+def _batches(cfg, steps=STEPS, seq=S):
     rng = np.random.RandomState(7)
     out = []
-    for _ in range(STEPS):
-        toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S + 1)))
+    for _ in range(steps):
+        toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, seq + 1)))
         batch = {"tokens": toks[:, :-1].long(), "labels": toks[:, 1:].long()}
         if cfg.frontend == "audio":
             batch = {"frames": torch.from_numpy(rng.standard_normal(
-                (B, S, cfg.frontend_dim)).astype(np.float32)),
+                (B, seq, cfg.frontend_dim)).astype(np.float32)),
                 "labels": batch["labels"]}
         out.append(batch)
     return out
@@ -122,9 +125,10 @@ def _reference(case, dt):
     return _REF[case, dt]
 
 
-def _mesh_run(cfg, mesh, ckpt_dir=None):
+def _mesh_run(cfg, mesh, ckpt_dir=None, batches=None):
     """The mesh step over this rank's blocks: (losses, the parameters
-    gathered back whole); `ckpt_dir`: also save a checkpoint there."""
+    gathered back whole); `ckpt_dir`: also save a checkpoint there;
+    `batches`: the global batches (default _batches(cfg))."""
     opt = _optimizer()
     full = tf.init(cfg, seed=0, device="cpu")
     dims = fsdp.data_dims(full, cfg, mesh)
@@ -137,7 +141,7 @@ def _mesh_run(cfg, mesh, ckpt_dir=None):
                                                   mdims)])
     s = opt.init(p)
     losses = []
-    for i, batch in enumerate(_batches(cfg)):
+    for i, batch in enumerate(_batches(cfg) if batches is None else batches):
         p, s, m = step(p, s, batch, i)
         losses.append(float(m["loss"]))
     if ckpt_dir:
@@ -308,12 +312,23 @@ def test_one_rank_is_the_single_process_step_bitwise(case, one_rank_group):
         assert all(np.array_equal(a, b) for a, b in zip(whole, want_params))
 
 
-def test_seq_sharding_under_a_model_axis_raises():
-    cfg = _cfg("gemma3.xbar32", "fp32").with_overrides(seq_sharding=True)
+def seq_rank(rank, world):
+    """gemma3 at crossbar 32, fp32, at (1, 2) with and without
+    seq_sharding."""
     mesh = mesh_lib.Mesh(("data", "model"), (1, 2))
-    with pytest.raises(NotImplementedError, match="seq_sharding"):
-        steps.make_fsdp_train_step(cfg, mesh, fsdp.data_dims(
-            steps.abstract_params(cfg), cfg, mesh))
+    cfg = _cfg("gemma3.xbar32", "fp32")
+    return [_mesh_run(cfg.with_overrides(seq_sharding=on), mesh)
+            for on in (False, True)]
+
+
+def test_seq_sharding_matches_the_step_without_it(tmp_path):
+    for (losses, params), (sp_losses, sp_params) in run_ranks(
+            seq_rank, 2, tmp_path, timeout=240):
+        np.testing.assert_allclose(sp_losses, losses,
+                                   rtol=LOSS_RTOL["fp32"], atol=0)
+        for a, w in zip(sp_params, params):
+            assert np.abs(a - w).max() <= PARAM_TOL * max(
+                1.0, float(np.abs(w).max()))
 
 
 def coalesced_rank(rank, world):
