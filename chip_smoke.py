@@ -351,6 +351,7 @@ register counts, profiler breakdown) to PATH as JSON.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import math
@@ -413,6 +414,17 @@ SLICE6_ARCHS = ("recurrentgemma_9b", "xlstm_13b")
 RG_ARCH, XL_ARCH = SLICE6_ARCHS
 REC_REQUESTS = 3
 REC_LAYERS = {RG_ARCH: 8, XL_ARCH: 8}
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
 
 
 def fail(msg: str) -> None:
@@ -483,8 +495,14 @@ def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# Windows profile_device takes before it gives up on a profile that shows
+# no device time (a window loses ~39 kernel records at its start, so one
+# of a few dozen launches can show none: PERF.md §6, PR 26).
+PROFILE_TRIES = 3
+
+
 def profile_device(run, n: int, group, what: str, cpu: bool = True,
-                   streams: list = None):
+                   streams: list = None, required: bool = True):
     """torch.profiler over run(0) .. run(n - 1), CUDA events around them:
     (wall ms per call under the profiler, device-busy ms per call, rows
     [(ms per call, kernel name, launches per call)] largest first, and the
@@ -493,40 +511,53 @@ def profile_device(run, n: int, group, what: str, cpu: bool = True,
     seconds to trace on the host; the rows need only the kernels).
     `streams`, a list, gets the id of every stream the device work ran
     on. The window opens after a synchronize: work queued before it
-    stays outside."""
+    stays outside. A window whose profile shows no device time is taken
+    again, up to PROFILE_TRIES windows in all (run is called again); if
+    none shows any, a required profile fails the run, and any other
+    returns the CUDA events' wall time with busy None (not measured) and
+    no rows."""
     from torch.profiler import ProfilerActivity, profile
 
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]
-                 + ([ProfilerActivity.CPU] if cpu else [])) as prof:
-        start.record()
-        for i in range(n):
-            run(i)
-        end.record()
+    for attempt in range(1, PROFILE_TRIES + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        rows.append((us / 1e3 / n, e.key, e.count / n))
+        with profile(activities=[ProfilerActivity.CUDA]
+                     + ([ProfilerActivity.CPU] if cpu else [])) as prof:
+            start.record()
+            for i in range(n):
+                run(i)
+            end.record()
+            torch.cuda.synchronize()
+        wall = start.elapsed_time(end) / n
+        rows = []
+        for e in prof.key_averages():
+            if "CUDA" not in str(getattr(e, "device_type", "")):
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            rows.append((us / 1e3 / n, e.key, e.count / n))
+        rows.sort(reverse=True)
+        busy = sum(r[0] for r in rows)
+        if busy > 0:
+            break
+        print(f"profiler: no device time seen over {what} (window "
+              f"{attempt} of {PROFILE_TRIES})", flush=True)
+    else:
+        if required:
+            fail(f"profiler: no device time seen over {what} in "
+                 f"{PROFILE_TRIES} windows")
+        return wall, None, [], {}
     if streams is not None:
         streams.extend(sorted({e.device_resource_id for e in prof.events()
                                if "CUDA" in str(e.device_type)}))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    if busy <= 0:
-        fail(f"profiler: no device time seen over {what}")
     groups = {}
     for ms, key, calls in rows:
         g = groups.setdefault(group(key), {"ms": 0.0, "calls": 0.0})
         g["ms"] += ms
         g["calls"] += calls
-    return start.elapsed_time(end) / n, busy, rows, groups
+    return wall, busy, rows, groups
 
 
 # ---------------------------------------------------------------------------
@@ -3413,6 +3444,9 @@ REC_FORM_S = 512
 # K1_RTOL of the plain version): the JAX package's fp32 bound, 1e-4 of
 # scale.
 REC_FORM_RTOL = 1e-4
+# Calls of a short recurrent form (_linear_scan, _mlstm_chunkwise) in one
+# profiled window: the forward of _linear_scan is 42 kernels, ~1.6 ms.
+REC_FORM_REPS = 8
 # The twin ran 200 steps until slice 12's phases took the whole run
 # (813.2 s on an H100 80GB HBM3 at 700 W) past the ~800 s this script
 # aims under: 101 steps, whose last (step 100) is the 200-step run's
@@ -3621,8 +3655,128 @@ def count_collectives():
     return counts, restore
 
 
+# The dry run's cost audit held on the card: one more step of the
+# gemma3-1b train path under launch/dryrun.count_cost against the meta
+# audit of the same step (AUDIT_META: the config the train CLI builds,
+# its one-rank mesh and its batch's dtypes, rank 0's step on the meta
+# device under torch's fake process group, in a subprocess with no card).
+AUDIT_META = """
+import json, sys
+spec = json.loads(sys.argv[1])
+sys.path.insert(0, spec["src"])
+import torch
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun, train
+from repro_torch.launch import mesh as mesh_lib
+cfg = get_config(spec["arch"], **spec["overrides"])
+mesh = mesh_lib.make_local_mesh(1)
+raw = torch.empty(spec["batch"], spec["seq"] + 1, dtype=torch.int64,
+                  device="meta")
+with dryrun.fake_group(mesh.size):
+    coll, tally, _ = dryrun.rank0_train_step(
+        cfg, mesh, train.make_batch(raw, cfg, spec["seq"]), spec["micro"],
+        audit=True)
+print(json.dumps({"cfg": repr(cfg), "mesh": list(mesh), "collectives": coll,
+                  "tally": tally.summary()}))
+"""
+
+
+def audit_meta(arch: str, micro: int, batch: int) -> subprocess.Popen:
+    """Start the meta audit of the train CLI's step (AUDIT_META)."""
+    spec = {"src": os.path.join(REPO, "src"), "arch": arch, "micro": micro,
+            "batch": batch, "seq": LM_SEQ,
+            "overrides": {"n_microbatches": micro, "linear_impl": "cadc",
+                          "crossbar_size": LM_XBAR, "dendritic_fn": "relu"}}
+    return subprocess.Popen(
+        [sys.executable, "-c", AUDIT_META, json.dumps(spec)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def lm_audit(meta: subprocess.Popen, cfg, step, rec: dict, report) -> None:
+    """One more train step (`step()`) under the dry run's work counter on
+    the card, against the meta audit `meta` of the same step: the counted
+    FLOPs equal to the integer, the aten ops equal op for op, the CADC
+    units equal to the K1g / K2 launch counters of the step (and to
+    lm_step_launches), and the bytes equal too. Reports the counts,
+    useful_ratio (model FLOPs over
+    the counted ones) and the achieved rate at the path's CUDA-event step
+    p50, beside nvidia-smi's name and power limit."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        with dryrun.count_cost() as tally:
+            m = step()
+        loss = float(m["loss"])  # waits for the step
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        out, err = meta.communicate(timeout=600)
+    finally:
+        if meta.poll() is None:
+            meta.kill()
+            meta.wait()
+    if meta.returncode != 0:
+        fail(f"the meta audit failed: {err[-2000:]}")
+    ref = json.loads(out.strip().splitlines()[-1])
+    if not math.isfinite(loss):
+        fail(f"{cfg.name}: a non-finite loss at the audited step")
+    if ref["cfg"] != repr(cfg):
+        fail(f"the meta audit's config {ref['cfg']} is not the card's "
+             f"{cfg!r}")
+    card, want = tally.summary(), ref["tally"]
+    for k in ("flops", "bytes"):
+        if card[k] != want[k]:
+            fail(f"audit: the card counted {card[k]} {k}, the meta audit "
+                 f"{want[k]}")
+    if card["ops"] != want["ops"]:
+        diff = {k: (card["ops"].get(k, 0), want["ops"].get(k, 0))
+                for k in set(card["ops"]) | set(want["ops"])
+                if card["ops"].get(k, 0) != want["ops"].get(k, 0)}
+        fail(f"audit: aten ops (card, meta) differ: {diff}")
+    per = lm_step_launches(cfg, cfg.n_microbatches)
+    launched = {"cadc_fwd": got.get("cadc_matmul", 0)
+                + got["cadc_matmul_gate"],
+                "cadc_bwd": got["cadc_segmented_bwd"]}
+    want_units = {"cadc_fwd": per["cadc_matmul_gate"],
+                  "cadc_bwd": per["cadc_segmented_bwd"]}
+    if not card["units"] == want["units"] == launched == want_units:
+        fail(f"audit: CADC units card {card['units']}, meta "
+             f"{want['units']}, launched {launched}, want {want_units}")
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=LM_SEQ,
+                                global_batch=rec["batch"])
+    mflops = dryrun.model_flops(cfg, shape, rec["params"],
+                                dryrun.active_params(cfg, rec["params"]))
+    p50 = rec["step_ms_p50"]
+    smi = nvidia_smi()
+    a = report["lm_audit"] = {
+        "flops": card["flops"], "bytes": card["bytes"],
+        "units": card["units"],
+        "unit_flops": card["unit_flops"], "unit_bytes": card["unit_bytes"],
+        "aten_ops": sum(card["ops"].values()),
+        "launches": launched, "model_flops": mflops,
+        "useful_ratio": mflops / card["flops"],
+        "step_ms_p50": p50, "achieved_tflops": card["flops"] / p50 / 1e9,
+        "counted_step_s": wall, "collectives_meta": ref["collectives"],
+        "top_op_flops": dict(sorted(card["op_flops"].items(),
+                                    key=lambda kv: -kv[1])[:8]),
+        "nvidia_smi": smi}
+    print(f"{cfg.name} train step audit: {a['flops']} FLOPs counted on the "
+          f"card == the meta audit's ({a['unit_flops']} of them in "
+          f"{card['units']} CADC units = the K1g / K2 launches), "
+          f"{a['aten_ops']} aten ops equal op for op, {a['bytes']} bytes "
+          f"equal; useful_ratio {a['useful_ratio']:.4f} "
+          f"(model FLOPs {mflops:.4e}); achieved "
+          f"{a['achieved_tflops']:.2f} TFLOP/s at the step p50 {p50:.1f} ms; "
+          f"the counted step {wall:.1f} s; {smi}", flush=True)
+
+
 def lm_train_path(dev, report, arch=LM_ARCH, layers=None, batch=LM_BATCH,
-                  micro=LM_MICRO, steps=LM_STEPS, key="lm_train") -> dict:
+                  micro=LM_MICRO, steps=LM_STEPS, key="lm_train",
+                  audit: bool = False) -> dict:
     """A config trained at full width through repro_torch.launch.train, the
     mesh form on the NCCL group of one rank that main() holds (`steps`
     steps of `batch` x LM_SEQ tokens in `micro` micros; `layers` cuts the
@@ -3634,12 +3788,15 @@ def lm_train_path(dev, report, arch=LM_ARCH, layers=None, batch=LM_BATCH,
     collectives' calls counted, and at one rank the profile's
     device-to-device copies must be all_gather's and reduce_scatter's),
     and one micro's loss and gradients (every one finite) on the trained
-    parameters. Returns the counts and report[key]."""
+    parameters. With `audit`, one more step under the dry run's work
+    counter, held to the meta audit of the same step (lm_audit), which
+    runs in a subprocess from the start. Returns the counts."""
     import torch.distributed as dist
 
     from repro_torch.data import synthetic
     from repro_torch.launch import train
 
+    meta = audit_meta(arch, micro, batch) if audit else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -3756,6 +3913,8 @@ def lm_train_path(dev, report, arch=LM_ARCH, layers=None, batch=LM_BATCH,
               f"launches", flush=True)
     for ms, k, c in rows[:12]:
         print(f"    {ms:8.3f} ms x{c:.0f} {k[:100]}", flush=True)
+    if meta is not None:
+        lm_audit(meta, cfg, lambda: run(3), rec, report)
     del state, batches, step
     torch.cuda.empty_cache()
     return got
@@ -3982,14 +4141,25 @@ def lm_linear_work(m: int, d: int, n: int) -> dict:
                    2 * flops)}
 
 
-def _profiled(fn) -> dict:
-    """One fn() under the profiler (device activity only): wall ms (CUDA
-    events), device busy ms and device operations (kernels, copies)."""
-    wall, busy, rows, _ = profile_device(lambda i: fn(), 1, lambda k: "all",
+def _profiled(fn, reps: int = 1) -> dict:
+    """reps calls of fn() under the profiler (device activity only), per
+    call: wall ms (CUDA events), device busy ms and device operations
+    (kernels, copies); the last two None (not measured) where the profiler
+    showed no device time."""
+    wall, busy, rows, _ = profile_device(lambda i: fn(), reps,
+                                         lambda k: "all",
                                          "a recurrent training form",
-                                         cpu=False)
+                                         cpu=False, required=False)
     return {"wall_ms": wall, "busy_ms": busy,
-            "launches": sum(r[2] for r in rows)}
+            "launches": None if busy is None else sum(r[2] for r in rows)}
+
+
+def _sum_or_none(*vals):
+    return None if any(v is None for v in vals) else sum(vals)
+
+
+def _fmt(v, spec: str) -> str:
+    return "not measured" if v is None else format(v, spec)
 
 
 def rec_forms(dev, report) -> None:
@@ -4004,8 +4174,10 @@ def rec_forms(dev, report) -> None:
     backward of _linear_scan (recurrentgemma-9b's a, b), _mlstm_chunkwise
     (xlstm-1.3b's q / k / v / gates) and an sLSTM block (slstm_apply, its
     linears included), each under the profiler — wall ms, device busy ms,
-    device operations; a micro under remat runs the forward twice and the
-    backward once. The sLSTM's operations a token, forward and backward,
+    device operations a call (the two short forms over REC_FORM_REPS calls
+    a window, the sLSTM over one); a micro under remat runs the forward
+    twice and the backward once. Where the profiler shows no device time
+    (profile_device) the busy ms and operations are not measured. The sLSTM's operations a token, forward and backward,
     from the difference between LM_SEQ and LM_SEQ / 2 tokens."""
     from repro_torch.models.lm import rglru as rg
     from repro_torch.models.lm import transformer as tf
@@ -4065,14 +4237,15 @@ def rec_forms(dev, report) -> None:
         return draw(*shape, generator=gen, device=dev).to(
             dtype).requires_grad_()
 
-    def cost(fwd, tokens=s):
+    def cost(fwd, tokens=s, reps=REC_FORM_REPS):
         """fwd() -> (out, inputs): the forward, then with the backward."""
         def both():
             y, ins = fwd()
             torch.autograd.grad(y.float().square().sum(), ins)
         both()  # warm up
-        return {"tokens": [b, tokens], "fwd": _profiled(lambda: fwd()[0]),
-                "fwd_bwd": _profiled(both)}
+        return {"tokens": [b, tokens],
+                "fwd": _profiled(lambda: fwd()[0], reps),
+                "fwd_bwd": _profiled(both, reps)}
 
     rw = lm_cfg(RG_ARCH).rnn_width
     a, bb = leaf(b, s, rw, dtype=torch.float32, unit=True), leaf(
@@ -4094,31 +4267,35 @@ def rec_forms(dev, report) -> None:
     for n in (s // 2, s):
         x = leaf(b, n, cfg.d_model)
         costs[f"slstm_apply {n}"] = keep_counts(lambda: cost(
-            lambda: (xl.slstm_apply(p, x, cfg), leaves + [x]), n))
+            lambda: (xl.slstm_apply(p, x, cfg), leaves + [x]), n, 1))
         del x
     half, full = costs[f"slstm_apply {s // 2}"], costs[f"slstm_apply {s}"]
-    per_token = {k: (full[k]["launches"] - half[k]["launches"]) / (s // 2)
+    per_token = {k: None if None in (full[k]["launches"],
+                                     half[k]["launches"])
+                 else (full[k]["launches"] - half[k]["launches"]) / (s // 2)
                  for k in ("fwd", "fwd_bwd")}
+    fwd, both = per_token["fwd"], per_token["fwd_bwd"]
     out["slstm_launches_per_token"] = {
-        "forward": per_token["fwd"],
-        "backward": per_token["fwd_bwd"] - per_token["fwd"],
-        "micro_under_remat": per_token["fwd"] + per_token["fwd_bwd"]}
+        "forward": fwd,
+        "backward": None if None in (fwd, both) else both - fwd,
+        "micro_under_remat": _sum_or_none(fwd, both)}
     for rec in costs.values():
-        rec["micro_under_remat"] = {k: rec["fwd"][k] + rec["fwd_bwd"][k]
-                                    for k in rec["fwd"]}
+        rec["micro_under_remat"] = {
+            k: _sum_or_none(rec["fwd"][k], rec["fwd_bwd"][k])
+            for k in rec["fwd"]}
     out["costs"] = costs
     report["rec_forms"] = out
     for name, rec in costs.items():
         r = rec["micro_under_remat"]
+        f, fb = rec["fwd"], rec["fwd_bwd"]
         print(f"  {name} ({rec['tokens'][0]} x {rec['tokens'][1]} tokens): "
-              f"forward {rec['fwd']['wall_ms']:.2f} ms wall / "
-              f"{rec['fwd']['busy_ms']:.2f} busy / "
-              f"{rec['fwd']['launches']:.0f} ops; forward + backward "
-              f"{rec['fwd_bwd']['wall_ms']:.2f} / "
-              f"{rec['fwd_bwd']['busy_ms']:.2f} / "
-              f"{rec['fwd_bwd']['launches']:.0f}; a micro under remat "
-              f"{r['wall_ms']:.2f} / {r['busy_ms']:.2f} / "
-              f"{r['launches']:.0f}", flush=True)
+              f"forward {f['wall_ms']:.2f} ms wall / "
+              f"{_fmt(f['busy_ms'], '.2f')} busy / "
+              f"{_fmt(f['launches'], '.0f')} ops; forward + backward "
+              f"{fb['wall_ms']:.2f} / {_fmt(fb['busy_ms'], '.2f')} / "
+              f"{_fmt(fb['launches'], '.0f')}; a micro under remat "
+              f"{r['wall_ms']:.2f} / {_fmt(r['busy_ms'], '.2f')} / "
+              f"{_fmt(r['launches'], '.0f')}", flush=True)
     print(f"  the sLSTM loop's device operations a token: "
           f"{json.dumps(out['slstm_launches_per_token'])}", flush=True)
     del p, leaves
@@ -4165,6 +4342,67 @@ def rec_step_rows(rows, launches: dict, report) -> None:
                   f"(profiler), bound {b_ms:.3f} by {b_by}", flush=True)
 
 
+def time_lm_linear(dev, gen, m: int, d: int, n: int,
+                   kernel: bool = True) -> dict:
+    """One LM linear at m rows, D = d (whole crossbars), N = n, relu's
+    packed gate: {"k1g", "k2": device ms of one call of the kernel (with
+    `kernel`), its plain version and the vConv library call (torch.matmul
+    in bf16; the fp32 dx / dw pair), and the call's bound}. K1g takes bf16
+    operands, K2 their fp32 casts, as CadcMatmulFn runs them."""
+    from repro_torch.kernels import cadc_matmul as cm
+
+    kw = dict(crossbar_size=LM_XBAR, fn="relu")
+    work = lm_linear_work(m, d, n)
+    w16 = (torch.randn(d, n, generator=gen, device=dev)
+           / math.sqrt(d)).to(torch.bfloat16)
+    w32 = w16.float()
+
+    def make_x():
+        return (torch.randn(m, d, generator=gen, device=dev).to(
+            torch.bfloat16),)
+
+    def make_bwd():
+        return (torch.randn(m, n, generator=gen, device=dev),
+                torch.randn(m, d, generator=gen, device=dev))
+
+    _, gate = keep_counts(lambda: cm.cadc_matmul_gate_cuda(
+        make_x()[0], w16, mode="packed", **kw))
+    rec = {"d": d, "n": n}
+    for key, make, kern, plain, lib, nbytes, ops, dt in (
+            ("k1g", make_x,
+             lambda x: cm.cadc_matmul_gate_cuda(x, w16, mode="packed",
+                                                **kw),
+             lambda x: cm.cadc_matmul_gate_torch(x, w16, mode="packed",
+                                                 **kw),
+             lambda x: torch.matmul(x, w16), *work["k1g"], torch.bfloat16),
+            ("k2", make_bwd,
+             lambda g, x: cm.cadc_segmented_bwd_cuda(
+                 g, x, w32, gate, mode="packed", **kw),
+             lambda g, x: cm.cadc_segmented_bwd_torch(
+                 g, x, w32, gate, mode="packed", **kw),
+             lambda g, x: (torch.matmul(g, w32.T), torch.matmul(x.T, g)),
+             *work["k2"], torch.float32)):
+        first = make()
+        ops_set = [first] + rotation(make, sum(
+            t.numel() * t.element_size() for t in first))[1:]
+        reps = max(8, len(ops_set))
+        pick = itertools.cycle(ops_set).__next__
+        b_ms, b_by = bound_ms(nbytes, ops, dt)
+        rec[key] = {
+            "plain_ms": keep_counts(
+                lambda: device_ms(lambda: plain(*pick()), reps)),
+            "library_ms": device_ms(lambda: lib(*pick()), reps),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "ops": ops}
+        if kernel:
+            rec[key]["ms"] = keep_counts(
+                lambda: device_ms(lambda: kern(*pick()), reps))
+        del ops_set, first
+    del w16, w32, gate
+    torch.cuda.empty_cache()
+    return rec
+
+
 def time_lm_kernels(dev, launches, rows, report) -> None:
     """K1g (bf16 operands) and K2 (their fp32 casts) device times at
     gemma3-1b's 7 linear shapes, M = LM_M, relu's packed gate, summed over
@@ -4173,75 +4411,33 @@ def time_lm_kernels(dev, launches, rows, report) -> None:
     (torch.matmul in bf16; the fp32 dx / dw pair), the bound, and the
     fp32 copies CadcMatmulFn.backward makes (g, x, w up; dx, dw down).
     Adds each row's "lm_step" record and the LM path's launches."""
-    from repro_torch.kernels import cadc_matmul as cm
-
     cfg = lm_cfg(LM_ARCH)
     per = lm_step_launches(cfg, LM_MICRO)
     k1g_per_shape = per["cadc_matmul_gate"] // (cfg.n_layers * 7)
     k2_per_shape = per["cadc_segmented_bwd"] // (cfg.n_layers * 7)
     gen = torch.Generator(device=dev).manual_seed(21)
-    kw = dict(crossbar_size=LM_XBAR, fn="relu")
     tot = {k: {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0,
                "ops": 0.0, "copies": 0.0} for k in ("k1g", "k2")}
     per_shape = {}
     m = LM_M
     for name, d, n in linear_shapes(cfg):
         count = cfg.n_layers  # one linear of this name a layer
-        work = lm_linear_work(m, d, n)
-        w16 = (torch.randn(d, n, generator=gen, device=dev)
-               / math.sqrt(d)).to(torch.bfloat16)
-        w32 = w16.float()
-
-        def make_x(d=d):
-            return (torch.randn(m, d, generator=gen, device=dev).to(
-                torch.bfloat16),)
-
-        def make_bwd(d=d, n=n):
-            return (torch.randn(m, n, generator=gen, device=dev),
-                    torch.randn(m, d, generator=gen, device=dev))
-
-        _, gate = cm.cadc_matmul_gate_cuda(make_x()[0], w16, mode="packed",
-                                           **kw)
-        rec = per_shape[name] = {"d": d, "n": n}
-        for key, make, kern, plain, lib, nbytes, ops, dt in (
-                ("k1g", make_x,
-                 lambda x: cm.cadc_matmul_gate_cuda(x, w16, mode="packed",
-                                                    **kw),
-                 lambda x: cm.cadc_matmul_gate_torch(x, w16, mode="packed",
-                                                     **kw),
-                 lambda x: torch.matmul(x, w16), *work["k1g"],
-                 torch.bfloat16),
-                ("k2", make_bwd,
-                 lambda g, x: cm.cadc_segmented_bwd_cuda(
-                     g, x, w32, gate, mode="packed", **kw),
-                 lambda g, x: cm.cadc_segmented_bwd_torch(
-                     g, x, w32, gate, mode="packed", **kw),
-                 lambda g, x: (torch.matmul(g, w32.T), torch.matmul(x.T, g)),
-                 *work["k2"], torch.float32)):
-            first = make()
-            ops_set = [first] + rotation(make, sum(
-                t.numel() * t.element_size() for t in first))[1:]
-            reps = max(8, len(ops_set))
-            pick = itertools.cycle(ops_set).__next__
-            k = keep_counts(lambda: device_ms(lambda: kern(*pick()), reps))
-            pl = keep_counts(lambda: device_ms(lambda: plain(*pick()), reps))
-            lb = device_ms(lambda: lib(*pick()), reps)
-            b_ms, b_by = bound_ms(nbytes, ops, dt)
-            mult = count * (k1g_per_shape if key == "k1g" else k2_per_shape)
-            rec[key] = {"ms": k, "plain_ms": pl, "library_ms": lb,
-                        "bound_ms": b_ms, "bound_by": b_by,
-                        "per_step": mult}
-            t = tot[key]
-            t["ms"] += mult * k
-            t["plain"] += mult * pl
-            t["lib"] += mult * lb
-            t["bytes"] += mult * nbytes
-            t["ops"] += mult * ops
-            del ops_set, first
+        rec = per_shape[name] = time_lm_linear(dev, gen, m, d, n)
+        for key, t in tot.items():
+            r = rec[key]
+            mult = r["per_step"] = count * (k1g_per_shape if key == "k1g"
+                                            else k2_per_shape)
+            t["ms"] += mult * r["ms"]
+            t["plain"] += mult * r["plain_ms"]
+            t["lib"] += mult * r["library_ms"]
+            t["bytes"] += mult * r["bytes"]
+            t["ops"] += mult * r["ops"]
         # the backward's fp32 copies: g is fp32 already (the bf16 output's
         # cotangent is cast), x and w go up to fp32, dx and dw back to bf16
         g16 = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
-        x16 = make_x()[0]
+        x16 = torch.randn(m, d, generator=gen, device=dev).to(torch.bfloat16)
+        w16 = torch.randn(d, n, generator=gen, device=dev).to(torch.bfloat16)
+        w32 = w16.float()
         dxf = torch.randn(m, d, generator=gen, device=dev)
 
         def copies():
@@ -4256,7 +4452,7 @@ def time_lm_kernels(dev, launches, rows, report) -> None:
               f"(fp32 torch.matmul pair {rec['k2']['library_ms']:.4f}, "
               f"bound {rec['k2']['bound_ms']:.4f}), the backward's fp32 "
               f"copies {rec['fp32_copies_ms']:.4f} ms", flush=True)
-        del w16, w32, gate, g16, x16, dxf
+        del g16, x16, w16, w32, dxf
         torch.cuda.empty_cache()
     report["lm_kernel_timing"] = {
         "unit": f"one gemma3-1b train step: {LM_BATCH} x {LM_SEQ} tokens in "
@@ -4283,6 +4479,42 @@ def time_lm_kernels(dev, launches, rows, report) -> None:
               f"vConv library {t['lib']:.2f}, bound {b_ms:.3f} by {b_by})"
               + (f"; the backward's fp32 copies {t['copies']:.2f} ms"
                  if key == "k2" else ""), flush=True)
+
+
+def rec_library_rows(dev, rows, report) -> None:
+    """The plain versions' and the vConv library calls' times of each
+    recurrent train step's linears (REC_TRAIN; time_lm_linear at each
+    distinct shape, times its calls a step: K1g a micro, twice a layer's
+    linear under remat, K2 once), added to the K1g and K2 rows'
+    "<arch>_step" records beside rec_step_rows' profiler ms and bound."""
+    names = {"cadc_matmul_gate": "k1g", "cadc_segmented_bwd": "k2"}
+    gen = torch.Generator(device=dev).manual_seed(22)
+    for arch, kw in REC_TRAIN.items():
+        cfg = lm_cfg(arch, n_layers=kw["layers"])
+        outside = {"head", "frontend_proj"}
+        calls = {}
+        for name, d, n in train_linear_shapes(cfg):
+            c = calls.setdefault((d, n), {"k1g": 0, "k2": 0})
+            c["k1g"] += kw["micro"] * (1 if name in outside
+                                       or not cfg.remat else 2)
+            c["k2"] += kw["micro"]
+        tot = {k: {"plain_ms": 0.0, "library_ms": 0.0} for k in names.values()}
+        for (d, n), c in calls.items():
+            rec = time_lm_linear(dev, gen, LM_M, d, n, kernel=False)
+            for key, t in tot.items():
+                for f in t:
+                    t[f] += c[key] * rec[key][f]
+        for row in rows:
+            key = names.get(row["name"])
+            if key is not None:
+                row[f"{arch}_step"].update(tot[key])
+                step = row[f"{arch}_step"]
+                print(f"{row['name']} per {cfg.name} train step "
+                      f"({cfg.n_layers} layers): kernel {step['ms']:.2f} ms "
+                      f"(profiler), plain {step['plain_ms']:.2f}, vConv "
+                      f"library {step['library_ms']:.2f}, bound "
+                      f"{step['bound_ms']:.3f} by {step['bound_by']}",
+                      flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -6083,8 +6315,8 @@ def main() -> None:
     # steps make every collective over NCCL, as at any world size
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1, device_id=dev)
-    lm_launches = lm_train_path(dev, report)
-    mark("gemma3-1b LM training")
+    lm_launches = lm_train_path(dev, report, audit=True)
+    mark("gemma3-1b LM training, its cost audit")
     mesh_serve_k1 = mesh_serve_path(dev, report)
     mark("the mesh serve steps at (1, 1)")
     tp_launches, tp_step_launches, tp_serve_k1 = tp_cadc_path(dev, report)
@@ -6119,6 +6351,7 @@ def main() -> None:
                *time_train_kernels(dev, train_launches, report)]
     time_lm_kernels(dev, lm_launches, kernels, report)
     rec_step_rows(kernels, rec_launches, report)
+    rec_library_rows(dev, kernels, report)
     kernels[0]["tp_cadc_launches"] = tp_launches
     kernels[0]["mesh_serve_launches"] = {
         "one_rank": mesh_serve_k1, "two_ranks_per_rank": tp_serve_k1}
@@ -6142,14 +6375,7 @@ def main() -> None:
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
-    report["nvidia_smi"] = card
+    card = report["nvidia_smi"] = nvidia_smi()
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)

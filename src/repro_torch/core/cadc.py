@@ -17,7 +17,7 @@ from typing import Callable, NamedTuple, Optional, Union
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import dendritic
+from repro_torch.core import dendritic, work
 
 Tensor = torch.Tensor
 FnOrName = Union[str, Callable[[Tensor], Tensor]]
@@ -95,12 +95,29 @@ def cadc_einsum_segments(x_seg: Tensor, w_seg: Tensor,
     in x_seg.dtype (fp32 psums; `psum_dtype` rounds them to that dtype
     first, as the LM's bf16_wire stores them). The local work of the
     tensor-parallel CADC linear (parallel/tp_cadc.py), whose segments stay
-    on their device: no collective before f()."""
+    on their device: no collective before f(). One CADC product to a work
+    tally (core/work.py), forward and backward."""
+    return work.product(_einsum_segments, _einsum_cost, x_seg, w_seg, fn=fn,
+                        psum_dtype=psum_dtype)
+
+
+def _einsum_segments(x_seg: Tensor, w_seg: Tensor, *, fn: FnOrName,
+                     psum_dtype: Optional[torch.dtype]) -> Tensor:
     f = _resolve_fn(fn)
     psums = torch.einsum("...sk,skn->...sn", x_seg.float(), w_seg.float())
     if psum_dtype is not None:
         psums = psums.to(psum_dtype).float()
     return f(psums).sum(dim=-2).to(x_seg.dtype)
+
+
+def _einsum_cost(x_seg: Tensor, w_seg: Tensor, *, fn: FnOrName, **_):
+    """The unit of K1g / K2 on the same product, the gate of save_gate
+    'auto' (a fn given as a callable: as identity, no gate)."""
+    from repro_torch.kernels import cadc_matmul  # the gate formats
+
+    return cadc_matmul.linear_cost(
+        x_seg, w_seg, crossbar_size=w_seg.shape[1],
+        fn=fn if isinstance(fn, str) else "identity", save_gate="auto")
 
 
 def make_cadc_linear(crossbar_size: int, fn: FnOrName = "relu"

@@ -50,8 +50,10 @@ blocks in groups, bitwise the single pass. K2 is at
 most two launches (dx, dw) under the plan `plan_bwd` picks: tiles
 narrowed to the segments, dw's M-splits added in order by the last block
 of each tile.
-`CadcMatmulFn` and `CadcMatmulQ8Fn` are the autograd Functions around
-them; kernels/ops.py picks kernel or plain version by the tensors'
+K1, K1g and K2 and their plain versions each count as one unit of work
+(`product_cost`) to an open work tally (core/work.py; the dry run's
+count_cost). `CadcMatmulFn` and `CadcMatmulQ8Fn` are the autograd
+Functions around them; kernels/ops.py picks kernel or plain version by the tensors'
 device. The kernels take only the five built-in dendritic fns (FN_IDS); a
 fn added with dendritic.register() runs on the plain versions. K1 and K1g
 take fp32 or bf16, K2 fp32, K4 int8.
@@ -72,7 +74,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core import dendritic
+from repro_torch.core import dendritic, work
 from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
@@ -233,6 +235,55 @@ def gate_residual_nbytes(m: int, d: int, n: int, *, crossbar_size: int,
     return 0
 
 
+def product_cost(m: int, d: int, n: int, *, x_size: int, w_size: int,
+                 crossbar_size: int, fn: str, mode: str,
+                 need_dx: bool = True, need_dw: bool = True) -> work.Cost:
+    """work.product_work of an [m, d] @ [d, n] CADC product under the
+    resolved gate `mode` ('none' | 'packed' | 'bytes' | 'recompute'): the
+    unit every route of it counts (core/work.py)."""
+    gate = (gate_residual_nbytes(m, d, n, crossbar_size=crossbar_size,
+                                 fn=fn, save_gate=mode)
+            if mode in ("packed", "bytes") else 0)
+    return work.product_work(m, d, n, x_size=x_size, w_size=w_size,
+                             gate_bytes=gate, need_dx=need_dx,
+                             need_dw=need_dw, recompute=mode == "recompute")
+
+
+def linear_cost(x: Tensor, w: Tensor, *, crossbar_size: int, fn: str,
+                save_gate: str, dtype: Optional[torch.dtype] = None
+                ) -> work.Cost:
+    """The unit of a CADC linear at a place where the routes split: w
+    [D, N] or [S, xbar, N] (D = S * xbar), x of m * D elements ([..., D]
+    or [..., S, xbar]), both run in `dtype` (default their own); the gate
+    mode kernels/ops.cadc_matmul takes (none where no gradient is
+    wanted)."""
+    n = w.shape[-1]
+    d = w.numel() // n
+    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    mode = gate_mode(save_gate, fn) if grad else "none"
+    x_size, w_size = ((x.element_size(), w.element_size()) if dtype is None
+                      else (dtype.itemsize, dtype.itemsize))
+    return product_cost(x.numel() // d, d, n, x_size=x_size,
+                        w_size=w_size, crossbar_size=crossbar_size, fn=fn,
+                        mode=mode, need_dx=x.requires_grad,
+                        need_dw=w.requires_grad)
+
+
+def _fwd_cost(x: Tensor, w: Tensor, *_, crossbar_size: int, fn: str,
+              mode: str = "none", **__) -> Tuple[int, int]:
+    return product_cost(x.shape[0], x.shape[1], w.shape[1],
+                        x_size=x.element_size(), w_size=w.element_size(),
+                        crossbar_size=crossbar_size, fn=fn, mode=mode)[0]
+
+
+def _bwd_cost(g: Tensor, x: Tensor, w: Tensor, gate, *, crossbar_size: int,
+              fn: str, mode: str, need_dx: bool = True,
+              need_dw: bool = True, **_) -> Tuple[int, int]:
+    return product_cost(x.shape[0], x.shape[1], w.shape[1], x_size=4,
+                        w_size=4, crossbar_size=crossbar_size, fn=fn,
+                        mode=mode, need_dx=need_dx, need_dw=need_dw)[1]
+
+
 def _gate_kind(mode: str, fn: str) -> int:
     if mode == "packed":
         return _GATE_PACKED
@@ -264,6 +315,7 @@ def _empty_gate(s: int, m: int, n: int, mode: str, fn: str,
 # plain versions
 # ---------------------------------------------------------------------------
 
+@work.counted("cadc_fwd", _fwd_cost)
 def cadc_matmul_torch(x: Tensor, w: Tensor, *, crossbar_size: int,
                       fn: str) -> Tensor:
     """K1's plain version: fp32 psum per segment, f, and a sequential sum
@@ -272,6 +324,7 @@ def cadc_matmul_torch(x: Tensor, w: Tensor, *, crossbar_size: int,
                                   mode="none")[0]
 
 
+@work.counted("cadc_fwd", _fwd_cost)
 def cadc_matmul_gate_torch(x: Tensor, w: Tensor, *, crossbar_size: int,
                            fn: str, mode: str) -> Tuple[Tensor,
                                                         Optional[Tensor]]:
@@ -292,6 +345,7 @@ def cadc_matmul_gate_torch(x: Tensor, w: Tensor, *, crossbar_size: int,
     return acc, (torch.stack(gates) if gates else None)
 
 
+@work.counted("cadc_bwd", _bwd_cost)
 def cadc_segmented_bwd_torch(g: Tensor, x: Tensor, w: Tensor,
                              gate: Optional[Tensor], *, crossbar_size: int,
                              fn: str, mode: str, need_dx: bool = True,
@@ -683,6 +737,7 @@ def _fwd_launch(x: Tensor, w: Tensor, crossbar_size: int, fn: str,
     return y, gate
 
 
+@work.counted("cadc_fwd", _fwd_cost)
 def cadc_matmul_cuda(x: Tensor, w: Tensor, *, crossbar_size: int,
                      fn: str) -> Tensor:
     """K1. x [M, S*xbar], w [S*xbar, N] on one CUDA device, both fp32 or
@@ -698,6 +753,7 @@ def cadc_matmul_cuda(x: Tensor, w: Tensor, *, crossbar_size: int,
 cadc_matmul_cuda.launches = 0
 
 
+@work.counted("cadc_fwd", _fwd_cost)
 def cadc_matmul_gate_cuda(x: Tensor, w: Tensor, *, crossbar_size: int,
                           fn: str, mode: str) -> Tuple[Tensor, Tensor]:
     """K1g: K1 that also writes the gate of `mode` ('packed' | 'bytes'),
@@ -953,6 +1009,7 @@ def bwd_plans(m: int, n: int, d: int, crossbar_size: int, mode: str,
     return out
 
 
+@work.counted("cadc_bwd", _bwd_cost)
 def cadc_segmented_bwd_cuda(g: Tensor, x: Tensor, w: Tensor,
                             gate: Optional[Tensor], *, crossbar_size: int,
                             fn: str, mode: str, need_dx: bool = True,

@@ -32,7 +32,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import cadc as cadc_lib
-from repro_torch.core import dendritic
+from repro_torch.core import dendritic, work
+from repro_torch.kernels import cadc_matmul as cm
 from repro_torch.kernels import ops as kops
 from repro_torch.parallel import act_sharding as sa
 from repro_torch.parallel import comm
@@ -140,27 +141,39 @@ def linear_apply(p: Params, x: Tensor, cfg: ArchConfig) -> Tensor:
     w = p["w"]
     dt = cdtype(cfg)
     if w.ndim == 3:  # segmented CADC weight [S, xbar, d_out]
-        s, xbar, d_out = w.shape
-        xp = cadc_lib.pad_to_segments(x, -1, xbar).to(dt)
-        if kops.resolve(cfg.kernel_impl, x) == "cuda":
-            y = kops.cadc_matmul(
-                xp, w.reshape(s * xbar, d_out).to(dt), crossbar_size=xbar,
-                fn=cfg.dendritic_fn, impl=cfg.kernel_impl,
-                save_gate=cfg.kernel_save_gate)
-        else:
-            xs = xp.reshape(*x.shape[:-1], s, xbar)
-            psums = torch.einsum("...sk,skn->...sn", xs.float(),
-                                 w.to(dt).float())
-            if cfg.bf16_wire:
-                psums = psums.to(dt)
-            ps32 = psums.float()
-            _tap_record(ps32, cfg.dendritic_fn, s)
-            y = dendritic.get(cfg.dendritic_fn)(ps32).sum(dim=-2).to(dt)
+        xp = cadc_lib.pad_to_segments(x, -1, w.shape[1]).to(dt)
+        y = work.product(_cadc_product, _cadc_cost, xp, w, cfg=cfg)
     else:
         y = torch.matmul(x.to(dt), w.to(dt))
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
+
+
+def _cadc_product(xp: Tensor, w: Tensor, cfg: ArchConfig) -> Tensor:
+    """The CADC product of xp [..., S * xbar] (compute dtype) and a
+    segmented weight [S, xbar, d_out], where the routes split: K1g / K2 on
+    the card, the plain einsum otherwise."""
+    s, xbar, d_out = w.shape
+    dt = cdtype(cfg)
+    if kops.resolve(cfg.kernel_impl, xp) == "cuda":
+        return kops.cadc_matmul(
+            xp, w.reshape(s * xbar, d_out).to(dt), crossbar_size=xbar,
+            fn=cfg.dendritic_fn, impl=cfg.kernel_impl,
+            save_gate=cfg.kernel_save_gate)
+    xs = xp.reshape(*xp.shape[:-1], s, xbar)
+    psums = torch.einsum("...sk,skn->...sn", xs.float(), w.to(dt).float())
+    if cfg.bf16_wire:
+        psums = psums.to(dt)
+    ps32 = psums.float()
+    _tap_record(ps32, cfg.dendritic_fn, s)
+    return dendritic.get(cfg.dendritic_fn)(ps32).sum(dim=-2).to(dt)
+
+
+def _cadc_cost(xp: Tensor, w: Tensor, cfg: ArchConfig):
+    return cm.linear_cost(xp, w, crossbar_size=w.shape[1],
+                          fn=cfg.dendritic_fn,
+                          save_gate=cfg.kernel_save_gate, dtype=cdtype(cfg))
 
 
 # ---------------------------------------------------------------------------

@@ -541,8 +541,10 @@ def forward_train(params: Params, batch: Dict[str, Tensor],
     aux = torch.zeros((), device=x.device)
     for i, kind in enumerate(kinds):
         args = (params["layers"][i], x, kind, cfg, positions, token_group)
+        # the layers draw no random numbers: no RNG state to stash
         x, a = (torch.utils.checkpoint.checkpoint(
-                    _layer_train, *args, use_reentrant=False)
+                    _layer_train, *args, use_reentrant=False,
+                    preserve_rng_state=False)
                 if cfg.remat else _layer_train(*args))
         if a is not None:  # without MoE the JAX package adds zeros
             aux = aux + a

@@ -35,6 +35,8 @@ from typing import Dict, List, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import work
+
 Tensor = torch.Tensor
 
 # torch 2.13 renamed the single-tensor collectives (the old names warn)
@@ -80,7 +82,8 @@ def all_gather(t: Tensor, dim: int, group=None) -> Tensor:
     world = dist.get_world_size(group)
     src = t.contiguous()
     buf = src.new_empty((world, *src.shape))
-    _all_gather(buf.flatten(0, 1), src, group=group)  # gloo: the concat form
+    with work.quiet():  # gloo: the concat form
+        _all_gather(buf.flatten(0, 1), src, group=group)
     _count("all-gather", buf, world)
     return buf.movedim(0, dim).flatten(dim, dim + 1)
 
@@ -93,14 +96,16 @@ def reduce_scatter(t: Tensor, dim: int, group=None) -> Tensor:
     src = t.unflatten(dim, (world, t.shape[dim] // world)).movedim(
         dim, 0).contiguous()
     out = src.new_empty(src.shape[1:])
-    _reduce_scatter(out, src.flatten(0, 1), group=group)
+    with work.quiet():
+        _reduce_scatter(out, src.flatten(0, 1), group=group)
     _count("reduce-scatter", out, world)
     return out
 
 
 def all_reduce(t: Tensor, group=None, op=dist.ReduceOp.SUM) -> Tensor:
     """t reduced over the group's ranks, in place; returns t."""
-    dist.all_reduce(t, op=op, group=group)
+    with work.quiet():
+        dist.all_reduce(t, op=op, group=group)
     _count("all-reduce", t, dist.get_world_size(group))
     return t
 

@@ -42,6 +42,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import cadc as cadc_lib
+from repro_torch.core import work
+from repro_torch.kernels import cadc_matmul as cm
 from repro_torch.kernels import ops as kops
 from repro_torch.parallel import comm
 
@@ -57,6 +59,27 @@ def segment_weights(w: Tensor, crossbar_size: int) -> Tensor:
         s, crossbar_size, n)
 
 
+def _local_product(x_loc: Tensor, w_loc: Tensor, *, fn: str, impl: str,
+                   save_gate: str = "auto",
+                   psum_dtype: Optional[torch.dtype] = None) -> Tensor:
+    """sum over the local segments s of f(x_s @ w_s), x_loc [..., S_loc *
+    xbar], w_loc [S_loc, xbar, N], where the routes split: K1 / K1g and K2
+    on the card, cadc_einsum_segments otherwise."""
+    s_loc, xbar, n = w_loc.shape
+    if kops.resolve(impl, x_loc) == "cuda":
+        return kops.cadc_matmul(x_loc, w_loc.reshape(s_loc * xbar, n),
+                                crossbar_size=xbar, fn=fn, impl=impl,
+                                save_gate=save_gate)
+    return cadc_lib.cadc_einsum_segments(
+        x_loc.reshape(*x_loc.shape[:-1], s_loc, xbar), w_loc, fn, psum_dtype)
+
+
+def _local_cost(x_loc: Tensor, w_loc: Tensor, *, fn: str,
+                save_gate: str = "auto", **_):
+    return cm.linear_cost(x_loc, w_loc, crossbar_size=w_loc.shape[1], fn=fn,
+                          save_gate=save_gate)
+
+
 @torch.no_grad()
 def tp_cadc_linear(x: Tensor, w_seg: Tensor, *, group=None,
                    fn: str = "relu",
@@ -70,7 +93,7 @@ def tp_cadc_linear(x: Tensor, w_seg: Tensor, *, group=None,
       each rank reads its own segments only.
     wire_dtype: dtype of the partial outputs on the wire (None = fp32).
     """
-    s, xbar, n = w_seg.shape
+    s, xbar, _ = w_seg.shape
     t = dist.get_world_size(group)
     if s % t:
         raise ValueError(f"segments {s} not divisible by the group's size {t}")
@@ -81,14 +104,11 @@ def tp_cadc_linear(x: Tensor, w_seg: Tensor, *, group=None,
     s_loc = s // t
     x_loc = x[..., r * s_loc * xbar:(r + 1) * s_loc * xbar]
     w_loc = w_seg[r * s_loc:(r + 1) * s_loc]
-    if kops.resolve(impl, x) == "cuda":
-        y_loc = kops.cadc_matmul(x_loc, w_loc.reshape(s_loc * xbar, n),
-                                 crossbar_size=xbar, fn=fn, impl="cuda")
-    else:
-        y_loc = cadc_lib.cadc_einsum_segments(
-            x_loc.reshape(*x.shape[:-1], s_loc, xbar), w_loc, fn)
+    y_loc = work.product(_local_product, _local_cost, x_loc, w_loc, fn=fn,
+                         impl=impl)
     y = y_loc.to(wire_dtype or torch.float32)   # psum-compressed wire
-    dist.all_reduce(y, group=group)             # the ONLY collective
+    with work.quiet():
+        dist.all_reduce(y, group=group)         # the ONLY collective
     return y.float()
 
 
@@ -112,14 +132,8 @@ def tp_cadc_row_linear(x_loc: Tensor, w_loc: Tensor, *, group,
     if x_loc.shape[-1] != s_loc * xbar:
         raise ValueError(f"x [..., {x_loc.shape[-1]}] is not the {s_loc} "
                          f"local segments of {xbar} rows")
-    if kops.resolve(impl, x_loc) == "cuda":
-        y = kops.cadc_matmul(x_loc, w_loc.reshape(s_loc * xbar, n),
-                             crossbar_size=xbar, fn=fn, impl=impl,
-                             save_gate=save_gate)
-    else:
-        y = cadc_lib.cadc_einsum_segments(
-            x_loc.reshape(*x_loc.shape[:-1], s_loc, xbar), w_loc, fn,
-            psum_dtype)
+    y = work.product(_local_product, _local_cost, x_loc, w_loc, fn=fn,
+                     impl=impl, save_gate=save_gate, psum_dtype=psum_dtype)
     if scatter_dim is not None:
         return comm.reduce_scatter_from(y, scatter_dim, group)
     return comm.reduce_from(y, group)

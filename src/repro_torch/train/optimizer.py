@@ -99,9 +99,13 @@ def adamw(lr: Union[float, Callable] = 1e-3, b1: float = 0.9,
         mhat_scale = 1.0 / (1.0 - torch.pow(torch.tensor(b1), t))
         vhat_scale = 1.0 / (1.0 - torch.pow(torch.tensor(b2), t))
         lr_t = lr_fn(step)
+        on_device = {}   # the corrections copied to each device once
 
         def upd(m_, v_, p):
-            ms, vs = mhat_scale.to(p.device), vhat_scale.to(p.device)
+            if p.device not in on_device:
+                on_device[p.device] = (mhat_scale.to(p.device, copy=True),
+                                       vhat_scale.to(p.device, copy=True))
+            ms, vs = on_device[p.device]
             u = -lr_t * ((m_ * ms) / (torch.sqrt(v_ * vs) + eps)
                          + weight_decay * p.float())
             return u.to(p.dtype)
