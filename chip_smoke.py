@@ -337,6 +337,17 @@ channel-parallel (TP_PHASES, in phase 32's two spawned ranks over gloo):
      seq_sharding, bitwise, K1g / K2 exact. The kernels line's K1g and
      K2 rows gain each of these phases' launches a rank.
 
+The bf16 tensor-core kernel of K1 / K1g (`bf16_mma_kernel`, plan kernel
+"mma" of `plan_fwd(dtype=bf16)`): phase 19 also holds every mma
+plan (`mma_plans`: each row tile at each segment-group count) bitwise the
+planner's at each LM shape (y, the packed gate words, and K1's y:
+`check_mma_plans`); phases 2, 5a and 6a check it at M = 32 and above;
+phases 6, 24 and 30 time the CUDA-core tile kernel it replaced on bf16,
+under its former plan, beside it (the verify step's K1, K1 at prefill —
+w_gate at M = 1024, also beside torch.matmul and its plain version — and
+the LM steps' K1g); the LM profiles count it as K1g, the decode and
+verify profiles as K1; it must not spill.
+
 The decode profiles (phase 6 and its later twins) count K1 and K6 with
 the wrappers' launch counters over the profiled steps (exact: K1 as
 k1_per_pass says, K6 once an attention layer a step) and report the
@@ -567,11 +578,13 @@ def profile_device(run, n: int, group, what: str, cpu: bool = True,
 # Kernels that must compile without spills (ptxas' report of each
 # instantiation): K3's tap-aligned kernel, the conv backward's dgrad and
 # wgrad kernels, K5's int8 tap kernel, K2's dx and dw kernels (saved
-# gates and recompute), K6, K4's int8 tensor-core kernel.
+# gates and recompute), K6, K4's int8 tensor-core kernel, K1 / K1g's bf16
+# tensor-core kernel.
 NO_SPILL_KERNELS = ("tap_tile_kernel", "dgrad_kernel", "wgrad_kernel",
                     "q8_tap_kernel", "bwd_dx_kernel", "bwd_dw_kernel",
                     "bwd_dx_recompute_kernel", "bwd_dw_recompute_kernel",
-                    "paged_attention_kernel", "q8_mma_kernel")
+                    "paged_attention_kernel", "q8_mma_kernel",
+                    "bf16_mma_kernel")
 # K4's int8 tile kernel before its redesign (tools/profile_k4.py keeps its
 # launcher), built beside the port's sources: time_q8_kernels' yardstick.
 OLD_K4 = {}
@@ -1163,6 +1176,7 @@ def profile_decode(engine, cfg, report, key="serve", max_new=12) -> None:
     groups = {}
     for us, kname, calls in rows:
         name = ("K1 stream kernel" if "stream_kernel" in kname
+                else "K1 mma kernel" if "bf16_mma_kernel" in kname
                 else "K1 tile kernel" if "RowMajor" in kname
                 else "K6 paged attention" if "paged_attention" in kname
                 else "other (PyTorch)")
@@ -1605,7 +1619,8 @@ def time_k1(cfg, dev, launches, report, m=N_SLOTS):
 
     gen = torch.Generator(device=dev).manual_seed(3)
     dt, xbar = torch.bfloat16, cfg.crossbar_size
-    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0, "ops": 0.0}
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "tile": 0.0, "bytes": 0.0,
+           "ops": 0.0}
     per_shape = {}
     for name, d, n in linear_shapes(cfg):
         x = torch.randn(m, d, generator=gen, device=dev).to(dt)
@@ -1623,13 +1638,19 @@ def time_k1(cfg, dev, launches, report, m=N_SLOTS):
                                                    fn="relu"), reps)
         lib = device_ms(lambda: torch.matmul(x, pick()), reps)
         nbytes = m * d * 2 + d * n * 2 + m * n * 4
-        plan = cm.plan_fwd(m, n, d // xbar, xbar, vec=8)
+        plan = cm.plan_fwd(m, n, d // xbar, xbar, vec=8, dtype=dt)
         per_shape[name] = {"D": d, "N": n, "copies": len(ws),
                            "plan": f"{plan.kernel} {plan.width} "
                                    f"split={plan.split} grid={plan.grid}",
                            "ms": k, "host_ms": k_host,
                            "plain_ms": p, "matmul_ms": lib,
                            "bound_ms": bound_ms(nbytes, 2 * m * d * n, dt)[0]}
+        if plan.kernel == "mma":  # the CUDA-core tile kernel it replaced
+            tile = cm.plan_fwd(m, n, d // xbar, xbar, vec=8)
+            per_shape[name]["tile_ms"] = tile_ms = keep_counts(
+                lambda: device_ms(lambda: cm._fwd_launch(
+                    x, pick(), xbar, "relu", "none", plan=tile), reps))
+            tot["tile"] += tile_ms
         tot["ms"] += k
         tot["plain"] += p
         tot["lib"] += lib
@@ -1643,10 +1664,12 @@ def time_k1(cfg, dev, launches, report, m=N_SLOTS):
             "unit": f"one verify step: 7 linears x {layers} layers, M={m}, "
                     "bf16, relu",
             "per_shape_one_call": per_shape, "ms": tot["ms"] * layers,
+            "tile_ms": tot["tile"] * layers,
             "plain_ms": tot["plain"] * layers,
             "matmul_ms": tot["lib"] * layers, "bound_ms": b_ms}
         print(f"K1 at a verify step (M={m}): {tot['ms'] * layers:.3f} ms "
-              f"(plain {tot['plain'] * layers:.3f}, torch.matmul "
+              f"(the tile kernel {tot['tile'] * layers:.3f}, plain "
+              f"{tot['plain'] * layers:.3f}, torch.matmul "
               f"{tot['lib'] * layers:.3f}, bound {b_ms:.3f} by {b_by}); "
               f"plans {sorted({v['plan'] for v in per_shape.values()})}",
               flush=True)
@@ -1657,22 +1680,37 @@ def time_k1(cfg, dev, launches, report, m=N_SLOTS):
     wps = rotation(lambda: (torch.randn(d_g, n_g, generator=gen, device=dev)
                             / math.sqrt(d_g)).to(dt), d_g * n_g * 2)
     pick = itertools.cycle(wps).__next__
-    saved = cm.cadc_matmul_cuda.launches
-    pre_ms = device_ms(lambda: cm.cadc_matmul_cuda(xp, pick(),
-                                                   crossbar_size=xbar,
-                                                   fn="relu"), len(wps))
-    cm.cadc_matmul_cuda.launches = saved
+    s_g = d_g // xbar
+    plan_pre = cm.plan_fwd(m_pre, n_g, s_g, xbar, vec=8, dtype=dt)
+    tile_pre = cm.plan_fwd(m_pre, n_g, s_g, xbar, vec=8)
+    pre = keep_counts(lambda: {
+        "plan": f"{plan_pre.kernel} {plan_pre.width} split={plan_pre.split} "
+                f"grid={plan_pre.grid}",
+        "ms": device_ms(lambda: cm.cadc_matmul_cuda(
+            xp, pick(), crossbar_size=xbar, fn="relu"), len(wps)),
+        "tile_ms": device_ms(lambda: cm._fwd_launch(
+            xp, pick(), xbar, "relu", "none", plan=tile_pre), len(wps)),
+        "plain_ms": device_ms(lambda: cm.cadc_matmul_torch(
+            xp, pick(), crossbar_size=xbar, fn="relu"), len(wps)),
+        "library_ms": device_ms(lambda: torch.matmul(xp, pick()), len(wps)),
+        "bound_ms": bound_ms(
+            m_pre * d_g * 2 + d_g * n_g * 2 + m_pre * n_g * 4,
+            2 * m_pre * d_g * n_g, dt)[0]})
     del wps
+    print(f"K1 at prefill (w_gate, M={m_pre}, {pre['plan']}): "
+          f"{pre['ms']:.4f} ms (the tile kernel {pre['tile_ms']:.4f}, plain "
+          f"{pre['plain_ms']:.4f}, torch.matmul {pre['library_ms']:.4f}, "
+          f"bound {pre['bound_ms']:.4f})", flush=True)
     report["k1_timing"] = {
         "unit": "one decode step: 7 linears x 26 layers, M=8, bf16, relu",
         "l2_bytes": l2_bytes(),
         "per_shape_one_call": per_shape,
         "matmul_ms_per_step": tot["lib"] * layers,
-        "prefill_w_gate_M1024_ms": pre_ms,
-        "prefill_w_gate_M1024_bound_ms": bound_ms(
-            m_pre * d_g * 2 + d_g * n_g * 2 + m_pre * n_g * 4,
-            2 * m_pre * d_g * n_g, dt)[0],
+        "prefill_w_gate_M1024_ms": pre["ms"],
+        "prefill_w_gate_M1024_bound_ms": pre["bound_ms"],
+        "prefill_w_gate_M1024": pre,
     }
+    verify = report.get("k1_timing_verify", {})
     return {"name": "cadc_matmul", "route": "cuda",
             "source": "src/repro_torch/csrc/cadc_matmul.cu",
             "replaces": "src/repro/kernels/cadc_matmul.py:188",
@@ -1680,7 +1718,11 @@ def time_k1(cfg, dev, launches, report, m=N_SLOTS):
             "max_abs_err": report["k1_max_abs_err"],
             "ms": tot["ms"] * layers, "plain_ms": tot["plain"] * layers,
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": tot["lib"] * layers}
+            "library_ms": tot["lib"] * layers,
+            "verify_step": {k: verify.get(k) for k in (
+                "ms", "tile_ms", "plain_ms", "bound_ms", "matmul_ms")},
+            "prefill_w_gate_M1024": {k: v for k, v in pre.items()
+                                     if k != "plan"}}
 
 
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
@@ -2073,7 +2115,7 @@ def time_k1_shapes(dev, shapes: dict, seed: int) -> dict:
                                                    fn="relu"), len(ws))
         lib = device_ms(lambda: torch.matmul(x, pick()), reps)
         nbytes = m * d * 2 + d * n * 2 + m * n * 4
-        plan = cm.plan_fwd(m, n, d // xbar, xbar, vec=8)
+        plan = cm.plan_fwd(m, n, d // xbar, xbar, vec=8, dtype=dt)
         per_shape[f"{d}x{n}"] = {
             "D": d, "N": n, "configs": sorted(archs), "names": sorted(names),
             "plan": f"{plan.kernel} {plan.width} split={plan.split} "
@@ -2167,8 +2209,9 @@ def check_k1_slice6(dev, report) -> None:
                 n_checks += 1
         torch.cuda.empty_cache()
     plans = sorted({f"{p.kernel} {p.width} split={p.split}" for p in (
-        cm.plan_fwd(m, n, d // 256, 256, vec=v) for d, n in shapes
-        for m in rows for v in (4, 8))})
+        cm.plan_fwd(m, n, d // 256, 256, vec=v, dtype=dt) for d, n in shapes
+        for m in rows for v, dt in ((4, torch.float32),
+                                    (8, torch.bfloat16)))})
     report["k1_slice6"] = {"checks": n_checks, "max_abs_err": worst,
                            "shapes": sorted(shapes), "plans": plans}
     report["k1_max_abs_err"] = max(report["k1_max_abs_err"], worst)
@@ -3523,17 +3566,40 @@ def lm_kernel_shapes() -> list:
     return out
 
 
+def check_mma_plans(cm, x, w, xbar, tag) -> tuple:
+    """K1g (packed gate) and K1 on bf16 x, w under every plan of
+    `mma_plans` (not counted as launches): y and the gate words bitwise the
+    planner's plan's, and K1's y bitwise K1g's. Returns (the planner's
+    plan, plans checked)."""
+    m, n = x.shape[0], w.shape[1]
+    plans = cm.mma_plans(m, n, x.shape[1] // xbar, xbar)
+    if plans[0].kernel != "mma":
+        fail(f"{tag}: bf16 planned on the {plans[0].kernel} kernel")
+    y0, g0 = cm._fwd_launch(x, w, xbar, "relu", "packed", plan=plans[0])
+    for plan in plans:
+        y, g = cm._fwd_launch(x, w, xbar, "relu", "packed", plan=plan)
+        k, _ = cm._fwd_launch(x, w, xbar, "relu", "none", plan=plan)
+        if not (torch.equal(y, y0) and torch.equal(g, g0)
+                and torch.equal(k, y0)):
+            fail(f"{tag}: mma plan {plan} differs from the planner's "
+                 f"{plans[0]}")
+    return plans[0], len(plans)
+
+
 def check_k1g_k2_lm(dev, report) -> None:
     """K1g (K1 where the mode saves nothing) and K2 against their plain
     versions at every shape of lm_kernel_shapes, M = LM_M rows, relu, bf16
     and fp32 operands (K2 on their fp32 casts, as CadcMatmulFn.backward
     runs it), save_gate packed / bytes / recompute; K2 under the planner's
-    plan and one forced plan per shape (dx bitwise the planner's)."""
+    plan and one forced plan per shape (dx bitwise the planner's); on bf16
+    every plan of the tensor-core kernel bitwise the planner's
+    (check_mma_plans)."""
     from repro_torch.kernels import cadc_matmul as cm
 
     gen = torch.Generator(device=dev).manual_seed(20)
     worst = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
-    n_checks = near = forced = 0
+    n_checks = near = forced = mma_checked = 0
+    mma_plan = {}
     for name, d, n in lm_kernel_shapes():
         x32 = torch.randn(LM_M, d, generator=gen, device=dev)
         w32 = torch.randn(d, n, generator=gen, device=dev) / math.sqrt(d)
@@ -3541,6 +3607,11 @@ def check_k1g_k2_lm(dev, report) -> None:
         for dtype in (torch.bfloat16, torch.float32):
             x, w = x32.to(dtype), w32.to(dtype)
             xf, wf = x.float(), w.float()
+            if dtype == torch.bfloat16:
+                plan, k = check_mma_plans(cm, x, w, LM_XBAR, name)
+                mma_plan[name] = (f"{plan.width} rows, {plan.groups} "
+                                  f"groups, grid {plan.grid}")
+                mma_checked += k
             psums = torch.stack([xf[:, i:i + LM_XBAR] @ wf[i:i + LM_XBAR]
                                  for i in range(0, d, LM_XBAR)])
             for mode in ("packed", "bytes", "recompute"):
@@ -3593,13 +3664,17 @@ def check_k1g_k2_lm(dev, report) -> None:
     report["k1g_k2_lm_checks"] = {
         "n": n_checks, "m": LM_M, "shapes": lm_kernel_shapes(),
         "max_err_over_scale": worst, "near_zero_gate_mismatches": near,
-        "k2_forced_plans": forced}
+        "k2_forced_plans": forced, "mma_plans_bitwise": mma_checked,
+        "mma_plan": mma_plan}
     print(f"K1g/K2 at the LM shapes: {n_checks} checks ok "
           f"({len(lm_kernel_shapes())} shapes, M {LM_M}, bf16 and fp32, "
           f"relu, save_gate packed / "
           f"bytes / recompute; K2 also under {forced} forced plans, dx "
-          f"bitwise); max err / scale {worst}; gate bit mismatches at "
+          f"bitwise; bf16 K1g / K1 under {mma_checked} mma plans, bitwise "
+          f"the planner's); max err / scale {worst}; gate bit mismatches at "
           f"|psum| <= {GATE_NEAR} x scale: {near}", flush=True)
+    for name, plan in mma_plan.items():
+        print(f"  mma plan {name} M={LM_M}: {plan}", flush=True)
 
 
 COLLECTIVES = "device-to-device copies (at one rank the collectives' too)"
@@ -3618,6 +3693,7 @@ def lm_group(key: str) -> str:
     `sm80_xmma_gemm_f32f32`) and the rest."""
     k = key.lower()
     for pat, name in (("cadc::fwd_tile_kernel", "K1g cadc_matmul_gate"),
+                      ("bf16_mma_kernel", "K1g cadc_matmul_gate"),
                       ("bwd_dx", "K2 dx"), ("bwd_dw", "K2 dw")):
         if pat in k:
             return name
@@ -4332,6 +4408,10 @@ def rec_step_rows(rows, launches: dict, report) -> None:
                                   if key == "k1g" else torch.float32)
             ms = sum(rec["device_ms_per_step_by_group"].get(
                 g, {"ms": 0.0})["ms"] for g in groups)
+            if rec["launches_per_step"][row["name"]] and not ms:
+                fail(f"{cfg.name} train step: the profile's {groups} show no "
+                     f"device time over {rec['launches_per_step'][row['name']]}"
+                     " launches a step (a kernel outside its group?)")
             row["launches"] += launches[arch][row["name"]]
             row[f"{arch}_step"] = {
                 "launches": rec["launches_per_step"][row["name"]],
@@ -4347,11 +4427,15 @@ def time_lm_linear(dev, gen, m: int, d: int, n: int,
     """One LM linear at m rows, D = d (whole crossbars), N = n, relu's
     packed gate: {"k1g", "k2": device ms of one call of the kernel (with
     `kernel`), its plain version and the vConv library call (torch.matmul
-    in bf16; the fp32 dx / dw pair), and the call's bound}. K1g takes bf16
-    operands, K2 their fp32 casts, as CadcMatmulFn runs them."""
+    in bf16; the fp32 dx / dw pair), and the call's bound}; K1g also under
+    the CUDA-core tile kernel's plan ("tile_ms": the kernel the bf16 route
+    ran before the tensor-core kernel). K1g takes bf16 operands, K2 their
+    fp32 casts, as CadcMatmulFn runs them."""
     from repro_torch.kernels import cadc_matmul as cm
 
     kw = dict(crossbar_size=LM_XBAR, fn="relu")
+    tile = cm.plan_fwd(m, n, d // LM_XBAR, LM_XBAR)
+    plan = cm.plan_fwd(m, n, d // LM_XBAR, LM_XBAR, dtype=torch.bfloat16)
     work = lm_linear_work(m, d, n)
     w16 = (torch.randn(d, n, generator=gen, device=dev)
            / math.sqrt(d)).to(torch.bfloat16)
@@ -4397,6 +4481,10 @@ def time_lm_linear(dev, gen, m: int, d: int, n: int,
         if kernel:
             rec[key]["ms"] = keep_counts(
                 lambda: device_ms(lambda: kern(*pick()), reps))
+        if key == "k1g":
+            rec[key]["plan"] = f"{plan.kernel} {plan.width} x{plan.groups}"
+            rec[key]["tile_ms"] = device_ms(lambda: cm._fwd_launch(
+                *pick(), w16, LM_XBAR, "relu", "packed", plan=tile), reps)
         del ops_set, first
     del w16, w32, gate
     torch.cuda.empty_cache()
@@ -4417,7 +4505,7 @@ def time_lm_kernels(dev, launches, rows, report) -> None:
     k2_per_shape = per["cadc_segmented_bwd"] // (cfg.n_layers * 7)
     gen = torch.Generator(device=dev).manual_seed(21)
     tot = {k: {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0,
-               "ops": 0.0, "copies": 0.0} for k in ("k1g", "k2")}
+               "ops": 0.0, "copies": 0.0, "tile": 0.0} for k in ("k1g", "k2")}
     per_shape = {}
     m = LM_M
     for name, d, n in linear_shapes(cfg):
@@ -4428,6 +4516,7 @@ def time_lm_kernels(dev, launches, rows, report) -> None:
             mult = r["per_step"] = count * (k1g_per_shape if key == "k1g"
                                             else k2_per_shape)
             t["ms"] += mult * r["ms"]
+            t["tile"] += mult * r.get("tile_ms", 0.0)
             t["plain"] += mult * r["plain_ms"]
             t["lib"] += mult * r["library_ms"]
             t["bytes"] += mult * r["bytes"]
@@ -4447,7 +4536,9 @@ def time_lm_kernels(dev, launches, rows, report) -> None:
         rec["fp32_copies_ms"] = device_ms(copies, 8)
         tot["k2"]["copies"] += count * k2_per_shape * rec["fp32_copies_ms"]
         print(f"LM {name} M={m} D={d} N={n}: K1g {rec['k1g']['ms']:.4f} ms "
-              f"(torch.matmul bf16 {rec['k1g']['library_ms']:.4f}, bound "
+              f"({rec['k1g']['plan']}; the tile kernel "
+              f"{rec['k1g']['tile_ms']:.4f}, "
+              f"torch.matmul bf16 {rec['k1g']['library_ms']:.4f}, bound "
               f"{rec['k1g']['bound_ms']:.4f}), K2 {rec['k2']['ms']:.4f} ms "
               f"(fp32 torch.matmul pair {rec['k2']['library_ms']:.4f}, "
               f"bound {rec['k2']['bound_ms']:.4f}), the backward's fp32 "
@@ -4474,8 +4565,12 @@ def time_lm_kernels(dev, launches, rows, report) -> None:
                           "bound_by": b_by, "library_ms": t["lib"]}
         if key == "k2":
             row["lm_step"]["fp32_copies_ms"] = t["copies"]
+        else:
+            row["lm_step"]["tile_ms"] = t["tile"]
         print(f"{row['name']} per gemma3-1b train step: {t['ms']:.2f} ms "
-              f"over {per[row['name']]} launches (plain {t['plain']:.2f}, "
+              f"over {per[row['name']]} launches ("
+              + (f"the tile kernel {t['tile']:.2f}, " if key == "k1g" else "")
+              + f"plain {t['plain']:.2f}, "
               f"vConv library {t['lib']:.2f}, bound {b_ms:.3f} by {b_by})"
               + (f"; the backward's fp32 copies {t['copies']:.2f} ms"
                  if key == "k2" else ""), flush=True)
@@ -4485,8 +4580,10 @@ def rec_library_rows(dev, rows, report) -> None:
     """The plain versions' and the vConv library calls' times of each
     recurrent train step's linears (REC_TRAIN; time_lm_linear at each
     distinct shape, times its calls a step: K1g a micro, twice a layer's
-    linear under remat, K2 once), added to the K1g and K2 rows'
-    "<arch>_step" records beside rec_step_rows' profiler ms and bound."""
+    linear under remat, K2 once), and K1g's under the CUDA-core tile kernel
+    ("tile_ms", the bf16 route before the tensor-core kernel), added to
+    the K1g and K2 rows' "<arch>_step" records beside rec_step_rows'
+    profiler ms and bound."""
     names = {"cadc_matmul_gate": "k1g", "cadc_segmented_bwd": "k2"}
     gen = torch.Generator(device=dev).manual_seed(22)
     for arch, kw in REC_TRAIN.items():
@@ -4499,6 +4596,7 @@ def rec_library_rows(dev, rows, report) -> None:
                                        or not cfg.remat else 2)
             c["k2"] += kw["micro"]
         tot = {k: {"plain_ms": 0.0, "library_ms": 0.0} for k in names.values()}
+        tot["k1g"]["tile_ms"] = 0.0
         for (d, n), c in calls.items():
             rec = time_lm_linear(dev, gen, LM_M, d, n, kernel=False)
             for key, t in tot.items():
@@ -4511,7 +4609,10 @@ def rec_library_rows(dev, rows, report) -> None:
                 step = row[f"{arch}_step"]
                 print(f"{row['name']} per {cfg.name} train step "
                       f"({cfg.n_layers} layers): kernel {step['ms']:.2f} ms "
-                      f"(profiler), plain {step['plain_ms']:.2f}, vConv "
+                      f"(profiler)"
+                      + (f", the tile kernel {step['tile_ms']:.2f}"
+                         if "tile_ms" in step else "")
+                      + f", plain {step['plain_ms']:.2f}, vConv "
                       f"library {step['library_ms']:.2f}, bound "
                       f"{step['bound_ms']:.3f} by {step['bound_by']}",
                       flush=True)

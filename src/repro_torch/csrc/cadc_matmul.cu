@@ -64,7 +64,56 @@
 // uint32 word in the JAX bit layout (column tiles are whole words, N is
 // padded to whole words), or one byte (relu) / one fp32 (curved fns) per
 // psum. Its extra bytes are the gate's: S*M*N/8 packed, S*M*N bytes or
-// 4*S*M*N fp32. It runs the tile kernel under every plan.
+// 4*S*M*N fp32. On fp32 operands it runs the tile kernel under every plan.
+//
+// bf16 operands (K1 but at decode, and K1g: the LM train micro at M = 2048,
+// prefill at M = 512 / 1024, the speculative verify step at M = 32) run
+// the tensor-core kernel, `bf16_mma_kernel`, which replaces the same TPU
+// bodies (`_kernel` :188 and `_kernel_with_gate` :199, psum by `_seg_psum`
+// :142 with preferred_element_type=f32). Bound on this card: at a train
+// micro it is bound by operations, 2*M*D*N at the bf16 tensor-core peak
+// (gemma3-1b's w_gate, 36.2 GFLOP: 0.037 ms); at the verify step by the
+// bytes of w (w_gate's 17.7 MB: 5.3 us). The tile kernel ran these products
+// on the CUDA cores at ~12 TFLOP/s (~1.2 % of that peak), widening every
+// bf16 operand to fp32.
+//
+// Design. A block of 8 warps owns a BM x 128 tile of y (BM = 128 or 32;
+// warps 2 x 4, each 32 columns and BM/2 rows: kMT x 4 m16n8 tiles) and
+// walks its segments' 64-wide k slices in order through a 4-stage ring in
+// dynamic shared memory: x and w move by 16-byte cp.async (w by 4-byte
+// copies where its rows are off 16 bytes, as the sLSTM's N = 2730; by
+// 2-byte loads where N is odd or w is off 4 bytes; x by 2-byte loads where
+// it is off 16 bytes), zero-filled past M, N and the segment's end; rows
+// padded by 16 bytes, so ldmatrix is free of bank conflicts. A is read by
+// ldmatrix.x4, B — w is k-major — by ldmatrix.x4.trans (16-bit types
+// allow it: no transpose pass, unlike K4's int8), and mma.sync
+// m16n8k16.row.col.f32.bf16.bf16.f32 builds each segment's psum in fp32
+// fragments, one chain of k16 steps in increasing k (xbar must be a
+// multiple of 16; other xbars stay on the tile kernel). At a segment's
+// end the warp writes the gate from the fp32 psums (the packed word from
+// the quad's fragments by two shuffles, as K4), applies f (one copy of the
+// epilogue per fn) and adds f(psum) into a second set of fp32 fragments
+// with __fadd_rn, in segment order from 0; then the psums restart. The
+// two sets are what bound the tile: at 128 x 128 both would take 128 of a
+// thread's 255 registers, so that tile keeps the chain in shared memory
+// (one block an SM; 32 rows, two). A 64-row tile measured between the two
+// and the fitted planner never picked it, so it went.
+// The planner (kernels/cadc_matmul.py `plan_fwd` with dtype=bf16) picks
+// the row tile and a split of the segments into groups, as `plan_fwd_q8`
+// does, from a fitted model of the launch (`_mma_seconds`): in a split,
+// group 0 keeps the chain over its segments and stores it to scratch slice
+// 0, each later group stores every segment's f(psum) to a slice of its
+// own, and the tile's last block to arrive continues the chain from slice
+// 0 over the later segments in order — so every plan gives the single pass's
+// bits, gate included, and a split of M (micros, data parallelism) gives
+// each row the same bits. One launch a call. At gemma3-1b's seven shapes
+// (M = 2048, crossbar 256; waves = blocks over 132 SMs x blocks an SM) it
+// plans wq 128 rows, 128 blocks (0.97 waves); wk and wv 32 rows in 2
+// groups, 256 blocks (0.97, two an SM); wo and w_down 128 rows, 144 blocks
+// (1.09); w_gate and w_up 128 rows, 864 blocks (6.55). Measured on an H100
+// 80GB HBM3 at 700 W (tools/profile_k1_mma.py; PERF.md): 0.28 ms at
+// w_gate, 130 TFLOP/s, against 3.06 for the tile kernel and 0.054 for
+// torch.matmul.
 //
 // K4 replaces the q8 bodies of the same launcher, `_q8_kernel` and
 // `_q8_kernel_with_gate` (`_seg_psum_q8`; entry `cadc_matmul_q8_pallas`):
@@ -134,7 +183,7 @@ using cadc::ldsm4;
 using cadc::mma_s8;
 
 // Plan kernels (kernels/cadc_matmul.py PLAN_KERNELS).
-enum PlanKernel : int { kTile = 0, kStream = 1 };
+enum PlanKernel : int { kTile = 0, kStream = 1, kMma = 2 };
 
 constexpr int kStreamRows = 8;      // rows of x the stream kernel holds
 constexpr int kStreamThreads = 128;  // threads of a stream-kernel block
@@ -490,6 +539,484 @@ int tile_by_gate(const void* x, const void* w, const void* scale, void* y,
                                        S, xbar, fn, gate_kind, rows, st);
   return tile_by_rows<T, Acc, true>(x, w, sc, y, scr, cnt, gate, M, N, S,
                                     xbar, fn, gate_kind, rows, st);
+}
+
+// ---------------------------------------------------------------------------
+// K1 / K1g on bf16 operands: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+// How a slice of w's rows is staged (MmaMat::wmode): 16-byte cp.async (w
+// on 16 bytes, N a multiple of 8), 4-byte cp.async (w on 4 bytes, N even:
+// the sLSTM's N = 2730), or 2-byte loads through registers.
+enum MmaWMode : int { kMmaW16 = 0, kMmaW4 = 1, kMmaW2 = 2 };
+
+// A bf16 K1 / K1g launch: x [M, S*xbar] and w [S*xbar, N] bf16, row-major;
+// y [M, N] fp32; scratch [S - per + 1, M, N] fp32 (per = ceil(S / groups):
+// group 0's chain, then each later segment) and the arrival counters when
+// the segments are split over blocks in groups (grid z > 1), else NULL.
+// xvec: x's rows are read by 16-byte cp.async (x on 16 bytes), else by
+// 2-byte loads.
+struct MmaMat {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* w;
+  float* y;
+  float* scratch;
+  int* counters;
+  void* gate;
+  int M, N, S, xbar, fn, gate_kind, xvec, wmode;
+};
+
+constexpr int kMmaThreads = 256;   // 8 warps: 2 rows x 4 columns of warps
+constexpr int kMmaCols = 128;      // columns of a block tile (a warp: 32)
+constexpr int kMmaBK = 64;         // k of a staged slice: four k16 steps
+constexpr int kMmaStages = 4;      // slices in the ring
+constexpr int kMmaAStride = kMmaBK * 2 + 16;    // bytes of a staged x row
+constexpr int kMmaBStride = kMmaCols * 2 + 16;  // bytes of a staged w row
+constexpr int kMmaBBytes = kMmaBK * kMmaBStride;
+constexpr int kMmaMergeLoads = 32;  // loads a thread keeps in flight merging
+
+template <int BM>
+struct MmaTile {
+  static_assert(BM == 128 || BM == 32, "row tiles of 128 or 32");
+  static constexpr int kMT = BM / 32;  // m16 tiles of a warp (2 warp rows)
+  static constexpr int kABytes = BM * kMmaAStride;
+  static constexpr int kStageBytes = kABytes + kMmaBBytes;
+  // 128 rows keep the chain of f(psum) sums in shared memory (each thread
+  // its own float4s), not in registers: 64 fp32 a thread fewer, which is
+  // what keeps the gate's epilogue from spilling at 255 registers
+  static constexpr bool kAccSmem = BM >= 128;
+  static constexpr int kAccBytes = kAccSmem ? BM * kMmaCols * 4 : 0;
+  static constexpr int kSmem = kMmaStages * kStageBytes + kAccBytes;
+  static constexpr int kPer = BM * kMmaCols / kMmaThreads;  // merged a thread
+  // the register cap of __launch_bounds__: 255 a thread, 128 for 32 rows
+  static constexpr int kBlocksPerSm = BM >= 128 ? 1 : 2;
+};
+
+// Four 8 x 8 matrices of 16-bit elements, each transposed on the way in
+// (ldmatrix .trans): from a k-major tile, the col-major B fragments.
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4],
+                                        const unsigned char* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// d += a (m16 x k16, row) * b (k16 x n8, col), bf16 in, fp32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, "
+      "%3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned short ld_bf16_bits(
+    const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+
+// Block (n tile, m tile, group z) computes the BM x 128 tile of y at (m0,
+// n0) over its segments: all S (gridDim.z == 1, the single pass) or group
+// z's ceil(S / gridDim.z). Warp (wm, wn) owns rows wm*BM/2 .. and columns
+// 32*wn .. of the tile: kMT x 4 mma tiles of m16 x n8. The block walks its
+// segments' kMmaBK-wide k slices in order through a kMmaStages ring in shared
+// memory (cp.async by all threads; past M, N or the segment's end
+// zero-filled; three slices in flight while one computes); each warp reads
+// x by ldmatrix.x4 and w, k-major, by ldmatrix.x4.trans, and runs
+// mma.sync m16n8k16 bf16 -> fp32 into its psum fragments: each psum one
+// chain of k16 steps in increasing k. At a segment's end the warp writes
+// the gate from the fp32 psums (the packed word by two quad shuffles, as
+// K4), applies f (one copy of the epilogue per fn) and adds f(psum) into
+// its accumulator fragments with __fadd_rn, in segment order from 0. In a
+// split, group 0 keeps that chain over its segments and stores it to
+// scratch slice 0; every later group stores each segment s's f(psum) to
+// slice s - per + 1; the tile's last block to arrive (cadc_tile.cuh
+// arrive_last) continues the chain from slice 0 over slices 1 .. in order.
+// Every
+// plan is thus the single pass's chain of additions: the same bits.
+template <int BM, bool kGate>
+__global__ void __launch_bounds__(kMmaThreads, MmaTile<BM>::kBlocksPerSm)
+bf16_mma_kernel(const MmaMat p) {
+  using Tile = MmaTile<BM>;
+  constexpr int kMT = Tile::kMT, kNT = 4;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const int g = lane / 4, q = lane % 4;  // an mma fragment's row, col pair
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kMmaCols;
+  const size_t D = static_cast<size_t>(p.S) * p.xbar;
+  const int kps = (p.xbar + kMmaBK - 1) / kMmaBK;  // slices a segment
+  const int per = (p.S + gridDim.z - 1) / gridDim.z;
+  const int lo = min(p.S, static_cast<int>(blockIdx.z) * per);
+  const int hi = min(p.S, lo + per);
+  const int n_slices = (hi - lo) * kps;
+  const bool chain = blockIdx.z == 0;  // the single pass, or group 0
+
+  // A thread's 16-byte copies of a slice sit at fixed places: x's at
+  // column xc of rows xr, xr + kXStep, ...; w's at column wc of rows wr,
+  // wr + kWStep, ... — each an add and a predicate a slice.
+  constexpr int kXV = kMmaBK / 8;              // 16-byte chunks an x row
+  constexpr int kXStep = kMmaThreads / kXV;
+  constexpr int kXN = BM * kXV / kMmaThreads;  // x chunks a thread
+  constexpr int kWV = kMmaCols / 8;            // 16-byte chunks a w row
+  constexpr int kWStep = kMmaThreads / kWV;
+  constexpr int kWN = kMmaBK / kWStep;         // w chunks a thread
+  static_assert(kXN * kMmaThreads == BM * kXV && kWN * kWStep == kMmaBK,
+                "a slice splits evenly over the threads");
+  const int xr = tid / kXV, xc = 8 * (tid % kXV);
+  const int wr = tid / kWV, wc = 8 * (tid % kWV);
+  const __nv_bfloat16* xsrc = p.x + static_cast<size_t>(m0 + xr) * D + xc;
+  const bool wcol = n0 + wc < p.N;
+
+  // slice t of this block (segment lo + t / kps, k from (t % kps) * kMmaBK)
+  // into ring slot t % kMmaStages; nothing past its last.
+  const auto load = [&](int t) {
+    if (t >= n_slices) return;
+    unsigned char* as = mma_smem + (t % kMmaStages) * Tile::kStageBytes;
+    unsigned char* bs = as + Tile::kABytes;
+    const int k0 = (t % kps) * kMmaBK;
+    const int kmax = p.xbar - k0;  // k < kmax lies in the segment
+    const size_t d0 = static_cast<size_t>(lo + t / kps) * p.xbar + k0;
+    if (p.xvec) {
+#pragma unroll
+      for (int j = 0; j < kXN; ++j) {
+        const int r = xr + j * kXStep;
+        const bool ok = m0 + r < p.M && xc < kmax;
+        cadc::copy16(as + r * kMmaAStride + 2 * xc,
+                     ok ? xsrc + j * kXStep * D + d0 : p.x, ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int e = tid; e < BM * kMmaBK; e += kMmaThreads) {
+        const int r = e / kMmaBK, c = e % kMmaBK;
+        reinterpret_cast<unsigned short*>(as + r * kMmaAStride)[c] =
+            m0 + r < p.M && c < kmax ? ld_bf16_bits(p.x + (m0 + r) * D + d0 + c)
+                                     : 0;
+      }
+    }
+    if (p.wmode == kMmaW16) {
+      const __nv_bfloat16* wsrc = p.w + (d0 + wr) * p.N + n0 + wc;
+#pragma unroll
+      for (int j = 0; j < kWN; ++j) {
+        const int r = wr + j * kWStep;
+        const bool ok = r < kmax && wcol;
+        cadc::copy16(bs + r * kMmaBStride + 2 * wc,
+                     ok ? wsrc + static_cast<size_t>(j) * kWStep * p.N : p.w,
+                     ok);
+      }
+    } else if (p.wmode == kMmaW4) {
+      const int r0 = tid / 64, c = 2 * (tid % 64);
+      const __nv_bfloat16* wsrc = p.w + (d0 + r0) * p.N + n0 + c;
+#pragma unroll 4
+      for (int j = 0; j < kMmaBK / 4; ++j) {
+        const int r = r0 + 4 * j;
+        const bool ok = r < kmax && n0 + c < p.N;
+        cadc::copy4(bs + r * kMmaBStride + 2 * c,
+                    ok ? wsrc + static_cast<size_t>(4 * j) * p.N : p.w, ok);
+      }
+    } else {
+      const __nv_bfloat16* wrow = p.w + d0 * p.N + n0;
+#pragma unroll 4
+      for (int e = tid; e < kMmaBK * kMmaCols; e += kMmaThreads) {
+        const int r = e / kMmaCols, c = e % kMmaCols;
+        reinterpret_cast<unsigned short*>(bs + r * kMmaBStride)[c] =
+            r < kmax && n0 + c < p.N
+                ? ld_bf16_bits(wrow + static_cast<size_t>(r) * p.N + c)
+                : 0;
+      }
+    }
+  };
+
+  float ps[kMT][kNT][4];   // the segment's psums
+  // the chain of f(psum) over segments: in registers, or (kAccSmem) the
+  // float4 of fragment (i, j) at acc4[(i * kNT + j) * 32]
+  float acc[kMT][kNT][4];
+  float4* acc4 = reinterpret_cast<float4*>(
+                     mma_smem + kMmaStages * Tile::kStageBytes) +
+                 warp * kMT * kNT * 32 + lane;
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      if constexpr (Tile::kAccSmem) {
+        acc4[(i * kNT + j) * 32] = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      }
+    }
+
+#pragma unroll
+  for (int j = 0; j < kMmaStages - 1; ++j) {
+    load(j);
+    cadc::copy_commit();
+  }
+  for (int t = 0; t < n_slices; ++t) {
+    cadc::copy_wait<kMmaStages - 2>();
+    __syncthreads();  // slice t landed; every warp is done with t - 1
+    load(t + kMmaStages - 1);  // into t - 1's slot
+    cadc::copy_commit();
+    const int kt = t % kps;
+    if (kt == 0) {
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ps[i][j][e] = 0.f;
+    }
+    const unsigned char* as = mma_smem + (t % kMmaStages) * Tile::kStageBytes;
+    const unsigned char* bs = as + Tile::kABytes;
+    // one k16 step: B's k rows 0-7 / 8-15 (b0 / b1) of n8 tiles 2np and
+    // 2np + 1, then A's rows 0-15 x k 0-7 / 8-15 (a0 a1 / a2 a3) of each
+    // m16 tile and its four mma
+    const auto k16 = [&](int kk) {
+      uint32_t b[kNT][2];
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t r[4];
+        ldsm4_t(r, bs + (kk * 16 + lane % 8 + (lane / 8 % 2) * 8) *
+                           kMmaBStride +
+                       (wn * 32 + np * 16 + (lane / 16) * 8) * 2);
+        b[2 * np][0] = r[0];
+        b[2 * np][1] = r[1];
+        b[2 * np + 1][0] = r[2];
+        b[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+        uint32_t a[4];
+        cadc::ldsm4(a, as + (wm * (BM / 2) + i * 16 + lane % 16) *
+                                kMmaAStride +
+                           kk * 32 + (lane / 16) * 16);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) mma_bf16(ps[i][j], a, b[j][0], b[j][1]);
+      }
+    };
+    const int steps = min(kMmaBK, p.xbar - kt * kMmaBK) / 16;
+    if (steps == kMmaBK / 16) {
+#pragma unroll
+      for (int kk = 0; kk < kMmaBK / 16; ++kk) k16(kk);
+    } else {  // the segment ends inside this slice
+#pragma unroll 1
+      for (int kk = 0; kk < steps; ++kk) k16(kk);
+    }
+    if (kt != kps - 1) continue;
+    // segment s done: its gate, f, and the chain or its scratch slice
+    const int s = lo + t / kps;
+    const auto seg_done = [&](auto fn_id) {
+      constexpr int kFn = decltype(fn_id)::value;
+      if constexpr (kGate) {
+        if (p.gate_kind == cadc::kGatePacked) {
+          // lane (g, q) holds columns 2q, 2q+1 of each n8 tile of rows g
+          // and g+8: a warp's 32 columns are one word a row
+          const int nw_all = (p.N + cadc::kPack - 1) / cadc::kPack;
+          const int word = n0 / cadc::kPack + wn;
+          uint32_t* words = static_cast<uint32_t*>(p.gate) +
+                            static_cast<size_t>(s) * p.M * nw_all;
+#pragma unroll
+          for (int i = 0; i < kMT; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int m = m0 + wm * (BM / 2) + i * 16 + h * 8 + g;
+              uint32_t bits = 0;
+#pragma unroll
+              for (int j = 0; j < kNT; ++j)
+#pragma unroll
+                for (int c = 0; c < 2; ++c)
+                  if (cadc::dendritic_grad(kFn, ps[i][j][2 * h + c]) != 0.f)
+                    bits |= 1u << (8 * j + 2 * q + c);
+              bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
+              bits |= __shfl_xor_sync(0xffffffffu, bits, 2);
+              if (q == 0 && m < p.M && word < nw_all)
+                words[static_cast<size_t>(m) * nw_all + word] = bits;
+            }
+        } else {
+          const size_t base = static_cast<size_t>(s) * p.M * p.N;
+#pragma unroll
+          for (int i = 0; i < kMT; ++i)
+#pragma unroll
+            for (int j = 0; j < kNT; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int m = m0 + wm * (BM / 2) + i * 16 + (e / 2) * 8 + g;
+                const int n = n0 + wn * 32 + j * 8 + 2 * q + e % 2;
+                if (m >= p.M || n >= p.N) continue;
+                const float gv = cadc::dendritic_grad(kFn, ps[i][j][e]);
+                const size_t at = base + static_cast<size_t>(m) * p.N + n;
+                if (p.gate_kind == cadc::kGateU8)
+                  static_cast<uint8_t*>(p.gate)[at] = gv != 0.f;
+                else
+                  static_cast<float*>(p.gate)[at] = gv;
+              }
+        }
+      }
+      if (chain) {
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) {
+            if constexpr (Tile::kAccSmem) {
+              float4 a = acc4[(i * kNT + j) * 32];
+              a.x = __fadd_rn(a.x, cadc::dendritic(kFn, ps[i][j][0]));
+              a.y = __fadd_rn(a.y, cadc::dendritic(kFn, ps[i][j][1]));
+              a.z = __fadd_rn(a.z, cadc::dendritic(kFn, ps[i][j][2]));
+              a.w = __fadd_rn(a.w, cadc::dendritic(kFn, ps[i][j][3]));
+              acc4[(i * kNT + j) * 32] = a;
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[i][j][e] = __fadd_rn(acc[i][j][e],
+                                         cadc::dendritic(kFn, ps[i][j][e]));
+            }
+          }
+      } else {
+        float* dst =
+            p.scratch + static_cast<size_t>(s - per + 1) * p.M * p.N;
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int j = 0; j < kNT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int m = m0 + wm * (BM / 2) + i * 16 + (e / 2) * 8 + g;
+              const int n = n0 + wn * 32 + j * 8 + 2 * q + e % 2;
+              if (m < p.M && n < p.N)
+                dst[static_cast<size_t>(m) * p.N + n] =
+                    cadc::dendritic(kFn, ps[i][j][e]);
+            }
+      }
+    };
+    switch (p.fn) {
+      case 0: seg_done(std::integral_constant<int, 0>{}); break;
+      case 1: seg_done(std::integral_constant<int, 1>{}); break;
+      case 2: seg_done(std::integral_constant<int, 2>{}); break;
+      case 3: seg_done(std::integral_constant<int, 3>{}); break;
+      default: seg_done(std::integral_constant<int, 4>{}); break;
+    }
+  }
+  cadc::copy_wait<0>();
+
+  if (chain) {  // y, or in a split slice 0: the chain over group 0
+    float* out = gridDim.z > 1 ? p.scratch : p.y;
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        if constexpr (Tile::kAccSmem) {
+          const float4 a = acc4[(i * kNT + j) * 32];
+          acc[i][j][0] = a.x;
+          acc[i][j][1] = a.y;
+          acc[i][j][2] = a.z;
+          acc[i][j][3] = a.w;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = m0 + wm * (BM / 2) + i * 16 + (e / 2) * 8 + g;
+          const int n = n0 + wn * 32 + j * 8 + 2 * q + e % 2;
+          if (m < p.M && n < p.N)
+            out[static_cast<size_t>(m) * p.N + n] = acc[i][j][e];
+        }
+      }
+  }
+  if (gridDim.z == 1) return;
+  // the tile's last block to arrive continues the chain over the later
+  // groups' segments, in order
+  int* tile_counter = p.counters + blockIdx.y * gridDim.x + blockIdx.x;
+  if (!cadc::arrive_last(tile_counter, gridDim.z)) return;
+  // kChunk outputs a thread at a time, kSeg segments' loads in flight
+  constexpr int kChunk = 16;
+  constexpr int kSeg = kMmaMergeLoads / kChunk;
+  static_assert(Tile::kPer % kChunk == 0, "whole chunks a thread");
+  const size_t mn = static_cast<size_t>(p.M) * p.N;  // a split: < 2^31
+#pragma unroll 1
+  for (int c0 = 0; c0 < Tile::kPer; c0 += kChunk) {
+    bool ok[kChunk];
+    int at[kChunk];
+    float a[kChunk];
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      const int e = tid + (c0 + i) * kMmaThreads;
+      const int m = m0 + e / kMmaCols, n = n0 + e % kMmaCols;
+      ok[i] = m < p.M && n < p.N;
+      at[i] = ok[i] ? m * p.N + n : 0;
+      a[i] = ok[i] ? __ldcg(p.scratch + at[i]) : 0.f;
+    }
+    for (int s0 = per; s0 < p.S; s0 += kSeg) {
+      float v[kSeg][kChunk];
+#pragma unroll
+      for (int u = 0; u < kSeg; ++u)
+#pragma unroll
+        for (int i = 0; i < kChunk; ++i)
+          v[u][i] = ok[i] && s0 + u < p.S
+                        ? __ldcg(p.scratch + (s0 + u - per + 1) * mn + at[i])
+                        : 0.f;
+#pragma unroll
+      for (int u = 0; u < kSeg; ++u)
+        if (s0 + u < p.S)
+#pragma unroll
+          for (int i = 0; i < kChunk; ++i) a[i] = __fadd_rn(a[i], v[u][i]);
+    }
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i)
+      if (ok[i]) p.y[at[i]] = a[i];
+  }
+  if (tid == 0) *tile_counter = 0;
+}
+
+template <int BM, bool kGate>
+int launch_mma(const MmaMat& p, int groups, cudaStream_t stream) {
+  static std::atomic<uint64_t> opted_in{0};
+  constexpr int smem = MmaTile<BM>::kSmem;
+  if (const int e = cadc::opt_in(bf16_mma_kernel<BM, kGate>, smem, opted_in))
+    return e;
+  const dim3 grid((p.N + kMmaCols - 1) / kMmaCols, (p.M + BM - 1) / BM,
+                  groups);
+  bf16_mma_kernel<BM, kGate><<<grid, kMmaThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 tensor-core kernel with `rows` (128 or 32) rows a block tile
+// over `groups` segment groups (1: the single pass, scratch NULL; more:
+// scratch [S - ceil(S / groups) + 1, M, N] and the counters, 1 < groups <=
+// S). xbar must be a multiple of 16 (whole k16 steps a segment).
+int mma_launch(const void* x, const void* w, void* y, void* scratch,
+               void* counters, void* gate, int M, int N, int S, int xbar,
+               int fn, int gate_kind, int rows, int groups, void* stream) {
+  if (xbar % 16 || groups < 1 || groups > S ||
+      (groups > 1) != (scratch != nullptr) || (scratch && !counters) ||
+      (scratch && static_cast<size_t>(M) * N >= (size_t{1} << 31)) ||
+      gate_kind < cadc::kGateNone || gate_kind > cadc::kGateF32 ||
+      (gate_kind != cadc::kGateNone && !gate))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t wa = reinterpret_cast<uintptr_t>(w);
+  const MmaMat p{static_cast<const __nv_bfloat16*>(x),
+                 static_cast<const __nv_bfloat16*>(w),
+                 static_cast<float*>(y),
+                 static_cast<float*>(scratch),
+                 static_cast<int*>(counters),
+                 gate, M, N, S, xbar, fn, gate_kind,
+                 reinterpret_cast<uintptr_t>(x) % 16 == 0,
+                 wa % 16 == 0 && N % 8 == 0  ? kMmaW16
+                 : wa % 4 == 0 && N % 2 == 0 ? kMmaW4
+                                             : kMmaW2};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool g = gate_kind != cadc::kGateNone;
+  switch (rows) {
+    case 128:
+      return g ? launch_mma<128, true>(p, groups, st)
+               : launch_mma<128, false>(p, groups, st);
+    case 32:
+      return g ? launch_mma<32, true>(p, groups, st)
+               : launch_mma<32, false>(p, groups, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -945,11 +1472,21 @@ int launch_q8(const Q8Mat& p, int groups, cudaStream_t stream) {
 // K1. x [M, S*xbar] and w [S*xbar, N], row-major, both fp32 (dtype 0) or
 // bf16 (dtype 1); y [M, N] fp32. kernel 0: the tile kernel with `width`
 // (8 or 64) rows; kernel 1: the stream kernel (M <= 8, xbar <= 512) with
-// `width` (4 or 8) 16-byte vectors per strip.
+// `width` (4 or 8) 16-byte vectors per strip; kernel 2: the bf16
+// tensor-core kernel with `width` (128 or 32) rows a tile over `groups`
+// segment groups (the other kernels take groups = S where split, else 1).
 extern "C" int cadc_matmul_launch(const void* x, const void* w, void* y,
                                   void* scratch, void* counters, int M,
                                   int N, int S, int xbar, int fn, int dtype,
-                                  int kernel, int width, void* stream) {
+                                  int kernel, int width, int groups,
+                                  void* stream) {
+  if (kernel == kMma) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return mma_launch(x, w, y, scratch, counters, nullptr, M, N, S, xbar, fn,
+                      cadc::kGateNone, width, groups, stream);
+  }
+  if (groups != (scratch ? S : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (kernel == kStream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     float* scr = static_cast<float*>(scratch);
@@ -970,21 +1507,31 @@ extern "C" int cadc_matmul_launch(const void* x, const void* w, void* y,
                                             stream);
 }
 
-// K1g: K1's tile kernel plus the gate. gate_kind 1: uint32 words
-// [S, M, ceil(N/32)]; 2: uint8 [S, M, N]; 3: fp32 [S, M, N].
+// K1g: K1 plus the gate, on the tile kernel (kernel 0) or, bf16 only, the
+// tensor-core kernel (kernel 2; `width`, `groups` as K1's). gate_kind 1:
+// uint32 words [S, M, ceil(N/32)]; 2: uint8 [S, M, N]; 3: fp32 [S, M, N].
 extern "C" int cadc_matmul_gate_launch(const void* x, const void* w, void* y,
                                        void* scratch, void* counters,
                                        void* gate, int M, int N, int S,
                                        int xbar, int fn, int dtype,
-                                       int gate_kind, int rows,
-                                       void* stream) {
+                                       int gate_kind, int kernel, int width,
+                                       int groups, void* stream) {
+  if (gate_kind == cadc::kGateNone || !gate)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kernel == kMma) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return mma_launch(x, w, y, scratch, counters, gate, M, N, S, xbar, fn,
+                      gate_kind, width, groups, stream);
+  }
+  if (kernel != kTile || groups != (scratch ? S : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return tile_by_gate<float, float>(x, w, nullptr, y, scratch, counters,
                                       gate, M, N, S, xbar, fn, gate_kind,
-                                      rows, stream);
+                                      width, stream);
   return tile_by_gate<__nv_bfloat16, float>(x, w, nullptr, y, scratch,
                                             counters, gate, M, N, S, xbar, fn,
-                                            gate_kind, rows, stream);
+                                            gate_kind, width, stream);
 }
 
 // K4 (gate_kind 0, gate NULL) and K4g (gate_kind 1-3, K1g's layouts):

@@ -41,10 +41,13 @@ bytes a mode saves.
 The sources are csrc/cadc_matmul.cu (K1, K1g, K4, K4g) and
 csrc/cadc_bwd.cu (K2); their notes give the bounds and designs. Each
 forward is one launch. K1 and K1g run under the plan `plan_fwd` picks from
-the shapes: the tile kernel (single pass, or split over segments and
-summed in order by the last block of each output tile, bitwise the single
-pass), or for K1 at M <= 8 the stream kernel, which streams w in 16-byte
-vectors. K4 and K4g run the int8 tensor-core kernel (`mma.sync` s8 ->
+the shapes and the operand dtype: for K1 at M <= 8 the stream kernel,
+which streams w in 16-byte vectors; else, on bf16 operands, the
+tensor-core kernel (`mma.sync` bf16 -> fp32; a row tile and segment
+groups, every plan bitwise the single pass); else the tile kernel (single
+pass, or split over segments and summed in order by the last block of
+each output tile, bitwise the single pass). K4 and K4g run the int8
+tensor-core kernel (`mma.sync` s8 ->
 s32) under `plan_fwd_q8`: the single pass, or the segments split over
 blocks in groups, bitwise the single pass. K2 is at
 most two launches (dx, dw) under the plan `plan_bwd` picks: tiles
@@ -87,12 +90,34 @@ _BWD_SOURCE = "cadc_bwd.cu"
 # The forward's launch plan (`plan_fwd`) aims for one block per SM of an
 # H100 SXM.
 SMS = 132
-PLAN_KERNELS = ("tile", "stream")  # csrc/cadc_matmul.cu PlanKernel
+PLAN_KERNELS = ("tile", "stream", "mma")  # csrc/cadc_matmul.cu PlanKernel
 _TILE_N = 64                  # columns of a tile-kernel block
 _TILE_ROWS = (64, 8)          # its rows, preferred first
 _STREAM_MAX_M = 8             # the stream kernel holds 8 rows of x
 _STREAM_MAX_XBAR = 512        # its x segment in shared memory: 16 KB
 _STREAM_LANES = (8, 4)        # 16-byte vectors per strip, widest first
+# The bf16 tensor-core kernel (csrc/cadc_matmul.cu `bf16_mma_kernel`): a
+# block owns MMA_ROWS[i] x MMA_COLS outputs of y and walks its segments in
+# k16 steps of mma.sync, so xbar must be a multiple of MMA_K; `groups` > 1
+# splits the segments over blocks (group 0 keeps the chain of f(psum) sums,
+# every later segment's f(psum) goes through an fp32 scratch, and the last
+# block of the tile continues the chain in order).
+MMA_ROWS = (128, 32)
+MMA_COLS = 128
+MMA_K = 16
+_MMA_BK = 64                  # k of a staged slice
+# The planner's model of an mma launch (seconds, `_mma_seconds`), fitted by
+# tools/profile_k1_mma.py --refit to its sweep on an H100 80GB HBM3 at
+# 700 W: the blocks run in rounds of _MMA_OCC[r] blocks an SM (r rows a
+# tile), a block taking _MMA_SLICE_S[r] a _MMA_BK-deep slice of its
+# segments; a split's last block of each tile then reads the tile's kept
+# slices (group 0's chain and each later segment) at _MMA_MERGE_BYTES, the
+# tiles' merges in rounds of SMS; the launch moves x, w, y and a split's
+# scratch (written, then read) through HBM at _HBM_BYTES_PER_S at least.
+_MMA_OCC = {128: 1, 32: 2}
+_MMA_SLICE_S = {128: 1.81e-6, 32: 1.25e-6}
+_MMA_MERGE_BYTES = 1.67e10
+_HBM_BYTES_PER_S = 3.35e12
 # Arrival counters of the ordered segment sum, per device: one per output
 # tile of a split plan (the planner never plans more).
 N_COUNTERS = 1 << 16
@@ -429,10 +454,10 @@ def cadc_matmul_q8_gate_torch(x_q: Tensor, w_codes: Tensor, scale: Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.library(_SOURCE)
     lib.cadc_matmul_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.cadc_matmul_launch.restype = ctypes.c_int
     lib.cadc_matmul_gate_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     lib.cadc_matmul_gate_launch.restype = ctypes.c_int
     lib.cadc_matmul_q8_launch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
@@ -475,10 +500,13 @@ def _check_scale(name: str, scale: Tensor, dev) -> Tensor:
 
 
 class Plan(NamedTuple):
-    """A forward launch: `kernel` 'tile' (`width` = block rows, 8 or 64) or
-    'stream' (`width` = 16-byte vectors per column strip, 4 or 8);
-    `split`: one block per (output tile, segment), summed in order by the
-    last block of each tile; `grid` (x, y, z) of the one launch."""
+    """A forward launch: `kernel` 'tile' (`width` = block rows, 8 or 64),
+    'stream' (`width` = 16-byte vectors per column strip, 4 or 8) or 'mma'
+    (bf16 only; `width` = block rows, one of MMA_ROWS); `split`: the
+    segments over blocks — one per (output tile, segment) for 'tile' and
+    'stream', one per (output tile, segment group) for 'mma' —, summed in
+    order by the last block of each tile; `grid` (x, y, z) of the one
+    launch, z the segments or groups."""
     kernel: str
     width: int
     split: bool
@@ -493,6 +521,23 @@ class Plan(NamedTuple):
     def blocks(self) -> int:
         return self.grid[0] * self.grid[1] * self.grid[2]
 
+    @property
+    def groups(self) -> int:
+        """Blocks a tile: the segment groups (segments where 'tile' or
+        'stream' split), 1 for a single pass."""
+        return self.grid[2]
+
+    def fits(self) -> bool:
+        return _fits(self)
+
+
+def _fits(plan) -> bool:
+    """A Plan's or Q8Plan's grid is within CUDA's limits, and a split's
+    tiles within the device's arrival counters."""
+    return (plan.grid[0] <= _GRID_X_MAX
+            and max(plan.grid[1:]) <= _GRID_YZ_MAX
+            and (not plan.split or plan.tiles <= N_COUNTERS))
+
 
 def _make_plan(kernel: str, width: int, split: bool, m: int, n: int,
                n_seg: int, vec: int) -> Plan:
@@ -502,22 +547,82 @@ def _make_plan(kernel: str, width: int, split: bool, m: int, n: int,
     return Plan(kernel, width, split, (-(-n // _TILE_N), -(-m // width), z))
 
 
+def _mma_plan(rows: int, groups: int, m: int, n: int) -> Plan:
+    return Plan("mma", rows, groups > 1,
+                (-(-n // MMA_COLS), -(-m // rows), groups))
+
+
+def _mma_ok(plan: Plan, m: int, n: int, n_seg: int) -> bool:
+    """A legal mma plan: a known tile, no empty segment group, a grid that
+    fits, and a split's scratch indexable by 32-bit offsets."""
+    return (plan.width in MMA_ROWS and _q8_group_ok(n_seg, plan.groups)
+            and plan.fits() and (not plan.split or m * n < 2**31))
+
+
+def _mma_seconds(plan: Plan, m: int, n: int, n_seg: int,
+                 crossbar_size: int) -> float:
+    """The planner's model of an mma launch's time (seconds)."""
+    rows = plan.width
+    per = -(-n_seg // plan.groups)
+    slices = per * -(-crossbar_size // _MMA_BK)
+    t = (-(-plan.blocks // (SMS * _MMA_OCC[rows])) * slices
+         * _MMA_SLICE_S[rows])
+    d = n_seg * crossbar_size
+    hbm = (m * d + d * n) * 2 + m * n * 4
+    if plan.split:
+        kept = 1 + n_seg - per  # group 0's chain, then each later segment
+        hbm += 2 * kept * m * n * 4
+        t += (-(-plan.tiles // SMS) * kept * rows * MMA_COLS * 4
+              / _MMA_MERGE_BYTES)
+    return max(t, hbm / _HBM_BYTES_PER_S)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_mma(m: int, n: int, n_seg: int, crossbar_size: int) -> Plan:
+    cands = [(_mma_seconds(p, m, n, n_seg, crossbar_size), p.groups,
+              -p.width, p)
+             for p in (_mma_plan(r, gr, m, n) for r in MMA_ROWS
+                       for gr in _q8_groups(n_seg))
+             if _mma_ok(p, m, n, n_seg)]
+    if not cands:
+        raise ValueError(f"the mma kernel: M={m} N={n} exceed CUDA's grid")
+    return min(cands)[-1]
+
+
 def plan_fwd(m: int, n: int, n_seg: int, crossbar_size: int, *,
-             vec: int = 0, _force=None) -> Plan:
-    """The launch plan of an [m, n_seg*xbar] @ [n_seg*xbar, n] forward, from
-    the shapes alone. `vec`: columns per 16-byte vector of w (4 fp32, 8
-    bf16) where the stream kernel may run (K1 without a gate), else 0.
+             vec: int = 0, dtype: torch.dtype = torch.float32,
+             _force=None) -> Plan:
+    """The launch plan of an [m, n_seg*xbar] @ [n_seg*xbar, n] forward with
+    operands of `dtype`, from the shapes alone. `vec`: columns per 16-byte
+    vector of w (4 fp32, 8 bf16) where the stream kernel may run (K1
+    without a gate), else 0.
 
       * the stream kernel for m <= 8 (decode): the wider strip (8 vectors)
         where it gives SMS blocks over (strip, segment), else the narrower
         (4); split over segments when there are several;
+      * else, bf16 with xbar a multiple of MMA_K: the tensor-core kernel,
+        the row tile of MMA_ROWS and the segment groups (1, 2, 4, ... and
+        n_seg: `_q8_groups`) `_mma_seconds` rates fastest (ties: fewer
+        groups, then the larger tile);
       * else the tile kernel: the single pass with 64-row tiles (8 for m <=
         8) when that grid already has SMS blocks (prefill); else split
         over segments, with 8-row tiles where 64-row ones fall short.
 
-    Every plan computes the same sums in the same order (the tile kernel
-    is bitwise under every plan). `_force` = (kernel, width, split) builds
-    that plan instead, for tests."""
+    So the kernel follows the dtype, m <= 8 with vec, and xbar alone: a
+    split of M or of the segments never moves a bf16 product between the
+    tile and mma kernels. Every plan of a kernel computes the same sums in
+    the same order (the tile and mma kernels are bitwise under every plan).
+    `_force` = (kernel, width, split) builds that plan instead, for tests
+    (for 'mma': (kernel, rows, groups)); a bf16 plan that is not 'mma' is
+    the tile or stream kernel on bf16 operands."""
+    mma = (dtype == torch.bfloat16 and crossbar_size % MMA_K == 0)
+    if _force is not None and _force[0] == "mma":
+        _, rows, groups = _force
+        plan = _mma_plan(int(rows), int(groups), m, n)
+        if not mma or not _mma_ok(plan, m, n, n_seg):
+            raise ValueError(f"no such plan {_force} for M={m} N={n} "
+                             f"S={n_seg} xbar={crossbar_size} {dtype}")
+        return plan
     if _force is not None:
         kernel, width, split = _force
         ok = (width in _TILE_ROWS if kernel == "tile" else
@@ -535,6 +640,8 @@ def plan_fwd(m: int, n: int, n_seg: int, crossbar_size: int, *,
         plan = next((p for p in plans if p.blocks >= SMS), plans[-1])
         if not split or plan.tiles <= N_COUNTERS:
             return plan
+    if mma:
+        return _plan_mma(int(m), int(n), int(n_seg), int(crossbar_size))
     rows = 8 if m <= 8 else 64
     single = _make_plan("tile", rows, False, m, n, n_seg, vec)
     if single.blocks >= SMS:
@@ -542,6 +649,20 @@ def plan_fwd(m: int, n: int, n_seg: int, crossbar_size: int, *,
     plan = _make_plan("tile", rows, split, m, n, n_seg, vec)
     return (plan if plan.blocks >= SMS
             else _make_plan("tile", 8, split, m, n, n_seg, vec))
+
+
+def mma_plans(m: int, n: int, n_seg: int, crossbar_size: int) -> list:
+    """The planner's bf16 plan (K1g's: no stream), then every other mma
+    plan (each row tile at each segment group count `_q8_groups` lists
+    that leaves no group empty and fits): the plans tests and tools hold to
+    each other, bitwise."""
+    out = [plan_fwd(m, n, n_seg, crossbar_size, dtype=torch.bfloat16)]
+    for rows in MMA_ROWS:
+        for groups in _q8_groups(n_seg):
+            p = _mma_plan(rows, groups, m, n)
+            if _mma_ok(p, m, n, n_seg) and p not in out:
+                out.append(p)
+    return out
 
 
 class Q8Plan(NamedTuple):
@@ -566,11 +687,7 @@ class Q8Plan(NamedTuple):
         return self.grid[0] * self.grid[1] * self.grid[2]
 
     def fits(self) -> bool:
-        """The grid is within CUDA's limits, and a split's tiles within the
-        device's arrival counters."""
-        return (self.grid[0] <= _GRID_X_MAX
-                and max(self.grid[1:]) <= _GRID_YZ_MAX
-                and (not self.split or self.tiles <= N_COUNTERS))
+        return _fits(self)
 
 
 # The planner's model of a K4 launch (us, `_q8_seconds`), fitted by
@@ -703,14 +820,24 @@ def _fwd_launch(x: Tensor, w: Tensor, crossbar_size: int, fn: str,
     else:
         if plan is None:
             vec = 16 // x.element_size() if gate is None else 0
-            plan = plan_fwd(m, n, n_seg, crossbar_size, vec=vec)
+            plan = plan_fwd(m, n, n_seg, crossbar_size, vec=vec,
+                            dtype=x.dtype)
         if max(plan.grid[1:]) > 65535:
             raise ValueError(f"M={m}, S={n_seg} exceed the kernel's grid")
         if plan.kernel == "stream" and gate is not None:
             raise ValueError("the stream kernel runs K1 only")
+        if plan.kernel == "mma" and plan != plan_fwd(
+                m, n, n_seg, crossbar_size, dtype=x.dtype,
+                _force=("mma", plan.width, plan.groups)):
+            raise ValueError(f"the mma kernel: plan {plan} is not one of "
+                             f"this shape's (M={m} N={n} S={n_seg} "
+                             f"xbar={crossbar_size} {x.dtype})")
     scratch = counters = None
     if plan.split:
-        scratch = torch.empty((n_seg, m, n), dtype=torch.float32,
+        # the mma kernel keeps group 0's chain and each later segment
+        mma = isinstance(plan, Plan) and plan.kernel == "mma"
+        slices = n_seg - -(-n_seg // plan.groups) + 1 if mma else n_seg
+        scratch = torch.empty((slices, m, n), dtype=torch.float32,
                               device=x.device)
         counters = _counters(x.device)
     lib = _lib()
@@ -727,12 +854,12 @@ def _fwd_launch(x: Tensor, w: Tensor, crossbar_size: int, fn: str,
         code = lib.cadc_matmul_launch(
             x.data_ptr(), w.data_ptr(), *args, m, n, n_seg, crossbar_size,
             FN_IDS[fn], _DTYPES[x.dtype], PLAN_KERNELS.index(plan.kernel),
-            plan.width, stream)
+            plan.width, plan.groups, stream)
     else:
         code = lib.cadc_matmul_gate_launch(
             x.data_ptr(), w.data_ptr(), *args, gate.data_ptr(), m, n, n_seg,
             crossbar_size, FN_IDS[fn], _DTYPES[x.dtype], _gate_kind(mode, fn),
-            plan.width, stream)
+            PLAN_KERNELS.index(plan.kernel), plan.width, plan.groups, stream)
     _build.check(lib, "cadc_matmul", code)
     return y, gate
 

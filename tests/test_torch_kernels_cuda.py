@@ -753,6 +753,52 @@ def test_k2_at_an_lm_shape(cuda_device, mode):
     _rel_close(fdw, want_dw)
 
 
+def _linear_vs_plain(x0, w0, g, xbar=_LM_XBAR):
+    """ops.cadc_matmul under autograd on bf16 x0 [M, d], w0 [d, N] (relu,
+    the packed gate), kernel path against plain path on the same card: one
+    K1g and one K2 launch; y within 1e-2 of scale of the plain path's; the
+    kernel's gate bits the plain version's wherever the psum is not within
+    1e-5 of scale of 0; dx and dw (bf16) within 1e-2 of scale of the plain
+    backward under the kernel's gate. A psum within its rounding of 0 may
+    flip its relu gate, and each flip moves a row of dx by g * w and a
+    column of dw by x * g: the tensor cores round the psums otherwise than
+    the plain version's fp32 product does, so the backward is held to the
+    gate the forward saved, and the gates to each other away from 0."""
+    from repro_torch.core.cadc import pad_to_segments
+
+    m, d = x0.shape
+    out = {}
+    for impl in ("cuda", "torch"):
+        before = (cm.cadc_matmul_gate_cuda.launches,
+                  cm.cadc_segmented_bwd_cuda.launches)
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        y = ops.cadc_matmul(x, w, crossbar_size=xbar, fn="relu",
+                            impl=impl)
+        y.backward(g)
+        torch.cuda.synchronize()
+        assert (cm.cadc_matmul_gate_cuda.launches,
+                cm.cadc_segmented_bwd_cuda.launches) == (
+            (before[0] + 1, before[1] + 1) if impl == "cuda" else before)
+        out[impl] = (y.detach(), x.grad, w.grad)
+        for t in out[impl]:
+            assert t.dtype == torch.bfloat16 and torch.isfinite(t).all()
+    xp = pad_to_segments(x0, -1, xbar)
+    wp = pad_to_segments(w0, 0, xbar)
+    kw = dict(crossbar_size=xbar, fn="relu", mode="packed")
+    y32, gate = cm.cadc_matmul_gate_cuda(xp, wp, **kw)
+    want_y, want_gate = cm.cadc_matmul_gate_torch(xp, wp, **kw)
+    n = w0.shape[1]
+    far = _seg_psums(xp, wp, xbar).abs() > 1e-5 * max(
+        1.0, float(want_y.abs().max()))
+    assert torch.equal(cm._unpack_mask(gate, n).bool()[far],
+                       cm._unpack_mask(want_gate, n).bool()[far])
+    dx, dw = cm.cadc_segmented_bwd_torch(g.float(), xp.float(), wp.float(),
+                                         gate, **kw)
+    _rel_close(out["cuda"][0], out["torch"][0], tol=1e-2)
+    _rel_close(out["cuda"][1], dx[:, :d].to(torch.bfloat16), tol=1e-2)
+    _rel_close(out["cuda"][2], dw[:d].to(torch.bfloat16), tol=1e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,n", [(4096, 8), (2048, 2730), (2730, 2048)],
                          ids=["mlstm-w_if", "slstm-w_up", "slstm-w_down"])
@@ -762,8 +808,7 @@ def test_lm_linear_bf16_under_autograd_at_recurrent_shapes(cuda_device, d,
     forward, K2 backward on the fp32 casts): N = 8 (xlstm-1.3b's mLSTM gate
     pre-activations, 2H), and N or D = 2730 (its sLSTM GeGLU: bf16 rows of
     5460 bytes, off 16; D padded to 2816, a ragged last segment of 170).
-    One K1g and one K2 launch; y, dx and dw (bf16) within 1e-2 of scale of
-    the plain path's on the same card."""
+    Held to the plain path as `_linear_vs_plain` says."""
     rng = np.random.RandomState(5)
     x0 = torch.from_numpy(rng.randn(_LM_M, d).astype(np.float32)).to(
         cuda_device, torch.bfloat16)
@@ -771,22 +816,7 @@ def test_lm_linear_bf16_under_autograd_at_recurrent_shapes(cuda_device, d,
         np.float32)).to(cuda_device, torch.bfloat16)
     g = torch.from_numpy(rng.randn(_LM_M, n).astype(np.float32)).to(
         cuda_device, torch.bfloat16)
-    out = {}
-    for impl in ("cuda", "torch"):
-        before = (cm.cadc_matmul_gate_cuda.launches,
-                  cm.cadc_segmented_bwd_cuda.launches)
-        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
-        y = ops.cadc_matmul(x, w, crossbar_size=_LM_XBAR, fn="relu",
-                            impl=impl)
-        y.backward(g)
-        torch.cuda.synchronize()
-        assert (cm.cadc_matmul_gate_cuda.launches,
-                cm.cadc_segmented_bwd_cuda.launches) == (
-            (before[0] + 1, before[1] + 1) if impl == "cuda" else before)
-        out[impl] = (y.detach(), x.grad, w.grad)
-    for got, want in zip(out["cuda"], out["torch"]):
-        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
-        _rel_close(got, want, tol=1e-2)
+    _linear_vs_plain(x0, w0, g)
 
 
 @pytest.mark.cuda
@@ -1397,6 +1427,222 @@ def test_arrival_counters_read_zero(cuda_device):
         assert int(counters.abs().sum()) == 0
         for got, want in zip(outs, eager):
             assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# K1 / K1g on bf16 operands: the tensor-core kernel (plan kernel "mma")
+# ---------------------------------------------------------------------------
+
+# (name, D padded to crossbar 256, N) of the LM paths' linears
+# (chip_smoke.py lm_kernel_shapes): gemma3-1b's seven, hubert-xlarge's 504-way
+# head, the recurrent configs' odd ones (xlstm-1.3b's mLSTM gates N = 8, its
+# sLSTM GeGLU at N and D = 2730 (2816 padded), recurrentgemma-9b's 12 288)
+_MMA_LM = [("wq", 1280, 1024), ("wk", 1280, 256), ("wo", 1024, 1152),
+           ("w_gate", 1280, 6912), ("w_down", 6912, 1152),
+           ("hubert.head", 1280, 504), ("mlstm.w_if", 4096, 8),
+           ("slstm.w_up", 2048, 2730), ("slstm.w_down", 2816, 2048),
+           ("rg.ffn.w_up", 4096, 12288)]
+
+
+def _bf16_inputs(dev, m, d, n, seed):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(m, d).astype(np.float32))
+    w = torch.from_numpy((rng.randn(d, n) / np.sqrt(d)).astype(np.float32))
+    return x.to(dev, torch.bfloat16), w.to(dev, torch.bfloat16)
+
+
+def _mma_vs_plain(x, w, xbar, fn, mode, plan=None):
+    """The kernel (K1 for mode 'none', else K1g) under `plan` against the
+    plain version: y within 1e-4 of scale, gate bits equal where the psum
+    is not within 1e-5 of scale of 0, fp32 gates within 1e-4 of scale where
+    |psum| > 1e-2. Returns (y, gate)."""
+    y, gate = cm._fwd_launch(x, w, xbar, fn, mode, plan=plan)
+    want_y, want_gate = cm.cadc_matmul_gate_torch(
+        x, w, crossbar_size=xbar, fn=fn, mode=mode)
+    torch.cuda.synchronize()
+    _rel_close(y, want_y)
+    if gate is None:
+        return y, gate
+    assert gate.shape == want_gate.shape and gate.dtype == want_gate.dtype
+    psums = _seg_psums(x, w, xbar)
+    far = psums.abs() > 1e-5 * max(1.0, float(want_y.abs().max()))
+    if mode == "packed":
+        n = w.shape[1]
+        assert torch.equal(cm._unpack_mask(gate, n).bool()[far],
+                           cm._unpack_mask(want_gate, n).bool()[far])
+    elif gate.dtype == torch.bool:
+        assert torch.equal(gate[far], want_gate[far])
+    else:
+        ok = psums.abs() > 1e-2
+        _rel_close(gate[ok], want_gate[ok])
+    return y, gate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,d,n", _MMA_LM, ids=[s[0] for s in _MMA_LM])
+@pytest.mark.parametrize("m", [2048, 1024, 32])
+def test_mma_at_the_lm_shapes(cuda_device, name, d, n, m):
+    """K1 and K1g (packed and byte gates) on bf16 operands at the LM
+    paths' shapes, at a train micro's rows (2048), a prefill's (1024) and a
+    verify step's (32), through the public wrappers: the planner's mma plan,
+    one launch a call, within the bounds against the plain version."""
+    xbar = 256
+    x, w = _bf16_inputs(cuda_device, m, d, n, seed=d + n + m)
+    plan = cm.plan_fwd(m, n, d // xbar, xbar, dtype=torch.bfloat16)
+    assert plan.kernel == "mma"
+    kw = dict(crossbar_size=xbar, fn="relu")
+    before = (cm.cadc_matmul_cuda.launches, cm.cadc_matmul_gate_cuda.launches)
+    y = cm.cadc_matmul_cuda(x, w, **kw)
+    _rel_close(y, cm.cadc_matmul_torch(x, w, **kw))
+    for mode in ("packed", "bytes"):
+        yg, _ = cm.cadc_matmul_gate_cuda(x, w, mode=mode, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(yg, y)
+        _mma_vs_plain(x, w, xbar, "relu", mode)
+    assert (cm.cadc_matmul_cuda.launches,
+            cm.cadc_matmul_gate_cuda.launches) == (before[0] + 1,
+                                                   before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", FNS)
+@pytest.mark.parametrize("m", [1, 9, 33, 2047])
+@pytest.mark.parametrize("n,xbar", [(8, 64), (200, 48), (2730, 256),
+                                    (11, 64), (504, 128)])
+def test_mma_every_fn_and_gate_kind(cuda_device, fn, m, n, xbar):
+    """Ragged M and N (N = 8: one n8 tile; 2730: rows off 16 bytes, 4-byte
+    copies; 11: odd, 2-byte loads; 504 and 200: off the 128-column tile),
+    xbar 48 (a segment ends half way through a 32-wide slice), every fn
+    under every gate kind it has (none; packed words for relu; bytes: one
+    byte for relu, one fp32 for the curved fns), under the planner's plan
+    and under a split into segment groups."""
+    d = 3 * xbar
+    x, w = _bf16_inputs(cuda_device, m, d, n, seed=m * n + xbar)
+    modes = ["none"] + (["packed", "bytes"] if fn == "relu" else
+                        [] if fn == "identity" else ["bytes"])
+    plans = [p for p in cm.mma_plans(m, n, 3, xbar)
+             if p == cm.plan_fwd(m, n, 3, xbar, dtype=torch.bfloat16)
+             or p.groups == 3]
+    assert plans[0].kernel == "mma" and any(p.split for p in plans)
+    for plan in plans:
+        for mode in modes:
+            _mma_vs_plain(x, w, xbar, fn, mode, plan=plan)
+
+
+def _mma_plans_bitwise(x, w, xbar, modes=("none", "packed", "bytes")):
+    m, n = x.shape[0], w.shape[1]
+    plans = cm.mma_plans(m, n, x.shape[1] // xbar, xbar)
+    assert len(plans) >= 4 and any(p.split for p in plans)
+    first = {mode: cm._fwd_launch(x, w, xbar, "relu", mode, plan=plans[0])
+             for mode in modes}
+    for plan in plans[1:]:
+        for mode in modes:
+            y, g = cm._fwd_launch(x, w, xbar, "relu", mode, plan=plan)
+            torch.cuda.synchronize()
+            assert torch.equal(y, first[mode][0]), (plan, mode)
+            assert g is None or torch.equal(g, first[mode][1]), (plan, mode)
+            assert torch.equal(y, first["none"][0]), (plan, mode)
+    return plans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,d,n", _MMA_LM[:5], ids=[s[0] for s in
+                                                       _MMA_LM[:5]])
+@pytest.mark.parametrize("m", [2048, 32])
+def test_mma_plans_are_bitwise(cuda_device, name, d, n, m):
+    """Every mma plan (each row tile, the single pass and every segment
+    group split) gives the planner's y and gates bit for bit at gemma3-1b's
+    shapes: each psum is one chain of k16 steps in increasing k, and every
+    split continues the single pass's chain of f(psum) sums."""
+    x, w = _bf16_inputs(cuda_device, m, d, n, seed=n + m)
+    _mma_plans_bitwise(x, w, 256)
+
+
+@pytest.mark.cuda
+def test_mma_off_alignment(cuda_device):
+    """x off 16 bytes (2-byte loads), w off 4 bytes (2-byte loads) or on 4
+    but off 16 (4-byte copies): the same bits as aligned copies, every
+    plan."""
+    m, xbar, n = 70, 64, 200
+    d = 3 * xbar
+    xa, wa = _bf16_inputs(cuda_device, m, d, n, seed=3)
+    for xo, wo in ((1, 1), (1, 2), (0, 2)):
+        xb = torch.zeros(m * d + xo, device=cuda_device, dtype=torch.bfloat16)
+        wb = torch.zeros(d * n + wo, device=cuda_device, dtype=torch.bfloat16)
+        x, w = xb[xo:].view(m, d), wb[wo:].view(d, n)
+        x.copy_(xa)
+        w.copy_(wa)
+        assert x.data_ptr() % 16 or w.data_ptr() % 16
+        for plan in cm.mma_plans(m, n, 3, xbar):
+            for mode in ("none", "packed"):
+                got = cm._fwd_launch(x, w, xbar, "relu", mode, plan=plan)
+                want = cm._fwd_launch(xa, wa, xbar, "relu", mode, plan=plan)
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], want[0]), (xo, wo, plan)
+                assert mode == "none" or torch.equal(got[1], want[1])
+    _mma_vs_plain(x, w, xbar, "relu", "packed")
+
+
+@pytest.mark.cuda
+def test_mma_counters_read_zero_and_replay(cuda_device):
+    """Every split mma plan leaves the arrival counters zero, eager and in
+    a CUDA graph replayed twice; replays and back-to-back calls give the
+    same bits."""
+    x, w = _bf16_inputs(cuda_device, 32, 6912, 1152, seed=9)
+    plans = [p for p in cm.mma_plans(32, 1152, 27, 256) if p.split]
+    assert len(plans) >= 4
+    calls = [lambda p=p: cm._fwd_launch(x, w, 256, "relu", "packed", plan=p)
+             for p in plans]
+    eager = [c() for c in calls]
+    again = [c() for c in calls]
+    torch.cuda.synchronize()
+    counters = cm._counters(cuda_device)
+    assert int(counters.abs().sum()) == 0
+    for (y0, g0), (y1, g1) in zip(eager, again):
+        assert torch.equal(y0, y1) and torch.equal(g0, g1)
+        assert torch.equal(y0, eager[0][0])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c() for c in calls]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(counters.abs().sum()) == 0
+        for (y, g), (y0, g0) in zip(outs, eager):
+            assert torch.equal(y, y0) and torch.equal(g, g0)
+
+
+@pytest.mark.cuda
+def test_mma_refuses_what_it_does_not_take(cuda_device):
+    """Another shape's mma plan, an mma plan on fp32 operands, and an mma
+    plan at an xbar off 16 raise; a bf16 call at xbar 40 takes the tile
+    kernel (the plan says so) and matches the plain version."""
+    x, w = _bf16_inputs(cuda_device, 64, 3 * 64, 100, seed=4)
+    other = cm.plan_fwd(64, 200, 3, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not one of this shape's"):
+        cm._fwd_launch(x, w, 64, "relu", "none", plan=other)
+    mine = cm.plan_fwd(64, 100, 3, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        cm._fwd_launch(x.float(), w.float(), 64, "relu", "none", plan=mine)
+    with pytest.raises(ValueError):
+        cm.plan_fwd(64, 100, 3, 40, dtype=torch.bfloat16,
+                    _force=("mma", 64, 1))
+    x40, w40 = _bf16_inputs(cuda_device, 64, 3 * 40, 100, seed=5)
+    assert cm.plan_fwd(64, 100, 3, 40, dtype=torch.bfloat16).kernel == "tile"
+    _mma_vs_plain(x40, w40, 40, "relu", "packed")
+
+
+@pytest.mark.cuda
+def test_lm_linear_bf16_runs_the_mma_kernel(cuda_device):
+    """A bf16 CADC linear under autograd at a train micro's shape (gemma3-1b's
+    w_down, M = 2048) plans the mma kernel, and runs K1g once and K2 once,
+    held to the plain path as `_linear_vs_plain` says."""
+    m, d, n = 2048, 6912, 1152
+    assert cm.plan_fwd(m, n, d // 256, 256,
+                       dtype=torch.bfloat16).kernel == "mma"
+    x0, w0 = _bf16_inputs(cuda_device, m, d, n, seed=8)
+    g = torch.randn(m, n, device=cuda_device).to(torch.bfloat16)
+    _linear_vs_plain(x0, w0, g)
 
 
 # The tap conv backward (csrc/cadc_conv_bwd.cu): (fn, mode) of every saved
