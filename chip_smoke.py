@@ -578,13 +578,14 @@ def profile_device(run, n: int, group, what: str, cpu: bool = True,
 # Kernels that must compile without spills (ptxas' report of each
 # instantiation): K3's tap-aligned kernel, the conv backward's dgrad and
 # wgrad kernels, K5's int8 tap kernel, K2's dx and dw kernels (saved
-# gates and recompute), K6, K4's int8 tensor-core kernel, K1 / K1g's bf16
-# tensor-core kernel.
+# gates and recompute, and the bf16 tensor-core ones), K6, K4's int8
+# tensor-core kernel, K1 / K1g's bf16 tensor-core kernel.
 NO_SPILL_KERNELS = ("tap_tile_kernel", "dgrad_kernel", "wgrad_kernel",
                     "q8_tap_kernel", "bwd_dx_kernel", "bwd_dw_kernel",
                     "bwd_dx_recompute_kernel", "bwd_dw_recompute_kernel",
                     "paged_attention_kernel", "q8_mma_kernel",
-                    "bf16_mma_kernel")
+                    "bf16_mma_kernel", "bf16_bwd_dx_kernel",
+                    "bf16_bwd_dw_kernel")
 # K4's int8 tile kernel before its redesign (tools/profile_k4.py keeps its
 # launcher), built beside the port's sources: time_q8_kernels' yardstick.
 OLD_K4 = {}
@@ -3589,23 +3590,27 @@ def check_mma_plans(cm, x, w, xbar, tag) -> tuple:
 def check_k1g_k2_lm(dev, report) -> None:
     """K1g (K1 where the mode saves nothing) and K2 against their plain
     versions at every shape of lm_kernel_shapes, M = LM_M rows, relu, bf16
-    and fp32 operands (K2 on their fp32 casts, as CadcMatmulFn.backward
-    runs it), save_gate packed / bytes / recompute; K2 under the planner's
-    plan and one forced plan per shape (dx bitwise the planner's); on bf16
-    every plan of the tensor-core kernel bitwise the planner's
+    and fp32 operands (K2 on them as CadcMatmulFn.backward hands them over:
+    g in the operands' dtype), save_gate packed / bytes / recompute; K2
+    under the planner's plan and forced plans (dx bitwise the planner's):
+    on bf16 under packed and bytes the tensor-core route under every plan
+    `bwd_plans` lists (dx bitwise, dw the same bits on two runs), under
+    recompute the CUDA-core route on fp32 copies; on fp32 one other plan;
+    on bf16 every plan of K1g's tensor-core kernel bitwise the planner's
     (check_mma_plans)."""
     from repro_torch.kernels import cadc_matmul as cm
 
     gen = torch.Generator(device=dev).manual_seed(20)
     worst = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
-    n_checks = near = forced = mma_checked = 0
-    mma_plan = {}
+    worst16 = {"dx": 0.0, "dw": 0.0}
+    n_checks = near = forced = mma_checked = k2_mma = 0
+    mma_plan, k2_plan = {}, {}
     for name, d, n in lm_kernel_shapes():
         x32 = torch.randn(LM_M, d, generator=gen, device=dev)
         w32 = torch.randn(d, n, generator=gen, device=dev) / math.sqrt(d)
-        g = torch.randn(LM_M, n, generator=gen, device=dev)
+        g32 = torch.randn(LM_M, n, generator=gen, device=dev)
         for dtype in (torch.bfloat16, torch.float32):
-            x, w = x32.to(dtype), w32.to(dtype)
+            x, w, g = x32.to(dtype), w32.to(dtype), g32.to(dtype)
             xf, wf = x.float(), w.float()
             if dtype == torch.bfloat16:
                 plan, k = check_mma_plans(cm, x, w, LM_XBAR, name)
@@ -3633,48 +3638,72 @@ def check_k1g_k2_lm(dev, report) -> None:
                 if not err <= TRAIN_RTOL:
                     fail(f"{tag}: forward err / scale {err} > {TRAIN_RTOL}")
                 del y, want_y
-                dx, dw = cm.cadc_segmented_bwd_cuda(g, xf, wf, gate,
-                                                    mode=mode, **kw)
+                bkw = dict(mode=mode, **kw)
+                dx, dw = cm.cadc_segmented_bwd_cuda(g, x, w, gate, **bkw)
                 want_dx, want_dw = cm.cadc_segmented_bwd_torch(
-                    g, xf, wf, gate, mode=mode, **kw)
+                    g, x, w, gate, **bkw)
                 got = [("dx", dx, want_dx), ("dw", dw, want_dw)]
-                plan = cm.plan_bwd(LM_M, n, d, LM_XBAR, mode)
-                other = next((p for p in cm.bwd_plans(
-                    LM_M, n, d, LM_XBAR, mode)[1:]
-                    if p.dw_tile != plan.dw_tile), None)
-                if other is None:
-                    fail(f"{tag}: no other K2 plan than {plan}")
-                pdx, pdw = keep_counts(lambda: cm.cadc_segmented_bwd_cuda(
-                    g, xf, wf, gate, mode=mode, plan=other, **kw))
-                if not torch.equal(pdx, dx):
-                    fail(f"{tag}: K2 plan {other}: dx differs from the "
-                         "planner's")
-                forced += 1
-                got.append(("dw", pdw, want_dw))
+                plans = cm.bwd_plans(LM_M, n, d, LM_XBAR, mode, dtype=dtype,
+                                     fn="relu")
+                mma = plans[0].kernel == "mma"
+                if mma != (dtype == torch.bfloat16 and mode != "recompute"):
+                    fail(f"{tag}: K2 planned on the {plans[0].kernel} "
+                         "kernels")
+                if mma:
+                    k2_plan[name] = (f"dx {plans[0].dx_tile[0]} rows, grid "
+                                     f"{plans[0].dx_grid}; dw grid "
+                                     f"{plans[0].dw_grid}")
+                others = (plans[1:] if mma else
+                          [p for p in plans[1:]
+                           if p.dw_tile != plans[0].dw_tile][:1])
+                if not others:
+                    fail(f"{tag}: no other K2 plan than {plans[0]}")
+                for other in others:
+                    pdx, pdw = keep_counts(lambda: cm.cadc_segmented_bwd_cuda(
+                        g, x, w, gate, plan=other, **bkw))
+                    if not torch.equal(pdx, dx):
+                        fail(f"{tag}: K2 plan {other}: dx differs from the "
+                             "planner's")
+                    if mma:
+                        _, pdw2 = keep_counts(
+                            lambda: cm.cadc_segmented_bwd_cuda(
+                                g, x, w, gate, plan=other, **bkw))
+                        if not torch.equal(pdw, pdw2):
+                            fail(f"{tag}: K2 plan {other}: dw differs run "
+                                 "to run")
+                        k2_mma += 1
+                    forced += 1
+                    got.append(("dw", pdw, want_dw))
                 for key, a, b in got:
                     e = track("k2", a, b)
                     worst[key] = max(worst[key], e)
+                    if mma:
+                        worst16[key] = max(worst16[key], e)
                     if not e <= TRAIN_RTOL:
                         fail(f"{tag}: {key} err / scale {e} > {TRAIN_RTOL}")
                 n_checks += 1
                 del dx, dw, want_dx, want_dw, pdx, pdw, gate, got
-            del psums, x, w, xf, wf
-        del x32, w32, g
+            del psums, x, w, xf, wf, g
+        del x32, w32, g32
         torch.cuda.empty_cache()
     report["k1g_k2_lm_checks"] = {
         "n": n_checks, "m": LM_M, "shapes": lm_kernel_shapes(),
         "max_err_over_scale": worst, "near_zero_gate_mismatches": near,
         "k2_forced_plans": forced, "mma_plans_bitwise": mma_checked,
-        "mma_plan": mma_plan}
+        "mma_plan": mma_plan, "k2_mma_plans": k2_mma,
+        "k2_mma_max_err_over_scale": worst16, "k2_mma_plan": k2_plan}
     print(f"K1g/K2 at the LM shapes: {n_checks} checks ok "
           f"({len(lm_kernel_shapes())} shapes, M {LM_M}, bf16 and fp32, "
           f"relu, save_gate packed / "
           f"bytes / recompute; K2 also under {forced} forced plans, dx "
-          f"bitwise; bf16 K1g / K1 under {mma_checked} mma plans, bitwise "
-          f"the planner's); max err / scale {worst}; gate bit mismatches at "
+          f"bitwise, {k2_mma} of them bf16 tensor-core plans with dw "
+          f"bitwise run to run; bf16 K1g / K1 under {mma_checked} mma "
+          f"plans, bitwise the planner's); max err / scale {worst} (K2's "
+          f"tensor-core route {worst16}); gate bit mismatches at "
           f"|psum| <= {GATE_NEAR} x scale: {near}", flush=True)
     for name, plan in mma_plan.items():
-        print(f"  mma plan {name} M={LM_M}: {plan}", flush=True)
+        print(f"  mma plan {name} M={LM_M}: K1g {plan}; K2 "
+              f"{k2_plan.get(name)}", flush=True)
 
 
 COLLECTIVES = "device-to-device copies (at one rank the collectives' too)"
@@ -4206,15 +4235,18 @@ def lm_twin(dev, report) -> None:
 
 
 def lm_linear_work(m: int, d: int, n: int) -> dict:
-    """{"k1g", "k2": (bytes, operations)} of one call at an LM linear of
-    m rows, D = d (whole crossbars) and N = n: K1g reads bf16 x and w,
-    writes the fp32 output and the packed gate; K2 reads fp32 g, x, w and
-    the gate and writes fp32 dx and dw, twice K1g's operations."""
+    """{"k1g", "k2", "k2_fp32": (bytes, operations)} of one call at an LM
+    linear of m rows, D = d (whole crossbars) and N = n: K1g reads bf16 x
+    and w, writes the fp32 output and the packed gate; K2 (the tensor-core
+    route) reads bf16 g, x, w and the gate and writes fp32 dx and dw, twice
+    K1g's operations; "k2_fp32" the CUDA-core route's, which reads fp32
+    g, x and w."""
     gate_b = d // LM_XBAR * m * -(-n // 32) * 4
     flops = 2 * m * d * n
+    out = 4 * (m * d + d * n) + gate_b
     return {"k1g": (2 * (m * d + d * n) + 4 * m * n + gate_b, flops),
-            "k2": (4 * (m * n + 2 * m * d + 2 * d * n) + gate_b,
-                   2 * flops)}
+            "k2": (2 * (m * n + m * d + d * n) + out, 2 * flops),
+            "k2_fp32": (4 * (m * n + m * d + d * n) + out, 2 * flops)}
 
 
 def _profiled(fn, reps: int = 1) -> dict:
@@ -4383,20 +4415,21 @@ def rec_step_rows(rows, launches: dict, report) -> None:
     launches, and a record of its step (REC_TRAIN): launches a step, the
     device ms a step the profiler gave its group, the bound of its linears'
     work (LM_M rows a micro; K1g's bf16 operands and packed gate, twice a
-    layer's linear under remat; K2 on fp32 casts, as time_lm_kernels
-    counts them)."""
+    layer's linear under remat; K2's tensor-core route on the bf16
+    operands, and beside it "bound_fp32_ms": the CUDA-core route's fp32
+    operands at the fp32 peak, as time_lm_kernels counts them)."""
     names = {"cadc_matmul_gate": ("k1g", ("K1g cadc_matmul_gate",)),
              "cadc_segmented_bwd": ("k2", ("K2 dx", "K2 dw"))}
     for arch, kw in REC_TRAIN.items():
         rec = report[f"{arch}_train"]
         cfg = lm_cfg(arch, n_layers=kw["layers"])
         outside = {"head", "frontend_proj"}
-        tot = {"k1g": [0.0, 0.0], "k2": [0.0, 0.0]}
+        tot = {"k1g": [0.0, 0.0], "k2": [0.0, 0.0], "k2_fp32": [0.0, 0.0]}
         for name, d, n in train_linear_shapes(cfg):
             work = lm_linear_work(LM_M, d, n)
             times = {"k1g": kw["micro"] * (1 if name in outside
                                            or not cfg.remat else 2),
-                     "k2": kw["micro"]}
+                     "k2": kw["micro"], "k2_fp32": kw["micro"]}
             for key, t in tot.items():
                 t[0] += times[key] * work[key][0]
                 t[1] += times[key] * work[key][1]
@@ -4404,8 +4437,7 @@ def rec_step_rows(rows, launches: dict, report) -> None:
             if row["name"] not in names:
                 continue
             key, groups = names[row["name"]]
-            b_ms, b_by = bound_ms(*tot[key], torch.bfloat16
-                                  if key == "k1g" else torch.float32)
+            b_ms, b_by = bound_ms(*tot[key], torch.bfloat16)
             ms = sum(rec["device_ms_per_step_by_group"].get(
                 g, {"ms": 0.0})["ms"] for g in groups)
             if rec["launches_per_step"][row["name"]] and not ms:
@@ -4416,6 +4448,9 @@ def rec_step_rows(rows, launches: dict, report) -> None:
             row[f"{arch}_step"] = {
                 "launches": rec["launches_per_step"][row["name"]],
                 "ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+            if key == "k2":
+                row[f"{arch}_step"]["bound_fp32_ms"] = bound_ms(
+                    *tot["k2_fp32"], torch.float32)[0]
             print(f"{row['name']} per {cfg.name} train step ({cfg.n_layers} "
                   f"layers): {ms:.2f} ms over "
                   f"{rec['launches_per_step'][row['name']]} launches "
@@ -4425,53 +4460,58 @@ def rec_step_rows(rows, launches: dict, report) -> None:
 def time_lm_linear(dev, gen, m: int, d: int, n: int,
                    kernel: bool = True) -> dict:
     """One LM linear at m rows, D = d (whole crossbars), N = n, relu's
-    packed gate: {"k1g", "k2": device ms of one call of the kernel (with
-    `kernel`), its plain version and the vConv library call (torch.matmul
-    in bf16; the fp32 dx / dw pair), and the call's bound}; K1g also under
-    the CUDA-core tile kernel's plan ("tile_ms": the kernel the bf16 route
-    ran before the tensor-core kernel). K1g takes bf16 operands, K2 their
-    fp32 casts, as CadcMatmulFn runs them."""
+    packed gate, bf16 operands as the train step runs them: {"k1g", "k2":
+    device ms of one call of the kernel (with `kernel`), its plain version
+    and the vConv library call (torch.matmul in bf16: y = x @ w; the dx /
+    dw pair g @ wᵀ, xᵀ @ g), and the call's bound at the bf16 peak}; K1g
+    also under the CUDA-core tile kernel's plan ("tile_ms": the kernel the
+    bf16 route ran before the tensor-core kernel); K2 also as the
+    CUDA-core route runs it ("fp32_route_ms": fp32 copies of g, x and w,
+    then the fp32 kernels: the route before the tensor-core kernels), the
+    fp32 torch.matmul pair on fp32 operands ("library_fp32_ms") and the
+    bound at the fp32 peak ("bound_fp32_ms")."""
     from repro_torch.kernels import cadc_matmul as cm
 
     kw = dict(crossbar_size=LM_XBAR, fn="relu")
+    bf = torch.bfloat16
     tile = cm.plan_fwd(m, n, d // LM_XBAR, LM_XBAR)
-    plan = cm.plan_fwd(m, n, d // LM_XBAR, LM_XBAR, dtype=torch.bfloat16)
+    plan = cm.plan_fwd(m, n, d // LM_XBAR, LM_XBAR, dtype=bf)
+    bplan = cm.plan_bwd(m, n, d, LM_XBAR, "packed", dtype=bf, fn="relu")
     work = lm_linear_work(m, d, n)
     w16 = (torch.randn(d, n, generator=gen, device=dev)
-           / math.sqrt(d)).to(torch.bfloat16)
+           / math.sqrt(d)).to(bf)
     w32 = w16.float()
 
     def make_x():
-        return (torch.randn(m, d, generator=gen, device=dev).to(
-            torch.bfloat16),)
+        return (torch.randn(m, d, generator=gen, device=dev).to(bf),)
 
     def make_bwd():
-        return (torch.randn(m, n, generator=gen, device=dev),
-                torch.randn(m, d, generator=gen, device=dev))
+        return (torch.randn(m, n, generator=gen, device=dev).to(bf),
+                torch.randn(m, d, generator=gen, device=dev).to(bf))
 
     _, gate = keep_counts(lambda: cm.cadc_matmul_gate_cuda(
         make_x()[0], w16, mode="packed", **kw))
     rec = {"d": d, "n": n}
-    for key, make, kern, plain, lib, nbytes, ops, dt in (
+    for key, make, kern, plain, lib, nbytes, ops in (
             ("k1g", make_x,
              lambda x: cm.cadc_matmul_gate_cuda(x, w16, mode="packed",
                                                 **kw),
              lambda x: cm.cadc_matmul_gate_torch(x, w16, mode="packed",
                                                  **kw),
-             lambda x: torch.matmul(x, w16), *work["k1g"], torch.bfloat16),
+             lambda x: torch.matmul(x, w16), *work["k1g"]),
             ("k2", make_bwd,
              lambda g, x: cm.cadc_segmented_bwd_cuda(
-                 g, x, w32, gate, mode="packed", **kw),
+                 g, x, w16, gate, mode="packed", **kw),
              lambda g, x: cm.cadc_segmented_bwd_torch(
-                 g, x, w32, gate, mode="packed", **kw),
-             lambda g, x: (torch.matmul(g, w32.T), torch.matmul(x.T, g)),
-             *work["k2"], torch.float32)):
+                 g, x, w16, gate, mode="packed", **kw),
+             lambda g, x: (torch.matmul(g, w16.T), torch.matmul(x.T, g)),
+             *work["k2"])):
         first = make()
         ops_set = [first] + rotation(make, sum(
             t.numel() * t.element_size() for t in first))[1:]
         reps = max(8, len(ops_set))
         pick = itertools.cycle(ops_set).__next__
-        b_ms, b_by = bound_ms(nbytes, ops, dt)
+        b_ms, b_by = bound_ms(nbytes, ops, bf)
         rec[key] = {
             "plain_ms": keep_counts(
                 lambda: device_ms(lambda: plain(*pick()), reps)),
@@ -4485,6 +4525,22 @@ def time_lm_linear(dev, gen, m: int, d: int, n: int,
             rec[key]["plan"] = f"{plan.kernel} {plan.width} x{plan.groups}"
             rec[key]["tile_ms"] = device_ms(lambda: cm._fwd_launch(
                 *pick(), w16, LM_XBAR, "relu", "packed", plan=tile), reps)
+        else:
+            rec[key]["plan"] = (f"{bplan.kernel} dx {bplan.dx_tile[0]} "
+                                f"rows, dw x{bplan.dw_splits}")
+            rec[key]["fp32_route_ms"] = keep_counts(lambda: device_ms(
+                lambda: (lambda g, x: cm.cadc_segmented_bwd_cuda(
+                    g.float(), x.float(), w16.float(), gate, mode="packed",
+                    **kw))(*pick()), reps))
+            ops32 = [(g.float(), x.float()) for g, x in ops_set]
+            pick32 = itertools.cycle(ops32).__next__
+            rec[key]["library_fp32_ms"] = device_ms(
+                lambda: (lambda g, x: (torch.matmul(g, w32.T),
+                                       torch.matmul(x.T, g)))(*pick32()),
+                reps)
+            rec[key]["bound_fp32_ms"] = bound_ms(*work["k2_fp32"],
+                                                 torch.float32)[0]
+            del ops32
         del ops_set, first
     del w16, w32, gate
     torch.cuda.empty_cache()
@@ -4492,20 +4548,23 @@ def time_lm_linear(dev, gen, m: int, d: int, n: int,
 
 
 def time_lm_kernels(dev, launches, rows, report) -> None:
-    """K1g (bf16 operands) and K2 (their fp32 casts) device times at
-    gemma3-1b's 7 linear shapes, M = LM_M, relu's packed gate, summed over
-    one train step (each shape x 26 layers x LM_MICRO micros, K1g twice
-    under remat), beside their plain versions, the vConv PyTorch calls
-    (torch.matmul in bf16; the fp32 dx / dw pair), the bound, and the
-    fp32 copies CadcMatmulFn.backward makes (g, x, w up; dx, dw down).
-    Adds each row's "lm_step" record and the LM path's launches."""
+    """K1g and K2 device times on bf16 operands at gemma3-1b's 7 linear
+    shapes, M = LM_M, relu's packed gate, summed over one train step (each
+    shape x 26 layers x LM_MICRO micros, K1g twice under remat), beside
+    their plain versions, the vConv PyTorch calls (torch.matmul in bf16),
+    the bound at the bf16 peak, and for K2 the CUDA-core route the step
+    took before (fp32 copies of g, x and w and the fp32 kernels), the fp32
+    torch.matmul pair and the fp32 bound (time_lm_linear). Adds each row's
+    "lm_step" record and the LM path's launches."""
     cfg = lm_cfg(LM_ARCH)
     per = lm_step_launches(cfg, LM_MICRO)
     k1g_per_shape = per["cadc_matmul_gate"] // (cfg.n_layers * 7)
     k2_per_shape = per["cadc_segmented_bwd"] // (cfg.n_layers * 7)
     gen = torch.Generator(device=dev).manual_seed(21)
-    tot = {k: {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0,
-               "ops": 0.0, "copies": 0.0, "tile": 0.0} for k in ("k1g", "k2")}
+    fields = ("ms", "plain_ms", "library_ms", "bytes", "ops", "tile_ms",
+              "fp32_route_ms", "library_fp32_ms")
+    tot = {k: dict.fromkeys(fields, 0.0) for k in ("k1g", "k2")}
+    tot["k2"]["work32"] = [0.0, 0.0]
     per_shape = {}
     m = LM_M
     for name, d, n in linear_shapes(cfg):
@@ -4515,36 +4574,22 @@ def time_lm_kernels(dev, launches, rows, report) -> None:
             r = rec[key]
             mult = r["per_step"] = count * (k1g_per_shape if key == "k1g"
                                             else k2_per_shape)
-            t["ms"] += mult * r["ms"]
-            t["tile"] += mult * r.get("tile_ms", 0.0)
-            t["plain"] += mult * r["plain_ms"]
-            t["lib"] += mult * r["library_ms"]
-            t["bytes"] += mult * r["bytes"]
-            t["ops"] += mult * r["ops"]
-        # the backward's fp32 copies: g is fp32 already (the bf16 output's
-        # cotangent is cast), x and w go up to fp32, dx and dw back to bf16
-        g16 = torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16)
-        x16 = torch.randn(m, d, generator=gen, device=dev).to(torch.bfloat16)
-        w16 = torch.randn(d, n, generator=gen, device=dev).to(torch.bfloat16)
-        w32 = w16.float()
-        dxf = torch.randn(m, d, generator=gen, device=dev)
-
-        def copies():
-            g16.float(), x16.float(), w16.float()
-            dxf.to(torch.bfloat16), w32.to(torch.bfloat16)
-
-        rec["fp32_copies_ms"] = device_ms(copies, 8)
-        tot["k2"]["copies"] += count * k2_per_shape * rec["fp32_copies_ms"]
-        print(f"LM {name} M={m} D={d} N={n}: K1g {rec['k1g']['ms']:.4f} ms "
-              f"({rec['k1g']['plan']}; the tile kernel "
-              f"{rec['k1g']['tile_ms']:.4f}, "
-              f"torch.matmul bf16 {rec['k1g']['library_ms']:.4f}, bound "
-              f"{rec['k1g']['bound_ms']:.4f}), K2 {rec['k2']['ms']:.4f} ms "
-              f"(fp32 torch.matmul pair {rec['k2']['library_ms']:.4f}, "
-              f"bound {rec['k2']['bound_ms']:.4f}), the backward's fp32 "
-              f"copies {rec['fp32_copies_ms']:.4f} ms", flush=True)
-        del g16, x16, w16, w32, dxf
-        torch.cuda.empty_cache()
+            for f in fields:
+                t[f] += mult * r.get(f, 0.0)
+        w32 = lm_linear_work(m, d, n)["k2_fp32"]
+        mult = rec["k2"]["per_step"]
+        tot["k2"]["work32"] = [a + mult * b for a, b in
+                               zip(tot["k2"]["work32"], w32)]
+        k1, k2 = rec["k1g"], rec["k2"]
+        print(f"LM {name} M={m} D={d} N={n}: K1g {k1['ms']:.4f} ms "
+              f"({k1['plan']}; the tile kernel {k1['tile_ms']:.4f}, "
+              f"torch.matmul bf16 {k1['library_ms']:.4f}, bound "
+              f"{k1['bound_ms']:.4f}), K2 {k2['ms']:.4f} ms ({k2['plan']}; "
+              f"the fp32 route with its copies {k2['fp32_route_ms']:.4f}, "
+              f"torch.matmul pair bf16 {k2['library_ms']:.4f} / fp32 "
+              f"{k2['library_fp32_ms']:.4f}, bound bf16 "
+              f"{k2['bound_ms']:.4f} / fp32 {k2['bound_fp32_ms']:.4f})",
+              flush=True)
     report["lm_kernel_timing"] = {
         "unit": f"one gemma3-1b train step: {LM_BATCH} x {LM_SEQ} tokens in "
                 f"{LM_MICRO} micros of {m} rows, xbar {LM_XBAR}, relu, "
@@ -4557,33 +4602,41 @@ def time_lm_kernels(dev, launches, rows, report) -> None:
         if key is None:
             continue
         t = tot[key]
-        b_ms, b_by = bound_ms(t["bytes"], t["ops"], torch.bfloat16
-                              if key == "k1g" else torch.float32)
+        b_ms, b_by = bound_ms(t["bytes"], t["ops"], torch.bfloat16)
         row["launches"] += launches[row["name"]]
         row["lm_step"] = {"launches": per[row["name"]], "ms": t["ms"],
-                          "plain_ms": t["plain"], "bound_ms": b_ms,
-                          "bound_by": b_by, "library_ms": t["lib"]}
+                          "plain_ms": t["plain_ms"], "bound_ms": b_ms,
+                          "bound_by": b_by, "library_ms": t["library_ms"]}
         if key == "k2":
-            row["lm_step"]["fp32_copies_ms"] = t["copies"]
+            row["lm_step"].update(
+                fp32_route_ms=t["fp32_route_ms"],
+                library_fp32_ms=t["library_fp32_ms"],
+                bound_fp32_ms=bound_ms(*t["work32"], torch.float32)[0])
         else:
-            row["lm_step"]["tile_ms"] = t["tile"]
+            row["lm_step"]["tile_ms"] = t["tile_ms"]
+        step = row["lm_step"]
         print(f"{row['name']} per gemma3-1b train step: {t['ms']:.2f} ms "
               f"over {per[row['name']]} launches ("
-              + (f"the tile kernel {t['tile']:.2f}, " if key == "k1g" else "")
-              + f"plain {t['plain']:.2f}, "
-              f"vConv library {t['lib']:.2f}, bound {b_ms:.3f} by {b_by})"
-              + (f"; the backward's fp32 copies {t['copies']:.2f} ms"
-                 if key == "k2" else ""), flush=True)
+              + (f"the tile kernel {t['tile_ms']:.2f}, " if key == "k1g" else
+                 f"the fp32 route with its copies {t['fp32_route_ms']:.2f}, ")
+              + f"plain {t['plain_ms']:.2f}, vConv library bf16 "
+              f"{t['library_ms']:.2f}"
+              + (f" / fp32 {t['library_fp32_ms']:.2f}" if key == "k2" else "")
+              + f", bound {b_ms:.3f} by {b_by}"
+              + (f" / fp32 {step['bound_fp32_ms']:.3f}" if key == "k2"
+                 else "") + ")", flush=True)
 
 
 def rec_library_rows(dev, rows, report) -> None:
     """The plain versions' and the vConv library calls' times of each
     recurrent train step's linears (REC_TRAIN; time_lm_linear at each
     distinct shape, times its calls a step: K1g a micro, twice a layer's
-    linear under remat, K2 once), and K1g's under the CUDA-core tile kernel
-    ("tile_ms", the bf16 route before the tensor-core kernel), added to
-    the K1g and K2 rows' "<arch>_step" records beside rec_step_rows'
-    profiler ms and bound."""
+    linear under remat, K2 once), K1g's under the CUDA-core tile kernel
+    ("tile_ms", the bf16 route before the tensor-core kernel) and K2's on
+    the CUDA-core route ("fp32_route_ms", fp32 copies and the fp32
+    kernels: the route before the tensor-core kernels) with the fp32
+    torch.matmul pair ("library_fp32_ms"), added to the K1g and K2 rows'
+    "<arch>_step" records beside rec_step_rows' profiler ms and bounds."""
     names = {"cadc_matmul_gate": "k1g", "cadc_segmented_bwd": "k2"}
     gen = torch.Generator(device=dev).manual_seed(22)
     for arch, kw in REC_TRAIN.items():
@@ -4597,6 +4650,7 @@ def rec_library_rows(dev, rows, report) -> None:
             c["k2"] += kw["micro"]
         tot = {k: {"plain_ms": 0.0, "library_ms": 0.0} for k in names.values()}
         tot["k1g"]["tile_ms"] = 0.0
+        tot["k2"].update(fp32_route_ms=0.0, library_fp32_ms=0.0)
         for (d, n), c in calls.items():
             rec = time_lm_linear(dev, gen, LM_M, d, n, kernel=False)
             for key, t in tot.items():
@@ -4612,10 +4666,17 @@ def rec_library_rows(dev, rows, report) -> None:
                       f"(profiler)"
                       + (f", the tile kernel {step['tile_ms']:.2f}"
                          if "tile_ms" in step else "")
+                      + (f", the fp32 route with its copies "
+                         f"{step['fp32_route_ms']:.2f}"
+                         if "fp32_route_ms" in step else "")
                       + f", plain {step['plain_ms']:.2f}, vConv "
-                      f"library {step['library_ms']:.2f}, bound "
-                      f"{step['bound_ms']:.3f} by {step['bound_by']}",
-                      flush=True)
+                      f"library bf16 {step['library_ms']:.2f}"
+                      + (f" / fp32 {step['library_fp32_ms']:.2f}"
+                         if "library_fp32_ms" in step else "")
+                      + f", bound {step['bound_ms']:.3f} by "
+                      f"{step['bound_by']}"
+                      + (f" / fp32 {step['bound_fp32_ms']:.3f}"
+                         if "bound_fp32_ms" in step else ""), flush=True)
 
 
 # ---------------------------------------------------------------------------

@@ -111,18 +111,20 @@ def quiet():
 
 def product_work(m: int, d: int, n: int, *, x_size: int, w_size: int,
                  gate_bytes: int = 0, need_dx: bool = True,
-                 need_dw: bool = True, recompute: bool = False) -> Cost:
+                 need_dw: bool = True, recompute: bool = False,
+                 bwd_size: int = 4) -> Cost:
     """(forward, backward) (flops, bytes) of a CADC product of x [m, d] and
     w [d, n] (d in whole segments), as K1g and K2 do it. Forward: 2 m d n
     FLOPs; x and w read (elements of x_size / w_size bytes), the fp32 y
     and `gate_bytes` of gate written. Backward: 2 m d n FLOPs for each of
     dx and dw wanted, and again to recompute the psums where no gate was
-    saved (`recompute`); the fp32 g, x, w and the gate read, the fp32 dx
-    and dw written."""
+    saved (`recompute`); g, x, w (elements of `bwd_size` bytes: 4 where K2
+    reads fp32, 2 where its tensor-core route reads bf16) and the gate
+    read, the fp32 dx and dw written."""
     mdn = 2 * m * d * n
     fwd = (mdn, m * d * x_size + d * n * w_size + 4 * m * n + gate_bytes)
     bwd = (mdn * (int(need_dx) + int(need_dw) + int(recompute)),
-           4 * (m * n + m * d + d * n) + gate_bytes
+           bwd_size * (m * n + m * d + d * n) + gate_bytes
            + 4 * m * d * int(need_dx) + 4 * d * n * int(need_dw))
     return fwd, bwd
 

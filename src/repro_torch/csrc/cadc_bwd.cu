@@ -69,6 +69,75 @@
 //    micro-tiles staging 32-deep slices, the same fmaf chains as above.
 //    dw (`bwd_dw_recompute_kernel`): dw's kernel body with that gate, under
 //    the saved gates' plan: bitwise their dw.
+//
+// bf16 operands (the LM train steps' K2) under a gate of 0s and 1s (relu's
+// packed words or bytes; none for identity) run the tensor-core kernels,
+// `bf16_bwd_dx_kernel` and `bf16_bwd_dw_kernel` (`cadc_bwd_mma_launch`;
+// plan kernel "mma"), which replace the TPU bodies `_bwd_dx_kernel` :251,
+// `_bwd_dx_kernel_nomask` :271, `_bwd_dw_kernel` :312 and
+// `_bwd_dw_kernel_nomask` :332 of src/repro/kernels/cadc_matmul.py, which
+// widen their bf16 operands to fp32 in the body. g ⊙ f' is then bf16
+// exactly, so the operands go to the tensor cores as they are: no fp32
+// copies (the CUDA-core kernels above ran the LM shapes on fp32 copies made
+// by the autograd Function, ~18 TFLOP/s at gemma3-1b's w_gate). The
+// fp32-gate fns and the recompute gate stay on those kernels (their g ⊙ f'
+// is no bf16 value).
+//
+// Bound on this card: at a train micro (M = 2048) by operations, 4 M D N
+// at the bf16 tensor-core peak (gemma3-1b's w_gate, 72.5 GFLOP: 0.073 ms;
+// its bytes, 106 MB, 0.032 ms).
+//
+// Design. Both are one R x 128 output tile a block, 8 warps (2 x 4, each
+// R/2 x 32: R/32 x 4 tiles of m16n8), walking their contraction in 64-deep
+// slices through a 4-stage ring in dynamic shared memory (16-byte cp.async,
+// zero-filled past the edges; rows padded by 16 bytes against bank
+// conflicts; 2-byte loads through registers where rows are off 16 bytes,
+// as the sLSTM's N = 2730), mma.sync m16n8k16.row.col.f32.bf16.bf16.f32.
+//  * dx: R (128 or 64) rows of M x 128 columns of one segment, over N. A =
+//    g ⊙ f' (k-contiguous: ldmatrix.x4); B = w's segment rows, already
+//    mma's "col" operand as w [D, N] lies (ldmatrix.x4, no transpose).
+//  * dw: 128 rows of one segment x 128 columns of N, over the M rows of its
+//    split. A = x_sᵀ and B = g ⊙ f', both k-major: ldmatrix.x4.trans. Where
+//    its tiles are few M is split in whole slices: each block writes its
+//    fp32 partial tile to scratch, the tile's last block to arrive
+//    (cadc_tile.cuh arrive_last, the device's arrival counters) adds them
+//    in split order from an fp32 zero, writes dw and resets the counter:
+//    one launch, the same bits on every run of a plan.
+//  * The gate multiplies g in shared memory: each thread ANDs the chunks
+//    it copied (8 bf16 a chunk, a 0xffff half per set bit) after its own
+//    cp.async wait and before the barrier that publishes the slice — the
+//    packed word copied by the lane that copies its first chunk, read by
+//    its warp's next three lanes; a chunk's 8 gate bytes by its own lane.
+//    Once a block (a thread's few chunks) rather than once a warp that
+//    reads the fragment: applied to the fragments in registers instead (a
+//    copy tools/profile_k2_matrix.py --set gate builds) it measured slower
+//    at w_gate (M 2048, D 1280, N 6912; H100 80GB HBM3, 700 W): packed dx
+//    0.42 ms against 0.35, dw 0.29-0.30 both; bytes dx 0.63 against 0.34,
+//    dw 0.40 against 0.26.
+//  * Each slice's four k16 steps build a fresh fp32 partial, added into
+//    the tile's sums with __fadd_rn: each output is one chain of slices in
+//    increasing k from 0 whatever the tile, so dx is bitwise the same under
+//    every plan. mma.sync's fp32 accumulation is not specified as
+//    round-to-nearest (earlier tensor cores were measured to truncate);
+//    the slice partials keep any such bias to four k16 steps before a
+//    round-to-nearest add, over contractions up to 152 064 deep
+//    (qwen2-moe-a2.7b's head). The second fragment set needs the
+//    registers of one block an SM (238-255 at 128 rows, no spills).
+//  * dx and dw are written in fp32, and the autograd Function rounds them
+//    to the operands' dtype, as it did the CUDA-core kernels' (the same
+//    bits as one rounding of the fp32 sums in the kernel; the kernel is
+//    held to its plain version in fp32, at 1e-4 of scale).
+// The planner (kernels/cadc_matmul.py plan_bwd with dtype=bf16) picks dx's
+// row tile and dw's splits from a model fitted to tools/profile_k2_matrix.py
+// --set lm. At gemma3-1b's shapes (M 2048, crossbar 256; waves = blocks
+// over 132 SMs, one an SM): wq dx 64 rows, 320 blocks (2.42 waves), dw 3
+// splits, 240 (1.82); wk and wv dx 320 (2.42), dw 4 splits, 80 (0.61); wo
+// dx 128 rows, 128 (0.97), dw 3 splits, 216 (1.64); w_gate and w_up dx 64
+// rows, 320 (2.42), dw unsplit, 540 (4.09); w_down dx 128 rows, 864
+// (6.55), dw unsplit, 486 (3.68). Measured there (PERF.md;
+// tools/profile_k2_matrix.py --set lm): w_gate 0.66 ms (dx 0.35, dw 0.30:
+// 110 TFLOP/s) against 4.09 for the CUDA-core route on fp32 copies and
+// 0.10 for the bf16 torch.matmul pair; w_down 0.48 (136 TFLOP/s).
 #include <stdint.h>
 
 #include <atomic>
@@ -780,15 +849,468 @@ bwd_dx_recompute_kernel(const Bwd p) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 operands: the tensor-core kernels
+// ---------------------------------------------------------------------------
+
+// A bf16 K2 launch (cadc_bwd_mma_launch): g [M, N], x [M, D], w [D, N]
+// bf16, row-major; the gate (none, packed words [S, M, ceil(N/32)] or one
+// byte a psum [S, M, N]: f' is 0 or 1, so g ⊙ f' is bf16 exactly); dx
+// [M, D] and dw [D, N] fp32, either null (not wanted); scratch [splits,
+// dw tiles, kMmaR * kMmaC] fp32 and the arrival counters when dw's M is
+// split (grid z > 1).
+struct BwdMma {
+  const __nv_bfloat16* g;
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* w;
+  const void* gate;
+  float* dx;
+  float* dw;
+  float* scratch;
+  int* counters;
+  int M, N, D, xbar, rows_per_split;
+  bool gvec;  // g (and a byte gate) by 16-byte (8-byte) cp.async
+  bool wvec;  // w by 16-byte cp.async
+  bool xvec;  // x by 16-byte cp.async
+};
+
+constexpr int kMmaC = 128;  // columns of a block tile (a warp: 32)
+constexpr int kMmaK = 64;   // k of a staged slice: four k16 steps
+constexpr int kMmaR = 128;  // dw's rows of D a tile
+
+// dx (kDw false): A = g ⊙ f' [R rows of M][kMmaK of N], B = w's segment
+// rows [kMmaC][kMmaK of N] — both k-contiguous, read by ldmatrix.x4 (w
+// [D, N] is already mma's "col" B). dw (kDw): A = x [kMmaK of M][R of D]
+// and B = g ⊙ f' [kMmaK of M][kMmaC of N] — both k-major, read by
+// ldmatrix.x4.trans. Rows padded by 16 bytes (no bank conflicts). The
+// gate's slots follow each stage: packed words [rows][cols / 32], or a
+// byte a column.
+template <bool kDw, int R, int kKind>
+struct MmaBwdCfg {
+  static_assert(R == 128 || R == 64, "row tiles of 128 or 64");
+  static constexpr int kMT = R / 32;  // m16 tiles a warp (2 warp rows)
+  static constexpr int kAStride = (kDw ? R : kMmaK) * 2 + 16;
+  static constexpr int kBStride = (kDw ? kMmaC : kMmaK) * 2 + 16;
+  static constexpr int kABytes = (kDw ? kMmaK : R) * kAStride;
+  static constexpr int kBBytes = (kDw ? kMmaK : kMmaC) * kBStride;
+  static constexpr int kGRows = kDw ? kMmaK : R;   // g ⊙ f' rows (M)
+  static constexpr int kGCols = kDw ? kMmaC : kMmaK;  // its columns (N)
+  static constexpr int kGateBytes =
+      kKind == cadc::kGatePacked ? kGRows * (kGCols / kPack) * 4
+      : kKind == cadc::kGateU8   ? kGRows * kGCols
+                                 : 0;
+  static constexpr int kStages = 4;
+  static constexpr int kStageBytes = kABytes + kBBytes + kGateBytes;
+  static constexpr int kSmem = kStages * kStageBytes;
+};
+
+__device__ __forceinline__ void copy8(void* dst, const void* src, bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 8 : 0));
+}
+
+// A [kRows][kCols] tile of a row-major bf16 matrix (rows ld elements
+// apart) to shared memory (rows `stride` bytes apart): rows r0 + r < rmax,
+// columns c0 + c < cmax, zeros elsewhere. 16 bytes a cp.async where `vec`
+// (base and ld on 16 bytes, cmax - c0 a multiple of 8 or past the tile),
+// else 2-byte loads through registers.
+template <int kRows, int kCols>
+__device__ __forceinline__ void mma_tile(unsigned char* dst, int stride,
+                                         const __nv_bfloat16* base,
+                                         size_t ld, int r0, int rmax,
+                                         int c0, int cmax, bool vec) {
+  constexpr int kV = kCols / 8;  // 16-byte chunks a row
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < kRows * kV / kThreads; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const int r = e / kV, c = 8 * (e % kV);
+      const bool ok = r0 + r < rmax && c0 + c < cmax;
+      copy16(dst + r * stride + 2 * c,
+             ok ? base + static_cast<size_t>(r0 + r) * ld + c0 + c : base,
+             ok);
+    }
+    return;
+  }
+#pragma unroll 4
+  for (int e = threadIdx.x; e < kRows * kCols; e += kThreads) {
+    const int r = e / kCols, c = e % kCols;
+    reinterpret_cast<unsigned short*>(dst + r * stride)[c] =
+        r0 + r < rmax && c0 + c < cmax
+            ? cadc::ld_bf16_bits(base + static_cast<size_t>(r0 + r) * ld +
+                                 c0 + c)
+            : 0;
+  }
+}
+
+// The [kRows][kCols] tile of g ⊙ f'(p_s) at rows (of M) r0 .. < rmax and
+// columns (of N) c0 .., zeros elsewhere. With gvec, g's 16-byte chunks by
+// cp.async and the gate beside them in `slot`: a packed word by the lane
+// that copies its first chunk (the word's other chunks are its warp's next
+// three lanes), a chunk's 8 bytes by its own lane; mma_gate then applies
+// it. Else 2-byte loads through registers, gated as they are stored.
+template <int kRows, int kCols, int kKind>
+__device__ __forceinline__ void mma_gm(const BwdMma& p, unsigned char* dst,
+                                       int stride, unsigned char* slot,
+                                       int s, int r0, int rmax, int c0) {
+  constexpr int kV = kCols / 8;
+  const int nw = (p.N + kPack - 1) / kPack;
+  const size_t gbase = static_cast<size_t>(s) * p.M;
+  if (p.gvec) {
+#pragma unroll
+    for (int i = 0; i < kRows * kV / kThreads; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const int r = e / kV, cc = e % kV, m = r0 + r, n = c0 + 8 * cc;
+      const bool ok = m < rmax && n < p.N;
+      copy16(dst + r * stride + 16 * cc,
+             ok ? p.g + static_cast<size_t>(m) * p.N + n : p.g, ok);
+      if constexpr (kKind == cadc::kGatePacked) {
+        if (cc % 4 == 0)
+          copy4(slot + 4 * (r * (kCols / kPack) + cc / 4),
+                ok ? static_cast<const uint32_t*>(p.gate) +
+                         (gbase + m) * nw + n / kPack
+                   : p.gate,
+                ok);
+      } else if constexpr (kKind == cadc::kGateU8) {
+        copy8(slot + r * kCols + 8 * cc,
+              ok ? static_cast<const uint8_t*>(p.gate) +
+                       (gbase + m) * p.N + n
+                 : p.gate,
+              ok);
+      }
+    }
+    return;
+  }
+#pragma unroll 4
+  for (int e = threadIdx.x; e < kRows * kCols; e += kThreads) {
+    const int r = e / kCols, c = e % kCols, m = r0 + r, n = c0 + c;
+    unsigned short v = 0;
+    if (m < rmax && n < p.N) {
+      v = cadc::ld_bf16_bits(p.g + static_cast<size_t>(m) * p.N + n);
+      if constexpr (kKind == cadc::kGatePacked) {
+        const uint32_t word = __ldg(static_cast<const uint32_t*>(p.gate) +
+                                    (gbase + m) * nw + n / kPack);
+        if (!(word >> (n % kPack) & 1u)) v = 0;
+      } else if constexpr (kKind == cadc::kGateU8) {
+        if (!__ldg(static_cast<const uint8_t*>(p.gate) + (gbase + m) * p.N +
+                   n))
+          v = 0;
+      }
+    }
+    reinterpret_cast<unsigned short*>(dst + r * stride)[c] = v;
+  }
+}
+
+// The 32-bit mask of two bf16 columns: each half kept where its gate is set.
+__device__ __forceinline__ uint32_t pair_mask(bool lo, bool hi) {
+  return (lo ? 0x0000ffffu : 0u) | (hi ? 0xffff0000u : 0u);
+}
+
+// g ⊙ f' in shared memory over the chunks this thread copied (mma_gm with
+// gvec), once they have landed: 8 columns a chunk, one AND a bf16 pair.
+template <int kRows, int kCols, int kKind>
+__device__ __forceinline__ void mma_gate(unsigned char* tile, int stride,
+                                         const unsigned char* slot) {
+  constexpr int kV = kCols / 8;
+  if constexpr (kKind == cadc::kGatePacked) __syncwarp();  // its lanes' words
+#pragma unroll
+  for (int i = 0; i < kRows * kV / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int r = e / kV, cc = e % kV;
+    uint4* v = reinterpret_cast<uint4*>(tile + r * stride + 16 * cc);
+    uint4 a = *v;
+    if constexpr (kKind == cadc::kGatePacked) {
+      const uint32_t bits =
+          reinterpret_cast<const uint32_t*>(slot)[r * (kCols / kPack) +
+                                                  cc / 4] >>
+          (8 * (cc % 4));
+      a.x &= pair_mask(bits & 1u, bits & 2u);
+      a.y &= pair_mask(bits & 4u, bits & 8u);
+      a.z &= pair_mask(bits & 16u, bits & 32u);
+      a.w &= pair_mask(bits & 64u, bits & 128u);
+    } else {
+      const uint2 b =
+          *reinterpret_cast<const uint2*>(slot + r * kCols + 8 * cc);
+      a.x &= pair_mask(b.x & 0xffu, b.x & 0xff00u);
+      a.y &= pair_mask(b.x & 0xff0000u, b.x & 0xff000000u);
+      a.z &= pair_mask(b.y & 0xffu, b.y & 0xff00u);
+      a.w &= pair_mask(b.y & 0xff0000u, b.y & 0xff000000u);
+    }
+    *v = a;
+  }
+}
+
+// One block of dx or dw (see the note at the top). Warp (wm, wn) of the 2
+// x 4 owns rows wm*R/2 .. and columns 32*wn .. of the block's R x kMmaC
+// tile: kMT x 4 mma tiles of m16 x n8. The block walks its kMmaK-deep
+// slices of the contraction in order through a kStages ring in dynamic
+// shared memory (kStages - 1 in flight while one computes); each slice's
+// four k16 steps of mma.sync build a fresh fp32 partial, which is added
+// into the block's sums with __fadd_rn: one chain of slices, in
+// increasing k from 0, an element, whatever the tile.
+template <bool kDw, int R, int kKind>
+__device__ __forceinline__ void mma_bwd_block(const BwdMma& p) {
+  using C = MmaBwdCfg<kDw, R, kKind>;
+  constexpr int kMT = C::kMT, kNT = 4;
+  extern __shared__ __align__(16) unsigned char msmem[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const int g = lane / 4, q = lane % 4;  // an mma fragment's row, col pair
+  // dx: blockIdx (row tile of M, column tile of the segments); dw: (column
+  // tile of N, row tile of the segments, split of M)
+  const int cols = kDw ? R : kMmaC;  // the segment's span of a tile
+  const int per = (p.xbar + cols - 1) / cols;
+  const int s = blockIdx.y / per, off = (blockIdx.y % per) * cols;
+  const int seg = s * p.xbar, width = min(p.xbar, p.D - seg);
+  const int m0 = kDw ? 0 : blockIdx.x * R;
+  const int n0 = kDw ? blockIdx.x * kMmaC : 0;
+  const int m_lo = kDw ? blockIdx.z * p.rows_per_split : 0;
+  const int m_hi = kDw ? min(p.M, m_lo + p.rows_per_split) : p.M;
+  const int T = kDw ? (max(m_hi - m_lo, 0) + kMmaK - 1) / kMmaK
+                    : (p.N + kMmaK - 1) / kMmaK;
+  constexpr bool kGated = kKind != cadc::kGateNone;
+
+  const auto stage = [&](int t) {
+    return msmem + (t % C::kStages) * C::kStageBytes;
+  };
+  const auto load = [&](int t) {
+    if (t >= T) return;
+    unsigned char* as = stage(t);
+    unsigned char* bs = as + C::kABytes;
+    unsigned char* slot = bs + C::kBBytes;
+    if constexpr (kDw) {
+      const int mk = m_lo + t * kMmaK;
+      mma_tile<kMmaK, R>(as, C::kAStride, p.x, p.D, mk, m_hi, seg + off,
+                         seg + width, p.xvec);
+      mma_gm<kMmaK, kMmaC, kKind>(p, bs, C::kBStride, slot, s, mk, m_hi, n0);
+    } else {
+      const int nk = t * kMmaK;
+      mma_gm<R, kMmaK, kKind>(p, as, C::kAStride, slot, s, m0, p.M, nk);
+      mma_tile<kMmaC, kMmaK>(bs, C::kBStride, p.w, p.N, seg + off,
+                             seg + width, nk, p.N, p.wvec);
+    }
+  };
+
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int j = 0; j < C::kStages - 1; ++j) {
+    load(j);
+    copy_commit();
+  }
+  for (int t = 0; t < T; ++t) {
+    copy_wait<C::kStages - 2>();
+    const unsigned char* as = stage(t);
+    const unsigned char* bs = as + C::kABytes;
+    if constexpr (kGated) {
+      if (p.gvec)
+        mma_gate<C::kGRows, C::kGCols, kKind>(
+            const_cast<unsigned char*>(kDw ? bs : as),
+            kDw ? C::kBStride : C::kAStride, bs + C::kBBytes);
+    }
+    __syncthreads();  // slice t landed and gated; every warp done with t - 1
+    load(t + C::kStages - 1);  // into t - 1's slot
+    copy_commit();
+
+    float ps[kMT][kNT][4];
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ps[i][j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kMmaK / 16; ++kk) {
+      // B's k rows 0-7 / 8-15 (b0 / b1) of n8 tiles 2np and 2np + 1, then
+      // A's rows 0-15 x k 0-7 / 8-15 (a0 a1 / a2 a3) of each m16 tile
+      uint32_t b[kNT][2];
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        uint32_t r[4];
+        if constexpr (kDw)
+          cadc::ldsm4_t(r, bs + (kk * 16 + lane % 8 + (lane / 8 % 2) * 8) *
+                                    C::kBStride +
+                               (wn * 32 + np * 16 + (lane / 16) * 8) * 2);
+        else
+          cadc::ldsm4(r, bs + (wn * 32 + np * 16 + (lane / 16) * 8 +
+                               lane % 8) * C::kBStride +
+                             kk * 32 + (lane / 8 % 2) * 16);
+        b[2 * np][0] = r[0];
+        b[2 * np][1] = r[1];
+        b[2 * np + 1][0] = r[2];
+        b[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+        uint32_t a[4];
+        if constexpr (kDw)
+          cadc::ldsm4_t(a, as + (kk * 16 + (lane / 16) * 8 + lane % 8) *
+                                    C::kAStride +
+                               (wm * (R / 2) + i * 16 + (lane / 8 % 2) * 8) *
+                                   2);
+        else
+          cadc::ldsm4(a, as + (wm * (R / 2) + i * 16 + lane % 16) *
+                                  C::kAStride +
+                             kk * 32 + (lane / 16) * 16);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+          cadc::mma_bf16(ps[i][j], a, b[j][0], b[j][1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][j][e] = __fadd_rn(acc[i][j][e], ps[i][j][e]);
+  }
+  copy_wait<0>();
+
+  // element (i, j, e) of the fragments: tile row rr(i, e), column cc(j, e)
+  const auto rr = [&](int i, int e) {
+    return wm * (R / 2) + i * 16 + (e / 2) * 8 + g;
+  };
+  const auto cc = [&](int j, int e) { return wn * 32 + j * 8 + 2 * q + e % 2; };
+  // a fragment's column pair (c, c + 1) of row `row` (c even), columns
+  // below `end`: one float2 where the row's pairs lie on 8 bytes
+  const auto put2 = [](float* row, int c, int end, bool even, float v0,
+                       float v1) {
+    if (even && c + 1 < end) {
+      *reinterpret_cast<float2*>(row + c) = make_float2(v0, v1);
+    } else {
+      if (c < end) row[c] = v0;
+      if (c + 1 < end) row[c + 1] = v1;
+    }
+  };
+  if constexpr (!kDw) {
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + rr(i, 2 * h);
+          if (m < p.M)
+            put2(p.dx + static_cast<size_t>(m) * p.D + seg, off + cc(j, 0),
+                 width, p.D % 2 == 0, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        }
+    return;
+  }
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  if (gridDim.z == 1) {
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = off + rr(i, 2 * h);
+          if (r < width)
+            put2(p.dw + static_cast<size_t>(seg + r) * p.N, n0 + cc(j, 0),
+                 p.N, p.N % 2 == 0, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        }
+    return;
+  }
+  // a split of M: this block's partial tile to scratch, then the tile's
+  // last block to arrive adds the splits' partials in split order
+  constexpr int kTile = R * kMmaC;
+  float* part = p.scratch +
+                (static_cast<size_t>(blockIdx.z) * gridDim.x * gridDim.y +
+                 tile) * kTile;
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(part + rr(i, 2 * h) * kMmaC +
+                                   cc(j, 0)) =
+            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+  const int S = gridDim.z;
+  if (!cadc::arrive_last(p.counters + tile, S)) return;
+  const size_t stride = static_cast<size_t>(gridDim.x) * gridDim.y * kTile;
+  const float4* src =
+      reinterpret_cast<const float4*>(p.scratch + static_cast<size_t>(tile) *
+                                                      kTile) + tid;
+  constexpr int kF = kTile / 4 / kThreads;  // float4s a thread
+  constexpr int kU = 4;                  // of them at a time
+  constexpr int kZ = 4;                  // splits' loads in flight
+#pragma unroll 1
+  for (int f0 = 0; f0 < kF; f0 += kU) {
+    float4 sum[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) sum[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 1
+    for (int z0 = 0; z0 < S; z0 += kZ) {
+      float4 v[kZ][kU];
+#pragma unroll
+      for (int z = 0; z < kZ; ++z)
+#pragma unroll
+        for (int u = 0; u < kU; ++u)
+          v[z][u] = z0 + z < S ? __ldcg(src + (z0 + z) * (stride / 4) +
+                                        (f0 + u) * kThreads)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int z = 0; z < kZ; ++z) {
+        if (z0 + z >= S) break;
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          sum[u].x += v[z][u].x;
+          sum[u].y += v[z][u].y;
+          sum[u].z += v[z][u].z;
+          sum[u].w += v[z][u].w;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int e = 4 * (tid + (f0 + u) * kThreads);
+      const int r = off + e / kMmaC, n = n0 + e % kMmaC;
+      if (r >= width) continue;
+      float* dst = p.dw + static_cast<size_t>(seg + r) * p.N + n;
+      const float o[4] = {sum[u].x, sum[u].y, sum[u].z, sum[u].w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (n + k < p.N) dst[k] = o[k];
+    }
+  }
+  if (tid == 0) p.counters[tile] = 0;
+}
+
+// One block an SM (up to 255 registers a thread): the slice's partials
+// beside the sums are two fragment sets, 64 fp32 each at 128 rows.
+template <int R, int kKind>
+__global__ void __launch_bounds__(kThreads, 1)
+bf16_bwd_dx_kernel(const BwdMma p) {
+  mma_bwd_block<false, R, kKind>(p);
+}
+
+template <int kKind>
+__global__ void __launch_bounds__(kThreads, 1)
+bf16_bwd_dw_kernel(const BwdMma p) {
+  mma_bwd_block<true, kMmaR, kKind>(p);
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
 // Column (or row) tiles of `cols` over the segments of D.
-inline unsigned seg_tiles(const Bwd& p, int cols) {
-  const int S = (p.D + p.xbar - 1) / p.xbar;
-  const int last = p.D - (S - 1) * p.xbar;
-  return static_cast<unsigned>((S - 1) * ((p.xbar + cols - 1) / cols) +
+inline unsigned seg_tiles(int D, int xbar, int cols) {
+  const int S = (D + xbar - 1) / xbar;
+  const int last = D - (S - 1) * xbar;
+  return static_cast<unsigned>((S - 1) * ((xbar + cols - 1) / cols) +
                                (last + cols - 1) / cols);
+}
+inline unsigned seg_tiles(const Bwd& p, int cols) {
+  return seg_tiles(p.D, p.xbar, cols);
 }
 
 template <int BM, int CW, int kKind>
@@ -873,6 +1395,43 @@ int recompute(const Bwd& p, int dx_rows, int dx_cols, int dw_rows,
   return 0;
 }
 
+template <int R, int kKind>
+int launch_mma_dx(const BwdMma& p, cudaStream_t st) {
+  using C = MmaBwdCfg<false, R, kKind>;
+  static std::atomic<uint64_t> opted{0};
+  auto kernel = bf16_bwd_dx_kernel<R, kKind>;
+  if (const int e = opt_in(kernel, C::kSmem, opted)) return e;
+  const dim3 grid(static_cast<unsigned>((p.M + R - 1) / R),
+                  seg_tiles(p.D, p.xbar, kMmaC));
+  kernel<<<grid, kThreads, C::kSmem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kKind>
+int launch_mma_dw(const BwdMma& p, int splits, cudaStream_t st) {
+  using C = MmaBwdCfg<true, kMmaR, kKind>;
+  static std::atomic<uint64_t> opted{0};
+  auto kernel = bf16_bwd_dw_kernel<kKind>;
+  if (const int e = opt_in(kernel, C::kSmem, opted)) return e;
+  const dim3 grid(static_cast<unsigned>((p.N + kMmaC - 1) / kMmaC),
+                  seg_tiles(p.D, p.xbar, kMmaR),
+                  static_cast<unsigned>(splits));
+  kernel<<<grid, kThreads, C::kSmem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kKind>
+int mma_by_tile(const BwdMma& p, int dx_rows, int splits, cudaStream_t st) {
+  if (p.dx != nullptr) {
+    const int e = dx_rows == 128  ? launch_mma_dx<128, kKind>(p, st)
+                  : dx_rows == 64 ? launch_mma_dx<64, kKind>(p, st)
+                                  : kBad;
+    if (e) return e;
+  }
+  if (p.dw != nullptr) return launch_mma_dw<kKind>(p, splits, st);
+  return 0;
+}
+
 }  // namespace
 
 // g [M, N], x [M, D], w [D, N] fp32, row-major; gate as gate_kind says
@@ -934,4 +1493,53 @@ extern "C" int cadc_bwd_launch(const void* g, const void* x, const void* w,
 
 extern "C" const char* cadc_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The bf16 route: g [M, N], x [M, D], w [D, N] bf16, row-major; gate_kind
+// 0 none, 1 packed uint32 [S, M, ceil(N/32)], 2 uint8 [S, M, N] (f' is 0
+// or 1). dx [M, D] and dw [D, N] fp32, either may be NULL (not wanted). The
+// plan (kernels/cadc_matmul.py plan_bwd, kernel "mma"): dx in tiles of
+// dx_rows (128 or 64) rows of M x 128 segment columns; dw in tiles of 128
+// segment rows x 128 columns of N over `splits` ranges of rows_per_split
+// rows of M; with splits > 1, scratch is fp32 [splits, dw tiles, 128 * 128]
+// and counters int32 zeros, one per dw tile. xbar must be a multiple of 16.
+// Returns the CUDA error code after the launches (0 = success).
+extern "C" int cadc_bwd_mma_launch(const void* g, const void* x,
+                                   const void* w, const void* gate, void* dx,
+                                   void* dw, void* scratch, void* counters,
+                                   int M, int N, int D, int xbar,
+                                   int gate_kind, int dx_rows, int splits,
+                                   int rows_per_split, void* stream) {
+  if (xbar < 16 || xbar % 16 || gate_kind < cadc::kGateNone ||
+      gate_kind > cadc::kGateU8 ||
+      (gate_kind != cadc::kGateNone && gate == nullptr) ||
+      (dw != nullptr &&
+       (splits < 1 || rows_per_split < 1 ||
+        (splits > 1 && (scratch == nullptr || counters == nullptr)))))
+    return kBad;
+  const auto addr = [](const void* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr);
+  };
+  const BwdMma p{static_cast<const __nv_bfloat16*>(g),
+                 static_cast<const __nv_bfloat16*>(x),
+                 static_cast<const __nv_bfloat16*>(w),
+                 gate,
+                 static_cast<float*>(dx),
+                 static_cast<float*>(dw),
+                 static_cast<float*>(scratch),
+                 static_cast<int*>(counters),
+                 M, N, D, xbar, rows_per_split,
+                 N % 8 == 0 && addr(g) % 16 == 0 &&
+                     (gate_kind != cadc::kGateU8 || addr(gate) % 8 == 0),
+                 N % 8 == 0 && addr(w) % 16 == 0,
+                 D % 8 == 0 && addr(x) % 16 == 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (gate_kind) {
+    case cadc::kGateNone:
+      return mma_by_tile<cadc::kGateNone>(p, dx_rows, splits, st);
+    case cadc::kGatePacked:
+      return mma_by_tile<cadc::kGatePacked>(p, dx_rows, splits, st);
+    default:
+      return mma_by_tile<cadc::kGateU8>(p, dx_rows, splits, st);
+  }
 }

@@ -179,7 +179,10 @@ using cadc::kMagicBits;
 using cadc::kMagicF;
 using cadc::kMagicMaxXbar;
 using cadc::kThreads;
+using cadc::ld_bf16_bits;
 using cadc::ldsm4;
+using cadc::ldsm4_t;
+using cadc::mma_bf16;
 using cadc::mma_s8;
 
 // Plan kernels (kernels/cadc_matmul.py PLAN_KERNELS).
@@ -591,34 +594,6 @@ struct MmaTile {
   // the register cap of __launch_bounds__: 255 a thread, 128 for 32 rows
   static constexpr int kBlocksPerSm = BM >= 128 ? 1 : 2;
 };
-
-// Four 8 x 8 matrices of 16-bit elements, each transposed on the way in
-// (ldmatrix .trans): from a k-major tile, the col-major B fragments.
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4],
-                                        const unsigned char* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// d += a (m16 x k16, row) * b (k16 x n8, col), bf16 in, fp32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, "
-      "%3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned short ld_bf16_bits(
-    const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const unsigned short*>(p));
-}
 
 // Block (n tile, m tile, group z) computes the BM x 128 tile of y at (m0,
 // n0) over its segments: all S (gridDim.z == 1, the single pass) or group

@@ -3,8 +3,9 @@
 // and K1g (cadc_matmul.cu) and the gather kernels of K3 and K5
 // (cadc_conv.cu) instantiate, the ordered segment sum that ends a launch
 // split over segments (the tile kernel's split, and cadc_matmul.cu's
-// stream kernel), and the int8 tensor-core pieces of K4 (cadc_matmul.cu)
-// and K5's tap kernel (cadc_conv.cu).
+// stream kernel), the int8 tensor-core pieces of K4 (cadc_matmul.cu)
+// and K5's tap kernel (cadc_conv.cu), and the bf16 ones of K1 / K1g's
+// tensor-core kernel (cadc_matmul.cu) and K2's (cadc_bwd.cu).
 //
 // The forward tile kernel computes
 //
@@ -157,6 +158,35 @@ __device__ __forceinline__ void ldsm4(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
+}
+
+// Four 8 x 8 matrices of 16-bit elements, each transposed on the way in
+// (ldmatrix .trans): from a k-major tile, the col-major B fragments.
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4],
+                                        const unsigned char* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// d += a (m16 x k16, row) * b (k16 x n8, col), bf16 in, fp32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, "
+      "%3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The bits of one bf16 in global memory, through the read-only path.
+__device__ __forceinline__ unsigned short ld_bf16_bits(
+    const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned short*>(p));
 }
 
 // d += a (m16 x k32, row) * b (k32 x n8, col), int8 in, exact int32 sums.

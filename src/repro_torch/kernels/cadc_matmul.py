@@ -50,16 +50,20 @@ each output tile, bitwise the single pass). K4 and K4g run the int8
 tensor-core kernel (`mma.sync` s8 ->
 s32) under `plan_fwd_q8`: the single pass, or the segments split over
 blocks in groups, bitwise the single pass. K2 is at
-most two launches (dx, dw) under the plan `plan_bwd` picks: tiles
-narrowed to the segments, dw's M-splits added in order by the last block
-of each tile.
+most two launches (dx, dw) under the plan `plan_bwd` picks from the
+shapes, the operands' dtype and the gate: on bf16 operands with a gate of
+0s and 1s (relu, identity) the tensor-core kernels ('mma': `mma.sync`
+bf16 -> fp32 on the operands as they are), else the CUDA-core kernels on
+fp32 operands ('tile' or 'recompute'; bf16 operands copied up first):
+tiles narrowed to the segments, dw's M-splits added in order by the last
+block of each tile.
 K1, K1g and K2 and their plain versions each count as one unit of work
 (`product_cost`) to an open work tally (core/work.py; the dry run's
 count_cost). `CadcMatmulFn` and `CadcMatmulQ8Fn` are the autograd
 Functions around them; kernels/ops.py picks kernel or plain version by the tensors'
 device. The kernels take only the five built-in dendritic fns (FN_IDS); a
-fn added with dendritic.register() runs on the plain versions. K1 and K1g
-take fp32 or bf16, K2 fp32, K4 int8.
+fn added with dendritic.register() runs on the plain versions. K1, K1g
+and K2 take fp32 or bf16, K4 int8.
 
 The q8 plain versions compute each segment's psum as an fp32 product of
 the codes: every partial sum is an integer below 2^24 (|code| <= 128 and
@@ -154,6 +158,29 @@ _BWD_MIN_ROWS = 256
 _KTILE_S = (2.5e-7, 2e-7)
 _KTILE_S_OUT = (8.5e-10, 1.6e-9)
 _TAIL_S = (1.5e-6, 3.5e-8, 5e-11)
+# K2's bf16 route (csrc/cadc_bwd.cu `bf16_bwd_dx_kernel`,
+# `bf16_bwd_dw_kernel`; plan kernel "mma"): bf16 g, x, w under a gate of
+# 0s and 1s (none, packed words, bytes) at an xbar of whole k16 steps. dx
+# in tiles of MMA_BWD_DX_TILES (rows of M, segment columns), a block a
+# tile, contracting over N; dw in tiles of MMA_BWD_DW_TILE (segment rows,
+# columns of N) over splits of M into whole _MMA_BWD_BK-row slices, added
+# in split order by the last block of each tile. The planner's model of a
+# launch (`_mma_dx_seconds`, `_mma_dw_seconds`), fitted by
+# tools/profile_k2_matrix.py --fit to its --set lm times on an H100 80GB
+# HBM3 at 700 W: blocks run in rounds of one an SM, each taking
+# _MMA_BWD_SLICE_S[r] (dx, r rows a tile) or _MMA_BWD_DW_SLICE_S (dw) a
+# slice of its contraction; a split dw then takes _MMA_BWD_MERGE_S[0] +
+# _MMA_BWD_MERGE_S[1] x splits a round of tiles (each tile's last block
+# reads the splits' partials); the launch moves its operands and outputs
+# through HBM at _HBM_BYTES_PER_S at least.
+MMA_BWD_DX_TILES = ((128, 128), (64, 128))
+MMA_BWD_DW_TILE = (128, 128)
+_MMA_BWD_BK = 64
+_MMA_BWD_SLICE_S = {128: 1.88e-6, 64: 1.25e-6}
+_MMA_BWD_DW_SLICE_S = 2.12e-6
+_MMA_BWD_MERGE_S = (2.2e-6, 4.4e-6)
+# dw's splits the planner weighs keep their blocks within this many waves
+_MMA_BWD_SPLIT_WAVES = 4
 _GRID_X_MAX, _GRID_YZ_MAX = 2**31 - 1, 65535  # CUDA's grid: x; y and z
 # The q8 plain versions' fp32 psums are exact while xbar * 128 * 128 <= 2^24.
 Q8_MAX_XBAR = 1024
@@ -255,23 +282,50 @@ def gate_residual_nbytes(m: int, d: int, n: int, *, crossbar_size: int,
     if mode == "packed":
         return s * m * _n_words(n) * 4
     if mode == "bytes":
-        dt = dendritic.gate_dtype(fn)
-        return s * m * n * torch.empty((), dtype=dt).element_size()
+        return s * m * n * dendritic.gate_dtype(fn).itemsize
     return 0
+
+
+def bwd_kernel(dtype: torch.dtype, mode: str, fn: Optional[str],
+               crossbar_size: int) -> str:
+    """The kernel K2 runs for operands of `dtype` under the resolved gate
+    `mode`: 'mma' (the tensor-core kernels, on the bf16 operands as they
+    are) for bf16 with a gate of 0s and 1s — none, packed words, or bytes
+    of a bool gate (relu, identity): g ⊙ f' is then bf16 exactly — and an
+    xbar of whole k16 steps; else 'recompute' under the recompute gate and
+    'tile' otherwise (the CUDA-core kernels, on fp32 copies of bf16
+    operands). The dtype, the gate and xbar decide it, never the shapes."""
+    if mode == "recompute":
+        return "recompute"
+    if dtype != torch.bfloat16 or crossbar_size % MMA_K:
+        return "tile"
+    if mode == "bytes":
+        if fn is None:
+            raise ValueError("K2 on bf16 under save_gate='bytes' needs the "
+                             "fn: its gate's dtype decides the kernel")
+        return "mma" if dendritic.gate_dtype(fn) == torch.bool else "tile"
+    return "mma"
 
 
 def product_cost(m: int, d: int, n: int, *, x_size: int, w_size: int,
                  crossbar_size: int, fn: str, mode: str,
-                 need_dx: bool = True, need_dw: bool = True) -> work.Cost:
+                 need_dx: bool = True, need_dw: bool = True,
+                 dtype: Optional[torch.dtype] = None) -> work.Cost:
     """work.product_work of an [m, d] @ [d, n] CADC product under the
     resolved gate `mode` ('none' | 'packed' | 'bytes' | 'recompute'): the
-    unit every route of it counts (core/work.py)."""
+    unit every route of it counts (core/work.py). `dtype`, the operands'
+    (default fp32), decides K2's operand bytes as it decides its kernel
+    (`bwd_kernel`): bf16 read as they are by 'mma', fp32 copies by the
+    others."""
     gate = (gate_residual_nbytes(m, d, n, crossbar_size=crossbar_size,
                                  fn=fn, save_gate=mode)
             if mode in ("packed", "bytes") else 0)
+    mma = bwd_kernel(dtype or torch.float32, mode, fn,
+                     crossbar_size) == "mma"
     return work.product_work(m, d, n, x_size=x_size, w_size=w_size,
                              gate_bytes=gate, need_dx=need_dx,
-                             need_dw=need_dw, recompute=mode == "recompute")
+                             need_dw=need_dw, recompute=mode == "recompute",
+                             bwd_size=2 if mma else 4)
 
 
 def linear_cost(x: Tensor, w: Tensor, *, crossbar_size: int, fn: str,
@@ -288,10 +342,12 @@ def linear_cost(x: Tensor, w: Tensor, *, crossbar_size: int, fn: str,
     mode = gate_mode(save_gate, fn) if grad else "none"
     x_size, w_size = ((x.element_size(), w.element_size()) if dtype is None
                       else (dtype.itemsize, dtype.itemsize))
+    if dtype is None and x.dtype == w.dtype:
+        dtype = x.dtype
     return product_cost(x.numel() // d, d, n, x_size=x_size,
                         w_size=w_size, crossbar_size=crossbar_size, fn=fn,
                         mode=mode, need_dx=x.requires_grad,
-                        need_dw=w.requires_grad)
+                        need_dw=w.requires_grad, dtype=dtype)
 
 
 def _fwd_cost(x: Tensor, w: Tensor, *_, crossbar_size: int, fn: str,
@@ -306,7 +362,8 @@ def _bwd_cost(g: Tensor, x: Tensor, w: Tensor, gate, *, crossbar_size: int,
               need_dw: bool = True, **_) -> Tuple[int, int]:
     return product_cost(x.shape[0], x.shape[1], w.shape[1], x_size=4,
                         w_size=4, crossbar_size=crossbar_size, fn=fn,
-                        mode=mode, need_dx=need_dx, need_dw=need_dw)[1]
+                        mode=mode, need_dx=need_dx, need_dw=need_dw,
+                        dtype=x.dtype if x.dtype == w.dtype else None)[1]
 
 
 def _gate_kind(mode: str, fn: str) -> int:
@@ -473,6 +530,9 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.cadc_bwd_launch.argtypes = (
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
     lib.cadc_bwd_launch.restype = ctypes.c_int
+    lib.cadc_bwd_mma_launch.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    lib.cadc_bwd_mma_launch.restype = ctypes.c_int
     lib.cadc_bwd_error_string.argtypes = [ctypes.c_int]
     lib.cadc_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -943,11 +1003,13 @@ cadc_matmul_q8_gate_cuda.launches = 0
 
 class BwdPlan(NamedTuple):
     """K2's launches: `kernel` 'tile' (saved gates or none) or 'recompute'
-    (dx by the 64 x 64 recompute kernel); the dx tile (rows of M, segment
-    columns) and grid (blocks a column tile, column tiles, 1: under 'tile'
-    each block takes every grid[0]-th row tile, under 'recompute' one); the
-    dw tile (segment rows, columns of N) and grid (N tiles, D tiles, splits
-    of M) and the rows of M of each split. A grid of zeros is a launch not
+    (dx by the 64 x 64 recompute kernel) — the CUDA-core kernels, which read
+    fp32 (bf16 operands copied up) — or 'mma' (the tensor-core kernels on
+    bf16 operands); the dx tile (rows of M, segment columns) and grid
+    (blocks a column tile, column tiles, 1: under 'tile' each block takes
+    every grid[0]-th row tile, under 'recompute' and 'mma' one); the dw
+    tile (segment rows, columns of N) and grid (N tiles, D tiles, splits of
+    M) and the rows of M of each split. A grid of zeros is a launch not
     wanted."""
     kernel: str
     dx_tile: Tuple[int, int]
@@ -1018,6 +1080,14 @@ def _dw_seconds(m: int, tile, tiles: int, splits: int) -> float:
     return main + tail
 
 
+def _mma_split_rows(m: int, splits: int) -> int:
+    """Rows of M of each of `splits` ranges of the mma route's dw: whole
+    _MMA_BWD_BK-row slices (the last range may be shorter; there may be
+    fewer ranges)."""
+    return max(_MMA_BWD_BK,
+               -(-(-(-m // splits)) // _MMA_BWD_BK) * _MMA_BWD_BK)
+
+
 def _make_bwd_plan(kernel, m, n, d, crossbar_size, dx_tile, dw_tile,
                    splits, need_dx, need_dw) -> BwdPlan:
     col_tiles = _seg_tiles(d, crossbar_size, dx_tile[1])
@@ -1025,7 +1095,7 @@ def _make_bwd_plan(kernel, m, n, d, crossbar_size, dx_tile, dw_tile,
     if kernel == "tile":  # a wave of blocks, each striding over row tiles
         row_tiles = min(row_tiles, -(-_BWD_SLOTS // col_tiles))
     dx_grid = (row_tiles, col_tiles, 1) if need_dx else (0, 0, 0)
-    rows = _split_rows(m, splits)
+    rows = (_mma_split_rows if kernel == "mma" else _split_rows)(m, splits)
     dw_grid = ((-(-n // dw_tile[1]), _seg_tiles(d, crossbar_size,
                                                  dw_tile[0]), -(-m // rows))
                if need_dw else (0, 0, 0))
@@ -1033,11 +1103,70 @@ def _make_bwd_plan(kernel, m, n, d, crossbar_size, dx_tile, dw_tile,
                    rows if need_dw else 0)
 
 
+def _mma_dx_seconds(rows: int, m: int, n: int, d: int,
+                    crossbar_size: int) -> float:
+    """The planner's model of the mma route's dx launch (seconds): blocks
+    of `rows` x MMA_COLS each over N's slices, in rounds."""
+    blocks = -(-m // rows) * _seg_tiles(d, crossbar_size,
+                                        MMA_BWD_DX_TILES[0][1])
+    t = -(-blocks // SMS) * -(-n // _MMA_BWD_BK) * _MMA_BWD_SLICE_S[rows]
+    return max(t, (2 * (m * n + d * n) + 4 * m * d) / _HBM_BYTES_PER_S)
+
+
+def _mma_dw_seconds(splits: int, m: int, n: int, d: int,
+                    crossbar_size: int) -> float:
+    """The planner's model of the mma route's dw launch (seconds): a block
+    a tile and split, one an SM, each over its split's slices, in rounds;
+    then each tile's last block reads the splits' partials."""
+    rows, cols = MMA_BWD_DW_TILE
+    tiles = -(-n // cols) * _seg_tiles(d, crossbar_size, rows)
+    depth = _mma_split_rows(m, splits)
+    splits = -(-m // depth)
+    t = (-(-tiles * splits // SMS) * -(-depth // _MMA_BWD_BK)
+         * _MMA_BWD_DW_SLICE_S)
+    hbm = 2 * (m * n + m * d) + 4 * d * n
+    if splits > 1:
+        hbm += 2 * splits * tiles * rows * cols * 4
+        t += (_MMA_BWD_MERGE_S[0]
+              + _MMA_BWD_MERGE_S[1] * splits * -(-tiles // SMS))
+    return max(t, hbm / _HBM_BYTES_PER_S)
+
+
+def _mma_split_counts(m: int, tiles: int) -> list:
+    """dw's splits of M the planner weighs on the mma route: 1, and each
+    count of whole slices a split that keeps the blocks within
+    _MMA_BWD_SPLIT_WAVES waves and the tiles within the counters."""
+    out = [1]
+    if tiles > N_COUNTERS:
+        return out
+    slices = -(-m // _MMA_BWD_BK)
+    for s in range(2, slices + 1):
+        s = -(-m // _mma_split_rows(m, s))
+        if tiles * s > _MMA_BWD_SPLIT_WAVES * SMS:
+            break
+        if s not in out:
+            out.append(s)
+    return out
+
+
 def plan_bwd(m: int, n: int, d: int, crossbar_size: int, mode: str,
              need_dx: bool = True, need_dw: bool = True, *,
+             dtype: torch.dtype = torch.float32, fn: Optional[str] = None,
              _force=None) -> BwdPlan:
-    """K2's launch plan for g [m, n], x [m, d], w [d, n] under a resolved
-    gate mode, from the shapes alone:
+    """K2's launch plan for g [m, n], x [m, d], w [d, n] of `dtype` under a
+    resolved gate mode, from the shapes alone. The kernel is
+    `bwd_kernel(dtype, mode, fn, crossbar_size)` (`fn` needed for bf16
+    under 'bytes'): 'mma' plans the tensor-core kernels —
+
+      * dx: the row tile of MMA_BWD_DX_TILES `_mma_dx_seconds` rates
+        fastest (ties: the larger), a block a tile; dw: the splits of M
+        (whole slices; `_mma_split_counts`) `_mma_dw_seconds` rates fastest
+        (ties: fewer), a block a tile and split;
+
+    dx is bitwise the same under every mma plan (one chain of 64-deep
+    slices over n from 0 an element, whatever the tile), dw the same bits
+    on every run of a plan. 'tile' and 'recompute' (fp32 operands, or fp32
+    copies of bf16 ones) plan the CUDA-core kernels:
 
       * dx: the segment width of `_seg_cols` (32 for the stems' 27-, 25-
         and 18-wide segments), the first of its BWD_DX_TILES where that
@@ -1055,24 +1184,29 @@ def plan_bwd(m: int, n: int, d: int, crossbar_size: int, mode: str,
     the same bits on every run of the plan, and the recompute gate's dw is
     bitwise the saved gate's under one plan. At most two launches, one
     where only dx or dw is wanted. `_force` = (dx tile, dw tile, splits)
-    builds that plan instead, for tests, and raises on one the shape does
-    not admit. Cached: every layer's backward asks each step."""
+    builds that plan of the kernel instead, for tests, and raises on one
+    the shape does not admit. Cached: every layer's backward asks each
+    step."""
+    if mode not in ("none", "packed", "bytes", "recompute"):
+        raise ValueError(f"mode {mode!r} is not a resolved gate mode")
     if _force is not None:
         _force = (tuple(int(v) for v in _force[0]),
                   tuple(int(v) for v in _force[1]), int(_force[2]))
     return _plan_bwd(int(m), int(n), int(d), int(crossbar_size), mode,
-                     bool(need_dx), bool(need_dw), _force)
+                     bool(need_dx), bool(need_dw),
+                     bwd_kernel(dtype, mode, fn, int(crossbar_size)),
+                     _force)
 
 
 @functools.lru_cache(maxsize=4096)
-def _plan_bwd(m, n, d, crossbar_size, mode, need_dx, need_dw,
+def _plan_bwd(m, n, d, crossbar_size, mode, need_dx, need_dw, kernel,
               _force) -> BwdPlan:
     if min(m, n, d, crossbar_size) < 1:
         raise ValueError(f"K2 plans M, N, D, xbar >= 1; got {m}, {n}, {d}, "
                          f"{crossbar_size}")
-    if mode not in ("none", "packed", "bytes", "recompute"):
-        raise ValueError(f"mode {mode!r} is not a resolved gate mode")
-    kernel = "recompute" if mode == "recompute" else "tile"
+    if kernel == "mma":
+        return _plan_bwd_mma(m, n, d, crossbar_size, need_dx, need_dw,
+                             _force)
     if _force is not None:
         dx_tile, dw_tile, splits = _force
         ok = ((dx_tile == BWD_RECOMPUTE_DX if kernel == "recompute" else
@@ -1110,25 +1244,63 @@ def _plan_bwd(m, n, d, crossbar_size, mode, need_dx, need_dw,
     return plan
 
 
+def _plan_bwd_mma(m, n, d, crossbar_size, need_dx, need_dw,
+                  _force) -> BwdPlan:
+    def make(dx_tile, splits):
+        return _make_bwd_plan("mma", m, n, d, crossbar_size, dx_tile,
+                              MMA_BWD_DW_TILE, splits, need_dx, need_dw)
+
+    if _force is not None:
+        dx_tile, dw_tile, splits = _force
+        plan = make(dx_tile, max(1, splits))
+        if (dx_tile not in MMA_BWD_DX_TILES or dw_tile != MMA_BWD_DW_TILE
+                or not 1 <= splits <= -(-m // _MMA_BWD_BK)
+                or not plan.fits()
+                or (plan.dw_splits > 1 and plan.dw_tiles > N_COUNTERS)):
+            raise ValueError(f"no such plan {_force} for M={m} N={n} D={d} "
+                             f"xbar={crossbar_size} on the mma kernels")
+        return plan
+    tiles = -(-n // MMA_BWD_DW_TILE[1]) * _seg_tiles(
+        d, crossbar_size, MMA_BWD_DW_TILE[0])
+    splits = min(_mma_split_counts(m, tiles), key=lambda s: (
+        _mma_dw_seconds(s, m, n, d, crossbar_size), s))
+    dx_tile = min(MMA_BWD_DX_TILES, key=lambda t: (
+        _mma_dx_seconds(t[0], m, n, d, crossbar_size), -t[0]))
+    plan = make(dx_tile, splits)
+    if not plan.fits():
+        raise ValueError(f"K2: M={m} N={n} D={d} xbar={crossbar_size} "
+                         f"exceed CUDA's grid")
+    return plan
+
+
 def bwd_plans(m: int, n: int, d: int, crossbar_size: int, mode: str,
-              need_dx: bool = True, need_dw: bool = True) -> list:
+              need_dx: bool = True, need_dw: bool = True, *,
+              dtype: torch.dtype = torch.float32,
+              fn: Optional[str] = None) -> list:
     """The planner's plan, then every other dx tile (none under the
     recompute gate) and dw tile (with the planner's splits), then the
     planner's tiles with dw unsplit and with twice the planner's splits:
-    the plans tests and tools hold to the planner's (dx bitwise)."""
-    plan = plan_bwd(m, n, d, crossbar_size, mode, need_dx, need_dw)
-    tiles = ([] if plan.kernel == "recompute" else
-             [(t, plan.dw_tile) for t in BWD_DX_TILES])
-    tiles += [(plan.dx_tile, (r, c)) for r in BWD_SEG_COLS
-              for c in BWD_DW_COLS]
+    the plans tests and tools hold to the planner's (dx bitwise). On the
+    mma kernels: each dx tile, dw unsplit, halved and twice split."""
+    kw = dict(dtype=dtype, fn=fn)
+    plan = plan_bwd(m, n, d, crossbar_size, mode, need_dx, need_dw, **kw)
     splits = max(1, plan.dw_splits)
-    forces = [(dx, dw, splits) for dx, dw in tiles]
-    forces += [(plan.dx_tile, plan.dw_tile, s) for s in (1, 2 * splits)]
+    if plan.kernel == "mma":
+        forces = [(t, plan.dw_tile, splits) for t in MMA_BWD_DX_TILES]
+        forces += [(plan.dx_tile, plan.dw_tile, s)
+                   for s in (1, -(-splits // 2), 2 * splits)]
+    else:
+        tiles = ([] if plan.kernel == "recompute" else
+                 [(t, plan.dw_tile) for t in BWD_DX_TILES])
+        tiles += [(plan.dx_tile, (r, c)) for r in BWD_SEG_COLS
+                  for c in BWD_DW_COLS]
+        forces = [(dx, dw, splits) for dx, dw in tiles]
+        forces += [(plan.dx_tile, plan.dw_tile, s) for s in (1, 2 * splits)]
     out = [plan]
     for f in forces:
         try:
             p = plan_bwd(m, n, d, crossbar_size, mode, need_dx, need_dw,
-                         _force=f)
+                         _force=f, **kw)
         except ValueError:  # more splits than M has k-tiles
             continue
         if p not in out:
@@ -1145,14 +1317,16 @@ def cadc_segmented_bwd_cuda(g: Tensor, x: Tensor, w: Tensor,
                             plan: Optional[BwdPlan] = None
                             ) -> Tuple[Optional[Tensor], Optional[Tensor]]:
     """K2: (dx [M, D], dw [D, N]) fp32 from g [M, N], x [M, D], w [D, N]
-    fp32 on one CUDA device and the gate of `mode`, as
+    on one CUDA device, all fp32 or all bf16, and the gate of `mode`, as
     cadc_segmented_bwd_torch (`scale`, one fp32 on the device, multiplies
-    the recomputed psum), under `plan` (default: plan_bwd's): one launch
-    for dx and one for dw, which adds its M-splits in order itself (no
-    atomics on the values: the same bits on every run). Raises on another
-    shape's plan. Counts its calls in `cadc_segmented_bwd_cuda.launches`."""
-    _check_cuda("cadc_segmented_bwd_cuda", fn, g, x, w,
-                dtypes={torch.float32: 0})
+    the recomputed psum), under `plan` (default: plan_bwd's for the dtype):
+    one launch for dx and one for dw, which adds its M-splits in order
+    itself (no atomics on the values: the same bits on every run). The
+    plan's kernel 'mma' reads the bf16 operands as they are; 'tile' and
+    'recompute' read fp32, so bf16 operands are copied up first. Raises on
+    another shape's or kernel's plan. Counts its calls in
+    `cadc_segmented_bwd_cuda.launches`."""
+    _check_cuda("cadc_segmented_bwd_cuda", fn, g, x, w)
     m, d = x.shape
     n = w.shape[1]
     if g.shape != (m, n) or w.shape[0] != d:
@@ -1175,7 +1349,6 @@ def cadc_segmented_bwd_cuda(g: Tensor, x: Tensor, w: Tensor,
         gate = None
     if scale is not None:
         scale = _check_scale("cadc_segmented_bwd_cuda", scale, x.device)
-    g, x, w = g.contiguous(), x.contiguous(), w.contiguous()
     dx = torch.empty((m, d), device=x.device) if need_dx else None
     dw = torch.empty((d, n), device=x.device) if need_dw else None
     if 0 in (m, n, d) or not (need_dx or need_dw):
@@ -1184,13 +1357,20 @@ def cadc_segmented_bwd_cuda(g: Tensor, x: Tensor, w: Tensor,
                 t.zero_()
         return dx, dw
     rmode = "none" if kind == _GATE_NONE else mode
+    kw = dict(dtype=x.dtype, fn=fn)
+    planned = plan_bwd(m, n, d, crossbar_size, rmode, need_dx, need_dw, **kw)
     if plan is None:
-        plan = plan_bwd(m, n, d, crossbar_size, rmode, need_dx, need_dw)
-    elif plan != plan_bwd(m, n, d, crossbar_size, rmode, need_dx, need_dw,
-                          _force=(plan.dx_tile, plan.dw_tile,
-                                  max(1, plan.dw_splits))):
+        plan = planned
+    elif plan.kernel != planned.kernel or plan != plan_bwd(
+            m, n, d, crossbar_size, rmode, need_dx, need_dw,
+            _force=(plan.dx_tile, plan.dw_tile, max(1, plan.dw_splits)),
+            **kw):
         raise ValueError(f"cadc_segmented_bwd_cuda: plan {plan} is not one "
                          f"of this shape's")
+    mma = plan.kernel == "mma"
+    if not mma:  # the CUDA-core kernels read fp32
+        g, x, w = g.float(), x.float(), w.float()
+    g, x, w = g.contiguous(), x.contiguous(), w.contiguous()
     scratch = counters = None
     if need_dw and plan.dw_splits > 1:
         scratch = torch.empty(
@@ -1200,11 +1380,19 @@ def cadc_segmented_bwd_cuda(g: Tensor, x: Tensor, w: Tensor,
     lib = _bwd_lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    _build.check(lib, "cadc_bwd", lib.cadc_bwd_launch(
-        g.data_ptr(), x.data_ptr(), w.data_ptr(), ptr(gate), ptr(scale),
-        ptr(dx), ptr(dw), ptr(scratch), ptr(counters), m, n, d,
-        crossbar_size, FN_IDS[fn], kind, *plan.dx_tile, plan.dx_grid[0],
-        *plan.dw_tile, max(1, plan.dw_splits), plan.dw_rows, stream))
+    if mma:
+        code = lib.cadc_bwd_mma_launch(
+            g.data_ptr(), x.data_ptr(), w.data_ptr(), ptr(gate), ptr(dx),
+            ptr(dw), ptr(scratch), ptr(counters), m, n, d, crossbar_size,
+            kind, plan.dx_tile[0], max(1, plan.dw_splits), plan.dw_rows,
+            stream)
+    else:
+        code = lib.cadc_bwd_launch(
+            g.data_ptr(), x.data_ptr(), w.data_ptr(), ptr(gate), ptr(scale),
+            ptr(dx), ptr(dw), ptr(scratch), ptr(counters), m, n, d,
+            crossbar_size, FN_IDS[fn], kind, *plan.dx_tile, plan.dx_grid[0],
+            *plan.dw_tile, max(1, plan.dw_splits), plan.dw_rows, stream)
+    _build.check(lib, "cadc_bwd", code)
     cadc_segmented_bwd_cuda.launches += 1
     return dx, dw
 
@@ -1236,15 +1424,16 @@ class CadcMatmulFn(torch.autograd.Function):
             y, gate = run(x, w, crossbar_size=crossbar_size, fn=fn), None
         ctx.save_for_backward(x, w, gate)
         ctx.cfg = (crossbar_size, fn, mode, use_cuda)
-        return y
+        # y in x's dtype, so that the backward's g arrives in it: K2 takes
+        # a bf16 g as it is (the plain version widens it to fp32)
+        return y.to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         x, w, gate = ctx.saved_tensors
         crossbar_size, fn, mode, use_cuda = ctx.cfg
         dx, dw = segmented_bwd(use_cuda)(
-            g.float(), x.float(), w.float(), gate,
-            crossbar_size=crossbar_size, fn=fn, mode=mode,
+            g, x, w, gate, crossbar_size=crossbar_size, fn=fn, mode=mode,
             need_dx=ctx.needs_input_grad[0], need_dw=ctx.needs_input_grad[1])
         return (None if dx is None else dx.to(x.dtype),
                 None if dw is None else dw.to(w.dtype), None, None, None,

@@ -13,6 +13,7 @@ every conv under the recompute gate and the q8 straight-through backward.
 import itertools
 
 import pytest
+import torch
 from test_torch_conv_plan import _conv_layers, _out
 
 from repro_torch.kernels import cadc_matmul as cm
@@ -222,3 +223,191 @@ def test_bad_mode_and_sizes_raise():
         cm.plan_bwd(64, 16, 64, 64, "auto")
     with pytest.raises(ValueError, match=">= 1"):
         cm.plan_bwd(0, 16, 64, 64, "packed")
+
+
+# ---------------------------------------------------------------------------
+# the bf16 route: the tensor-core kernels (plan kernel "mma")
+# ---------------------------------------------------------------------------
+
+# (name, D padded to crossbar 256, N) of every CADC linear the LM train
+# paths run (chip_smoke.py lm_kernel_shapes): gemma3-1b's seven (wv = wk,
+# w_up = w_gate), hubert-xlarge's, qwen2-moe-a2.7b's untied head, the
+# recurrent configs'
+LM_SHAPES = [
+    ("gemma3_1b.wq", 1280, 1024), ("gemma3_1b.wk", 1280, 256),
+    ("gemma3_1b.wv", 1280, 256), ("gemma3_1b.wo", 1024, 1152),
+    ("gemma3_1b.w_gate", 1280, 6912), ("gemma3_1b.w_up", 1280, 6912),
+    ("gemma3_1b.w_down", 6912, 1152),
+    ("hubert_xlarge.wq", 1280, 1280), ("hubert_xlarge.w_up", 1280, 5120),
+    ("hubert_xlarge.w_down", 5120, 1280), ("hubert_xlarge.head", 1280, 512),
+    ("hubert_xlarge.frontend_proj", 512, 1280),
+    ("qwen2_moe_a27b.head", 2048, 152064),
+    ("recurrentgemma_9b.rglru.w_gate", 4096, 4096),
+    ("recurrentgemma_9b.ffn.w_gate", 4096, 12288),
+    ("recurrentgemma_9b.ffn.w_down", 12288, 4096),
+    ("recurrentgemma_9b.local.wk", 4096, 256),
+    ("xlstm_13b.mlstm.w_up", 2048, 8192), ("xlstm_13b.mlstm.w_if", 4096, 8),
+    ("xlstm_13b.mlstm.w_down", 4096, 2048),
+    ("xlstm_13b.slstm.w_up_gate", 2048, 2730),
+    ("xlstm_13b.slstm.w_down", 2816, 2048), ("xlstm_13b.head", 2048, 50432)]
+# (name, local D, N, xbar) of the TP / SP row linears' local segments at 2
+# ranks: gemma3-1b's wo and w_down at crossbar 128 (4 and 27 segments a
+# rank), recurrentgemma-9b's RG-LRU output (8 segments of 256 a rank)
+TP_LOCAL = [("gemma3_1b.wo", 4 * 128, 1152, 128),
+            ("gemma3_1b.w_down", 27 * 128, 1152, 128),
+            ("recurrentgemma_9b.rglru.w_out", 8 * 256, 4096, 256)]
+LM_M = 2048
+BF16 = torch.bfloat16
+GATES01 = [("identity", "none"), ("relu", "packed"), ("relu", "bytes")]
+
+
+def _check_mma_plan(plan, m, n, d, xbar):
+    """An mma plan: its tiles, a block a dx tile covering every segment
+    column once, dw's tiles over the segments' rows and N, M split into
+    whole slices covering it once, grids within CUDA's limits and a
+    split's tiles within the arrival counters."""
+    assert plan.kernel == "mma"
+    assert plan.dx_tile in cm.MMA_BWD_DX_TILES
+    assert plan.dw_tile == cm.MMA_BWD_DW_TILE
+    widths = [min(xbar, d - s) for s in range(0, d, xbar)]
+    assert plan.dx_grid == (-(-m // plan.dx_tile[0]),
+                            sum(-(-wd // 128) for wd in widths), 1)
+    assert plan.dw_grid[:2] == (-(-n // 128),
+                                sum(-(-wd // 128) for wd in widths))
+    rows, splits = plan.dw_rows, plan.dw_splits
+    assert rows % 64 == 0 and splits * rows >= m > (splits - 1) * rows
+    assert plan.fits() and plan.launches == 2
+    assert splits == 1 or plan.dw_tiles <= cm.N_COUNTERS
+
+
+@pytest.mark.parametrize("fn,mode", GATES01)
+@pytest.mark.parametrize("name,d,n", LM_SHAPES, ids=[s[0] for s in LM_SHAPES])
+def test_bf16_lm_shapes_plan_the_mma_kernels(name, d, n, fn, mode):
+    """Every LM train path's linear at a micro's M = 2048, crossbar 256, on
+    bf16 operands under a gate of 0s and 1s plans the tensor-core kernels,
+    with a legal plan (`_check_mma_plan`), and so does every plan
+    `bwd_plans` lists for it."""
+    plan = cm.plan_bwd(LM_M, n, d, 256, mode, dtype=BF16, fn=fn)
+    _check_mma_plan(plan, LM_M, n, d, 256)
+    plans = cm.bwd_plans(LM_M, n, d, 256, mode, dtype=BF16, fn=fn)
+    assert plans[0] == plan and len(set(plans)) == len(plans)
+    for p in plans:
+        _check_mma_plan(p, LM_M, n, d, 256)
+        assert p == cm.plan_bwd(LM_M, n, d, 256, mode, dtype=BF16, fn=fn,
+                                _force=(p.dx_tile, p.dw_tile, p.dw_splits))
+    assert {p.dx_tile for p in plans} == set(cm.MMA_BWD_DX_TILES)
+    assert 1 in {p.dw_splits for p in plans}
+
+
+@pytest.mark.parametrize("name,d,n,xbar", TP_LOCAL,
+                         ids=[s[0] for s in TP_LOCAL])
+@pytest.mark.parametrize("m", [LM_M, LM_M // 2, 1024 // 2, 1000])
+def test_bf16_route_is_stable_under_splits_of_m(name, d, n, xbar, m):
+    """The TP / SP row linears' local segments plan the mma kernels at a
+    micro's rows and at its splits over data-parallel ranks and sequence
+    blocks: the route follows the dtype and the gate, never M."""
+    for fn, mode in GATES01:
+        _check_mma_plan(cm.plan_bwd(m, n, d, xbar, mode, dtype=BF16, fn=fn),
+                        m, n, d, xbar)
+
+
+@pytest.mark.parametrize("m", [1, 9, 33, 2047])
+@pytest.mark.parametrize("n,xbar", [(8, 64), (200, 48), (2730, 256),
+                                    (11, 64), (504, 128), (1000, 16)])
+def test_bf16_ragged_shapes_plan_the_mma_kernels(m, n, xbar):
+    """The card tests' ragged cases: every M and N, xbar 48 and 16 (tiles
+    wider than a segment), D of three segments."""
+    for fn, mode in GATES01:
+        _check_mma_plan(cm.plan_bwd(m, n, 3 * xbar, xbar, mode, dtype=BF16,
+                                    fn=fn), m, n, 3 * xbar, xbar)
+
+
+@pytest.mark.parametrize("fn,mode,kernel", [
+    ("sublinear", "bytes", "tile"), ("supralinear", "bytes", "tile"),
+    ("tanh", "bytes", "tile"), ("relu", "recompute", "recompute"),
+    ("sublinear", "recompute", "recompute")])
+@pytest.mark.parametrize("name,d,n", LM_SHAPES[:7],
+                         ids=[s[0] for s in LM_SHAPES[:7]])
+def test_bf16_fp32_gates_plan_the_cuda_core_kernels(name, d, n, fn, mode,
+                                                    kernel):
+    """The fp32-gate fns (g ⊙ f' is no bf16 value) and the recompute gate
+    keep today's kernels on bf16 operands: the kernel's name says so and
+    the plan is the fp32 call's."""
+    plan = cm.plan_bwd(LM_M, n, d, 256, mode, dtype=BF16, fn=fn)
+    assert plan.kernel == kernel
+    assert plan == cm.plan_bwd(LM_M, n, d, 256, mode)
+    assert cm.bwd_kernel(BF16, mode, fn, 256) == kernel
+
+
+@pytest.mark.parametrize("xbar", [24, 40, 100, 200])
+def test_bf16_xbar_off_16_plans_the_cuda_core_kernels(xbar):
+    """An xbar of no whole k16 steps keeps the bf16 call on the CUDA-core
+    kernels, under every gate."""
+    for fn, mode in GATES01:
+        plan = cm.plan_bwd(LM_M, 300, 3 * xbar, xbar, mode, dtype=BF16,
+                           fn=fn)
+        assert plan.kernel == "tile"
+        assert plan == cm.plan_bwd(LM_M, 300, 3 * xbar, xbar, mode)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("xbar", XBARS)
+def test_fp32_plans_do_not_change(xbar, mode):
+    """fp32 operands plan as before whatever the fn (the default dtype is
+    fp32, and fp32 never takes the mma kernels), the LM shapes too."""
+    cases = [(m, d, n) for m, d, n in _shapes(xbar)]
+    cases += [(LM_M, -(-d // xbar) * xbar, n) for _, d, n in LM_SHAPES[:7]]
+    for m, d, n in cases:
+        plan = cm.plan_bwd(m, n, d, xbar, mode)
+        assert plan.kernel == ("recompute" if mode == "recompute" else
+                               "tile")
+        for fn in ("relu", "sublinear", "identity"):
+            assert cm.plan_bwd(m, n, d, xbar, mode, dtype=torch.float32,
+                               fn=fn) == plan
+
+
+def test_bf16_bytes_needs_the_fn():
+    """Under 'bytes' the gate's dtype decides the bf16 kernel, so the
+    planner needs the fn; fp32 does not."""
+    with pytest.raises(ValueError, match="needs the fn"):
+        cm.plan_bwd(LM_M, 1152, 1024, 256, "bytes", dtype=BF16)
+    assert cm.plan_bwd(LM_M, 1152, 1024, 256, "bytes").kernel == "tile"
+
+
+@pytest.mark.parametrize("force", [
+    ((128, 32), (128, 128), 1),     # a CUDA-core dx tile
+    ((128, 128), (32, 16), 1),      # a CUDA-core dw tile
+    ((256, 128), (128, 128), 1),    # dx rows not in the table
+    ((128, 128), (128, 128), 0),    # no split
+    ((128, 128), (128, 128), 33),   # more splits than M has slices
+])
+def test_bf16_force_rejects_what_the_mma_kernels_do_not_take(force):
+    with pytest.raises(ValueError, match="no such plan"):
+        cm.plan_bwd(LM_M, 1152, 1024, 256, "packed", dtype=BF16, fn="relu",
+                    _force=force)
+    ok = cm.plan_bwd(LM_M, 1152, 1024, 256, "packed", dtype=BF16, fn="relu",
+                     _force=((64, 128), (128, 128), 32))
+    assert ok.dw_splits == 32 and ok.dw_rows == 64
+
+
+# gemma3-1b's plans at M = 2048 and 512, the fastest that
+# tools/profile_k2_matrix.py --set lm timed (H100 80GB HBM3, 700 W) within
+# 3 % where the planner's pick is not it: (dx rows, dw splits)
+GEMMA_PLANS = {2048: {"wq": (64, 3), "wk": (64, 4), "wo": (128, 3),
+                      "w_gate": (64, 1), "w_down": (128, 1)},
+               512: {"wq": (64, 1), "wk": (64, 1), "wo": (64, 1),
+                     "w_gate": (64, 1), "w_down": (128, 1)}}
+
+
+@pytest.mark.parametrize("m", sorted(GEMMA_PLANS))
+def test_bf16_gemma_plans(m):
+    """At gemma3-1b's shapes the fitted model picks the timed plans: dw's
+    M split where its tiles are fewer than the SMs at a micro's 2048 rows
+    (wq, wk, wo) and not where they are many (the FFN) or the rows few;
+    the 64-row dx tile where the 128-row one leaves a wave short."""
+    shapes = {name.split(".")[1]: (d, n) for name, d, n in LM_SHAPES[:7]}
+    for name, (rows, splits) in GEMMA_PLANS[m].items():
+        d, n = shapes[name]
+        plan = cm.plan_bwd(m, n, d, 256, "packed", dtype=BF16, fn="relu")
+        assert (plan.dx_tile[0], plan.dw_splits) == (rows, splits), (
+            name, plan)

@@ -226,3 +226,87 @@ def test_registry_matches_jax_and_register_reaches_the_backward():
     want = _torch_grads(64, "relu", "packed")
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+# bf16 operands, as the LM paths train: x, w and the cotangent hold bf16
+# values (numpy float32 rounded to bf16); the JAX package's VJP runs on
+# the same values in fp32. Both sides take exact products of bf16 values
+# in fp32 sums, so they differ by the port's one rounding of dx and dw to
+# bf16 (at most half a bf16 ulp, 2^-9 of an element) and fp32 summation
+# order: within 2^-8 of scale.
+BF16_TOL = 2.0 ** -8
+BF16_CASES = [(fn, sg) for fn in ("relu", "identity", "sublinear")
+              for sg in MODES
+              if not (sg == "packed" and fn == "sublinear")]
+
+
+def _bf16_inputs(xbar):
+    x, w, r = _inputs(xbar)
+    return tuple(torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+                 for a in (x, w, r))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_vjp_bf16(xbar, fn):
+    x, w, r = _bf16_inputs(xbar)
+    _, vjp = jax.vjp(lambda a, b: jops.cadc_matmul(
+        a, b, crossbar_size=xbar, fn=fn, impl="xla"), x, w)
+    gx, gw = vjp(jnp.asarray(r))
+    return np.asarray(gx), np.asarray(gw)
+
+
+@pytest.mark.parametrize("fn,save_gate", BF16_CASES)
+@pytest.mark.parametrize("xbar", XBARS)
+def test_bf16_grads_match_jax_vjp(xbar, fn, save_gate):
+    """CadcMatmulFn on bf16 operands (the plain K1g / K2 under the
+    autograd Function of kernels/ops.py): dx and dw, bf16, within 2^-8 of
+    scale of the JAX package's VJP on the same values."""
+    x, w, r = _bf16_inputs(xbar)
+    xt = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    wt = torch.from_numpy(w).to(torch.bfloat16).requires_grad_()
+    y = tops.cadc_matmul(xt, wt, crossbar_size=xbar, fn=fn,
+                         save_gate=save_gate)
+    assert y.dtype == torch.bfloat16
+    y.backward(torch.from_numpy(r).to(torch.bfloat16))
+    for got, want in zip((xt.grad, wt.grad), _jax_vjp_bf16(xbar, fn)):
+        assert got.dtype == torch.bfloat16
+        scale = max(1.0, float(np.abs(want).max()))
+        assert np.abs(got.float().numpy() - want).max() <= BF16_TOL * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("save_gate", MODES)
+def test_backward_hands_k2_the_operands_as_they_are(monkeypatch, dtype,
+                                                    save_gate):
+    """CadcMatmulFn's forward returns y in x's dtype, so the cotangent
+    reaches K2 in it: on bf16 operands g, x and w arrive bf16 (no fp32
+    copies on the way; the plain version widens them itself), on fp32 as
+    fp32. y, dx and dw are the bits of K1g's and K2's plain versions called
+    on fp32 operands, each rounded once to x's dtype — on fp32 the same
+    bits as before the change of route."""
+    x, w, r = _bf16_inputs(64)
+    xp = tcadc.pad_to_segments(torch.from_numpy(x), -1, 64).to(dtype)
+    wp = tcadc.pad_to_segments(torch.from_numpy(w), 0, 64).to(dtype)
+    g = torch.from_numpy(r).to(dtype)
+    seen = []
+    real = tcm.cadc_segmented_bwd_torch
+
+    def spy(g_, x_, w_, *a, **kw):
+        seen.append((g_.dtype, x_.dtype, w_.dtype))
+        return real(g_, x_, w_, *a, **kw)
+
+    monkeypatch.setattr(tcm, "cadc_segmented_bwd_torch", spy)
+    xt, wt = xp.clone().requires_grad_(), wp.clone().requires_grad_()
+    y = tops.cadc_matmul(xt, wt, crossbar_size=64, fn="relu",
+                         save_gate=save_gate)
+    y.backward(g)
+    assert seen == [(dtype, dtype, dtype)]
+    mode = tcm.gate_mode(save_gate, "relu")
+    kw = dict(crossbar_size=64, fn="relu")
+    want_y, gate = tcm.cadc_matmul_gate_torch(xp.float(), wp.float(),
+                                              mode=mode, **kw)
+    want_dx, want_dw = real(g.float(), xp.float(), wp.float(), gate,
+                            mode=mode, **kw)
+    for got, want in ((y, want_y), (xt.grad, want_dx), (wt.grad, want_dw)):
+        assert got.dtype == dtype
+        assert torch.equal(got, want.to(dtype))

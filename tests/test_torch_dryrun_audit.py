@@ -52,16 +52,25 @@ BWD = (4 * M * D * N,
        4 * (M * N + M * D + D * N) + GATE + 4 * M * D + 4 * D * N)
 
 
-def _operands():
+# The same product on bf16 operands: the forward reads bf16 x and w, and
+# K2 on its tensor-core route (bf16, relu's gate, XBAR a multiple of 16)
+# reads the bf16 g, x and w as they are; dx and dw are written in fp32.
+FWD16 = (FWD[0], 2 * (M * D + D * N) + 4 * M * N + GATE)
+BWD16 = (BWD[0],
+         2 * (M * N + M * D + D * N) + GATE + 4 * M * D + 4 * D * N)
+
+
+def _operands(dtype=torch.float32):
     gen = torch.Generator().manual_seed(0)
-    x = torch.randn(2, 3, D, generator=gen, requires_grad=True)
-    w = torch.randn(D // XBAR, XBAR, N, generator=gen, requires_grad=True)
+    x = torch.randn(2, 3, D, generator=gen).to(dtype).requires_grad_()
+    w = torch.randn(D // XBAR, XBAR, N, generator=gen).to(
+        dtype).requires_grad_()
     return x, w
 
 
 def _linear(x, w):
     cfg = smoke_config("gemma3_1b", linear_impl="cadc", crossbar_size=XBAR,
-                       dendritic_fn="relu")
+                       dendritic_fn="relu", dtype=str(x.dtype)[6:])
     return ll.linear_apply({"w": w}, x, cfg)
 
 
@@ -98,6 +107,52 @@ def test_one_cadc_product_is_one_unit_each_way(route):
     # no aten op of the product itself is counted again
     assert not any(k.startswith(("aten.bmm", "aten.mm"))
                    for k in tally.ops)
+
+
+@pytest.mark.parametrize("route", [_linear, _ops_route, _tp_row, _segments],
+                         ids=["linear_apply", "ops_torch", "tp_row_linear",
+                              "einsum_segments"])
+def test_one_bf16_cadc_product_counts_the_bf16_route(route):
+    """On bf16 operands every route counts FWD16 / BWD16: K2's bytes those
+    of the route its kernel rule (`cm.bwd_kernel`) picks."""
+    x, w = _operands(torch.bfloat16)
+    with dryrun.count_cost() as tally:
+        y = route(x, w)
+        assert dict(tally.units) == {"cadc_fwd": 1}
+        assert (tally.unit_flops, tally.unit_bytes) == FWD16
+        y.float().square().sum().backward()
+    assert dict(tally.units) == {"cadc_fwd": 1, "cadc_bwd": 1}
+    assert (tally.unit_flops, tally.unit_bytes) == (FWD16[0] + BWD16[0],
+                                                    FWD16[1] + BWD16[1])
+    assert x.grad.dtype == w.grad.dtype == torch.bfloat16
+
+
+def test_k2_counts_its_routes_bytes():
+    """K2's plain version counts, as its kernel would run: bf16 reads
+    under relu's packed gate (the tensor-core route), fp32 under
+    sublinear's fp32 byte gate (the CUDA-core route on fp32 copies)."""
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(M, D, generator=gen)
+    w = torch.randn(D, N, generator=gen)
+    g = torch.randn(M, N, generator=gen)
+    kw = dict(crossbar_size=XBAR)
+    _, packed = cm.cadc_matmul_gate_torch(x, w, fn="relu", mode="packed",
+                                          **kw)
+    _, sub = cm.cadc_matmul_gate_torch(x, w, fn="sublinear", mode="bytes",
+                                       **kw)
+    bf = [t.to(torch.bfloat16) for t in (g, x, w)]
+    assert cm.bwd_kernel(torch.bfloat16, "packed", "relu", XBAR) == "mma"
+    assert cm.bwd_kernel(torch.bfloat16, "bytes", "sublinear", XBAR) == (
+        "tile")
+    with dryrun.count_cost() as tally:
+        cm.cadc_segmented_bwd_torch(*bf, packed, fn="relu", mode="packed",
+                                    **kw)
+        assert (tally.unit_flops, tally.unit_bytes) == BWD16
+        cm.cadc_segmented_bwd_torch(*bf, sub, fn="sublinear", mode="bytes",
+                                    **kw)
+        assert tally.unit_bytes == BWD16[1] + BWD[1] - GATE + sub.nbytes
+    assert dict(tally.units) == {"cadc_bwd": 2}
+    assert set(tally.ops) == set()
 
 
 def test_counted_route_is_the_plain_one_bitwise():

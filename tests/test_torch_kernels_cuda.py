@@ -667,8 +667,8 @@ def test_conv_and_linear_grads_through_kernels(cuda_device, save_gate):
         _rel_close(got, want)
 
 
-# gemma3-1b's attention output projection at crossbar 256 (LM training:
-# bf16 forward, fp32 backward), M = 512 rows of a microbatch
+# gemma3-1b's attention output projection at crossbar 256 (LM training
+# runs it on bf16 operands), M = 512 rows of a microbatch
 _LM_M, _LM_D, _LM_N, _LM_XBAR = 512, 1024, 1152, 256
 
 
@@ -710,7 +710,8 @@ def test_k1g_bf16_at_an_lm_shape(cuda_device, mode):
                                        "recompute"])
 def test_lm_linear_bf16_under_autograd(cuda_device, save_gate):
     """ops.cadc_matmul as an LM linear trains it (bf16 operands; K1g, or
-    K1 then the recomputing K2 under 'recompute'; K2 on the fp32 casts)
+    K1 then the recomputing K2 under 'recompute'; K2 on the bf16
+    operands, or on fp32 copies under 'recompute')
     against the plain path on the same card: y, dx and dw (all bf16)
     within 1e-2 of scale."""
     x0, w0, g = _lm_operands(cuda_device, torch.bfloat16, seed=1)
@@ -729,7 +730,7 @@ def test_lm_linear_bf16_under_autograd(cuda_device, save_gate):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["packed", "recompute"])
 def test_k2_at_an_lm_shape(cuda_device, mode):
-    """K2 at the LM shape, fp32 (the backward's casts), under the planner's
+    """K2 at the LM shape on fp32 operands, under the planner's
     plan and one forced plan (another dw tile): dx bitwise across them, dw
     the same bits on two runs, both within 1e-4 of scale of the plain
     version (the gate saved by K1g for 'packed')."""
@@ -805,8 +806,8 @@ def _linear_vs_plain(x0, w0, g, xbar=_LM_XBAR):
 def test_lm_linear_bf16_under_autograd_at_recurrent_shapes(cuda_device, d,
                                                            n):
     """The recurrent configs' odd linears as training runs them (bf16, K1g
-    forward, K2 backward on the fp32 casts): N = 8 (xlstm-1.3b's mLSTM gate
-    pre-activations, 2H), and N or D = 2730 (its sLSTM GeGLU: bf16 rows of
+    forward, K2 backward on the bf16 operands): N = 8 (xlstm-1.3b's mLSTM
+    gate pre-activations, 2H), and N or D = 2730 (its sLSTM GeGLU: bf16 rows of
     5460 bytes, off 16; D padded to 2816, a ragged last segment of 170).
     Held to the plain path as `_linear_vs_plain` says."""
     rng = np.random.RandomState(5)
@@ -1642,6 +1643,294 @@ def test_lm_linear_bf16_runs_the_mma_kernel(cuda_device):
                        dtype=torch.bfloat16).kernel == "mma"
     x0, w0 = _bf16_inputs(cuda_device, m, d, n, seed=8)
     g = torch.randn(m, n, device=cuda_device).to(torch.bfloat16)
+    _linear_vs_plain(x0, w0, g)
+
+
+# ---------------------------------------------------------------------------
+# K2 on bf16 operands: the tensor-core kernels (plan kernel "mma")
+# ---------------------------------------------------------------------------
+
+# the gates of 0s and 1s the bf16 route takes: (fn, mode)
+_BF16_K2_GATES = [("identity", "none"), ("relu", "packed"), ("relu", "bytes")]
+
+
+def _bf16_k2_case(dev, m, d, n, xbar, fn, mode, seed):
+    """bf16 g, x, w and the plain version's gate of `mode` (None for
+    'none')."""
+    x, w = _bf16_inputs(dev, m, d, n, seed)
+    g = torch.from_numpy(np.random.RandomState(seed + 1).randn(m, n).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    gate = (cm.cadc_matmul_gate_torch(x, w, crossbar_size=xbar, fn=fn,
+                                      mode=mode)[1]
+            if mode != "none" else None)
+    return g, x, w, gate
+
+
+def _bf16_k2_vs_plain(g, x, w, gate, xbar, fn, mode, plan=None):
+    """K2 under `plan` (default the planner's, which must be 'mma') on the
+    bf16 operands against the plain version on the same operands and gate:
+    dx and dw within 1e-4 of scale (both sum exact products of bf16 values
+    in fp32, in other orders). Returns (dx, dw)."""
+    m, d = x.shape
+    n = w.shape[1]
+    kw = dict(crossbar_size=xbar, fn=fn, mode=mode)
+    assert cm.plan_bwd(m, n, d, xbar, mode, dtype=torch.bfloat16,
+                       fn=fn).kernel == "mma"
+    dx, dw = cm.cadc_segmented_bwd_cuda(g, x, w, gate, plan=plan, **kw)
+    want_dx, want_dw = cm.cadc_segmented_bwd_torch(g, x, w, gate, **kw)
+    torch.cuda.synchronize()
+    assert dx.dtype == dw.dtype == torch.float32
+    _rel_close(dx, want_dx)
+    _rel_close(dw, want_dw)
+    return dx, dw
+
+
+def _bf16_k2_plans(g, x, w, gate, xbar, fn, mode):
+    """Every plan of `bwd_plans` on the mma kernels: dx bitwise the
+    planner's, dw the same bits on two runs of a plan and within 1e-4 of
+    scale of the plain version; the arrival counters zero after each."""
+    m, d = x.shape
+    n = w.shape[1]
+    kw = dict(crossbar_size=xbar, fn=fn, mode=mode)
+    plans = cm.bwd_plans(m, n, d, xbar, mode, dtype=torch.bfloat16, fn=fn)
+    assert all(p.kernel == "mma" for p in plans) and len(plans) >= 2
+    _, want_dw = cm.cadc_segmented_bwd_torch(g, x, w, gate, **kw)
+    dx0, _ = cm.cadc_segmented_bwd_cuda(g, x, w, gate, **kw)
+    counters = cm._counters(x.device)
+    for plan in plans:
+        dx, dw = cm.cadc_segmented_bwd_cuda(g, x, w, gate, plan=plan, **kw)
+        _, dw2 = cm.cadc_segmented_bwd_cuda(g, x, w, gate, plan=plan, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(dx, dx0), plan
+        assert torch.equal(dw, dw2), plan
+        _rel_close(dw, want_dw)
+        assert int(counters.abs().sum()) == 0
+    return plans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,mode", _BF16_K2_GATES)
+@pytest.mark.parametrize("name,d,n", _MMA_LM, ids=[s[0] for s in _MMA_LM])
+def test_bf16_k2_at_the_lm_shapes(cuda_device, name, d, n, fn, mode):
+    """K2 on bf16 operands at the LM paths' shapes, M = 2048 (a train
+    micro's rows), under every gate of 0s and 1s: the planner's mma plan
+    against the plain version, one launch a call, and every other mma plan
+    (each dx tile, dw unsplit, halved and twice split) as
+    `_bf16_k2_plans` says."""
+    m, xbar = 2048, 256
+    g, x, w, gate = _bf16_k2_case(cuda_device, m, d, n, xbar, fn, mode,
+                                  seed=d + n)
+    before = cm.cadc_segmented_bwd_cuda.launches
+    _bf16_k2_vs_plain(g, x, w, gate, xbar, fn, mode)
+    assert cm.cadc_segmented_bwd_cuda.launches == before + 1
+    _bf16_k2_plans(g, x, w, gate, xbar, fn, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,mode", _BF16_K2_GATES)
+@pytest.mark.parametrize("m", [1, 9, 33, 2047])
+@pytest.mark.parametrize("n,xbar", [(8, 64), (200, 48), (2730, 256),
+                                    (11, 64), (504, 128), (1000, 16)])
+def test_bf16_k2_ragged(cuda_device, fn, mode, m, n, xbar):
+    """Ragged M and N (N = 8: a contraction shorter than one k16 step for
+    dx; 2730: rows off 16 bytes, 11: odd — both on 2-byte loads; 504 and
+    200: off the 128-column tile), xbar 48 and 16 (a tile wider than the
+    segment), under every gate of 0s and 1s and every mma plan."""
+    d = 3 * xbar
+    g, x, w, gate = _bf16_k2_case(cuda_device, m, d, n, xbar, fn, mode,
+                                  seed=m * n + xbar)
+    _bf16_k2_vs_plain(g, x, w, gate, xbar, fn, mode)
+    _bf16_k2_plans(g, x, w, gate, xbar, fn, mode)
+
+
+@pytest.mark.cuda
+def test_bf16_k2_at_the_qwen2_moe_head(cuda_device):
+    """qwen2-moe-a2.7b's untied head (D 2048, N 152 064) at 512 rows: dx
+    contracts 152 064 deep, dw writes [2048, 152 064]; the packed gate."""
+    g, x, w, gate = _bf16_k2_case(cuda_device, 512, 2048, 152064, 256,
+                                  "relu", "packed", seed=11)
+    _bf16_k2_vs_plain(g, x, w, gate, 256, "relu", "packed")
+
+
+@pytest.mark.cuda
+def test_bf16_k2_off_alignment(cuda_device):
+    """g, x, w and the byte gate off 16 bytes (2-byte loads, the gate read
+    as it is applied): the same bits as aligned copies, every plan."""
+    m, xbar, n = 300, 64, 200
+    d = 3 * xbar
+    ga, xa, wa, gatea = _bf16_k2_case(cuda_device, m, d, n, xbar, "relu",
+                                      "bytes", seed=6)
+
+    def off(t, k):
+        buf = torch.zeros(t.numel() + k, device=t.device, dtype=t.dtype)
+        v = buf[k:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    kw = dict(crossbar_size=xbar, fn="relu", mode="bytes")
+    for k in (1, 2):
+        g, x, w, gate = off(ga, k), off(xa, k), off(wa, k), off(gatea, k)
+        assert x.data_ptr() % 16 and gate.data_ptr() % 8
+        for plan in cm.bwd_plans(m, n, d, xbar, "bytes",
+                                 dtype=torch.bfloat16, fn="relu"):
+            got = cm.cadc_segmented_bwd_cuda(g, x, w, gate, plan=plan, **kw)
+            want = cm.cadc_segmented_bwd_cuda(ga, xa, wa, gatea, plan=plan,
+                                              **kw)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_dx,need_dw", [(True, True), (True, False),
+                                             (False, True)])
+def test_bf16_k2_launches_at_most_two_kernels(cuda_device, need_dx,
+                                              need_dw):
+    """One call on the mma route launches one dx kernel where dx is wanted
+    and one dw kernel where dw is (split: gemma3-1b's wk, whose dw tiles
+    are few), no copy and no other kernel: torch.profiler's device events
+    of ten windows, each 64 fills of a one-element tensor and then the
+    call (a window may lose records at its start: the fills take that
+    place; the profiler never adds one), each window at most those, the
+    most seen exactly those."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g, x, w, gate = _bf16_k2_case(cuda_device, 2048, 1280, 256, 256, "relu",
+                                  "packed", seed=7)
+    kw = dict(crossbar_size=256, fn="relu", mode="packed", need_dx=need_dx,
+              need_dw=need_dw)
+    assert cm.plan_bwd(2048, 256, 1280, 256, "packed", dtype=torch.bfloat16,
+                       fn="relu").dw_splits > 1
+    pad = torch.empty(1, device=cuda_device)
+    cm.cadc_segmented_bwd_cuda(g, x, w, gate, **kw)
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(10):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                pad.fill_(1.0)
+            cm.cadc_segmented_bwd_cuda(g, x, w, gate, **kw)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if "CUDA" in str(getattr(e, "device_type", ""))]
+        counts = (sum("bf16_bwd_dx" in k for k in names),
+                  sum("bf16_bwd_dw" in k for k in names))
+        other = [k for k in names
+                 if "bf16_bwd_d" not in k and "FillFunctor" not in k]
+        assert counts[0] <= need_dx and counts[1] <= need_dw, names
+        assert not other, other
+        seen.append(counts)
+    assert max(seen) == (need_dx, need_dw), seen
+
+
+@pytest.mark.cuda
+def test_bf16_k2_counters_read_zero_under_graph_replay(cuda_device):
+    """Split dw plans on the mma route leave the arrival counters zero,
+    eagerly and replayed from a CUDA graph (the replays equal the eager
+    results)."""
+    g, x, w, gate = _bf16_k2_case(cuda_device, 2048, 1280, 256, 256, "relu",
+                                  "packed", seed=8)
+    kw = dict(crossbar_size=256, fn="relu", mode="packed")
+    plans = [p for p in cm.bwd_plans(2048, 256, 1280, 256, "packed",
+                                     dtype=torch.bfloat16, fn="relu")
+             if p.dw_splits > 1]
+    assert len(plans) >= 2
+    calls = [lambda p=p: cm.cadc_segmented_bwd_cuda(g, x, w, gate, plan=p,
+                                                    **kw) for p in plans]
+    eager = [c() for c in calls]
+    torch.cuda.synchronize()
+    counters = cm._counters(x.device)
+    assert int(counters.abs().sum()) == 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c() for c in calls]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(counters.abs().sum()) == 0
+        for got, want in zip(outs, eager):
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,mode", [("sublinear", "bytes"),
+                                     ("tanh", "bytes"),
+                                     ("relu", "recompute")])
+def test_bf16_k2_fp32_gate_fns_take_the_fp32_kernels(cuda_device, fn, mode):
+    """On bf16 operands the fp32-gate fns and the recompute gate plan the
+    CUDA-core kernels ('tile', 'recompute'), which run on fp32 copies: the
+    same bits as the call on the copies made by hand, and the plain
+    version's values within 1e-4 of scale (x and w small integers over
+    powers of two, as `_k2_case`'s: every psum exact, so the recomputed
+    gate is the plain one)."""
+    m, d, n, xbar = 700, 512, 300, 128
+    g, _, _, _ = _bf16_k2_case(cuda_device, m, d, n, xbar, "relu", "none",
+                               seed=9)
+    _, x, w, _ = _k2_case(cuda_device, m, d, n, fn, "none", xbar=xbar)
+    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    gate = (cm.cadc_matmul_gate_torch(x, w, crossbar_size=xbar, fn=fn,
+                                      mode=mode)[1]
+            if mode == "bytes" else None)
+    plan = cm.plan_bwd(m, n, d, xbar, mode, dtype=torch.bfloat16, fn=fn)
+    assert plan.kernel == ("recompute" if mode == "recompute" else "tile")
+    assert plan == cm.plan_bwd(m, n, d, xbar, mode)
+    kw = dict(crossbar_size=xbar, fn=fn, mode=mode)
+    got = cm.cadc_segmented_bwd_cuda(g, x, w, gate, **kw)
+    want = cm.cadc_segmented_bwd_cuda(g.float(), x.float(), w.float(), gate,
+                                      **kw)
+    plain = cm.cadc_segmented_bwd_torch(g, x, w, gate, **kw)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, plain):
+        assert torch.equal(a, b)
+        _rel_close(a, c)
+
+
+@pytest.mark.cuda
+def test_bf16_k2_refuses_what_it_does_not_take(cuda_device):
+    """Another shape's mma plan, a CUDA-core plan on an mma call and mixed
+    dtypes raise; an xbar off 16 on bf16 plans the CUDA-core kernel."""
+    g, x, w, gate = _bf16_k2_case(cuda_device, 256, 192, 200, 64, "relu",
+                                  "packed", seed=10)
+    kw = dict(crossbar_size=64, fn="relu", mode="packed")
+    other = cm.plan_bwd(512, 200, 192, 64, "packed", dtype=torch.bfloat16,
+                        fn="relu")
+    with pytest.raises(ValueError, match="not one of this shape's"):
+        cm.cadc_segmented_bwd_cuda(g, x, w, gate, plan=other, **kw)
+    tile = cm.plan_bwd(256, 200, 192, 64, "packed")
+    with pytest.raises(ValueError, match="not one of this shape's"):
+        cm.cadc_segmented_bwd_cuda(g, x, w, gate, plan=tile, **kw)
+    with pytest.raises(ValueError, match="one dtype"):
+        cm.cadc_segmented_bwd_cuda(g.float(), x, w, gate, **kw)
+    assert cm.plan_bwd(256, 200, 120, 40, "packed", dtype=torch.bfloat16,
+                       fn="relu").kernel == "tile"
+
+
+@pytest.mark.cuda
+def test_bf16_lm_linear_backward_takes_bf16_into_k2(cuda_device):
+    """A bf16 CADC linear under autograd (gemma3-1b's w_gate at a train
+    micro) hands K2 its bf16 cotangent, x and w as they are (no fp32 copy:
+    a spy on the wrapper sees bf16), K2 plans the mma kernels, and the
+    gradients are the plain path's as `_linear_vs_plain` holds them."""
+    m, d, n = 2048, 1280, 6912
+    x0, w0 = _bf16_inputs(cuda_device, m, d, n, seed=12)
+    g = torch.randn(m, n, device=cuda_device).to(torch.bfloat16)
+    seen = []
+    real = cm.cadc_segmented_bwd_cuda
+
+    def spy(g_, x_, w_, *a, **kw):
+        seen.append((g_.dtype, x_.dtype, w_.dtype))
+        return real(g_, x_, w_, *a, **kw)
+
+    spy.launches = 0
+    cm.cadc_segmented_bwd_cuda = spy
+    try:
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        ops.cadc_matmul(x, w, crossbar_size=256, fn="relu").backward(g)
+        torch.cuda.synchronize()
+    finally:
+        cm.cadc_segmented_bwd_cuda = real
+    assert seen == [(torch.bfloat16,) * 3]
+    assert cm.plan_bwd(m, n, d, 256, "packed", dtype=torch.bfloat16,
+                       fn="relu").kernel == "mma"
     _linear_vs_plain(x0, w0, g)
 
 
